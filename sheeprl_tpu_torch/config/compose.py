@@ -1,0 +1,484 @@
+"""A small, dependency-free YAML config composition engine.
+
+The reference uses Hydra 1.3 (reference: sheeprl/cli.py:358-366 and
+sheeprl/configs/config.yaml:4-16) to compose a root config from defaults
+groups (``algo/``, ``env/``, ``fabric/``, ...), apply ``exp=`` global
+overlays, CLI dot-overrides, and ``${...}`` interpolations.  Hydra is not a
+dependency of this framework; this module reimplements the subset of that
+behavior the framework needs, with the same user-facing syntax:
+
+    compose(["exp=dreamer_v3", "env=dummy", "algo.dense_units=512"])
+
+Supported semantics
+-------------------
+* Root ``configs/config.yaml`` has a ``defaults:`` list of ``{group: name}``
+  entries (plus ``_self_``); each loads ``configs/<group>/<name>.yaml`` under
+  the ``group`` key.
+* A group file may itself have a ``defaults:`` list whose first entry is the
+  group-local base (e.g. ``dreamer_v3_S.yaml`` starts from ``dreamer_v3``).
+* ``exp=<name>`` files are global overlays (Hydra's ``# @package _global_``):
+  merged at the root, and their ``defaults:`` entries of the form
+  ``{override /group: name}`` or ``{/group: name}`` re-select root groups.
+* CLI ``a.b.c=value`` dot-overrides are applied last; values parse as YAML.
+  ``group=name`` (for a known top-level group) re-selects the group file.
+* ``${a.b.c}`` interpolations resolve against the final tree (recursively,
+  with cycle detection).  Extra resolvers: ``${eval:<python-expr>}`` over
+  pure arithmetic, and ``${env:VAR,default}``.
+* Extension point: the ``SHEEPRL_SEARCH_PATH`` environment variable is a
+  ``;``-separated list of extra config directories searched *before* the
+  built-in ones (reference: hydra_plugins/sheeprl_search_path.py:11-33).
+"""
+
+from __future__ import annotations
+
+import ast
+import os
+import re
+from pathlib import Path
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
+
+import yaml
+
+from sheeprl_tpu_torch.utils.structured import deep_merge, dotdict, get_by_path, set_by_path
+
+BUILTIN_CONFIG_DIR = Path(__file__).resolve().parent.parent / "configs"
+
+_INTERP_RE = re.compile(r"\$\{([^${}]+)\}")
+
+
+class ConfigError(Exception):
+    pass
+
+
+def _search_dirs(extra_dirs: Optional[Sequence[os.PathLike]] = None) -> List[Path]:
+    dirs: List[Path] = []
+    env_path = os.environ.get("SHEEPRL_SEARCH_PATH", "")
+    for entry in env_path.split(";"):
+        entry = entry.strip()
+        if not entry:
+            continue
+        if entry.startswith("file://"):
+            entry = entry[len("file://"):]
+        dirs.append(Path(entry))
+    for d in extra_dirs or []:
+        dirs.append(Path(d))
+    dirs.append(BUILTIN_CONFIG_DIR)
+    return dirs
+
+
+def _find_config_file(rel: str, dirs: Sequence[Path]) -> Optional[Path]:
+    for d in dirs:
+        p = d / f"{rel}.yaml"
+        if p.is_file():
+            return p
+        p = d / f"{rel}.yml"
+        if p.is_file():
+            return p
+    return None
+
+
+class _ConfigLoader(yaml.SafeLoader):
+    """SafeLoader + YAML-1.2-style float resolution: PyYAML's 1.1 grammar
+    parses ``1e-3`` (no dot before the exponent) as a STRING, while Hydra/
+    OmegaConf — whose config surface this engine mirrors — parse it as a
+    float.  Config files full of ``lr: 1e-3`` must load as numbers."""
+
+
+_ConfigLoader.add_implicit_resolver(
+    "tag:yaml.org,2002:float",
+    re.compile(
+        r"""^(?:[-+]?(?:[0-9][0-9_]*)\.[0-9_]*(?:[eE][-+]?[0-9]+)?
+        |[-+]?(?:[0-9][0-9_]*)(?:[eE][-+]?[0-9]+)
+        |[-+]?\.[0-9_]+(?:[eE][-+]?[0-9]+)?
+        |[-+]?\.(?:inf|Inf|INF)
+        |\.(?:nan|NaN|NAN))$""",
+        re.X,
+    ),
+    list("-+0123456789."),
+)
+
+
+def _load_yaml(path: Path) -> Dict[str, Any]:
+    with open(path, "r") as f:
+        data = yaml.load(f, Loader=_ConfigLoader)
+    if data is None:
+        return {}
+    if not isinstance(data, dict):
+        raise ConfigError(f"Config file {path} must contain a mapping, got {type(data)}")
+    return data
+
+
+def known_groups(dirs: Sequence[Path]) -> List[str]:
+    groups: List[str] = []
+    for d in dirs:
+        if not d.is_dir():
+            continue
+        for sub in d.iterdir():
+            if sub.is_dir() and sub.name not in groups:
+                groups.append(sub.name)
+    return groups
+
+
+def _parse_value(raw: str) -> Any:
+    try:
+        return yaml.load(raw, Loader=_ConfigLoader)
+    except yaml.YAMLError:
+        return raw
+
+
+def _load_group(group: str, name: Any, dirs: Sequence[Path], _depth: int = 0) -> Dict[str, Any]:
+    """Load ``<group>/<name>.yaml`` honoring a group-local defaults chain."""
+    if _depth > 16:
+        raise ConfigError(f"defaults chain too deep for {group}/{name}")
+    if name is None:
+        return {}
+    path = _find_config_file(f"{group}/{name}", dirs)
+    if path is None:
+        raise ConfigError(
+            f"Cannot find config '{group}/{name}' in: {[str(d) for d in dirs]}"
+        )
+    data = _load_yaml(path)
+    defaults = data.pop("defaults", None)
+    base: Dict[str, Any] = {}
+    if defaults:
+        for entry in defaults:
+            if entry == "_self_":
+                continue
+            if isinstance(entry, str):
+                base = deep_merge(base, _load_group(group, entry, dirs, _depth + 1))
+            elif isinstance(entry, Mapping):
+                for k, v in entry.items():
+                    k = str(k)
+                    if k.startswith("override "):
+                        k = k[len("override "):]
+                    if "@" in k:
+                        # "/logger@logger: tensorboard": load group "logger"
+                        # and place it at the given key inside this package.
+                        src, _, at = k.partition("@")
+                        loaded = _load_group(src.lstrip("/"), v, dirs, _depth + 1)
+                        loaded.pop("__root__", None)
+                        sub_tree: Dict[str, Any] = {}
+                        set_by_path(sub_tree, at, loaded)
+                        base = deep_merge(base, sub_tree)
+                    elif k.startswith("/"):
+                        # cross-group default inside a group file: return it
+                        # namespaced so the composer can merge it at root.
+                        base.setdefault("__root__", {})
+                        base["__root__"][k[1:]] = v
+                    else:
+                        base = deep_merge(base, _load_group(k, v, dirs, _depth + 1))
+    return deep_merge(base, data)
+
+
+def compose(
+    overrides: Sequence[str] = (),
+    config_name: str = "config",
+    extra_dirs: Optional[Sequence[os.PathLike]] = None,
+    resolve: bool = True,
+) -> dotdict:
+    """Compose the full config tree from the root config + CLI overrides."""
+    dirs = _search_dirs(extra_dirs)
+    root_path = _find_config_file(config_name, dirs)
+    if root_path is None:
+        raise ConfigError(f"Root config '{config_name}' not found in {[str(d) for d in dirs]}")
+    root = _load_yaml(root_path)
+    defaults = root.pop("defaults", [])
+
+    groups = set(known_groups(dirs))
+    for entry in defaults:
+        if isinstance(entry, Mapping):
+            for g in entry:
+                g = str(g)
+                for prefix in ("optional ", "override "):
+                    if g.startswith(prefix):
+                        g = g[len(prefix):]
+                groups.add(g)
+    group_selection, placed_groups, dot_overrides = _classify_overrides(overrides, groups)
+
+    cfg: Dict[str, Any] = {}
+    exp_names: List[Any] = []
+    seen_groups: List[str] = []
+    cli_groups = frozenset(group_selection)
+    for entry in defaults:
+        if entry == "_self_":
+            cfg = deep_merge(cfg, root)
+            continue
+        if not isinstance(entry, Mapping):
+            raise ConfigError(f"Unsupported defaults entry: {entry!r}")
+        for group, name in entry.items():
+            group = str(group)
+            optional = False
+            if group.startswith("optional "):
+                optional = True
+                group = group[len("optional "):]
+            if group in group_selection:
+                name = group_selection.pop(group)
+            if group == "exp":
+                if name is not None:
+                    exp_names.append(name)
+                seen_groups.append("exp")
+                continue
+            seen_groups.append(group)
+            if name is None:
+                continue
+            try:
+                _merge_group_into(cfg, group, name, dirs)
+            except ConfigError:
+                if optional:
+                    continue
+                raise
+
+    # group selections not present in root defaults (e.g. exp=..., logger=...)
+    for group, name in list(group_selection.items()):
+        if group == "exp":
+            exp_names.append(name)
+        else:
+            _merge_group_into(cfg, group, name, dirs)
+        group_selection.pop(group)
+
+    # exp overlays merge at the root (Hydra "@package _global_" semantics)
+    for name in exp_names:
+        overlay = _load_yaml_exp(name, dirs, cfg, cli_groups)
+        cfg = deep_merge(cfg, overlay)
+
+    _apply_placed_groups(cfg, placed_groups, dirs)
+
+    for key, value in dot_overrides:
+        set_by_path(cfg, key, value)
+
+    out = dotdict(cfg)
+    if resolve:
+        resolve_interpolations(out)
+    return out
+
+
+def _apply_placed_groups(
+    tree: Dict[str, Any], placed_groups: List[Tuple[str, str, Any]], dirs: Sequence[Path]
+) -> None:
+    """Place group files at their dotted destinations (shared by compose and
+    apply_cli_overrides so eval-time replay cannot diverge from training)."""
+    for path, grp, name in placed_groups:
+        loaded = _load_group(grp, name, dirs)
+        loaded.pop("__root__", None)
+        set_by_path(tree, path, loaded)
+
+
+def _classify_overrides(
+    overrides: Sequence[str], groups: set
+) -> Tuple[Dict[str, Any], List[Tuple[str, str, Any]], List[Tuple[str, Any]]]:
+    """Split CLI overrides into (group selections, nested placed groups, dot
+    overrides) — the single source of truth for override syntax, shared by
+    :func:`compose` and :func:`apply_cli_overrides`.
+
+    ``parent/group=name`` (e.g. ``metric/logger=mlflow``) swaps the group
+    instance PLACED at a nested path (the defaults-list "@" packaging, e.g.
+    metric/default.yaml's ``/logger@logger: tensorboard``) — hydra's
+    ``logger@metric.logger=mlflow`` equivalent."""
+    group_selection: Dict[str, Any] = {}
+    placed_groups: List[Tuple[str, str, Any]] = []  # (target path, group, name)
+    dot_overrides: List[Tuple[str, Any]] = []
+    for ov in overrides:
+        if "=" not in ov:
+            raise ConfigError(f"Override '{ov}' must look like key=value")
+        key, _, raw = ov.partition("=")
+        key = key.strip().lstrip("+")
+        value = _parse_value(raw.strip())
+        if "." not in key and key in groups:
+            group_selection[key] = value
+        elif "@" in key and key.partition("@")[0] in groups and key.partition("@")[2]:
+            # hydra's full placement grammar, "optim@algo.world_model.optimizer=sgd":
+            # place group file optim/sgd.yaml AT the dotted destination path
+            grp, _, dest = key.partition("@")
+            placed_groups.append((dest, grp, value))
+        elif "/" in key and key.rpartition("/")[2] in groups:
+            parent, _, grp = key.rpartition("/")
+            placed_groups.append((f"{parent.replace('/', '.')}.{grp}", grp, value))
+        else:
+            dot_overrides.append((key, value))
+    return group_selection, placed_groups, dot_overrides
+
+
+def apply_cli_overrides(cfg: dotdict, overrides: Sequence[str]) -> None:
+    """Apply CLI-style overrides to an ALREADY-composed config tree with
+    compose's classification AND ordering: group re-selections first (each
+    REPLACES the old group instance, like a defaults-list re-select), then
+    nested placed groups, then ``a.b.c=value`` dot overrides last, then an
+    interpolation-resolution pass over the tree (freshly loaded group files
+    may carry ``${...}`` references; the rest of the tree is already
+    resolved, so the pass is a no-op elsewhere).
+
+    Used by the eval/registration dispatchers, which start from a saved run
+    config instead of the defaults tree (reference: sheeprl/cli.py:369-405
+    re-runs Hydra; here the saved config IS the tree, so only the override
+    step is replayed).  ``exp=`` overlays are rejected: an experiment picks
+    algorithms/environments, which cannot be swapped under a checkpoint."""
+    import copy
+
+    dirs = _search_dirs()
+    groups = set(known_groups(dirs))
+    group_selection, placed_groups, dot_overrides = _classify_overrides(overrides, groups)
+    if "exp" in group_selection:
+        raise ConfigError(
+            "exp=... cannot be applied on top of a saved run config; "
+            "override individual keys or groups instead"
+        )
+    for key, value in dot_overrides:
+        if "." not in key and isinstance(cfg.get(key), Mapping) and not isinstance(value, Mapping):
+            # compose() would have resolved this as a group selection (the
+            # group dir existed at train time, e.g. via SHEEPRL_SEARCH_PATH);
+            # silently replacing a whole section with a scalar corrupts the
+            # tree far from the error site — fail loudly instead.
+            raise ConfigError(
+                f"'{key}={value}' would replace the whole '{key}' config section "
+                f"with a scalar; '{key}' is not a known config group in "
+                f"{[str(d) for d in dirs]}"
+            )
+    # stage on a copy so a failing group load / interpolation leaves the
+    # caller's tree untouched — a caller catching ConfigError must not be
+    # left with a half-modified config
+    staged = copy.deepcopy(dict(cfg))
+    for group, name in group_selection.items():
+        staged.pop(group, None)
+        _merge_group_into(staged, group, name, dirs)
+    _apply_placed_groups(staged, placed_groups, dirs)
+    for key, value in dot_overrides:
+        set_by_path(staged, key, value)
+    staged = resolve_interpolations(dotdict(staged))
+    cfg.clear()
+    cfg.update(staged)
+
+
+def _load_yaml_exp(
+    name: Any,
+    dirs: Sequence[Path],
+    cfg: Dict[str, Any],
+    cli_groups: frozenset = frozenset(),
+) -> Dict[str, Any]:
+    path = _find_config_file(f"exp/{name}", dirs)
+    if path is None:
+        raise ConfigError(f"Cannot find experiment config 'exp/{name}'")
+    data = _load_yaml(path)
+    defaults = data.pop("defaults", None)
+    if defaults:
+        for entry in defaults:
+            if entry == "_self_":
+                continue
+            if isinstance(entry, str):
+                # inherited base exp: the child's own values win
+                data = deep_merge(_load_yaml_exp(entry, dirs, cfg, cli_groups), data)
+                continue
+            for k, v in entry.items():
+                k = str(k)
+                if k.startswith("override "):
+                    k = k[len("override "):]
+                k = k.lstrip("/")
+                if k == "exp":
+                    base = _load_yaml_exp(v, dirs, cfg, cli_groups)
+                    data = deep_merge(base, data)
+                elif k in cli_groups:
+                    # a CLI group selection always beats the exp's override
+                    continue
+                else:
+                    # Hydra semantics: re-SELECT the group (replace, not merge
+                    # over the previously loaded default group file)
+                    cfg.pop(k, None)
+                    _merge_group_into(cfg, k, v, dirs)
+    return data
+
+
+def _merge_group_into(cfg: Dict[str, Any], group: str, name: Any, dirs: Sequence[Path]) -> None:
+    """Load ``group/name`` and merge it (plus any cross-group defaults it
+    declares via ``/other_group: name`` entries) into ``cfg``."""
+    if name is None:
+        return
+    sub = _load_group(group, name, dirs)
+    root_extra = sub.pop("__root__", None)
+    deep_merge(cfg, {group: sub})
+    if root_extra:
+        for g2, n2 in root_extra.items():
+            _merge_group_into(cfg, g2, n2, dirs)
+
+
+# --------------------------------------------------------------------------
+# interpolation
+# --------------------------------------------------------------------------
+
+def _safe_eval(expr: str) -> Any:
+    """Evaluate a pure-arithmetic expression (for ``${eval:...}``)."""
+    node = ast.parse(expr, mode="eval")
+    allowed = (
+        ast.Expression, ast.BinOp, ast.UnaryOp, ast.Constant, ast.Add, ast.Sub,
+        ast.Mult, ast.Div, ast.FloorDiv, ast.Mod, ast.Pow, ast.USub, ast.UAdd,
+        ast.Compare, ast.Eq, ast.NotEq, ast.Lt, ast.LtE, ast.Gt, ast.GtE,
+        ast.IfExp, ast.BoolOp, ast.And, ast.Or, ast.Not, ast.Tuple, ast.List,
+        ast.Load,
+    )
+    for sub in ast.walk(node):
+        if not isinstance(sub, allowed):
+            raise ConfigError(f"Disallowed expression in eval interpolation: {expr!r}")
+    return eval(compile(node, "<eval-interp>", "eval"), {"__builtins__": {}}, {})
+
+
+def _resolve_value(value: Any, tree: Mapping[str, Any], stack: Tuple[str, ...]) -> Any:
+    if isinstance(value, str):
+        full = _INTERP_RE.fullmatch(value)
+        if full:
+            return _resolve_ref(full.group(1), tree, stack)
+
+        def sub(m: "re.Match[str]") -> str:
+            return str(_resolve_ref(m.group(1), tree, stack))
+
+        prev = None
+        while prev != value and _INTERP_RE.search(value):
+            prev = value
+            value = _INTERP_RE.sub(sub, value)
+        return value
+    return value
+
+
+def _resolve_ref(ref: str, tree: Mapping[str, Any], stack: Tuple[str, ...]) -> Any:
+    ref = ref.strip()
+    if ref.startswith("now:"):
+        import datetime
+
+        return datetime.datetime.now().strftime(ref[len("now:"):])
+    if ref.startswith("eval:"):
+        inner = _resolve_value(ref[len("eval:"):], tree, stack)
+        return _safe_eval(str(inner))
+    if ref.startswith("oc.env:"):
+        # hydra/omegaconf-compatible alias — and omegaconf-compatible
+        # STRICTNESS: a missing variable with no default raises instead of
+        # silently resolving to None (``${env:...}`` stays lenient)
+        body = ref[len("oc.env:"):]
+        if "," not in body and body.strip() not in os.environ:
+            raise ConfigError(
+                f"Environment variable '{body.strip()}' (from ${{oc.env:...}}) is not set"
+            )
+        ref = "env:" + body
+    if ref.startswith("env:"):
+        body = ref[len("env:"):]
+        var, _, default = body.partition(",")
+        return os.environ.get(var.strip(), _parse_value(default.strip()) if default else None)
+    if ref in stack:
+        raise ConfigError(f"Interpolation cycle at ${{{ref}}} (stack: {stack})")
+    try:
+        target = get_by_path(tree, ref)
+    except KeyError:
+        raise ConfigError(f"Interpolation ${{{ref}}} not found") from None
+    return _resolve_value(target, tree, stack + (ref,))
+
+
+def resolve_interpolations(tree: dotdict) -> dotdict:
+    """Resolve ``${...}`` references in-place over the whole tree."""
+
+    def walk(node: Any, prefix: str) -> Any:
+        if isinstance(node, dict):
+            for k in list(node.keys()):
+                node[k] = walk(node[k], f"{prefix}{k}.")
+            return node
+        if isinstance(node, list):
+            return [walk(v, prefix) for v in node]
+        return _resolve_value(node, tree, ())
+
+    walk(tree, "")
+    return tree

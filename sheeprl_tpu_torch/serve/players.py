@@ -1,0 +1,176 @@
+"""Per-algorithm policy players for serving (counterpart of
+``sheeprl_tpu/serve/players.py``; the DreamerV3 player so far).
+
+A :class:`PolicyPlayer` is the serving-side view of a trained agent: the
+player's modules, a host-side observation ``prepare``, one ``step``
+``(params, carry, obs, seed, greedy) -> (carry, actions)`` on torch tensors
+on the player's device, and a host-side ``postprocess``.
+
+* ``greedy`` is a per-row bool tensor: a coalesced batch may mix greedy and
+  sampling requests; both arms are computed and selected row by row.
+* ``seed`` seeds a ``torch.Generator`` on the device for this dispatch, the
+  counterpart of ``jax.random.PRNGKey(seed)``.  It cannot give JAX's bits,
+  so the DreamerV3 step also takes the posterior's Gumbel noise explicitly.
+* ``carry`` is ``()`` for stateless players and the latent-state tuple
+  ``(h, z, a)`` for dreamer_v3; the service keeps per-session carries on the
+  host.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+PLAYER_BUILDERS: Dict[str, Callable] = {}
+
+
+def register_player(*algo_names: str) -> Callable:
+    """Register a builder ``(fabric, cfg, state, obs_space, action_space) ->
+    PolicyPlayer`` for the given algorithm names."""
+
+    def deco(fn: Callable) -> Callable:
+        for name in algo_names:
+            PLAYER_BUILDERS[name] = fn
+        return fn
+
+    return deco
+
+
+@dataclass
+class PolicyPlayer:
+    """Serving-side policy: prepare → step → postprocess."""
+
+    algo: str
+    params: Any  # the player's modules, e.g. {"world_model": ..., "actor": ...}
+    step: Callable
+    prepare: Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]]
+    postprocess: Callable[[np.ndarray], np.ndarray]
+    obs_spec: Dict[str, Tuple[Tuple[int, ...], str]]  # raw per-request spec
+    action_shape: Tuple[int, ...]
+    is_continuous: bool
+    actions_dim: Tuple[int, ...]
+    device: torch.device
+    stateful: bool = False
+    carry_spec: Tuple[Tuple[Tuple[int, ...], str], ...] = ()
+    checkpoint_step: int = -1
+    _prep_spec: Dict[str, Tuple[Tuple[int, ...], str]] = field(default_factory=dict)
+
+    def zero_carry(self, batch: int) -> Tuple[np.ndarray, ...]:
+        return tuple(np.zeros((batch, *shape), dtype=np.dtype(dt)) for shape, dt in self.carry_spec)
+
+    def zero_carry_row(self) -> Tuple[np.ndarray, ...]:
+        return self.zero_carry(1)
+
+    def step_batch(
+        self,
+        params: Any,
+        carry: Tuple[np.ndarray, ...],
+        obs: Dict[str, np.ndarray],
+        seed: int,
+        greedy: np.ndarray,
+    ) -> Tuple[Tuple[np.ndarray, ...], np.ndarray]:
+        """One batched policy step on host arrays (``obs`` already prepared
+        and padded to a ladder size); returns host arrays."""
+        dev = self.device
+        with torch.inference_mode():
+            carry_t = tuple(torch.from_numpy(np.ascontiguousarray(c)).to(dev) for c in carry)
+            obs_t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in obs.items()}
+            greedy_t = torch.from_numpy(np.asarray(greedy, bool)).to(dev)
+            new_carry, actions = self.step(params, carry_t, obs_t, int(seed), greedy_t)
+            return tuple(c.cpu().numpy() for c in new_carry), actions.cpu().numpy()
+
+    def batch_specs(self, batch: int) -> Tuple[Any, ...]:
+        """Zero ``(params, carry, obs, seed, greedy)`` arguments at ladder size ``batch``."""
+        obs = {k: np.zeros((batch, *shape), np.dtype(dt)) for k, (shape, dt) in self._prep_spec.items()}
+        return self.params, self.zero_carry(batch), obs, 0, np.zeros((batch,), bool)
+
+    def finalize(self) -> "PolicyPlayer":
+        """Derive the prepared-observation spec from a size-1 zero batch."""
+        probe = {k: np.zeros((1, *shape), dtype=np.dtype(dt)) for k, (shape, dt) in self.obs_spec.items()}
+        self._prep_spec = {
+            k: (tuple(np.asarray(v).shape[1:]), str(np.asarray(v).dtype)) for k, v in self.prepare(probe).items()
+        }
+        return self
+
+
+def _split_branches(a: np.ndarray, actions_dim: Sequence[int]) -> np.ndarray:
+    """One-hot concat (B, sum(dims)) → float branch indices (B, n_branches)."""
+    idx, start = [], 0
+    for d in actions_dim:
+        idx.append(np.argmax(a[..., start : start + d], axis=-1))
+        start += d
+    return np.stack(idx, axis=-1).astype(np.float32)
+
+
+def _obs_spec_from_space(obs_space: Any, keys: Sequence[str]) -> Dict[str, Any]:
+    return {k: (tuple(obs_space[k].shape), str(obs_space[k].dtype)) for k in keys}
+
+
+@register_player("dreamer_v3")
+def build_dreamer_v3_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_space: Any, action_space: Any) -> PolicyPlayer:
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo.utils import actions_for_env, spaces_to_dims
+    from sheeprl_tpu_torch.utils.utils import merge_framestack
+
+    cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
+    mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
+    actions_dim, is_continuous = spaces_to_dims(action_space)
+    world_model, actor, _, _ = build_agent(fabric, actions_dim, is_continuous, cfg, obs_space, state["agent"])
+    act_width = int(sum(actions_dim))
+    rec_size = int(cfg.algo.world_model.recurrent_model.recurrent_state_size)
+
+    def _step(p, carry, obs, seed: int, greedy, post_noise: Optional[torch.Tensor] = None):
+        """One step: encode → posterior RSSM step → actor.  The posterior
+        sample draws ``post_noise`` (Gumbel, (B, stoch, discrete)) when given,
+        else noise from the dispatch generator; it is sampled even on greedy
+        rows, and only the actor arm is greedy."""
+        wm, act = p["world_model"], p["actor"]
+        h, z, prev_a = carry
+        gen = torch.Generator(fabric.device).manual_seed(int(seed))
+        if post_noise is None:
+            post_noise = wm.posterior_noise(h.shape[0], gen)
+        embed = wm.encode(obs)
+        is_first = torch.zeros((h.shape[0], 1), device=h.device)
+        h, z, _, _ = wm.dynamic_noise(h, z, prev_a, embed, is_first, post_noise)
+        out = act(torch.cat([z, h], dim=-1))
+        a = torch.where(greedy[:, None], act.sample(out, gen, greedy=True), act.sample(out, gen, greedy=False))
+        return (h, z, a), a
+
+    def prepare(obs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        out: Dict[str, np.ndarray] = {}
+        for k in cnn_keys:
+            x = np.asarray(obs[k])
+            if x.ndim == 5:  # (B, S, H, W, C) frame stack → channels
+                x = merge_framestack(x)
+            out[k] = np.asarray(x, np.float32) / 255.0 - 0.5
+        for k in mlp_keys:
+            x = np.asarray(obs[k], np.float32)
+            out[k] = x.reshape(x.shape[0], -1)
+        return out
+
+    def postprocess(a: np.ndarray) -> np.ndarray:
+        if not is_continuous:
+            a = _split_branches(a, actions_dim)
+        return actions_for_env(a, action_space)
+
+    return PolicyPlayer(
+        algo=cfg.algo.name,
+        params={"world_model": world_model, "actor": actor},
+        step=_step,
+        prepare=prepare,
+        postprocess=postprocess,
+        obs_spec=_obs_spec_from_space(obs_space, cnn_keys + mlp_keys),
+        action_shape=tuple(np.shape(action_space.sample())),
+        is_continuous=is_continuous,
+        actions_dim=tuple(actions_dim),
+        device=fabric.device,
+        stateful=True,
+        carry_spec=(
+            ((rec_size,), "float32"),
+            ((world_model.stoch_flat,), "float32"),
+            ((act_width,), "float32"),
+        ),
+    ).finalize()
