@@ -11,15 +11,18 @@ prints no result line):
 1. device   — the card's name and power limit; CUDA must be present.
 2. build    — nvcc builds every kernel of the serving path from ``csrc/``.
 3. kernels  — each kernel against its plain PyTorch version in fp32 (TF32
-              off) at the DreamerV3 S/M/L/XL widths, B in {1, 7, 128} and
-              leading dims (2, 3); max abs error on h' <= 1e-4.  Kernel,
-              plain version and bound timed at XL.
+              off) at the DreamerV3 S/M/L/XL widths, B in {1, 7, 8, 16, 32,
+              128} (every serving rung and every row tile of the GEMM) and
+              leading dims (2, 3), Z+A in {1028 (served), 1030}; max abs
+              error on h' <= 1e-4.  Kernel, plain version and bound timed
+              at XL.
 4. serve    — DreamerV3-XL (random weights from the seed, fused RSSM kernel)
               written as a committed snapshot, loaded by
               ``PolicyService.from_checkpoint`` and served by ``PolicyServer``
               to 16 concurrent sessions x 8 steps over HTTP; the rssm launch
               count is read around this run.
-5. parity   — one served step against the same step with the plain RSSM.
+5. parity   — one served step, at the rung dispatched most, against the
+              same step with the plain RSSM.
 6. gru path — the same width with only the GRU cell fused (``use_pallas``),
               one session x 8 steps; the gru launch count is read around it.
 
@@ -45,7 +48,8 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at the 700 W limit
 FP32_FLOPS_PER_S = 67e12   # H100 SXM data sheet, fp32 outside the tensor cores
 PRESETS = {"S": (512, 512), "M": (640, 1024), "L": (768, 2048), "XL": (1024, 4096)}
-ZA = 32 * 32 + 6           # stochastic state + a 6-wide action
+ZAS = (32 * 32 + 4, 32 * 32 + 6)  # stochastic state + the served 4-wide action, + a 6-wide one
+LEADS = ((1,), (7,), (8,), (16,), (32,), (128,), (2, 3))  # rungs 1/8/32/128; bm tiles 8/32/64
 TOL = 1e-4
 SERVE_SESSIONS, SERVE_STEPS = 16, 8
 XL_SERVE = (
@@ -145,23 +149,23 @@ def phase_kernels(torch) -> dict:
     g = torch.Generator(dev).manual_seed(0)
     worst = {"rssm": 0.0, "gru": 0.0}
     for preset, (D, H) in PRESETS.items():
-        w = _rssm_weights(torch, ZA, D, H, g, dev)
-        for lead in ((1,), (7,), (128,), (2, 3)):
-            x = torch.randn(*lead, ZA, device=dev, generator=g)
-            y = torch.randn(*lead, D, device=dev, generator=g)
-            h = torch.tanh(torch.randn(*lead, H, device=dev, generator=g))
-            errs = {
-                "rssm": (rssm.fused_rssm_recurrent(x, h, *w) - rssm.rssm_recurrent_reference(x, h, *w)).abs().max(),
-                "gru": (gru.fused_layernorm_gru(y, h, *w[4:]) - gru.layernorm_gru_reference(y, h, *w[4:])).abs().max(),
-            }
-            torch.cuda.synchronize()
-            for name, err in errs.items():
-                err = float(err)
-                worst[name] = max(worst[name], err)
-                if not err <= TOL:
-                    raise AssertionError(f"{name} at {preset} lead {lead}: max abs err {err:.3g} > {TOL}")
-            log(f"[kernels] {preset:2s} D={D} H={H} lead={lead}: rssm err {float(errs['rssm']):.2e} "
-                f"gru err {float(errs['gru']):.2e}")
+        for za in ZAS:
+            w = _rssm_weights(torch, za, D, H, g, dev)
+            for lead in LEADS:
+                x = torch.randn(*lead, za, device=dev, generator=g)
+                y = torch.randn(*lead, D, device=dev, generator=g)
+                h = torch.tanh(torch.randn(*lead, H, device=dev, generator=g))
+                errs = {"rssm": rssm.fused_rssm_recurrent(x, h, *w) - rssm.rssm_recurrent_reference(x, h, *w)}
+                if za == ZAS[0]:  # the GRU cell does not see Z+A
+                    errs["gru"] = gru.fused_layernorm_gru(y, h, *w[4:]) - gru.layernorm_gru_reference(y, h, *w[4:])
+                errs = {name: float(e.abs().max()) for name, e in errs.items()}
+                for name, err in errs.items():
+                    worst[name] = max(worst[name], err)
+                    if not err <= TOL:
+                        raise AssertionError(f"{name} at {preset} Z+A={za} lead {lead}: max abs err {err:.3g} > {TOL}")
+                log(f"[kernels] {preset:2s} D={D} H={H} Z+A={za} lead={lead}: "
+                    + ", ".join(f"{name} err {err:.2e}" for name, err in errs.items()))
+            del w
     return worst
 
 
@@ -290,15 +294,20 @@ def _drive(torch, run_dir: Path, sessions: int, steps: int) -> dict:
     return {"stats": stats, "counts": counts, "service": service}
 
 
-def phase_parity(torch, service) -> float:
-    """One served step (the kernel) against the same step with
+def main_rung(stats) -> int:
+    """The ladder rung the service dispatched most (the larger on a tie)."""
+    return max(((int(s), n) for s, n in stats["rungs"].items()), key=lambda sn: (sn[1], sn[0]))[0]
+
+
+def phase_parity(torch, service, B: int) -> float:
+    """One served step (the kernel) of ``B`` rows against the same step with
     ``rssm_recurrent_reference`` called directly, under shared noise."""
     from sheeprl_tpu_torch.ops.rssm import rssm_recurrent_reference
     from sheeprl_tpu_torch.utils.distribution import OneHotCategorical
 
     player = service.player
     wm, actor = player.params["world_model"], player.params["actor"]
-    dev, B = player.device, 8
+    dev = player.device
     g = torch.Generator(dev).manual_seed(7)
     rng = np.random.default_rng(7)
     raw = {"rgb": rng.integers(0, 256, (B, 64, 64, 3), dtype=np.uint8),
@@ -356,7 +365,7 @@ def main() -> int:
         served = _drive(torch, fused_dir, SERVE_SESSIONS, SERVE_STEPS)
         if served["counts"]["rssm"] < served["stats"]["batches"] or served["counts"]["gru"]:
             raise AssertionError(f"rssm launches {served['counts']} vs {served['stats']['batches']} batches")
-        parity_err = phase_parity(torch, served["service"])
+        parity_err = phase_parity(torch, served["service"], main_rung(served["stats"]))
         za = served["service"].player.params["world_model"].recurrent_model.in_kernel.shape[0]
         del served["service"]
         torch.cuda.empty_cache()
@@ -367,9 +376,6 @@ def main() -> int:
         if gru_served["counts"]["gru"] < gru_served["stats"]["batches"] or gru_served["counts"]["rssm"]:
             raise AssertionError(f"gru launches {gru_served['counts']} vs {gru_served['stats']['batches']} batches")
         del gru_served["service"]
-
-        def main_rung(stats):
-            return max(((int(s), n) for s, n in stats["rungs"].items()), key=lambda sn: (sn[1], sn[0]))[0]
 
         rung = {"rssm": main_rung(served["stats"]), "gru": main_rung(gru_served["stats"])}
         timing = time_kernels(torch, za, sorted({1, 8, 128, *rung.values()}))

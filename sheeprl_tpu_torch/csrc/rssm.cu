@@ -63,7 +63,7 @@ extern "C" int sheeprl_rssm_forward(const float* x, const float* h, const float*
   cudaError_t e = launch_gemm(x, nullptr, ZA, w_in, parts_in, B, ZA, D, bm, splits_in, kps_in, st);
   if (e != cudaSuccess) return (int)e;
   const size_t smem = (size_t)D * sizeof(float);
-  e = set_row_smem(ln_silu_rows_kernel, smem);
+  e = allow_row_smem<ln_silu_rows_kernel>();
   if (e != cudaSuccess) return (int)e;
   ln_silu_rows_kernel<<<B, kRowThreads, smem, st>>>(parts_in, splits_in, B, D, b_in, ln_in_scale,
                                                     ln_in_bias, y, 1e-3f);

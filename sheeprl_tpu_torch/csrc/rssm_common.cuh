@@ -13,6 +13,8 @@
 
 #include <cuda_runtime.h>
 
+#include <atomic>
+
 namespace sheeprl {
 
 constexpr int kThreads = 256;   // GEMM block: 32 column groups x 8 row groups
@@ -32,7 +34,7 @@ gemm_splitk_kernel(const float* __restrict__ a0, const float* __restrict__ a1, i
   constexpr int TM = BM / 8;
   constexpr int A_LOADS = BM * kBK / kThreads;
   constexpr int W_LOADS = kBK * kBN / 4 / kThreads;
-  static_assert(BM % 8 == 0 && A_LOADS >= 1, "BM must be 8, 16, 32 or 64");
+  static_assert(BM % 8 == 0 && A_LOADS >= 1, "BM must be 8, 32 or 64");
   __shared__ __align__(16) float As[kBK][BM];  // k-major, so a row group reads a float4
   __shared__ __align__(16) float Ws[kBK][kBN];
 
@@ -210,7 +212,6 @@ inline cudaError_t launch_gemm(const float* a0, const float* a1, int k0, const f
     return cudaErrorInvalidValue;
   switch (bm) {
     case 8: return launch_gemm_bm<8>(a0, a1, k0, w, out, B, K, N, splits, kps, st);
-    case 16: return launch_gemm_bm<16>(a0, a1, k0, w, out, B, K, N, splits, kps, st);
     case 32: return launch_gemm_bm<32>(a0, a1, k0, w, out, B, K, N, splits, kps, st);
     case 64: return launch_gemm_bm<64>(a0, a1, k0, w, out, B, K, N, splits, kps, st);
     default: return cudaErrorInvalidValue;
@@ -222,7 +223,6 @@ inline int gemm_blocks_per_sm(int bm) {
   cudaError_t e;
   switch (bm) {
     case 8: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gemm_splitk_kernel<8>, kThreads, 0); break;
-    case 16: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gemm_splitk_kernel<16>, kThreads, 0); break;
     case 32: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gemm_splitk_kernel<32>, kThreads, 0); break;
     case 64: e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gemm_splitk_kernel<64>, kThreads, 0); break;
     default: return -(int)cudaErrorInvalidValue;
@@ -231,18 +231,35 @@ inline int gemm_blocks_per_sm(int bm) {
 }
 
 // Row kernels keep one whole row in dynamic shared memory (3H floats for
-// the GRU epilogue: 48 KiB at H = 4096), above 48 KiB only after opting in.
-template <typename Kernel>
-inline cudaError_t set_row_smem(Kernel kernel, size_t bytes) {
-  if (bytes + 32 * sizeof(float) <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+// the GRU epilogue: 48 KiB at H = 4096); above 48 KiB a kernel must opt in.
+// Each row kernel opts in once per device, on its first launch there, up to
+// the device's limit, so later launches make no attribute calls.  `static`,
+// not `inline`: a static local of an inline function is one object across
+// every library in the process, and each library has its own kernels.
+template <auto Kernel>
+static cudaError_t allow_row_smem() {
+  static std::atomic<unsigned long long> done{0};  // one bit per device
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_acquire) & bit) return cudaSuccess;
+  int optin = 0;
+  cudaFuncAttributes attr;
+  if ((e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev)) != cudaSuccess ||
+      (e = cudaFuncGetAttributes(&attr, Kernel)) != cudaSuccess ||
+      (e = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                optin - (int)attr.sharedSizeBytes)) != cudaSuccess)
+    return e;
+  done.fetch_or(bit, std::memory_order_release);
+  return cudaSuccess;
 }
 
 inline cudaError_t launch_ln_gru_rows(const float* parts, int S, int B, int H, const float* scale,
                                       const float* bias, const float* h, float* out, float eps,
                                       cudaStream_t st) {
   const size_t smem = (size_t)3 * H * sizeof(float);
-  cudaError_t e = set_row_smem(ln_gru_rows_kernel, smem);
+  cudaError_t e = allow_row_smem<ln_gru_rows_kernel>();
   if (e != cudaSuccess) return e;
   ln_gru_rows_kernel<<<B, kRowThreads, smem, st>>>(parts, S, B, H, scale, bias, h, out, eps);
   return cudaGetLastError();

@@ -26,13 +26,13 @@ def plan(
 ) -> Tuple[int, int, int]:
     """``(bm, splits, k_per_split)`` for ``(B, K) @ (K, N)``.
 
-    ``bm`` is the smallest row tile that holds the batch (8, 16, 32, else
-    64).  Serving batches are small, so the column tiles alone may not fill
-    the card: K is then cut into ``splits`` slices until the grid reaches
+    ``bm`` is the smallest row tile that holds the batch (8, 32, else 64).
+    Serving batches are small, so the column tiles alone may not fill the
+    card: K is then cut into ``splits`` slices until the grid reaches
     the blocks the card can keep resident at once (SMs x occupancy), so that
     every SM streams its share of the weight.  Each slice is a whole number
     of K tiles, and the row kernels sum exactly ``splits`` partial slices."""
-    bm = next((b for b in (8, 16, 32) if B <= b), 64)
+    bm = next((b for b in (8, 32) if B <= b), 64)
     index = device.index if device.index is not None else torch.cuda.current_device()
     if index not in _SM_COUNT:
         _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count

@@ -32,8 +32,8 @@ def _weights(ZA, D, H, dev, seed=0):
             rnd(D + H, 3 * H, scale=(D + H) ** -0.5), 1 + rnd(3 * H, scale=0.1), rnd(3 * H, scale=0.1))
 
 
-@pytest.mark.parametrize("lead", [(1,), (5,), (33,), (2, 3)])
-@pytest.mark.parametrize("ZA,D,H", [(1030, 64, 96), (20, 16, 24), (1028, 512, 512)])
+@pytest.mark.parametrize("lead", [(1,), (5,), (8,), (16,), (32,), (33,), (128,), (2, 3)])
+@pytest.mark.parametrize("ZA,D,H", [(1030, 64, 96), (20, 16, 24), (1028, 512, 512), (1028, 1024, 4096)])
 def test_kernels_match_plain_versions(dev, lead, ZA, D, H):
     w = _weights(ZA, D, H, dev)
     x = torch.randn(*lead, ZA, device=dev)

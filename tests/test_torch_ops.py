@@ -95,7 +95,9 @@ def test_gradients_match_jax_custom_vjp():
 
 
 @pytest.mark.parametrize(
-    "B,K,N", [(1, 5120, 12288), (1, 1030, 1024), (7, 1030, 1024), (32, 5120, 12288), (128, 5120, 12288), (3, 20, 16)]
+    "B,K,N",
+    [(1, 5120, 12288), (1, 1030, 1024), (7, 1030, 1024), (12, 5120, 12288), (32, 5120, 12288), (128, 5120, 12288),
+     (3, 20, 16)],
 )
 def test_gemm_plan_tiles_k_exactly(B, K, N, monkeypatch):
     """The launch plan the C side accepts: whole K tiles per split, every
@@ -104,10 +106,10 @@ def test_gemm_plan_tiles_k_exactly(B, K, N, monkeypatch):
     monkeypatch.setitem(_common._SM_COUNT, 0, 132)
 
     def blocks_per_sm(bm):
-        return {8: 6, 16: 4, 32: 3, 64: 1}[bm]
+        return {8: 6, 32: 3, 64: 1}[bm]
 
     bm, splits, kps = _common.plan(blocks_per_sm, B, K, N, torch.device("cuda", 0))
-    assert bm >= min(B, 64) and bm in (8, 16, 32, 64)
+    assert bm >= min(B, 64) and bm in (8, 32, 64)
     assert kps % _common.TILE_K == 0
     assert (splits - 1) * kps < K <= splits * kps
     blocks = -(-N // _common.TILE_N) * -(-B // bm)
