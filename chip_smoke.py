@@ -12,10 +12,12 @@ prints no result line):
 2. build    — nvcc builds every kernel of the serving path from ``csrc/``.
 3. kernels  — each kernel against its plain PyTorch version in fp32 (TF32
               off) at the DreamerV3 S/M/L/XL widths, B in {1, 7, 8, 16, 32,
-              128} (every serving rung and every row tile of the GEMM) and
-              leading dims (2, 3), Z+A in {1028 (served), 1030}; max abs
-              error on h' <= 1e-4.  Kernel, plain version and bound timed
-              at XL.
+              128, 1024} (every serving rung, the training batches and every
+              row tile of the GEMM) and leading dims (2, 3), Z+A in {1028
+              (served), 1030}; max abs error on h' <= 1e-4.  At XL and B in
+              {1, 8, 16, 32, 128, 1024}: kernel, plain version, the products
+              alone in cuBLAS fp32 (a partial yardstick the port never
+              calls), the bound and the device time of each launch.
 4. serve    — DreamerV3-XL (random weights from the seed, fused RSSM kernel)
               written as a committed snapshot, loaded by
               ``PolicyService.from_checkpoint`` and served by ``PolicyServer``
@@ -33,6 +35,7 @@ The line before the last is ``{"kernels": [...]}``; the last line is
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import statistics
 import subprocess
@@ -47,9 +50,12 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at the 700 W limit
 FP32_FLOPS_PER_S = 67e12   # H100 SXM data sheet, fp32 outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # H100 SXM data sheet, dense TF32 on the tensor cores
+TF32_PASSES = 3            # 3xTF32: big*big + big*small + small*big keeps fp32 accuracy
+TIMED_BATCHES = (1, 8, 16, 32, 128, 1024)  # serving rungs, posterior-scan rows (16), imagination rows (1024)
 PRESETS = {"S": (512, 512), "M": (640, 1024), "L": (768, 2048), "XL": (1024, 4096)}
 ZAS = (32 * 32 + 4, 32 * 32 + 6)  # stochastic state + the served 4-wide action, + a 6-wide one
-LEADS = ((1,), (7,), (8,), (16,), (32,), (128,), (2, 3))  # rungs 1/8/32/128; bm tiles 8/32/64
+LEADS = ((1,), (7,), (8,), (16,), (32,), (128,), (1024,), (2, 3))  # rungs 1/8/32/128, training 16/1024
 TOL = 1e-4
 SERVE_SESSIONS, SERVE_STEPS = 16, 8
 XL_SERVE = (
@@ -66,23 +72,25 @@ def log(*args) -> None:
 
 
 # -- bounds: the least time the card could take for the same work ------------
-def _bound(bytes_moved: float, flops: float):
-    t_bytes, t_ops = bytes_moved / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+def _bound(bytes_moved: float, product_flops: float, elementwise_flops: float):
+    """The larger of: bytes over the memory rate, the products' 3xTF32
+    operations over the tensor cores' TF32 rate, the elementwise operations
+    over the fp32 rate of the CUDA cores."""
+    t_bytes = bytes_moved / HBM_BYTES_PER_S
+    t_ops = max(TF32_PASSES * product_flops / TF32_FLOPS_PER_S, elementwise_flops / FP32_FLOPS_PER_S)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def gru_bound(B: int, D: int, H: int):
-    # inputs x, h, W, LN params read once, h' written once; the product plus
+    # inputs x, h, W, LN params read once, h' written once; the product, plus
     # ~8 operations per LayerNorm element and ~12 per gated output
     bytes_moved = 4 * (B * D + B * H + (D + H) * 3 * H + 6 * H + B * H)
-    flops = 2 * B * (D + H) * 3 * H + B * (8 * 3 * H + 12 * H)
-    return _bound(bytes_moved, flops)
+    return _bound(bytes_moved, 2 * B * (D + H) * 3 * H, B * (8 * 3 * H + 12 * H))
 
 
 def rssm_bound(B: int, za: int, D: int, H: int):
     bytes_moved = 4 * (B * za + B * H + za * D + 3 * D + (D + H) * 3 * H + 6 * H + B * H)
-    flops = 2 * B * za * D + 2 * B * (D + H) * 3 * H + B * (12 * D + 8 * 3 * H + 12 * H)
-    return _bound(bytes_moved, flops)
+    return _bound(bytes_moved, 2 * B * za * D + 2 * B * (D + H) * 3 * H, B * (12 * D + 8 * 3 * H + 12 * H))
 
 
 # -- timing ------------------------------------------------------------------
@@ -102,6 +110,45 @@ def time_ms(torch, fn, samples: int = 21, calls: int = 10) -> float:
         pairs.append((e0, e1))
     torch.cuda.synchronize()
     return statistics.median(a.elapsed_time(b) / calls for a, b in pairs)
+
+
+def launch_breakdown(torch, fn, calls: int = 10):
+    """Device time of each CUDA launch inside one wrapper call: the
+    ``sheeprl::`` kernels that ``calls`` calls of ``fn`` ran, as the CUDA
+    profiler saw them, grouped by position in the call.  Returns
+    ``([(kernel name, median ms start to end, median ms from the previous
+    launch's end to this one's end), ...], median ms from the first launch's
+    start to the last one's end)`` in launch order, or ``None`` when three
+    captures all missed a launch.  A launch that starts early
+    (programmatic dependent launch) and waits shows a long first time; the
+    second is what it adds to the step.  The span is the call's device time
+    without the host's gaps between calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # the profiler now and then misses a launch: take another capture
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events() if str(e.device_type).endswith("CUDA") and "sheeprl::" in e.name),
+                        key=lambda e: e.time_range.start)
+        if events and len(events) % calls == 0:
+            break
+    else:
+        return None
+    per_call = len(events) // calls
+    out = []
+    for i in range(per_call):
+        name = events[i].name.split("sheeprl::", 1)[1].split("(", 1)[0]
+        ms = statistics.median((e.time_range.end - e.time_range.start) / 1e3 for e in events[i::per_call])
+        past = ms if i == 0 else statistics.median(
+            (e.time_range.end - p.time_range.end) / 1e3 for p, e in zip(events[i - 1::per_call], events[i::per_call]))
+        out.append((name, ms, past))
+    span = statistics.median((events[i + per_call - 1].time_range.end - events[i].time_range.start) / 1e3
+                             for i in range(0, len(events), per_call))
+    return out, span
 
 
 # -- phases ------------------------------------------------------------------
@@ -129,8 +176,10 @@ def phase_build() -> None:
     log(f"[build] nvcc built {sorted(reports) or 'nothing (already built)'} in {time.perf_counter() - t0:.1f} s")
     for name, report in reports.items():
         for line in report.splitlines():
-            if "registers" in line or "spill" in line and "0 bytes spill" not in line:
+            if "Compiling entry function" in line or "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+            if any(int(n) for n in re.findall(r"(\d+) bytes spill", line)):
+                raise AssertionError(f"ptxas spills registers in {name}.cu: {line.strip()}")
 
 
 def _rssm_weights(torch, za, D, H, g, dev):
@@ -170,30 +219,56 @@ def phase_kernels(torch) -> dict:
 
 
 def time_kernels(torch, za, batches) -> dict:
-    """Kernel, plain version and bound at XL for each batch size, with the
-    served model's input width ``za`` (stochastic state + actions)."""
+    """Kernel, plain version, the products alone in cuBLAS, the bound and the
+    per-launch breakdown at XL for each batch size, with the served model's
+    input width ``za`` (stochastic state + actions)."""
     from sheeprl_tpu_torch.ops import gru, rssm
 
     D, H = PRESETS["XL"]
     dev = torch.device("cuda", 0)
     g = torch.Generator(dev).manual_seed(1)
     xl = _rssm_weights(torch, za, D, H, g, dev)
+    w_in, w_gru = xl[0], xl[4]
+    busy = torch.randn(4096, 4096, device=dev, generator=g)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 1.0:  # bring the clocks up before the first timed row
+        busy @ busy
+        torch.cuda.synchronize()
+    del busy
     out = {"rssm": {}, "gru": {}}
     for B in batches:
         x = torch.randn(B, za, device=dev, generator=g)
         y = torch.randn(B, D, device=dev, generator=g)
         h = torch.tanh(torch.randn(B, H, device=dev, generator=g))
+        yh = torch.cat([y, h], -1)
+        p_in = torch.empty(B, D, device=dev)
+        p_gru = torch.empty(B, 3 * H, device=dev)
         rows = {
             "rssm": (lambda: rssm.fused_rssm_recurrent(x, h, *xl), lambda: rssm.rssm_recurrent_reference(x, h, *xl),
-                     rssm_bound(B, za, D, H), (B, za, D, H)),
+                     lambda: (torch.mm(x, w_in, out=p_in), torch.mm(yh, w_gru, out=p_gru)),
+                     rssm_bound(B, za, D, H), (B, za, D, H), [w_in, w_gru]),
             "gru": (lambda: gru.fused_layernorm_gru(y, h, *xl[4:]), lambda: gru.layernorm_gru_reference(y, h, *xl[4:]),
-                    gru_bound(B, D, H), (B, D, H)),
+                    lambda: torch.mm(yh, w_gru, out=p_gru),
+                    gru_bound(B, D, H), (B, D, H), [w_gru]),
         }
-        for name, (kernel, plain, (bound_ms, bound_by), shape) in rows.items():
-            k_ms, p_ms = time_ms(torch, kernel), time_ms(torch, plain)
-            out[name][B] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by, "shape": shape}
-            log(f"[timing] {name} XL B={B}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, "
-                f"bound {bound_ms:.4f} ms ({bound_by}), kernel/bound {k_ms / bound_ms:.2f}")
+        for name, (kernel, plain, products, (bound_ms, bound_by), shape, weights) in rows.items():
+            k_ms, p_ms, lib_ms = time_ms(torch, kernel), time_ms(torch, plain), time_ms(torch, products)
+            breakdown = launch_breakdown(torch, kernel)
+            launches, span = breakdown if breakdown else (None, None)
+            out[name][B] = {"ms": k_ms, "plain_ms": p_ms, "gemm_library_ms": lib_ms, "bound_ms": bound_ms,
+                            "bound_by": bound_by, "device_span_ms": span, "shape": shape, "breakdown": launches}
+            log(f"[timing] {name} XL B={B}: kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, cuBLAS fp32 products "
+                f"alone {lib_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}), bound/kernel {bound_ms / k_ms:.1%}")
+            if launches is None:
+                log(f"[timing] {name} B={B}: per-launch breakdown not measured (the profiler missed launches)")
+                continue
+            log(f"[breakdown] {name} B={B}: device span of one call {span:.4f} ms")
+            # GEMM launches stream the weights in argument order (W_in, then W_gru)
+            gemm_bytes = iter(4 * w.numel() for w in weights)
+            for i, (kname, ms, past) in enumerate(launches):
+                rate = f", weight stream {next(gemm_bytes) / ms / 1e9:.3f} TB/s" if "gemm" in kname else ""
+                log(f"[breakdown] {name} B={B} launch {i + 1} {kname}: {ms:.4f} ms, {past:.4f} ms past the "
+                    f"previous launch's end{rate}")
     return out
 
 
@@ -340,17 +415,36 @@ def phase_parity(torch, service, B: int) -> float:
     return err
 
 
+def timing_only(torch, package_root: str) -> int:
+    """``--timing ROOT``: build and time the kernels of the port found under
+    ``ROOT`` (for example an unpacked older commit) at every timed batch,
+    with no other phase; the rows go to ``chiprun_out/timing-<dir name>.json``."""
+    phase_device(torch)
+    phase_build()
+    timing = time_kernels(torch, ZAS[0], TIMED_BATCHES)
+    out = ROOT / "chiprun_out" / f"timing-{Path(package_root).resolve().name}.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps(timing, indent=1))
+    log(f"[timing] rows written to {out}")
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available; it runs on an NVIDIA GPU", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--timing"]:
+        sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
     try:
         import sheeprl_tpu_torch  # noqa: F401
     except ImportError as e:
         print(f"chip_smoke.py: run it from the root of a sheeprl-tpu checkout ({e})", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--timing"]:
+        log(f"[timing] sheeprl_tpu_torch from {Path(sheeprl_tpu_torch.__file__).parent}")
+        return timing_only(torch, sys.argv[2])
 
     run_root = ROOT / "build" / "chip_smoke"
     shutil.rmtree(run_root, ignore_errors=True)
@@ -378,7 +472,7 @@ def main() -> int:
         del gru_served["service"]
 
         rung = {"rssm": main_rung(served["stats"]), "gru": main_rung(gru_served["stats"])}
-        timing = time_kernels(torch, za, sorted({1, 8, 128, *rung.values()}))
+        timing = time_kernels(torch, za, sorted({*TIMED_BATCHES, *rung.values()}))
         launches = {"rssm": served["counts"]["rssm"], "gru": gru_served["counts"]["gru"]}
         sources = {
             "rssm": ("sheeprl_tpu_torch/csrc/rssm.cu",
@@ -393,8 +487,9 @@ def main() -> int:
                 "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
                 "launches": launches[name], "max_abs_err": worst[name],
                 "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-                "bound_by": t["bound_by"], "library_ms": None, "shape": list(t["shape"]),
-                "timing_by_batch": {str(b): {k: v for k, v in row.items() if k != "shape"}
+                "bound_by": t["bound_by"], "library_ms": None, "gemm_library_ms": t["gemm_library_ms"],
+                "shape": list(t["shape"]),
+                "timing_by_batch": {str(b): {k: v for k, v in row.items() if k not in ("shape", "breakdown")}
                                     for b, row in timing[name].items()},
             })
         log(f"[done] parity err {parity_err:.2e}; total {time.perf_counter() - t_start:.1f} s")

@@ -23,8 +23,8 @@ from sheeprl_tpu_torch.ops._common import (
     check_status,
     gru_gates,
     layer_norm,
-    plan,
-    ptr,
+    launch_plan,
+    needs_grad,
     reference_backward,
     stream,
 )
@@ -67,11 +67,11 @@ def _launch(x, h, w, ln_scale, ln_bias) -> torch.Tensor:
         return out
     lib = _build.load("gru", _SIGNATURES)
     with torch.cuda.device(device):
-        bm, splits, kps = plan(lib.sheeprl_gru_blocks_per_sm, B, D + H, 3 * H, device)
+        bb, splits, kps = launch_plan(lib.sheeprl_gru_blocks_per_sm, B, D + H, 3 * H, device)
         parts = torch.empty((splits, B, 3 * H), device=device, dtype=torch.float32)
         code = lib.sheeprl_gru_forward(
-            ptr(x), ptr(h), ptr(w), ptr(ln_scale), ptr(ln_bias), ptr(out), ptr(parts),
-            B, D, H, bm, splits, kps, stream(device),
+            *(t.data_ptr() for t in (x, h, w, ln_scale, ln_bias, out, parts)),
+            B, D, H, bb, splits, kps, stream(device),
         )
     check_status("gru", code)
     LAUNCHES["gru"] += 1
@@ -106,7 +106,8 @@ def fused_layernorm_gru(
     if x.device.type == "cpu":
         out = layernorm_gru_reference(x2, h2, w, ln_scale, ln_bias)
     elif x.device.type == "cuda":
-        out = _FusedGRU.apply(x2, h2, w, ln_scale, ln_bias)
+        args = (x2, h2, w, ln_scale, ln_bias)
+        out = _FusedGRU.apply(*args) if needs_grad(args) else _launch(*args)
     else:
         raise ValueError(f"fused_layernorm_gru: no kernel for device {x.device}")
     return out.reshape(*lead, out.shape[-1])

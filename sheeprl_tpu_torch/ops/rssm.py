@@ -22,8 +22,8 @@ from sheeprl_tpu_torch.ops._common import (
     check_status,
     gru_gates,
     layer_norm,
-    plan,
-    ptr,
+    launch_plan,
+    needs_grad,
     reference_backward,
     stream,
 )
@@ -79,15 +79,16 @@ def _launch(x, h, w_in, b_in, ln_in_scale, ln_in_bias, w_gru, gru_scale, gru_bia
     lib = _build.load("rssm", _SIGNATURES)
     f32 = dict(device=device, dtype=torch.float32)
     with torch.cuda.device(device):
-        bm, splits_in, kps_in = plan(lib.sheeprl_rssm_blocks_per_sm, B, ZA, D, device)
-        _, splits_gru, kps_gru = plan(lib.sheeprl_rssm_blocks_per_sm, B, D + H, 3 * H, device)
-        parts_in = torch.empty((splits_in, B, D), **f32)
-        y = torch.empty((B, D), **f32)
-        parts_gru = torch.empty((splits_gru, B, 3 * H), **f32)
+        bb, splits_in, kps_in = launch_plan(lib.sheeprl_rssm_blocks_per_sm, B, ZA, D, device)
+        _, splits_gru, kps_gru = launch_plan(lib.sheeprl_rssm_blocks_per_sm, B, D + H, 3 * H, device)
+        # one allocation for the three scratch buffers; every offset is a
+        # multiple of 4 floats (D % 4 == 0), so each stays 16-byte aligned
+        scratch = torch.empty(((splits_in + 1) * B * D + splits_gru * B * 3 * H,), **f32)
+        parts_in, y, parts_gru = scratch.split([splits_in * B * D, B * D, splits_gru * B * 3 * H])
+        tensors = (x, h, w_in, b_in, ln_in_scale, ln_in_bias, w_gru, gru_scale, gru_bias, out, parts_in, y, parts_gru)
         code = lib.sheeprl_rssm_forward(
-            ptr(x), ptr(h), ptr(w_in), ptr(b_in), ptr(ln_in_scale), ptr(ln_in_bias),
-            ptr(w_gru), ptr(gru_scale), ptr(gru_bias), ptr(out), ptr(parts_in), ptr(y), ptr(parts_gru),
-            B, ZA, D, H, bm, splits_in, kps_in, splits_gru, kps_gru, stream(device),
+            *(t.data_ptr() for t in tensors),
+            B, ZA, D, H, bb, splits_in, kps_in, splits_gru, kps_gru, stream(device),
         )
     check_status("rssm", code)
     LAUNCHES["rssm"] += 1
@@ -121,7 +122,7 @@ def fused_rssm_recurrent(x, h, w_in, b_in, ln_in_scale, ln_in_bias, w_gru, gru_s
     if x.device.type == "cpu":
         out = rssm_recurrent_reference(*args)
     elif x.device.type == "cuda":
-        out = _FusedRSSM.apply(*args)
+        out = _FusedRSSM.apply(*args) if needs_grad(args) else _launch(*args)
     else:
         raise ValueError(f"fused_rssm_recurrent: no kernel for device {x.device}")
     return out.reshape(*lead, out.shape[-1])

@@ -32,7 +32,7 @@ def _weights(ZA, D, H, dev, seed=0):
             rnd(D + H, 3 * H, scale=(D + H) ** -0.5), 1 + rnd(3 * H, scale=0.1), rnd(3 * H, scale=0.1))
 
 
-@pytest.mark.parametrize("lead", [(1,), (5,), (8,), (16,), (32,), (33,), (128,), (2, 3)])
+@pytest.mark.parametrize("lead", [(1,), (5,), (8,), (16,), (32,), (33,), (64,), (128,), (1024,), (2, 3)])
 @pytest.mark.parametrize("ZA,D,H", [(1030, 64, 96), (20, 16, 24), (1028, 512, 512), (1028, 1024, 4096)])
 def test_kernels_match_plain_versions(dev, lead, ZA, D, H):
     w = _weights(ZA, D, H, dev)
@@ -45,6 +45,17 @@ def test_kernels_match_plain_versions(dev, lead, ZA, D, H):
     assert (rssm.LAUNCHES["rssm"], gru.LAUNCHES["gru"]) == (before[0] + 1, before[1] + 1)
     assert (out_r - rssm.rssm_recurrent_reference(x, h, *w)).abs().max().item() <= TOL
     assert (out_g - gru.layernorm_gru_reference(y, h, *w[4:])).abs().max().item() <= TOL
+
+
+@pytest.mark.parametrize("B", [1, 32, 1024])
+def test_two_calls_are_bitwise_equal(dev, B):
+    """Partial sums are added in a fixed order and no float atomics are
+    used, so the same inputs give the same bits."""
+    w = _weights(1028, 1024, 4096, dev)
+    x, y = torch.randn(B, 1028, device=dev), torch.randn(B, 1024, device=dev)
+    h = torch.tanh(torch.randn(B, 4096, device=dev))
+    assert torch.equal(rssm.fused_rssm_recurrent(x, h, *w), rssm.fused_rssm_recurrent(x, h, *w))
+    assert torch.equal(gru.fused_layernorm_gru(y, h, *w[4:]), gru.fused_layernorm_gru(y, h, *w[4:]))
 
 
 def test_backward_runs_through_the_plain_version(dev):

@@ -7,6 +7,7 @@ Tolerance: fp32 rtol = atol = 2e-5, the JAX kernel tests' own.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from sheeprl_tpu.ops import gru_pallas, rssm_pallas
 from sheeprl_tpu_torch.ops import _common, fused_layernorm_gru, fused_rssm_recurrent
@@ -96,24 +97,63 @@ def test_gradients_match_jax_custom_vjp():
 
 @pytest.mark.parametrize(
     "B,K,N",
-    [(1, 5120, 12288), (1, 1030, 1024), (7, 1030, 1024), (12, 5120, 12288), (32, 5120, 12288), (128, 5120, 12288),
-     (3, 20, 16)],
+    [(1, 5120, 12288), (1, 1030, 1024), (7, 1030, 1024), (12, 5120, 12288), (16, 5120, 12288), (32, 5120, 12288),
+     (128, 5120, 12288), (1024, 5120, 12288), (1024, 1028, 1024), (3, 20, 16)],
 )
-def test_gemm_plan_tiles_k_exactly(B, K, N, monkeypatch):
-    """The launch plan the C side accepts: whole K tiles per split, every
-    row of K in exactly one split, and no more blocks than the card holds
-    at once unless one split per column tile already exceeds that."""
-    monkeypatch.setitem(_common._SM_COUNT, 0, 132)
-
-    def blocks_per_sm(bm):
-        return {8: 6, 32: 3, 64: 1}[bm]
-
-    bm, splits, kps = _common.plan(blocks_per_sm, B, K, N, torch.device("cuda", 0))
-    assert bm >= min(B, 64) and bm in (8, 32, 64)
-    assert kps % _common.TILE_K == 0
+def test_gemm_plan_tiles_k_exactly(B, K, N):
+    """The launch plan the C side accepts: the smallest row tile that holds
+    the batch, whole K tiles per split, every row of K in exactly one split;
+    and a grid that keeps at least 90% of the SMs busy whenever K has tiles
+    enough."""
+    sms, occupancy = 132, {8: 3, 16: 2, 32: 2, 64: 2, 128: 1}
+    bb, splits, kps = _common.plan(B, K, N, sms, occupancy.__getitem__)
+    assert bb == next((t for t in _common.ROW_TILES if B <= t), 128)
+    assert kps % _common.tile_k(bb) == 0
     assert (splits - 1) * kps < K <= splits * kps
-    blocks = -(-N // _common.TILE_N) * -(-B // bm)
-    assert splits == 1 or blocks * splits <= 132 * blocks_per_sm(bm)
+    k_tiles = -(-K // _common.tile_k(bb))
+    blocks = -(-N // _common.TILE_N) * -(-B // bb) * splits
+    assert blocks >= 0.9 * sms or splits == k_tiles
+    assert _common.plan(B, K, N, sms, occupancy.__getitem__) == (bb, splits, kps)
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """fp32 rounded to TF32 as ``cvt.rna.tf32.f32`` does: to nearest, ties
+    away from zero, the low 13 mantissa bits cleared."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_3xtf32(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The kernels' product: both operands split into a TF32 big part and
+    the rest, which the tensor core truncates to TF32 (it reads the top 19
+    bits); small*big + big*small + big*big summed in fp32."""
+    a_big, w_big = _tf32(a), _tf32(w)
+    a_small, w_small = ((t.view(torch.int32) & ~0x1FFF).view(torch.float32) for t in (a - a_big, w - w_big))
+    return (a_small @ w_big + a_big @ w_small) + a_big @ w_big
+
+
+@pytest.mark.parametrize("B", [8, 32])
+def test_3xtf32_products_hold_fp32_accuracy_at_l_width(B):
+    """The precision design of the CUDA kernels, checked before any card
+    time: the RSSM step and the LN-GRU cell at DreamerV3-L width
+    (D = 768, H = 2048, K = 2816) with every product in emulated 3xTF32
+    stay within the kernels' 1e-4 limit on h' of the JAX fp32 reference,
+    where one TF32 pass would not."""
+    x, h, w = _rssm_inputs((B,), ZA=1028, D=768, H=2048, seed=B)
+    w_in, b_in, s_in, o_in, w_gru, s_gru, o_gru = (torch.from_numpy(t) for t in w)
+    xt, ht = torch.from_numpy(x), torch.from_numpy(h)
+    y = F.silu(_common.layer_norm(_mm_3xtf32(xt, w_in) + b_in, s_in, o_in, 1e-3))
+
+    def gru(inp):
+        parts = _mm_3xtf32(torch.cat([inp, ht], -1), w_gru)
+        return _common.gru_gates(_common.layer_norm(parts, s_gru, o_gru, 1e-5), ht)
+
+    ref_rssm = np.asarray(rssm_pallas._reference_math(x, h, *w))
+    ref_gru = np.asarray(gru_pallas._reference_math(x[:, :768], h, *w[4:]))
+    assert np.abs(gru(y).numpy() - ref_rssm).max() <= 1e-4
+    assert np.abs(gru(xt[:, :768]).numpy() - ref_gru).max() <= 1e-4
+    parts = _tf32(torch.cat([xt[:, :768], ht], -1)) @ _tf32(w_gru)
+    one_pass = _common.gru_gates(_common.layer_norm(parts, s_gru, o_gru, 1e-5), ht)
+    assert np.abs(one_pass.numpy() - ref_gru).max() > 1e-4
 
 
 def test_wrappers_refuse_what_the_kernel_does_not_take():
