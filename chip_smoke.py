@@ -27,9 +27,31 @@ prints no result line):
               same step with the plain RSSM.
 6. gru path — the same width with only the GRU cell fused (``use_pallas``),
               one session x 8 steps; the gru launch count is read around it.
+7. train    — DreamerV3-XL training through ``sheeprl_tpu_torch.cli.run``
+              (fused RSSM kernel, rgb + state, batch 16 x sequence 64,
+              horizon 15, player on the card, CSV logger): a prefill of one
+              sequence, then 10 updates; updates/s, the first update's
+              seconds, peak device memory, kernel launches per update (64
+              posterior + 16 imagination steps = 80), the ten metrics finite,
+              and a ``torch.profiler`` top-10 of one update's device time.
+8. train parity — one XL update from the trained snapshot, the same data
+              and noise, with the fused kernel and with the plain RSSM: the
+              ten losses, the world-model gradient norm and the posterior
+              latents agree within the stated tolerance, and three faulty
+              plain versions (the LayerNorm eps swapped, the reset and update
+              gates swapped, the products in one pass of TF32) are caught by
+              the same tolerance.
+9. serve trained — the snapshot of phase 7 loaded by ``load_policy``, one
+              served step, a valid action.
+10. train gru — DreamerV3-S training with only the GRU cell fused
+              (``use_pallas``), 3 updates; the gru launches per update.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
+
+Other modes, each alone: ``--timing ROOT`` times the kernels of the port
+under ``ROOT``; ``--first-window`` trains the first window of the default
+XL recipe (1024 updates, about 12 minutes on an H100).
 """
 
 from __future__ import annotations
@@ -58,6 +80,43 @@ ZAS = (32 * 32 + 4, 32 * 32 + 6)  # stochastic state + the served 4-wide action,
 LEADS = ((1,), (7,), (8,), (16,), (32,), (128,), (1024,), (2, 3))  # rungs 1/8/32/128, training 16/1024
 TOL = 1e-4
 SERVE_SESSIONS, SERVE_STEPS = 16, 8
+# One XL update, fused kernel against the plain RSSM (phase 8), both replaying
+# the same categorical samples: max abs difference of the posterior h over
+# the 64 steps (phase 3's bound on one call), and relative difference of each
+# of the ten losses and of the world-model gradient norm.  Both sit between
+# the fused kernel's readings (h 3.2e-06 to 4.0e-06, losses 1.9e-07 relative,
+# PERF.md) and those of a plain RSSM whose products take one pass of TF32,
+# which must fail them.
+TRAIN_TOL_LATENT = 1e-4
+TRAIN_TOL_REL = 1e-5
+LAUNCHES_PER_UPDATE = 64 + 16  # posterior steps (sequence 64) + imagination steps (horizon 15 + 1)
+XL_TRAIN = (
+    "exp=dreamer_v3",  # algo=dreamer_v3 is the XL preset
+    "env=dummy",
+    "env.id=discrete_dummy",
+    "algo.cnn_keys.encoder=[rgb]",
+    "algo.mlp_keys.encoder=[state]",
+    "fabric.accelerator=gpu",
+    "algo.player.device=accelerator",
+    "metric/logger=csv",
+    "checkpoint.save_last=True",
+    "checkpoint.every=1000000000",
+    "checkpoint.async_save=False",
+    "buffer.memmap=False",
+    "buffer.checkpoint=False",
+    "buffer.size=4096",
+    "env.num_envs=1",
+    "algo.per_rank_batch_size=16",
+    "algo.per_rank_sequence_length=64",
+    "algo.horizon=15",
+    "algo.learning_starts=65",  # one sequence of 64 steps can be sampled at step 65
+    "seed=5",
+)
+# replay ratio 1/8: the first window at step 65 takes int(65 / 8) = 8 updates,
+# then one every 8 env steps: 10 updates by step 81
+XL_TRAIN_STEPS = ("algo.replay_ratio=0.125", "algo.total_steps=81")
+S_TRAIN = (*XL_TRAIN, "algo=dreamer_v3_S", "algo.replay_ratio=0.03125", "algo.total_steps=97",
+           "algo.run_test=False", "algo.world_model.recurrent_model.use_pallas=True")
 XL_SERVE = (
     "exp=dreamer_v3",  # algo=dreamer_v3 is the XL preset
     "env=dummy",
@@ -415,6 +474,283 @@ def phase_parity(torch, service, B: int) -> float:
     return err
 
 
+# -- training ----------------------------------------------------------------
+LOSS_NAMES = ("Loss/world_model_loss", "Loss/observation_loss", "Loss/reward_loss", "Loss/state_loss",
+              "Loss/continue_loss", "State/kl", "Loss/policy_loss", "Loss/value_loss", "State/post_entropy",
+              "State/prior_entropy")
+
+
+def _train(torch, overrides, log_dir: Path, kernel: str) -> dict:
+    """One training run through ``cli.run`` with every launch count zeroed
+    just before and read just after, each update timed (the device
+    synchronised around it) with its own launches; returns the per-update
+    numbers, the counts, the snapshot and the logged metrics."""
+    import csv
+
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.ops import gru, rssm
+
+    def counts_now():
+        return {"rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]}
+
+    seconds, launches = [], []
+    train_step = DV3Trainer.train_step
+
+    def timed_step(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0, before = time.perf_counter(), counts_now()
+        out = train_step(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches.append({k: n - before[k] for k, n in counts_now().items()})
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rssm.LAUNCHES["rssm"] = gru.LAUNCHES["gru"] = 0
+    DV3Trainer.train_step = timed_step
+    t0 = time.perf_counter()
+    try:
+        run([*overrides, f"log_dir={log_dir}"])
+    finally:
+        DV3Trainer.train_step = train_step
+    wall = time.perf_counter() - t0
+    counts = counts_now()
+    peak = torch.cuda.max_memory_allocated()
+    snapshots = sorted(log_dir.glob("**/checkpoint/step_*"))
+    if not snapshots:
+        raise AssertionError(f"the training run committed no snapshot under {log_dir}")
+    with open(next(log_dir.glob("**/metrics.csv"))) as f:
+        logged = {name: float(value) for _, name, value in list(csv.reader(f))[1:]}
+    missing = [n for n in LOSS_NAMES if n not in logged or not np.isfinite(logged[n])]
+    if missing:
+        raise AssertionError(f"metrics missing or not finite: {missing}")
+    per_update = [n[kernel] for n in launches]
+    if not seconds or any(n != LAUNCHES_PER_UPDATE for n in per_update):
+        raise AssertionError(f"{kernel} launches per update {per_update}, expected {LAUNCHES_PER_UPDATE} each")
+    steady = statistics.median(seconds[1:]) if len(seconds) > 1 else seconds[0]
+    out = {"updates": len(seconds), "first_update_s": seconds[0], "updates_per_s": 1.0 / steady,
+           "median_update_s": steady, "peak_bytes": peak, "counts": counts, "per_update": per_update,
+           "snapshot": snapshots[-1], "wall_s": wall, "logged": {n: logged[n] for n in LOSS_NAMES}}
+    shown = ", ".join(f"{x:.4f}" for x in seconds[:12]) + (", ..." if len(seconds) > 12 else "")
+    log(f"[train] {len(seconds)} updates in a {wall:.1f} s run: first update {seconds[0]:.3f} s, then median "
+        f"{steady:.4f} s = {1.0 / steady:.3f} updates/s (updates {shown} s); peak device memory "
+        f"{peak / 2**30:.2f} GiB; {kernel} launches per update {sorted(set(per_update))}, run total {counts}")
+    log("[train] metrics " + ", ".join(f"{n} {logged[n]:.6g}" for n in LOSS_NAMES))
+    return out
+
+
+# kernel-name markers of the kinds of device work in an update (first match wins)
+PROFILE_GROUPS = (
+    ("the port's RSSM kernel (sheeprl::)", ("sheeprl::",)),
+    ("convolutions (cuDNN)", ("cudnn", "conv", "implicit_gemm", "wgrad", "dgrad", "fprop")),
+    ("matrix products (cuBLAS / CUTLASS: linears, the plain RSSM backward)", ("gemm", "gemv", "Kernel2")),
+)
+
+
+def _trainer_from_snapshot(torch, snapshot: Path):
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer
+    from sheeprl_tpu_torch.algos.ppo.utils import spaces_to_dims
+    from sheeprl_tpu_torch.fabric import build_fabric
+    from sheeprl_tpu_torch.serve.loader import load_run_config, probe_spaces
+
+    cfg = load_run_config(snapshot, ["fabric.accelerator=gpu"])
+    fabric = build_fabric(cfg)
+    state = fabric.load(snapshot)
+    obs_space, action_space = probe_spaces(cfg)
+    dims, cont = spaces_to_dims(action_space)
+    modules = build_agent(fabric, dims, cont, cfg, obs_space, state["agent"])
+    trainer = DV3Trainer(cfg, *modules, tuple(cfg.algo.cnn_keys.encoder), tuple(cfg.algo.mlp_keys.encoder), cont,
+                         agent_state=state["agent"], opt_state=state["opt_state"])
+    return cfg, trainer, dims
+
+
+def _tf32(torch, t):
+    """``t`` rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero, as the tensor cores' one-pass input conversion), with the gradient
+    passed straight through."""
+    bits = (t.detach().contiguous().view(torch.int32) + 0x1000) & -0x2000
+    return t + (bits.view(torch.float32) - t).detach()
+
+
+def _rssm_variant(torch, eps_in: float, eps_gru: float, swap_gates: bool, tf32: bool = False):
+    """The plain RSSM step with its LayerNorm eps, gate order and product
+    precision as given (the port's plain version is eps_in 1e-3, eps_gru
+    1e-5, no swap, fp32 products)."""
+    from sheeprl_tpu_torch.ops._common import layer_norm
+
+    def mm(a, b):
+        return _tf32(torch, a) @ _tf32(torch, b) if tf32 else a @ b
+
+    def step(x, h, w_in, b_in, ln_in_scale, ln_in_bias, w_gru, gru_scale, gru_bias):
+        y = torch.nn.functional.silu(layer_norm(mm(x, w_in) + b_in, ln_in_scale, ln_in_bias, eps_in))
+        parts = layer_norm(mm(torch.cat([y, h], -1), w_gru), gru_scale, gru_bias, eps_gru)
+        H = h.shape[-1]
+        r, c, u = parts[..., :H], parts[..., H:2 * H], parts[..., 2 * H:]
+        if swap_gates:
+            r, u = u, r
+        update = torch.sigmoid(u - 1.0)
+        return update * torch.tanh(torch.sigmoid(r) * c) + (1.0 - update) * h
+
+    return step
+
+
+def phase_train_parity(torch, snapshot: Path) -> dict:
+    """One XL update from ``snapshot`` on the same data and noise: the fused
+    kernel, the plain RSSM, and three faulty plain versions; plus the
+    profiler top-10 of the fused update."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sheeprl_tpu_torch.algos.dreamer_v3 import agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import blocks_to_device, draw_noise
+    from sheeprl_tpu_torch.ops.rssm import LN_GRU_EPS, LN_IN_EPS, rssm_recurrent_reference
+    from sheeprl_tpu_torch.utils.distribution import OneHotCategorical
+
+    cfg, trainer, dims = _trainer_from_snapshot(torch, snapshot)
+    L, B, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size), int(cfg.algo.horizon)
+    rng = np.random.default_rng(9)
+    block = {
+        "rgb": rng.integers(0, 256, (1, L, B, 64, 64, 3), dtype=np.uint8),
+        "state": rng.standard_normal((1, L, B, 4)).astype(np.float32),
+        "actions": np.eye(dims[0], dtype=np.float32)[rng.integers(0, dims[0], (1, L, B))],
+        "rewards": rng.standard_normal((1, L, B, 1)).astype(np.float32),
+        "terminated": (rng.random((1, L, B, 1)) < 0.02).astype(np.float32),
+        "is_first": (rng.random((1, L, B, 1)) < 0.02).astype(np.float32),
+    }
+    dev = trainer.device
+    blocks = blocks_to_device(block, trainer.cnn_keys, trainer.mlp_keys, dev)
+    noise = draw_noise(trainer.world_model, trainer.actor, 1, L, B, H, torch.Generator(dev).manual_seed(9))
+    start = trainer.snapshot()
+    captured = {}
+    wm_forward = trainer.wm_forward
+    stoch_flat = trainer.world_model.stoch_flat
+
+    def recording(data, post_noise):
+        loss, aux = wm_forward(data, post_noise)
+        captured["h"] = aux["latents"][..., stoch_flat:].detach()
+        return loss, aux
+
+    trainer.wm_forward = recording
+    fused = agent.fused_rssm_recurrent
+    # Every run replays the categorical samples (posterior, actions,
+    # imagination) of the first, so a near-tie that the kernel's rounding
+    # tips the other way cannot fork a trajectory: the runs differ by their
+    # arithmetic alone.  The straight-through gradient does not depend on
+    # which sample was drawn.
+    samples, replay = [], {"on": False, "i": 0}
+    sample_from_noise = OneHotCategorical.sample_from_noise
+
+    def recorded_sample(self, noise):
+        if replay["on"]:
+            replay["i"] += 1
+            return samples[replay["i"] - 1]
+        out = sample_from_noise(self, noise)
+        samples.append(out)
+        return out
+
+    def update(step_fn, profiled: bool = False):
+        trainer.restore(start)
+        agent.fused_rssm_recurrent = step_fn
+        OneHotCategorical.sample_from_noise = recorded_sample
+        replay["i"] = 0
+        try:
+            if profiled:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    metrics = trainer.train_phase(blocks, noise, 1)
+                    torch.cuda.synchronize()
+            else:
+                metrics = trainer.train_phase(blocks, noise, 1)
+        finally:
+            agent.fused_rssm_recurrent = fused
+            OneHotCategorical.sample_from_noise = sample_from_noise
+        if replay["on"] and replay["i"] != len(samples):
+            raise AssertionError(f"the run drew {replay['i']} categorical samples, the recording {len(samples)}")
+        replay["on"] = True
+        out = {"metrics": np.array([float(m) for m in metrics]), "grad_norm": float(trainer.last_wm_grad_norm),
+               "h": captured["h"].clone()}
+        return (out, prof) if profiled else out
+
+    update(fused)  # warm-up; records the samples every later run replays
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    update(fused)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    log(f"[train-parity] one fused XL update (with its restore): {wall_ms:.1f} ms, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    kernel, prof = update(fused, profiled=True)
+    plain = update(rssm_recurrent_reference)
+
+    def diffs(run):
+        rel = np.abs(run["metrics"] - plain["metrics"]) / np.maximum(np.abs(plain["metrics"]), 1e-6)
+        return {"loss_rel": float(rel.max()), "loss_rel_each": rel,
+                "grad_norm_rel": abs(run["grad_norm"] - plain["grad_norm"]) / abs(plain["grad_norm"]),
+                "latent_abs": float((run["h"] - plain["h"]).abs().max())}
+
+    def within(d):
+        return d["loss_rel"] <= TRAIN_TOL_REL and d["grad_norm_rel"] <= TRAIN_TOL_REL and d["latent_abs"] <= TRAIN_TOL_LATENT
+
+    got = diffs(kernel)
+    log(f"[train-parity] fused vs plain RSSM, one XL update ({len(samples)} sampling calls replayed): losses max "
+        f"rel diff {got['loss_rel']:.3g} ({', '.join(f'{x:.2e}' for x in got['loss_rel_each'])}), world-model grad "
+        f"norm rel diff {got['grad_norm_rel']:.3g} ({kernel['grad_norm']:.6g} vs {plain['grad_norm']:.6g}), "
+        f"posterior h max abs diff {got['latent_abs']:.3g}; tolerance rel {TRAIN_TOL_REL}, h {TRAIN_TOL_LATENT:.3g}")
+    if not (within(got) and np.isfinite(kernel["metrics"]).all()):
+        raise AssertionError("the fused-kernel update disagrees with the plain-RSSM update")
+    controls = {}
+    for name, variant in (("LayerNorm eps swapped", _rssm_variant(torch, LN_GRU_EPS, LN_IN_EPS, False)),
+                          ("reset/update gates swapped", _rssm_variant(torch, LN_IN_EPS, LN_GRU_EPS, True)),
+                          ("one-pass TF32 products", _rssm_variant(torch, LN_IN_EPS, LN_GRU_EPS, False, tf32=True))):
+        bad = controls[name] = diffs(update(variant))
+        log(f"[train-parity] {name}: losses max rel diff {bad['loss_rel']:.3g}, grad norm rel diff "
+            f"{bad['grad_norm_rel']:.3g}, posterior h max abs diff {bad['latent_abs']:.3g}")
+        if within(bad):
+            raise AssertionError(f"the parity tolerance does not catch a plain RSSM with the {name}")
+
+    rows = {}
+    for e in prof.key_averages():
+        ms = getattr(e, "self_device_time_total", None)
+        ms = (ms if ms is not None else e.self_cuda_time_total) / 1e3
+        if ms > 0:
+            rows[e.key] = (ms, e.count)
+    total = sum(ms for ms, _ in rows.values())
+    launches = sum(n for _, n in rows.values())
+    log(f"[profile] one XL update: {total:.1f} ms of device time in {launches} kernel launches; the same update "
+        f"unprofiled takes {wall_ms:.1f} ms of wall time (with its restore), so the device is busy "
+        f"{total / wall_ms:.1%} of it and idle {1 - total / wall_ms:.1%} (kernels that overlap count twice)")
+    for name, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"[profile] {ms:9.3f} ms {ms / total:6.1%} x{n:5d} {name[:110]}")
+    groups = {}
+    for name, (ms, n) in rows.items():
+        group = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)), "other (elementwise, reductions, copies)")
+        ms0, n0 = groups.get(group, (0.0, 0))
+        groups[group] = (ms0 + ms, n0 + n)
+    for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"[profile] by kind: {group}: {ms:.1f} ms ({ms / total:.1%}) in {n} launches")
+    del trainer, start
+    torch.cuda.empty_cache()
+    return {"diffs": got, "controls": controls, "profile_total_ms": total, "wall_ms": wall_ms, "launches": launches}
+
+
+def phase_serve_trained(torch, snapshot: Path) -> None:
+    from sheeprl_tpu_torch.serve.loader import load_policy
+
+    _, _, _, player = load_policy(snapshot, ["fabric.accelerator=gpu"])
+    rng = np.random.default_rng(3)
+    raw = {"rgb": rng.integers(0, 256, (1, 64, 64, 3), dtype=np.uint8),
+           "state": rng.standard_normal((1, 4)).astype(np.float32)}
+    carry, actions = player.step_batch(player.params, player.zero_carry(1), player.prepare(raw), 0,
+                                       np.array([True]))
+    action = player.postprocess(actions)
+    n_actions = int(player.actions_dim[0])
+    if not (np.isfinite(carry[0]).all() and action.shape == (1,) and 0 <= int(action[0]) < n_actions):
+        raise AssertionError(f"invalid served step from the trained snapshot: action {action!r}")
+    log(f"[serve-trained] {snapshot.name} on {player.device}: greedy action {int(action[0])} of {n_actions}")
+
+
 def timing_only(torch, package_root: str) -> int:
     """``--timing ROOT``: build and time the kernels of the port found under
     ``ROOT`` (for example an unpacked older commit) at every timed batch,
@@ -426,6 +762,34 @@ def timing_only(torch, package_root: str) -> int:
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(timing, indent=1))
     log(f"[timing] rows written to {out}")
+    return 0
+
+
+def first_window(torch) -> int:
+    """``--first-window``: the first Ratio window of the default XL recipe
+    (``learning_starts=1024``, replay ratio 1: 1024 updates in one window)
+    through ``cli.run``, with its chunks, per-update times and peak device
+    memory; one JSON line of them goes last."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import window_chunks
+
+    device = phase_device(torch)
+    phase_build()
+    per_update = (64 * 64 * 3 + 4 * 4 + 4 * (4 + 3)) * 64 * 16  # rgb, state, actions, 3 scalars; L 64, B 16
+    chunks = window_chunks(1024, per_update)
+    log(f"[first-window] one update's block {per_update} bytes; chunks {chunks}")
+    run_root = ROOT / "build" / "chip_smoke_first_window"
+    shutil.rmtree(run_root, ignore_errors=True)
+    try:
+        train = _train(torch, [*XL_TRAIN, "algo.world_model.recurrent_model.fused_pallas=True",
+                               "algo.learning_starts=1024", "algo.replay_ratio=1", "algo.total_steps=1024",
+                               "algo.run_test=False"], run_root, "rssm")
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    if train["updates"] != 1024:
+        raise AssertionError(f"the first window ran {train['updates']} updates, expected 1024")
+    print(json.dumps({"first_window": {k: train[k] for k in ("updates", "first_update_s", "median_update_s",
+                                                              "updates_per_s", "peak_bytes", "wall_s")},
+                      "chunks": chunks, "device": device}), flush=True)
     return 0
 
 
@@ -445,6 +809,8 @@ def main() -> int:
     if sys.argv[1:2] == ["--timing"]:
         log(f"[timing] sheeprl_tpu_torch from {Path(sheeprl_tpu_torch.__file__).parent}")
         return timing_only(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--first-window"]:
+        return first_window(torch)
 
     run_root = ROOT / "build" / "chip_smoke"
     shutil.rmtree(run_root, ignore_errors=True)
@@ -473,7 +839,23 @@ def main() -> int:
 
         rung = {"rssm": main_rung(served["stats"]), "gru": main_rung(gru_served["stats"])}
         timing = time_kernels(torch, za, sorted({*TIMED_BATCHES, *rung.values()}))
-        launches = {"rssm": served["counts"]["rssm"], "gru": gru_served["counts"]["gru"]}
+        train = _train(torch, [*XL_TRAIN, *XL_TRAIN_STEPS, "algo.world_model.recurrent_model.fused_pallas=True"],
+                       run_root / "train_xl", "rssm")
+        if train["counts"]["gru"]:
+            raise AssertionError(f"the fused-RSSM training run launched the gru kernel: {train['counts']}")
+        train_parity = phase_train_parity(torch, train["snapshot"])
+        phase_serve_trained(torch, train["snapshot"])
+        train_gru = _train(torch, S_TRAIN, run_root / "train_s_gru", "gru")
+        if train_gru["counts"]["rssm"]:
+            raise AssertionError(f"the use_pallas training run launched the rssm kernel: {train_gru['counts']}")
+
+        launches = {"rssm": train["counts"]["rssm"], "gru": train_gru["counts"]["gru"]}
+        launches_by_path = {
+            "rssm": {"serve": served["counts"]["rssm"], "train": train["counts"]["rssm"],
+                     "train_per_update": train["per_update"][0]},
+            "gru": {"serve": gru_served["counts"]["gru"], "train": train_gru["counts"]["gru"],
+                    "train_per_update": train_gru["per_update"][0]},
+        }
         sources = {
             "rssm": ("sheeprl_tpu_torch/csrc/rssm.cu",
                      "sheeprl_tpu/ops/rssm_pallas.py:70 (_rssm_kernel), sheeprl_tpu/ops/rssm_pallas.py:260 "
@@ -485,14 +867,15 @@ def main() -> int:
             t = timing[name][rung[name]]
             kernels.append({
                 "name": name, "route": "cuda", "source": sources[name][0], "replaces": sources[name][1],
-                "launches": launches[name], "max_abs_err": worst[name],
+                "launches": launches[name], "launches_by_path": launches_by_path[name], "max_abs_err": worst[name],
                 "ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": None, "gemm_library_ms": t["gemm_library_ms"],
                 "shape": list(t["shape"]),
                 "timing_by_batch": {str(b): {k: v for k, v in row.items() if k not in ("shape", "breakdown")}
                                     for b, row in timing[name].items()},
             })
-        log(f"[done] parity err {parity_err:.2e}; total {time.perf_counter() - t_start:.1f} s")
+        log(f"[done] serve parity err {parity_err:.2e}; train parity {train_parity['diffs']['loss_rel']:.3g} rel; "
+            f"XL training {train['updates_per_s']:.3f} updates/s; total {time.perf_counter() - t_start:.1f} s")
     except BaseException:
         traceback.print_exc()
         return 1

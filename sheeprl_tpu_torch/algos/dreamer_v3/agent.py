@@ -438,10 +438,14 @@ class WorldModel(nn.Module):
         return h, z.reshape(B, self.stoch_flat), post_logits, prior_logits
 
     def imagination(self, prev_h, prev_z, action, generator: torch.Generator):
-        """One prior step."""
+        """One prior step; the sample's noise is drawn from ``generator``."""
+        return self.imagination_noise(prev_h, prev_z, action, self.posterior_noise(prev_h.shape[0], generator))
+
+    def imagination_noise(self, prev_h, prev_z, action, noise: torch.Tensor):
+        """:meth:`imagination` with pre-drawn Gumbel noise (B, stoch, discrete)."""
         h = self.recurrent_model(prev_h, torch.cat([prev_z, action], dim=-1)).float()
         prior_logits = self._logits_reshape(self.transition_model(h))
-        z = OneHotCategorical(prior_logits, unimix=self.unimix).rsample(generator)
+        z = OneHotCategorical(prior_logits, unimix=self.unimix).rsample_from_noise(noise)
         return h, z.reshape(z.shape[0], self.stoch_flat)
 
     def decode(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
@@ -500,15 +504,45 @@ class Actor(nn.Module):
             start += d
         return dists
 
+    def sample_noise(self, lead: Sequence[int], generator: torch.Generator) -> List[torch.Tensor]:
+        """The draws one :meth:`sample` of a ``lead``-shaped batch consumes:
+        one standard normal (``(*lead, A)``) for continuous actions, else one
+        Gumbel per branch (``(*lead, d)``)."""
+        if self.is_continuous:
+            return [Normal.sample_noise((*lead, self.actions_dim[0]), generator, generator.device)]
+        return [gumbel_noise((*lead, d), generator, generator.device) for d in self.actions_dim]
+
     def sample(self, head_out: torch.Tensor, generator: torch.Generator, greedy: bool = False) -> torch.Tensor:
+        noise = () if greedy else self.sample_noise(head_out.shape[:-1], generator)
+        return self.sample_from_noise(head_out, noise, greedy)
+
+    def sample_from_noise(self, head_out: torch.Tensor, noise: Sequence[torch.Tensor], greedy: bool = False):
+        """:meth:`sample` with the draws of :meth:`sample_noise`.  A continuous
+        sample is clipped by a scale that carries no gradient, so saturated
+        samples keep d(action)/d(params)."""
         dists = self.dists(head_out)
         if self.is_continuous:
-            a = dists[0].mode() if greedy else dists[0].sample(generator)
+            a = dists[0].mode() if greedy else dists[0].sample_from_noise(noise[0])
             if self.action_clip > 0:
                 scale = (self.action_clip / torch.clamp(torch.abs(a), min=self.action_clip)).detach()
                 a = a * scale
             return a
-        return torch.cat([d.mode() if greedy else d.rsample(generator) for d in dists], dim=-1)
+        if greedy:
+            return torch.cat([d.mode() for d in dists], dim=-1)
+        return torch.cat([d.rsample_from_noise(n) for d, n in zip(dists, noise)], dim=-1)
+
+    def log_prob(self, head_out: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
+        dists = self.dists(head_out)
+        if self.is_continuous:
+            return dists[0].log_prob(actions)
+        lp, start = 0.0, 0
+        for d, dim in zip(dists, self.actions_dim):
+            lp = lp + d.log_prob(actions[..., start : start + dim])
+            start += dim
+        return lp
+
+    def entropy(self, head_out: torch.Tensor) -> torch.Tensor:
+        return sum(d.entropy() for d in self.dists(head_out))
 
 
 class Critic(nn.Module):

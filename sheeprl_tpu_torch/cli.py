@@ -1,13 +1,108 @@
-"""Command-line entry points of the port: ``serve`` and ``evaluation``
-(counterparts of ``sheeprl_tpu/cli.py``'s, for algorithms with a serving
-player)."""
+"""Command-line entry points of the port: ``run`` (training), ``serve`` and
+``evaluation`` (counterparts of ``sheeprl_tpu/cli.py``'s).
+
+Usage:
+    python -m sheeprl_tpu_torch exp=dreamer_v3 env=dummy [overrides...]
+"""
 
 from __future__ import annotations
 
+import pathlib
 import sys
+import warnings
 from typing import List, Optional, Tuple
 
-from sheeprl_tpu_torch.config.compose import ConfigError
+import yaml
+
+from sheeprl_tpu_torch.config.compose import ConfigError, compose
+from sheeprl_tpu_torch.utils.registry import algorithm_registry, resolve_algorithm, resolve_entrypoint
+from sheeprl_tpu_torch.utils.structured import deep_merge, dotdict
+
+#: modules whose import registers the port's algorithms
+ALGORITHM_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",)
+
+
+def register_all_algorithms() -> None:
+    import importlib
+
+    for name in ALGORITHM_MODULES:
+        importlib.import_module(name)
+
+
+def check_configs(cfg: dotdict) -> None:
+    """Config sanity checks before dispatch."""
+    if "algo" not in cfg or cfg.algo.get("name") in (None, "???"):
+        raise ConfigError(
+            "No algorithm specified: pass exp=<experiment> or algo=<name> "
+            f"(registered: {', '.join(sorted(algorithm_registry))})"
+        )
+    if cfg.algo.name not in algorithm_registry:
+        raise ConfigError(
+            f"Algorithm '{cfg.algo.name}' is not ported to sheeprl_tpu_torch yet. "
+            f"Registered: {', '.join(sorted(algorithm_registry))}"
+        )
+    if "env" not in cfg or cfg.env.get("id") in (None, "???"):
+        raise ConfigError("No environment specified: set env=<group> / env.id=<id>")
+    for field in ("total_steps", "per_rank_batch_size"):
+        if cfg.algo.get(field) in (None, "???"):
+            raise ConfigError(f"algo.{field} must be set")
+
+
+def resume_from_checkpoint(cfg: dotdict) -> dotdict:
+    """Merge the previous run's saved config under the new one, keeping the
+    caller's ``total_steps`` / ``learning_starts``."""
+    ckpt_path = pathlib.Path(cfg.checkpoint.resume_from)
+    old_cfg_path = ckpt_path.parent.parent / "config.yaml"
+    if not old_cfg_path.is_file():
+        return cfg
+    with open(old_cfg_path) as f:
+        old = yaml.safe_load(f)
+    keep = {"total_steps": cfg.algo.get("total_steps"), "learning_starts": cfg.algo.get("learning_starts")}
+    out = dotdict(deep_merge(old, cfg.as_dict()))
+    for k, v in keep.items():
+        if v is not None:
+            out.algo[k] = v
+    out.checkpoint.resume_from = str(ckpt_path)
+    return out
+
+
+def resolve_resume_target(cfg: dotdict) -> dotdict:
+    """``checkpoint.resume_from=auto`` → the newest committed snapshot of this
+    experiment, or a fresh start (with a warning) when there is none."""
+    if cfg.checkpoint.get("resume_from") != "auto":
+        return cfg
+    from sheeprl_tpu_torch.checkpoint.manager import resolve_auto_resume
+    from sheeprl_tpu_torch.checkpoint.protocol import verify_or_quarantine
+
+    damaged: set = set()
+    target = resolve_auto_resume(cfg.get("log_dir", "logs/runs"), cfg.root_dir)
+    while target is not None and cfg.checkpoint.get("verify_on_resume", True) and verify_or_quarantine(target):
+        damaged.add(target)
+        target = resolve_auto_resume(cfg.get("log_dir", "logs/runs"), cfg.root_dir, exclude=damaged)
+    if target is None:
+        warnings.warn("checkpoint.resume_from=auto: no committed checkpoint found; starting fresh", UserWarning)
+        cfg.checkpoint.resume_from = None
+    else:
+        print(f"checkpoint.resume_from=auto -> {target}")
+        cfg.checkpoint.resume_from = str(target)
+    return cfg
+
+
+def run(argv: Optional[List[str]] = None) -> None:
+    """Compose the config, check it, and run the registered algorithm on the
+    fabric's device."""
+    from sheeprl_tpu_torch.fabric import build_fabric
+
+    argv = list(sys.argv[1:] if argv is None else argv)
+    cfg = compose(argv)
+    cfg = resolve_resume_target(cfg)
+    if cfg.checkpoint.get("resume_from"):
+        cfg = resume_from_checkpoint(cfg)
+    register_all_algorithms()
+    check_configs(cfg)
+    entry = resolve_algorithm(cfg.algo.name, decoupled=cfg.fabric.get("decoupled"))
+    fabric = build_fabric(cfg)
+    resolve_entrypoint(entry)(fabric, cfg)
 
 
 def _split_checkpoint_arg(argv: Optional[List[str]], command: str) -> Tuple[str, List[str]]:

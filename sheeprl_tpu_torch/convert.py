@@ -14,7 +14,8 @@ modules carry the flax names, so each flax path maps to a key by rule:
   and flax's does not;
 * the kernel-flag parameters (``fused_kernel``, ``in_kernel``,
   ``gru_kernel``, ``ln_scale``, ...) and ``initial_recurrent`` keep their
-  name and their (in, out) layout.
+  name and their (in, out) layout;
+* the Moments state ``moments/{low,high}`` becomes two 0-d tensors.
 """
 
 from __future__ import annotations
@@ -59,12 +60,24 @@ def module_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tens
 
 
 def agent_state_from_jax(params: Mapping[str, Any], cfg: Any) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The port's DreamerV3 ``state_dict``s from a JAX ``build_agent`` tree.
+    """The port's DreamerV3 ``state_dict``s (and ``moments``, when the tree
+    has them) from a JAX ``build_agent`` tree.
 
     ``cfg`` must select the same recurrent layout the tree was built with:
     the kernel flags change the parameter names, and loading the result into
-    a port agent built from ``cfg`` checks every name and shape."""
+    a port agent built from ``cfg`` checks every name and shape.  The target
+    critic must have the critic's parameters, name for name and shape for
+    shape."""
+    missing = [name for name in ("world_model", "actor", "critic", "target_critic") if name not in params]
+    if missing:
+        raise ValueError(f"the parameter tree has no {missing}")
     out = {name: module_state_from_flax(params[name]) for name in ("world_model", "actor", "critic", "target_critic")}
+    critic_shapes = {k: tuple(v.shape) for k, v in out["critic"].items()}
+    target_shapes = {k: tuple(v.shape) for k, v in out["target_critic"].items()}
+    if critic_shapes != target_shapes:
+        raise ValueError(f"target_critic {target_shapes} does not mirror critic {critic_shapes}")
+    if "moments" in params:
+        out["moments"] = {k: torch.tensor(np.asarray(params["moments"][k], np.float32)) for k in ("low", "high")}
     rm = cfg.algo.world_model.recurrent_model
     fused = bool(rm.get("fused_pallas", False))
     if fused != ("recurrent_model.in_kernel" in out["world_model"]):

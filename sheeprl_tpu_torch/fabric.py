@@ -4,15 +4,19 @@
 ``fabric.accelerator`` ``auto`` or ``gpu``/``cuda`` means ``cuda:0`` and
 raises when no GPU is present; only ``cpu`` gives the CPU.  ``32-true`` is
 full fp32: TF32 is switched off for matrix products and for cuDNN's
-convolutions.
+convolutions.  :class:`PlayerSync` keeps the env player's own copy of the
+weights it acts with, refreshed after train windows.
 """
 
 from __future__ import annotations
 
+import copy
 import os
+import random
 from dataclasses import dataclass
-from typing import Any, Dict, Union
+from typing import Any, Callable, Dict, Tuple, Union
 
+import numpy as np
 import torch
 
 
@@ -26,6 +30,33 @@ class Fabric:
         from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
 
         return load_step_dir(path, rank=0, map_location=self.device)
+
+    def seed_everything(self, seed: int, player_device: torch.device) -> Tuple[torch.Generator, torch.Generator]:
+        """Seed Python's, numpy's and torch's global generators (the env
+        action sampling and the replay sampling draw from numpy's) and
+        return the two explicit generators of a run: the train draws on
+        this device and the player's draws on ``player_device``."""
+        random.seed(seed)
+        np.random.seed(seed)
+        torch.manual_seed(seed)
+        train = torch.Generator(self.device).manual_seed(int(seed))
+        player = torch.Generator(player_device).manual_seed(int(seed) + 1)
+        return train, player
+
+    def player_device(self, cfg: Any) -> torch.device:
+        """``algo.player.device``: ``accelerator`` is this fabric's device,
+        ``host`` the CPU."""
+        where = str((cfg.algo.get("player") or {}).get("device", "accelerator"))
+        if where == "accelerator":
+            return self.device
+        if where == "host":
+            return torch.device("cpu")
+        raise ValueError(f"algo.player.device={where}: choose accelerator or host")
+
+    def get_checkpoint_manager(self, cfg: Any, log_dir: Union[str, os.PathLike]):
+        from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
+
+        return CheckpointManager(cfg, log_dir)
 
 
 def _device(accelerator: str) -> torch.device:
@@ -56,3 +87,90 @@ def build_fabric(cfg: Any) -> Fabric:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return Fabric(device=device, precision=precision)
+
+
+class PlayerSync:
+    """The env player's own copy of the modules it acts with, and when it is
+    refreshed from the trained ones (the staleness semantics of the JAX
+    package's ``PlayerSync``).
+
+    After every ``algo.player.sync_every``-th train window the trained
+    weights are taken; with ``algo.player.deferred_sync`` (the default) they
+    reach the player only at the start of the next window, so the player
+    acts on weights one window old, as the JAX player does while the device
+    trains the next window.  ``Player/*`` metrics report the staleness in
+    windows."""
+
+    def __init__(self, cfg: Any, device: torch.device, extract: Callable[[], Dict[str, torch.nn.Module]]):
+        player_cfg = cfg.algo.get("player", {}) or {}
+        self.device = device
+        self.extract = extract
+        self.deferred = bool(player_cfg.get("deferred_sync", True))
+        self.sync_every = max(1, int(player_cfg.get("sync_every", 1)))
+        self.modules: Dict[str, torch.nn.Module] = {}
+        self._pending: Union[Dict[str, Dict[str, torch.Tensor]], None] = None
+        self._windows = 0
+        self._player_version = 0
+        self._pending_version = 0
+        self.staleness_max = 0
+
+    def init(self) -> Dict[str, torch.nn.Module]:
+        """The player's modules, copies of the current trained ones."""
+        self._player_version = self._windows
+        self._pending = None
+        self.modules = {}
+        for name, module in self.extract().items():
+            player = copy.deepcopy(module).to(self.device)
+            player.requires_grad_(False)
+            self.modules[name] = player.eval()
+        return self.modules
+
+    def _load(self, states: Dict[str, Dict[str, torch.Tensor]]) -> None:
+        with torch.no_grad():
+            for name, state in states.items():
+                self.modules[name].load_state_dict(state)
+
+    @property
+    def staleness(self) -> int:
+        return self._windows - self._player_version
+
+    def _observe(self) -> None:
+        self.staleness_max = max(self.staleness_max, self.staleness)
+
+    def metrics(self) -> Dict[str, float]:
+        return {
+            "Player/param_staleness_windows": float(self.staleness),
+            "Player/param_staleness_max": float(self.staleness_max),
+        }
+
+    def before_dispatch(self) -> None:
+        """Hand the player the weights taken after the previous window."""
+        if self._pending is not None:
+            pending, self._pending = self._pending, None
+            self._player_version = self._pending_version
+            self._load(pending)
+        self._observe()
+
+    def after_dispatch(self) -> None:
+        self._windows += 1
+        if self._windows % self.sync_every != 0:
+            self._observe()
+            return
+        current = {name: m.state_dict() for name, m in self.extract().items()}
+        if self.deferred:
+            # the trained tensors change in place in the next window
+            self._pending = {name: {k: v.detach().clone() for k, v in sd.items()} for name, sd in current.items()}
+            self._pending_version = self._windows
+        else:
+            self._player_version = self._windows
+            self._load(current)
+        self._observe()
+
+    def state_dict(self) -> Dict[str, int]:
+        """The refresh cadence; a resumed player starts from the saved weights."""
+        return {"windows": self._windows}
+
+    def load_state_dict(self, state: Dict[str, int]) -> None:
+        self._windows = int(state.get("windows", 0))
+        self._player_version = self._windows
+        self._pending = None

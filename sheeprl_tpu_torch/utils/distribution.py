@@ -1,10 +1,14 @@
-"""The distributions the serving path samples from (counterparts of
-``sheeprl_tpu/utils/distribution.py``: :class:`OneHotCategorical` with
-unimix and the straight-through rsample, and :class:`Normal`).
+"""Distributions of the DreamerV3 path (counterparts of
+``sheeprl_tpu/utils/distribution.py``): :class:`OneHotCategorical` with
+unimix and the straight-through rsample, :class:`Normal`,
+:class:`TruncatedNormal`, :class:`Bernoulli`, and the regression heads
+:class:`MSEDistribution`, :class:`SymlogDistribution` and
+:class:`TwoHotEncodingDistribution`.
 
 Randomness comes from an explicit ``torch.Generator``, or as pre-drawn
-noise: ``sample(generator)`` is ``sample_from_noise(sample_noise(...))``,
-so a test can hand both packages the same numpy noise.
+noise: ``sample(generator)`` is ``sample_from_noise(sample_noise(...))``
+for every distribution that samples, so a test can hand both packages the
+same numpy noise.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+
+from sheeprl_tpu_torch.utils.utils import symexp, symlog, two_hot_buckets
 
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -84,18 +90,27 @@ class OneHotCategorical:
         return self._one_hot(torch.argmax(self.logits, dim=-1))
 
 
+def kl_categorical(p: OneHotCategorical, q: OneHotCategorical) -> torch.Tensor:
+    """KL(p‖q) summed over the categorical axis."""
+    return torch.sum(p.probs * (p.logits - q.logits), dim=-1)
+
+
 class Normal:
     def __init__(self, loc: torch.Tensor, scale: torch.Tensor, event_dims: int = 0):
         self.loc = loc
         self.scale = scale
         self.event_dims = event_dims
 
+    @staticmethod
+    def sample_noise(shape: Sequence[int], generator: torch.Generator, device: torch.device) -> torch.Tensor:
+        """Standard normal noise, the draw :meth:`sample` consumes."""
+        return torch.randn(tuple(shape), generator=generator, device=device)
+
     def sample_from_noise(self, noise: torch.Tensor) -> torch.Tensor:
         return self.loc + self.scale * noise
 
     def sample(self, generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        noise = torch.randn(self.loc.shape, generator=generator, device=self.loc.device, dtype=self.loc.dtype)
-        return self.sample_from_noise(noise)
+        return self.sample_from_noise(self.sample_noise(self.loc.shape, generator, self.loc.device))
 
     rsample = sample  # reparameterized by construction
 
@@ -110,3 +125,158 @@ class Normal:
 
     def mode(self) -> torch.Tensor:
         return self.loc
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.loc
+
+
+def _norm_pdf(x: torch.Tensor) -> torch.Tensor:
+    return torch.exp(-0.5 * x**2 - _HALF_LOG_2PI)
+
+
+class TruncatedNormal:
+    """Normal truncated to ``[low, high]``; inverse-CDF sampling from a
+    uniform draw in ``[1e-6, 1 - 1e-6)``."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor, low: float = -1.0, high: float = 1.0,
+                 event_dims: int = 0):
+        self.loc = loc
+        self.scale = scale
+        self.low = low
+        self.high = high
+        self.event_dims = event_dims
+        self._a = (low - loc) / scale
+        self._b = (high - loc) / scale
+        self._cdf_a = torch.special.ndtr(self._a)
+        self._z = torch.clamp(torch.special.ndtr(self._b) - self._cdf_a, min=1e-8)
+
+    @staticmethod
+    def sample_noise(shape: Sequence[int], generator: torch.Generator, device: torch.device) -> torch.Tensor:
+        return 1e-6 + (1.0 - 2e-6) * torch.rand(tuple(shape), generator=generator, device=device)
+
+    def sample_from_noise(self, u: torch.Tensor) -> torch.Tensor:
+        p = self._cdf_a + u * self._z
+        x = self.loc + self.scale * torch.special.ndtri(torch.clamp(p, 1e-7, 1 - 1e-7))
+        return torch.clamp(x, self.low, self.high)
+
+    def sample(self, generator: torch.Generator) -> torch.Tensor:
+        return self.sample_from_noise(self.sample_noise(self.loc.shape, generator, self.loc.device))
+
+    rsample = sample
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        z = (value - self.loc) / self.scale
+        lp = -0.5 * z**2 - torch.log(self.scale) - _HALF_LOG_2PI - torch.log(self._z)
+        return _sum_event(lp, self.event_dims)
+
+    def entropy(self) -> torch.Tensor:
+        frac = (self._a * _norm_pdf(self._a) - self._b * _norm_pdf(self._b)) / self._z
+        ent = 0.5 + _HALF_LOG_2PI + torch.log(self.scale * self._z) + 0.5 * frac
+        return _sum_event(ent, self.event_dims)
+
+    def mode(self) -> torch.Tensor:
+        return torch.clamp(self.loc, self.low, self.high)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.loc + self.scale * (_norm_pdf(self._a) - _norm_pdf(self._b)) / self._z
+
+
+class MSEDistribution:
+    """Deterministic prediction scored with -MSE."""
+
+    def __init__(self, mode: torch.Tensor, event_dims: int = 0):
+        self._mode = mode
+        self.event_dims = event_dims
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        return _sum_event(-((self._mode - value) ** 2), self.event_dims)
+
+    def mode(self) -> torch.Tensor:
+        return self._mode
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self._mode
+
+
+class SymlogDistribution:
+    """MSE in symlog space; mode and mean decode with symexp."""
+
+    def __init__(self, mode: torch.Tensor, event_dims: int = 1):
+        self._mode = mode
+        self.event_dims = event_dims
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        return _sum_event(-((self._mode - symlog(value)) ** 2), self.event_dims)
+
+    def mode(self) -> torch.Tensor:
+        return symexp(self._mode)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return symexp(self._mode)
+
+
+class TwoHotEncodingDistribution:
+    """Symlog two-hot categorical over ``logits.shape[-1]`` evenly spaced
+    bins in ``[low, high]``: ``log_prob(x)`` = two-hot(symlog x) ·
+    log-softmax(logits), ``mean`` = symexp of the expected bin."""
+
+    def __init__(self, logits: torch.Tensor, dims: int = 1, low: float = -20.0, high: float = 20.0):
+        self.logits = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
+        self.event_dims = dims
+        self.low, self.high = float(low), float(high)
+        self.bins = torch.linspace(low, high, logits.shape[-1], dtype=torch.float32, device=logits.device)
+
+    @property
+    def probs(self) -> torch.Tensor:
+        return torch.exp(self.logits)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return symexp(torch.sum(self.probs * self.bins, dim=-1, keepdim=True))
+
+    def mode(self) -> torch.Tensor:
+        return self.mean
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        """``value`` (..., 1) → (...) after the event reduction."""
+        x = symlog(value).clamp(self.low, self.high)
+        target = two_hot_buckets(x, self.bins)
+        lp = torch.sum(target * self.logits, dim=-1, keepdim=True)
+        return _sum_event(lp, self.event_dims)
+
+
+class Bernoulli:
+    """Bernoulli over logits with a mode that is never NaN."""
+
+    def __init__(self, logits: torch.Tensor, event_dims: int = 0):
+        self.logits = logits
+        self.event_dims = event_dims
+
+    @property
+    def probs(self) -> torch.Tensor:
+        return torch.sigmoid(self.logits)
+
+    def log_prob(self, value) -> torch.Tensor:
+        lp = -F.softplus(-self.logits) * value - F.softplus(self.logits) * (1.0 - value)
+        return _sum_event(lp, self.event_dims)
+
+    @staticmethod
+    def sample_noise(shape: Sequence[int], generator: torch.Generator, device: torch.device) -> torch.Tensor:
+        return torch.rand(tuple(shape), generator=generator, device=device)
+
+    def sample_from_noise(self, u: torch.Tensor) -> torch.Tensor:
+        return (u < self.probs).to(torch.float32)
+
+    def sample(self, generator: torch.Generator) -> torch.Tensor:
+        return self.sample_from_noise(self.sample_noise(self.logits.shape, generator, self.logits.device))
+
+    def mode(self) -> torch.Tensor:
+        return (self.probs > 0.5).to(torch.float32)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.probs

@@ -1,14 +1,19 @@
-"""Environment factory for the port: ``make_env`` for the dummy envs.
+"""Environment factory for the port: ``make_env`` for the dummy envs and a
+synchronous vector env.
 
 Counterpart of ``sheeprl_tpu/utils/env.py`` restricted to the ``dummy``
 wrapper kind: the suite env, then ActionRepeat, FrameStack and TimeLimit,
 seeded like the JAX factory.  Settings this factory does not implement
-raise instead of being dropped.
+raise instead of being dropped.  :func:`vectorize` steps the envs on the
+caller's thread with same-step autoreset and episode statistics, the
+semantics the JAX loops get from gymnasium's vector envs.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
 
 from sheeprl_tpu_torch.envs.dummy import (
     ContinuousDummyEnv,
@@ -93,3 +98,102 @@ def make_env(
         return _build()
 
     return thunk
+
+
+class SyncVectorEnv:
+    """``n`` envs stepped in turn on the caller's thread.
+
+    Same-step autoreset: an env whose episode ends is reset within the same
+    ``step``; the returned observation is the reset's, the final one is in
+    ``info["final_obs"]`` (an object array, None for running envs).  Finished
+    episodes report their return and length in ``info["episode"]`` under
+    the mask ``info["_episode"]``; other per-env info keys become arrays
+    under ``info[key]`` with the mask ``info["_" + key]``."""
+
+    def __init__(self, thunks: List[Callable[[], Env]]):
+        self.envs = [t() for t in thunks]
+        self.num_envs = len(self.envs)
+        self.single_observation_space = self.envs[0].observation_space
+        self.single_action_space = self.envs[0].action_space
+        self._returns = np.zeros(self.num_envs, np.float64)
+        self._lengths = np.zeros(self.num_envs, np.int64)
+
+    @staticmethod
+    def _stack(obs: List[Dict[str, np.ndarray]]) -> Dict[str, np.ndarray]:
+        return {k: np.stack([np.asarray(o[k]) for o in obs]) for k in obs[0]}
+
+    @staticmethod
+    def _merge_infos(infos: List[Dict[str, Any]], into: Dict[str, Any]) -> Dict[str, Any]:
+        n = len(infos)
+        for i, info in enumerate(infos):
+            for k, v in info.items():
+                if k not in into:
+                    into[k] = np.zeros(n, dtype=np.asarray(v).dtype) if np.isscalar(v) else np.empty(n, object)
+                    into["_" + k] = np.zeros(n, bool)
+                into[k][i] = v
+                into["_" + k][i] = True
+        return into
+
+    def reset(self, seed: Optional[int] = None) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+        results = [env.reset(seed=None if seed is None else seed + i) for i, env in enumerate(self.envs)]
+        self._returns[:] = 0.0
+        self._lengths[:] = 0
+        return self._stack([o for o, _ in results]), self._merge_infos([i for _, i in results], {})
+
+    def step(self, actions: np.ndarray):
+        obs, infos = [], []
+        rewards = np.zeros(self.num_envs, np.float64)
+        terminated = np.zeros(self.num_envs, bool)
+        truncated = np.zeros(self.num_envs, bool)
+        final_obs = np.empty(self.num_envs, object)
+        ep_r = np.zeros(self.num_envs, np.float64)
+        ep_l = np.zeros(self.num_envs, np.int64)
+        done_mask = np.zeros(self.num_envs, bool)
+        for i, env in enumerate(self.envs):
+            o, r, term, trunc, info = env.step(actions[i])
+            rewards[i], terminated[i], truncated[i] = float(r), bool(term), bool(trunc)
+            self._returns[i] += float(r)
+            self._lengths[i] += 1
+            if term or trunc:
+                final_obs[i] = o
+                ep_r[i], ep_l[i], done_mask[i] = self._returns[i], self._lengths[i], True
+                self._returns[i], self._lengths[i] = 0.0, 0
+                o, reset_info = env.reset()
+                info = {**info, **reset_info}
+            obs.append(o)
+            infos.append(info)
+        out_info = self._merge_infos(infos, {})
+        if done_mask.any():
+            out_info["final_obs"], out_info["_final_obs"] = final_obs, done_mask
+            out_info["episode"], out_info["_episode"] = {"r": ep_r, "l": ep_l}, done_mask
+        return self._stack(obs), rewards, terminated, truncated, out_info
+
+    def close(self) -> None:
+        for env in self.envs:
+            env.close()
+
+
+def vectorize(cfg: Any, thunks: List[Callable[[], Env]]) -> SyncVectorEnv:
+    """The envs of ``thunks`` behind one :class:`SyncVectorEnv` (the port has
+    no subprocess vector env; ``env.sync_env=False`` steps synchronously too)."""
+    return SyncVectorEnv(thunks)
+
+
+def episode_stats(info: Dict[str, Any]) -> List[Tuple[float, int]]:
+    """Finished-episode (return, length) pairs of one vector step."""
+    if "episode" not in info:
+        return []
+    ep, mask = info["episode"], np.asarray(info["_episode"], bool)
+    return [(float(ep["r"][i]), int(ep["l"][i])) for i in np.nonzero(mask)[0]]
+
+
+def final_obs_rows(info: Dict[str, Any], env_indices: np.ndarray, obs_keys) -> Optional[Dict[str, np.ndarray]]:
+    """The real final observations of the given env rows, stacked per key
+    (None when any of them is missing)."""
+    fo = info.get("final_obs")
+    if fo is None:
+        return None
+    rows = [fo[i] for i in env_indices]
+    if any(not isinstance(r, dict) for r in rows):
+        return None
+    return {k: np.stack([np.asarray(r[k]) for r in rows]) for k in obs_keys}

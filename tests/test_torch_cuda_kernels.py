@@ -82,3 +82,37 @@ def test_wrapper_raises_on_what_the_kernel_does_not_take(dev):
         gru.fused_layernorm_gru(torch.zeros(2, 16, device=dev), torch.zeros(2, 6, device=dev),
                                 torch.zeros(22, 18, device=dev), torch.ones(18, device=dev),
                                 torch.zeros(18, device=dev))
+
+
+@pytest.mark.parametrize("B", [16, 1024])
+@pytest.mark.parametrize("wrt", ["x_h", "all"])
+def test_gradients_match_autograd_of_the_plain_versions(dev, B, wrt):
+    """The training path's gradients at the posterior-scan (B = 16) and
+    imagination (B = 1024) batches, S width: with respect to x and h only
+    (the imagination's frozen world model) and to every input (the world
+    model's update).  Both differentiate the same plain version at the
+    saved inputs; the upstream gradient is random so every output counts."""
+    ZA, D, H = 1028, 512, 512
+    w = list(_weights(ZA, D, H, dev, seed=B))
+    x, y = torch.randn(B, ZA, device=dev), torch.randn(B, D, device=dev)
+    h = torch.tanh(torch.randn(B, H, device=dev))
+    up = torch.randn(B, H, device=dev)
+    cases = (
+        (rssm.fused_rssm_recurrent, rssm.rssm_recurrent_reference, [x, h, *w], "rssm"),
+        (gru.fused_layernorm_gru, gru.layernorm_gru_reference, [y, h, *w[4:]], "gru"),
+    )
+    for fused, plain, inputs, name in cases:
+        grads = []
+        for fn in (fused, plain):
+            leaves = [t.detach().clone().requires_grad_(wrt == "all" or i < 2) for i, t in enumerate(inputs)]
+            before = (rssm.LAUNCHES["rssm"], gru.LAUNCHES["gru"])
+            (fn(*leaves) * up).sum().backward()
+            if fn is fused:
+                assert (rssm.LAUNCHES["rssm"], gru.LAUNCHES["gru"]) != before, f"{name}: no kernel launch"
+            grads.append([t.grad for t in leaves])
+        for i, (got, want) in enumerate(zip(*grads)):
+            if want is None:
+                assert got is None
+                continue
+            torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item(),
+                                       msg=f"{name} input {i}")

@@ -1,0 +1,286 @@
+"""DreamerV3 training through the port's entry point, on the CPU: a dry run
+through ``sheeprl_tpu_torch.cli.run`` on the tiny recipe of
+``tests/test_algos/test_algos.py``, a resume from its snapshot, the snapshot
+served by ``load_policy``, and the settings the port does not implement yet."""
+
+import csv
+import glob
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from sheeprl_tpu_torch.checkpoint.protocol import latest_checkpoint, load_step_dir
+from sheeprl_tpu_torch.cli import run
+from sheeprl_tpu_torch.serve.loader import load_policy
+
+TINY = [
+    "exp=dreamer_v3",
+    "env=dummy",
+    "env.id=discrete_dummy",
+    "algo=dreamer_v3_XS",
+    "env.num_envs=2",
+    "env.capture_video=False",
+    "fabric.accelerator=cpu",
+    "metric.log_level=1",
+    "metric.log_every=1",
+    "metric/logger=csv",
+    "buffer.memmap=False",
+    "buffer.checkpoint=True",
+    "checkpoint.every=1000000",
+    "checkpoint.async_save=False",
+    "algo.per_rank_batch_size=2",
+    "algo.per_rank_sequence_length=8",
+    "algo.learning_starts=0",
+    "algo.horizon=4",
+    "algo.cnn_keys.encoder=[rgb]",
+    "algo.mlp_keys.encoder=[state]",
+    "algo.world_model.encoder.cnn_channels_multiplier=4",
+    "algo.dense_units=16",
+    "algo.world_model.recurrent_model.recurrent_state_size=16",
+    "algo.world_model.transition_model.hidden_size=16",
+    "algo.world_model.representation_model.hidden_size=16",
+    "algo.replay_ratio=1",
+    "algo.world_model.discrete_size=4",
+    "algo.world_model.stochastic_size=4",
+    "algo.world_model.recurrent_model.fused_pallas=True",
+    "env.max_episode_steps=20",
+    "buffer.size=200",
+]
+LOSSES = ("Loss/world_model_loss", "Loss/observation_loss", "Loss/reward_loss", "Loss/state_loss",
+          "Loss/continue_loss", "State/kl", "Loss/policy_loss", "Loss/value_loss", "State/post_entropy",
+          "State/prior_entropy")
+
+
+def _snapshots(log_dir):
+    return sorted(glob.glob(f"{log_dir}/**/checkpoint/step_*", recursive=True))
+
+
+@pytest.fixture(scope="module")
+def dry_run(tmp_path_factory):
+    """One dry run: 20 iterations of 2 envs, then one update; a committed snapshot."""
+    log_dir = tmp_path_factory.mktemp("train") / "logs"
+    run([*TINY, "dry_run=True", "algo.run_test=True", f"log_dir={log_dir}"])
+    (snapshot,) = _snapshots(log_dir)
+    return log_dir, snapshot
+
+
+def test_dry_run_trains_logs_and_commits(dry_run):
+    log_dir, snapshot = dry_run
+    assert snapshot.endswith("step_000000000040")
+    state = load_step_dir(snapshot)
+    assert state["update"] == 20 and state["policy_step"] == 40 and state["grad_steps"] == 1
+    assert set(state["agent"]) == {"world_model", "actor", "critic", "target_critic", "moments"}
+    assert state["opt_state"]["world_model"]["state"][0]["step"].item() == 1
+    with open(glob.glob(f"{log_dir}/**/metrics.csv", recursive=True)[0]) as f:
+        rows = {name: float(value) for step, name, value in list(csv.reader(f))[1:]}
+    assert all(math.isfinite(rows[name]) for name in LOSSES)
+    assert rows["Health/skipped"] == 0.0
+
+
+def test_resume_restores_counters_ratio_buffer_and_optimizer(dry_run, tmp_path):
+    _, snapshot = dry_run
+    saved = load_step_dir(snapshot)
+    log_dir = tmp_path / "logs"
+    run([*TINY, "dry_run=False", "algo.run_test=False", "algo.total_steps=56", f"log_dir={log_dir}",
+         f"checkpoint.resume_from={snapshot}"])
+    (resumed,) = _snapshots(log_dir)
+    state = load_step_dir(resumed)
+    # the loop went on from update 21 at policy step 42, with the saved Ratio
+    assert state["update"] == 28 and state["policy_step"] == 56
+    new_steps = state["grad_steps"] - saved["grad_steps"]
+    assert new_steps == 56 - saved["ratio"]["prev"] and state["ratio"]["prev"] == 56
+    assert state["psync"]["windows"] == saved["psync"]["windows"] + 8
+    # the optimizers counted on from the saved state
+    for name in ("world_model", "actor", "critic"):
+        assert state["opt_state"][name]["state"][0]["step"].item() == saved["grad_steps"] + new_steps
+    # the saved replay rows came back in front of the new ones
+    for old, new in zip(saved["rb"]["buffers"], state["rb"]["buffers"]):
+        pos = int(old["pos"])
+        for key, rows in old["buffer"].items():
+            assert torch.equal(new["buffer"][key][:pos], rows[:pos]), key
+        assert int(new["pos"]) > pos
+
+
+def test_committed_snapshot_serves_one_step(dry_run):
+    _, snapshot = dry_run
+    _, cfg, _, player = load_policy(snapshot, ["fabric.accelerator=cpu"])
+    assert player.device.type == "cpu" and player.checkpoint_step == 40
+    obs = player.prepare({"rgb": np.zeros((1, 64, 64, 3), np.uint8), "state": np.zeros((1, 4), np.float32)})
+    carry, actions = player.step_batch(player.params, player.zero_carry(1), obs, 0, np.array([True]))
+    assert np.isfinite(carry[0]).all()
+    action = player.postprocess(actions)
+    assert action.shape == (1,) and 0 <= int(action[0]) < 4
+
+
+@pytest.mark.parametrize(
+    "override,item",
+    [
+        ("buffer.device=True", "queue A item 6"),
+        ("pipeline.stages=2", "queue A item 6"),
+        ("algo.remat=True", "queue A item 6"),
+        ("algo.world_model.decoupled_rssm=True", "queue A item 3"),
+    ],
+)
+def test_unported_settings_raise_naming_the_roadmap_item(tmp_path, override, item):
+    extra = ["pipeline.microbatches=2"] if override.startswith("pipeline.stages") else []
+    with pytest.raises(NotImplementedError, match=item):
+        run([*TINY, "dry_run=True", f"log_dir={tmp_path}", override, *extra])
+    assert latest_checkpoint(tmp_path) is None
+
+
+def _tiny_trainer():
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer
+    from sheeprl_tpu_torch.algos.ppo.utils import spaces_to_dims
+    from sheeprl_tpu_torch.config.compose import compose
+    from sheeprl_tpu_torch.fabric import build_fabric
+    from sheeprl_tpu_torch.serve.loader import probe_spaces
+
+    cfg = compose(TINY)
+    fabric = build_fabric(cfg)
+    obs_space, action_space = probe_spaces(cfg)
+    dims, cont = spaces_to_dims(action_space)
+    modules = build_agent(fabric, dims, cont, cfg, obs_space)
+    return cfg, DV3Trainer(cfg, *modules, ("rgb",), ("state",), cont), dims
+
+
+def _tiny_window(trainer, dims, U=1, L=8, B=2, nan_reward=False):
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import blocks_to_device, draw_noise
+
+    rng = np.random.default_rng(0)
+    block = {
+        "rgb": rng.integers(0, 256, (U, L, B, 64, 64, 3), dtype=np.uint8),
+        "state": rng.standard_normal((U, L, B, 4)).astype(np.float32),
+        "actions": np.eye(dims[0], dtype=np.float32)[rng.integers(0, dims[0], (U, L, B))],
+        "rewards": rng.standard_normal((U, L, B, 1)).astype(np.float32),
+        "terminated": np.zeros((U, L, B, 1), np.float32),
+        "is_first": np.zeros((U, L, B, 1), np.float32),
+    }
+    if nan_reward:
+        block["rewards"][0, 3, 1] = np.nan
+    noise = draw_noise(trainer.world_model, trainer.actor, U, L, B, trainer.horizon, torch.Generator().manual_seed(0))
+    return blocks_to_device(block, ("rgb",), ("state",), "cpu"), noise
+
+
+def test_restore_leaves_the_snapshot_intact():
+    """Two updates from one restored snapshot are identical (the optimizer
+    must not keep, and then advance, the snapshot's own tensors)."""
+    _, trainer, dims = _tiny_trainer()
+    blocks, noise = _tiny_window(trainer, dims)
+    start = trainer.snapshot()
+    runs = []
+    for _ in range(3):
+        trainer.restore(start)
+        runs.append(torch.stack(trainer.train_phase(blocks, noise, 0)))
+    assert torch.equal(runs[0], runs[1]) and torch.equal(runs[1], runs[2])
+
+
+def test_health_guard_undoes_a_non_finite_window():
+    from sheeprl_tpu_torch.resilience.health import HealthSentinel
+
+    cfg, trainer, dims = _tiny_trainer()
+    sentinel = HealthSentinel.from_config(cfg)
+    before = trainer.snapshot()
+    blocks, noise = _tiny_window(trainer, dims, nan_reward=True)
+    metrics = trainer.train_phase(blocks, noise, 0)
+    assert not sentinel.check(metrics, trainer.tensors())
+    trainer.restore(before)
+    for name, module in trainer.modules().items():
+        for k, v in module.state_dict().items():
+            assert torch.equal(v, before["agent"][name][k]), f"{name}.{k}"
+    blocks, noise = _tiny_window(trainer, dims)
+    assert sentinel.check(trainer.train_phase(blocks, noise, 1), trainer.tensors())
+    assert sentinel.metrics()["Health/skipped"] == 1.0 and sentinel.metrics()["Health/applied"] == 1.0
+
+
+def test_divergence_rollback_is_not_ported_yet():
+    from sheeprl_tpu_torch.resilience.health import HealthSentinel
+
+    with pytest.raises(NotImplementedError, match="queue A item 7"):
+        HealthSentinel({"divergence": {"action": "rollback"}})
+
+
+def _noise_bytes(noise):
+    return sum(t.numel() * t.element_size() for t in (noise["posterior"], noise["imagination"], *noise["actions"]))
+
+
+@pytest.mark.parametrize("U", [1, 5])
+def test_each_update_draws_its_own_noise(monkeypatch, U):
+    """Given a generator, the window draws one update's noise at a time (so
+    the noise held at once does not grow with U), and the result is the
+    window run on the same draws handed in whole."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3
+
+    _, trainer, dims = _tiny_trainer()
+    blocks, _ = _tiny_window(trainer, dims, U=U)
+    L, B = blocks["rewards"].shape[1:]
+    one = dreamer_v3.draw_noise(trainer.world_model, trainer.actor, 1, L, B, trainer.horizon,
+                                torch.Generator().manual_seed(3))
+    drawn = []
+    draw = dreamer_v3.draw_noise
+
+    def spy(*args):
+        noise = draw(*args)
+        drawn.append(noise)
+        return noise
+
+    monkeypatch.setattr(dreamer_v3, "draw_noise", spy)
+    start = trainer.snapshot()
+    by_update = torch.stack(trainer.train_phase(blocks, torch.Generator().manual_seed(3), 0))
+    monkeypatch.undo()
+    assert len(drawn) == U
+    assert all(n["posterior"].shape[0] == 1 and _noise_bytes(n) == _noise_bytes(one) for n in drawn)
+    whole = {"posterior": torch.cat([n["posterior"] for n in drawn]),
+             "actions": [torch.cat(a) for a in zip(*(n["actions"] for n in drawn))],
+             "imagination": torch.cat([n["imagination"] for n in drawn])}
+    trainer.restore(start)
+    assert torch.equal(torch.stack(trainer.train_phase(blocks, whole, 0)), by_update)
+
+
+@pytest.mark.parametrize(
+    "n,per_update,budget,chunks",
+    [
+        (1024, 12 << 20, 2 << 30, [170] * 6 + [4]),  # an XL first window: 12 MiB a block
+        (18, 100, 500, [5, 5, 5, 3]),
+        (3, 100, 10_000, [3]),
+        (4, 100, 50, [1, 1, 1, 1]),  # a block larger than the budget still runs, alone
+        (0, 100, 500, []),
+    ],
+)
+def test_window_chunks(n, per_update, budget, chunks):
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import window_chunks
+
+    assert window_chunks(n, per_update, budget) == chunks
+
+
+def test_long_first_window_is_sampled_in_chunks(monkeypatch, tmp_path):
+    """The first window repays every prefill step at once (18 updates here);
+    the loop samples, moves and guards it in chunks under the byte budget,
+    and every update draws its own noise.  The run also warns of the
+    settings it does not act on."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3
+
+    per_update = (64 * 64 * 3 + 4 * 4 + 4 * (4 + 3)) * 8 * 2  # rgb, state, actions, 3 scalars; L 8, B 2
+    monkeypatch.setenv(dreamer_v3.WINDOW_BYTES_ENV, str(5 * per_update + 1))
+    chunks, noise_u = [], []
+    to_device, draw = dreamer_v3.blocks_to_device, dreamer_v3.draw_noise
+
+    def spy_blocks(sample, *args):
+        chunks.append(int(np.asarray(sample["rewards"]).shape[0]))
+        return to_device(sample, *args)
+
+    def spy_noise(wm, actor, U, *args):
+        noise_u.append(U)
+        return draw(wm, actor, U, *args)
+
+    monkeypatch.setattr(dreamer_v3, "blocks_to_device", spy_blocks)
+    monkeypatch.setattr(dreamer_v3, "draw_noise", spy_noise)
+    with pytest.warns(UserWarning, match="checkpoint.save_on_preemption.*queue A item 7"):
+        run([*TINY, "algo.run_test=False", "algo.total_steps=20", f"log_dir={tmp_path}"])
+    # sequences of 8 can be sampled from policy step 18: 18 updates, then 2
+    assert chunks == [5, 5, 5, 3, 2]
+    assert noise_u == [1] * 20
+    state = load_step_dir(_snapshots(tmp_path)[-1])
+    assert state["grad_steps"] == 20 and state["psync"]["windows"] == 2
