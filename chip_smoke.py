@@ -45,6 +45,25 @@ prints no result line):
               served step, a valid action.
 10. train gru — DreamerV3-S training with only the GRU cell fused
               (``use_pallas``), 3 updates; the gru launches per update.
+11. p2e explore — Plan2Explore-DreamerV3 exploration at XL through
+              ``cli.run`` (``exp=p2e_dv3_exploration``, the phase-7 recipe,
+              fused RSSM kernel), 5 updates: 96 rssm launches per update (64
+              posterior steps + two imagination rollouts of 16), no gru
+              launch; the ten metrics and the intrinsic reward finite.
+12. p2e parity — one XL exploration update from phase 11's snapshot, fused
+              kernel against the plain RSSM and the three faulty plain
+              versions, on phase 8's limits.
+13. p2e finetune — ``exp=p2e_dv3_finetuning`` from phase 11's snapshot, 2
+              updates of 80 rssm launches; the finetuning actor at load is
+              phase 11's task actor bit for bit; the snapshot evaluated
+              once through ``cli.evaluation``.
+14. decoupled — DreamerV3-XL with ``decoupled_rssm`` and the fused kernel,
+              2 updates of 80 rssm launches.
+15. family  — DreamerV2, Plan2Explore-DV2, DreamerV1 and Plan2Explore-DV1
+              at their default widths (rgb + state; two of them on the
+              ``EpisodeBuffer``), 2 updates each, metrics finite and the
+              P2E runs' intrinsic reward finite in every update, no kernel
+              launch (their models take no kernel flag).
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -56,6 +75,7 @@ XL recipe (1024 updates, about 12 minutes on an H100).
 
 from __future__ import annotations
 
+import gc
 import json
 import re
 import shutil
@@ -90,6 +110,7 @@ SERVE_SESSIONS, SERVE_STEPS = 16, 8
 TRAIN_TOL_LATENT = 1e-4
 TRAIN_TOL_REL = 1e-5
 LAUNCHES_PER_UPDATE = 64 + 16  # posterior steps (sequence 64) + imagination steps (horizon 15 + 1)
+P2E_LAUNCHES_PER_UPDATE = 64 + 2 * 16  # the posterior scan + the exploration and task rollouts
 XL_TRAIN = (
     "exp=dreamer_v3",  # algo=dreamer_v3 is the XL preset
     "env=dummy",
@@ -117,6 +138,35 @@ XL_TRAIN = (
 XL_TRAIN_STEPS = ("algo.replay_ratio=0.125", "algo.total_steps=81")
 S_TRAIN = (*XL_TRAIN, "algo=dreamer_v3_S", "algo.replay_ratio=0.03125", "algo.total_steps=97",
            "algo.run_test=False", "algo.world_model.recurrent_model.use_pallas=True")
+FUSED = "algo.world_model.recurrent_model.fused_pallas=True"
+# replay ratio 1/16: the first window at step 65 takes int(65 / 16) = 4
+# updates, then one more at step 81
+P2E_XL = ("exp=p2e_dv3_exploration", *XL_TRAIN[1:], FUSED, "algo.replay_ratio=0.0625", "algo.total_steps=81")
+# finetuning starts from a state, so it has no random prefill and trains from
+# step 66 (learning_starts + 1): int(66 / 32) = 2 updates
+P2E_FINETUNE = ("exp=p2e_dv3_finetuning", *XL_TRAIN[1:], FUSED, "algo.replay_ratio=0.03125", "algo.total_steps=66",
+                "algo.run_test=False")
+DECOUPLED_XL = (*XL_TRAIN, FUSED, "algo.world_model.decoupled_rssm=True", "algo.replay_ratio=0.03125",
+                "algo.total_steps=65", "algo.run_test=False")
+# the rest of the family at its own default widths: a sequence of 50 can be
+# sampled at step 51 (episodes of 55 steps commit to the EpisodeBuffer at
+# step 56); replay ratio 0.04 gives int(51 * 0.04) = 2 updates at the first
+# window and none more by step 60
+FAMILY = (
+    "env=dummy", "env.id=discrete_dummy", "env.max_episode_steps=55", "algo.cnn_keys.encoder=[rgb]",
+    "algo.mlp_keys.encoder=[state]", "fabric.accelerator=gpu", "algo.player.device=accelerator", "metric/logger=csv",
+    "checkpoint.save_last=True", "checkpoint.every=1000000000", "checkpoint.async_save=False", "buffer.memmap=False",
+    "buffer.checkpoint=False", "buffer.size=4096", "env.num_envs=1", "algo.learning_starts=51",
+    "algo.per_rank_pretrain_steps=0", "algo.replay_ratio=0.04", "algo.total_steps=60", "algo.run_test=False",
+    "seed=5",
+)
+FAMILY_RUNS = {
+    # exp: extra overrides
+    "dreamer_v2": ("buffer.type=episode",),
+    "p2e_dv2_exploration": (),
+    "dreamer_v1": (),
+    "p2e_dv1_exploration": ("buffer.type=episode",),
+}
 XL_SERVE = (
     "exp=dreamer_v3",  # algo=dreamer_v3 is the XL preset
     "env=dummy",
@@ -347,10 +397,9 @@ def _build_snapshot(torch, overrides, run_dir: Path) -> None:
     obs_space, action_space = probe_spaces(cfg)
     dims, cont = spaces_to_dims(action_space)
     modules = build_agent(fabric, dims, cont, cfg, obs_space)
-    n_params = sum(p.numel() for m in modules[:3] for p in m.parameters())
+    n_params = sum(p.numel() for name in ("world_model", "actor", "critic") for p in modules[name].parameters())
     write_run_config(run_dir, cfg)
-    names = ("world_model", "actor", "critic", "target_critic")
-    write_snapshot(run_dir / "checkpoint", 1, {"agent": {n: m.state_dict() for n, m in zip(names, modules)}})
+    write_snapshot(run_dir / "checkpoint", 1, {"agent": {n: m.state_dict() for n, m in modules.items()}})
     del modules
     torch.cuda.empty_cache()
     log(f"[serve] built and committed a {n_params / 1e6:.1f} M-parameter agent "
@@ -480,22 +529,28 @@ LOSS_NAMES = ("Loss/world_model_loss", "Loss/observation_loss", "Loss/reward_los
               "State/prior_entropy")
 
 
-def _train(torch, overrides, log_dir: Path, kernel: str) -> dict:
+def _train(torch, overrides, log_dir: Path, kernel, per_update_launches: int = LAUNCHES_PER_UPDATE,
+           trainer_cls=None, metric_names=LOSS_NAMES) -> dict:
     """One training run through ``cli.run`` with every launch count zeroed
     just before and read just after, each update timed (the device
     synchronised around it) with its own launches; returns the per-update
-    numbers, the counts, the snapshot and the logged metrics."""
+    numbers, the counts, the snapshot and the logged metrics.  ``kernel``
+    (``rssm`` or ``gru``) must launch ``per_update_launches`` times in every
+    update; ``None``: no kernel may launch at all.  ``trainer_cls`` is the
+    trainer whose ``train_step`` runs (DreamerV3's by default)."""
     import csv
 
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer
     from sheeprl_tpu_torch.cli import run
     from sheeprl_tpu_torch.ops import gru, rssm
 
+    trainer_cls = trainer_cls or DV3Trainer
+
     def counts_now():
         return {"rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]}
 
-    seconds, launches = [], []
-    train_step = DV3Trainer.train_step
+    seconds, launches, intrinsic = [], [], []
+    train_step = trainer_cls.train_step
 
     def timed_step(self, *args, **kwargs):
         torch.cuda.synchronize()
@@ -504,17 +559,20 @@ def _train(torch, overrides, log_dir: Path, kernel: str) -> dict:
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         launches.append({k: n - before[k] for k, n in counts_now().items()})
+        if getattr(self, "last_intrinsic", None) is not None:
+            intrinsic.append(float(self.last_intrinsic))
         return out
 
+    gc.collect()  # modules held in reference cycles by an earlier run would count in this run's peak
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     rssm.LAUNCHES["rssm"] = gru.LAUNCHES["gru"] = 0
-    DV3Trainer.train_step = timed_step
+    trainer_cls.train_step = timed_step
     t0 = time.perf_counter()
     try:
         run([*overrides, f"log_dir={log_dir}"])
     finally:
-        DV3Trainer.train_step = train_step
+        trainer_cls.train_step = train_step
     wall = time.perf_counter() - t0
     counts = counts_now()
     peak = torch.cuda.max_memory_allocated()
@@ -523,21 +581,33 @@ def _train(torch, overrides, log_dir: Path, kernel: str) -> dict:
         raise AssertionError(f"the training run committed no snapshot under {log_dir}")
     with open(next(log_dir.glob("**/metrics.csv"))) as f:
         logged = {name: float(value) for _, name, value in list(csv.reader(f))[1:]}
-    missing = [n for n in LOSS_NAMES if n not in logged or not np.isfinite(logged[n])]
+    missing = [n for n in metric_names if n not in logged or not np.isfinite(logged[n])]
     if missing:
         raise AssertionError(f"metrics missing or not finite: {missing}")
-    per_update = [n[kernel] for n in launches]
-    if not seconds or any(n != LAUNCHES_PER_UPDATE for n in per_update):
-        raise AssertionError(f"{kernel} launches per update {per_update}, expected {LAUNCHES_PER_UPDATE} each")
+    if not seconds:
+        raise AssertionError(f"the run under {log_dir} made no update")
+    if kernel is None:
+        if any(counts.values()):
+            raise AssertionError(f"a run whose model takes no kernel flag launched kernels: {counts}")
+        per_update = [0] * len(launches)
+    else:
+        per_update = [n[kernel] for n in launches]
+        if any(n != per_update_launches for n in per_update):
+            raise AssertionError(f"{kernel} launches per update {per_update}, expected {per_update_launches} each")
+    if intrinsic and not np.isfinite(intrinsic).all():
+        raise AssertionError(f"intrinsic reward not finite: {intrinsic}")
     steady = statistics.median(seconds[1:]) if len(seconds) > 1 else seconds[0]
     out = {"updates": len(seconds), "first_update_s": seconds[0], "updates_per_s": 1.0 / steady,
            "median_update_s": steady, "peak_bytes": peak, "counts": counts, "per_update": per_update,
-           "snapshot": snapshots[-1], "wall_s": wall, "logged": {n: logged[n] for n in LOSS_NAMES}}
+           "update_launches": launches,
+           "snapshot": snapshots[-1], "wall_s": wall, "logged": {n: logged[n] for n in metric_names},
+           "intrinsic": intrinsic}
     shown = ", ".join(f"{x:.4f}" for x in seconds[:12]) + (", ..." if len(seconds) > 12 else "")
     log(f"[train] {len(seconds)} updates in a {wall:.1f} s run: first update {seconds[0]:.3f} s, then median "
         f"{steady:.4f} s = {1.0 / steady:.3f} updates/s (updates {shown} s); peak device memory "
         f"{peak / 2**30:.2f} GiB; {kernel} launches per update {sorted(set(per_update))}, run total {counts}")
-    log("[train] metrics " + ", ".join(f"{n} {logged[n]:.6g}" for n in LOSS_NAMES))
+    log("[train] metrics " + ", ".join(f"{n} {logged[n]:.6g}" for n in metric_names)
+        + (f"; intrinsic reward per update {', '.join(f'{x:.6g}' for x in intrinsic)}" if intrinsic else ""))
     return out
 
 
@@ -550,8 +620,12 @@ PROFILE_GROUPS = (
 
 
 def _trainer_from_snapshot(torch, snapshot: Path):
+    """The trainer of the snapshot's run (DreamerV3, or Plan2Explore-DV3
+    exploration), with the snapshot's weights and optimizer state."""
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer, build_dv3_optimizers
+    from sheeprl_tpu_torch.algos.p2e_dv3 import p2e_dv3_exploration as p2e
+    from sheeprl_tpu_torch.algos.p2e_utils import p2e_optimizers
     from sheeprl_tpu_torch.algos.ppo.utils import spaces_to_dims
     from sheeprl_tpu_torch.fabric import build_fabric
     from sheeprl_tpu_torch.serve.loader import load_run_config, probe_spaces
@@ -561,9 +635,13 @@ def _trainer_from_snapshot(torch, snapshot: Path):
     state = fabric.load(snapshot)
     obs_space, action_space = probe_spaces(cfg)
     dims, cont = spaces_to_dims(action_space)
-    modules = build_agent(fabric, dims, cont, cfg, obs_space, state["agent"])
-    trainer = DV3Trainer(cfg, *modules, tuple(cfg.algo.cnn_keys.encoder), tuple(cfg.algo.mlp_keys.encoder), cont,
-                         agent_state=state["agent"], opt_state=state["opt_state"])
+    if cfg.algo.name == "p2e_dv3_exploration":
+        build, make_trainer, build_opts = p2e.build_agent, p2e.P2EDV3Trainer, p2e_optimizers
+    else:
+        build, make_trainer, build_opts = build_agent, DV3Trainer, build_dv3_optimizers
+    modules = build(fabric, dims, cont, cfg, obs_space, state["agent"])
+    trainer = make_trainer(cfg, modules, build_opts(cfg, modules, state["opt_state"]),
+                           tuple(cfg.algo.cnn_keys.encoder), tuple(cfg.algo.mlp_keys.encoder), cont, state["agent"])
     return cfg, trainer, dims
 
 
@@ -597,10 +675,10 @@ def _rssm_variant(torch, eps_in: float, eps_gru: float, swap_gates: bool, tf32: 
     return step
 
 
-def phase_train_parity(torch, snapshot: Path) -> dict:
+def phase_train_parity(torch, snapshot: Path, tag: str = "train-parity") -> dict:
     """One XL update from ``snapshot`` on the same data and noise: the fused
     kernel, the plain RSSM, and three faulty plain versions; plus the
-    profiler top-10 of the fused update."""
+    profiler top-10 of the fused update.  Log lines carry ``tag``."""
     from torch.profiler import ProfilerActivity, profile
 
     from sheeprl_tpu_torch.algos.dreamer_v3 import agent
@@ -608,6 +686,8 @@ def phase_train_parity(torch, snapshot: Path) -> dict:
     from sheeprl_tpu_torch.ops.rssm import LN_GRU_EPS, LN_IN_EPS, rssm_recurrent_reference
     from sheeprl_tpu_torch.utils.distribution import OneHotCategorical
 
+    gc.collect()
+    torch.cuda.empty_cache()
     cfg, trainer, dims = _trainer_from_snapshot(torch, snapshot)
     L, B, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size), int(cfg.algo.horizon)
     rng = np.random.default_rng(9)
@@ -621,7 +701,8 @@ def phase_train_parity(torch, snapshot: Path) -> dict:
     }
     dev = trainer.device
     blocks = blocks_to_device(block, trainer.cnn_keys, trainer.mlp_keys, dev)
-    noise = draw_noise(trainer.world_model, trainer.actor, 1, L, B, H, torch.Generator(dev).manual_seed(9))
+    noise = draw_noise(trainer.world_model, trainer.actor, 1, L, B, H, torch.Generator(dev).manual_seed(9),
+                       trainer.task_rollout)
     start = trainer.snapshot()
     captured = {}
     wm_forward = trainer.wm_forward
@@ -679,7 +760,7 @@ def phase_train_parity(torch, snapshot: Path) -> dict:
     update(fused)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    log(f"[train-parity] one fused XL update (with its restore): {wall_ms:.1f} ms, peak device memory "
+    log(f"[{tag}] one fused XL update (with its restore): {wall_ms:.1f} ms, peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     kernel, prof = update(fused, profiled=True)
     plain = update(rssm_recurrent_reference)
@@ -694,7 +775,7 @@ def phase_train_parity(torch, snapshot: Path) -> dict:
         return d["loss_rel"] <= TRAIN_TOL_REL and d["grad_norm_rel"] <= TRAIN_TOL_REL and d["latent_abs"] <= TRAIN_TOL_LATENT
 
     got = diffs(kernel)
-    log(f"[train-parity] fused vs plain RSSM, one XL update ({len(samples)} sampling calls replayed): losses max "
+    log(f"[{tag}] fused vs plain RSSM, one XL update ({len(samples)} sampling calls replayed): losses max "
         f"rel diff {got['loss_rel']:.3g} ({', '.join(f'{x:.2e}' for x in got['loss_rel_each'])}), world-model grad "
         f"norm rel diff {got['grad_norm_rel']:.3g} ({kernel['grad_norm']:.6g} vs {plain['grad_norm']:.6g}), "
         f"posterior h max abs diff {got['latent_abs']:.3g}; tolerance rel {TRAIN_TOL_REL}, h {TRAIN_TOL_LATENT:.3g}")
@@ -705,7 +786,7 @@ def phase_train_parity(torch, snapshot: Path) -> dict:
                           ("reset/update gates swapped", _rssm_variant(torch, LN_IN_EPS, LN_GRU_EPS, True)),
                           ("one-pass TF32 products", _rssm_variant(torch, LN_IN_EPS, LN_GRU_EPS, False, tf32=True))):
         bad = controls[name] = diffs(update(variant))
-        log(f"[train-parity] {name}: losses max rel diff {bad['loss_rel']:.3g}, grad norm rel diff "
+        log(f"[{tag}] {name}: losses max rel diff {bad['loss_rel']:.3g}, grad norm rel diff "
             f"{bad['grad_norm_rel']:.3g}, posterior h max abs diff {bad['latent_abs']:.3g}")
         if within(bad):
             raise AssertionError(f"the parity tolerance does not catch a plain RSSM with the {name}")
@@ -718,18 +799,18 @@ def phase_train_parity(torch, snapshot: Path) -> dict:
             rows[e.key] = (ms, e.count)
     total = sum(ms for ms, _ in rows.values())
     launches = sum(n for _, n in rows.values())
-    log(f"[profile] one XL update: {total:.1f} ms of device time in {launches} kernel launches; the same update "
+    log(f"[{tag} profile] one XL update: {total:.1f} ms of device time in {launches} kernel launches; the same update "
         f"unprofiled takes {wall_ms:.1f} ms of wall time (with its restore), so the device is busy "
         f"{total / wall_ms:.1%} of it and idle {1 - total / wall_ms:.1%} (kernels that overlap count twice)")
     for name, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:10]:
-        log(f"[profile] {ms:9.3f} ms {ms / total:6.1%} x{n:5d} {name[:110]}")
+        log(f"[{tag} profile] {ms:9.3f} ms {ms / total:6.1%} x{n:5d} {name[:110]}")
     groups = {}
     for name, (ms, n) in rows.items():
         group = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)), "other (elementwise, reductions, copies)")
         ms0, n0 = groups.get(group, (0.0, 0))
         groups[group] = (ms0 + ms, n0 + n)
     for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        log(f"[profile] by kind: {group}: {ms:.1f} ms ({ms / total:.1%}) in {n} launches")
+        log(f"[{tag} profile] by kind: {group}: {ms:.1f} ms ({ms / total:.1%}) in {n} launches")
     del trainer, start
     torch.cuda.empty_cache()
     return {"diffs": got, "controls": controls, "profile_total_ms": total, "wall_ms": wall_ms, "launches": launches}
@@ -749,6 +830,62 @@ def phase_serve_trained(torch, snapshot: Path) -> None:
     if not (np.isfinite(carry[0]).all() and action.shape == (1,) and 0 <= int(action[0]) < n_actions):
         raise AssertionError(f"invalid served step from the trained snapshot: action {action!r}")
     log(f"[serve-trained] {snapshot.name} on {player.device}: greedy action {int(action[0])} of {n_actions}")
+
+
+def phase_p2e_finetune(torch, explore_snapshot: Path, log_dir: Path) -> dict:
+    """Finetuning from the exploration snapshot: 80 rssm launches per update,
+    the actor at load equal to the snapshot's task actor bit for bit, and the
+    finetuned snapshot evaluated once through ``cli.evaluation``."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer
+    from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
+    from sheeprl_tpu_torch.cli import evaluation
+
+    at_load = {}
+    init = DV3Trainer.__init__
+
+    def capture(self, cfg, modules, *args, **kwargs):
+        at_load.update({k: v.detach().cpu().clone() for k, v in modules["actor"].state_dict().items()})
+        init(self, cfg, modules, *args, **kwargs)
+
+    DV3Trainer.__init__ = capture
+    try:
+        out = _train(torch, [*P2E_FINETUNE, f"checkpoint.exploration_ckpt_path={explore_snapshot}"], log_dir, "rssm")
+    finally:
+        DV3Trainer.__init__ = init
+    task_actor = load_step_dir(explore_snapshot, map_location="cpu")["agent"]["actor_task"]
+    if set(at_load) != set(task_actor) or not all(torch.equal(at_load[k], v) for k, v in task_actor.items()):
+        raise AssertionError("the finetuning actor at load is not the exploration snapshot's task actor")
+    log(f"[p2e-finetune] the actor at load equals the exploration snapshot's actor_task in all "
+        f"{len(task_actor)} tensors, bit for bit")
+    t0 = time.perf_counter()
+    reward = evaluation([f"checkpoint_path={out['snapshot']}", "fabric.accelerator=gpu"])
+    if not np.isfinite(reward):
+        raise AssertionError(f"cli.evaluation of the finetuned snapshot gave {reward}")
+    log(f"[p2e-finetune] cli.evaluation of {out['snapshot'].name}: cumulative reward {reward} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_family(torch, run_root: Path) -> dict:
+    """DreamerV2, Plan2Explore-DV2, DreamerV1 and Plan2Explore-DV1 at their
+    default widths through ``cli.run``: 2 updates each, metrics finite (the
+    intrinsic reward of every Plan2Explore update too), no kernel launch."""
+    from sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1 import DV1Trainer
+    from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import DV2Trainer
+
+    out = {}
+    for exp, extra in FAMILY_RUNS.items():
+        log(f"[family] {exp} {' '.join(extra)}")
+        v1 = "v1" in exp
+        out[exp] = _train(torch, [f"exp={exp}", *FAMILY, *extra], run_root / exp, None,
+                          trainer_cls=DV1Trainer if v1 else DV2Trainer,
+                          metric_names=LOSS_NAMES[:8] if v1 else LOSS_NAMES)
+        if out[exp]["updates"] < 2:
+            raise AssertionError(f"{exp} ran {out[exp]['updates']} updates, expected 2")
+        if exp.startswith("p2e") and len(out[exp]["intrinsic"]) != out[exp]["updates"]:
+            raise AssertionError(f"{exp}: an intrinsic reward for {len(out[exp]['intrinsic'])} of "
+                                 f"{out[exp]['updates']} updates")
+    return out
 
 
 def timing_only(torch, package_root: str) -> int:
@@ -849,13 +986,30 @@ def main() -> int:
         if train_gru["counts"]["rssm"]:
             raise AssertionError(f"the use_pallas training run launched the rssm kernel: {train_gru['counts']}")
 
+        from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import P2EDV3Trainer
+
+        p2e = _train(torch, P2E_XL, run_root / "p2e_explore", "rssm", P2E_LAUNCHES_PER_UPDATE,
+                     trainer_cls=P2EDV3Trainer)
+        if p2e["counts"]["gru"] or len(p2e["intrinsic"]) != p2e["updates"]:
+            raise AssertionError(f"P2E exploration: launches {p2e['counts']}, intrinsic rewards {p2e['intrinsic']}")
+        p2e_parity = phase_train_parity(torch, p2e["snapshot"], tag="p2e-parity")
+        finetune = phase_p2e_finetune(torch, p2e["snapshot"], run_root / "p2e_finetune")
+        decoupled = _train(torch, DECOUPLED_XL, run_root / "decoupled", "rssm")
+        family = phase_family(torch, run_root / "family")
+
         launches = {"rssm": train["counts"]["rssm"], "gru": train_gru["counts"]["gru"]}
+        new_paths = {"p2e_explore": p2e, "p2e_finetune": finetune, "decoupled": decoupled}
         launches_by_path = {
             "rssm": {"serve": served["counts"]["rssm"], "train": train["counts"]["rssm"],
                      "train_per_update": train["per_update"][0]},
             "gru": {"serve": gru_served["counts"]["gru"], "train": train_gru["counts"]["gru"],
                     "train_per_update": train_gru["per_update"][0]},
         }
+        for name, by_path in launches_by_path.items():
+            for path, run_ in new_paths.items():
+                by_path[path] = run_["counts"][name]
+                by_path[f"{path}_per_update"] = max(n[name] for n in run_["update_launches"])
+            by_path["family"] = sum(r["counts"][name] for r in family.values())
         sources = {
             "rssm": ("sheeprl_tpu_torch/csrc/rssm.cu",
                      "sheeprl_tpu/ops/rssm_pallas.py:70 (_rssm_kernel), sheeprl_tpu/ops/rssm_pallas.py:260 "
@@ -875,7 +1029,9 @@ def main() -> int:
                                     for b, row in timing[name].items()},
             })
         log(f"[done] serve parity err {parity_err:.2e}; train parity {train_parity['diffs']['loss_rel']:.3g} rel; "
-            f"XL training {train['updates_per_s']:.3f} updates/s; total {time.perf_counter() - t_start:.1f} s")
+            f"XL training {train['updates_per_s']:.3f} updates/s; P2E-DV3 XL exploration {p2e['updates_per_s']:.3f} "
+            f"updates/s (parity {p2e_parity['diffs']['loss_rel']:.3g} rel, h {p2e_parity['diffs']['latent_abs']:.3g}); "
+            f"total {time.perf_counter() - t_start:.1f} s")
     except BaseException:
         traceback.print_exc()
         return 1

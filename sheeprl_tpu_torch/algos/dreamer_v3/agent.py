@@ -98,6 +98,71 @@ class DreamerMLP(nn.Module):
             _trunk_(self.head, g, zero=self.zero_head)
 
 
+class _StackedDense(nn.Module):
+    """``n`` dense layers side by side: ``kernel`` (n, in, out), ``bias`` (n, out)."""
+
+    def __init__(self, n: int, in_features: int, out_features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(n, in_features, out_features))
+        self.bias = nn.Parameter(torch.zeros(n, out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        # (M, in) or (n, M, in) → (n, M, out)
+        return torch.matmul(x, self.kernel) + self.bias[:, None, :]
+
+    def init_weights(self, g: torch.Generator) -> None:
+        with torch.no_grad():
+            for k in self.kernel:
+                variance_scaling_(k, *k.shape, "fan_avg", g)
+            self.bias.zero_()
+
+
+class _StackedLayerNorm(nn.Module):
+    """``n`` LayerNorms (fp32, eps 1e-3) side by side: ``weight``, ``bias`` (n, features)."""
+
+    def __init__(self, n: int, features: int, eps: float = 1e-3):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(n, features))
+        self.bias = nn.Parameter(torch.zeros(n, features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.nn.functional.layer_norm(x.float(), x.shape[-1:], eps=self.eps)
+        return y * self.weight[:, None, :] + self.bias[:, None, :]
+
+
+class Ensembles(nn.Module):
+    """``n`` :class:`DreamerMLP` stacks (Dense → LayerNorm → act, then a
+    head) as one module of stacked weights, the layout of the JAX package's
+    params-vmapped ``Ensembles`` (member axis first): ``x`` (M, in) →
+    (n, M, output_dim) as batched products."""
+
+    def __init__(self, n: int, in_features: int, units: int, layers: int, output_dim: int, act: str = "silu",
+                 layer_norm: bool = True):
+        super().__init__()
+        self.n, self.layers, self.layer_norm = n, layers, layer_norm
+        self.act = get_activation(act)
+        self.ens = nn.Module()
+        for i in range(layers):
+            self.ens.add_module(f"dense_{i}", _StackedDense(n, in_features if i == 0 else units, units))
+            if layer_norm:
+                self.ens.add_module(f"ln_{i}", _StackedLayerNorm(n, units))
+        self.ens.add_module("head", _StackedDense(n, units if layers else in_features, output_dim))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.layers):
+            x = getattr(self.ens, f"dense_{i}")(x)
+            if self.layer_norm:
+                x = getattr(self.ens, f"ln_{i}")(x)
+            x = self.act(x)
+        return self.ens.head(x)
+
+    def init_weights(self, g: torch.Generator) -> None:
+        for i in range(self.layers):
+            getattr(self.ens, f"dense_{i}").init_weights(g)
+        self.ens.head.init_weights(g)
+
+
 def _nhwc_ln(ln: LayerNorm, x: torch.Tensor) -> torch.Tensor:
     """LayerNorm over the channels at each pixel of an NCHW tensor."""
     return ln(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
@@ -410,9 +475,13 @@ class WorldModel(nn.Module):
     def _logits_reshape(self, logits: torch.Tensor) -> torch.Tensor:
         return logits.reshape(*logits.shape[:-1], self.stochastic_size, self.discrete_size)
 
+    def latent_noise(self, lead: Sequence[int], generator: torch.Generator) -> torch.Tensor:
+        """The Gumbel noise of ``lead``-shaped latent samples: (*lead, stoch, discrete)."""
+        return gumbel_noise((*lead, self.stochastic_size, self.discrete_size), generator, generator.device)
+
     def posterior_noise(self, batch: int, generator: torch.Generator) -> torch.Tensor:
         """The Gumbel noise one posterior sample of ``batch`` rows consumes."""
-        return gumbel_noise((batch, self.stochastic_size, self.discrete_size), generator, generator.device)
+        return self.latent_noise((batch,), generator)
 
     def dynamic(self, prev_h, prev_z, prev_action, embed, is_first, generator: torch.Generator):
         """One posterior step; the sample's noise is drawn from ``generator``.
@@ -436,6 +505,24 @@ class WorldModel(nn.Module):
         post_logits = self._logits_reshape(self.representation_model(post_in))
         z = OneHotCategorical(post_logits, unimix=self.unimix).rsample_from_noise(noise)
         return h, z.reshape(B, self.stoch_flat), post_logits, prior_logits
+
+    def posterior_decoupled(self, embed: torch.Tensor) -> torch.Tensor:
+        """DecoupledRSSM posterior logits from the embedding alone, for every
+        time step in one batched pass."""
+        return self._logits_reshape(self.representation_model(embed))
+
+    def recurrent_prior(self, prev_h, prev_z, prev_action, is_first):
+        """The sequential part of the DecoupledRSSM: reset at episode starts,
+        advance the recurrent model and predict the prior.  Returns
+        (h, prior_logits)."""
+        B = prev_h.shape[0]
+        h0, z0 = self.initial_state(B)
+        mask = 1.0 - is_first
+        prev_h = prev_h * mask + h0 * is_first
+        prev_z = prev_z * mask + z0 * is_first
+        prev_action = prev_action * mask
+        h = self.recurrent_model(prev_h, torch.cat([prev_z, prev_action], dim=-1)).float()
+        return h, self._logits_reshape(self.transition_model(h))
 
     def imagination(self, prev_h, prev_z, action, generator: torch.Generator):
         """One prior step; the sample's noise is drawn from ``generator``."""
@@ -577,6 +664,48 @@ def obs_shapes(cfg: Any, obs_space: Any) -> Tuple[Dict[str, Tuple[int, int, int]
     return cnn_shapes, mlp_shapes
 
 
+def new_actor(cfg: Any, latent: int, actions_dim: Sequence[int], is_continuous: bool) -> Actor:
+    """The DreamerV3 actor of ``cfg.algo.actor`` on ``latent``-wide inputs."""
+    a = cfg.algo.actor
+    return Actor(latent, actions_dim, is_continuous, dense_units=a.dense_units, mlp_layers=a.mlp_layers,
+                 unimix=a.unimix, min_std=a.min_std, max_std=a.max_std, init_std=a.init_std,
+                 action_clip=a.action_clip)
+
+
+def new_critic(cfg: Any, latent: int) -> Critic:
+    """The DreamerV3 critic of ``cfg.algo.critic`` on ``latent``-wide inputs."""
+    c = cfg.algo.critic
+    return Critic(latent, dense_units=c.dense_units, mlp_layers=c.mlp_layers, bins=c.bins)
+
+
+def place_modules(modules: Dict[str, Any], state: Optional[Dict[str, Any]], device: Any, seed: int,
+                  targets: Optional[Dict[str, str]] = None) -> None:
+    """Load each module of the (nested) ``modules`` dict from the same place
+    in ``state`` (modules built on the meta device), or initialise them from
+    ``seed`` in dict order with each target network a copy of its online one
+    (``targets``: target name → online name, at any level); then put them on
+    ``device`` in eval mode."""
+    targets = targets or {}
+    g = torch.Generator(device).manual_seed(int(seed)) if state is None else None
+
+    def visit(tree: Dict[str, Any], saved: Optional[Dict[str, Any]]) -> None:
+        for name, module in tree.items():
+            if isinstance(module, dict):
+                visit(module, None if saved is None else saved[name])
+            elif saved is not None:
+                module.load_state_dict(saved[name], strict=True, assign=True)
+            elif name not in targets:
+                module.init_weights(g)
+        for target, online in targets.items():
+            if saved is None and target in tree:
+                tree[target].load_state_dict(tree[online].state_dict())
+        for module in tree.values():
+            if isinstance(module, nn.Module):
+                module.to(device).eval()
+
+    visit(modules, state)
+
+
 def build_agent(
     fabric: Any,
     actions_dim: Sequence[int],
@@ -584,59 +713,41 @@ def build_agent(
     cfg: Any,
     obs_space: Any,
     state: Optional[Dict[str, Any]] = None,
-) -> Tuple[WorldModel, Actor, Critic, Critic]:
-    """World model, actor, critic and target critic on ``fabric.device``, in
-    eval mode.  ``state`` holds their ``state_dict``s under ``world_model``,
-    ``actor``, ``critic`` and ``target_critic``; without it the weights are
-    the Hafner initialization drawn from ``cfg.seed``."""
+) -> Dict[str, nn.Module]:
+    """``world_model``, ``actor``, ``critic`` and ``target_critic`` on
+    ``fabric.device``, in eval mode.  ``state`` holds their ``state_dict``s
+    under those names; without it the weights are the Hafner initialization
+    drawn from ``cfg.seed``, and the target critic copies the critic."""
     cnn_shapes, mlp_shapes = obs_shapes(cfg, obs_space)
     wm_cfg = cfg.algo.world_model
     stoch = wm_cfg.stochastic_size * wm_cfg.discrete_size
     latent = stoch + wm_cfg.recurrent_model.recurrent_state_size
-    device = fabric.device
-    with torch.device("meta" if state is not None else device):
-        world_model = WorldModel(
-            cnn_keys=tuple(cfg.algo.cnn_keys.encoder),
-            mlp_keys=tuple(cfg.algo.mlp_keys.encoder),
-            cnn_shapes=cnn_shapes,
-            mlp_shapes=mlp_shapes,
-            actions_dim=tuple(actions_dim),
-            cnn_mult=wm_cfg.encoder.cnn_channels_multiplier,
-            dense_units=cfg.algo.dense_units,
-            mlp_layers=cfg.algo.mlp_layers,
-            recurrent_size=wm_cfg.recurrent_model.recurrent_state_size,
-            hidden_size=wm_cfg.transition_model.hidden_size,
-            repr_hidden_size=wm_cfg.representation_model.hidden_size,
-            stochastic_size=wm_cfg.stochastic_size,
-            discrete_size=wm_cfg.discrete_size,
-            unimix=cfg.algo.unimix,
-            bins=wm_cfg.reward_model.bins,
-            learnable_initial_state=wm_cfg.learnable_initial_recurrent_state,
-            decoupled_rssm=wm_cfg.decoupled_rssm,
-            use_pallas_gru=bool(wm_cfg.recurrent_model.get("use_pallas", False)),
-            fused_pallas_rssm=bool(wm_cfg.recurrent_model.get("fused_pallas", False)),
-        )
-        actor_cfg = cfg.algo.actor
-        actor = Actor(
-            latent, actions_dim, is_continuous, dense_units=actor_cfg.dense_units,
-            mlp_layers=actor_cfg.mlp_layers, unimix=actor_cfg.unimix, min_std=actor_cfg.min_std,
-            max_std=actor_cfg.max_std, init_std=actor_cfg.init_std, action_clip=actor_cfg.action_clip,
-        )
-        critics = [
-            Critic(latent, dense_units=cfg.algo.critic.dense_units, mlp_layers=cfg.algo.critic.mlp_layers,
-                   bins=cfg.algo.critic.bins)
-            for _ in range(2)
-        ]
-    modules = {"world_model": world_model, "actor": actor, "critic": critics[0], "target_critic": critics[1]}
-    if state is not None:
-        for name, module in modules.items():
-            module.load_state_dict(state[name], strict=True, assign=True)
-            module.to(device)
-    else:
-        g = torch.Generator(device).manual_seed(int(cfg.seed))
-        for name in ("world_model", "actor", "critic"):
-            modules[name].init_weights(g)
-        critics[1].load_state_dict(critics[0].state_dict())
-    for module in modules.values():
-        module.eval()
-    return world_model, actor, critics[0], critics[1]
+    with torch.device("meta" if state is not None else fabric.device):
+        modules = {
+            "world_model": WorldModel(
+                cnn_keys=tuple(cfg.algo.cnn_keys.encoder),
+                mlp_keys=tuple(cfg.algo.mlp_keys.encoder),
+                cnn_shapes=cnn_shapes,
+                mlp_shapes=mlp_shapes,
+                actions_dim=tuple(actions_dim),
+                cnn_mult=wm_cfg.encoder.cnn_channels_multiplier,
+                dense_units=cfg.algo.dense_units,
+                mlp_layers=cfg.algo.mlp_layers,
+                recurrent_size=wm_cfg.recurrent_model.recurrent_state_size,
+                hidden_size=wm_cfg.transition_model.hidden_size,
+                repr_hidden_size=wm_cfg.representation_model.hidden_size,
+                stochastic_size=wm_cfg.stochastic_size,
+                discrete_size=wm_cfg.discrete_size,
+                unimix=cfg.algo.unimix,
+                bins=wm_cfg.reward_model.bins,
+                learnable_initial_state=wm_cfg.learnable_initial_recurrent_state,
+                decoupled_rssm=wm_cfg.decoupled_rssm,
+                use_pallas_gru=bool(wm_cfg.recurrent_model.get("use_pallas", False)),
+                fused_pallas_rssm=bool(wm_cfg.recurrent_model.get("fused_pallas", False)),
+            ),
+            "actor": new_actor(cfg, latent, actions_dim, is_continuous),
+            "critic": new_critic(cfg, latent),
+            "target_critic": new_critic(cfg, latent),
+        }
+    place_modules(modules, state, fabric.device, int(cfg.seed), {"target_critic": "critic"})
+    return modules

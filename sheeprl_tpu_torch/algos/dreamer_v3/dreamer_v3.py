@@ -1,12 +1,15 @@
 """DreamerV3 training on one device (counterpart of
-``sheeprl_tpu/algos/dreamer_v3/dreamer_v3.py``).
+``sheeprl_tpu/algos/dreamer_v3/dreamer_v3.py``), and what the whole Dreamer
+family shares: the trainer base, the env/replay/train loop and evaluation.
 
 One update (:meth:`DV3Trainer.train_step`) follows the JAX
 ``single_update``:
 
 * the world model: encoder → posterior scan over the sequence
-  (``WorldModel.dynamic_noise``, one recurrent step per time step) →
-  decoder, reward and continue heads → ``world_model_loss``; Adam step;
+  (``WorldModel.dynamic_noise``, one recurrent step per time step; with
+  ``decoupled_rssm`` every posterior in one batched pass and only
+  ``WorldModel.recurrent_prior`` in the scan) → decoder, reward and continue
+  heads → ``world_model_loss``; Adam step;
 * the behaviour: an imagination scan of ``horizon + 1`` steps from every
   posterior latent with the updated world model, λ-returns, the Moments
   percentile normaliser, the actor loss, then the critic's two-hot NLL plus
@@ -23,11 +26,14 @@ imagination runs without a graph.  With ``fused_pallas`` every recurrent
 step is the CUDA kernel of ``ops/rssm.py``; its backward differentiates the
 plain version, as the JAX ``custom_vjp`` does.
 
-:func:`dreamer_family_loop` is the env/replay/train loop: random prefill up
-to ``learning_starts``, the latent player, replay adds with reset rows,
-``Ratio``-governed train windows of ``(U, L, B, *)`` blocks from the host
-ring (sampled and moved to the device in chunks, :func:`window_chunks`),
-metrics, checkpoints, resume, ``dry_run`` and the final test episode.
+:func:`dreamer_family_loop` is the env/replay/train loop of every Dreamer
+(V1, V2, V3 and their Plan2Explore phases, which differ in modules and
+update, not in the loop): random prefill up to ``learning_starts``, the
+latent player, replay adds with reset rows (a sequential host ring, or the
+``EpisodeBuffer`` with ``buffer.type=episode``), ``Ratio``-governed train
+windows of ``(U, L, B, *)`` blocks (sampled and moved to the device in
+chunks, :func:`window_chunks`), metrics, checkpoints, resume, ``dry_run``
+and the final test episode.
 """
 
 from __future__ import annotations
@@ -40,7 +46,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from sheeprl_tpu_torch.algos.dreamer_v3.agent import Actor, Critic, WorldModel, build_agent
+from sheeprl_tpu_torch.algos.dreamer_v3.agent import Actor, Critic, build_agent
 from sheeprl_tpu_torch.algos.dreamer_v3.loss import world_model_loss
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
     compute_lambda_values,
@@ -49,9 +55,10 @@ from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
     prepare_obs,
     test,
 )
+from sheeprl_tpu_torch.algos.p2e_utils import choose_actor
 from sheeprl_tpu_torch.algos.ppo.utils import actions_for_env, spaces_to_dims
 from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
-from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
+from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, EpisodeBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.fabric import PlayerSync
 from sheeprl_tpu_torch.resilience.health import HealthSentinel
 from sheeprl_tpu_torch.utils.distribution import (
@@ -64,8 +71,8 @@ from sheeprl_tpu_torch.utils.distribution import (
 from sheeprl_tpu_torch.utils.env import episode_stats, final_obs_rows, make_env, vectorize
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, flush_metrics
-from sheeprl_tpu_torch.utils.optim import ClippedOptimizer, build_optimizer
-from sheeprl_tpu_torch.utils.registry import register_algorithm
+from sheeprl_tpu_torch.utils.optim import ClippedOptimizer, build_group_optimizers
+from sheeprl_tpu_torch.utils.registry import register_algorithm, register_evaluation
 from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import Ratio, merge_framestack, save_configs
 
@@ -105,15 +112,6 @@ def check_supported(cfg: Any) -> None:
             raise NotImplementedError(
                 f"{name} is not ported yet: the scale layer comes later (ROADMAP.md, queue A item 6)"
             )
-    if bool(cfg.algo.world_model.get("decoupled_rssm", False)):
-        raise NotImplementedError(
-            "algo.world_model.decoupled_rssm=True is not ported yet (ROADMAP.md, queue A item 3)"
-        )
-    if cfg.buffer.get("type", "sequential") != "sequential":
-        raise NotImplementedError(
-            f"buffer.type={cfg.buffer.type}: the port has the sequential host ring only "
-            "(the EpisodeBuffer comes with the rest of the Dreamer family, ROADMAP.md, queue A item 3)"
-        )
 
 
 def unacted_settings(cfg: Any) -> List[str]:
@@ -144,39 +142,34 @@ def frozen(*modules: torch.nn.Module) -> Iterator[None]:
             p.requires_grad_(True)
 
 
-def build_dv3_optimizers(cfg: Any, world_model: WorldModel, actor: Actor, critic: Critic,
+def build_dv3_optimizers(cfg: Any, modules: Dict[str, torch.nn.Module],
                          saved: Optional[Dict[str, Any]] = None) -> Dict[str, ClippedOptimizer]:
-    """The three parameter groups' optimizers, with their saved state when given."""
+    """The world model's, actor's and critic's optimizers, with their saved
+    state when given."""
     algo = cfg.algo
-    opts = {
-        "world_model": build_optimizer(world_model.parameters(), algo.world_model.optimizer,
-                                       algo.world_model.clip_gradients),
-        "actor": build_optimizer(actor.parameters(), algo.actor.optimizer, algo.actor.clip_gradients),
-        "critic": build_optimizer(critic.parameters(), algo.critic.optimizer, algo.critic.clip_gradients),
-    }
-    if saved:
-        for name, opt in opts.items():
-            opt.load_state_dict(saved[name])
-    return opts
+    groups = {"world_model": algo.world_model, "actor": algo.actor, "critic": algo.critic}
+    return build_group_optimizers(modules, groups, saved)
 
 
-def draw_noise(world_model: WorldModel, actor: Actor, U: int, L: int, B: int, horizon: int,
-               generator: torch.Generator) -> Dict[str, Any]:
+def draw_noise(world_model: Any, actor: Actor, U: int, L: int, B: int, horizon: int,
+               generator: torch.Generator, task_rollout: bool = False) -> Dict[str, Any]:
     """Every random draw of ``U`` updates on ``(L, B)`` blocks:
-    ``posterior`` Gumbel (U, L, B, S, D); ``actions``, per action branch, a
-    Gumbel (U, H+1, L*B, d) or, for continuous actions, one normal
-    (U, H+1, L*B, A); ``imagination`` Gumbel (U, H+1, L*B, S, D)."""
-    S, D = world_model.stochastic_size, world_model.discrete_size
+    ``posterior`` (U, L, B, *latent) — a Gumbel (S, D) for categorical
+    latents, a normal (stoch,) for Gaussian ones; ``actions``, per action
+    branch, a Gumbel (U, H+1, L*B, d) or, for continuous actions, one normal
+    (U, H+1, L*B, A); ``imagination`` (U, H+1, L*B, *latent).  With
+    ``task_rollout`` a second rollout's ``actions_task`` and
+    ``imagination_task`` follow (the task actor of Plan2Explore)."""
     n = L * B
-    post = OneHotCategorical.sample_noise((U, L, B, S, D), generator, generator.device)
-    actions = actor.sample_noise((U, horizon + 1, n), generator)
-    imag = OneHotCategorical.sample_noise((U, horizon + 1, n, S, D), generator, generator.device)
-    return {"posterior": post, "actions": actions, "imagination": imag}
+    noise = {"posterior": world_model.latent_noise((U, L, B), generator)}
+    for suffix in ("", "_task") if task_rollout else ("",):
+        noise["actions" + suffix] = actor.sample_noise((U, horizon + 1, n), generator)
+        noise["imagination" + suffix] = world_model.latent_noise((U, horizon + 1, n), generator)
+    return noise
 
 
 def noise_slice(noise: Dict[str, Any], u: int) -> Dict[str, Any]:
-    return {"posterior": noise["posterior"][u], "actions": [a[u] for a in noise["actions"]],
-            "imagination": noise["imagination"][u]}
+    return {k: [a[u] for a in v] if isinstance(v, list) else v[u] for k, v in noise.items()}
 
 
 def window_chunks(n_updates: int, bytes_per_update: int, budget: Optional[int] = None) -> List[int]:
@@ -189,24 +182,201 @@ def window_chunks(n_updates: int, bytes_per_update: int, budget: Optional[int] =
     return [min(cap, n_updates - i) for i in range(0, n_updates, cap)]
 
 
-class DV3Trainer:
-    """The modules, Moments state and optimizers of one DreamerV3 run, and
-    its update."""
+def zero_moments(saved: Optional[Dict[str, torch.Tensor]], device: torch.device) -> Dict[str, torch.Tensor]:
+    """A Moments state ``{low, high}``: the saved one on ``device``, else zeros."""
+    return {k: (saved[k].to(device).float().clone() if saved else torch.zeros((), device=device))
+            for k in ("low", "high")}
 
-    def __init__(self, cfg: Any, world_model: WorldModel, actor: Actor, critic: Critic,
-                 target_critic: Critic, cnn_keys: Sequence[str], mlp_keys: Sequence[str], is_continuous: bool,
-                 agent_state: Optional[Dict[str, Any]] = None, opt_state: Optional[Dict[str, Any]] = None):
+
+def _tree_state(tree: Any) -> Any:
+    if isinstance(tree, torch.nn.Module):
+        return tree.state_dict()
+    if isinstance(tree, torch.Tensor):
+        return tree
+    return {k: _tree_state(v) for k, v in tree.items()}
+
+
+def _tree_load(tree: Dict[str, Any], state: Dict[str, Any]) -> None:
+    """Load ``state`` into ``tree`` in place: modules by ``load_state_dict``;
+    a tensor entry (Moments) is replaced by a copy in its dict."""
+    for k, v in tree.items():
+        if isinstance(v, torch.nn.Module):
+            v.load_state_dict(state[k])
+        elif isinstance(v, torch.Tensor):
+            tree[k] = state[k].to(v.device, v.dtype).clone()
+        else:
+            _tree_load(v, state[k])
+
+
+def _tree_tensors(tree: Any) -> List[torch.Tensor]:
+    if isinstance(tree, torch.nn.Module):
+        return list(tree.parameters())
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for v in tree.values() for t in _tree_tensors(v)]
+
+
+class DreamerTrainer:
+    """What the Dreamer family's trainers share: the modules (``agent``, the
+    dict the loop's ``build_agent_fn`` returns), the extra state (Moments)
+    and the optimizers of a run, as one tree (:meth:`state_tree`) that the
+    checkpoint, the health guard's snapshot and its restore walk; the window
+    of updates (:meth:`train_phase`); and the imagination scan.  A subclass
+    gives :meth:`train_step` (one update on an ``(L, B, *)`` block returning
+    the ten metrics of :data:`METRIC_NAMES`) and adds its extra state to
+    :meth:`state_tree`."""
+
+    #: whether each update imagines a second rollout, for a task actor
+    task_rollout = False
+
+    def __init__(self, cfg: Any, modules: Dict[str, Any], optimizers: Dict[str, ClippedOptimizer],
+                 cnn_keys: Sequence[str], mlp_keys: Sequence[str], is_continuous: bool):
         self.cfg = cfg
-        self.world_model, self.actor, self.critic, self.target_critic = world_model, actor, critic, target_critic
-        self.target_critic.requires_grad_(False)
+        self.agent = dict(modules)
+        self.world_model, self.actor = modules["world_model"], modules["actor"]
+        self.optimizers = optimizers
         self.cnn_keys, self.mlp_keys = tuple(cnn_keys), tuple(mlp_keys)
         self.obs_keys = self.cnn_keys + self.mlp_keys
         self.is_continuous = is_continuous
-        self.device = next(world_model.parameters()).device
+        self.device = next(self.world_model.parameters()).device
         algo = cfg.algo
         self.horizon = int(algo.horizon)
         self.gamma = float(algo.gamma)
         self.lmbda = float(algo.lmbda)
+        self.last_wm_grad_norm: Optional[torch.Tensor] = None
+        #: the mean intrinsic reward of the last update's exploration rollout
+        #: (Plan2Explore; None without ensembles)
+        self.last_intrinsic: Optional[torch.Tensor] = None
+
+    # -- state ---------------------------------------------------------------
+    def state_tree(self) -> Dict[str, Any]:
+        return dict(self.agent)
+
+    def modules(self) -> Dict[str, torch.nn.Module]:
+        return {k: v for k, v in self.state_tree().items() if isinstance(v, torch.nn.Module)}
+
+    def agent_state(self) -> Dict[str, Any]:
+        return _tree_state(self.state_tree())
+
+    def opt_state(self) -> Dict[str, Any]:
+        return {name: opt.state_dict() for name, opt in self.optimizers.items()}
+
+    def tensors(self) -> List[torch.Tensor]:
+        """Every trained tensor: parameters, target networks and Moments."""
+        return _tree_tensors(self.state_tree())
+
+    def snapshot(self) -> Dict[str, Any]:
+        """A device copy of the whole trained state (for the health guard)."""
+        return _clone({"agent": self.agent_state(), "opt": self.opt_state()})
+
+    def restore(self, snap: Dict[str, Any]) -> None:
+        """Load ``snap``; it stays intact (``Optimizer.load_state_dict`` keeps
+        the tensors it is given, so it gets copies)."""
+        with torch.no_grad():
+            _tree_load(self.state_tree(), snap["agent"])
+        for name, opt in self.optimizers.items():
+            opt.load_state_dict(_clone(snap["opt"][name]))
+
+    # -- update pieces -------------------------------------------------------
+    def encode_block(self, data: Dict[str, torch.Tensor]):
+        """Normalised observations, their embeddings (L, B, E), the shifted
+        actions (h_t consumes a_{t-1}) and ``is_first`` (L, B, 1) with every
+        sequence starting an episode."""
+        L, B = data["rewards"].shape
+        obs = normalize_obs_block(data, self.cnn_keys, self.obs_keys)
+        embed = self.world_model.encode({k: v.reshape(L * B, *v.shape[2:]) for k, v in obs.items()}).reshape(L, B, -1)
+        actions = torch.cat([torch.zeros_like(data["actions"][:1]), data["actions"][:-1]], dim=0)
+        is_first = data["is_first"].clone()
+        is_first[0] = 1.0
+        return obs, embed, actions, is_first[..., None]
+
+    def posterior_scan(self, embed, actions, is_first, post_noise):
+        """One posterior step per time step: (hs, zs, posterior, prior) stacked over L."""
+        wm = self.world_model
+        B = embed.shape[1]
+        h = torch.zeros(B, wm.recurrent_size, device=self.device)
+        z = torch.zeros(B, wm.stoch_flat, device=self.device)
+        hs, zs, posts, priors = [], [], [], []
+        for t in range(embed.shape[0]):
+            h, z, post, prior = wm.dynamic_noise(h, z, actions[t], embed[t], is_first[t], post_noise[t])
+            hs.append(h)
+            zs.append(z)
+            posts.append(post)
+            priors.append(prior)
+        return torch.stack(hs), torch.stack(zs), torch.stack(posts), torch.stack(priors)
+
+    def imagine(self, actor: Actor, start: torch.Tensor, action_noise: Sequence[torch.Tensor],
+                imag_noise: torch.Tensor, detach_actor_input: bool = True):
+        """``horizon + 1`` prior steps from ``start`` latents: the latents
+        before each action (the trajectory) and the actions."""
+        wm = self.world_model
+        z = start[:, : wm.stoch_flat].contiguous()
+        h = start[:, wm.stoch_flat :].contiguous()
+        traj, actions = [], []
+        for t in range(self.horizon + 1):
+            latent = torch.cat([z, h], dim=-1)
+            head = actor(latent.detach() if detach_actor_input else latent)
+            action = actor.sample_from_noise(head, [n[t] for n in action_noise])
+            traj.append(latent)
+            actions.append(action)
+            h, z = wm.imagination_noise(h, z, action, imag_noise[t])
+        return torch.stack(traj), torch.stack(actions)
+
+    def metrics(self, wm_loss, aux, policy_loss, value_loss) -> Tuple[torch.Tensor, ...]:
+        """The ten metrics of :data:`METRIC_NAMES`; the latent entropies are
+        those of categorical posterior and prior logits, zero for the
+        Gaussian latents (whose ``aux`` has no logits)."""
+        with torch.no_grad():
+            if "post_logits" in aux:
+                post_ent = OneHotCategorical(aux["post_logits"].detach()).entropy().sum(-1).mean()
+                prior_ent = OneHotCategorical(aux["prior_logits"].detach()).entropy().sum(-1).mean()
+            else:
+                post_ent = prior_ent = torch.zeros((), device=self.device)
+        return (
+            wm_loss.detach(), aux["observation_loss"].detach(), aux["reward_loss"].detach(),
+            aux["kl_loss"].detach(), aux["continue_loss"].detach(), aux["kl"].detach(),
+            policy_loss, value_loss, post_ent, prior_ent,
+        )
+
+    def step_optimizer(self, name: str, loss: torch.Tensor) -> Optional[torch.Tensor]:
+        opt = self.optimizers[name]
+        opt.zero_grad()
+        loss.backward()
+        return opt.step()
+
+    # -- update ----------------------------------------------------------------
+    def train_step(self, data: Dict[str, torch.Tensor], noise: Dict[str, Any], counter: int) -> Tuple[torch.Tensor, ...]:
+        raise NotImplementedError
+
+    def train_phase(self, blocks: Dict[str, torch.Tensor], noise: Union[Dict[str, Any], torch.Generator],
+                    counter0: int):
+        """``U`` updates in order over ``(U, L, B, *)`` blocks; returns the
+        mean of each of the ten metrics over the window.  ``noise`` is every
+        draw of the ``U`` updates (:func:`draw_noise`), or a generator from
+        which each update draws its own just before it runs."""
+        U, L, B = blocks["rewards"].shape
+        metrics = []
+        for u in range(U):
+            if isinstance(noise, torch.Generator):
+                step_noise = noise_slice(draw_noise(self.world_model, self.actor, 1, L, B, self.horizon, noise,
+                                                    self.task_rollout), 0)
+            else:
+                step_noise = noise_slice(noise, u)
+            metrics.append(self.train_step({k: v[u] for k, v in blocks.items()}, step_noise, counter0 + u))
+        return tuple(torch.stack(m).mean() for m in zip(*metrics))
+
+
+class DV3Trainer(DreamerTrainer):
+    """The modules, Moments state and optimizers of one DreamerV3 run, and
+    its update."""
+
+    def __init__(self, cfg: Any, modules: Dict[str, Any], optimizers: Dict[str, ClippedOptimizer],
+                 cnn_keys: Sequence[str], mlp_keys: Sequence[str], is_continuous: bool,
+                 agent_state: Optional[Dict[str, Any]] = None):
+        super().__init__(cfg, modules, optimizers, cnn_keys, mlp_keys, is_continuous)
+        self.critic, self.target_critic = modules["critic"], modules["target_critic"]
+        self.target_critic.requires_grad_(False)
+        algo = cfg.algo
         self.tau = float(algo.critic.tau)
         self.target_freq = int(algo.critic.per_rank_target_network_update_freq)
         self.ent_coef = float(algo.actor.ent_coef)
@@ -220,71 +390,34 @@ class DV3Trainer:
             kl_free_nats=float(wm.kl_free_nats), kl_regularizer=float(wm.kl_regularizer),
             continue_scale_factor=float(wm.continue_scale_factor),
         )
-        saved_moments = (agent_state or {}).get("moments")
-        self.moments = {
-            k: (saved_moments[k].to(self.device).float().clone() if saved_moments else
-                torch.zeros((), device=self.device))
-            for k in ("low", "high")
-        }
-        self.optimizers = build_dv3_optimizers(cfg, world_model, actor, critic, opt_state)
-        self.last_wm_grad_norm: Optional[torch.Tensor] = None
+        self.moments = zero_moments((agent_state or {}).get("moments"), self.device)
 
-    # -- state ---------------------------------------------------------------
-    def modules(self) -> Dict[str, torch.nn.Module]:
-        return {"world_model": self.world_model, "actor": self.actor, "critic": self.critic,
-                "target_critic": self.target_critic}
-
-    def agent_state(self) -> Dict[str, Any]:
-        out: Dict[str, Any] = {name: m.state_dict() for name, m in self.modules().items()}
-        out["moments"] = dict(self.moments)
-        return out
-
-    def opt_state(self) -> Dict[str, Any]:
-        return {name: opt.state_dict() for name, opt in self.optimizers.items()}
-
-    def tensors(self) -> List[torch.Tensor]:
-        """Every trained tensor: parameters, target critic and Moments."""
-        out = [p for m in self.modules().values() for p in m.parameters()]
-        return out + list(self.moments.values())
-
-    def snapshot(self) -> Dict[str, Any]:
-        """A device copy of the whole trained state (for the health guard)."""
-        return _clone({"agent": self.agent_state(), "opt": self.opt_state()})
-
-    def restore(self, snap: Dict[str, Any]) -> None:
-        """Load ``snap``; it stays intact (``Optimizer.load_state_dict`` keeps
-        the tensors it is given, so it gets copies)."""
-        with torch.no_grad():
-            for name, m in self.modules().items():
-                m.load_state_dict(snap["agent"][name])
-            for k in self.moments:
-                self.moments[k].copy_(snap["agent"]["moments"][k])
-        for name, opt in self.optimizers.items():
-            opt.load_state_dict(_clone(snap["opt"][name]))
+    def state_tree(self) -> Dict[str, Any]:
+        return {**self.agent, "moments": self.moments}
 
     # -- update ----------------------------------------------------------------
     def wm_forward(self, data: Dict[str, torch.Tensor], post_noise: torch.Tensor):
         """Encoder + posterior scan + heads → (loss, aux with latents and logits)."""
         wm = self.world_model
         L, B = data["rewards"].shape
-        obs = normalize_obs_block(data, self.cnn_keys, self.obs_keys)
-        embed = wm.encode({k: v.reshape(L * B, *v.shape[2:]) for k, v in obs.items()}).reshape(L, B, -1)
-        # shifted actions: h_t consumes a_{t-1}; every sequence starts an episode
-        actions = torch.cat([torch.zeros_like(data["actions"][:1]), data["actions"][:-1]], dim=0)
-        is_first = data["is_first"].clone()
-        is_first[0] = 1.0
-        is_first = is_first[..., None]
-        h = torch.zeros(B, wm.recurrent_size, device=self.device)
-        z = torch.zeros(B, wm.stoch_flat, device=self.device)
-        hs, zs, posts, priors = [], [], [], []
-        for t in range(L):
-            h, z, post, prior = wm.dynamic_noise(h, z, actions[t], embed[t], is_first[t], post_noise[t])
-            hs.append(h)
-            zs.append(z)
-            posts.append(post)
-            priors.append(prior)
-        latents = torch.cat([torch.stack(zs), torch.stack(hs)], dim=-1)
-        post_logits, prior_logits = torch.stack(posts), torch.stack(priors)
+        obs, embed, actions, is_first = self.encode_block(data)
+        if wm.decoupled_rssm:
+            # every posterior from its embedding in one pass, sampled with the
+            # per-step draws; only the recurrent step and the prior stay in the scan
+            post_logits = wm.posterior_decoupled(embed.reshape(L * B, -1)).reshape(
+                L, B, wm.stochastic_size, wm.discrete_size)
+            zs = OneHotCategorical(post_logits, unimix=wm.unimix).rsample_from_noise(post_noise).reshape(L, B, -1)
+            prev_zs = torch.cat([torch.zeros_like(zs[:1]), zs[:-1]], dim=0)
+            h = torch.zeros(B, wm.recurrent_size, device=self.device)
+            hs, priors = [], []
+            for t in range(L):
+                h, prior = wm.recurrent_prior(h, prev_zs[t], actions[t], is_first[t])
+                hs.append(h)
+                priors.append(prior)
+            hs, prior_logits = torch.stack(hs), torch.stack(priors)
+        else:
+            hs, zs, post_logits, prior_logits = self.posterior_scan(embed, actions, is_first, post_noise)
+        latents = torch.cat([zs, hs], dim=-1)
 
         flat = latents.reshape(L * B, -1)
         recon = wm.decode(flat)
@@ -302,105 +435,99 @@ class DV3Trainer:
         aux.update(latents=latents, post_logits=post_logits, prior_logits=prior_logits)
         return loss, aux
 
-    def _imagine(self, start: torch.Tensor, action_noise: Sequence[torch.Tensor], imag_noise: torch.Tensor):
-        """``horizon + 1`` prior steps from ``start`` latents: the latents
-        before each action (the trajectory) and the actions."""
-        wm, actor = self.world_model, self.actor
-        z = start[:, : wm.stoch_flat].contiguous()
-        h = start[:, wm.stoch_flat :].contiguous()
-        traj, actions = [], []
-        for t in range(self.horizon + 1):
-            latent = torch.cat([z, h], dim=-1)
-            action = actor.sample_from_noise(actor(latent.detach()), [n[t] for n in action_noise])
-            traj.append(latent)
-            actions.append(action)
-            h, z = wm.imagination_noise(h, z, action, imag_noise[t])
-        return torch.stack(traj), torch.stack(actions)
+    def world_model_update(self, data: Dict[str, torch.Tensor], post_noise: torch.Tensor):
+        wm_loss, aux = self.wm_forward(data, post_noise)
+        self.last_wm_grad_norm = self.step_optimizer("world_model", wm_loss)
+        return wm_loss, aux
 
-    def behavior_update(self, latents: torch.Tensor, terminated: torch.Tensor, noise: Dict[str, Any]):
-        """Imagination, λ-returns, Moments, the actor and the critic steps."""
-        wm, actor, critic = self.world_model, self.actor, self.critic
+    def critic_mean(self, critic: Critic, flat: torch.Tensor) -> torch.Tensor:
+        """The two-hot mean of ``critic`` on (H+1)·n rows, as (H+1, n)."""
+        return TwoHotEncodingDistribution(critic(flat).reshape(self.horizon + 1, -1, self.bins), dims=1).mean[..., 0]
+
+    def critic_regression(self, critic: Critic, target: Critic, traj: torch.Tensor, lambda_values: torch.Tensor,
+                          discount: torch.Tensor, opt_name: str) -> torch.Tensor:
+        """The critic's two-hot NLL of the λ-returns plus the target
+        regulariser, over the trajectory without its last step; one step."""
         H = self.horizon
-        L, B = terminated.shape
-        n = L * B
-        start = latents.detach().reshape(n, -1)
+        flat_sg = traj[:-1].detach().reshape(H * traj.shape[1], -1)
+        with torch.no_grad():
+            target_mean = TwoHotEncodingDistribution(target(flat_sg).reshape(H, -1, self.bins), dims=1).mean
+        qv = TwoHotEncodingDistribution(critic(flat_sg).reshape(H, -1, self.bins), dims=1)
+        value_loss = torch.mean((-qv.log_prob(lambda_values.detach()[..., None]) - qv.log_prob(target_mean))
+                                * discount[:-1])
+        self.step_optimizer(opt_name, value_loss)
+        return value_loss.detach()
 
+    def actor_objective(self, actor: Actor, traj: torch.Tensor, actions_seq: torch.Tensor,
+                        advantage: torch.Tensor, discount: torch.Tensor) -> torch.Tensor:
+        """The policy loss: the advantage itself for continuous actions
+        (dynamics backprop), REINFORCE with the advantage stopped for
+        discrete ones, plus the entropy bonus."""
+        heads = actor(traj.detach())
+        if self.is_continuous:
+            objective = advantage
+        else:
+            objective = actor.log_prob(heads[:-1], actions_seq[:-1].detach()) * advantage.detach()
+        entropy = actor.entropy(heads[:-1])
+        return -torch.mean(discount[:-1] * (objective + self.ent_coef * entropy))
+
+    def imagined_continues(self, flat: torch.Tensor, terminated: torch.Tensor) -> torch.Tensor:
+        """The continue head's mode on the trajectory, the true continue first."""
+        n = terminated.numel()
+        continues = Bernoulli(self.world_model.continue_logits(flat).reshape(self.horizon + 1, n)).mode()
+        return torch.cat([(1.0 - terminated).reshape(1, n), continues[1:]], dim=0)
+
+    def behavior(self, actor: Actor, critic: Critic, target_critic: Critic, moments: Dict[str, torch.Tensor],
+                 latents: torch.Tensor, terminated: torch.Tensor, action_noise, imag_noise,
+                 actor_opt: str = "actor", critic_opt: str = "critic"):
+        """Imagination, λ-returns, Moments (updated in place), the actor and
+        the critic steps on the extrinsic reward."""
+        wm = self.world_model
+        H = self.horizon
+        n = terminated.numel()
+        start = latents.detach().reshape(n, -1)
         with frozen(wm, critic):
             # discrete actions: the objective stops the gradient at the
             # advantage, so nothing flows back through the imagination
             with torch.enable_grad() if self.is_continuous else torch.no_grad():
-                traj, actions_seq = self._imagine(start, noise["actions"], noise["imagination"])
+                traj, actions_seq = self.imagine(actor, start, action_noise, imag_noise)
                 flat = traj.reshape((H + 1) * n, -1)
                 rewards = TwoHotEncodingDistribution(wm.reward_logits(flat).reshape(H + 1, n, -1), dims=1).mean[..., 0]
-                values = TwoHotEncodingDistribution(critic(flat).reshape(H + 1, n, -1), dims=1).mean[..., 0]
-                continues = Bernoulli(wm.continue_logits(flat).reshape(H + 1, n)).mode()
-                continues = torch.cat([(1.0 - terminated).reshape(1, n), continues[1:]], dim=0)
+                values = self.critic_mean(critic, flat)
+                continues = self.imagined_continues(flat, terminated)
                 lambda_values = compute_lambda_values(rewards[1:], values[1:], continues[1:] * self.gamma, self.lmbda)
                 discount = (torch.cumprod(continues * self.gamma, dim=0) / self.gamma).detach()
-            new_moments, offset, invscale = moments_update(self.moments, lambda_values, **self.moments_cfg)
+            new_moments, offset, invscale = moments_update(moments, lambda_values, **self.moments_cfg)
             advantage = (lambda_values - offset) / invscale - (values[:-1] - offset) / invscale
-            heads = actor(traj.detach())
-            if self.is_continuous:
-                objective = advantage
-            else:
-                objective = actor.log_prob(heads[:-1], actions_seq[:-1].detach()) * advantage.detach()
-            entropy = actor.entropy(heads[:-1])
-            policy_loss = -torch.mean(discount[:-1] * (objective + self.ent_coef * entropy))
-            self.optimizers["actor"].zero_grad()
-            policy_loss.backward()
-        self.optimizers["actor"].step()
-        self.moments = new_moments
+            policy_loss = self.actor_objective(actor, traj, actions_seq, advantage, discount)
+            self.step_optimizer(actor_opt, policy_loss)
+        moments.update(new_moments)
+        value_loss = self.critic_regression(critic, target_critic, traj, lambda_values, discount, critic_opt)
+        return policy_loss.detach(), value_loss
 
-        # critic: two-hot NLL of the λ-returns plus the target regulariser
-        flat_sg = traj[:-1].detach().reshape(H * n, -1)
-        lambda_sg = lambda_values.detach()
-        with torch.no_grad():
-            target_mean = TwoHotEncodingDistribution(
-                self.target_critic(flat_sg).reshape(H, n, self.bins), dims=1
-            ).mean
-        qv = TwoHotEncodingDistribution(critic(flat_sg).reshape(H, n, self.bins), dims=1)
-        value_loss = torch.mean((-qv.log_prob(lambda_sg[..., None]) - qv.log_prob(target_mean)) * discount[:-1])
-        self.optimizers["critic"].zero_grad()
-        value_loss.backward()
-        self.optimizers["critic"].step()
-        return policy_loss.detach(), value_loss.detach()
+    def behavior_update(self, latents: torch.Tensor, terminated: torch.Tensor, noise: Dict[str, Any]):
+        """Imagination, λ-returns, Moments, the actor and the critic steps."""
+        return self.behavior(self.actor, self.critic, self.target_critic, self.moments, latents, terminated,
+                             noise["actions"], noise["imagination"])
+
+    def target_update(self, counter: int) -> None:
+        """The target critic's EMA, every ``target_freq`` updates."""
+        if counter % self.target_freq == 0:
+            ema_(self.target_critic, self.critic, self.tau)
 
     def train_step(self, data: Dict[str, torch.Tensor], noise: Dict[str, Any], counter: int) -> Tuple[torch.Tensor, ...]:
         """One update on an ``(L, B, *)`` block; returns the ten metrics."""
-        opt = self.optimizers["world_model"]
-        opt.zero_grad()
-        wm_loss, aux = self.wm_forward(data, noise["posterior"])
-        wm_loss.backward()
-        self.last_wm_grad_norm = opt.step()
+        wm_loss, aux = self.world_model_update(data, noise["posterior"])
         policy_loss, value_loss = self.behavior_update(aux["latents"], data["terminated"], noise)
-        if counter % self.target_freq == 0:
-            with torch.no_grad():
-                for t, o in zip(self.target_critic.parameters(), self.critic.parameters()):
-                    t.copy_((1 - self.tau) * t + self.tau * o)
-        with torch.no_grad():
-            post_ent = OneHotCategorical(aux["post_logits"].detach()).entropy().sum(-1).mean()
-            prior_ent = OneHotCategorical(aux["prior_logits"].detach()).entropy().sum(-1).mean()
-        return (
-            wm_loss.detach(), aux["observation_loss"].detach(), aux["reward_loss"].detach(),
-            aux["kl_loss"].detach(), aux["continue_loss"].detach(), aux["kl"].detach(),
-            policy_loss, value_loss, post_ent, prior_ent,
-        )
+        self.target_update(counter)
+        return self.metrics(wm_loss, aux, policy_loss, value_loss)
 
-    def train_phase(self, blocks: Dict[str, torch.Tensor], noise: Union[Dict[str, Any], torch.Generator],
-                    counter0: int):
-        """``U`` updates in order over ``(U, L, B, *)`` blocks; returns the
-        mean of each of the ten metrics over the window.  ``noise`` is every
-        draw of the ``U`` updates (:func:`draw_noise`), or a generator from
-        which each update draws its own just before it runs."""
-        U, L, B = blocks["rewards"].shape
-        metrics = []
-        for u in range(U):
-            if isinstance(noise, torch.Generator):
-                step_noise = noise_slice(draw_noise(self.world_model, self.actor, 1, L, B, self.horizon, noise), 0)
-            else:
-                step_noise = noise_slice(noise, u)
-            metrics.append(self.train_step({k: v[u] for k, v in blocks.items()}, step_noise, counter0 + u))
-        return tuple(torch.stack(m).mean() for m in zip(*metrics))
+
+def ema_(target: torch.nn.Module, online: torch.nn.Module, tau: float) -> None:
+    """``target ← (1 - tau) · target + tau · online``, parameter by parameter."""
+    with torch.no_grad():
+        for t, o in zip(target.parameters(), online.parameters()):
+            t.copy_((1 - tau) * t + tau * o)
 
 
 def _clone(tree: Any) -> Any:
@@ -458,11 +585,89 @@ def _rb_state_from_checkpoint(tree: Any) -> Any:
 
 @register_algorithm()
 def main(fabric: Any, cfg: Any) -> None:
-    dreamer_family_loop(fabric, cfg)
+    dreamer_family_loop(fabric, cfg, build_agent, DV3Trainer)
 
 
-def dreamer_family_loop(fabric: Any, cfg: Any) -> None:
-    """The env / replay / train loop of DreamerV3 on one device."""
+@register_evaluation(algorithms="dreamer_v3")
+def evaluate(fabric: Any, cfg: Any, state: Dict[str, Any]) -> float:
+    return evaluate_dreamer(fabric, cfg, state, build_agent)
+
+
+def evaluate_dreamer(fabric: Any, cfg: Any, state: Dict[str, Any], build_agent_fn: Any) -> float:
+    """One greedy test episode of a family snapshot with the latent player
+    (the JAX package's ``_evaluate_dreamer``): the agent is rebuilt by
+    ``build_agent_fn`` from ``state["agent"]``, whose ``actor`` is the task
+    or exploration policy as ``algo.player.actor_type`` chooses when the
+    snapshot holds both.  Returns the cumulative reward."""
+    log_dir = get_log_dir(cfg.root_dir, cfg.run_name, base=cfg.get("log_dir", "logs/runs"))
+    logger = get_logger(cfg, log_dir)
+    env = make_env(cfg, cfg.seed, 0)()
+    actions_dim, is_continuous = spaces_to_dims(env.action_space)
+    obs_space = env.observation_space
+    env.close()
+    modules = build_agent_fn(fabric, actions_dim, is_continuous, cfg, obs_space, choose_actor(state["agent"], cfg))
+    wm, actor = modules["world_model"], modules["actor"]
+    cnn_keys, mlp_keys = tuple(cfg.algo.cnn_keys.encoder), tuple(cfg.algo.mlp_keys.encoder)
+    gen = torch.Generator(fabric.device).manual_seed(int(cfg.seed))
+
+    def test_step(carry, raw_obs, greedy):
+        if carry is None:
+            carry = (torch.zeros(1, wm.recurrent_size, device=fabric.device),
+                     torch.zeros(1, wm.stoch_flat, device=fabric.device),
+                     torch.zeros(1, int(sum(actions_dim)), device=fabric.device))
+        with torch.inference_mode():
+            carry, action = latent_player_step(wm, actor, carry, prepare_obs(raw_obs, cnn_keys, mlp_keys,
+                                                                             fabric.device), gen, greedy)
+        return carry, one_hot_to_env(action.cpu().numpy(), actions_dim, is_continuous)
+
+    reward = test(test_step, cfg, log_dir, logger)
+    if logger is not None:
+        logger.close()
+    return reward
+
+
+def latent_player_step(world_model: Any, actor: Actor, carry, obs: Dict[str, torch.Tensor],
+                       generator: torch.Generator, greedy: bool = False):
+    """The latent player's step: encoder → one posterior step → actor.
+    ``carry`` is (h, z, previous action); returns the new carry and the action."""
+    h, z, prev_a = carry
+    embed = world_model.encode(obs)
+    is_first = torch.zeros((h.shape[0], 1), device=h.device)
+    h, z, _, _ = world_model.dynamic_noise(h, z, prev_a, embed, is_first,
+                                           world_model.posterior_noise(h.shape[0], generator))
+    action = actor.sample(actor(torch.cat([z, h], dim=-1)), generator, greedy=greedy)
+    return (h, z, action), action
+
+
+def one_hot_to_env(actions: np.ndarray, actions_dim: Sequence[int], is_continuous: bool) -> np.ndarray:
+    """Player actions (one-hot branches, or continuous values) → what the env
+    steps with: the branch indices as floats, or the values."""
+    if is_continuous:
+        return actions
+    idx, start = [], 0
+    for d in actions_dim:
+        idx.append(actions[..., start : start + d].argmax(-1))
+        start += d
+    return np.stack(idx, -1).astype(np.float32)
+
+
+def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent,
+                        make_trainer_fn: Any = DV3Trainer, optimizer_builder: Any = None,
+                        initial_state: Optional[Dict[str, Any]] = None) -> None:
+    """The env / replay / train loop of the Dreamer family on one device
+    (the JAX loop's parameters):
+
+    * ``build_agent_fn(fabric, actions_dim, is_continuous, cfg, obs_space,
+      agent_state)`` → the agent's named modules (``world_model`` and
+      ``actor`` drive the player);
+    * ``make_trainer_fn(cfg, modules, optimizers, cnn_keys, mlp_keys,
+      is_continuous, agent_state)`` → a :class:`DreamerTrainer` (a trainer
+      class);
+    * ``optimizer_builder(cfg, modules, saved)`` → the named optimizers
+      (default: :func:`build_dv3_optimizers`);
+    * ``initial_state``: a state to start from when not resuming (the
+      projected exploration snapshot of a finetuning run); like a resumed
+      one, it skips the random prefill."""
     check_supported(cfg)
     unacted = unacted_settings(cfg)
     if unacted:
@@ -488,69 +693,62 @@ def dreamer_family_loop(fabric: Any, cfg: Any) -> None:
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
     mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
     obs_keys = cnn_keys + mlp_keys
+    episodic = cfg.buffer.get("type", "sequential") == "episode"
     print(
-        f"dreamer_v3 on {fabric.device}: player on {player_device}, replay in a host ring "
-        f"(buffer.device={cfg.buffer.get('device', 'auto')} resolves to the host ring in this port), "
-        f"{num_envs} env(s) stepped synchronously",
+        f"{cfg.algo.name} on {fabric.device}: player on {player_device}, replay in "
+        + ("an EpisodeBuffer on the host" if episodic else
+           f"a host ring (buffer.device={cfg.buffer.get('device', 'auto')} resolves to the host ring in this port)")
+        + f", {num_envs} env(s) stepped synchronously",
         flush=True,
     )
 
-    state: Dict[str, Any] = {}
+    state: Dict[str, Any] = dict(initial_state or {})
     if cfg.checkpoint.get("resume_from"):
         # on the host: the modules, optimizers and Moments move their own
         # tensors to the device, the replay ring stays in host memory
         state = load_step_dir(cfg.checkpoint.resume_from, map_location="cpu")
+    if "generators" in state:
         for name, gen in (("train", train_gen), ("player", player_gen)):
             gen.set_state(state["generators"][name].cpu())
-    world_model, actor, critic, target_critic = build_agent(
-        fabric, actions_dim, is_continuous, cfg, obs_space, state.get("agent")
-    )
-    trainer = DV3Trainer(cfg, world_model, actor, critic, target_critic, cnn_keys, mlp_keys, is_continuous,
-                         agent_state=state.get("agent"), opt_state=state.get("opt_state"))
+    modules = build_agent_fn(fabric, actions_dim, is_continuous, cfg, obs_space, state.get("agent"))
+    optimizers = (optimizer_builder or build_dv3_optimizers)(cfg, modules, state.get("opt_state"))
+    trainer = make_trainer_fn(cfg, modules, optimizers, cnn_keys, mlp_keys, is_continuous, state.get("agent"))
     sentinel = HealthSentinel.from_config(cfg)
 
     aggregator = MetricAggregator(cfg.metric.aggregator.metrics if cfg.metric.log_level > 0 else {})
     timer.configure(cfg.metric)
 
-    psync = PlayerSync(cfg, player_device, lambda: {"world_model": world_model, "actor": actor})
-    rec_size = world_model.recurrent_size
-    stoch_flat = world_model.stoch_flat
+    psync = PlayerSync(cfg, player_device, lambda: {"world_model": trainer.world_model, "actor": trainer.actor})
+    rec_size = trainer.world_model.recurrent_size
+    stoch_flat = trainer.world_model.stoch_flat
 
     def player_step(carry, obs, greedy: bool = False):
-        """Encoder → one posterior step → actor on the player's modules."""
-        wm, act = psync.modules["world_model"], psync.modules["actor"]
-        h, z, prev_a = carry
-        embed = wm.encode(obs)
-        is_first = torch.zeros((h.shape[0], 1), device=player_device)
-        h, z, _, _ = wm.dynamic_noise(h, z, prev_a, embed, is_first, wm.posterior_noise(h.shape[0], player_gen))
-        action = act.sample(act(torch.cat([z, h], dim=-1)), player_gen, greedy=greedy)
-        return (h, z, action), action
+        return latent_player_step(psync.modules["world_model"], psync.modules["actor"], carry, obs, player_gen,
+                                  greedy)
 
     def init_player_carry(batch: int):
         return (torch.zeros(batch, rec_size, device=player_device),
                 torch.zeros(batch, stoch_flat, device=player_device),
                 torch.zeros(batch, act_width, device=player_device))
 
-    def to_env_actions(actions: np.ndarray) -> np.ndarray:
-        if is_continuous:
-            return actions
-        idx, start = [], 0
-        for d in actions_dim:
-            idx.append(actions[..., start : start + d].argmax(-1))
-            start += d
-        return np.stack(idx, -1).astype(np.float32)
-
     psync.init()
     player_carry = init_player_carry(num_envs)
 
     seq_len = int(cfg.algo.per_rank_sequence_length)
     batch_size = int(cfg.algo.per_rank_batch_size)
+    # every member of the family samples the same (L, B, *) block per update
     bytes_per_update = sampled_bytes_per_update(obs_space, cnn_keys, mlp_keys, act_width, seq_len, batch_size)
-    capacity = max(int(cfg.buffer.size) // num_envs, seq_len * 2)
-    rb = EnvIndependentReplayBuffer(
-        capacity, n_envs=num_envs, buffer_cls=SequentialReplayBuffer, memmap=cfg.buffer.memmap,
-        memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0") if cfg.buffer.memmap else None,
-    )
+    memmap_dir = os.path.join(log_dir, "memmap_buffer", "rank_0") if cfg.buffer.memmap else None
+    if episodic:
+        rb = EpisodeBuffer(max(int(cfg.buffer.size), seq_len * 4), sequence_length=seq_len, n_envs=num_envs,
+                           prioritize_ends=bool(cfg.buffer.get("prioritize_ends", False)),
+                           memmap=cfg.buffer.memmap, memmap_dir=memmap_dir)
+    else:
+        capacity = max(int(cfg.buffer.size) // num_envs, seq_len * 2)
+        rb = EnvIndependentReplayBuffer(capacity, n_envs=num_envs, buffer_cls=SequentialReplayBuffer,
+                                        memmap=cfg.buffer.memmap, memmap_dir=memmap_dir)
+    # present only when saved with buffer.checkpoint, or carried over by a
+    # finetuning run's buffer.load_from_exploration
     if state.get("rb") is not None:
         rb.load_state_dict(_rb_state_from_checkpoint(state["rb"]))
 
@@ -596,7 +794,7 @@ def dreamer_family_loop(fabric: Any, cfg: Any) -> None:
                 with torch.inference_mode():
                     player_carry, action = player_step(player_carry, prepare_obs(obs, cnn_keys, mlp_keys, player_device))
                 actions = action.cpu().numpy().astype(np.float32)
-            env_actions = to_env_actions(actions)
+            env_actions = one_hot_to_env(actions, actions_dim, is_continuous)
 
             step_data["actions"] = actions[None]
             rb.add({k: (v[..., None] if v.ndim == 2 else v) for k, v in step_data.items()})
@@ -656,7 +854,11 @@ def dreamer_family_loop(fabric: Any, cfg: Any) -> None:
                         c[rows] = 0.0
 
         # ---------------- training ---------------------------------------------
-        if update >= learning_starts and any(len(b) > seq_len for b in rb.buffer):
+        if episodic:
+            can_sample = len(rb) > seq_len and len(rb.buffer) > 0
+        else:
+            can_sample = any(len(b) > seq_len for b in rb.buffer)
+        if update >= learning_starts and can_sample:
             per_rank_gradient_steps = ratio(policy_step)
             if cfg.dry_run:
                 per_rank_gradient_steps = 1 if update == total_iters else 0
@@ -719,7 +921,7 @@ def dreamer_family_loop(fabric: Any, cfg: Any) -> None:
             with torch.inference_mode():
                 carry, action = player_step(carry if carry is not None else init_player_carry(1),
                                             prepare_obs(raw_obs, cnn_keys, mlp_keys, player_device), greedy)
-            return carry, to_env_actions(action.cpu().numpy())
+            return carry, one_hot_to_env(action.cpu().numpy(), actions_dim, is_continuous)
 
         test(test_step, cfg, log_dir, logger)
     if logger is not None:

@@ -19,7 +19,17 @@ from sheeprl_tpu_torch.utils.registry import algorithm_registry, resolve_algorit
 from sheeprl_tpu_torch.utils.structured import deep_merge, dotdict
 
 #: modules whose import registers the port's algorithms
-ALGORITHM_MODULES = ("sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",)
+ALGORITHM_MODULES = (
+    "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
+    "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration",
+    "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_finetuning",
+    "sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2",
+    "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_exploration",
+    "sheeprl_tpu_torch.algos.p2e_dv2.p2e_dv2_finetuning",
+    "sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1",
+    "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_exploration",
+    "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_finetuning",
+)
 
 
 def register_all_algorithms() -> None:
@@ -139,11 +149,31 @@ def serve(argv: Optional[List[str]] = None) -> None:
     server.serve_forever()
 
 
-def evaluation(argv: Optional[List[str]] = None) -> None:
-    """Play one greedy episode with a committed snapshot through the serving
-    player and print its cumulative reward."""
-    from sheeprl_tpu_torch.serve.loader import evaluate_player, load_policy
+def evaluation(argv: Optional[List[str]] = None) -> float:
+    """Play one greedy episode with a committed snapshot and print its
+    cumulative reward, through the latent player of the snapshot's Dreamer
+    family member with the actor ``algo.player.actor_type`` chooses.
+
+    Usage:
+        python -c "from sheeprl_tpu_torch.cli import evaluation; evaluation()" \
+            checkpoint_path=<ckpt-or-run-dir> [fabric.accelerator=cpu] [overrides...]
+    """
+    from sheeprl_tpu_torch.fabric import build_fabric
+    from sheeprl_tpu_torch.serve.loader import load_run_config, resolve_checkpoint
+    from sheeprl_tpu_torch.utils.registry import evaluation_registry
 
     checkpoint_path, rest = _split_checkpoint_arg(argv, "evaluation")
-    _, cfg, _, player = load_policy(checkpoint_path, rest)
-    print(f"Test/cumulative_reward: {evaluate_player(cfg, player)}", flush=True)
+    ckpt = resolve_checkpoint(checkpoint_path)
+    cfg = load_run_config(ckpt, rest)
+    cfg.fabric.devices = 1
+    cfg.env.num_envs = 1
+    register_all_algorithms()
+    if cfg.algo.name not in evaluation_registry:
+        raise ConfigError(
+            f"no evaluation registered for algorithm '{cfg.algo.name}' "
+            f"(available: {', '.join(sorted(evaluation_registry))})"
+        )
+    fabric = build_fabric(cfg)
+    reward = evaluation_registry[cfg.algo.name](fabric, cfg, fabric.load(ckpt))
+    print(f"Test/cumulative_reward: {reward}", flush=True)
+    return reward

@@ -1,9 +1,10 @@
-"""Carry DreamerV3 weights from the JAX package's parameter tree to the port.
+"""Carry Dreamer-family weights from the JAX package's parameter tree to the port.
 
-:func:`agent_state_from_jax` takes the tree ``sheeprl_tpu``'s ``build_agent``
-returns (as numpy arrays) and gives the ``state_dict``s of the port's
-``world_model``, ``actor``, ``critic`` and ``target_critic``.  The port's
-modules carry the flax names, so each flax path maps to a key by rule:
+:func:`agent_state_from_jax` takes the tree a ``sheeprl_tpu`` ``build_agent``
+returns (as numpy arrays) — DreamerV3, V2 or V1, or a Plan2Explore
+exploration agent of any of them — and gives the port's ``state_dict``s
+under the same names.  The port's modules carry the flax names, so each flax
+path maps to a key by rule:
 
 * ``.../LayerNorm_0/{scale,bias}`` (the fp32 LayerNorm wrapper) → ``.../{weight,bias}``;
 * a Dense ``kernel`` (in, out) → ``Linear.weight`` (out, in);
@@ -15,7 +16,11 @@ modules carry the flax names, so each flax path maps to a key by rule:
 * the kernel-flag parameters (``fused_kernel``, ``in_kernel``,
   ``gru_kernel``, ``ln_scale``, ...) and ``initial_recurrent`` keep their
   name and their (in, out) layout;
-* the Moments state ``moments/{low,high}`` becomes two 0-d tensors.
+* the Plan2Explore ensembles' params-vmapped tree keeps its member axis
+  first: ``kernel`` (n, in, out) and ``bias`` (n, out) as they are;
+* a Moments state ``moments/{low,high}`` becomes two 0-d tensors, also
+  under each ``critics_exploration/<name>`` with that critic's
+  ``critic`` and ``target`` networks.
 """
 
 from __future__ import annotations
@@ -34,11 +39,13 @@ def _leaves(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Iterator[T
             yield prefix + (str(k),), v
 
 
-def _convert_leaf(path: Tuple[str, ...], value: Any) -> Tuple[str, torch.Tensor]:
+def _convert_leaf(path: Tuple[str, ...], value: Any, stacked: bool = False) -> Tuple[str, torch.Tensor]:
     path = tuple(p for p in path if p != "LayerNorm_0")
     *parents, leaf = path
     arr = np.asarray(value, dtype=np.float32)
-    if leaf == "kernel":
+    if leaf == "kernel" and stacked:
+        pass  # (n, in, out), the port's stacked layout
+    elif leaf == "kernel":
         if arr.ndim == 2:
             arr = arr.T
         elif arr.ndim == 4 and parents and parents[-1].startswith("deconv"):
@@ -53,31 +60,56 @@ def _convert_leaf(path: Tuple[str, ...], value: Any) -> Tuple[str, torch.Tensor]
     return ".".join([*parents, leaf]), torch.from_numpy(np.array(arr, order="C"))
 
 
-def module_state_from_flax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """One flax module's ``{"params": ...}`` variables → a torch ``state_dict``."""
+def module_state_from_flax(variables: Mapping[str, Any], stacked: bool = False) -> Dict[str, torch.Tensor]:
+    """One flax module's ``{"params": ...}`` variables → a torch ``state_dict``
+    (``stacked``: a params-vmapped module, member axis first)."""
     params = variables.get("params", variables)
-    return dict(_convert_leaf(path, value) for path, value in _leaves(params))
+    return dict(_convert_leaf(path, value, stacked) for path, value in _leaves(params))
 
 
-def agent_state_from_jax(params: Mapping[str, Any], cfg: Any) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The port's DreamerV3 ``state_dict``s (and ``moments``, when the tree
-    has them) from a JAX ``build_agent`` tree.
+def _moments(tree: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    return {k: torch.tensor(np.asarray(tree[k], np.float32)) for k in ("low", "high")}
+
+
+#: the agent's modules, as the JAX trees name them (those present are carried)
+MODULES = ("world_model", "actor", "critic", "target_critic", "actor_task", "critic_exploration",
+           "target_critic_exploration")
+
+
+def _check_mirror(out: Dict[str, Any], online: str, target: str) -> None:
+    online_shapes = {k: tuple(v.shape) for k, v in out[online].items()}
+    target_shapes = {k: tuple(v.shape) for k, v in out[target].items()}
+    if online_shapes != target_shapes:
+        raise ValueError(f"{target} {target_shapes} does not mirror {online} {online_shapes}")
+
+
+def agent_state_from_jax(params: Mapping[str, Any], cfg: Any) -> Dict[str, Any]:
+    """The port's agent state (module ``state_dict``s, ``moments``, the
+    ensembles and ``critics_exploration`` when the tree has them) from a JAX
+    ``build_agent`` tree of any Dreamer.
 
     ``cfg`` must select the same recurrent layout the tree was built with:
     the kernel flags change the parameter names, and loading the result into
-    a port agent built from ``cfg`` checks every name and shape.  The target
-    critic must have the critic's parameters, name for name and shape for
-    shape."""
-    missing = [name for name in ("world_model", "actor", "critic", "target_critic") if name not in params]
+    a port agent built from ``cfg`` checks every name and shape.  A target
+    network must have its online network's parameters, name for name and
+    shape for shape."""
+    missing = [name for name in ("world_model", "actor", "critic") if name not in params]
     if missing:
         raise ValueError(f"the parameter tree has no {missing}")
-    out = {name: module_state_from_flax(params[name]) for name in ("world_model", "actor", "critic", "target_critic")}
-    critic_shapes = {k: tuple(v.shape) for k, v in out["critic"].items()}
-    target_shapes = {k: tuple(v.shape) for k, v in out["target_critic"].items()}
-    if critic_shapes != target_shapes:
-        raise ValueError(f"target_critic {target_shapes} does not mirror critic {critic_shapes}")
+    out: Dict[str, Any] = {name: module_state_from_flax(params[name]) for name in MODULES if name in params}
+    for online, target in (("critic", "target_critic"), ("critic_exploration", "target_critic_exploration")):
+        if target in out:
+            _check_mirror(out, online, target)
     if "moments" in params:
-        out["moments"] = {k: torch.tensor(np.asarray(params["moments"][k], np.float32)) for k in ("low", "high")}
+        out["moments"] = _moments(params["moments"])
+    if "ensembles" in params:
+        out["ensembles"] = module_state_from_flax(params["ensembles"], stacked=True)
+    if "critics_exploration" in params:
+        out["critics_exploration"] = {}
+        for name, c in params["critics_exploration"].items():
+            entry = {"critic": module_state_from_flax(c["critic"]), "target": module_state_from_flax(c["target"])}
+            _check_mirror(entry, "critic", "target")
+            out["critics_exploration"][name] = {**entry, "moments": _moments(c["moments"])}
     rm = cfg.algo.world_model.recurrent_model
     fused = bool(rm.get("fused_pallas", False))
     if fused != ("recurrent_model.in_kernel" in out["world_model"]):

@@ -1,9 +1,10 @@
 """Host replay buffers (copies of ``sheeprl_tpu/data/buffers.py``, numpy only).
 
 ``ReplayBuffer`` (uniform FIFO ring), ``SequentialReplayBuffer`` (contiguous
-sequences with wrap-around) and ``EnvIndependentReplayBuffer`` (one
-sub-buffer per env), all over ``(T, B, *)`` numpy arrays, with their
-``state_dict`` / ``load_state_dict``.  ``sample(..., n_samples=k)`` returns
+sequences with wrap-around), ``EnvIndependentReplayBuffer`` (one
+sub-buffer per env), all over ``(T, B, *)`` numpy arrays, and
+``EpisodeBuffer`` (whole episodes, end-prioritised sequence sampling), with
+their ``state_dict`` / ``load_state_dict``.  ``sample(..., n_samples=k)`` returns
 ``(k, ...)``-stacked arrays, one block per train window.  Sampling draws from
 numpy's global generator, which ``Fabric.seed_everything`` seeds.
 """
@@ -386,4 +387,169 @@ class EnvIndependentReplayBuffer:
             )
         for b, s in zip(self._buffers, saved):
             b.load_state_dict(s)
+        return self
+
+
+class EpisodeBuffer:
+    """Whole-episode storage with end-prioritised sequence sampling
+    (reference: sheeprl/data/buffers.py:746-1155).
+
+    Open episodes accumulate per env; an episode is committed on termination
+    or truncation if it is at least ``minimum_episode_length`` long, evicting
+    the oldest committed episodes when the stored steps would exceed
+    ``buffer_size``.
+    """
+
+    def __init__(
+        self,
+        buffer_size: int,
+        sequence_length: int,
+        n_envs: int = 1,
+        prioritize_ends: bool = False,
+        minimum_episode_length: Optional[int] = None,
+        memmap: bool = False,
+        memmap_dir: Optional[Union[str, os.PathLike]] = None,
+        **kwargs: Any,
+    ):
+        if buffer_size <= 0:
+            raise ValueError(f"buffer_size must be positive, got {buffer_size}")
+        if sequence_length <= 0:
+            raise ValueError(f"sequence_length must be positive, got {sequence_length}")
+        self._buffer_size = buffer_size
+        self._sequence_length = sequence_length
+        self._minimum_episode_length = minimum_episode_length or sequence_length
+        if self._minimum_episode_length < sequence_length:
+            raise ValueError("minimum_episode_length must be >= sequence_length")
+        self._n_envs = n_envs
+        self._prioritize_ends = prioritize_ends
+        self._memmap = memmap
+        self._memmap_dir = Path(memmap_dir) if memmap_dir is not None else None
+        if self._memmap and self._memmap_dir is not None:
+            self._memmap_dir.mkdir(parents=True, exist_ok=True)
+        self._episodes: List[Arrays] = []
+        self._open: List[Optional[Dict[str, List[np.ndarray]]]] = [None] * n_envs
+        self._stored_steps = 0
+        self._episode_counter = 0
+
+    @property
+    def buffer(self) -> List[Arrays]:
+        return self._episodes
+
+    @property
+    def n_envs(self) -> int:
+        return self._n_envs
+
+    @property
+    def full(self) -> bool:
+        return self._stored_steps >= self._buffer_size
+
+    def __len__(self) -> int:
+        return self._stored_steps
+
+    def add(self, data: Arrays, indices: Optional[Sequence[int]] = None) -> None:
+        """``data`` is ``(T, B, *)`` and must hold a ``terminated`` (or
+        ``dones``) signal, and may hold ``truncated``, to commit episodes."""
+        done = None
+        for key in ("dones", "terminated"):
+            if key in data:
+                done = data[key].astype(bool)
+                break
+        if done is None:
+            raise ValueError("EpisodeBuffer.add requires a 'dones' or 'terminated' key")
+        if "truncated" in data:
+            done = done | data["truncated"].astype(bool)
+        steps, _ = _steps_and_envs(data)
+        env_sel = list(range(self._n_envs)) if indices is None else list(indices)
+        for col, env in enumerate(env_sel):
+            for t in range(steps):
+                if self._open[env] is None:
+                    self._open[env] = {k: [] for k in data}
+                for k, v in data.items():
+                    # a copy: the caller may reuse its arrays for the next step
+                    self._open[env][k].append(np.array(v[t, col]))
+                if bool(np.asarray(done[t, col]).reshape(-1)[0]):
+                    self._commit(env)
+
+    def repair_tail(self, env: int) -> None:
+        """The stream of ``env`` broke mid-episode: its open (uncommitted)
+        episode can never be finished, so it is discarded."""
+        self._open[env] = None
+
+    def _commit(self, env: int) -> None:
+        open_ep = self._open[env]
+        self._open[env] = None
+        if open_ep is None:
+            return
+        length = len(next(iter(open_ep.values())))
+        if length < self._minimum_episode_length:
+            return
+        episode: Dict[str, Any] = {k: np.stack(v) for k, v in open_ep.items()}
+        if self._memmap:
+            self._episode_counter += 1
+            episode = {
+                k: MemmapArray.from_array(
+                    v,
+                    filename=(self._memmap_dir / f"ep_{self._episode_counter}_{k}.memmap")
+                    if self._memmap_dir is not None
+                    else None,
+                )
+                for k, v in episode.items()
+            }
+        self._episodes.append(episode)
+        self._stored_steps += length
+        while self._stored_steps > self._buffer_size and self._episodes:
+            evicted = self._episodes.pop(0)
+            self._stored_steps -= len(next(iter(evicted.values())))
+            for v in evicted.values():
+                if isinstance(v, MemmapArray):
+                    v.close(delete_file=True)
+
+    def sample(
+        self,
+        batch_size: int,
+        n_samples: int = 1,
+        sequence_length: Optional[int] = None,
+        **kwargs: Any,
+    ) -> Arrays:
+        """``(n_samples, L, batch_size, *)`` sequences: episodes are chosen
+        uniformly among those at least ``L`` long, then a start uniform over
+        the valid range; with ``prioritize_ends`` the start is drawn over the
+        whole episode and clamped to the last valid start, so the final
+        window carries (L+1)/(ep_len+1) of the mass (reference:
+        buffers.py:1077-1099)."""
+        L = sequence_length or self._sequence_length
+        if not self._episodes:
+            raise RuntimeError("Cannot sample from an empty EpisodeBuffer")
+        lengths = np.array([len(next(iter(ep.values()))) for ep in self._episodes])
+        eligible = np.where(lengths >= L)[0]
+        if eligible.size == 0:
+            raise RuntimeError(f"No episode is >= sequence_length={L}")
+        total = batch_size * n_samples
+        chosen = np.random.choice(eligible, size=total)
+        keys = self._episodes[0].keys()
+        gathered: Dict[str, List[np.ndarray]] = {k: [] for k in keys}
+        for ep_idx in chosen:
+            ep = self._episodes[ep_idx]
+            ep_len = lengths[ep_idx]
+            max_start = ep_len - L
+            if self._prioritize_ends:
+                start = min(np.random.randint(0, ep_len + 1), max_start)
+            else:
+                start = np.random.randint(0, max_start + 1)
+            for k in keys:
+                gathered[k].append(np.asarray(ep[k][start:start + L]))
+        out: Arrays = {}
+        for k, chunks in gathered.items():
+            arr = np.stack(chunks)  # (total, L, *)
+            out[k] = arr.reshape(n_samples, batch_size, L, *arr.shape[2:]).swapaxes(1, 2)
+        return out
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The committed episodes; open ones are dropped, like the
+        reference's checkpoint (sheeprl/utils/callback.py:122-142)."""
+        return {"episodes": self._episodes, "stored_steps": self._stored_steps}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> "EpisodeBuffer":
+        self._episodes = list(state["episodes"])
+        self._stored_steps = int(state["stored_steps"])
         return self

@@ -4,7 +4,6 @@ a stdlib HTTP server/client (see ``sheeprl_tpu/serve`` for the reference)."""
 from sheeprl_tpu_torch.serve.batcher import AdmissionQueue, QueueFull, pick_ladder_size
 from sheeprl_tpu_torch.serve.loader import (
     build_player,
-    evaluate_player,
     load_policy,
     load_run_config,
     resolve_checkpoint,
@@ -19,7 +18,6 @@ __all__ = [
     "PolicyService",
     "QueueFull",
     "build_player",
-    "evaluate_player",
     "load_policy",
     "load_run_config",
     "pick_ladder_size",

@@ -1,6 +1,6 @@
 """Checkpoint discovery + player rebuild: the port's snapshot-reconstruction
-path, shared by serving and ``cli.evaluation`` (counterpart of
-``sheeprl_tpu/serve/loader.py``).
+path of serving, whose discovery and run config ``cli.evaluation`` shares
+(counterpart of ``sheeprl_tpu/serve/loader.py``).
 
 Discovery accepts a committed ``step_*`` snapshot directory, a
 ``<run>/version_*/checkpoint`` root or a run directory (→ the newest
@@ -129,30 +129,6 @@ def build_player(fabric: Any, cfg: dotdict, state: Dict[str, Any]) -> Any:
         )
     obs_space, action_space = probe_spaces(cfg)
     return builder(fabric, cfg, state, obs_space, action_space)
-
-
-def evaluate_player(cfg: dotdict, player: Any, greedy: bool = True) -> float:
-    """One evaluation episode through the serving player (prepare → step →
-    postprocess, as the service dispatches).  Returns the cumulative reward."""
-    import numpy as np
-
-    from sheeprl_tpu_torch.utils.env import make_env
-
-    env = make_env(cfg, cfg.seed, 0)()
-    obs, _ = env.reset(seed=cfg.seed)
-    carry = player.zero_carry_row() if player.stateful else ()
-    greedy_mask = np.asarray([greedy], bool)
-    seed = int(cfg.seed)
-    done, cum_reward = False, 0.0
-    while not done:
-        batched = {k: np.asarray(obs[k])[None] for k in player.obs_spec}
-        carry, actions = player.step_batch(player.params, carry, player.prepare(batched), seed, greedy_mask)
-        seed += 1
-        obs, reward, terminated, truncated, _ = env.step(player.postprocess(actions[:1])[0])
-        done = bool(terminated or truncated)
-        cum_reward += float(reward)
-    env.close()
-    return cum_reward
 
 
 def load_policy(

@@ -118,7 +118,8 @@ def build_dreamer_v3_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_sp
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
     mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
     actions_dim, is_continuous = spaces_to_dims(action_space)
-    world_model, actor, _, _ = build_agent(fabric, actions_dim, is_continuous, cfg, obs_space, state["agent"])
+    modules = build_agent(fabric, actions_dim, is_continuous, cfg, obs_space, state["agent"])
+    world_model, actor = modules["world_model"], modules["actor"]
     act_width = int(sum(actions_dim))
     rec_size = int(cfg.algo.world_model.recurrent_model.recurrent_state_size)
 

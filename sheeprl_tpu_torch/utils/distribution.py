@@ -1,7 +1,8 @@
 """Distributions of the DreamerV3 path (counterparts of
 ``sheeprl_tpu/utils/distribution.py``): :class:`OneHotCategorical` with
 unimix and the straight-through rsample, :class:`Normal`,
-:class:`TruncatedNormal`, :class:`Bernoulli`, and the regression heads
+:class:`TruncatedNormal`, :class:`Bernoulli`, the KLs :func:`kl_categorical`
+and :func:`kl_normal`, and the regression heads
 :class:`MSEDistribution`, :class:`SymlogDistribution` and
 :class:`TwoHotEncodingDistribution`.
 
@@ -96,9 +97,10 @@ def kl_categorical(p: OneHotCategorical, q: OneHotCategorical) -> torch.Tensor:
 
 
 class Normal:
-    def __init__(self, loc: torch.Tensor, scale: torch.Tensor, event_dims: int = 0):
+    def __init__(self, loc: torch.Tensor, scale, event_dims: int = 0):
         self.loc = loc
-        self.scale = scale
+        self.scale = scale if isinstance(scale, torch.Tensor) else torch.as_tensor(scale, dtype=loc.dtype,
+                                                                                   device=loc.device)
         self.event_dims = event_dims
 
     @staticmethod
@@ -129,6 +131,14 @@ class Normal:
     @property
     def mean(self) -> torch.Tensor:
         return self.loc
+
+
+def kl_normal(p: Normal, q: Normal) -> torch.Tensor:
+    """KL(p‖q) of two diagonal normals, summed over the larger event rank."""
+    var_ratio = (p.scale / q.scale) ** 2
+    t1 = ((p.loc - q.loc) / q.scale) ** 2
+    kl = 0.5 * (var_ratio + t1 - 1.0 - torch.log(var_ratio))
+    return _sum_event(kl, max(p.event_dims, q.event_dims))
 
 
 def _norm_pdf(x: torch.Tensor) -> torch.Tensor:

@@ -75,10 +75,23 @@ def build_optimizer(
         opt = torch.optim.SGD(params, lr=lr, momentum=float(optim_cfg.get("momentum", 0.0)))
     elif name in ("rmsprop", "rmsprop_tf"):
         raise NotImplementedError(
-            f"optimizer '{name}' is not ported yet: it comes with the DreamerV1/V2 port "
-            "(ROADMAP.md, queue A item 3)"
+            f"optimizer '{name}' is not ported yet: it comes with A2C and the on-policy algorithms "
+            "(ROADMAP.md, queue A item 4)"
         )
     else:
         raise ValueError(f"Unknown optimizer '{name}'")
     clip = float(max_grad_norm) if max_grad_norm is not None and max_grad_norm > 0 else None
     return ClippedOptimizer(params, opt, clip)
+
+
+def build_group_optimizers(modules: Dict[str, torch.nn.Module], groups: Dict[str, Any],
+                           saved: Optional[Dict[str, Any]] = None) -> Dict[str, ClippedOptimizer]:
+    """One optimizer per named module, from the config section that carries
+    its ``optimizer`` and ``clip_gradients``; a saved state is loaded where
+    ``saved`` has one for that name."""
+    opts = {name: build_optimizer(modules[name].parameters(), section.optimizer, section.get("clip_gradients"))
+            for name, section in groups.items()}
+    for name, opt in opts.items():
+        if saved and name in saved:
+            opt.load_state_dict(saved[name])
+    return opts

@@ -1,18 +1,22 @@
-"""The algorithm registry (from ``sheeprl_tpu/utils/registry.py``).
+"""The algorithm and evaluation registries (from ``sheeprl_tpu/utils/registry.py``).
 
 Decorator-driven name -> (module, entrypoint, decoupled) maps: algorithms
-self-register at import time and ``cli.run`` dispatches by ``cfg.algo.name``.
+self-register at import time and ``cli.run`` dispatches by ``cfg.algo.name``;
+``cli.evaluation`` dispatches a snapshot to the evaluation registered for its
+algorithm.
 """
 
 from __future__ import annotations
 
 import sys
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Sequence, Union
 
 # name -> list of entries (a name may expose both coupled and decoupled forms
 # under different registered entrypoints, like the reference's ppo/ppo_decoupled)
 algorithm_registry: Dict[str, List["AlgorithmEntry"]] = {}
+# algorithm name -> evaluation function (fabric, cfg, state) -> cumulative reward
+evaluation_registry: Dict[str, Callable] = {}
 
 
 @dataclass
@@ -63,3 +67,15 @@ def resolve_entrypoint(entry: AlgorithmEntry) -> Callable:
 
         module = importlib.import_module(entry.module)
     return getattr(module, entry.entrypoint)
+
+
+def register_evaluation(algorithms: Union[str, Sequence[str]]) -> Callable:
+    """Register ``fn(fabric, cfg, state) -> cumulative reward`` as the
+    evaluation of the snapshots of ``algorithms``."""
+
+    def decorator(fn: Callable) -> Callable:
+        for name in [algorithms] if isinstance(algorithms, str) else algorithms:
+            evaluation_registry[name] = fn
+        return fn
+
+    return decorator

@@ -1,7 +1,9 @@
 """The port runs with JAX absent: in a fresh interpreter whose import system
 refuses ``jax``, ``flax``, ``optax`` and ``sheeprl_tpu``, every module of
-``sheeprl_tpu_torch`` imports, a DreamerV3 player takes one CPU step, and a
-tiny dry run through ``cli.run`` trains one update and commits a snapshot.
+``sheeprl_tpu_torch`` imports (every algorithm of the Dreamer family among
+them), a DreamerV3 player takes one CPU step, a tiny dry run through
+``cli.run`` trains one update and commits a snapshot, and one
+Plan2Explore-DreamerV3 update steps.
 
 A subprocess, because the test session has imported JAX already.
 """
@@ -53,8 +55,7 @@ SCRIPT = textwrap.dedent(
     obs_space, action_space = probe_spaces(cfg)
     dims, cont = spaces_to_dims(action_space)
     modules = build_agent(fabric, dims, cont, cfg, obs_space)
-    state = {{"agent": dict(zip(("world_model", "actor", "critic", "target_critic"),
-                                (m.state_dict() for m in modules)))}}
+    state = {{"agent": {{name: m.state_dict() for name, m in modules.items()}}}}
     player = build_dreamer_v3_player(fabric, cfg, state, obs_space, action_space)
     obs = player.prepare({{"rgb": np.zeros((2, 64, 64, 3), np.uint8), "state": np.zeros((2, 4), np.float32)}})
     carry, actions = player.step_batch(player.params, player.zero_carry(2), obs, 0, np.array([True, False]))
@@ -75,6 +76,31 @@ SCRIPT = textwrap.dedent(
              "algo.world_model.recurrent_model.fused_pallas=True", "algo.run_test=False"])
         (snapshot,) = glob.glob(f"{{tmp}}/**/checkpoint/step_*", recursive=True)
         assert load_step_dir(snapshot)["grad_steps"] == 1
+    # one Plan2Explore-DreamerV3 update (fused RSSM layout, plain version on the CPU)
+    import torch
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import blocks_to_device
+    from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import P2EDV3Trainer, build_agent as p2e_agent
+    from sheeprl_tpu_torch.algos.p2e_utils import p2e_optimizers
+
+    p2e_cfg = compose(["exp=p2e_dv3_exploration", "env=dummy", "fabric.accelerator=cpu",
+                       "algo.cnn_keys.encoder=[]", "algo.mlp_keys.encoder=[state]", "algo.dense_units=8",
+                       "algo.mlp_layers=1", "algo.world_model.recurrent_model.recurrent_state_size=8",
+                       "algo.world_model.transition_model.hidden_size=8",
+                       "algo.world_model.representation_model.hidden_size=8", "algo.world_model.stochastic_size=4",
+                       "algo.world_model.discrete_size=4", "algo.horizon=3",
+                       "algo.world_model.recurrent_model.fused_pallas=True"])
+    p2e_modules = p2e_agent(fabric, dims, cont, p2e_cfg, obs_space)
+    trainer = P2EDV3Trainer(p2e_cfg, p2e_modules, p2e_optimizers(p2e_cfg, p2e_modules),
+                                         (), ("state",), cont)
+    rng = np.random.default_rng(0)
+    block = {{"state": rng.standard_normal((1, 6, 2, 4)).astype(np.float32),
+             "actions": np.eye(dims[0], dtype=np.float32)[rng.integers(0, dims[0], (1, 6, 2))],
+             "rewards": rng.standard_normal((1, 6, 2, 1)).astype(np.float32),
+             "terminated": np.zeros((1, 6, 2, 1), np.float32), "is_first": np.zeros((1, 6, 2, 1), np.float32)}}
+    metrics = trainer.train_phase(blocks_to_device(block, (), ("state",), "cpu"), torch.Generator().manual_seed(0), 0)
+    assert len(metrics) == 10 and all(bool(torch.isfinite(m)) for m in metrics)
+    assert bool(torch.isfinite(trainer.last_intrinsic))
+
     leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
     assert not leaked, leaked
     print("ok", len(names))
@@ -89,4 +115,4 @@ def test_port_imports_and_steps_without_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1].startswith("ok"), proc.stdout
-    assert int(proc.stdout.split()[-1]) >= 30  # every module of the port was imported
+    assert int(proc.stdout.split()[-1]) >= 45  # every module of the port was imported

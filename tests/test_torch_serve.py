@@ -117,10 +117,9 @@ def tiny_run(tmp_path_factory):
     obs_space, action_space = probe_spaces(cfg)
     actions_dim, is_cont = spaces_to_dims(action_space)
     modules = build_agent(fabric, actions_dim, is_cont, cfg, obs_space)
-    names = ("world_model", "actor", "critic", "target_critic")
     run = tmp_path_factory.mktemp("torch_run")
     write_run_config(run, cfg)
-    write_snapshot(run / "checkpoint", 8, {"agent": {n: m.state_dict() for n, m in zip(names, modules)}})
+    write_snapshot(run / "checkpoint", 8, {"agent": {n: m.state_dict() for n, m in modules.items()}})
     return run
 
 

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from sheeprl_tpu_torch.checkpoint.protocol import latest_checkpoint, load_step_dir
-from sheeprl_tpu_torch.cli import run
+from sheeprl_tpu_torch.cli import evaluation, run
 from sheeprl_tpu_torch.serve.loader import load_policy
 
 TINY = [
@@ -114,13 +114,33 @@ def test_committed_snapshot_serves_one_step(dry_run):
     assert action.shape == (1,) and 0 <= int(action[0]) < 4
 
 
+def test_committed_snapshot_evaluates_through_the_cli(dry_run, monkeypatch, capsys):
+    """``cli.evaluation`` plays a DreamerV3 snapshot with the latent player
+    of the whole Dreamer family (one greedy episode)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3
+
+    _, snapshot = dry_run
+    steps, step = [], dreamer_v3.latent_player_step
+
+    def spy(*args, **kwargs):
+        steps.append(kwargs.get("greedy", args[-1] if len(args) > 5 else False))
+        return step(*args, **kwargs)
+
+    monkeypatch.setattr(dreamer_v3, "latent_player_step", spy)
+    reward = evaluation([f"checkpoint_path={snapshot}", "fabric.accelerator=cpu"])
+    assert np.isfinite(reward)
+    assert f"Test/cumulative_reward: {reward}" in capsys.readouterr().out
+    # the dummy env's episode is max_episode_steps long, every step greedy
+    assert len(steps) == 20 and all(steps)
+
+
 @pytest.mark.parametrize(
     "override,item",
     [
         ("buffer.device=True", "queue A item 6"),
         ("pipeline.stages=2", "queue A item 6"),
         ("algo.remat=True", "queue A item 6"),
-        ("algo.world_model.decoupled_rssm=True", "queue A item 3"),
+        ("pipeline.imagination_microbatches=2", "queue A item 6"),
     ],
 )
 def test_unported_settings_raise_naming_the_roadmap_item(tmp_path, override, item):
@@ -132,7 +152,7 @@ def test_unported_settings_raise_naming_the_roadmap_item(tmp_path, override, ite
 
 def _tiny_trainer():
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer, build_dv3_optimizers
     from sheeprl_tpu_torch.algos.ppo.utils import spaces_to_dims
     from sheeprl_tpu_torch.config.compose import compose
     from sheeprl_tpu_torch.fabric import build_fabric
@@ -143,7 +163,7 @@ def _tiny_trainer():
     obs_space, action_space = probe_spaces(cfg)
     dims, cont = spaces_to_dims(action_space)
     modules = build_agent(fabric, dims, cont, cfg, obs_space)
-    return cfg, DV3Trainer(cfg, *modules, ("rgb",), ("state",), cont), dims
+    return cfg, DV3Trainer(cfg, modules, build_dv3_optimizers(cfg, modules), ("rgb",), ("state",), cont), dims
 
 
 def _tiny_window(trainer, dims, U=1, L=8, B=2, nan_reward=False):

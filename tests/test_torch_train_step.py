@@ -39,7 +39,7 @@ from sheeprl_tpu.parallel.fabric import build_fabric as jax_build_fabric
 from sheeprl_tpu.serve.loader import probe_spaces as jax_probe_spaces
 from sheeprl_tpu.utils.distribution import OneHotCategorical as JaxOneHot
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
-from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer, blocks_to_device
+from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer, blocks_to_device, build_dv3_optimizers
 from sheeprl_tpu_torch.algos.ppo.utils import spaces_to_dims
 from sheeprl_tpu_torch.config.compose import compose
 from sheeprl_tpu_torch.convert import agent_state_from_jax
@@ -146,7 +146,7 @@ def test_update_matches_jax_train_phase(case):
     assert spaces_to_dims(p_action_space) == (tuple(actions_dim), is_cont)
     state = agent_state_from_jax(before, pcfg)
     modules = build_agent(pfabric, actions_dim, is_cont, pcfg, p_obs_space, state)
-    trainer = DV3Trainer(pcfg, *modules, cnn_keys, mlp_keys, is_cont, agent_state=state)
+    trainer = DV3Trainer(pcfg, modules, build_dv3_optimizers(pcfg, modules), cnn_keys, mlp_keys, is_cont, state)
 
     rng = np.random.default_rng(7)
     block = _block(rng, U, pixels, actions_dim, is_cont)
@@ -185,3 +185,146 @@ def test_update_matches_jax_train_phase(case):
             np.testing.assert_allclose(p_delta, j_delta, rtol=1e-4, atol=1e-3 * scale, err_msg=f"{name}.{k}")
     for k in ("low", "high"):
         np.testing.assert_allclose(float(trainer.moments[k]), float(after["moments"][k]), rtol=1e-5, atol=1e-6)
+
+
+# -- the family harness (Plan2Explore, decoupled RSSM, DreamerV2 and V1) ----------
+def sgd_overrides(groups=("world_model", "actor", "critic")):
+    return tuple(f"algo.{g}.optimizer.{k}={v}" for g in groups
+                 for k, v in (("name", "sgd"), ("lr", 0.05), ("momentum", 0.0)))
+
+
+def family_params(build_agent_fn, cfg, fabric, obs_space, action_space, seed=1):
+    """A JAX family agent's parameter tree (built at its tiny size) with
+    numpy-drawn values, as :func:`tests.test_torch_serve._jax_params` draws them."""
+    actions_dim, is_cont = jax_spaces_to_dims(action_space)
+    tree = jax.device_get(build_agent_fn(fabric, actions_dim, is_cont, cfg, obs_space)[3])
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name = str(getattr(path[-1], "key", path[-1]))
+        shape = np.shape(leaf)
+        noise = rng.standard_normal(shape).astype(np.float32)
+        if name.endswith("kernel"):
+            # fan in: H*W*I of a conv, in of a dense, in of a stacked (n, in, out) one
+            return noise / np.sqrt(shape[-2] if len(shape) == 3 else np.prod(shape[:-1]))
+        return 1.0 + 0.1 * noise if name.endswith("scale") else 0.1 * noise
+
+    return jax.tree_util.tree_map_with_path(draw, tree)
+
+
+def family_noise(key, U, actions_dim, is_cont, latent_shape, n_split, rollouts, gaussian=False):
+    """The draws a JAX family train phase makes from ``key``: per update
+    ``split(k_u, n_split)``; the posterior from the first subkey, one draw
+    per time step from ``split(k, L)``; each imagination rollout from the
+    subkey ``rollouts[i]`` (the port's ``""`` then ``"_task"`` rollout),
+    ``k_a, k_z = split(split(k, H + 1)[t])``.  Latents draw Gumbels, or
+    normals with ``gaussian``."""
+    n = L * B
+
+    def latent(k, shape):
+        return jax.random.normal(k, shape) if gaussian else JaxOneHot.sample_noise(k, shape)
+
+    def t(x):
+        return torch.from_numpy(np.array(x, np.float32))
+
+    branches = actions_dim[:1] if is_cont else actions_dim
+    post = []
+    rolls = [{"actions": [[] for _ in branches], "imagination": []} for _ in rollouts]
+    for k_u in jax.random.split(key, U):
+        ks = jax.random.split(k_u, n_split)
+        post.append([latent(k, (B, *latent_shape)) for k in jax.random.split(ks[0], L)])
+        for r, idx in zip(rolls, rollouts):
+            per_t, imag_t = [[] for _ in branches], []
+            for k_t in jax.random.split(ks[idx], H + 1):
+                k_a, k_z = jax.random.split(k_t)
+                if is_cont:
+                    per_t[0].append(jax.random.normal(k_a, (n, actions_dim[0])))
+                else:
+                    for b, (k_b, d) in enumerate(zip(jax.random.split(k_a, len(actions_dim)), actions_dim)):
+                        per_t[b].append(JaxOneHot.sample_noise(k_b, (n, d)))
+                imag_t.append(latent(k_z, (n, *latent_shape)))
+            for b, draws in enumerate(per_t):
+                r["actions"][b].append(draws)
+            r["imagination"].append(imag_t)
+    noise = {"posterior": t(post)}
+    for suffix, r in zip(("", "_task"), rolls):
+        noise["actions" + suffix] = [t(a) for a in r["actions"]]
+        noise["imagination" + suffix] = t(r["imagination"])
+    return noise
+
+
+def _flat_states(tree, prefix=""):
+    """(path, tensor) of every tensor of a nested agent state."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat_states(v, f"{prefix}{k}/")
+        else:
+            yield f"{prefix}{k}", v
+
+
+def _group_lr(cfg, path):
+    top = path.split("/", 1)[0]
+    group = {"target_critic": "critic", "actor_task": "actor", "critic_exploration": "critic",
+             "target_critic_exploration": "critic", "critics_exploration": "critic"}.get(top, top)
+    return float(cfg.algo[group].optimizer.lr)
+
+
+def family_parity(jax_agent_mod, jax_phase_fn, jax_opts_fn, port_build, port_trainer, port_opts_fn, overrides,
+                  pixels, U, counter0, n_split, rollouts, adam=False, gaussian=False):
+    """One window of the port's trainer against the JAX train phase on the
+    same parameter tree, block and draws; the ten metrics to 1e-5 relative
+    (2e-5 absolute), and every trained tensor after it: with ``sgd`` each
+    change to 1e-3 of the largest change of its tensor plus 1e-4 relative,
+    with Adam to half the learning rate."""
+    jcfg, pcfg = jax_compose(list(overrides)), compose(list(overrides))
+    jfabric, pfabric = jax_build_fabric(jcfg), build_fabric(pcfg)
+    obs_space, action_space = jax_probe_spaces(jcfg)
+    actions_dim, is_cont = jax_spaces_to_dims(action_space)
+    params = family_params(jax_agent_mod.build_agent, jcfg, jfabric, obs_space, action_space)
+    before = jax.tree.map(np.array, params)
+    cnn_keys = ("rgb",) if pixels else ()
+    mlp_keys = ("state",)
+
+    p_obs_space, _ = probe_spaces(pcfg)
+    state = agent_state_from_jax(before, pcfg)
+    modules = port_build(pfabric, actions_dim, is_cont, pcfg, p_obs_space, state)
+    trainer = port_trainer(pcfg, modules, port_opts_fn(pcfg, modules, None), cnn_keys, mlp_keys, is_cont, state)
+
+    rng = np.random.default_rng(7)
+    block = _block(rng, U, pixels, actions_dim, is_cont)
+    key = jax.random.PRNGKey(11)
+    wm_cfg = pcfg.algo.world_model
+    latent_shape = (wm_cfg.stochastic_size,) if gaussian else (wm_cfg.stochastic_size, wm_cfg.discrete_size)
+    noise = family_noise(key, U, actions_dim, is_cont, latent_shape, n_split, rollouts, gaussian)
+    p_metrics = trainer.train_phase(blocks_to_device(block, cnn_keys, mlp_keys, "cpu"), noise, counter0)
+
+    world_model, actor, critic, params = jax_agent_mod.build_agent(jfabric, actions_dim, is_cont, jcfg, obs_space,
+                                                                   params)
+    wm_opt, actor_opt, critic_opt, opt_state = jax_opts_fn(jfabric, jcfg, params)
+    phase = jax_phase_fn(jfabric, jcfg, world_model, actor, critic, wm_opt, actor_opt, critic_opt,
+                         cnn_keys=cnn_keys, mlp_keys=mlp_keys, is_continuous=is_cont)
+    j_blocks = {k: jnp.asarray(v.numpy()) for k, v in blocks_to_device(block, cnn_keys, mlp_keys, "cpu").items()}
+    new_params, _, j_metrics = phase(params, opt_state, j_blocks, key, jnp.int32(counter0))
+
+    j_metrics = np.array([float(m) for m in j_metrics])
+    p_metrics = np.array([float(m) for m in p_metrics])
+    assert np.isfinite(p_metrics).all()
+    np.testing.assert_allclose(p_metrics, j_metrics, rtol=1e-5, atol=2e-5)
+
+    after = dict(_flat_states(agent_state_from_jax(jax.tree.map(np.array, new_params), pcfg)))
+    start = dict(_flat_states(agent_state_from_jax(before, pcfg)))
+    ported = dict(_flat_states(trainer.agent_state()))
+    assert set(ported) == set(after)
+    for path, j_after in after.items():
+        p_after = ported[path].detach()
+        if "moments" in path:
+            np.testing.assert_allclose(float(p_after), float(j_after), rtol=1e-5, atol=1e-6, err_msg=path)
+        elif adam:
+            lr = _group_lr(pcfg, path)
+            np.testing.assert_allclose(p_after.numpy(), j_after.numpy(), rtol=0, atol=lr / 2, err_msg=path)
+        else:
+            j_delta = (j_after - start[path]).numpy()
+            p_delta = (p_after - start[path]).numpy()
+            scale = max(np.abs(j_delta).max(), 1e-12)
+            np.testing.assert_allclose(p_delta, j_delta, rtol=1e-4, atol=1e-3 * scale, err_msg=path)
+    return trainer
