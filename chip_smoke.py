@@ -64,13 +64,36 @@ prints no result line):
               ``EpisodeBuffer``), 2 updates each, metrics finite and the
               P2E runs' intrinsic reward finite in every update, no kernel
               launch (their models take no kernel flag).
+16. ppo train — PPO at its Atari widths (``exp=ppo_atari``: CNN 32/64/64
+              on 84x84 rgb frame-stacked 4 times, dense 512, rollout 1024,
+              batch 256, 3 epochs) on the dummy env through ``cli.run``, 2
+              iterations (2048 env steps, 24 minibatch steps): iterations/s,
+              env steps/s, the first iteration's seconds, peak device
+              memory, the losses finite, no kernel launch; a
+              ``torch.profiler`` top-10 of one update by kind, with the
+              device's idle share.
+17. ppo parity — one PPO train phase at those widths on the card against
+              the same phase on the CPU in this process (same weights,
+              rollout and minibatch orders, TF32 off): parameters and losses
+              within the stated tolerance; the SAME pad put on the wrong side
+              of the odd stage is caught by it.
+18. ppo serve — phase 16's snapshot loaded by ``PolicyService.from_checkpoint``
+              and served over HTTP to 16 sessions x 8 steps, greedy and
+              sampled rows mixed: actions/s, client and service p50/p99,
+              every action valid, no kernel launch.
+19. a2c / ppo_recurrent — A2C at its Atari widths (2 iterations of 40
+              steps, ``rmsprop``, then ``rmsprop_tf``) and recurrent PPO at
+              its defaults on the vector observation (2 iterations): metrics
+              finite, no kernel launch, each snapshot evaluated once through
+              ``cli.evaluation``.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
 Other modes, each alone: ``--timing ROOT`` times the kernels of the port
 under ``ROOT``; ``--first-window`` trains the first window of the default
-XL recipe (1024 updates, about 12 minutes on an H100).
+XL recipe (1024 updates, about 12 minutes on an H100); ``--on-policy``
+runs phases 16-19 alone (they build and launch no kernel).
 """
 
 from __future__ import annotations
@@ -167,6 +190,31 @@ FAMILY_RUNS = {
     "dreamer_v1": (),
     "p2e_dv1_exploration": ("buffer.type=episode",),
 }
+# the on-policy algorithms at their recipes' widths on the dummy env
+ON_POLICY = ("env=dummy", "env.id=discrete_dummy", "fabric.accelerator=gpu", "algo.player.device=accelerator",
+             "metric/logger=csv", "checkpoint.save_last=True", "checkpoint.every=1000000000",
+             "checkpoint.async_save=False", "buffer.memmap=False", "seed=5")
+ATARI = ("env.screen_size=84", "env.wrapper.image_size=[84,84,3]", "env.frame_stack=4", "env.num_envs=1")
+# 2 iterations of 1024 steps, 4 minibatches of 256 x 3 epochs each
+PPO_ATARI = ("exp=ppo_atari", *ON_POLICY, *ATARI, "algo.total_steps=2048")
+A2C_ATARI = ("exp=a2c_atari", *ON_POLICY, *ATARI, "algo.total_steps=80")  # 2 iterations of 40 steps
+RMSPROP_TF = ("algo.optimizer.name=rmsprop_tf", "algo.optimizer.alpha=0.9", "algo.optimizer.eps=1e-10")
+# 2 iterations of 128 steps x 4 envs, the recurrent recipe's defaults on the vector observation
+PPO_RECURRENT = ("exp=ppo_recurrent", *ON_POLICY, "env.mask_velocities=False", "algo.total_steps=1024")
+ON_POLICY_LOSSES = ("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss")
+# One PPO train phase on the card against the CPU (phase 17): the relative L2
+# difference of the parameters' changes, and the last losses' relative
+# difference.  The gate steps with SGD, not the recipe's Adam: Adam moves a
+# parameter by about lr x sign(g) wherever |g| is above its eps, so a
+# feature at a ReLU's threshold, zero on one device and 1e-7 on the other,
+# becomes a step of a sizeable share of lr, twelve steps compound it, and
+# cuDNN's algorithms are not deterministic, so the comparison would move
+# from run to run.  With SGD every change is lr x the clipped gradient, and
+# a wrong pad or layout shows in it directly; Adam is reported beside it.
+PPO_PARITY_OPTIMIZER = {"name": "sgd", "lr": 0.01, "momentum": 0.0}
+CARD = "cuda"  # the device of the phases' card side
+PPO_PARITY_TOL_PARAM = 1e-3
+PPO_PARITY_TOL_LOSS = 1e-4
 XL_SERVE = (
     "exp=dreamer_v3",  # algo=dreamer_v3 is the XL preset
     "env=dummy",
@@ -429,10 +477,8 @@ def _drive(torch, run_dir: Path, sessions: int, steps: int) -> dict:
         rng = np.random.default_rng(i)
         try:
             for step in range(steps):
-                obs = {
-                    "rgb": rng.integers(0, 256, spec["rgb"][0], dtype=np.uint8),
-                    "state": rng.standard_normal(spec["state"][0]).astype(np.float32),
-                }
+                obs = {k: rng.integers(0, 256, shape, dtype=np.uint8) if dtype == "uint8"
+                       else rng.standard_normal(shape).astype(np.float32) for k, (shape, dtype) in spec.items()}
                 t = time.perf_counter()
                 action = client.act(obs, session=f"s{i}", greedy=(i + step) % 2 == 0)
                 dt = time.perf_counter() - t
@@ -619,6 +665,33 @@ PROFILE_GROUPS = (
 )
 
 
+def _log_profile(tag: str, prof, wall_ms: float, what: str, wall_note: str = "") -> tuple:
+    """The profiler's device time of ``what``: the total against ``wall_ms``
+    (the device's busy and idle shares), the top 10 kernels and the sums by
+    kind; returns (total device ms, launches)."""
+    rows = {}
+    for e in prof.key_averages():
+        ms = getattr(e, "self_device_time_total", None)
+        ms = (ms if ms is not None else e.self_cuda_time_total) / 1e3
+        if ms > 0:
+            rows[e.key] = (ms, e.count)
+    total = sum(ms for ms, _ in rows.values())
+    launches = sum(n for _, n in rows.values())
+    log(f"[{tag} profile] {what}: {total:.1f} ms of device time in {launches} kernel launches; the same "
+        f"unprofiled takes {wall_ms:.1f} ms of wall time{' ' + wall_note if wall_note else ''}, so the device is "
+        f"busy {total / wall_ms:.1%} of it and idle {1 - total / wall_ms:.1%} (kernels that overlap count twice)")
+    for name, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"[{tag} profile] {ms:9.3f} ms {ms / total:6.1%} x{n:5d} {name[:110]}")
+    groups = {}
+    for name, (ms, n) in rows.items():
+        group = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)), "other (elementwise, reductions, copies)")
+        ms0, n0 = groups.get(group, (0.0, 0))
+        groups[group] = (ms0 + ms, n0 + n)
+    for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
+        log(f"[{tag} profile] by kind: {group}: {ms:.1f} ms ({ms / total:.1%}) in {n} launches")
+    return total, launches
+
+
 def _trainer_from_snapshot(torch, snapshot: Path):
     """The trainer of the snapshot's run (DreamerV3, or Plan2Explore-DV3
     exploration), with the snapshot's weights and optimizer state."""
@@ -791,26 +864,7 @@ def phase_train_parity(torch, snapshot: Path, tag: str = "train-parity") -> dict
         if within(bad):
             raise AssertionError(f"the parity tolerance does not catch a plain RSSM with the {name}")
 
-    rows = {}
-    for e in prof.key_averages():
-        ms = getattr(e, "self_device_time_total", None)
-        ms = (ms if ms is not None else e.self_cuda_time_total) / 1e3
-        if ms > 0:
-            rows[e.key] = (ms, e.count)
-    total = sum(ms for ms, _ in rows.values())
-    launches = sum(n for _, n in rows.values())
-    log(f"[{tag} profile] one XL update: {total:.1f} ms of device time in {launches} kernel launches; the same update "
-        f"unprofiled takes {wall_ms:.1f} ms of wall time (with its restore), so the device is busy "
-        f"{total / wall_ms:.1%} of it and idle {1 - total / wall_ms:.1%} (kernels that overlap count twice)")
-    for name, (ms, n) in sorted(rows.items(), key=lambda kv: -kv[1][0])[:10]:
-        log(f"[{tag} profile] {ms:9.3f} ms {ms / total:6.1%} x{n:5d} {name[:110]}")
-    groups = {}
-    for name, (ms, n) in rows.items():
-        group = next((g for g, keys in PROFILE_GROUPS if any(k in name for k in keys)), "other (elementwise, reductions, copies)")
-        ms0, n0 = groups.get(group, (0.0, 0))
-        groups[group] = (ms0 + ms, n0 + n)
-    for group, (ms, n) in sorted(groups.items(), key=lambda kv: -kv[1][0]):
-        log(f"[{tag} profile] by kind: {group}: {ms:.1f} ms ({ms / total:.1%}) in {n} launches")
+    total, launches = _log_profile(tag, prof, wall_ms, "one XL update", "(with its restore)")
     del trainer, start
     torch.cuda.empty_cache()
     return {"diffs": got, "controls": controls, "profile_total_ms": total, "wall_ms": wall_ms, "launches": launches}
@@ -888,6 +942,273 @@ def phase_family(torch, run_root: Path) -> dict:
     return out
 
 
+# -- the on-policy algorithms ------------------------------------------------
+def _train_on_policy(torch, overrides, log_dir: Path, trainer_cls, keep_last: bool = False) -> dict:
+    """One on-policy run through ``cli.run`` with every launch count zeroed
+    just before and read just after (none may launch), each update timed
+    with the device synchronised around it; an iteration is the time from
+    one update's end to the next one's (the rollout and the update).
+    ``keep_last`` keeps the last update's trainer and arguments."""
+    import csv
+
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.ops import gru, rssm
+
+    ends, updates, kept = [], [], {}
+    train_phase = trainer_cls.train_phase
+
+    def timed(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_phase(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        ends.append(time.perf_counter())
+        updates.append(ends[-1] - t0)
+        if keep_last:
+            kept.update(trainer=self, args=args)
+        return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rssm.LAUNCHES["rssm"] = gru.LAUNCHES["gru"] = 0
+    trainer_cls.train_phase = timed
+    t0 = time.perf_counter()
+    try:
+        run([*overrides, f"log_dir={log_dir}"])
+    finally:
+        trainer_cls.train_phase = train_phase
+    wall = time.perf_counter() - t0
+    counts = {"rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]}
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        raise AssertionError(f"an on-policy run launched kernels: {counts}")
+    snapshots = sorted(log_dir.glob("**/checkpoint/step_*"))
+    if not snapshots or not ends:
+        raise AssertionError(f"the run under {log_dir} made {len(ends)} updates and {len(snapshots)} snapshots")
+    with open(next(log_dir.glob("**/metrics.csv"))) as f:
+        logged = {name: float(value) for _, name, value in list(csv.reader(f))[1:]}
+    missing = [n for n in ON_POLICY_LOSSES if n not in logged or not np.isfinite(logged[n])]
+    if missing:
+        raise AssertionError(f"metrics missing or not finite: {missing}")
+    iters = [ends[0] - t0] + [b - a for a, b in zip(ends, ends[1:])]
+    steady = statistics.median(iters[1:]) if len(iters) > 1 else iters[0]
+    out = {"iterations": len(ends), "first_iteration_s": iters[0], "iteration_s": iters, "update_s": updates,
+           "iterations_per_s": 1.0 / steady, "peak_bytes": peak, "counts": counts, "snapshot": snapshots[-1],
+           "wall_s": wall, "logged": {n: logged[n] for n in ON_POLICY_LOSSES}, **kept}
+    log(f"[{log_dir.name}] {len(ends)} iterations in a {wall:.1f} s run: first iteration {iters[0]:.3f} s (with "
+        f"the run's start), then {', '.join(f'{x:.3f}' for x in iters[1:])} s = {out['iterations_per_s']:.3f} "
+        f"iterations/s; updates {', '.join(f'{x:.3f}' for x in updates)} s; peak device memory "
+        f"{peak / 2**30:.2f} GiB; launches {counts}")
+    log(f"[{log_dir.name}] metrics " + ", ".join(f"{n} {logged[n]:.6g}" for n in ON_POLICY_LOSSES))
+    return out
+
+
+def phase_ppo_train(torch, log_dir: Path) -> dict:
+    """PPO at its Atari widths, 2 iterations; the rates, and a profile of
+    one update (the last iteration's train phase run again)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sheeprl_tpu_torch.algos.ppo.ppo import PPOTrainer
+
+    out = _train_on_policy(torch, PPO_ATARI, log_dir, PPOTrainer, keep_last=True)
+    steps = 1024 * out["iterations"]
+    trainer, (rollout, last_obs, _, clip, ent) = out.pop("trainer"), out.pop("args")
+    if out["iterations"] != 2 or trainer.num_minibatches * trainer.update_epochs != 12:
+        raise AssertionError(f"{out['iterations']} iterations of {trainer.num_minibatches} x {trainer.update_epochs}"
+                             " minibatch steps, expected 2 of 4 x 3")
+    out["env_steps_per_s"] = 1024 * out["iterations_per_s"]
+    log(f"[ppo-train] {steps} env steps, {out['iterations'] * 12} minibatch steps: "
+        f"{out['env_steps_per_s']:.1f} env steps/s in the second iteration")
+    gen = torch.Generator(rollout["rgb"].device)
+
+    def update():
+        trainer.train_phase(rollout, last_obs, gen.manual_seed(0), clip, ent)
+
+    update()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    update()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        update()
+        torch.cuda.synchronize()
+    total, launches = _log_profile("ppo-train", prof, wall_ms, "one PPO update (values, GAE, 12 minibatch steps)")
+    out.update(update_wall_ms=wall_ms, update_device_ms=total, update_launches=launches)
+    out["rollout_step_ms"] = _time_rollout_step(torch, trainer.agent, log_dir)
+    del trainer, rollout, last_obs
+    return out
+
+
+def _time_rollout_step(torch, agent, log_dir: Path, steps: int = 200) -> dict:
+    """Where one rollout step's time goes: the env step (with frame stack),
+    the observation's move to the card, and the player's forward and sample
+    with the synchronising copies of its action and log-prob; host-clock
+    medians over ``steps`` steps."""
+    from sheeprl_tpu_torch.algos.ppo.agent import sample_actions
+    from sheeprl_tpu_torch.algos.ppo.utils import actions_for_env, prepare_obs, spaces_to_dims
+    from sheeprl_tpu_torch.serve.loader import load_run_config
+    from sheeprl_tpu_torch.utils.env import make_env, vectorize
+
+    cfg = load_run_config(next(log_dir.glob("**/checkpoint/step_*")))
+    envs = vectorize(cfg, [make_env(cfg, 0, 0)])
+    dims, cont = spaces_to_dims(envs.single_action_space)
+    gen = torch.Generator(next(agent.parameters()).device).manual_seed(0)
+    dev = gen.device
+    obs, _ = envs.reset(seed=0)
+    parts = {"env": [], "obs_to_card": [], "policy": []}
+    for _ in range(steps + 10):
+        t0 = time.perf_counter()
+        o = prepare_obs(obs, ("rgb",), (), dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.inference_mode():
+            actions, logprobs, _ = sample_actions(agent(o)[0], dims, cont, gen)
+        a, _ = actions.cpu().numpy(), logprobs.cpu().numpy()
+        t2 = time.perf_counter()
+        obs = envs.step(actions_for_env(a, envs.single_action_space))[0]
+        t3 = time.perf_counter()
+        for v, dt in zip(parts.values(), (t3 - t2, t1 - t0, t2 - t1)):
+            v.append(1e3 * dt)
+    envs.close()
+    out = {k: statistics.median(v[10:]) for k, v in parts.items()}
+    log(f"[ppo-train] one rollout step, host-clock medians of {steps}: env step {out['env']:.3f} ms, observation "
+        f"to the card {out['obs_to_card']:.3f} ms, forward + sample + action and log-prob copies "
+        f"{out['policy']:.3f} ms")
+    return out
+
+
+def phase_ppo_parity(torch, snapshot: Path) -> dict:
+    """One PPO train phase at phase 16's widths from its snapshot's weights
+    on the card and on the CPU, with the same rollout and minibatch orders,
+    stepping with SGD (``PPO_PARITY_OPTIMIZER``); then the card again with
+    the SAME pad of the odd stage on the wrong side, which the tolerance
+    must catch, and with TF32 on (reported); and both sides with the
+    recipe's Adam (reported, not a gate: why the gate steps with SGD)."""
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo.ppo import PPOTrainer, epoch_permutation, rollout_to_device
+    from sheeprl_tpu_torch.algos.ppo.utils import prepare_obs, spaces_to_dims
+    from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
+    from sheeprl_tpu_torch.fabric import Fabric
+    from sheeprl_tpu_torch.serve.loader import load_run_config, probe_spaces
+    from sheeprl_tpu_torch.utils.optim import build_optimizer
+
+    cfg = load_run_config(snapshot, ["fabric.accelerator=gpu"])
+    saved = load_step_dir(snapshot, map_location="cpu")["agent"]
+    obs_space, act_space = probe_spaces(cfg)
+    dims, cont = spaces_to_dims(act_space)
+    T, B = int(cfg.algo.rollout_steps), int(cfg.env.num_envs)
+    rng = np.random.default_rng(17)
+    host = {"rgb": rng.integers(0, 256, (T, B, *obs_space["rgb"].shape), dtype=np.uint8),
+            "actions": rng.integers(0, dims[0], (T, B, 1)).astype(np.float32),
+            "logprobs": (np.log(1.0 / dims[0]) + 0.3 * rng.standard_normal((T, B, 1))).astype(np.float32),
+            "rewards": rng.standard_normal((T, B, 1)).astype(np.float32),
+            "dones": (rng.random((T, B, 1)) < 0.01).astype(np.float32)}
+    last = {"rgb": rng.integers(0, 256, (B, *obs_space["rgb"].shape), dtype=np.uint8)}
+
+    def phase(device: str, pads=None, optim=PPO_PARITY_OPTIMIZER):
+        weights = {k: v.clone() for k, v in saved.items()}  # the CPU agent would train these in place
+        agent = build_agent(Fabric(torch.device(device)), dims, cont, cfg, obs_space, weights)
+        if pads is not None:
+            agent.feature_extractor.cnn_encoder.pads = pads
+        optimizer = build_optimizer(agent.parameters(), optim, cfg.algo.max_grad_norm)
+        trainer = PPOTrainer(cfg, agent, optimizer, ("rgb",), dims, cont, T, B)
+        perms = [epoch_permutation(torch.Generator().manual_seed(e), T, B, trainer.batch_size,
+                                   trainer.num_minibatches).to(device) for e in range(trainer.update_epochs)]
+        t0 = time.perf_counter()
+        losses = trainer.train_phase(rollout_to_device(host, ("rgb",), (), device),
+                                     prepare_obs(last, ("rgb",), (), device), perms, 0.1, 0.01)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        return {k: v.detach().cpu() for k, v in agent.state_dict().items()}, np.array([float(x) for x in losses]), seconds
+
+    cpu, cpu_losses, cpu_s = phase("cpu")
+
+    def diffs(params, losses, ref=(cpu, cpu_losses)):
+        """Against ``ref`` (the CPU's parameters and losses): the relative L2
+        difference of the parameters' changes, the relative difference of
+        the last losses, and (reported) the tensor with the largest element
+        difference, that difference as a share of the largest change, and
+        how many elements differ by a tenth of it."""
+        ref_params, ref_losses = ref
+        d_ref = torch.cat([(ref_params[k] - saved[k]).flatten() for k in ref_params])
+        d = torch.cat([(params[k] - saved[k]).flatten() for k in ref_params]) - d_ref
+        worst = max(ref_params, key=lambda k: float((params[k] - ref_params[k]).abs().max()))
+        return {"param_l2": float(d.norm() / d_ref.norm()),
+                "loss_rel": float((np.abs(losses - ref_losses) / np.abs(ref_losses)).max()),
+                "worst": worst, "worst_share": float(d.abs().max() / d_ref.abs().max()),
+                "off_elements": int((d.abs() > 0.1 * d_ref.abs().max()).sum()), "elements": d.numel(),
+                "largest_change": float(d_ref.abs().max())}
+
+    def within(d):
+        return d["param_l2"] <= PPO_PARITY_TOL_PARAM and d["loss_rel"] <= PPO_PARITY_TOL_LOSS
+
+    def show(d):
+        return (f"parameter changes rel L2 diff {d['param_l2']:.3g}, last losses max rel diff {d['loss_rel']:.3g}; "
+                f"largest element diff {d['worst_share']:.3g} of the largest change {d['largest_change']:.3g} (in "
+                f"{d['worst']}), {d['off_elements']} of {d['elements']} elements off by more than a tenth of it")
+
+    gpu, gpu_losses, gpu_s = phase(CARD)
+    got = diffs(gpu, gpu_losses)
+    log(f"[ppo-parity] one train phase (values, GAE, 12 minibatch steps of 256, SGD lr 0.01; CPU {cpu_s:.1f} s, card "
+        f"{gpu_s:.2f} s), card vs CPU: {show(got)}; losses {', '.join(f'{x:.6g}' for x in gpu_losses)} vs "
+        f"{', '.join(f'{x:.6g}' for x in cpu_losses)}; tolerance L2 {PPO_PARITY_TOL_PARAM}, losses "
+        f"{PPO_PARITY_TOL_LOSS}")
+    if not (within(got) and np.isfinite(gpu_losses).all()):
+        raise AssertionError("the PPO train phase on the card disagrees with the same phase on the CPU")
+    good = build_agent(Fabric(torch.device("cpu")), dims, cont, cfg, obs_space,
+                       {k: v.clone() for k, v in saved.items()}).feature_extractor.cnn_encoder.pads
+    wrong = [(r, l, b, t) for l, r, t, b in good]  # every stage's low and high pads swapped
+    bad = diffs(*phase(CARD, pads=wrong)[:2])
+    log(f"[ppo-parity] control, SAME pads on the wrong side ({good} -> {wrong}): {show(bad)}")
+    if within(bad):
+        raise AssertionError("the PPO parity tolerance does not catch the SAME pad on the wrong side")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    try:
+        tf32 = diffs(*phase(CARD)[:2])
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    log(f"[ppo-parity] TF32 on (reported, not a gate): {show(tf32)}")
+    cpu_adam, cpu_adam_losses, _ = phase("cpu", optim=cfg.algo.optimizer)
+    adam = diffs(*phase(CARD, optim=cfg.algo.optimizer)[:2], ref=(cpu_adam, cpu_adam_losses))
+    log(f"[ppo-parity] the recipe's Adam on both sides (reported, not a gate), card vs CPU: {show(adam)}")
+    return {**got, "cpu_s": cpu_s, "card_s": gpu_s, "wrong_pad": bad, "tf32": tf32, "adam": adam}
+
+
+def phase_ppo_serve(torch, snapshot: Path) -> dict:
+    log(f"[ppo-serve] {snapshot.name} of phase 16")
+    served = _drive(torch, snapshot, SERVE_SESSIONS, SERVE_STEPS)
+    if any(served["counts"].values()):
+        raise AssertionError(f"serving PPO launched kernels: {served['counts']}")
+    del served["service"]
+    return served
+
+
+def phase_on_policy_family(torch, run_root: Path) -> dict:
+    """A2C at its Atari widths under each RMSprop and recurrent PPO at its
+    defaults, 2 iterations each, each snapshot evaluated through ``cli.evaluation``."""
+    from sheeprl_tpu_torch.algos.a2c.a2c import A2CTrainer
+    from sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent import RecurrentPPOTrainer
+    from sheeprl_tpu_torch.cli import evaluation
+
+    out = {}
+    for name, overrides, trainer_cls in (("a2c_rmsprop", A2C_ATARI, A2CTrainer),
+                                         ("a2c_rmsprop_tf", (*A2C_ATARI, *RMSPROP_TF), A2CTrainer),
+                                         ("ppo_recurrent", PPO_RECURRENT, RecurrentPPOTrainer)):
+        run_ = out[name] = _train_on_policy(torch, overrides, run_root / name, trainer_cls)
+        if run_["iterations"] != 2:
+            raise AssertionError(f"{name} ran {run_['iterations']} iterations, expected 2")
+        t0 = time.perf_counter()
+        run_["eval_reward"] = evaluation([f"checkpoint_path={run_['snapshot']}", "fabric.accelerator=gpu"])
+        if not np.isfinite(run_["eval_reward"]):
+            raise AssertionError(f"cli.evaluation of {name}'s snapshot gave {run_['eval_reward']}")
+        log(f"[{name}] cli.evaluation of {run_['snapshot'].name}: cumulative reward {run_['eval_reward']} in "
+            f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def timing_only(torch, package_root: str) -> int:
     """``--timing ROOT``: build and time the kernels of the port found under
     ``ROOT`` (for example an unpacked older commit) at every timed batch,
@@ -930,6 +1251,31 @@ def first_window(torch) -> int:
     return 0
 
 
+def on_policy_only(torch) -> int:
+    """``--on-policy``: phases 16-19 alone; one JSON line of their numbers goes last."""
+    device = phase_device(torch)
+    run_root = ROOT / "build" / "chip_smoke_on_policy"
+    shutil.rmtree(run_root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        ppo = phase_ppo_train(torch, run_root / "ppo_atari")
+        parity = phase_ppo_parity(torch, ppo["snapshot"])
+        served = phase_ppo_serve(torch, ppo["snapshot"])
+        family = phase_on_policy_family(torch, run_root / "on_policy")
+        log(f"[on-policy] phases 16-19 in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    keep = ("iterations_per_s", "first_iteration_s", "iteration_s", "update_s", "peak_bytes")
+    print(json.dumps({
+        "ppo": {**{k: ppo[k] for k in (*keep, "env_steps_per_s", "update_device_ms", "update_launches",
+                                       "rollout_step_ms")},
+                "parity": {k: parity[k] for k in ("param_l2", "loss_rel", "wrong_pad", "tf32", "adam")},
+                "serve": {k: served["stats"][k] for k in ("served", "p50_ms", "p99_ms", "rungs")}},
+        **{name: {k: run_[k] for k in keep} for name, run_ in family.items()},
+        "device": device}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -948,6 +1294,8 @@ def main() -> int:
         return timing_only(torch, sys.argv[2])
     if sys.argv[1:2] == ["--first-window"]:
         return first_window(torch)
+    if sys.argv[1:2] == ["--on-policy"]:
+        return on_policy_only(torch)
 
     run_root = ROOT / "build" / "chip_smoke"
     shutil.rmtree(run_root, ignore_errors=True)
@@ -996,6 +1344,10 @@ def main() -> int:
         finetune = phase_p2e_finetune(torch, p2e["snapshot"], run_root / "p2e_finetune")
         decoupled = _train(torch, DECOUPLED_XL, run_root / "decoupled", "rssm")
         family = phase_family(torch, run_root / "family")
+        ppo = phase_ppo_train(torch, run_root / "ppo_atari")
+        ppo_parity = phase_ppo_parity(torch, ppo["snapshot"])
+        ppo_served = phase_ppo_serve(torch, ppo["snapshot"])
+        on_policy = phase_on_policy_family(torch, run_root / "on_policy")
 
         launches = {"rssm": train["counts"]["rssm"], "gru": train_gru["counts"]["gru"]}
         new_paths = {"p2e_explore": p2e, "p2e_finetune": finetune, "decoupled": decoupled}
@@ -1010,6 +1362,10 @@ def main() -> int:
                 by_path[path] = run_["counts"][name]
                 by_path[f"{path}_per_update"] = max(n[name] for n in run_["update_launches"])
             by_path["family"] = sum(r["counts"][name] for r in family.values())
+            by_path["ppo_train"] = ppo["counts"][name]
+            by_path["ppo_serve"] = ppo_served["counts"][name]
+            by_path["a2c"] = on_policy["a2c_rmsprop"]["counts"][name] + on_policy["a2c_rmsprop_tf"]["counts"][name]
+            by_path["ppo_recurrent"] = on_policy["ppo_recurrent"]["counts"][name]
         sources = {
             "rssm": ("sheeprl_tpu_torch/csrc/rssm.cu",
                      "sheeprl_tpu/ops/rssm_pallas.py:70 (_rssm_kernel), sheeprl_tpu/ops/rssm_pallas.py:260 "
@@ -1031,7 +1387,11 @@ def main() -> int:
         log(f"[done] serve parity err {parity_err:.2e}; train parity {train_parity['diffs']['loss_rel']:.3g} rel; "
             f"XL training {train['updates_per_s']:.3f} updates/s; P2E-DV3 XL exploration {p2e['updates_per_s']:.3f} "
             f"updates/s (parity {p2e_parity['diffs']['loss_rel']:.3g} rel, h {p2e_parity['diffs']['latent_abs']:.3g}); "
-            f"total {time.perf_counter() - t_start:.1f} s")
+            f"PPO-Atari {ppo['iterations_per_s']:.3f} iterations/s = {ppo['env_steps_per_s']:.1f} env steps/s (card vs "
+            f"CPU parameter changes {ppo_parity['param_l2']:.3g} rel L2), served "
+            f"{ppo_served['stats']['served']} actions; A2C-Atari {on_policy['a2c_rmsprop']['iterations_per_s']:.3f} / "
+            f"{on_policy['a2c_rmsprop_tf']['iterations_per_s']:.3f} iterations/s (rmsprop / rmsprop_tf), recurrent PPO "
+            f"{on_policy['ppo_recurrent']['iterations_per_s']:.3f} iterations/s; total {time.perf_counter() - t_start:.1f} s")
     except BaseException:
         traceback.print_exc()
         return 1

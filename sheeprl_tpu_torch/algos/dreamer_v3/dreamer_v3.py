@@ -114,9 +114,9 @@ def check_supported(cfg: Any) -> None:
             )
 
 
-def unacted_settings(cfg: Any) -> List[str]:
-    """The settings that are on but that the port does not act on yet
-    (ROADMAP.md, queue A item 7); the loop warns of them once at its start."""
+def warn_unacted_settings(cfg: Any) -> None:
+    """Warn of the settings that are on but that the port does not act on
+    yet (ROADMAP.md, queue A item 7); every train loop calls this at its start."""
     tel = cfg.get("telemetry") or {}
     on = {
         "checkpoint.save_on_preemption": bool(cfg.checkpoint.get("save_on_preemption", False)),
@@ -126,7 +126,13 @@ def unacted_settings(cfg: Any) -> List[str]:
         "telemetry.trace_at": bool(tel.get("trace_at")),
         "metric.profiler": bool((cfg.metric.get("profiler") or {}).get("enabled", False)),
     }
-    return [name for name, value in on.items() if value]
+    unacted = [name for name, value in on.items() if value]
+    if unacted:
+        warnings.warn(
+            f"{', '.join(unacted)}: set, but not acted on by the port yet (preemption signals, the telemetry "
+            "hub and the profiler come with the runtime services, ROADMAP.md, queue A item 7)",
+            UserWarning,
+        )
 
 
 @contextlib.contextmanager
@@ -669,13 +675,7 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
       projected exploration snapshot of a finetuning run); like a resumed
       one, it skips the random prefill."""
     check_supported(cfg)
-    unacted = unacted_settings(cfg)
-    if unacted:
-        warnings.warn(
-            f"{', '.join(unacted)}: set, but not acted on by the port yet (preemption signals, the telemetry "
-            "hub and the profiler come with the runtime services, ROADMAP.md, queue A item 7)",
-            UserWarning,
-        )
+    warn_unacted_settings(cfg)
     player_device = fabric.player_device(cfg)
     train_gen, player_gen = fabric.seed_everything(int(cfg.seed), player_device)
 

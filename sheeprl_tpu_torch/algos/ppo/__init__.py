@@ -1,1 +1,1 @@
-"""PPO helpers shared by the serving players."""
+"""PPO: the agent, its losses and utilities, the training loop the on-policy algorithms share, evaluation."""

@@ -18,7 +18,7 @@ from sheeprl_tpu_torch.config.compose import ConfigError, compose
 from sheeprl_tpu_torch.utils.registry import algorithm_registry, resolve_algorithm, resolve_entrypoint
 from sheeprl_tpu_torch.utils.structured import deep_merge, dotdict
 
-#: modules whose import registers the port's algorithms
+#: modules whose import registers the port's algorithms and their evaluations
 ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3",
     "sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration",
@@ -29,6 +29,12 @@ ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1",
     "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_exploration",
     "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_finetuning",
+    "sheeprl_tpu_torch.algos.ppo.ppo",
+    "sheeprl_tpu_torch.algos.ppo.evaluate",
+    "sheeprl_tpu_torch.algos.a2c.a2c",
+    "sheeprl_tpu_torch.algos.a2c.evaluate",
+    "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
+    "sheeprl_tpu_torch.algos.ppo_recurrent.evaluate",
 )
 
 
@@ -151,8 +157,10 @@ def serve(argv: Optional[List[str]] = None) -> None:
 
 def evaluation(argv: Optional[List[str]] = None) -> float:
     """Play one greedy episode with a committed snapshot and print its
-    cumulative reward, through the latent player of the snapshot's Dreamer
-    family member with the actor ``algo.player.actor_type`` chooses.
+    cumulative reward, through the evaluation registered for its algorithm:
+    the latent player of a Dreamer family member (with the actor
+    ``algo.player.actor_type`` chooses), or the PPO, A2C or recurrent PPO
+    agent.
 
     Usage:
         python -c "from sheeprl_tpu_torch.cli import evaluation; evaluation()" \

@@ -1,4 +1,12 @@
-"""Carry Dreamer-family weights from the JAX package's parameter tree to the port.
+"""Carry weights from the JAX package's parameter trees to the port.
+
+:func:`policy_state_from_jax` takes the flax variables of a PPO, A2C or
+recurrent PPO agent and gives the agent's ``state_dict``; flax's
+``OptimizedLSTMCell`` (``lstm``: input kernels ``ii/if/ig/io`` without bias,
+recurrent kernels ``hi/hf/hg/ho`` with bias) becomes ``torch.nn.LSTMCell``'s
+``weight_ih`` / ``weight_hh`` (the four kernels transposed and stacked in
+``i, f, g, o`` order), ``bias_hh`` (the recurrent biases) and a zero
+``bias_ih``.
 
 :func:`agent_state_from_jax` takes the tree a ``sheeprl_tpu`` ``build_agent``
 returns (as numpy arrays) — DreamerV3, V2 or V1, or a Plan2Explore
@@ -116,4 +124,30 @@ def agent_state_from_jax(params: Mapping[str, Any], cfg: Any) -> Dict[str, Any]:
         raise ValueError(
             f"cfg has fused_pallas={fused} but the parameter tree was built with the other layout"
         )
+    return out
+
+
+LSTM_GATES = ("i", "f", "g", "o")
+
+
+def lstm_state_from_flax(lstm: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """flax ``OptimizedLSTMCell`` params → ``torch.nn.LSTMCell`` ``state_dict``."""
+    def stacked(prefix: str) -> torch.Tensor:
+        return torch.from_numpy(np.concatenate(
+            [np.asarray(lstm[prefix + g]["kernel"], np.float32).T for g in LSTM_GATES], axis=0))
+
+    bias_hh = torch.from_numpy(np.concatenate([np.asarray(lstm["h" + g]["bias"], np.float32) for g in LSTM_GATES]))
+    return {"weight_ih": stacked("i"), "weight_hh": stacked("h"), "bias_ih": torch.zeros_like(bias_hh),
+            "bias_hh": bias_hh}
+
+
+def policy_state_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """A PPO / A2C / recurrent PPO agent's flax variables → the port agent's
+    ``state_dict`` (the module names are flax's, so every other path maps by
+    rule; an ``lstm`` subtree is restacked by :func:`lstm_state_from_flax`)."""
+    params = dict(variables.get("params", variables))
+    lstm = params.pop("lstm", None)
+    out = module_state_from_flax(params)
+    if lstm is not None:
+        out.update({f"lstm.{k}": v for k, v in lstm_state_from_flax(lstm).items()})
     return out

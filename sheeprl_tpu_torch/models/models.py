@@ -2,12 +2,14 @@
 
 ``nn.Module`` names follow the flax modules' names, so a flax parameter path
 maps onto a ``state_dict`` key by rule (see ``convert.py``).  Unlike flax,
-a torch module is told its input width when it is built.
+a torch module is told its input width when it is built.  Images are NHWC
+at every module boundary, as in the JAX package; the convolutions run NCHW
+inside.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Tuple, Union
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -105,3 +107,151 @@ class LayerNormGRUCell(nn.Module):
         update = torch.sigmoid(update - 1.0)
         new_h = update * cand + (1.0 - update) * h.to(x.dtype)
         return new_h, new_h
+
+
+def lecun_init_(layer: nn.Module, generator: Optional[torch.Generator] = None) -> None:
+    """flax's default Dense/Conv init in place: a ``lecun_normal`` kernel
+    (fan-in truncated normal, fan_in counting the receptive field) and a
+    zero bias."""
+    w = layer.weight
+    variance_scaling_(w, w[0].numel(), w.shape[0] * w[0][0].numel(), "fan_in", generator)
+    if layer.bias is not None:
+        with torch.no_grad():
+            layer.bias.zero_()
+
+
+def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    """XLA's ``padding="SAME"`` on one axis: ``(low, high)`` with the total
+    ``max((ceil(size / stride) - 1) * stride + kernel - size, 0)`` and the
+    odd pixel on the high side (84 -> 42 -> 21 -> 11 pads (1, 1), (1, 1),
+    (1, 2) with kernel 4, stride 2)."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class MLP(nn.Module):
+    """Dense stack: ``dense_{i}`` → optional ``ln_{i}`` → activation, then an
+    optional linear ``head``."""
+
+    def __init__(self, input_dim: int, hidden_sizes: Sequence[int] = (), output_dim: Optional[int] = None,
+                 activation: Union[str, Activation] = "tanh", layer_norm: bool = False):
+        super().__init__()
+        self.act = get_activation(activation)
+        self.layer_norm = layer_norm
+        self.n_hidden = len(hidden_sizes)
+        d = input_dim
+        for i, size in enumerate(hidden_sizes):
+            self.add_module(f"dense_{i}", nn.Linear(d, size))
+            if layer_norm:
+                self.add_module(f"ln_{i}", LayerNorm(size))
+            d = size
+        self.head = nn.Linear(d, output_dim) if output_dim is not None else None
+        self.out_features = output_dim if output_dim is not None else d
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.n_hidden):
+            x = getattr(self, f"dense_{i}")(x)
+            if self.layer_norm:
+                x = getattr(self, f"ln_{i}")(x)
+            x = self.act(x)
+        return self.head(x) if self.head is not None else x
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        for m in self.modules():
+            if isinstance(m, nn.Linear):
+                lecun_init_(m, generator)
+            elif isinstance(m, LayerNorm):
+                with torch.no_grad():
+                    m.weight.fill_(1.0)
+                    m.bias.zero_()
+
+
+class CNN(nn.Module):
+    """``conv_{i}`` stack over NHWC images with XLA's SAME padding, each
+    followed by the activation; the output is flattened in NHWC order, as
+    flax flattens it."""
+
+    def __init__(self, in_shape: Tuple[int, int, int], channels: Sequence[int], kernel_size: int = 3,
+                 stride: int = 2, activation: Union[str, Activation] = "relu"):
+        super().__init__()
+        self.act = get_activation(activation)
+        self.n = len(channels)
+        h, w, c_in = in_shape
+        self.pads = []
+        for i, c in enumerate(channels):
+            (top, bottom), (left, right) = same_padding(h, kernel_size, stride), same_padding(w, kernel_size, stride)
+            self.pads.append((left, right, top, bottom))
+            self.add_module(f"conv_{i}", nn.Conv2d(c_in, c, kernel_size, stride=stride))
+            h, w, c_in = -(-h // stride), -(-w // stride), c
+        self.out_shape = (h, w, c_in)
+        self.out_features = h * w * c_in
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-3]
+        x = x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2)
+        for i in range(self.n):
+            x = self.act(getattr(self, f"conv_{i}")(F.pad(x, self.pads[i])))
+        return x.permute(0, 2, 3, 1).reshape(*lead, -1)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        for i in range(self.n):
+            lecun_init_(getattr(self, f"conv_{i}"), generator)
+
+
+class MultiEncoder(nn.Module):
+    """The ``cnn_keys`` images concatenated on channels through one
+    :class:`CNN` (kernel 4, stride 2) and an optional ``cnn_proj`` + act, the
+    ``mlp_keys`` vectors concatenated through one :class:`MLP` and an optional
+    ``mlp_proj`` + act; the features concatenated, images first.
+
+    ``cnn_shapes``: key → NHWC shape (frame stacks merged into channels);
+    ``mlp_shapes``: key → flat width."""
+
+    def __init__(self, cnn_keys: Sequence[str], mlp_keys: Sequence[str], cnn_shapes: Dict[str, Tuple[int, int, int]],
+                 mlp_shapes: Dict[str, int], cnn_channels: Sequence[int] = (32, 64, 128, 256),
+                 cnn_features_dim: Optional[int] = None, mlp_sizes: Sequence[int] = (256, 256),
+                 mlp_layer_norm: bool = False, mlp_features_dim: Optional[int] = None,
+                 activation: Union[str, Activation] = "silu"):
+        super().__init__()
+        if not cnn_keys and not mlp_keys:
+            raise ValueError("MultiEncoder needs at least one cnn or mlp key")
+        self.cnn_keys, self.mlp_keys = tuple(cnn_keys), tuple(mlp_keys)
+        self.act = get_activation(activation)
+        self.cnn_proj = self.mlp_proj = None
+        self.out_features = 0
+        if self.cnn_keys:
+            h, w, _ = cnn_shapes[self.cnn_keys[0]]
+            c = sum(cnn_shapes[k][-1] for k in self.cnn_keys)
+            self.cnn_encoder = CNN((h, w, c), cnn_channels, kernel_size=4, stride=2, activation=activation)
+            d = self.cnn_encoder.out_features
+            if cnn_features_dim:
+                self.cnn_proj = nn.Linear(d, cnn_features_dim)
+                d = cnn_features_dim
+            self.out_features += d
+        if self.mlp_keys:
+            self.mlp_encoder = MLP(sum(mlp_shapes[k] for k in self.mlp_keys), mlp_sizes, activation=activation,
+                                   layer_norm=mlp_layer_norm)
+            d = self.mlp_encoder.out_features
+            if mlp_features_dim:
+                self.mlp_proj = nn.Linear(d, mlp_features_dim)
+                d = mlp_features_dim
+            self.out_features += d
+
+    def forward(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        feats = []
+        if self.cnn_keys:
+            y = self.cnn_encoder(torch.cat([obs[k] for k in self.cnn_keys], dim=-1))
+            feats.append(self.act(self.cnn_proj(y)) if self.cnn_proj is not None else y)
+        if self.mlp_keys:
+            y = self.mlp_encoder(torch.cat([obs[k] for k in self.mlp_keys], dim=-1))
+            feats.append(self.act(self.mlp_proj(y)) if self.mlp_proj is not None else y)
+        return torch.cat(feats, dim=-1)
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        for name in ("cnn_encoder", "mlp_encoder"):
+            if hasattr(self, name):
+                getattr(self, name).init_weights(generator)
+        for proj in (self.cnn_proj, self.mlp_proj):
+            if proj is not None:
+                lecun_init_(proj, generator)

@@ -1,5 +1,5 @@
 """Per-algorithm policy players for serving (counterpart of
-``sheeprl_tpu/serve/players.py``; the DreamerV3 player so far).
+``sheeprl_tpu/serve/players.py``: the DreamerV3 and PPO players).
 
 A :class:`PolicyPlayer` is the serving-side view of a trained agent: the
 player's modules, a host-side observation ``prepare``, one ``step``
@@ -10,8 +10,9 @@ on the player's device, and a host-side ``postprocess``.
   sampling requests; both arms are computed and selected row by row.
 * ``seed`` seeds a ``torch.Generator`` on the device for this dispatch, the
   counterpart of ``jax.random.PRNGKey(seed)``.  It cannot give JAX's bits,
-  so the DreamerV3 step also takes the posterior's Gumbel noise explicitly.
-* ``carry`` is ``()`` for stateless players and the latent-state tuple
+  so the DreamerV3 step also takes the posterior's Gumbel noise explicitly,
+  and the PPO step its actions' noise.
+* ``carry`` is ``()`` for stateless players (ppo) and the latent-state tuple
   ``(h, z, a)`` for dreamer_v3; the service keeps per-session carries on the
   host.
 """
@@ -174,4 +175,45 @@ def build_dreamer_v3_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_sp
             ((world_model.stoch_flat,), "float32"),
             ((act_width,), "float32"),
         ),
+    ).finalize()
+
+
+@register_player("ppo")
+def build_ppo_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_space: Any, action_space: Any) -> PolicyPlayer:
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent, sample_actions
+    from sheeprl_tpu_torch.algos.ppo.utils import actions_for_env, obs_to_np, spaces_to_dims
+
+    cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
+    mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
+    actions_dim, is_continuous = spaces_to_dims(action_space)
+    agent = build_agent(fabric, actions_dim, is_continuous, cfg, obs_space, state["agent"]).eval()
+    dist_type = cfg.get("distribution", {}).get("type", "auto")
+
+    def _step(p, carry, obs, seed: int, greedy, noise: Optional[Sequence[torch.Tensor]] = None):
+        """Stateless: both arms are computed and chosen row by row, the
+        sampled arm drawing ``noise`` when given, else from the dispatch
+        generator."""
+        out, _ = p["agent"](obs)
+        a_sample, _, _ = sample_actions(out, actions_dim, is_continuous,
+                                        noise if noise is not None else torch.Generator(fabric.device).manual_seed(
+                                            int(seed)), dist_type=dist_type)
+        a_greedy, _, _ = sample_actions(out, actions_dim, is_continuous, greedy=True, dist_type=dist_type)
+        return carry, torch.where(greedy[:, None], a_greedy, a_sample)
+
+    def prepare(obs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+        out = {k: obs_to_np(obs[k], is_image=True) for k in cnn_keys}
+        out.update({k: obs_to_np(obs[k], is_image=False) for k in mlp_keys})
+        return out
+
+    return PolicyPlayer(
+        algo=cfg.algo.name,
+        params={"agent": agent},
+        step=_step,
+        prepare=prepare,
+        postprocess=lambda a: actions_for_env(a, action_space),
+        obs_spec=_obs_spec_from_space(obs_space, cnn_keys + mlp_keys),
+        action_shape=tuple(np.shape(action_space.sample())),
+        is_continuous=is_continuous,
+        actions_dim=tuple(actions_dim),
+        device=fabric.device,
     ).finalize()

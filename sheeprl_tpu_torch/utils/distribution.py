@@ -1,6 +1,7 @@
-"""Distributions of the DreamerV3 path (counterparts of
-``sheeprl_tpu/utils/distribution.py``): :class:`OneHotCategorical` with
-unimix and the straight-through rsample, :class:`Normal`,
+"""Distributions (counterparts of ``sheeprl_tpu/utils/distribution.py``):
+:class:`OneHotCategorical` with unimix and the straight-through rsample,
+the index-valued :class:`Categorical` and :class:`MultiCategorical` of the
+on-policy agents, :class:`Normal`, :class:`TanhNormal`,
 :class:`TruncatedNormal`, :class:`Bernoulli`, the KLs :func:`kl_categorical`
 and :func:`kl_normal`, and the regression heads
 :class:`MSEDistribution`, :class:`SymlogDistribution` and
@@ -91,6 +92,62 @@ class OneHotCategorical:
         return self._one_hot(torch.argmax(self.logits, dim=-1))
 
 
+class Categorical:
+    """Categorical over the last axis of ``logits``, valued in indices.
+    Sampling is the Gumbel-max ``argmax(logits + gumbel)``, as
+    ``jax.random.categorical`` draws it."""
+
+    def __init__(self, logits: torch.Tensor):
+        self.logits = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
+
+    @property
+    def probs(self) -> torch.Tensor:
+        return torch.exp(self.logits)
+
+    @staticmethod
+    def sample_noise(shape: Sequence[int], generator: torch.Generator, device: torch.device) -> torch.Tensor:
+        return gumbel_noise(shape, generator, device)
+
+    def sample_from_noise(self, noise: torch.Tensor) -> torch.Tensor:
+        return torch.argmax(self.logits + noise, dim=-1)
+
+    def sample(self, generator: torch.Generator) -> torch.Tensor:
+        return self.sample_from_noise(self.sample_noise(self.logits.shape, generator, self.logits.device))
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        return torch.gather(self.logits, -1, value.long()[..., None])[..., 0]
+
+    def entropy(self) -> torch.Tensor:
+        return -torch.sum(self.probs * self.logits, dim=-1)
+
+    def mode(self) -> torch.Tensor:
+        return torch.argmax(self.logits, dim=-1)
+
+
+class MultiCategorical:
+    """Independent categoricals, one per discrete action branch; values are
+    ``(..., n_branches)`` indices and each branch samples from its own noise."""
+
+    def __init__(self, logits: Sequence[torch.Tensor]):
+        self.dists = [Categorical(lg) for lg in logits]
+
+    def sample_from_noise(self, noise: Sequence[torch.Tensor]) -> torch.Tensor:
+        return torch.stack([d.sample_from_noise(n) for d, n in zip(self.dists, noise)], dim=-1)
+
+    def sample(self, generator: torch.Generator) -> torch.Tensor:
+        return self.sample_from_noise([d.sample_noise(d.logits.shape, generator, d.logits.device)
+                                       for d in self.dists])
+
+    def log_prob(self, value: torch.Tensor) -> torch.Tensor:
+        return sum(d.log_prob(value[..., i]) for i, d in enumerate(self.dists))
+
+    def entropy(self) -> torch.Tensor:
+        return sum(d.entropy() for d in self.dists)
+
+    def mode(self) -> torch.Tensor:
+        return torch.stack([d.mode() for d in self.dists], dim=-1)
+
+
 def kl_categorical(p: OneHotCategorical, q: OneHotCategorical) -> torch.Tensor:
     """KL(p‖q) summed over the categorical axis."""
     return torch.sum(p.probs * (p.logits - q.logits), dim=-1)
@@ -139,6 +196,30 @@ def kl_normal(p: Normal, q: Normal) -> torch.Tensor:
     t1 = ((p.loc - q.loc) / q.scale) ** 2
     kl = 0.5 * (var_ratio + t1 - 1.0 - torch.log(var_ratio))
     return _sum_event(kl, max(p.event_dims, q.event_dims))
+
+
+class TanhNormal:
+    """Tanh-squashed Gaussian with the exact log-det correction
+    ``2 (log 2 - x - softplus(-2x))``; ``event_dims`` trailing axes are
+    summed in the log-prob."""
+
+    def __init__(self, loc: torch.Tensor, scale: torch.Tensor, event_dims: int = 1):
+        self.base = Normal(loc, scale, event_dims=0)
+        self.event_dims = event_dims
+
+    sample_noise = staticmethod(Normal.sample_noise)
+
+    def sample_and_log_prob_from_noise(self, noise: torch.Tensor):
+        pre = self.base.sample_from_noise(noise)
+        log_det = 2.0 * (math.log(2.0) - pre - F.softplus(-2.0 * pre))
+        return torch.tanh(pre), _sum_event(self.base.log_prob(pre) - log_det, self.event_dims)
+
+    def sample_and_log_prob(self, generator: torch.Generator):
+        loc = self.base.loc
+        return self.sample_and_log_prob_from_noise(self.sample_noise(loc.shape, generator, loc.device))
+
+    def mode(self) -> torch.Tensor:
+        return torch.tanh(self.base.loc)
 
 
 def _norm_pdf(x: torch.Tensor) -> torch.Tensor:

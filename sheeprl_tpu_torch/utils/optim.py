@@ -5,7 +5,11 @@ optimizer behind optax's global-norm clip: :class:`ClippedOptimizer` scales
 the group's gradients by ``max_norm / norm`` only when ``norm >= max_norm``
 and adds no epsilon (``optax.clip_by_global_norm``), unlike
 ``torch.nn.utils.clip_grad_norm_``.  ``torch.optim.Adam`` is optax's Adam:
-the same bias correction, eps outside the square root.
+the same bias correction, eps outside the square root.  Both RMSprops are
+:class:`RMSprop`, written out because optax's differ from
+``torch.optim.RMSprop`` where a momentum buffer meets a changing learning
+rate.  :func:`set_learning_rate` / :func:`get_learning_rate` are the
+annealing schedules' handle on the wrapped optimizer.
 """
 
 from __future__ import annotations
@@ -14,7 +18,8 @@ from typing import Any, Dict, Iterable, List, Optional
 
 import torch
 
-__all__ = ["ClippedOptimizer", "build_optimizer", "clip_by_global_norm_"]
+__all__ = ["ClippedOptimizer", "RMSprop", "build_optimizer", "clip_by_global_norm_", "get_learning_rate",
+           "set_learning_rate"]
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
@@ -24,6 +29,52 @@ def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Te
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     torch._foreach_mul_(grads, scale)
     return norm
+
+
+class RMSprop(torch.optim.Optimizer):
+    """The JAX package's two RMSprops.
+
+    ``tf_style=False`` is ``rmsprop`` (optax's ``rmsprop(eps_in_sqrt=False)``):
+    the square average starts at zero, ``g / (sqrt(v) + eps)``, and a momentum
+    buffer accumulates the learning-rate-scaled steps.  ``tf_style=True`` is
+    ``rmsprop_tf``: the square average starts at one, ``g / sqrt(v + eps)``,
+    and the momentum buffer accumulates the unscaled steps, scaled by the
+    learning rate when applied.  ``centered`` subtracts the squared running
+    mean of the gradients from ``v`` in both."""
+
+    def __init__(self, params, lr: float = 1e-3, alpha: float = 0.99, eps: float = 1e-8, momentum: float = 0.0,
+                 centered: bool = False, tf_style: bool = False):
+        super().__init__(params, dict(lr=lr, alpha=alpha, eps=eps, momentum=momentum, centered=centered,
+                                      tf_style=tf_style))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            lr, alpha, eps, momentum = group["lr"], group["alpha"], group["eps"], group["momentum"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g, state = p.grad, self.state[p]
+                if not state:
+                    state["square_avg"] = torch.ones_like(p) if group["tf_style"] else torch.zeros_like(p)
+                    if group["centered"]:
+                        state["grad_avg"] = torch.zeros_like(p)
+                    if momentum > 0:
+                        state["momentum_buffer"] = torch.zeros_like(p)
+                v = state["square_avg"].mul_(alpha).addcmul_(g, g, value=1 - alpha)
+                if group["centered"]:
+                    m = state["grad_avg"].mul_(alpha).add_(g, alpha=1 - alpha)
+                    v = v - m * m
+                denom = (v + eps).sqrt() if group["tf_style"] else v.sqrt().add_(eps)
+                update = g / denom
+                if momentum > 0:
+                    buf = state["momentum_buffer"].mul_(momentum)
+                    if group["tf_style"]:
+                        p.add_(buf.add_(update), alpha=-lr)
+                    else:
+                        p.sub_(buf.add_(update, alpha=lr))
+                else:
+                    p.add_(update, alpha=-lr)
 
 
 class ClippedOptimizer:
@@ -74,14 +125,25 @@ def build_optimizer(
     elif name == "sgd":
         opt = torch.optim.SGD(params, lr=lr, momentum=float(optim_cfg.get("momentum", 0.0)))
     elif name in ("rmsprop", "rmsprop_tf"):
-        raise NotImplementedError(
-            f"optimizer '{name}' is not ported yet: it comes with A2C and the on-policy algorithms "
-            "(ROADMAP.md, queue A item 4)"
-        )
+        tf_style = name == "rmsprop_tf"
+        opt = RMSprop(params, lr=lr, alpha=float(optim_cfg.get("alpha", 0.9 if tf_style else 0.99)),
+                      eps=float(optim_cfg.get("eps", 1e-10 if tf_style else 1e-8)),
+                      momentum=float(optim_cfg.get("momentum", 0.0)), centered=bool(optim_cfg.get("centered", False)),
+                      tf_style=tf_style)
     else:
         raise ValueError(f"Unknown optimizer '{name}'")
     clip = float(max_grad_norm) if max_grad_norm is not None and max_grad_norm > 0 else None
     return ClippedOptimizer(params, opt, clip)
+
+
+def set_learning_rate(optimizer: ClippedOptimizer, lr: float) -> None:
+    """Set the learning rate of every parameter group of the wrapped optimizer."""
+    for group in optimizer.optimizer.param_groups:
+        group["lr"] = float(lr)
+
+
+def get_learning_rate(optimizer: ClippedOptimizer) -> float:
+    return float(optimizer.optimizer.param_groups[0]["lr"])
 
 
 def build_group_optimizers(modules: Dict[str, torch.nn.Module], groups: Dict[str, Any],

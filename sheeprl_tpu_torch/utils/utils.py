@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import os
 import warnings
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,6 +63,44 @@ def two_hot_decoder(probs: torch.Tensor, support_range: int = 300) -> torch.Tens
     """Inverse of :func:`two_hot_encoder`: (..., num_buckets) → (..., 1)."""
     buckets = torch.linspace(-support_range, support_range, probs.shape[-1], dtype=probs.dtype, device=probs.device)
     return symexp(torch.sum(probs * buckets, dim=-1, keepdim=True))
+
+
+def gae(
+    rewards: torch.Tensor,
+    values: torch.Tensor,
+    dones: torch.Tensor,
+    next_value: torch.Tensor,
+    gamma: float,
+    lmbda: float,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Generalized advantage estimation over a ``(T, B, ...)`` rollout, a
+    reversed loop over T.  ``dones[t]`` flags that the episode ended at step
+    t; ``next_value`` bootstraps the step after the last.  Returns
+    ``(returns, advantages)`` shaped like ``rewards``."""
+    not_done = 1.0 - dones.to(values.dtype)
+    lastgaelam, next_val = torch.zeros_like(next_value), next_value
+    advantages = []
+    for t in range(rewards.shape[0] - 1, -1, -1):
+        delta = rewards[t] + gamma * next_val * not_done[t] - values[t]
+        lastgaelam = delta + gamma * lmbda * not_done[t] * lastgaelam
+        advantages.append(lastgaelam)
+        next_val = values[t]
+    advantages = torch.stack(advantages[::-1], dim=0)
+    return advantages + values, advantages
+
+
+def polynomial_decay(current_step: int, *, initial: float = 1.0, final: float = 0.0, max_decay_steps: int = 100,
+                     power: float = 1.0) -> float:
+    """Host-side polynomial schedule from ``initial`` to ``final`` over
+    ``max_decay_steps``, ``final`` after it."""
+    if current_step > max_decay_steps or initial == final:
+        return final
+    frac = (1 - current_step / max_decay_steps) ** power
+    return (initial - final) * frac + final
+
+
+def safeatanh(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return torch.atanh(torch.clamp(x, -1.0 + eps, 1.0 - eps))
 
 
 def normalize_tensor(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:

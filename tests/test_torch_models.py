@@ -235,3 +235,74 @@ def test_world_model_imagination_and_heads():
             _apply(wm, v, latent, method=type(wm).continue_logits), _apply(critic, cv, latent))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **TOL)
+
+
+# -- the on-policy blocks (PPO's MultiEncoder, MLP heads) ---------------------
+@pytest.mark.parametrize("layer_norm", [False, True], ids=["plain", "layer_norm"])
+def test_mlp_with_head(layer_norm):
+    rng = np.random.default_rng(10)
+    x = _rand(rng, 5, 12)
+    mlp = jax_models.MLP(hidden_sizes=(16, 8), output_dim=3, activation="tanh", layer_norm=layer_norm)
+    v = _init(mlp, x)
+    port = _load(pt_models.MLP(12, (16, 8), 3, activation="tanh", layer_norm=layer_norm), v)
+    np.testing.assert_allclose(port(_t(x)).detach().numpy(), np.asarray(_apply(mlp, v, x)), **TOL)
+
+
+@pytest.mark.parametrize("size,pads", [(84, [(1, 1), (1, 1), (1, 2)]), (64, [(1, 1), (1, 1), (1, 1)]),
+                                       (21, [(1, 2), (1, 2), (1, 1)])])
+def test_same_padding_matches_xla(size, pads):
+    """XLA's SAME: the odd pixel goes on the high side (84 -> 42 -> 21 -> 11)."""
+    got = []
+    for _ in range(3):
+        got.append(pt_models.same_padding(size, 4, 2))
+        size = -(-size // 2)
+    assert got == pads
+
+
+@pytest.mark.parametrize("hw", [(84, 84), (64, 64), (21, 30)], ids=["84", "64", "21x30"])
+def test_cnn_same_padding_and_nhwc_flatten(hw):
+    rng = np.random.default_rng(11)
+    x = _rand(rng, 2, *hw, 6, scale=0.5)
+    cnn = jax_models.CNN(channels=(8, 16, 16), kernel_sizes=4, strides=2, activation="relu")
+    v = _init(cnn, x)
+    port = _load(pt_models.CNN((*hw, 6), (8, 16, 16), kernel_size=4, stride=2, activation="relu"), v)
+    ref = np.asarray(_apply(cnn, v, x))
+    out = port(_t(x)).detach().numpy()
+    assert out.shape == ref.shape and port.out_features == ref.shape[-1]
+    np.testing.assert_allclose(out, ref, **CONV_TOL)
+
+
+@pytest.mark.parametrize("size,stack", [(84, 4), (84, 1), (64, 2)], ids=["84-stack4", "84", "64-stack2"])
+def test_multi_encoder_as_ppo_builds_it(size, stack):
+    """PPO's encoder: CNN 32/64/64 on the frame-stacked image (merged into
+    channels by the port's ``obs_to_np``) with ``cnn_proj``, an MLP with
+    LayerNorm on the vector with ``mlp_proj``."""
+    from sheeprl_tpu_torch.algos.ppo.utils import obs_to_np
+
+    rng = np.random.default_rng(12)
+    raw = rng.integers(0, 256, (2, stack, size, size, 3) if stack > 1 else (2, size, size, 3), dtype=np.uint8)
+    obs = {"rgb": obs_to_np(raw, is_image=True), "state": _rand(rng, 2, 5)}
+    kwargs = dict(cnn_keys=("rgb",), mlp_keys=("state",), cnn_channels=(32, 64, 64), cnn_features_dim=16,
+                  mlp_sizes=(8, 8), mlp_layer_norm=True, mlp_features_dim=6, activation="relu")
+    enc = jax_models.MultiEncoder(**kwargs)
+    v = _init(enc, obs)
+    port = _load(pt_models.MultiEncoder(cnn_shapes={"rgb": (size, size, 3 * stack)}, mlp_shapes={"state": 5},
+                                        **kwargs), v)
+    ref = np.asarray(_apply(enc, v, obs))
+    out = port({k: _t(a) for k, a in obs.items()}).detach().numpy()
+    assert out.shape == ref.shape == (2, 22) and port.out_features == 22
+    np.testing.assert_allclose(out, ref, **CONV_TOL)
+
+
+def test_lecun_init_statistics():
+    """flax's default init, checked by its statistics: fan-in truncated
+    normal kernels (std 1/sqrt(fan_in), fan_in counting the receptive
+    field), zero biases."""
+    g = torch.Generator().manual_seed(0)
+    enc = pt_models.MultiEncoder(("rgb",), (), {"rgb": (84, 84, 12)}, {}, cnn_channels=(32, 64, 64),
+                                 cnn_features_dim=512, activation="relu")
+    enc.init_weights(g)
+    for w, fan_in in ((enc.cnn_encoder.conv_1.weight, 4 * 4 * 32), (enc.cnn_proj.weight, 11 * 11 * 64)):
+        assert abs(w.std().item() * fan_in**0.5 - 1.0) < 0.05
+        assert w.abs().max().item() <= 2 / 0.8796 / fan_in**0.5 + 1e-6
+    assert torch.all(enc.cnn_encoder.conv_0.bias == 0) and torch.all(enc.cnn_proj.bias == 0)

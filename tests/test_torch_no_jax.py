@@ -1,9 +1,11 @@
 """The port runs with JAX absent: in a fresh interpreter whose import system
 refuses ``jax``, ``flax``, ``optax`` and ``sheeprl_tpu``, every module of
 ``sheeprl_tpu_torch`` imports (every algorithm of the Dreamer family among
-them), a DreamerV3 player takes one CPU step, a tiny dry run through
-``cli.run`` trains one update and commits a snapshot, and one
-Plan2Explore-DreamerV3 update steps.
+them, and PPO, A2C and recurrent PPO), a DreamerV3 player takes one CPU
+step, a tiny dry run through ``cli.run`` trains one update and commits a
+snapshot, one Plan2Explore-DreamerV3 update steps, and PPO, A2C and
+recurrent PPO each train one iteration through ``cli.run`` and commit a
+snapshot that ``cli.evaluation`` plays and, for PPO, a player serves.
 
 A subprocess, because the test session has imported JAX already.
 """
@@ -101,6 +103,28 @@ SCRIPT = textwrap.dedent(
     assert len(metrics) == 10 and all(bool(torch.isfinite(m)) for m in metrics)
     assert bool(torch.isfinite(trainer.last_intrinsic))
 
+    # the on-policy algorithms: one iteration each, evaluated; the PPO snapshot served
+    from sheeprl_tpu_torch.cli import evaluation
+    from sheeprl_tpu_torch.serve.loader import load_policy
+    for exp, extra in (("ppo", ["env.id=discrete_dummy", "algo.cnn_keys.encoder=[rgb]", "algo.mlp_keys.encoder=[state]",
+                                "algo.encoder.cnn_features_dim=8", "algo.update_epochs=1"]),
+                       ("a2c", ["env.id=continuous_dummy", "algo.mlp_keys.encoder=[state]", "algo.optimizer.name=rmsprop_tf"]),
+                       ("ppo_recurrent", ["env.id=multidiscrete_dummy", "env.mask_velocities=False",
+                                          "algo.mlp_keys.encoder=[state]", "algo.rnn.lstm.hidden_size=4"])):
+        with tempfile.TemporaryDirectory() as tmp:
+            run([f"exp={{exp}}", "env=dummy", *extra, "dry_run=True", "env.num_envs=2", "fabric.accelerator=cpu",
+                 "metric/logger=csv", "buffer.memmap=False", "algo.rollout_steps=4", "algo.per_rank_batch_size=4",
+                 "algo.dense_units=4", "algo.mlp_layers=1", "env.max_episode_steps=6", f"log_dir={{tmp}}"])
+            (snapshot,) = glob.glob(f"{{tmp}}/**/checkpoint/step_*", recursive=True)
+            assert load_step_dir(snapshot)["policy_step"] == 8
+            assert np.isfinite(evaluation([f"checkpoint_path={{snapshot}}", "fabric.accelerator=cpu"]))
+            if exp == "ppo":
+                _, _, _, ppo_player = load_policy(snapshot, ["fabric.accelerator=cpu"])
+                obs = ppo_player.prepare({{"rgb": np.zeros((2, 64, 64, 3), np.uint8),
+                                          "state": np.zeros((2, 4), np.float32)}})
+                _, acts = ppo_player.step_batch(ppo_player.params, (), obs, 0, np.array([True, False]))
+                assert acts.shape == (2, 1)
+
     leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
     assert not leaked, leaked
     print("ok", len(names))
@@ -115,4 +139,4 @@ def test_port_imports_and_steps_without_jax():
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1].startswith("ok"), proc.stdout
-    assert int(proc.stdout.split()[-1]) >= 45  # every module of the port was imported
+    assert int(proc.stdout.split()[-1]) >= 80  # every module of the port was imported

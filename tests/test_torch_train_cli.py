@@ -304,3 +304,137 @@ def test_long_first_window_is_sampled_in_chunks(monkeypatch, tmp_path):
     assert noise_u == [1] * 20
     state = load_step_dir(_snapshots(tmp_path)[-1])
     assert state["grad_steps"] == 20 and state["psync"]["windows"] == 2
+
+
+# -- the on-policy algorithms through the same entry points -----------------------
+ON_POLICY_COMMON = ["env=dummy", "fabric.accelerator=cpu", "metric.log_level=1", "metric.log_every=1",
+                    "metric/logger=csv", "buffer.memmap=False", "checkpoint.every=1000000",
+                    "checkpoint.async_save=False", "env.num_envs=2", "env.max_episode_steps=12",
+                    "algo.rollout_steps=8", "algo.per_rank_batch_size=6", "algo.dense_units=8", "algo.mlp_layers=1"]
+ON_POLICY = {
+    "ppo": ["exp=ppo", "env.id=discrete_dummy", "algo.cnn_keys.encoder=[rgb]", "algo.mlp_keys.encoder=[state]",
+            "algo.encoder.cnn_features_dim=16", "algo.update_epochs=2", "algo.anneal_lr=True",
+            "algo.anneal_clip_coef=True", "algo.anneal_ent_coef=True", "algo.ent_coef=0.01"],
+    "a2c": ["exp=a2c", "env.id=continuous_dummy", "algo.mlp_keys.encoder=[state]", "algo.anneal_lr=True"],
+    "ppo_recurrent": ["exp=ppo_recurrent", "env.id=multidiscrete_dummy", "env.mask_velocities=False",
+                      "algo.mlp_keys.encoder=[state]", "algo.rnn.lstm.hidden_size=8", "algo.update_epochs=2",
+                      "algo.anneal_lr=True"],
+}
+ON_POLICY_LOSSES = ("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss")
+
+
+@pytest.mark.parametrize("exp", list(ON_POLICY))
+def test_on_policy_run_commits_resumes_and_evaluates(exp, tmp_path, capsys):
+    """A dry run (one iteration of 8 steps x 2 envs), a resume from its
+    snapshot for two more iterations with the schedules annealing, and
+    ``cli.evaluation`` of the result."""
+    first = tmp_path / "first"
+    run([f"exp={exp}", *ON_POLICY_COMMON, *ON_POLICY[exp][1:], "dry_run=True", "algo.run_test=True",
+         f"log_dir={first}"])
+    (snapshot,) = _snapshots(first)
+    state = load_step_dir(snapshot)
+    assert state["update"] == 1 and state["policy_step"] == 16
+    assert set(state["generators"]) == {"train", "player"}
+    with open(glob.glob(f"{first}/**/metrics.csv", recursive=True)[0]) as f:
+        rows = {name: float(value) for step, name, value in list(csv.reader(f))[1:]}
+    assert all(math.isfinite(rows[name]) for name in ON_POLICY_LOSSES) and "Test/cumulative_reward" in rows
+    # optimizer steps per update: epochs x minibatches (PPO: 16 rows in 3 of 6, the
+    # recurrent one: 2 env columns one at a time); A2C's RMSprop counts none
+    steps_per_update = {"ppo": 2 * 3, "a2c": None, "ppo_recurrent": 2 * 2}[exp]
+    if steps_per_update:
+        assert state["opt_state"]["state"][0]["step"].item() == steps_per_update
+    else:
+        assert set(state["opt_state"]["state"][0]) == {"square_avg"}
+
+    resumed_dir = tmp_path / "resumed"
+    run([f"exp={exp}", *ON_POLICY_COMMON, *ON_POLICY[exp][1:], "algo.total_steps=48", "algo.run_test=False",
+         f"checkpoint.resume_from={snapshot}", f"log_dir={resumed_dir}"])
+    (resumed,) = _snapshots(resumed_dir)
+    after = load_step_dir(resumed)
+    assert after["update"] == 3 and after["policy_step"] == 48
+    if steps_per_update:
+        assert after["opt_state"]["state"][0]["step"].item() == 3 * steps_per_update
+    # anneal_lr: polynomial decay to 0 at the last of 3 iterations
+    assert after["opt_state"]["param_groups"][0]["lr"] == 0.0
+    assert not torch.equal(after["generators"]["player"], state["generators"]["player"])
+
+    reward = evaluation([f"checkpoint_path={resumed}", "fabric.accelerator=cpu"])
+    assert math.isfinite(reward) and f"Test/cumulative_reward: {reward}" in capsys.readouterr().out
+
+
+def test_ppo_snapshot_is_served_by_policy_service(tmp_path):
+    import threading
+
+    from sheeprl_tpu_torch.serve.client import PolicyClient
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+    from sheeprl_tpu_torch.serve.service import PolicyService
+
+    run([*ON_POLICY["ppo"][:1], *ON_POLICY_COMMON, *ON_POLICY["ppo"][1:], "dry_run=True", "algo.run_test=False",
+         f"log_dir={tmp_path}"])
+    service = PolicyService.from_checkpoint(_snapshots(tmp_path)[0], ["serve.batch_ladder=[1,4]", "serve.max_wait_ms=2",
+                                                       "fabric.accelerator=cpu"])
+    assert service.player.algo == "ppo" and not service.player.stateful
+    with PolicyServer(service, port=0) as server:
+        client = PolicyClient(server.url, packed=True)
+        assert not client.health()["stateful"]
+        errors = []
+
+        def play(i):
+            rng = np.random.default_rng(i)
+            try:
+                for step in range(3):
+                    obs = {"rgb": rng.integers(0, 256, (64, 64, 3), dtype=np.uint8),
+                           "state": rng.standard_normal(4).astype(np.float32)}
+                    action = client.act(obs, session=f"s{i}", greedy=(i + step) % 2 == 0)
+                    assert action.shape == () and 0 <= int(action) < 4
+            except BaseException as e:  # noqa: BLE001 - reported below
+                errors.append(e)
+
+        threads = [threading.Thread(target=play, args=(i,)) for i in range(4)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(60)
+        assert not errors and not any(t.is_alive() for t in threads)
+        assert client.stats()["served"] == 12
+
+
+@pytest.mark.parametrize("override", ["algo.anakin=True", "population.size=2"])
+def test_on_policy_unported_paths_raise_naming_the_roadmap_item(tmp_path, override):
+    with pytest.raises(NotImplementedError, match="queue A item 7"):
+        run([*ON_POLICY["ppo"][:1], *ON_POLICY_COMMON, *ON_POLICY["ppo"][1:], "dry_run=True",
+             f"log_dir={tmp_path}", override])
+    assert latest_checkpoint(tmp_path) is None
+
+
+@pytest.mark.parametrize("exp,checks", [
+    ("ppo", {"rollout_steps": 128, "per_rank_batch_size": 64, "optimizer.name": "adam"}),
+    ("ppo_atari", {"rollout_steps": 1024, "per_rank_batch_size": 256, "update_epochs": 3, "dense_units": 512,
+                   "optimizer.name": "adam", "parameters": 4_597_925}),
+    ("a2c", {"rollout_steps": 128, "optimizer.name": "rmsprop"}),
+    ("a2c_atari", {"rollout_steps": 40, "optimizer.name": "rmsprop", "parameters": 4_597_925}),
+    ("ppo_recurrent", {"rollout_steps": 128, "optimizer.name": "adamw"}),
+])
+def test_on_policy_recipes_compose_with_the_dummy_env(exp, checks):
+    """Each recipe composes with ``env=dummy`` (84x84 frames stacked 4 times
+    for the Atari ones) and builds its agent; the Atari-width agent has the
+    parameter count the card runs."""
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo.utils import spaces_to_dims
+    from sheeprl_tpu_torch.algos.ppo_recurrent.agent import build_agent as build_recurrent
+    from sheeprl_tpu_torch.config.compose import compose
+    from sheeprl_tpu_torch.fabric import build_fabric
+    from sheeprl_tpu_torch.serve.loader import probe_spaces
+
+    extra = {"ppo": ["algo.mlp_keys.encoder=[state]"], "a2c": ["algo.mlp_keys.encoder=[state]"],
+             "ppo_recurrent": ["env.mask_velocities=False"]}.get(exp, ["env.screen_size=84",
+                                                                      "env.wrapper.image_size=[84,84,3]"])
+    cfg = compose([f"exp={exp}", "env=dummy", "fabric.accelerator=cpu", *extra])
+    obs_space, act_space = probe_spaces(cfg)
+    dims, cont = spaces_to_dims(act_space)
+    agent = (build_recurrent if exp == "ppo_recurrent" else build_agent)(build_fabric(cfg), dims, cont, cfg, obs_space)
+    got = {**{k: cfg.algo.get(k) for k in checks}, "parameters": sum(p.numel() for p in agent.parameters()),
+           "optimizer.name": cfg.algo.optimizer.name}
+    assert {k: got[k] for k in checks} == checks
+    if exp.endswith("atari"):
+        assert obs_space["rgb"].shape == (4, 84, 84, 3) and cfg.algo.cnn_keys.encoder == ["rgb"]
