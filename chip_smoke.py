@@ -87,13 +87,42 @@ prints no result line):
               finite, no kernel launch, each snapshot evaluated once through
               ``cli.evaluation``.
 
+20. sac train — SAC at its recipe's widths (``exp=sac``: hidden 256 x 2, two
+              critics, batch 256, replay ratio 1) on the continuous dummy
+              env's 4-wide ``state`` through ``cli.run``: a prefill of 100
+              random steps, then 400 updates (the first window repays the
+              prefill); updates/s, env steps/s, the first update's seconds,
+              peak device memory, a ``torch.profiler`` top-10 of one update
+              with its launches and the device's busy share, no kernel
+              launch; the snapshot evaluated through ``cli.evaluation``.
+21. droq train — DroQ the same at replay ratio 20 and dropout 0.01 (masks
+              drawn on the card): a prefill of 50 steps, then 1,200 updates.
+22. sac_ae train — SAC-AE on the 64x64 ``rgb`` (``exp=sac_ae``: encoder
+              16/32/64 to 64 features, actor and critics at 1024, decoder
+              64/32/16 → 3, batch 128; the actor and targets every 2
+              updates, the decoder every update): the recipe's 1,000-step
+              prefill cut to 128, then 178 updates.
+23. off-policy parity — one SAC train phase (U 8, batch 256) and one SAC-AE
+              train phase (U 4, batch 128) from phases 20 and 22's snapshots
+              on the card and on the CPU in this process (same weights,
+              batches and noise, SGD for every group, TF32 off): parameters
+              and losses within phase 17's tolerance; SAC-AE with the
+              decoder's deconv kernels left unflipped, and SAC with the actor
+              step reading the critic before its update, are caught by it;
+              TF32 on and the recipe's Adam reported.
+24. sac serve — phase 20's snapshot served by ``PolicyServer`` over HTTP to
+              16 sessions x 8 steps, greedy and sampled rows mixed:
+              actions/s, client and service p50/p99, every action inside
+              the bounds, no kernel launch.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
 Other modes, each alone: ``--timing ROOT`` times the kernels of the port
 under ``ROOT``; ``--first-window`` trains the first window of the default
 XL recipe (1024 updates, about 12 minutes on an H100); ``--on-policy``
-runs phases 16-19 alone (they build and launch no kernel).
+runs phases 16-19 alone and ``--off-policy`` phases 20-24 (they build and
+launch no kernel).
 """
 
 from __future__ import annotations
@@ -211,10 +240,27 @@ ON_POLICY_LOSSES = ("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss")
 # cuDNN's algorithms are not deterministic, so the comparison would move
 # from run to run.  With SGD every change is lr x the clipped gradient, and
 # a wrong pad or layout shows in it directly; Adam is reported beside it.
-PPO_PARITY_OPTIMIZER = {"name": "sgd", "lr": 0.01, "momentum": 0.0}
+CARD_PARITY_SGD = {"name": "sgd", "lr": 0.01, "momentum": 0.0}
 CARD = "cuda"  # the device of the phases' card side
-PPO_PARITY_TOL_PARAM = 1e-3
-PPO_PARITY_TOL_LOSS = 1e-4
+CARD_PARITY_TOL_PARAM = 1e-3
+CARD_PARITY_TOL_LOSS = 1e-4
+# the off-policy algorithms at their recipes' widths on the continuous dummy
+# env (phases 20-24); the replay buffer stays out of the snapshots (the SAC-AE
+# ring alone would write 2.4 GB)
+OFF_POLICY = ("env=dummy", "env.id=continuous_dummy", "fabric.accelerator=gpu", "algo.player.device=accelerator",
+              "metric/logger=csv", "checkpoint.save_last=True", "checkpoint.every=1000000000",
+              "checkpoint.async_save=False", "buffer.memmap=False", "buffer.checkpoint=False", "env.num_envs=1",
+              "seed=5")
+# a prefill of 100 random steps, which the first window repays (100 updates), then one update per step: 400
+SAC_STATE = ("exp=sac", *OFF_POLICY, "algo.learning_starts=100", "algo.total_steps=400")
+# replay ratio 20: the first window at step 50 takes 1,000 updates, then 20 per step: 1,200
+DROQ_STATE = ("exp=droq", *OFF_POLICY, "algo.learning_starts=50", "algo.total_steps=60")
+# the recipe's prefill of 1,000 steps cut to 128: 128 updates in the first window, then 50 more
+SAC_AE_RGB = ("exp=sac_ae", *OFF_POLICY, "algo.learning_starts=128", "algo.total_steps=178")
+# One SAC train phase (U 8, batch 256) and one SAC-AE train phase (U 4, batch
+# 128) on the card against the CPU (phase 23), stepped with SGD for every
+# group for phase 17's reason; the recipe's Adam is reported beside it.
+OFF_POLICY_PARITY = {"sac": (8, 256), "sac_ae": (4, 128)}
 XL_SERVE = (
     "exp=dreamer_v3",  # algo=dreamer_v3 is the XL preset
     "env=dummy",
@@ -468,7 +514,17 @@ def _drive(torch, run_dir: Path, sessions: int, steps: int) -> dict:
     service = PolicyService.from_checkpoint(run_dir)
     log(f"[serve] PolicyService.from_checkpoint: {time.perf_counter() - t0:.1f} s on {service.player.device}")
     spec = service.player.obs_spec
-    n_actions = int(service.player.actions_dim[0])
+    player = service.player
+    if player.is_continuous:
+        from sheeprl_tpu_torch.serve.loader import probe_spaces
+
+        space = probe_spaces(service.cfg)[1]
+
+        def valid(a) -> bool:
+            return a.shape == player.action_shape and bool(np.all((a >= space.low) & (a <= space.high)))
+    else:
+        def valid(a) -> bool:
+            return a.shape == player.action_shape and 0 <= int(a) < int(player.actions_dim[0])
     latencies, errors = [], []
     lock = threading.Lock()
 
@@ -482,8 +538,8 @@ def _drive(torch, run_dir: Path, sessions: int, steps: int) -> dict:
                 t = time.perf_counter()
                 action = client.act(obs, session=f"s{i}", greedy=(i + step) % 2 == 0)
                 dt = time.perf_counter() - t
-                if action.shape != service.player.action_shape or not 0 <= int(action) < n_actions:
-                    raise AssertionError(f"invalid action {action!r} for Discrete({n_actions})")
+                if not valid(action):
+                    raise AssertionError(f"invalid action {action!r} for the action space of {player.algo}")
                 with lock:
                     latencies.append(dt)
         except BaseException as e:  # noqa: BLE001 - re-raised on the main thread
@@ -1079,10 +1135,37 @@ def _time_rollout_step(torch, agent, log_dir: Path, steps: int = 200) -> dict:
     return out
 
 
+def change_diffs(torch, start, params, losses, ref_params, ref_losses) -> dict:
+    """A train phase's result against a reference run from the same
+    ``start`` weights (the CPU's): the relative L2 difference of the
+    parameters' changes, the relative difference of the losses, and
+    (reported) the tensor with the largest element difference, that
+    difference as a share of the largest change, and how many elements
+    differ by a tenth of it."""
+    d_ref = torch.cat([(ref_params[k] - start[k]).flatten() for k in ref_params])
+    d = torch.cat([(params[k] - start[k]).flatten() for k in ref_params]) - d_ref
+    worst = max(ref_params, key=lambda k: float((params[k] - ref_params[k]).abs().max()))
+    return {"param_l2": float(d.norm() / d_ref.norm()),
+            "loss_rel": float((np.abs(losses - ref_losses) / np.abs(ref_losses)).max()),
+            "worst": worst, "worst_share": float(d.abs().max() / d_ref.abs().max()),
+            "off_elements": int((d.abs() > 0.1 * d_ref.abs().max()).sum()), "elements": d.numel(),
+            "largest_change": float(d_ref.abs().max())}
+
+
+def within_parity(d: dict) -> bool:
+    return d["param_l2"] <= CARD_PARITY_TOL_PARAM and d["loss_rel"] <= CARD_PARITY_TOL_LOSS
+
+
+def show_diffs(d: dict) -> str:
+    return (f"parameter changes rel L2 diff {d['param_l2']:.3g}, losses max rel diff {d['loss_rel']:.3g}; "
+            f"largest element diff {d['worst_share']:.3g} of the largest change {d['largest_change']:.3g} (in "
+            f"{d['worst']}), {d['off_elements']} of {d['elements']} elements off by more than a tenth of it")
+
+
 def phase_ppo_parity(torch, snapshot: Path) -> dict:
     """One PPO train phase at phase 16's widths from its snapshot's weights
     on the card and on the CPU, with the same rollout and minibatch orders,
-    stepping with SGD (``PPO_PARITY_OPTIMIZER``); then the card again with
+    stepping with SGD (``CARD_PARITY_SGD``); then the card again with
     the SAME pad of the odd stage on the wrong side, which the tolerance
     must catch, and with TF32 on (reported); and both sides with the
     recipe's Adam (reported, not a gate: why the gate steps with SGD)."""
@@ -1107,7 +1190,7 @@ def phase_ppo_parity(torch, snapshot: Path) -> dict:
             "dones": (rng.random((T, B, 1)) < 0.01).astype(np.float32)}
     last = {"rgb": rng.integers(0, 256, (B, *obs_space["rgb"].shape), dtype=np.uint8)}
 
-    def phase(device: str, pads=None, optim=PPO_PARITY_OPTIMIZER):
+    def phase(device: str, pads=None, optim=CARD_PARITY_SGD):
         weights = {k: v.clone() for k, v in saved.items()}  # the CPU agent would train these in place
         agent = build_agent(Fabric(torch.device(device)), dims, cont, cfg, obs_space, weights)
         if pads is not None:
@@ -1127,53 +1210,32 @@ def phase_ppo_parity(torch, snapshot: Path) -> dict:
     cpu, cpu_losses, cpu_s = phase("cpu")
 
     def diffs(params, losses, ref=(cpu, cpu_losses)):
-        """Against ``ref`` (the CPU's parameters and losses): the relative L2
-        difference of the parameters' changes, the relative difference of
-        the last losses, and (reported) the tensor with the largest element
-        difference, that difference as a share of the largest change, and
-        how many elements differ by a tenth of it."""
-        ref_params, ref_losses = ref
-        d_ref = torch.cat([(ref_params[k] - saved[k]).flatten() for k in ref_params])
-        d = torch.cat([(params[k] - saved[k]).flatten() for k in ref_params]) - d_ref
-        worst = max(ref_params, key=lambda k: float((params[k] - ref_params[k]).abs().max()))
-        return {"param_l2": float(d.norm() / d_ref.norm()),
-                "loss_rel": float((np.abs(losses - ref_losses) / np.abs(ref_losses)).max()),
-                "worst": worst, "worst_share": float(d.abs().max() / d_ref.abs().max()),
-                "off_elements": int((d.abs() > 0.1 * d_ref.abs().max()).sum()), "elements": d.numel(),
-                "largest_change": float(d_ref.abs().max())}
-
-    def within(d):
-        return d["param_l2"] <= PPO_PARITY_TOL_PARAM and d["loss_rel"] <= PPO_PARITY_TOL_LOSS
-
-    def show(d):
-        return (f"parameter changes rel L2 diff {d['param_l2']:.3g}, last losses max rel diff {d['loss_rel']:.3g}; "
-                f"largest element diff {d['worst_share']:.3g} of the largest change {d['largest_change']:.3g} (in "
-                f"{d['worst']}), {d['off_elements']} of {d['elements']} elements off by more than a tenth of it")
+        return change_diffs(torch, saved, params, losses, *ref)
 
     gpu, gpu_losses, gpu_s = phase(CARD)
     got = diffs(gpu, gpu_losses)
     log(f"[ppo-parity] one train phase (values, GAE, 12 minibatch steps of 256, SGD lr 0.01; CPU {cpu_s:.1f} s, card "
-        f"{gpu_s:.2f} s), card vs CPU: {show(got)}; losses {', '.join(f'{x:.6g}' for x in gpu_losses)} vs "
-        f"{', '.join(f'{x:.6g}' for x in cpu_losses)}; tolerance L2 {PPO_PARITY_TOL_PARAM}, losses "
-        f"{PPO_PARITY_TOL_LOSS}")
-    if not (within(got) and np.isfinite(gpu_losses).all()):
+        f"{gpu_s:.2f} s), card vs CPU: {show_diffs(got)}; losses {', '.join(f'{x:.6g}' for x in gpu_losses)} vs "
+        f"{', '.join(f'{x:.6g}' for x in cpu_losses)}; tolerance L2 {CARD_PARITY_TOL_PARAM}, losses "
+        f"{CARD_PARITY_TOL_LOSS}")
+    if not (within_parity(got) and np.isfinite(gpu_losses).all()):
         raise AssertionError("the PPO train phase on the card disagrees with the same phase on the CPU")
     good = build_agent(Fabric(torch.device("cpu")), dims, cont, cfg, obs_space,
                        {k: v.clone() for k, v in saved.items()}).feature_extractor.cnn_encoder.pads
     wrong = [(r, l, b, t) for l, r, t, b in good]  # every stage's low and high pads swapped
     bad = diffs(*phase(CARD, pads=wrong)[:2])
-    log(f"[ppo-parity] control, SAME pads on the wrong side ({good} -> {wrong}): {show(bad)}")
-    if within(bad):
+    log(f"[ppo-parity] control, SAME pads on the wrong side ({good} -> {wrong}): {show_diffs(bad)}")
+    if within_parity(bad):
         raise AssertionError("the PPO parity tolerance does not catch the SAME pad on the wrong side")
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
     try:
         tf32 = diffs(*phase(CARD)[:2])
     finally:
         torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    log(f"[ppo-parity] TF32 on (reported, not a gate): {show(tf32)}")
+    log(f"[ppo-parity] TF32 on (reported, not a gate): {show_diffs(tf32)}")
     cpu_adam, cpu_adam_losses, _ = phase("cpu", optim=cfg.algo.optimizer)
     adam = diffs(*phase(CARD, optim=cfg.algo.optimizer)[:2], ref=(cpu_adam, cpu_adam_losses))
-    log(f"[ppo-parity] the recipe's Adam on both sides (reported, not a gate), card vs CPU: {show(adam)}")
+    log(f"[ppo-parity] the recipe's Adam on both sides (reported, not a gate), card vs CPU: {show_diffs(adam)}")
     return {**got, "cpu_s": cpu_s, "card_s": gpu_s, "wrong_pad": bad, "tf32": tf32, "adam": adam}
 
 
@@ -1207,6 +1269,257 @@ def phase_on_policy_family(torch, run_root: Path) -> dict:
         log(f"[{name}] cli.evaluation of {run_['snapshot'].name}: cumulative reward {run_['eval_reward']} in "
             f"{time.perf_counter() - t0:.1f} s")
     return out
+
+
+# -- the off-policy algorithms -----------------------------------------------
+def _train_off_policy(torch, overrides, log_dir: Path, trainer_cls) -> dict:
+    """One off-policy run through ``cli.run`` with every launch count zeroed
+    just before and read just after (none may launch): each update timed
+    with the device synchronised around it, and each train window's end
+    (a steady iteration is one env step and its window: the time between
+    two windows' ends).  Keeps the last window's trainer and batches."""
+    import csv
+
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.ops import gru, rssm
+
+    seconds, ends, kept = [], [], {}
+    update, train_phase = trainer_cls.update, trainer_cls.train_phase
+
+    def timed_update(self, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = update(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        return out
+
+    def kept_phase(self, batches, *args, **kwargs):
+        out = train_phase(self, batches, *args, **kwargs)
+        ends.append(time.perf_counter())
+        kept.update(trainer=self, batches=batches)
+        return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rssm.LAUNCHES["rssm"] = gru.LAUNCHES["gru"] = 0
+    trainer_cls.update, trainer_cls.train_phase = timed_update, kept_phase
+    t0 = time.perf_counter()
+    try:
+        run([*overrides, f"log_dir={log_dir}"])
+    finally:
+        trainer_cls.update, trainer_cls.train_phase = update, train_phase
+    wall = time.perf_counter() - t0
+    counts = {"rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]}
+    peak = torch.cuda.max_memory_allocated()
+    if any(counts.values()):
+        raise AssertionError(f"an off-policy run launched kernels: {counts}")
+    snapshots = sorted(log_dir.glob("**/checkpoint/step_*"))
+    if not snapshots or len(ends) < 2:
+        raise AssertionError(f"the run under {log_dir} made {len(ends)} windows and {len(snapshots)} snapshots")
+    with open(next(log_dir.glob("**/metrics.csv"))) as f:
+        logged = {name: float(value) for _, name, value in list(csv.reader(f))[1:]}
+    missing = [n for n in trainer_cls.LOSS_NAMES if n not in logged or not np.isfinite(logged[n])]
+    if missing:
+        raise AssertionError(f"metrics missing or not finite: {missing}")
+    steady = statistics.median(seconds[1:])
+    iteration = statistics.median(b - a for a, b in zip(ends, ends[1:]))
+    out = {"updates": len(seconds), "windows": len(ends), "first_update_s": seconds[0],
+           "median_update_s": steady, "updates_per_s": 1.0 / steady, "env_steps_per_s": 1.0 / iteration,
+           "peak_bytes": peak, "counts": counts, "snapshot": snapshots[-1], "wall_s": wall,
+           "logged": {n: logged[n] for n in trainer_cls.LOSS_NAMES}, **kept}
+    log(f"[{log_dir.name}] {len(seconds)} updates in {len(ends)} windows, a {wall:.1f} s run: first update "
+        f"{seconds[0]:.4f} s, then median {steady * 1e3:.3f} ms = {out['updates_per_s']:.1f} updates/s; a steady "
+        f"iteration (one env step and its window) {iteration * 1e3:.3f} ms = {out['env_steps_per_s']:.1f} env "
+        f"steps/s; peak device memory {peak / 2**30:.3f} GiB; launches {counts}")
+    log(f"[{log_dir.name}] metrics " + ", ".join(f"{n} {logged[n]:.6g}" for n in trainer_cls.LOSS_NAMES))
+    return out
+
+
+def _profile_update(torch, tag: str, trainer, batches) -> dict:
+    """One update of the last window's first batch, unprofiled then under
+    the profiler: its wall time, device time, launches and device busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    one = {k: v[:1] for k, v in batches.items()}
+    gen = torch.Generator(one["rewards"].device)
+
+    def update():
+        trainer.train_phase(one, gen.manual_seed(0), 0)
+
+    update()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    update()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        update()
+        torch.cuda.synchronize()
+    total, launches = _log_profile(tag, prof, wall_ms, f"one {tag.split('-')[0]} update")
+    return {"update_wall_ms": wall_ms, "update_device_ms": total, "update_launches": launches}
+
+
+def phase_off_policy_train(torch, run_root: Path) -> dict:
+    """Phases 20-22: SAC and DroQ on ``state``, SAC-AE on ``rgb``, at their
+    recipes' widths through ``cli.run``; the rates, launches per update and
+    a profile of one update each, the snapshot of each evaluated once
+    through ``cli.evaluation``."""
+    from sheeprl_tpu_torch.algos.sac.sac import SACTrainer
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import SACAETrainer
+    from sheeprl_tpu_torch.cli import evaluation
+
+    out = {}
+    for name, overrides, trainer_cls, least in (("sac", SAC_STATE, SACTrainer, 300),
+                                                ("droq", DROQ_STATE, SACTrainer, 1000),
+                                                ("sac_ae", SAC_AE_RGB, SACAETrainer, 50)):
+        run_ = out[name] = _train_off_policy(torch, overrides, run_root / f"{name}_train", trainer_cls)
+        if run_["updates"] < least:
+            raise AssertionError(f"{name} ran {run_['updates']} updates, expected at least {least}")
+        run_.update(_profile_update(torch, f"{name}-train", run_.pop("trainer"), run_.pop("batches")))
+        t0 = time.perf_counter()
+        run_["eval_reward"] = evaluation([f"checkpoint_path={run_['snapshot']}", "fabric.accelerator=gpu"])
+        if not np.isfinite(run_["eval_reward"]):
+            raise AssertionError(f"cli.evaluation of {name}'s snapshot gave {run_['eval_reward']}")
+        log(f"[{name}-train] cli.evaluation of {run_['snapshot'].name}: cumulative reward {run_['eval_reward']} in "
+            f"{time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+    return out
+
+
+def _to_device(tree, device):
+    """An update's noise (nested dicts and lists of tensors, or None) moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_to_device(v, device) for v in tree]
+    return tree.to(device) if tree is not None else None
+
+
+def phase_off_policy_parity(torch, snapshots: dict) -> dict:
+    """Phase 23: one SAC and one SAC-AE train phase from their snapshots'
+    weights on the card and on the CPU, with the same batches and noise,
+    stepping every group with SGD (``CARD_PARITY_SGD``); two controls on the
+    card that the tolerance must catch (SAC-AE with the decoder's deconv
+    kernels left unflipped, SAC with the actor step reading the critic
+    before its update); TF32 on and the recipe's Adam reported beside it."""
+    import copy
+
+    from sheeprl_tpu_torch.algos.sac.agent import build_agent as sac_agent
+    from sheeprl_tpu_torch.algos.sac.agent import ema_update
+    from sheeprl_tpu_torch.algos.sac.sac import SACTrainer
+    from sheeprl_tpu_torch.algos.sac_ae.agent import build_agent as sac_ae_agent
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import SACAETrainer
+    from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
+    from sheeprl_tpu_torch.fabric import Fabric
+    from sheeprl_tpu_torch.serve.loader import load_run_config, probe_spaces
+
+    class StaleCriticSAC(SACTrainer):
+        """The control: the actor step reads the critic as it was before this update's critic step."""
+
+        def update(self, batch, noise, step_idx):
+            stale = copy.deepcopy(self.critic)
+            alpha = torch.exp(self.agent.log_alpha.detach())
+            vl = self.critic_step(batch, noise, alpha)
+            pl, lp = self.actor_step(batch["obs"], noise, alpha, stale)
+            al = self.alpha_step(lp)
+            if step_idx % self.target_freq == 0:
+                ema_update(self.target_critic, self.critic, self.tau)
+            return vl.detach(), pl.detach(), al.detach()
+
+    def unflip(agent):
+        with torch.no_grad():
+            for m in agent.decoder.decnn.children():
+                m.weight.copy_(m.weight.flip(2, 3))
+
+    cases = {"sac": (sac_agent, SACTrainer, StaleCriticSAC, None),
+             "sac_ae": (sac_ae_agent, SACAETrainer, SACAETrainer, unflip)}
+    out = {}
+    for name, (build, trainer_cls, control_cls, control_mutate) in cases.items():
+        U, B = OFF_POLICY_PARITY[name]
+        cfg = load_run_config(snapshots[name], ["fabric.accelerator=gpu"])
+        saved = load_step_dir(snapshots[name], map_location="cpu")["agent"]
+        obs_space, act_space = probe_spaces(cfg)
+        act_dim = int(np.prod(act_space.shape))
+        rng = np.random.default_rng(23)
+        host = {"actions": rng.uniform(-0.99, 0.99, (U, B, act_dim)).astype(np.float32),
+                "rewards": rng.standard_normal((U, B)).astype(np.float32),
+                "terminated": (rng.random((U, B)) < 0.1).astype(np.float32)}
+        if name == "sac":
+            agent_input = int(sum(np.prod(obs_space[k].shape) for k in cfg.algo.mlp_keys.encoder))
+            for k in ("obs", "next_obs"):
+                host[k] = rng.standard_normal((U, B, agent_input)).astype(np.float32)
+        else:
+            agent_input = obs_space
+            for k in ("rgb", "next_rgb"):
+                host[k] = rng.integers(0, 256, (U, B, *obs_space["rgb"].shape), dtype=np.uint8)
+        groups = ("actor", "critic", "alpha", "encoder", "decoder")[:3 if name == "sac" else 5]
+        noise_gen = torch.Generator().manual_seed(23)
+        probe = trainer_cls(cfg, build(Fabric(torch.device("cpu")), act_dim, cfg, agent_input,
+                                       {k: v.clone() for k, v in saved.items()}), {}, act_dim)
+        noise = [probe.draw_noise(B, noise_gen) for _ in range(U)]
+
+        def phase(device, cls=trainer_cls, mutate=None, sgd=True):
+            run_cfg = copy.deepcopy(cfg)
+            if sgd:
+                for g in groups:
+                    run_cfg.algo[g].optimizer = dict(CARD_PARITY_SGD)
+            agent = build(Fabric(torch.device(device)), act_dim, run_cfg, agent_input,
+                          {k: v.clone() for k, v in saved.items()})
+            if mutate is not None:
+                mutate(agent)
+            trainer = cls(run_cfg, agent, cls.build_optimizers(run_cfg, agent), act_dim)
+            t0 = time.perf_counter()
+            losses = trainer.train_phase({k: torch.from_numpy(v).to(device) for k, v in host.items()},
+                                         _to_device(noise, device), 0)
+            losses = np.array([float(x) for x in losses])
+            seconds = time.perf_counter() - t0
+            return {k: v.detach().cpu() for k, v in agent.state_dict().items()}, losses, seconds
+
+        cpu, cpu_losses, cpu_s = phase("cpu")
+        gpu, gpu_losses, gpu_s = phase(CARD)
+        got = change_diffs(torch, saved, gpu, gpu_losses, cpu, cpu_losses)
+        log(f"[{name}-parity] one train phase (U {U}, batch {B}, SGD lr {CARD_PARITY_SGD['lr']} for "
+            f"{', '.join(groups)}; CPU {cpu_s:.1f} s, card {gpu_s:.2f} s), card vs CPU: {show_diffs(got)}; losses "
+            f"{', '.join(f'{x:.6g}' for x in gpu_losses)} vs {', '.join(f'{x:.6g}' for x in cpu_losses)}; tolerance "
+            f"L2 {CARD_PARITY_TOL_PARAM}, losses {CARD_PARITY_TOL_LOSS}")
+        if not (within_parity(got) and np.isfinite(gpu_losses).all()):
+            raise AssertionError(f"the {name} train phase on the card disagrees with the same phase on the CPU")
+        what = "the actor step reading the critic before its update" if name == "sac" else \
+            "the decoder's deconv kernels left unflipped"
+        bad = change_diffs(torch, saved, *phase(CARD, cls=control_cls, mutate=control_mutate)[:2], cpu, cpu_losses)
+        log(f"[{name}-parity] control, {what}: {show_diffs(bad)}")
+        if within_parity(bad):
+            raise AssertionError(f"the {name} parity tolerance does not catch {what}")
+        torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = change_diffs(torch, saved, *phase(CARD)[:2], cpu, cpu_losses)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+        log(f"[{name}-parity] TF32 on (reported, not a gate): {show_diffs(tf32)}")
+        cpu_adam, cpu_adam_losses, _ = phase("cpu", sgd=False)
+        adam = change_diffs(torch, saved, *phase(CARD, sgd=False)[:2], cpu_adam, cpu_adam_losses)
+        log(f"[{name}-parity] the recipe's Adam on both sides (reported, not a gate), card vs CPU: {show_diffs(adam)}")
+        out[name] = {**got, "cpu_s": cpu_s, "card_s": gpu_s, "control": bad, "tf32": tf32, "adam": adam}
+    return out
+
+
+def phase_sac_serve(torch, snapshot: Path) -> dict:
+    log(f"[sac-serve] {snapshot.name} of phase 20")
+    served = _drive(torch, snapshot, SERVE_SESSIONS, SERVE_STEPS)
+    if any(served["counts"].values()):
+        raise AssertionError(f"serving SAC launched kernels: {served['counts']}")
+    del served["service"]
+    return served
+
+
+def phase_off_policy(torch, run_root: Path) -> dict:
+    """Phases 20-24."""
+    train = phase_off_policy_train(torch, run_root)
+    parity = phase_off_policy_parity(torch, {name: train[name]["snapshot"] for name in ("sac", "sac_ae")})
+    served = phase_sac_serve(torch, train["sac"]["snapshot"])
+    return {"train": train, "parity": parity, "serve": served}
 
 
 def timing_only(torch, package_root: str) -> int:
@@ -1276,6 +1589,28 @@ def on_policy_only(torch) -> int:
     return 0
 
 
+def off_policy_only(torch) -> int:
+    """``--off-policy``: phases 20-24 alone; one JSON line of their numbers goes last."""
+    device = phase_device(torch)
+    run_root = ROOT / "build" / "chip_smoke_off_policy"
+    shutil.rmtree(run_root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        off = phase_off_policy(torch, run_root)
+        log(f"[off-policy] phases 20-24 in {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    keep = ("updates", "updates_per_s", "env_steps_per_s", "first_update_s", "peak_bytes", "update_device_ms",
+            "update_wall_ms", "update_launches")
+    print(json.dumps({
+        **{name: {k: run_[k] for k in keep} for name, run_ in off["train"].items()},
+        "parity": {name: {k: p[k] for k in ("param_l2", "loss_rel", "control", "tf32", "adam")}
+                   for name, p in off["parity"].items()},
+        "sac_serve": {k: off["serve"]["stats"][k] for k in ("served", "p50_ms", "p99_ms", "rungs")},
+        "device": device}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1296,6 +1631,8 @@ def main() -> int:
         return first_window(torch)
     if sys.argv[1:2] == ["--on-policy"]:
         return on_policy_only(torch)
+    if sys.argv[1:2] == ["--off-policy"]:
+        return off_policy_only(torch)
 
     run_root = ROOT / "build" / "chip_smoke"
     shutil.rmtree(run_root, ignore_errors=True)
@@ -1348,6 +1685,7 @@ def main() -> int:
         ppo_parity = phase_ppo_parity(torch, ppo["snapshot"])
         ppo_served = phase_ppo_serve(torch, ppo["snapshot"])
         on_policy = phase_on_policy_family(torch, run_root / "on_policy")
+        off_policy = phase_off_policy(torch, run_root / "off_policy")
 
         launches = {"rssm": train["counts"]["rssm"], "gru": train_gru["counts"]["gru"]}
         new_paths = {"p2e_explore": p2e, "p2e_finetune": finetune, "decoupled": decoupled}
@@ -1366,6 +1704,9 @@ def main() -> int:
             by_path["ppo_serve"] = ppo_served["counts"][name]
             by_path["a2c"] = on_policy["a2c_rmsprop"]["counts"][name] + on_policy["a2c_rmsprop_tf"]["counts"][name]
             by_path["ppo_recurrent"] = on_policy["ppo_recurrent"]["counts"][name]
+            for algo, run_ in off_policy["train"].items():
+                by_path[f"{algo}_train"] = run_["counts"][name]
+            by_path["sac_serve"] = off_policy["serve"]["counts"][name]
         sources = {
             "rssm": ("sheeprl_tpu_torch/csrc/rssm.cu",
                      "sheeprl_tpu/ops/rssm_pallas.py:70 (_rssm_kernel), sheeprl_tpu/ops/rssm_pallas.py:260 "
@@ -1391,7 +1732,11 @@ def main() -> int:
             f"CPU parameter changes {ppo_parity['param_l2']:.3g} rel L2), served "
             f"{ppo_served['stats']['served']} actions; A2C-Atari {on_policy['a2c_rmsprop']['iterations_per_s']:.3f} / "
             f"{on_policy['a2c_rmsprop_tf']['iterations_per_s']:.3f} iterations/s (rmsprop / rmsprop_tf), recurrent PPO "
-            f"{on_policy['ppo_recurrent']['iterations_per_s']:.3f} iterations/s; total {time.perf_counter() - t_start:.1f} s")
+            f"{on_policy['ppo_recurrent']['iterations_per_s']:.3f} iterations/s; "
+            + ", ".join(f"{algo} {r['updates_per_s']:.1f} updates/s" for algo, r in off_policy["train"].items())
+            + f" (card vs CPU {', '.join(f'{a} {p_['param_l2']:.3g}' for a, p_ in off_policy['parity'].items())} rel "
+            f"L2), SAC served {off_policy['serve']['stats']['served']} actions; total "
+            f"{time.perf_counter() - t_start:.1f} s")
     except BaseException:
         traceback.print_exc()
         return 1

@@ -20,7 +20,14 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from sheeprl_tpu_torch.models.models import LayerNorm, LayerNormGRUCell, get_activation, variance_scaling_
+from sheeprl_tpu_torch.models.models import (
+    LayerNorm,
+    LayerNormGRUCell,
+    StackedLayerNorm,
+    StackedLinear,
+    get_activation,
+    variance_scaling_,
+)
 from sheeprl_tpu_torch.ops.rssm import fused_rssm_recurrent
 from sheeprl_tpu_torch.utils.distribution import Normal, OneHotCategorical, gumbel_noise
 from sheeprl_tpu_torch.utils.utils import symlog
@@ -98,39 +105,6 @@ class DreamerMLP(nn.Module):
             _trunk_(self.head, g, zero=self.zero_head)
 
 
-class _StackedDense(nn.Module):
-    """``n`` dense layers side by side: ``kernel`` (n, in, out), ``bias`` (n, out)."""
-
-    def __init__(self, n: int, in_features: int, out_features: int):
-        super().__init__()
-        self.kernel = nn.Parameter(torch.empty(n, in_features, out_features))
-        self.bias = nn.Parameter(torch.zeros(n, out_features))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # (M, in) or (n, M, in) → (n, M, out)
-        return torch.matmul(x, self.kernel) + self.bias[:, None, :]
-
-    def init_weights(self, g: torch.Generator) -> None:
-        with torch.no_grad():
-            for k in self.kernel:
-                variance_scaling_(k, *k.shape, "fan_avg", g)
-            self.bias.zero_()
-
-
-class _StackedLayerNorm(nn.Module):
-    """``n`` LayerNorms (fp32, eps 1e-3) side by side: ``weight``, ``bias`` (n, features)."""
-
-    def __init__(self, n: int, features: int, eps: float = 1e-3):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(n, features))
-        self.bias = nn.Parameter(torch.zeros(n, features))
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.nn.functional.layer_norm(x.float(), x.shape[-1:], eps=self.eps)
-        return y * self.weight[:, None, :] + self.bias[:, None, :]
-
-
 class Ensembles(nn.Module):
     """``n`` :class:`DreamerMLP` stacks (Dense → LayerNorm → act, then a
     head) as one module of stacked weights, the layout of the JAX package's
@@ -144,10 +118,10 @@ class Ensembles(nn.Module):
         self.act = get_activation(act)
         self.ens = nn.Module()
         for i in range(layers):
-            self.ens.add_module(f"dense_{i}", _StackedDense(n, in_features if i == 0 else units, units))
+            self.ens.add_module(f"dense_{i}", StackedLinear(n, in_features if i == 0 else units, units))
             if layer_norm:
-                self.ens.add_module(f"ln_{i}", _StackedLayerNorm(n, units))
-        self.ens.add_module("head", _StackedDense(n, units if layers else in_features, output_dim))
+                self.ens.add_module(f"ln_{i}", StackedLayerNorm(n, units, eps=1e-3))
+        self.ens.add_module("head", StackedLinear(n, units if layers else in_features, output_dim))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for i in range(self.layers):
@@ -159,8 +133,8 @@ class Ensembles(nn.Module):
 
     def init_weights(self, g: torch.Generator) -> None:
         for i in range(self.layers):
-            getattr(self.ens, f"dense_{i}").init_weights(g)
-        self.ens.head.init_weights(g)
+            getattr(self.ens, f"dense_{i}").init_weights(g, "fan_avg")
+        self.ens.head.init_weights(g, "fan_avg")
 
 
 def _nhwc_ln(ln: LayerNorm, x: torch.Tensor) -> torch.Tensor:

@@ -110,13 +110,13 @@ def check_supported(cfg: Any) -> None:
     for name, on in deferred.items():
         if on:
             raise NotImplementedError(
-                f"{name} is not ported yet: the scale layer comes later (ROADMAP.md, queue A item 6)"
+                f"{name} is not ported yet: the scale layer comes later (ROADMAP.md, queue A item 5)"
             )
 
 
 def warn_unacted_settings(cfg: Any) -> None:
     """Warn of the settings that are on but that the port does not act on
-    yet (ROADMAP.md, queue A item 7); every train loop calls this at its start."""
+    yet (ROADMAP.md, queue A item 6); every train loop calls this at its start."""
     tel = cfg.get("telemetry") or {}
     on = {
         "checkpoint.save_on_preemption": bool(cfg.checkpoint.get("save_on_preemption", False)),
@@ -130,7 +130,7 @@ def warn_unacted_settings(cfg: Any) -> None:
     if unacted:
         warnings.warn(
             f"{', '.join(unacted)}: set, but not acted on by the port yet (preemption signals, the telemetry "
-            "hub and the profiler come with the runtime services, ROADMAP.md, queue A item 7)",
+            "hub and the profiler come with the runtime services, ROADMAP.md, queue A item 6)",
             UserWarning,
         )
 

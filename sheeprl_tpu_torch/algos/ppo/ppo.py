@@ -76,17 +76,17 @@ def check_supported(cfg: Any) -> None:
     if not (isinstance(anakin, str) and anakin.lower() == "auto") and bool(anakin):
         raise NotImplementedError(
             "algo.anakin=True is not ported yet: the fused env-in-the-update path needs the pure-JAX envs "
-            "(ROADMAP.md, queue A item 7)"
+            "(ROADMAP.md, queue A item 6)"
         )
     if int((cfg.get("population") or {}).get("size", 0) or 0) > 1:
         raise NotImplementedError(
             "population.size > 1 is not ported yet: population training rides the fused Anakin path "
-            "(ROADMAP.md, queue A item 7)"
+            "(ROADMAP.md, queue A item 6)"
         )
     if cfg.fabric.get("decoupled"):
         raise NotImplementedError(
             "fabric.decoupled is not ported yet: the decoupled topologies come with the scale layer "
-            "(ROADMAP.md, queue A item 6)"
+            "(ROADMAP.md, queue A item 5)"
         )
     warn_unacted_settings(cfg)
 

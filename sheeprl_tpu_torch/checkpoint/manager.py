@@ -14,7 +14,7 @@ retention and resume discovery.
   the experiment (``checkpoint.resume_from=auto``).
 
 Preemption signals (``checkpoint.save_on_preemption``) are not handled by
-the port yet (ROADMAP.md, queue A item 7).
+the port yet (ROADMAP.md, queue A item 6).
 """
 
 from __future__ import annotations

@@ -35,6 +35,13 @@ ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.a2c.evaluate",
     "sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent",
     "sheeprl_tpu_torch.algos.ppo_recurrent.evaluate",
+    "sheeprl_tpu_torch.algos.sac.sac",
+    "sheeprl_tpu_torch.algos.sac.sac_decoupled",
+    "sheeprl_tpu_torch.algos.sac.evaluate",
+    "sheeprl_tpu_torch.algos.droq.droq",
+    "sheeprl_tpu_torch.algos.droq.evaluate",
+    "sheeprl_tpu_torch.algos.sac_ae.sac_ae",
+    "sheeprl_tpu_torch.algos.sac_ae.evaluate",
 )
 
 
@@ -159,8 +166,8 @@ def evaluation(argv: Optional[List[str]] = None) -> float:
     """Play one greedy episode with a committed snapshot and print its
     cumulative reward, through the evaluation registered for its algorithm:
     the latent player of a Dreamer family member (with the actor
-    ``algo.player.actor_type`` chooses), or the PPO, A2C or recurrent PPO
-    agent.
+    ``algo.player.actor_type`` chooses), the PPO, A2C or recurrent PPO
+    agent, or the SAC, DroQ or SAC-AE actor.
 
     Usage:
         python -c "from sheeprl_tpu_torch.cli import evaluation; evaluation()" \

@@ -29,6 +29,10 @@ path maps to a key by rule:
 * a Moments state ``moments/{low,high}`` becomes two 0-d tensors, also
   under each ``critics_exploration/<name>`` with that critic's
   ``critic`` and ``target`` networks.
+
+:func:`sac_state_from_jax` takes the tree of a SAC, DroQ or SAC-AE
+``build_agent`` and gives the port agent's flat ``state_dict`` by the same
+rules.
 """
 
 from __future__ import annotations
@@ -150,4 +154,29 @@ def policy_state_from_jax(variables: Mapping[str, Any]) -> Dict[str, torch.Tenso
     out = module_state_from_flax(params)
     if lstm is not None:
         out.update({f"lstm.{k}": v for k, v in lstm_state_from_flax(lstm).items()})
+    return out
+
+
+#: the off-policy agents' trees: module → whether it is a params-vmapped ensemble
+OFF_POLICY_MODULES = {"actor": False, "critic": True, "target_critic": True, "encoder": False, "decoder": False,
+                      "target_encoder": False}
+
+
+def sac_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The ``state_dict`` of the port's SAC, DroQ or SAC-AE agent from the
+    tree the JAX ``build_agent`` returns (``actor``, ``critic``,
+    ``target_critic``, ``log_alpha``, and for SAC-AE ``encoder``,
+    ``decoder`` and ``target_encoder``).  The vmapped ``q_ensemble`` keeps
+    its member axis first (``kernel`` (n, in, out)); DroQ's ``ln_i`` and
+    SAC-AE's flax ``LayerNorm`` map by rule, the decoder's ``deconv_*``
+    kernels are flipped; ``log_alpha`` becomes a 0-d tensor."""
+    out: Dict[str, torch.Tensor] = {}
+    for name, stacked in OFF_POLICY_MODULES.items():
+        if name in params:
+            out.update({f"{name}.{k}": v for k, v in module_state_from_flax(params[name], stacked).items()})
+    for online, target in (("critic", "target_critic"), ("encoder", "target_encoder")):
+        if online in params and target in params:
+            _check_mirror({m: {k.split(".", 1)[1]: v for k, v in out.items() if k.startswith(m + ".")}
+                           for m in (online, target)}, online, target)
+    out["log_alpha"] = torch.tensor(np.asarray(params["log_alpha"], np.float32))
     return out

@@ -81,7 +81,7 @@ def build_fabric(cfg: Any) -> Fabric:
     if precision != "32-true":
         raise NotImplementedError(
             f"fabric.precision={precision}: the port runs 32-true only; bf16 is deferred "
-            "(ROADMAP.md, queue A item 1)"
+            "(ROADMAP.md, queue A item 4)"
         )
     device = _device(fabric_cfg.get("accelerator", "auto"))
     torch.backends.cuda.matmul.allow_tf32 = False

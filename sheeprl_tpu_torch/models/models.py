@@ -255,3 +255,143 @@ class MultiEncoder(nn.Module):
         for proj in (self.cnn_proj, self.mlp_proj):
             if proj is not None:
                 lecun_init_(proj, generator)
+
+
+class StackedLinear(nn.Module):
+    """``n`` dense layers side by side, the layout of a flax params-vmapped
+    ``Dense``: ``kernel`` (n, in, out), ``bias`` (n, out).  ``x`` (M, in) or
+    (n, M, in) → (n, M, out), one batched product."""
+
+    def __init__(self, n: int, in_features: int, out_features: int):
+        super().__init__()
+        self.kernel = nn.Parameter(torch.empty(n, in_features, out_features))
+        self.bias = nn.Parameter(torch.zeros(n, out_features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x, self.kernel) + self.bias[:, None, :]
+
+    def init_weights(self, generator: torch.Generator, mode: str = "fan_in") -> None:
+        """Each member's kernel as flax's default Dense init (``fan_in``) or
+        Hafner's (``fan_avg``); zero biases."""
+        with torch.no_grad():
+            for k in self.kernel:
+                variance_scaling_(k, *k.shape, mode, generator)
+            self.bias.zero_()
+
+
+class StackedLayerNorm(nn.Module):
+    """``n`` fp32 LayerNorms side by side over (n, M, features):
+    ``weight``, ``bias`` (n, features)."""
+
+    def __init__(self, n: int, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(n, features))
+        self.bias = nn.Parameter(torch.zeros(n, features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), x.shape[-1:], eps=self.eps)
+        return (y * self.weight[:, None, :] + self.bias[:, None, :]).to(x.dtype)
+
+
+def deconv_init_(layer: nn.ConvTranspose2d, generator: Optional[torch.Generator] = None) -> None:
+    """flax's default ConvTranspose init: ``lecun_normal`` over a fan-in of
+    ``kH·kW·in`` (torch's weight is (in, out, kH, kW)), zero bias."""
+    w = layer.weight
+    variance_scaling_(w, w.shape[0] * w[0][0].numel(), w.shape[1] * w[0][0].numel(), "fan_in", generator)
+    if layer.bias is not None:
+        with torch.no_grad():
+            layer.bias.zero_()
+
+
+class DeCNN(nn.Module):
+    """``deconv_{i}`` stack of transposed convolutions over NHWC images, each
+    but the last followed by the activation.  flax's ``ConvTranspose`` with
+    ``padding="SAME"``, kernel 4 and stride 2 doubles the size: torch's
+    ``padding=1`` with the kernel flipped spatially (``convert.py`` flips
+    it), the rule of the DreamerV3 decoder.  Only that kernel and stride are
+    supported."""
+
+    def __init__(self, in_channels: int, channels: Sequence[int], kernel_size: int = 4, stride: int = 2,
+                 activation: Union[str, Activation] = "relu"):
+        super().__init__()
+        if (kernel_size, stride) != (4, 2):
+            raise ValueError(f"DeCNN supports kernel 4, stride 2 (SAME), got kernel {kernel_size}, stride {stride}")
+        self.act = get_activation(activation)
+        self.n = len(channels)
+        c_in = in_channels
+        for i, c in enumerate(channels):
+            self.add_module(f"deconv_{i}", nn.ConvTranspose2d(c_in, c, kernel_size, stride=stride, padding=1))
+            c_in = c
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        lead = x.shape[:-3]
+        x = x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2)
+        for i in range(self.n):
+            x = getattr(self, f"deconv_{i}")(x)
+            if i < self.n - 1:
+                x = self.act(x)
+        x = x.permute(0, 2, 3, 1)
+        return x.reshape(*lead, *x.shape[1:])
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        for i in range(self.n):
+            deconv_init_(getattr(self, f"deconv_{i}"), generator)
+
+
+class MultiDecoder(nn.Module):
+    """Features → per-key reconstructions, the inverse of
+    :class:`MultiEncoder`.  The images: a ``cnn_in`` Dense to ``h0·w0·stem``
+    and the activation, reshaped to (h0, w0, stem) with ``h0 = H /
+    2**(len(cnn_channels) + 1)``, then a :class:`DeCNN` over ``cnn_channels +
+    (total channels,)`` (no activation after the last), split per key on
+    channels, NHWC.  The vectors: an :class:`MLP` trunk, then a ``head_<k>``
+    Dense per key."""
+
+    def __init__(self, features_dim: int, cnn_keys: Sequence[str], mlp_keys: Sequence[str],
+                 cnn_shapes: Dict[str, Tuple[int, int, int]], mlp_shapes: Dict[str, int],
+                 cnn_channels: Sequence[int] = (64, 32), cnn_stem_channels: int = 128,
+                 mlp_sizes: Sequence[int] = (256, 256), kernel_size: int = 4, stride: int = 2,
+                 activation: Union[str, Activation] = "relu"):
+        super().__init__()
+        if not cnn_keys and not mlp_keys:
+            raise ValueError("MultiDecoder needs at least one cnn or mlp key")
+        self.cnn_keys, self.mlp_keys = tuple(cnn_keys), tuple(mlp_keys)
+        self.cnn_shapes = {k: tuple(cnn_shapes[k]) for k in self.cnn_keys}
+        self.act = get_activation(activation)
+        if self.cnn_keys:
+            n_deconvs = len(cnn_channels) + 1
+            h, w, _ = self.cnn_shapes[self.cnn_keys[0]]
+            self.stem = (h // 2**n_deconvs, w // 2**n_deconvs, cnn_stem_channels)
+            total_c = sum(self.cnn_shapes[k][-1] for k in self.cnn_keys)
+            self.cnn_in = nn.Linear(features_dim, self.stem[0] * self.stem[1] * cnn_stem_channels)
+            self.decnn = DeCNN(cnn_stem_channels, (*cnn_channels, total_c), kernel_size, stride, activation)
+        if self.mlp_keys:
+            self.mlp = MLP(features_dim, mlp_sizes, activation=activation)
+            for k in self.mlp_keys:
+                self.add_module(f"head_{k}", nn.Linear(self.mlp.out_features, int(mlp_shapes[k])))
+
+    def forward(self, features: torch.Tensor) -> Dict[str, torch.Tensor]:
+        out: Dict[str, torch.Tensor] = {}
+        if self.cnn_keys:
+            x = self.act(self.cnn_in(features))
+            x = self.decnn(x.reshape(*x.shape[:-1], *self.stem))
+            start = 0
+            for k in self.cnn_keys:
+                c = self.cnn_shapes[k][-1]
+                out[k] = x[..., start:start + c]
+                start += c
+        if self.mlp_keys:
+            trunk = self.mlp(features)
+            for k in self.mlp_keys:
+                out[k] = getattr(self, f"head_{k}")(trunk)
+        return out
+
+    def init_weights(self, generator: torch.Generator) -> None:
+        if self.cnn_keys:
+            lecun_init_(self.cnn_in, generator)
+            self.decnn.init_weights(generator)
+        if self.mlp_keys:
+            self.mlp.init_weights(generator)
+            for k in self.mlp_keys:
+                lecun_init_(getattr(self, f"head_{k}"), generator)

@@ -46,7 +46,7 @@ class HealthSentinel:
         action = str((hcfg.get("divergence") or {}).get("action", "none"))
         if action == "rollback":
             raise NotImplementedError(
-                "health.divergence.action=rollback is not ported yet (ROADMAP.md, queue A item 7); "
+                "health.divergence.action=rollback is not ported yet (ROADMAP.md, queue A item 6); "
                 "the port's sentinel reports divergence (action=none)"
             )
         if action != "none":

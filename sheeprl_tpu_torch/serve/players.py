@@ -1,5 +1,5 @@
 """Per-algorithm policy players for serving (counterpart of
-``sheeprl_tpu/serve/players.py``: the DreamerV3 and PPO players).
+``sheeprl_tpu/serve/players.py``: the DreamerV3, PPO and SAC players).
 
 A :class:`PolicyPlayer` is the serving-side view of a trained agent: the
 player's modules, a host-side observation ``prepare``, one ``step``
@@ -11,8 +11,8 @@ on the player's device, and a host-side ``postprocess``.
 * ``seed`` seeds a ``torch.Generator`` on the device for this dispatch, the
   counterpart of ``jax.random.PRNGKey(seed)``.  It cannot give JAX's bits,
   so the DreamerV3 step also takes the posterior's Gumbel noise explicitly,
-  and the PPO step its actions' noise.
-* ``carry`` is ``()`` for stateless players (ppo) and the latent-state tuple
+  and the PPO and SAC steps their actions' noise.
+* ``carry`` is ``()`` for stateless players (ppo, sac) and the latent-state tuple
   ``(h, z, a)`` for dreamer_v3; the service keeps per-session carries on the
   host.
 """
@@ -215,5 +215,45 @@ def build_ppo_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_space: An
         action_shape=tuple(np.shape(action_space.sample())),
         is_continuous=is_continuous,
         actions_dim=tuple(actions_dim),
+        device=fabric.device,
+    ).finalize()
+
+
+@register_player("sac")
+def build_sac_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_space: Any, action_space: Any) -> PolicyPlayer:
+    """The SAC actor alone (the critics are not loaded): greedy rows take the
+    squashed mean, sampled rows a tanh-Gaussian sample; actions are rescaled
+    from [-1, 1] to the action space's bounds."""
+    from sheeprl_tpu_torch.algos.sac.agent import SACActor, place_agent, sample_action
+    from sheeprl_tpu_torch.algos.sac.utils import prepare_obs, to_env_actions
+
+    mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
+    obs_dim = int(sum(np.prod(obs_space[k].shape) for k in mlp_keys))
+    act_dim = int(np.prod(action_space.shape))
+    actor_state = {k[len("actor."):]: v for k, v in state["agent"].items() if k.startswith("actor.")}
+    with torch.device("meta"):
+        actor = SACActor(obs_dim, act_dim, int(cfg.algo.actor.hidden_size))
+    actor = place_agent(actor, actor_state, fabric.device, int(cfg.seed)).eval()
+
+    def _step(p, carry, obs, seed: int, greedy, noise: Optional[torch.Tensor] = None):
+        """Stateless: both arms are computed and chosen row by row, the
+        sampled arm drawing ``noise`` (standard normal, (B, act_dim)) when
+        given, else from the dispatch generator."""
+        x = obs["__sac_obs__"]
+        sampled, _ = sample_action(p["actor"], x, noise if noise is not None else
+                                   torch.Generator(fabric.device).manual_seed(int(seed)))
+        mode, _ = sample_action(p["actor"], x, greedy=True)
+        return carry, torch.where(greedy[:, None], mode, sampled)
+
+    return PolicyPlayer(
+        algo=cfg.algo.name,
+        params={"actor": actor},
+        step=_step,
+        prepare=lambda obs: {"__sac_obs__": prepare_obs(obs, mlp_keys)},
+        postprocess=lambda a: to_env_actions(np.asarray(a, np.float32), action_space),
+        obs_spec=_obs_spec_from_space(obs_space, mlp_keys),
+        action_shape=tuple(action_space.shape),
+        is_continuous=True,
+        actions_dim=(act_dim,),
         device=fabric.device,
     ).finalize()

@@ -1,7 +1,7 @@
 """Small numeric and host helpers (counterparts of ``sheeprl_tpu/utils/utils.py``).
 
-The tensor functions take any device.  :class:`Ratio` and
-:func:`save_configs` are host code, copied from the JAX package.
+The tensor functions take any device.  :class:`Ratio`, :class:`TrainWindow`
+and :func:`save_configs` are host code, copied from the JAX package.
 """
 
 from __future__ import annotations
@@ -113,6 +113,27 @@ def merge_framestack(x: np.ndarray) -> np.ndarray:
     s = x.shape
     x = np.moveaxis(x, -4, -2)  # (..., H, W, S, C)
     return x.reshape(*s[:-4], s[-3], s[-2], s[-4] * s[-1])
+
+
+class TrainWindow:
+    """Accrues the gradient steps :class:`Ratio` owes over ``window_iters``
+    env iterations (``algo.train_window_iters``) and releases them as one
+    train phase; 1 trains every iteration.  ``pending`` (steps owed and not
+    yet run) is saved in the checkpoint."""
+
+    def __init__(self, window_iters: int, pending: int = 0):
+        self.window_iters = max(int(window_iters), 1)
+        self.pending = int(pending)
+
+    def push(self, granted: int, update: int, learning_starts: int, total_iters: int) -> int:
+        """Add this iteration's granted steps; return how many to run now (0
+        while the window fills).  The last iteration always flushes."""
+        self.pending += int(granted)
+        window_full = (update - learning_starts) % self.window_iters == self.window_iters - 1
+        if self.pending > 0 and (window_full or update == total_iters):
+            out, self.pending = self.pending, 0
+            return out
+        return 0
 
 
 class Ratio:

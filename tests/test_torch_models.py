@@ -306,3 +306,62 @@ def test_lecun_init_statistics():
         assert abs(w.std().item() * fan_in**0.5 - 1.0) < 0.05
         assert w.abs().max().item() <= 2 / 0.8796 / fan_in**0.5 + 1e-6
     assert torch.all(enc.cnn_encoder.conv_0.bias == 0) and torch.all(enc.cnn_proj.bias == 0)
+
+
+# -- the off-policy blocks (SAC-AE's decoder, the stacked critic layers) ------
+@pytest.mark.parametrize("hw,keys", [((64, 64), ("rgb", "state")), ((48, 32), ("rgb", "state")),
+                                     ((64, 64), ("rgb",))], ids=["64-cnn+mlp", "48x32-cnn+mlp", "64-cnn"])
+def test_multi_decoder_and_decnn(hw, keys):
+    """SAC-AE's ``MultiDecoder``: a ``cnn_in`` stem to (h0, w0, 64) with
+    ``h0 = H / 8``, ``DeCNN`` 32/16 → the two images' 5 channels (flax's
+    ConvTranspose SAME, kernel 4, stride 2, its kernel flipped by
+    ``convert.py``), split per key NHWC; the vector heads on an MLP trunk."""
+    rng = np.random.default_rng(13)
+    feats = _rand(rng, 3, 8)
+    cnn_shapes = {"rgb": (*hw, 3), "depth": (*hw, 2)}
+    mlp = tuple(k for k in keys if k == "state")
+    kwargs = dict(cnn_keys=("rgb", "depth"), mlp_keys=mlp, cnn_shapes=cnn_shapes, mlp_shapes={"state": 5},
+                  cnn_channels=(32, 16), cnn_stem_channels=64, mlp_sizes=(16, 16), activation="relu")
+    dec = jax_models.MultiDecoder(**kwargs)
+    v = _init(dec, feats)
+    port = _load(pt_models.MultiDecoder(8, **kwargs), v)
+    assert port.stem == (hw[0] // 8, hw[1] // 8, 64)
+    ref = _apply(dec, v, feats)
+    out = port(_t(feats))
+    assert set(out) == set(ref) == {"rgb", "depth", *mlp}
+    for k in ref:
+        assert tuple(out[k].shape) == tuple(ref[k].shape)
+        np.testing.assert_allclose(out[k].detach().numpy(), np.asarray(ref[k]), **CONV_TOL, err_msg=k)
+    # flipped on the way across: the kernel as flax stores it does not give flax's output
+    unflipped = pt_models.MultiDecoder(8, **kwargs)
+    unflipped.load_state_dict(port.state_dict())
+    with torch.no_grad():
+        for i in range(3):
+            w = getattr(unflipped.decnn, f"deconv_{i}").weight
+            w.copy_(w.flip(2, 3))
+    assert not np.allclose(unflipped(_t(feats))["rgb"].detach().numpy(), np.asarray(ref["rgb"]), **CONV_TOL)
+
+
+def test_decnn_supports_only_the_verified_kernel():
+    with pytest.raises(ValueError, match="kernel 4, stride 2"):
+        pt_models.DeCNN(4, (8,), kernel_size=3, stride=1)
+
+
+def test_stacked_linear_and_layer_norm_against_vmapped_flax():
+    """N dense layers as one (N, in, out) kernel, and N LayerNorms, against
+    the params-vmapped flax modules they replace."""
+    rng = np.random.default_rng(14)
+    x = _rand(rng, 6, 5)
+    dense = jax_models.nn.vmap(jax_models.nn.Dense, in_axes=None, out_axes=0, axis_size=3,
+                               variable_axes={"params": 0}, split_rngs={"params": True})(7)
+    v = _init(dense, x)
+    port = pt_models.StackedLinear(3, 5, 7)
+    port.load_state_dict(module_state_from_flax(v, stacked=True))
+    hidden = np.asarray(_apply(dense, v, x))
+    np.testing.assert_allclose(port(_t(x)).detach().numpy(), hidden, **TOL)
+    ln = jax_models.nn.vmap(jax_models.LayerNorm, in_axes=0, out_axes=0, axis_size=3,
+                            variable_axes={"params": 0}, split_rngs={"params": True})()
+    lv = _init(ln, hidden)
+    port_ln = pt_models.StackedLayerNorm(3, 7, eps=1e-5)
+    port_ln.load_state_dict(module_state_from_flax(lv, stacked=True))
+    np.testing.assert_allclose(port_ln(_t(hidden)).detach().numpy(), np.asarray(_apply(ln, lv, hidden)), **TOL)

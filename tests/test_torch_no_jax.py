@@ -3,9 +3,11 @@ refuses ``jax``, ``flax``, ``optax`` and ``sheeprl_tpu``, every module of
 ``sheeprl_tpu_torch`` imports (every algorithm of the Dreamer family among
 them, and PPO, A2C and recurrent PPO), a DreamerV3 player takes one CPU
 step, a tiny dry run through ``cli.run`` trains one update and commits a
-snapshot, one Plan2Explore-DreamerV3 update steps, and PPO, A2C and
-recurrent PPO each train one iteration through ``cli.run`` and commit a
-snapshot that ``cli.evaluation`` plays and, for PPO, a player serves.
+snapshot, one Plan2Explore-DreamerV3 update steps, PPO, A2C and recurrent
+PPO each train one iteration through ``cli.run`` and commit a snapshot that
+``cli.evaluation`` plays and, for PPO, a player serves, and SAC, DroQ and
+SAC-AE each train through ``cli.run`` and commit a snapshot that
+``cli.evaluation`` plays and, for SAC, a player serves.
 
 A subprocess, because the test session has imported JAX already.
 """
@@ -124,6 +126,25 @@ SCRIPT = textwrap.dedent(
                                           "state": np.zeros((2, 4), np.float32)}})
                 _, acts = ppo_player.step_batch(ppo_player.params, (), obs, 0, np.array([True, False]))
                 assert acts.shape == (2, 1)
+
+    # the off-policy algorithms: a prefill and a few updates each, evaluated; the SAC snapshot served
+    for exp, extra in (("sac", ["algo.mlp_keys.encoder=[state]"]), ("droq", ["algo.mlp_keys.encoder=[state]"]),
+                       ("sac_ae", ["algo.cnn_keys.encoder=[rgb]", "algo.mlp_keys.encoder=[]", "env.screen_size=16",
+                                   "env.wrapper.image_size=[16,16,3]", "algo.encoder.features_dim=4",
+                                   "algo.cnn_channels_multiplier=2"])):
+        with tempfile.TemporaryDirectory() as tmp:
+            run([f"exp={{exp}}", "env=dummy", "env.id=continuous_dummy", *extra, "env.num_envs=2",
+                 "fabric.accelerator=cpu", "metric/logger=csv", "buffer.memmap=False", "buffer.size=32",
+                 "algo.total_steps=8", "algo.learning_starts=4", "algo.per_rank_batch_size=2", "algo.hidden_size=4",
+                 "env.max_episode_steps=6", f"log_dir={{tmp}}"])
+            (snapshot,) = glob.glob(f"{{tmp}}/**/checkpoint/step_*", recursive=True)
+            assert load_step_dir(snapshot)["grad_steps"] > 0
+            assert np.isfinite(evaluation([f"checkpoint_path={{snapshot}}", "fabric.accelerator=cpu"]))
+            if exp == "sac":
+                _, _, _, sac_player = load_policy(snapshot, ["fabric.accelerator=cpu"])
+                obs = sac_player.prepare({{"state": np.zeros((2, 4), np.float32)}})
+                _, acts = sac_player.step_batch(sac_player.params, (), obs, 0, np.array([True, False]))
+                assert acts.shape == (2, 2)
 
     leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
     assert not leaked, leaked

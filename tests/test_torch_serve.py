@@ -192,3 +192,54 @@ def test_build_fabric_refuses_to_fall_back_to_cpu(monkeypatch):
     assert build_fabric(compose(list(TINY))).device.type == "cpu"
     with pytest.raises(NotImplementedError, match="bf16"):
         build_fabric(compose([*TINY, "fabric.precision=bf16-mixed"]))
+
+
+# -- the sac player --------------------------------------------------------------
+def test_sac_player_matches_jax_player():
+    """Both SAC players on one parameter tree, with an action space whose
+    bounds are not [-1, 1]: a batch of mixed greedy and sampled rows, the
+    port handed the standard-normal draws the JAX step makes from its seed;
+    the actions and their rescaling to the bounds agree within 1e-5."""
+    import gymnasium
+
+    from sheeprl_tpu.algos.sac.agent import build_agent as jax_sac_agent
+    from sheeprl_tpu.serve.players import build_sac_player as jax_sac_player
+    from sheeprl_tpu_torch.convert import sac_state_from_jax
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.serve.players import PLAYER_BUILDERS, build_sac_player
+
+    overrides = ["exp=sac", "env=dummy", "env.id=continuous_dummy", "fabric.accelerator=cpu", "algo.hidden_size=16"]
+    jcfg, pcfg = jax_compose(overrides), compose(overrides)
+    jfabric = jax_build_fabric(jcfg)
+    obs_space, _ = jax_probe_spaces(jcfg)
+    low, high = np.array([-2.0, 0.0], np.float32), np.array([3.0, 1.0], np.float32)
+    params = jax.device_get(jax_sac_agent(jfabric, 2, jcfg, 4)[2])
+    jp = jax_sac_player(jfabric, jcfg, {"agent": params}, obs_space, gymnasium.spaces.Box(low, high))
+    p_obs, _ = probe_spaces(pcfg)
+    pp = build_sac_player(build_fabric(pcfg), pcfg, {"agent": sac_state_from_jax(params)}, p_obs,
+                          spaces.Box(low, high, (2,), np.float32))
+    assert "sac_decoupled" not in PLAYER_BUILDERS
+    assert set(pp.params) == {"actor"} and not pp.stateful and pp.obs_spec == jp.obs_spec
+
+    rng, n, seed = np.random.default_rng(6), 4, 21
+    raw = {"rgb": rng.integers(0, 256, (n, 64, 64, 3), dtype=np.uint8),
+           "state": rng.standard_normal((n, 4)).astype(np.float32)}
+    greedy = np.array([True, False, False, True])
+    _, j_actions = jp.step_batch(jp.params, (), jp.prepare(raw), seed, greedy)
+    noise = torch.from_numpy(np.array(jax.random.normal(jax.random.PRNGKey(seed), (n, 2))))
+    obs = {k: torch.from_numpy(v) for k, v in pp.prepare(raw).items()}
+    with torch.no_grad():
+        _, p_actions = pp.step(pp.params, (), obs, seed, torch.from_numpy(greedy), noise=noise)
+    np.testing.assert_allclose(p_actions.numpy(), np.asarray(j_actions), rtol=1e-5, atol=1e-5)
+    scaled = pp.postprocess(p_actions.numpy())
+    np.testing.assert_allclose(scaled, jp.postprocess(np.asarray(j_actions)), rtol=1e-5, atol=1e-5)
+    assert ((scaled >= low) & (scaled <= high)).all()
+
+
+@pytest.mark.parametrize("exp", ["sac", "droq", "sac_ae"])
+def test_off_policy_training_refuses_to_fall_back_to_cpu(monkeypatch, tmp_path, exp):
+    from sheeprl_tpu_torch.cli import run
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
+        run([f"exp={exp}", "env=dummy", "env.id=continuous_dummy", "dry_run=True", f"log_dir={tmp_path}"])

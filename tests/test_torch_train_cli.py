@@ -137,10 +137,10 @@ def test_committed_snapshot_evaluates_through_the_cli(dry_run, monkeypatch, caps
 @pytest.mark.parametrize(
     "override,item",
     [
-        ("buffer.device=True", "queue A item 6"),
-        ("pipeline.stages=2", "queue A item 6"),
-        ("algo.remat=True", "queue A item 6"),
-        ("pipeline.imagination_microbatches=2", "queue A item 6"),
+        ("buffer.device=True", "queue A item 5"),
+        ("pipeline.stages=2", "queue A item 5"),
+        ("algo.remat=True", "queue A item 5"),
+        ("pipeline.imagination_microbatches=2", "queue A item 5"),
     ],
 )
 def test_unported_settings_raise_naming_the_roadmap_item(tmp_path, override, item):
@@ -218,7 +218,7 @@ def test_health_guard_undoes_a_non_finite_window():
 def test_divergence_rollback_is_not_ported_yet():
     from sheeprl_tpu_torch.resilience.health import HealthSentinel
 
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    with pytest.raises(NotImplementedError, match="queue A item 6"):
         HealthSentinel({"divergence": {"action": "rollback"}})
 
 
@@ -297,7 +297,7 @@ def test_long_first_window_is_sampled_in_chunks(monkeypatch, tmp_path):
 
     monkeypatch.setattr(dreamer_v3, "blocks_to_device", spy_blocks)
     monkeypatch.setattr(dreamer_v3, "draw_noise", spy_noise)
-    with pytest.warns(UserWarning, match="checkpoint.save_on_preemption.*queue A item 7"):
+    with pytest.warns(UserWarning, match="checkpoint.save_on_preemption.*queue A item 6"):
         run([*TINY, "algo.run_test=False", "algo.total_steps=20", f"log_dir={tmp_path}"])
     # sequences of 8 can be sampled from policy step 18: 18 updates, then 2
     assert chunks == [5, 5, 5, 3, 2]
@@ -401,7 +401,7 @@ def test_ppo_snapshot_is_served_by_policy_service(tmp_path):
 
 @pytest.mark.parametrize("override", ["algo.anakin=True", "population.size=2"])
 def test_on_policy_unported_paths_raise_naming_the_roadmap_item(tmp_path, override):
-    with pytest.raises(NotImplementedError, match="queue A item 7"):
+    with pytest.raises(NotImplementedError, match="queue A item 6"):
         run([*ON_POLICY["ppo"][:1], *ON_POLICY_COMMON, *ON_POLICY["ppo"][1:], "dry_run=True",
              f"log_dir={tmp_path}", override])
     assert latest_checkpoint(tmp_path) is None
@@ -438,3 +438,99 @@ def test_on_policy_recipes_compose_with_the_dummy_env(exp, checks):
     assert {k: got[k] for k in checks} == checks
     if exp.endswith("atari"):
         assert obs_space["rgb"].shape == (4, 84, 84, 3) and cfg.algo.cnn_keys.encoder == ["rgb"]
+
+
+# -- the off-policy algorithms through the same entry points ----------------------
+OFF_POLICY_COMMON = ["env=dummy", "env.id=continuous_dummy", "fabric.accelerator=cpu", "metric.log_level=1",
+                     "metric.log_every=1", "metric/logger=csv", "buffer.memmap=False", "buffer.size=64",
+                     "checkpoint.every=1000000", "checkpoint.async_save=False", "env.num_envs=2",
+                     "env.max_episode_steps=5", "algo.per_rank_batch_size=4", "algo.hidden_size=8",
+                     "algo.learning_starts=8"]
+OFF_POLICY = {
+    # exp: (overrides, replay ratio, loss names)
+    "sac": (["algo.mlp_keys.encoder=[state]"], 1, 3),
+    "droq": (["algo.mlp_keys.encoder=[state]", "algo.replay_ratio=3"], 3, 3),
+    "sac_ae": (["algo.cnn_keys.encoder=[rgb]", "algo.mlp_keys.encoder=[state]", "env.screen_size=16",
+                "env.wrapper.image_size=[16,16,3]", "algo.encoder.features_dim=4", "algo.cnn_channels_multiplier=2",
+                "algo.dense_units=4"], 1, 4),
+}
+
+
+@pytest.mark.parametrize("exp", list(OFF_POLICY))
+def test_off_policy_run_commits_resumes_with_its_buffer_and_evaluates(exp, tmp_path, capsys):
+    """8 iterations of 2 envs (a random prefill of 4, then the Ratio's
+    updates), a snapshot with the replay buffer; a resume from it for 8
+    more iterations that continues the buffer, the counters and the
+    optimizers (as in JAX, the resumed run plays ``learning_starts``
+    iterations with its actor before it trains again, and the Ratio then
+    repays them); ``cli.evaluation`` of the result."""
+    overrides, ratio, n_losses = OFF_POLICY[exp]
+    first = tmp_path / "first"
+    run([f"exp={exp}", *OFF_POLICY_COMMON, *overrides, "algo.total_steps=16", "algo.run_test=True",
+         f"log_dir={first}"])
+    (snapshot,) = _snapshots(first)
+    state = load_step_dir(snapshot)
+    assert state["update"] == 8 and state["policy_step"] == 16 and state["grad_steps"] == 16 * ratio
+    assert state["rb"]["pos"] == 8 and state["pending_gradient_steps"] == 0
+    assert set(state["generators"]) == {"train", "player"} and state["psync"]["windows"] == 5
+    assert state["opt_state"]["critic"]["state"][0]["step"].item() == 16 * ratio
+    with open(glob.glob(f"{first}/**/metrics.csv", recursive=True)[0]) as f:
+        rows = {name: float(value) for step, name, value in list(csv.reader(f))[1:]}
+    losses = [n for n in rows if n.startswith("Loss/")]
+    assert len(losses) == n_losses and all(math.isfinite(rows[n]) for n in losses)
+    assert "Test/cumulative_reward" in rows
+
+    resumed_dir = tmp_path / "resumed"
+    run([f"exp={exp}", *OFF_POLICY_COMMON, *overrides, "algo.total_steps=32", "algo.run_test=False",
+         f"checkpoint.resume_from={snapshot}", f"log_dir={resumed_dir}"])
+    (resumed,) = _snapshots(resumed_dir)
+    after = load_step_dir(resumed)
+    # the buffer continued: 16 steps written, not 8 after an empty start
+    assert after["update"] == 16 and after["policy_step"] == 32 and after["rb"]["pos"] == 16
+    assert after["grad_steps"] == 32 * ratio
+    assert after["opt_state"]["critic"]["state"][0]["step"].item() == 32 * ratio
+    assert not torch.equal(after["generators"]["train"], state["generators"]["train"])
+
+    reward = evaluation([f"checkpoint_path={resumed}", "fabric.accelerator=cpu"])
+    assert math.isfinite(reward) and f"Test/cumulative_reward: {reward}" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("exp,override,item", [
+    ("sac", "buffer.device=True", "queue A item 5"),
+    ("sac_ae", "buffer.device=True", "queue A item 5"),
+    ("sac_decoupled", None, "queue A item 5"),
+])
+def test_off_policy_unported_paths_raise_naming_the_roadmap_item(tmp_path, exp, override, item):
+    with pytest.raises(NotImplementedError, match=item):
+        run([f"exp={exp}", *OFF_POLICY_COMMON, "dry_run=True", f"log_dir={tmp_path}", *([override] if override else [])])
+    assert latest_checkpoint(tmp_path) is None
+
+
+@pytest.mark.parametrize("exp,checks", [
+    ("sac", {"per_rank_batch_size": 256, "replay_ratio": 1.0, "critic.n": 2, "parameters": 203_783}),
+    ("droq", {"per_rank_batch_size": 256, "replay_ratio": 20.0, "critic.dropout": 0.01, "parameters": 205_831}),
+    ("sac_ae", {"per_rank_batch_size": 128, "hidden_size": 1024, "actor.per_rank_update_freq": 2,
+                "decoder.per_rank_update_freq": 1, "learning_starts": 1000}),
+])
+def test_off_policy_recipes_compose_with_the_dummy_env(exp, checks):
+    """Each recipe composes with ``env=dummy`` on ``continuous_dummy`` and
+    builds its agent at the recipe's widths."""
+    from sheeprl_tpu_torch.algos.droq.agent import build_agent as droq_agent
+    from sheeprl_tpu_torch.algos.sac.agent import build_agent as sac_agent
+    from sheeprl_tpu_torch.algos.sac_ae.agent import build_agent as sac_ae_agent
+    from sheeprl_tpu_torch.config.compose import compose
+    from sheeprl_tpu_torch.fabric import build_fabric
+    from sheeprl_tpu_torch.serve.loader import probe_spaces
+
+    cfg = compose([f"exp={exp}", "env=dummy", "env.id=continuous_dummy", "fabric.accelerator=cpu"])
+    obs_space, act_space = probe_spaces(cfg)
+    fabric = build_fabric(cfg)
+    if exp == "sac_ae":
+        agent = sac_ae_agent(fabric, 2, cfg, obs_space)
+        assert obs_space["rgb"].shape == (64, 64, 3) and agent.decoder.stem == (8, 8, 64)
+    else:
+        agent = {"sac": sac_agent, "droq": droq_agent}[exp](fabric, 2, cfg, 4)
+    trained = sum(p.numel() for n, p in agent.named_parameters() if not n.startswith("target_"))
+    got = {k: cfg.algo[k.split(".")[0]][k.split(".")[1]] if "." in k else cfg.algo.get(k) for k in checks}
+    got["parameters"] = trained
+    assert {k: got[k] for k in checks} == checks
