@@ -115,14 +115,36 @@ prints no result line):
               actions/s, client and service p50/p99, every action inside
               the bounds, no kernel launch.
 
+25. env parity — each device env (cartpole, pendulum, forage, multiroom)
+              stepped 256 steps x 64 envs on the card and on the CPU from
+              the same state, actions and reset draws, teacher-forced from
+              the CPU state at every step: integers, flags and uint8 frames
+              equal, the largest float difference printed and held to 1e-4.
+26. anakin ppo — PPO's recipe (``exp=ppo env=jax_cartpole``) on the Anakin
+              rollout at 1024 envs, batch 16384 (8 minibatches x 10
+              epochs), 3 iterations: env steps/s, the rollout's ms per step,
+              launches per rollout step and the device's busy share in it
+              (a profiled rollout), peak memory; every rollout runs under
+              ``torch.cuda.set_sync_debug_mode("error")``.
+              Beside it the adapter path (``algo.anakin=False``) at 16 envs.
+27. anakin family — PPO through the CNN on ``jax_forage`` at 256 envs,
+              A2C on ``jax_cartpole`` under both RMSprops and recurrent PPO,
+              2 iterations each under the same gate.
+28. dv3 forage — phase 7's XL recipe on ``jax_forage`` through the adapter
+              (``rgb`` alone, fused RSSM kernel): 80 rssm launches per
+              update, one update held to the plain RSSM at phase 8's limits.
+29. ppo atari forage — ``exp=ppo_atari`` on forage at Atari's input (84x84,
+              gray, 4 frames): the CNN sees 4 channels; env steps/s.
+30. sac pendulum — SAC's recipe on ``jax_pendulum`` through the adapter.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
 Other modes, each alone: ``--timing ROOT`` times the kernels of the port
 under ``ROOT``; ``--first-window`` trains the first window of the default
 XL recipe (1024 updates, about 12 minutes on an H100); ``--on-policy``
-runs phases 16-19 alone and ``--off-policy`` phases 20-24 (they build and
-launch no kernel).
+runs phases 16-19 alone, ``--off-policy`` phases 20-24 (they build and
+launch no kernel) and ``--envs`` phases 25-30.
 """
 
 from __future__ import annotations
@@ -804,10 +826,10 @@ def _rssm_variant(torch, eps_in: float, eps_gru: float, swap_gates: bool, tf32: 
     return step
 
 
-def phase_train_parity(torch, snapshot: Path, tag: str = "train-parity") -> dict:
+def phase_train_parity(torch, snapshot: Path, tag: str = "train-parity", controls: bool = True) -> dict:
     """One XL update from ``snapshot`` on the same data and noise: the fused
-    kernel, the plain RSSM, and three faulty plain versions; plus the
-    profiler top-10 of the fused update.  Log lines carry ``tag``."""
+    kernel, the plain RSSM, and (``controls``) three faulty plain versions;
+    plus the profiler top-10 of the fused update.  Log lines carry ``tag``."""
     from torch.profiler import ProfilerActivity, profile
 
     from sheeprl_tpu_torch.algos.dreamer_v3 import agent
@@ -910,11 +932,12 @@ def phase_train_parity(torch, snapshot: Path, tag: str = "train-parity") -> dict
         f"posterior h max abs diff {got['latent_abs']:.3g}; tolerance rel {TRAIN_TOL_REL}, h {TRAIN_TOL_LATENT:.3g}")
     if not (within(got) and np.isfinite(kernel["metrics"]).all()):
         raise AssertionError("the fused-kernel update disagrees with the plain-RSSM update")
-    controls = {}
-    for name, variant in (("LayerNorm eps swapped", _rssm_variant(torch, LN_GRU_EPS, LN_IN_EPS, False)),
-                          ("reset/update gates swapped", _rssm_variant(torch, LN_IN_EPS, LN_GRU_EPS, True)),
-                          ("one-pass TF32 products", _rssm_variant(torch, LN_IN_EPS, LN_GRU_EPS, False, tf32=True))):
-        bad = controls[name] = diffs(update(variant))
+    variants = (("LayerNorm eps swapped", _rssm_variant(torch, LN_GRU_EPS, LN_IN_EPS, False)),
+                ("reset/update gates swapped", _rssm_variant(torch, LN_IN_EPS, LN_GRU_EPS, True)),
+                ("one-pass TF32 products", _rssm_variant(torch, LN_IN_EPS, LN_GRU_EPS, False, tf32=True)))
+    faults = {}
+    for name, variant in variants if controls else ():
+        bad = faults[name] = diffs(update(variant))
         log(f"[{tag}] {name}: losses max rel diff {bad['loss_rel']:.3g}, grad norm rel diff "
             f"{bad['grad_norm_rel']:.3g}, posterior h max abs diff {bad['latent_abs']:.3g}")
         if within(bad):
@@ -923,7 +946,7 @@ def phase_train_parity(torch, snapshot: Path, tag: str = "train-parity") -> dict
     total, launches = _log_profile(tag, prof, wall_ms, "one XL update", "(with its restore)")
     del trainer, start
     torch.cuda.empty_cache()
-    return {"diffs": got, "controls": controls, "profile_total_ms": total, "wall_ms": wall_ms, "launches": launches}
+    return {"diffs": got, "controls": faults, "profile_total_ms": total, "wall_ms": wall_ms, "launches": launches}
 
 
 def phase_serve_trained(torch, snapshot: Path) -> None:
@@ -1522,6 +1545,288 @@ def phase_off_policy(torch, run_root: Path) -> dict:
     return {"train": train, "parity": parity, "serve": served}
 
 
+# -- the env layer: device envs, Anakin rollouts, the host wrappers ------------
+# Phase 25 steps each device env on the card and on the CPU from one state
+# with one set of actions and reset draws, teacher-forced from the CPU state
+# at every step: integer and boolean leaves, flags and uint8 frames must be
+# equal, and a float leaf, observation or reward may differ by ENV_FLOAT_LIMIT
+# (one step of fp32 arithmetic whose sin / cos and fused multiply-adds differ
+# by ulps between the two devices; values stay within a few hundred).
+ENV_PARITY_STEPS, ENV_PARITY_ROWS, ENV_PARITY_LIMIT_STEPS = 256, 64, 100
+ENV_FLOAT_LIMIT = 1e-4
+ENVS_COMMON = ("fabric.accelerator=gpu", "metric/logger=csv", "checkpoint.save_last=True",
+               "checkpoint.every=1000000000", "checkpoint.async_save=False", "buffer.memmap=False", "seed=5",
+               "algo.run_test=False")
+# PPO's recipe (MLP 64 x 2, rollout 128, 10 epochs) at the fused instance
+# count of 1024 envs: a batch of 16384 keeps the recipe's 8 minibatches of
+# the rollout per epoch; 3 iterations (the first is warm-up)
+ANAKIN_PPO = ("exp=ppo", "env=jax_cartpole", *ENVS_COMMON, "env.num_envs=1024", "algo.per_rank_batch_size=16384",
+              "algo.total_steps=393216")
+# the same recipe through the adapter at 16 host-stepped envs, 2 iterations
+ADAPTER_PPO = ("exp=ppo", "env=jax_cartpole", *ENVS_COMMON, "algo.anakin=False", "env.num_envs=16",
+               "algo.total_steps=4096")
+# PPO through the CNN on forage's 64x64 frames, 256 envs (a 1.6 GB rollout),
+# the recipe's 10 epochs of 8 minibatches; 2 iterations
+ANAKIN_FORAGE = ("exp=ppo", "env=jax_forage", *ENVS_COMMON, "env.num_envs=256", "algo.cnn_keys.encoder=[rgb]",
+                 "algo.mlp_keys.encoder=[]", "algo.per_rank_batch_size=4096", "algo.total_steps=65536")
+ANAKIN_A2C = ("exp=a2c", "env=jax_cartpole", *ENVS_COMMON, "env.num_envs=1024", "algo.total_steps=262144")
+# recurrent PPO at its defaults, 64 envs in minibatches of 32 env columns; 2 iterations
+ANAKIN_RECURRENT = ("exp=ppo_recurrent", "env=jax_cartpole", *ENVS_COMMON, "env.mask_velocities=False",
+                    "env.num_envs=64", "algo.per_rank_batch_size=4096", "algo.total_steps=16384")
+# phase 7's XL recipe on forage (rgb alone), the fused kernel; replay ratio
+# 1/16: int(65 / 16) = 4 updates at step 65
+DV3_FORAGE = (*(o for o in XL_TRAIN if not o.startswith(("env=", "env.id=", "algo.mlp_keys"))), "env=jax_forage",
+              "algo.mlp_keys.encoder=[]", FUSED, "algo.replay_ratio=0.0625", "algo.total_steps=65",
+              "algo.run_test=False")
+# ppo_atari's recipe at Atari's input: forage resized to 84x84, gray, 4 frames; 2 iterations of 1024 steps
+PPO_ATARI_FORAGE = ("exp=ppo_atari", "env=jax_forage", *ENVS_COMMON, "env.screen_size=84", "env.grayscale=True",
+                    "env.frame_stack=4", "env.num_envs=1", "algo.anakin=False", "algo.total_steps=2048")
+# SAC's recipe on its pendulum: a prefill of 100 random steps, then 200 more, one update each
+SAC_PENDULUM = ("exp=sac", "env=jax_pendulum", *ENVS_COMMON, "buffer.checkpoint=False", "env.num_envs=1",
+                "algo.learning_starts=100", "algo.total_steps=300")
+
+
+def phase_env_parity(torch) -> dict:
+    """Phase 25: each device env on the card against the CPU, teacher-forced."""
+    from sheeprl_tpu_torch.envs.device import VectorDeviceEnv, make_device_env
+
+    def to(tree, dev):
+        return type(tree)(*(v.to(dev) for v in tree)) if hasattr(tree, "_fields") else \
+            {k: v.to(dev) for k, v in tree.items()}
+
+    def compare(got, want, what, worst):
+        for k, w in (want._asdict() if hasattr(want, "_fields") else want).items():
+            g = (got._asdict() if hasattr(got, "_fields") else got)[k].cpu()
+            if w.is_floating_point():
+                worst = max(worst, float((g - w).abs().max()))
+            elif not torch.equal(g, w):
+                raise AssertionError(f"{what}.{k}: the card and the CPU disagree on {int((g != w).sum())} entries")
+        return worst
+
+    out = {}
+    for name in ("cartpole", "pendulum", "forage", "multiroom"):
+        env = make_device_env(name, max_episode_steps=ENV_PARITY_LIMIT_STEPS)
+        n = ENV_PARITY_ROWS
+        cpu = VectorDeviceEnv(env, n, "cpu", torch.Generator().manual_seed(0))
+        card = VectorDeviceEnv(env, n, CARD, torch.Generator(CARD).manual_seed(0))
+        state, _ = cpu.reset()
+        if "level" in state._fields:
+            state = state._replace(level=torch.linspace(0.0, 2.5 if name == "multiroom" else 1.0, n))
+        rng = np.random.default_rng(0)
+        worst, ends = 0.0, 0
+        t0 = time.perf_counter()
+        for t in range(ENV_PARITY_STEPS):
+            if name == "pendulum":
+                actions = torch.from_numpy(rng.uniform(-2.5, 2.5, (n, 1)).astype(np.float32))
+            else:
+                actions = torch.from_numpy(rng.integers(0, env.action_space.n, n))
+            draws = env.draw_reset(n, cpu.generator, "cpu")
+            want = cpu.step(state, actions, draws)
+            got = card.step(to(state, CARD), actions.to(CARD), to(draws, CARD))
+            what = f"{name} step {t}"
+            for i, part in enumerate(("state", "obs", "reward", "terminated", "truncated", "final_obs")):
+                if isinstance(want[i], torch.Tensor):
+                    worst = compare({part: got[i]}, {part: want[i]}, what, worst)
+                else:
+                    worst = compare(got[i], want[i], f"{what} {part}", worst)
+            ends += int((want[3] | want[4]).sum())
+            state = want[0]
+        torch.cuda.synchronize()
+        if worst > ENV_FLOAT_LIMIT:
+            raise AssertionError(f"{name}: the card's floats differ from the CPU's by {worst:.3g} > {ENV_FLOAT_LIMIT}")
+        out[name] = {"max_float_diff": worst, "episode_ends": ends}
+        log(f"[env-parity] {name}: {ENV_PARITY_STEPS} steps x {n} envs, card vs CPU teacher-forced: integers, flags "
+            f"and frames equal, largest float difference {worst:.3g} (limit {ENV_FLOAT_LIMIT:g}); {ends} episode ends "
+            f"and resets; {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _instrument_rollouts(torch, module, attr: str) -> dict:
+    """Wrap ``module.<attr>`` (an Anakin rollout factory) so that every
+    rollout it builds is timed with the device synchronised around it and
+    runs under ``torch.cuda.set_sync_debug_mode("error")``: any call inside
+    its T steps that makes the host wait for the device raises.  Returns the
+    record the wrapped rollouts fill (the last call's rollout and arguments
+    among it); ``undo`` restores the module."""
+    rec = {"ms": [], "gated": 0, "steps": None, "last": None}
+    make = getattr(module, attr)
+
+    def make_instrumented(*args, **kwargs):
+        rollout = make(*args, **kwargs)
+        rec["steps"] = int(kwargs["rollout_steps"])
+
+        def instrumented(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                result = rollout(*a, **k)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            rec["ms"].append((time.perf_counter() - t0) * 1e3)
+            rec["gated"] += 1
+            rec["last"] = (rollout, a, k)
+            return result
+
+        return instrumented
+
+    setattr(module, attr, make_instrumented)
+    rec["undo"] = lambda: setattr(module, attr, make)
+    return rec
+
+
+def _num_envs(overrides) -> int:
+    return int([o for o in overrides if o.startswith("env.num_envs=")][-1].split("=")[1])
+
+
+def _anakin_run(torch, name: str, overrides, log_dir: Path, trainer_cls, module, attr: str) -> dict:
+    """An Anakin run through ``cli.run``: its iterations, env steps/s, peak
+    memory, the rollouts' ms per step, every rollout free of host
+    synchronisation; then the last rollout run once more under the
+    profiler and the gate: launches per rollout step and the device's busy
+    share in the rollout (against the steady unprofiled rollouts' median)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    num_envs = _num_envs(overrides)
+    rec = _instrument_rollouts(torch, module, attr)
+    try:
+        run_ = _train_on_policy(torch, overrides, log_dir, trainer_cls)
+    finally:
+        rec["undo"]()
+    T = rec["steps"]
+    if rec["gated"] != run_["iterations"] or len(rec["ms"]) != run_["iterations"]:
+        raise AssertionError(f"{name}: {len(rec['ms'])} rollouts for {run_['iterations']} iterations, "
+                             f"{rec['gated']} under the sync gate")
+    rollout_ms = statistics.median(rec["ms"][1:])
+    out = {**{k: run_[k] for k in ("iterations", "iteration_s", "update_s", "iterations_per_s", "peak_bytes",
+                                   "first_iteration_s", "snapshot", "counts")},
+           "env_steps_per_s": run_["iterations_per_s"] * T * num_envs, "rollout_ms": rec["ms"],
+           "rollout_step_ms": rollout_ms / T, "gated_rollouts": rec["gated"], "sync_free": True}
+    log(f"[{name}] {num_envs} envs x {T} steps: {out['env_steps_per_s']:.1f} env steps/s; rollouts "
+        f"{', '.join(f'{ms:.1f}' for ms in rec['ms'])} ms ({out['rollout_step_ms']:.3f} ms per step after the "
+        f"first); {rec['gated']} rollouts under set_sync_debug_mode('error'), no synchronising call; peak device "
+        f"memory {run_['peak_bytes'] / 2**30:.2f} GiB")
+    rollout, a, k = rec.pop("last")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            rollout(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+    del rollout, a, k
+    device_ms, launches = _log_profile(name, prof, rollout_ms, f"one rollout of {T} steps",
+                                       "(the median steady rollout, unprofiled)")
+    out.update(rollout_device_ms=device_ms, launches_per_step=launches / T, rollout_busy=device_ms / rollout_ms)
+    log(f"[{name}] {launches / T:.1f} launches per rollout step (the policy forward, the sample, the env step and "
+        f"autoreset, the bootstrap forward on final_obs, the bookkeeping)")
+    return out
+
+
+def phase_anakin_ppo(torch, run_root: Path) -> dict:
+    """Phase 26: Anakin PPO on jax_cartpole at 1024 envs, beside the adapter path at 16."""
+    from sheeprl_tpu_torch.algos.ppo import ppo as ppo_mod
+
+    anakin = _anakin_run(torch, "anakin-ppo", ANAKIN_PPO, run_root / "anakin_ppo", ppo_mod.PPOTrainer, ppo_mod,
+                         "make_rollout_fn")
+    adapter = _train_on_policy(torch, ADAPTER_PPO, run_root / "adapter_ppo", ppo_mod.PPOTrainer)
+    adapter["env_steps_per_s"] = adapter["iterations_per_s"] * 128 * _num_envs(ADAPTER_PPO)  # the recipe's rollout
+    ratio = anakin["env_steps_per_s"] / adapter["env_steps_per_s"]
+    log(f"[anakin-ppo] Anakin at {_num_envs(ANAKIN_PPO)} envs {anakin['env_steps_per_s']:.1f} env steps/s; the "
+        f"adapter path at {_num_envs(ADAPTER_PPO)} envs {adapter['env_steps_per_s']:.1f} env steps/s ({ratio:.1f}x)")
+    return {"anakin": anakin, "adapter": {k: adapter[k] for k in ("iterations", "iteration_s", "env_steps_per_s",
+                                                                  "peak_bytes", "counts")}}
+
+
+def phase_anakin_family(torch, run_root: Path) -> dict:
+    """Phase 27: Anakin PPO through the CNN on forage, A2C under both
+    RMSprops and recurrent PPO, 2 iterations each under the sync gate."""
+    from sheeprl_tpu_torch.algos.a2c.a2c import A2CTrainer
+    from sheeprl_tpu_torch.algos.ppo import ppo as ppo_mod
+    from sheeprl_tpu_torch.algos.ppo_recurrent import ppo_recurrent as rec_mod
+
+    runs = {
+        "anakin-forage": (ANAKIN_FORAGE, ppo_mod.PPOTrainer, ppo_mod, "make_rollout_fn"),
+        "anakin-a2c-rmsprop": (ANAKIN_A2C, A2CTrainer, ppo_mod, "make_rollout_fn"),
+        "anakin-a2c-rmsprop_tf": ((*ANAKIN_A2C, *RMSPROP_TF), A2CTrainer, ppo_mod, "make_rollout_fn"),
+        "anakin-ppo_recurrent": (ANAKIN_RECURRENT, rec_mod.RecurrentPPOTrainer, rec_mod, "make_recurrent_rollout_fn"),
+    }
+    out = {}
+    for name, (overrides, trainer_cls, module, attr) in runs.items():
+        out[name] = _anakin_run(torch, name, overrides, run_root / name, trainer_cls, module, attr)
+        if out[name]["iterations"] != 2:
+            raise AssertionError(f"{name} ran {out[name]['iterations']} iterations, expected 2")
+    return out
+
+
+def phase_dv3_forage(torch, run_root: Path) -> dict:
+    """Phase 28: DreamerV3-XL on forage through the adapter, the fused RSSM
+    kernel 80 times per update; one update held to the plain RSSM."""
+    train = _train(torch, DV3_FORAGE, run_root / "dv3_forage", "rssm")
+    if train["counts"]["gru"]:
+        raise AssertionError(f"the forage run launched the gru kernel: {train['counts']}")
+    parity = phase_train_parity(torch, train["snapshot"], tag="forage-parity", controls=False)
+    return {"train": train, "parity": parity}
+
+
+def phase_ppo_atari_forage(torch, run_root: Path) -> dict:
+    """Phase 29: ``exp=ppo_atari`` at Atari's input (84x84, gray, 4 frames) on forage."""
+    from sheeprl_tpu_torch.algos.ppo.ppo import PPOTrainer
+
+    run_ = _train_on_policy(torch, PPO_ATARI_FORAGE, run_root / "ppo_atari_forage", PPOTrainer, keep_last=True)
+    trainer, (rollout, *_) = run_.pop("trainer"), run_.pop("args")
+    first = next(m for m in trainer.agent.modules() if isinstance(m, torch.nn.Conv2d))
+    if tuple(rollout["rgb"].shape[2:]) != (84, 84, 4) or first.in_channels != 4:
+        raise AssertionError(f"the CNN sees {tuple(rollout['rgb'].shape[2:])}, {first.in_channels} channels; "
+                             "expected 4 channels of 84x84")
+    run_["env_steps_per_s"] = 1024 * run_["iterations_per_s"]
+    log(f"[ppo-atari-forage] the CNN sees {first.in_channels} channels of 84x84: {run_['env_steps_per_s']:.1f} env "
+        "steps/s in the second iteration")
+    del trainer, rollout
+    return run_
+
+
+def phase_sac_pendulum(torch, run_root: Path) -> dict:
+    """Phase 30: SAC on its recipe's pendulum through the adapter."""
+    from sheeprl_tpu_torch.algos.sac.sac import SACTrainer
+
+    run_ = _train_off_policy(torch, SAC_PENDULUM, run_root / "sac_pendulum", SACTrainer)
+    run_.pop("trainer", None)
+    run_.pop("batches", None)
+    return run_
+
+
+def phase_envs(torch, run_root: Path) -> dict:
+    """Phases 25-30."""
+    t0 = time.perf_counter()
+    out = {"parity": phase_env_parity(torch), "ppo": phase_anakin_ppo(torch, run_root),
+           "family": phase_anakin_family(torch, run_root), "dv3_forage": phase_dv3_forage(torch, run_root),
+           "ppo_atari_forage": phase_ppo_atari_forage(torch, run_root),
+           "sac_pendulum": phase_sac_pendulum(torch, run_root)}
+    log(f"[envs] phases 25-30 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def envs_summary(envs: dict) -> dict:
+    """The numbers of phases 25-30 for a JSON line."""
+    keep = ("env_steps_per_s", "rollout_step_ms", "launches_per_step", "rollout_busy", "gated_rollouts",
+            "iterations", "iteration_s", "peak_bytes")
+    dv3 = envs["dv3_forage"]
+    return {
+        "parity": envs["parity"],
+        "anakin_ppo": {k: envs["ppo"]["anakin"].get(k) for k in keep},
+        "adapter_ppo": envs["ppo"]["adapter"],
+        **{name: {k: r.get(k) for k in keep} for name, r in envs["family"].items()},
+        "dv3_forage": {**{k: dv3["train"][k] for k in ("updates", "updates_per_s", "first_update_s", "peak_bytes",
+                                                       "per_update")},
+                       "parity": {k: dv3["parity"]["diffs"][k] for k in ("loss_rel", "grad_norm_rel", "latent_abs")}},
+        "ppo_atari_forage": {k: envs["ppo_atari_forage"][k] for k in ("env_steps_per_s", "iteration_s", "peak_bytes")},
+        "sac_pendulum": {k: envs["sac_pendulum"][k] for k in ("updates", "updates_per_s", "env_steps_per_s",
+                                                              "peak_bytes")},
+    }
+
+
 def timing_only(torch, package_root: str) -> int:
     """``--timing ROOT``: build and time the kernels of the port found under
     ``ROOT`` (for example an unpacked older commit) at every timed batch,
@@ -1611,6 +1916,20 @@ def off_policy_only(torch) -> int:
     return 0
 
 
+def envs_only(torch) -> int:
+    """``--envs``: phases 25-30 alone; one JSON line of their numbers goes last."""
+    device = phase_device(torch)
+    phase_build()
+    run_root = ROOT / "build" / "chip_smoke_envs"
+    shutil.rmtree(run_root, ignore_errors=True)
+    try:
+        envs = phase_envs(torch, run_root)
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    print(json.dumps({**envs_summary(envs), "device": device}, default=float), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1633,6 +1952,8 @@ def main() -> int:
         return on_policy_only(torch)
     if sys.argv[1:2] == ["--off-policy"]:
         return off_policy_only(torch)
+    if sys.argv[1:2] == ["--envs"]:
+        return envs_only(torch)
 
     run_root = ROOT / "build" / "chip_smoke"
     shutil.rmtree(run_root, ignore_errors=True)
@@ -1686,6 +2007,8 @@ def main() -> int:
         ppo_served = phase_ppo_serve(torch, ppo["snapshot"])
         on_policy = phase_on_policy_family(torch, run_root / "on_policy")
         off_policy = phase_off_policy(torch, run_root / "off_policy")
+        envs = phase_envs(torch, run_root / "envs")
+        log("[envs] " + json.dumps(envs_summary(envs), default=float))
 
         launches = {"rssm": train["counts"]["rssm"], "gru": train_gru["counts"]["gru"]}
         new_paths = {"p2e_explore": p2e, "p2e_finetune": finetune, "decoupled": decoupled}
@@ -1707,6 +2030,15 @@ def main() -> int:
             for algo, run_ in off_policy["train"].items():
                 by_path[f"{algo}_train"] = run_["counts"][name]
             by_path["sac_serve"] = off_policy["serve"]["counts"][name]
+            dv3_forage = envs["dv3_forage"]["train"]
+            by_path["dv3_forage"] = dv3_forage["counts"][name]
+            by_path["dv3_forage_per_update"] = max(n[name] for n in dv3_forage["update_launches"])
+            by_path["anakin_ppo"] = envs["ppo"]["anakin"]["counts"][name]
+            by_path["adapter_ppo"] = envs["ppo"]["adapter"]["counts"][name]
+            for path, run_ in envs["family"].items():
+                by_path[path.replace("-", "_")] = run_["counts"][name]
+            by_path["ppo_atari_forage"] = envs["ppo_atari_forage"]["counts"][name]
+            by_path["sac_pendulum"] = envs["sac_pendulum"]["counts"][name]
         sources = {
             "rssm": ("sheeprl_tpu_torch/csrc/rssm.cu",
                      "sheeprl_tpu/ops/rssm_pallas.py:70 (_rssm_kernel), sheeprl_tpu/ops/rssm_pallas.py:260 "
@@ -1735,7 +2067,10 @@ def main() -> int:
             f"{on_policy['ppo_recurrent']['iterations_per_s']:.3f} iterations/s; "
             + ", ".join(f"{algo} {r['updates_per_s']:.1f} updates/s" for algo, r in off_policy["train"].items())
             + f" (card vs CPU {', '.join(f'{a} {p_['param_l2']:.3g}' for a, p_ in off_policy['parity'].items())} rel "
-            f"L2), SAC served {off_policy['serve']['stats']['served']} actions; total "
+            f"L2), SAC served {off_policy['serve']['stats']['served']} actions; Anakin PPO "
+            f"{envs['ppo']['anakin']['env_steps_per_s']:.0f} env steps/s at 1024 envs (adapter "
+            f"{envs['ppo']['adapter']['env_steps_per_s']:.0f} at 16), DV3-XL on forage "
+            f"{envs['dv3_forage']['train']['updates_per_s']:.3f} updates/s; total "
             f"{time.perf_counter() - t_start:.1f} s")
     except BaseException:
         traceback.print_exc()

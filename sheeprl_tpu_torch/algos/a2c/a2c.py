@@ -25,6 +25,7 @@ class A2CTrainer(OnPolicyTrainer):
     """The A2C update of one rollout."""
 
     SCHEDULES = ("lr",)
+    STORES_LOGPROBS = False  # the update evaluates the actions under the current weights
 
     def train_phase(self, rollout: Rollout, last_obs: Dict[str, torch.Tensor],
                     perms: Union[torch.Generator, Sequence[torch.Tensor], None], clip_coef: float,

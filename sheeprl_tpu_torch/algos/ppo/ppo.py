@@ -15,9 +15,14 @@ One iteration of :func:`on_policy_loop`:
   the trainer takes, logging and checkpoints (resumable: agent, optimizer,
   both generators, counters), and after the last iteration the test episode.
 
-The JAX package's Anakin and population paths (a pure-JAX env inside the
-update, whole agents vmapped over a population) and its multi-process
-samplers are not ported: :func:`check_supported` raises for them.
+On a device env (``env=jax_*``; ``algo.anakin``, see
+:func:`~sheeprl_tpu_torch.envs.device.registry.anakin_enabled`) the rollout
+is the Anakin one (:mod:`~sheeprl_tpu_torch.envs.device.anakin`): the envs
+step on the run's device inside the iteration, the schedules are taken from
+the actor's update counter before the rollout, and the rollout goes to the
+same ``train_phase`` on the device.  The JAX package's population path
+(whole agents vmapped over a population on the Anakin axis) and its
+multi-process samplers are not ported: :func:`check_supported` raises for them.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ from sheeprl_tpu_torch.algos.ppo.utils import (
 )
 from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
+from sheeprl_tpu_torch.envs.device import anakin_enabled, vector_env_from_cfg
+from sheeprl_tpu_torch.envs.device.anakin import episode_stats_from_device, init_actor_state, make_rollout_fn
 from sheeprl_tpu_torch.utils.env import episode_stats, final_obs_rows, make_env, vectorize
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, flush_metrics
@@ -72,16 +79,10 @@ def check_supported(cfg: Any) -> None:
     naming the ROADMAP item that will, and warn of those it does not act on."""
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import warn_unacted_settings
 
-    anakin = cfg.algo.get("anakin", "auto")
-    if not (isinstance(anakin, str) and anakin.lower() == "auto") and bool(anakin):
-        raise NotImplementedError(
-            "algo.anakin=True is not ported yet: the fused env-in-the-update path needs the pure-JAX envs "
-            "(ROADMAP.md, queue A item 6)"
-        )
     if int((cfg.get("population") or {}).get("size", 0) or 0) > 1:
         raise NotImplementedError(
-            "population.size > 1 is not ported yet: population training rides the fused Anakin path "
-            "(ROADMAP.md, queue A item 6)"
+            "population.size > 1 is not ported yet: population training vmaps whole agents over the Anakin "
+            "rollout's env axis (ROADMAP.md, queue A item 6)"
         )
     if cfg.fabric.get("decoupled"):
         raise NotImplementedError(
@@ -102,6 +103,8 @@ class OnPolicyTrainer:
 
     #: the coefficients :func:`on_policy_loop` anneals when the config asks
     SCHEDULES: Tuple[str, ...] = ("lr",)
+    #: whether the update reads the rollout's log-probs
+    STORES_LOGPROBS = True
 
     def __init__(self, cfg: Any, agent: torch.nn.Module, optimizer: ClippedOptimizer, obs_keys: Sequence[str],
                  actions_dim: Sequence[int], is_continuous: bool, T: int, B: int):
@@ -202,8 +205,11 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
     trainer class (``trainer_cls(cfg, agent, optimizer, obs_keys,
     actions_dim, is_continuous, T, B)``) is the update."""
     check_supported(cfg)
-    player_device = fabric.player_device(cfg)
+    use_anakin = anakin_enabled(cfg)
+    # the Anakin rollout acts with the trained agent itself, on the run's device
+    player_device = fabric.device if use_anakin else fabric.player_device(cfg)
     train_gen, player_gen = fabric.seed_everything(int(cfg.seed), player_device)
+    generators = {"train": train_gen, "player": player_gen}
 
     log_dir = get_log_dir(cfg.root_dir, cfg.run_name, base=cfg.get("log_dir", "logs/runs"))
     logger = get_logger(cfg, log_dir)
@@ -211,22 +217,28 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
     save_configs(cfg, log_dir)
 
     num_envs = int(cfg.env.num_envs)
-    envs = vectorize(cfg, [make_env(cfg, cfg.seed + i, 0, run_name=log_dir, vector_env_idx=i)
-                           for i in range(num_envs)])
-    obs_space, act_space = envs.single_observation_space, envs.single_action_space
+    if use_anakin:
+        envs, venv = None, vector_env_from_cfg(cfg, fabric.device)
+        generators["env"] = venv.generator
+        obs_space, act_space = venv.single_observation_space, venv.single_action_space
+        where = f"an Anakin rollout of {num_envs} env(s) on {fabric.device}"
+    else:
+        envs = vectorize(cfg, [make_env(cfg, cfg.seed + i, 0, run_name=log_dir, vector_env_idx=i)
+                               for i in range(num_envs)])
+        obs_space, act_space = envs.single_observation_space, envs.single_action_space
+        where = f"player on {player_device}, {num_envs} env(s) stepped synchronously"
     normalize_obs_keys(cfg, obs_space)
     actions_dim, is_continuous = spaces_to_dims(act_space)
     cnn_keys, mlp_keys = tuple(cfg.algo.cnn_keys.encoder), tuple(cfg.algo.mlp_keys.encoder)
     obs_keys = cnn_keys + mlp_keys
     dist_type = cfg.get("distribution", {}).get("type", "auto")
-    print(f"{cfg.algo.name} on {fabric.device}: player on {player_device}, {num_envs} env(s) stepped "
-          "synchronously", flush=True)
+    print(f"{cfg.algo.name} on {fabric.device}: {where}", flush=True)
 
     state: Dict[str, Any] = {}
     if cfg.checkpoint.get("resume_from"):
         state = load_step_dir(cfg.checkpoint.resume_from, map_location="cpu")
-    if "generators" in state:
-        for name, gen in (("train", train_gen), ("player", player_gen)):
+    for name, gen in generators.items():
+        if name in state.get("generators", {}):
             gen.set_state(state["generators"][name].cpu())
     agent = build_agent(fabric, actions_dim, is_continuous, cfg, obs_space, state.get("agent"))
     optimizer = build_optimizer(agent.parameters(), cfg.algo.optimizer, cfg.algo.max_grad_norm)
@@ -251,10 +263,27 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
     initial = {"clip_coef": float(cfg.algo.get("clip_coef", 0.0)), "ent_coef": float(cfg.algo.ent_coef)}
     coef = dict(initial)
 
-    rb = ReplayBuffer(rollout_steps, num_envs, memmap=cfg.buffer.memmap,
-                      memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0") if cfg.buffer.memmap else None,
-                      obs_keys=obs_keys)
-    obs, _ = envs.reset(seed=int(cfg.seed))
+    def apply_schedules(step: int) -> None:
+        """The annealed learning rate and coefficients at ``step`` updates."""
+        if cfg.algo.anneal_lr and "lr" in trainer.SCHEDULES:
+            set_learning_rate(optimizer, polynomial_decay(step, initial=base_lr, final=0.0,
+                                                          max_decay_steps=total_iters, power=1.0))
+        for name in ("clip_coef", "ent_coef"):
+            if cfg.algo.get(f"anneal_{name}", False) and name in trainer.SCHEDULES:
+                coef[name] = polynomial_decay(step, initial=initial[name], final=0.0, max_decay_steps=total_iters)
+
+    if use_anakin:
+        rollout_fn = make_rollout_fn(
+            venv, agent, lambda out, noise: sample_actions(out, actions_dim, is_continuous, noise,
+                                                            dist_type=dist_type),
+            cnn_keys=cnn_keys, mlp_keys=mlp_keys, action_space=act_space, gamma=gamma,
+            rollout_steps=rollout_steps, store_logprobs=trainer_cls.STORES_LOGPROBS)
+        actor = init_actor_state(venv, start_iter - 1)
+    else:
+        rb = ReplayBuffer(rollout_steps, num_envs, memmap=cfg.buffer.memmap,
+                          memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0") if cfg.buffer.memmap else None,
+                          obs_keys=obs_keys)
+        obs, _ = envs.reset(seed=int(cfg.seed))
     last_losses = None
 
     def player_values(o: Dict[str, np.ndarray]) -> np.ndarray:
@@ -262,53 +291,61 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
             return player(prepare_obs(o, cnn_keys, mlp_keys, player_device))[1][..., 0].cpu().numpy()
 
     for update in range(start_iter, total_iters + 1):
-        with timer("Time/env_interaction_time"):
-            for _ in range(rollout_steps):
-                policy_step += num_envs
-                with torch.inference_mode():
-                    out, _ = player(prepare_obs(obs, cnn_keys, mlp_keys, player_device))
-                    actions, logprobs, _ = sample_actions(out, actions_dim, is_continuous, player_gen,
-                                                          dist_type=dist_type)
-                actions_np = actions.cpu().numpy()
-                next_obs, rewards, terminated, truncated, info = envs.step(actions_for_env(actions_np, act_space))
-                dones = np.logical_or(terminated, truncated)
-                rewards = np.asarray(rewards, np.float32)
+        if use_anakin:
+            # the env steps inside the iteration: the rollout and the update are one train time
+            with timer("Time/train_time"):
+                apply_schedules(actor["update"])
+                actor, rollout, last_obs, ep_stats = rollout_fn(actor, player_gen)
+                last_losses = trainer.train_phase(rollout, last_obs, train_gen, coef["clip_coef"], coef["ent_coef"])
+                del rollout, last_obs
+            policy_step += policy_steps_per_iter
+            if cfg.metric.log_level > 0:
+                for ep_ret, ep_len in zip(*episode_stats_from_device(ep_stats)):
+                    aggregator.update("Rewards/rew_avg", float(ep_ret))
+                    aggregator.update("Game/ep_len_avg", int(ep_len))
+        else:
+            with timer("Time/env_interaction_time"):
+                for _ in range(rollout_steps):
+                    policy_step += num_envs
+                    with torch.inference_mode():
+                        out, _ = player(prepare_obs(obs, cnn_keys, mlp_keys, player_device))
+                        actions, logprobs, _ = sample_actions(out, actions_dim, is_continuous, player_gen,
+                                                              dist_type=dist_type)
+                    actions_np = actions.cpu().numpy()
+                    next_obs, rewards, terminated, truncated, info = envs.step(actions_for_env(actions_np, act_space))
+                    dones = np.logical_or(terminated, truncated)
+                    rewards = np.asarray(rewards, np.float32)
 
-                # truncation bootstrap: r += γ·V(real final obs), on the full env batch
-                if np.any(truncated):
-                    final_obs = final_obs_rows(info, np.nonzero(truncated)[0], obs_keys)
-                    if final_obs is not None:
-                        padded = {k: np.asarray(next_obs[k]).copy() for k in obs_keys}
-                        for k in obs_keys:
-                            padded[k][truncated] = final_obs[k]
-                        rewards[truncated] += gamma * player_values(padded)[truncated]
+                    # truncation bootstrap: r += γ·V(real final obs), on the full env batch
+                    if np.any(truncated):
+                        final_obs = final_obs_rows(info, np.nonzero(truncated)[0], obs_keys)
+                        if final_obs is not None:
+                            padded = {k: np.asarray(next_obs[k]).copy() for k in obs_keys}
+                            for k in obs_keys:
+                                padded[k][truncated] = final_obs[k]
+                            rewards[truncated] += gamma * player_values(padded)[truncated]
 
-                step_data = {k: np.asarray(obs[k])[None] for k in obs_keys}
-                step_data["actions"] = actions_np[None]
-                step_data["logprobs"] = logprobs.cpu().numpy()[None]
-                step_data["rewards"] = rewards[None]
-                step_data["dones"] = dones[None].astype(np.float32)
-                rb.add({k: v[..., None] if v.ndim == 2 else v for k, v in step_data.items()})
-                obs = next_obs
-                for ep_ret, ep_len in episode_stats(info):
-                    aggregator.update("Rewards/rew_avg", ep_ret)
-                    aggregator.update("Game/ep_len_avg", ep_len)
+                    step_data = {k: np.asarray(obs[k])[None] for k in obs_keys}
+                    step_data["actions"] = actions_np[None]
+                    step_data["logprobs"] = logprobs.cpu().numpy()[None]
+                    step_data["rewards"] = rewards[None]
+                    step_data["dones"] = dones[None].astype(np.float32)
+                    rb.add({k: v[..., None] if v.ndim == 2 else v for k, v in step_data.items()})
+                    obs = next_obs
+                    for ep_ret, ep_len in episode_stats(info):
+                        aggregator.update("Rewards/rew_avg", ep_ret)
+                        aggregator.update("Game/ep_len_avg", ep_len)
 
-        with timer("Time/train_time"):
-            rollout = rollout_to_device(rb.buffer, cnn_keys, mlp_keys, fabric.device)
-            last_obs = prepare_obs(obs, cnn_keys, mlp_keys, fabric.device)
-            last_losses = trainer.train_phase(rollout, last_obs, train_gen, coef["clip_coef"], coef["ent_coef"])
-            del rollout, last_obs
-            if player is not agent:
-                player.load_state_dict(agent.state_dict())
+            with timer("Time/train_time"):
+                rollout = rollout_to_device(rb.buffer, cnn_keys, mlp_keys, fabric.device)
+                last_obs = prepare_obs(obs, cnn_keys, mlp_keys, fabric.device)
+                last_losses = trainer.train_phase(rollout, last_obs, train_gen, coef["clip_coef"], coef["ent_coef"])
+                del rollout, last_obs
+                if player is not agent:
+                    player.load_state_dict(agent.state_dict())
 
-        # ---------------- schedules --------------------------------------------
-        if cfg.algo.anneal_lr and "lr" in trainer.SCHEDULES:
-            set_learning_rate(optimizer, polynomial_decay(update, initial=base_lr, final=0.0,
-                                                          max_decay_steps=total_iters, power=1.0))
-        for name in ("clip_coef", "ent_coef"):
-            if cfg.algo.get(f"anneal_{name}", False) and name in trainer.SCHEDULES:
-                coef[name] = polynomial_decay(update, initial=initial[name], final=0.0, max_decay_steps=total_iters)
+            # ---------------- schedules ----------------------------------------
+            apply_schedules(update)
 
         # ---------------- logging ------------------------------------------------
         if cfg.metric.log_level > 0 and (
@@ -325,7 +362,7 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
             ckpt_mgr.save(policy_step, {
                 "agent": agent.state_dict(),
                 "opt_state": optimizer.state_dict(),
-                "generators": {"train": train_gen.get_state(), "player": player_gen.get_state()},
+                "generators": {name: gen.get_state() for name, gen in generators.items()},
                 "update": update,
                 "policy_step": policy_step,
                 "last_log": last_log,
@@ -333,7 +370,8 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
                 **trainer.checkpoint_extras(),
             })
 
-    envs.close()
+    if envs is not None:
+        envs.close()
     ckpt_mgr.finalize()
     if cfg.algo.run_test:
         test(player, cfg, log_dir, logger)

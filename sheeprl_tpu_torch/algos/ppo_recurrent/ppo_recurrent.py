@@ -8,7 +8,10 @@ the whole ``(T, B)`` rollout through the agent from the carry the rollout
 started with, GAE, then epochs of minibatches over env columns: ``env_bs =
 min(B, per_rank_batch_size // T)`` columns each, the column permutation
 padded by wrap-around, every minibatch a forward over its columns' whole
-sequences.
+sequences.  On a device env the rollout is the Anakin one
+(:func:`~sheeprl_tpu_torch.envs.device.anakin.make_recurrent_rollout_fn`):
+the LSTM state, the previous actions and the episode-start mask stay on the
+device in the actor carry, and the schedules come from its update counter.
 """
 
 from __future__ import annotations
@@ -27,6 +30,12 @@ from sheeprl_tpu_torch.algos.ppo_recurrent.agent import Carry, build_agent, one_
 from sheeprl_tpu_torch.algos.ppo_recurrent.utils import flat_obs, test
 from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
+from sheeprl_tpu_torch.envs.device import anakin_enabled, vector_env_from_cfg
+from sheeprl_tpu_torch.envs.device.anakin import (
+    episode_stats_from_device,
+    init_actor_state,
+    make_recurrent_rollout_fn,
+)
 from sheeprl_tpu_torch.utils.env import episode_stats, final_obs_rows, make_env, vectorize
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, flush_metrics
@@ -113,8 +122,10 @@ class RecurrentPPOTrainer:
 @register_algorithm()
 def main(fabric: Any, cfg: Any) -> None:
     check_supported(cfg)
-    player_device = fabric.player_device(cfg)
+    use_anakin = anakin_enabled(cfg)
+    player_device = fabric.device if use_anakin else fabric.player_device(cfg)
     train_gen, player_gen = fabric.seed_everything(int(cfg.seed), player_device)
+    generators = {"train": train_gen, "player": player_gen}
 
     log_dir = get_log_dir(cfg.root_dir, cfg.run_name, base=cfg.get("log_dir", "logs/runs"))
     logger = get_logger(cfg, log_dir)
@@ -122,21 +133,27 @@ def main(fabric: Any, cfg: Any) -> None:
     save_configs(cfg, log_dir)
 
     num_envs = int(cfg.env.num_envs)
-    envs = vectorize(cfg, [make_env(cfg, cfg.seed + i, 0, run_name=log_dir, vector_env_idx=i)
-                           for i in range(num_envs)])
-    obs_space, act_space = envs.single_observation_space, envs.single_action_space
+    if use_anakin:
+        envs, venv = None, vector_env_from_cfg(cfg, fabric.device)
+        generators["env"] = venv.generator
+        obs_space, act_space = venv.single_observation_space, venv.single_action_space
+        where = f"an Anakin rollout of {num_envs} env(s) on {fabric.device}"
+    else:
+        envs = vectorize(cfg, [make_env(cfg, cfg.seed + i, 0, run_name=log_dir, vector_env_idx=i)
+                               for i in range(num_envs)])
+        obs_space, act_space = envs.single_observation_space, envs.single_action_space
+        where = f"player on {player_device}, {num_envs} env(s) stepped synchronously"
     normalize_obs_keys(cfg, obs_space)
     actions_dim, is_continuous = spaces_to_dims(act_space)
     mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
     act_width = int(sum(actions_dim))
-    print(f"{cfg.algo.name} on {fabric.device}: player on {player_device}, {num_envs} env(s) stepped "
-          "synchronously", flush=True)
+    print(f"{cfg.algo.name} on {fabric.device}: {where}", flush=True)
 
     state: Dict[str, Any] = {}
     if cfg.checkpoint.get("resume_from"):
         state = load_step_dir(cfg.checkpoint.resume_from, map_location="cpu")
-    if "generators" in state:
-        for name, gen in (("train", train_gen), ("player", player_gen)):
+    for name, gen in generators.items():
+        if name in state.get("generators", {}):
             gen.set_state(state["generators"][name].cpu())
     agent = build_agent(fabric, actions_dim, is_continuous, cfg, obs_space, state.get("agent"))
     optimizer = build_optimizer(agent.parameters(), cfg.algo.optimizer, cfg.algo.max_grad_norm)
@@ -159,78 +176,104 @@ def main(fabric: Any, cfg: Any) -> None:
     base_lr = float(cfg.algo.optimizer.lr)
     initial_ent_coef = ent_coef = float(cfg.algo.ent_coef)
 
-    rb = ReplayBuffer(rollout_steps, num_envs, memmap=False, obs_keys=mlp_keys)
-    obs, _ = envs.reset(seed=int(cfg.seed))
+    def apply_schedules(step: int) -> None:
+        """The annealed learning rate and entropy coefficient at ``step`` updates."""
+        nonlocal ent_coef
+        if cfg.algo.anneal_lr:
+            set_learning_rate(optimizer, polynomial_decay(step, initial=base_lr, final=0.0,
+                                                          max_decay_steps=total_iters))
+        if cfg.algo.anneal_ent_coef:
+            ent_coef = polynomial_decay(step, initial=initial_ent_coef, final=0.0, max_decay_steps=total_iters)
+
     carry = player.initial_state(num_envs, player_device)
     prev_actions = torch.zeros(num_envs, act_width, device=player_device)
     is_first = torch.ones(num_envs, 1, device=player_device)
+    if use_anakin:
+        rollout_fn = make_recurrent_rollout_fn(
+            venv, agent.step, lambda out, noise: _sample(out, actions_dim, is_continuous, noise),
+            lambda a: one_hot_actions(a, actions_dim, is_continuous), mlp_keys=mlp_keys, action_space=act_space,
+            gamma=gamma, rollout_steps=rollout_steps)
+        actor = init_actor_state(venv, start_iter - 1,
+                                 {"carry": carry, "prev_actions": prev_actions, "is_first": is_first})
+    else:
+        rb = ReplayBuffer(rollout_steps, num_envs, memmap=False, obs_keys=mlp_keys)
+        obs, _ = envs.reset(seed=int(cfg.seed))
     last_losses = None
 
     for update in range(start_iter, total_iters + 1):
-        init_carry = carry
-        with timer("Time/env_interaction_time"):
-            for _ in range(rollout_steps):
-                policy_step += num_envs
+        if use_anakin:
+            with timer("Time/train_time"):
+                apply_schedules(actor["update"])
+                actor, rollout, init_carry, last_v, ep_stats = rollout_fn(actor, player_gen)
+                last_losses = trainer.train_phase(rollout, init_carry, last_v, train_gen, ent_coef)
+                del rollout
+            policy_step += policy_steps_per_iter
+            if cfg.metric.log_level > 0:
+                for ep_ret, ep_len in zip(*episode_stats_from_device(ep_stats)):
+                    aggregator.update("Rewards/rew_avg", float(ep_ret))
+                    aggregator.update("Game/ep_len_avg", int(ep_len))
+        else:
+            init_carry = carry
+            with timer("Time/env_interaction_time"):
+                for _ in range(rollout_steps):
+                    policy_step += num_envs
+                    with torch.no_grad():
+                        step_obs = flat_obs(obs, mlp_keys, player_device)
+                        next_carry, (actor_out, _) = player.step(carry, step_obs, prev_actions, is_first)
+                        actions, logprobs = _sample(actor_out, actions_dim, is_continuous, player_gen)
+                    actions_np = actions.cpu().numpy()
+                    next_obs, rewards, terminated, truncated, info = envs.step(actions_for_env(actions_np, act_space))
+                    dones = np.logical_or(terminated, truncated)
+                    rewards = np.asarray(rewards, np.float32)
+                    one_hot = one_hot_actions(actions, actions_dim, is_continuous)
+
+                    # truncation bootstrap from the post-step carry, on the full env batch
+                    if np.any(truncated):
+                        final_obs = final_obs_rows(info, np.nonzero(truncated)[0], mlp_keys)
+                        if final_obs is not None:
+                            padded = {k: np.asarray(next_obs[k], np.float32).reshape(num_envs, -1).copy()
+                                      for k in mlp_keys}
+                            for k in mlp_keys:
+                                padded[k][truncated] = np.asarray(final_obs[k], np.float32).reshape(
+                                    int(truncated.sum()), -1)
+                            with torch.no_grad():
+                                _, (_, v_boot) = player.step(next_carry, flat_obs(padded, mlp_keys, player_device),
+                                                             one_hot, torch.zeros_like(is_first))
+                            rewards[truncated] += gamma * v_boot[..., 0].cpu().numpy()[truncated]
+
+                    step = {"actions": actions_np[None], "logprobs": logprobs.cpu().numpy()[None],
+                            "rewards": rewards[None], "dones": dones.astype(np.float32)[None],
+                            "is_first": is_first.cpu().numpy()[None, :, 0],
+                            "prev_actions": prev_actions.cpu().numpy()[None]}
+                    for k in mlp_keys:
+                        step[k] = np.asarray(obs[k], np.float32).reshape(1, num_envs, -1)
+                    rb.add({k: v[..., None] if v.ndim == 2 else v for k, v in step.items()})
+
+                    obs, carry = next_obs, next_carry
+                    done_rows = torch.from_numpy(dones).to(player_device)
+                    prev_actions = torch.where(done_rows[:, None], torch.zeros_like(one_hot), one_hot)
+                    is_first = done_rows[:, None].to(torch.float32)
+                    for ep_ret, ep_len in episode_stats(info):
+                        aggregator.update("Rewards/rew_avg", ep_ret)
+                        aggregator.update("Game/ep_len_avg", ep_len)
+
+            with timer("Time/train_time"):
+                dev = fabric.device
+                local = rb.buffer
+                rollout = {k: torch.from_numpy(np.asarray(local[k], np.float32)).to(dev)
+                           for k in (*mlp_keys, "actions", "prev_actions", "is_first")}
+                for k in ("logprobs", "rewards", "dones"):
+                    rollout[k] = torch.from_numpy(np.ascontiguousarray(local[k][..., 0])).to(dev)
+                # bootstrap values of the state after the rollout, with the rollout's weights
                 with torch.no_grad():
-                    step_obs = flat_obs(obs, mlp_keys, player_device)
-                    next_carry, (actor_out, _) = player.step(carry, step_obs, prev_actions, is_first)
-                    actions, logprobs = _sample(actor_out, actions_dim, is_continuous, player_gen)
-                actions_np = actions.cpu().numpy()
-                next_obs, rewards, terminated, truncated, info = envs.step(actions_for_env(actions_np, act_space))
-                dones = np.logical_or(terminated, truncated)
-                rewards = np.asarray(rewards, np.float32)
-                one_hot = one_hot_actions(actions, actions_dim, is_continuous)
+                    _, (_, last_v) = player.step(carry, flat_obs(obs, mlp_keys, player_device), prev_actions, is_first)
+                last_losses = trainer.train_phase(rollout, tuple(c.to(dev) for c in init_carry),
+                                                  last_v[..., 0].to(dev), train_gen, ent_coef)
+                del rollout
+                if player is not agent:
+                    player.load_state_dict(agent.state_dict())
 
-                # truncation bootstrap from the post-step carry, on the full env batch
-                if np.any(truncated):
-                    final_obs = final_obs_rows(info, np.nonzero(truncated)[0], mlp_keys)
-                    if final_obs is not None:
-                        padded = {k: np.asarray(next_obs[k], np.float32).reshape(num_envs, -1).copy()
-                                  for k in mlp_keys}
-                        for k in mlp_keys:
-                            padded[k][truncated] = np.asarray(final_obs[k], np.float32).reshape(
-                                int(truncated.sum()), -1)
-                        with torch.no_grad():
-                            _, (_, v_boot) = player.step(next_carry, flat_obs(padded, mlp_keys, player_device),
-                                                         one_hot, torch.zeros_like(is_first))
-                        rewards[truncated] += gamma * v_boot[..., 0].cpu().numpy()[truncated]
-
-                step = {"actions": actions_np[None], "logprobs": logprobs.cpu().numpy()[None],
-                        "rewards": rewards[None], "dones": dones.astype(np.float32)[None],
-                        "is_first": is_first.cpu().numpy()[None, :, 0], "prev_actions": prev_actions.cpu().numpy()[None]}
-                for k in mlp_keys:
-                    step[k] = np.asarray(obs[k], np.float32).reshape(1, num_envs, -1)
-                rb.add({k: v[..., None] if v.ndim == 2 else v for k, v in step.items()})
-
-                obs, carry = next_obs, next_carry
-                done_rows = torch.from_numpy(dones).to(player_device)
-                prev_actions = torch.where(done_rows[:, None], torch.zeros_like(one_hot), one_hot)
-                is_first = done_rows[:, None].to(torch.float32)
-                for ep_ret, ep_len in episode_stats(info):
-                    aggregator.update("Rewards/rew_avg", ep_ret)
-                    aggregator.update("Game/ep_len_avg", ep_len)
-
-        with timer("Time/train_time"):
-            dev = fabric.device
-            local = rb.buffer
-            rollout = {k: torch.from_numpy(np.asarray(local[k], np.float32)).to(dev)
-                       for k in (*mlp_keys, "actions", "prev_actions", "is_first")}
-            for k in ("logprobs", "rewards", "dones"):
-                rollout[k] = torch.from_numpy(np.ascontiguousarray(local[k][..., 0])).to(dev)
-            # bootstrap values of the state after the rollout, with the rollout's weights
-            with torch.no_grad():
-                _, (_, last_v) = player.step(carry, flat_obs(obs, mlp_keys, player_device), prev_actions, is_first)
-            last_losses = trainer.train_phase(rollout, tuple(c.to(dev) for c in init_carry),
-                                              last_v[..., 0].to(dev), train_gen, ent_coef)
-            del rollout
-            if player is not agent:
-                player.load_state_dict(agent.state_dict())
-
-        if cfg.algo.anneal_lr:
-            set_learning_rate(optimizer, polynomial_decay(update, initial=base_lr, final=0.0,
-                                                          max_decay_steps=total_iters))
-        if cfg.algo.anneal_ent_coef:
-            ent_coef = polynomial_decay(update, initial=initial_ent_coef, final=0.0, max_decay_steps=total_iters)
+            apply_schedules(update)
 
         if cfg.metric.log_level > 0 and (
             policy_step - last_log >= cfg.metric.log_every or update == total_iters or cfg.dry_run
@@ -245,14 +288,15 @@ def main(fabric: Any, cfg: Any) -> None:
             ckpt_mgr.save(policy_step, {
                 "agent": agent.state_dict(),
                 "opt_state": optimizer.state_dict(),
-                "generators": {"train": train_gen.get_state(), "player": player_gen.get_state()},
+                "generators": {name: gen.get_state() for name, gen in generators.items()},
                 "update": update,
                 "policy_step": policy_step,
                 "last_log": last_log,
                 "last_checkpoint": last_checkpoint,
             })
 
-    envs.close()
+    if envs is not None:
+        envs.close()
     ckpt_mgr.finalize()
     if cfg.algo.run_test:
         test(player, cfg, log_dir, logger)

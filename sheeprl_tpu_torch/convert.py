@@ -33,6 +33,9 @@ path maps to a key by rule:
 :func:`sac_state_from_jax` takes the tree of a SAC, DroQ or SAC-AE
 ``build_agent`` and gives the port agent's flat ``state_dict`` by the same
 rules.
+
+:func:`env_state_from_jax` takes a batched state of a JAX env and gives the
+state of the port's device env of the same name.
 """
 
 from __future__ import annotations
@@ -180,3 +183,12 @@ def sac_state_from_jax(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
                            for m in (online, target)}, online, target)
     out["log_alpha"] = torch.tensor(np.asarray(params["log_alpha"], np.float32))
     return out
+
+
+def env_state_from_jax(state: Any, state_cls: type, device: Any = "cpu") -> Any:
+    """A batched JAX env state (a ``NamedTuple`` of arrays with a leading
+    ``num_envs`` axis, from ``sheeprl_tpu/envs/jax/``) as the port's
+    ``state_cls``: the fields of the same names, dtypes kept; the JAX
+    per-instance ``key`` has no counterpart (the port's vector env holds one
+    generator)."""
+    return state_cls(**{f: torch.as_tensor(np.array(getattr(state, f)), device=device) for f in state_cls._fields})

@@ -1,1 +1,2 @@
-"""Environments of the port: the dummy envs and their spaces and wrappers."""
+"""Environments of the port: the dummy envs, their spaces and wrappers, the
+device envs (``device/``) and the adapters of gymnasium and DMC envs."""

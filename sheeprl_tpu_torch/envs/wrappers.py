@@ -1,5 +1,6 @@
-"""The environment wrappers ``make_env`` applies to the dummy envs (copies of
-``sheeprl_tpu/envs/wrappers.py``, written without gymnasium)."""
+"""The environment wrappers of ``make_env`` (copies of
+``sheeprl_tpu/envs/wrappers.py`` and of the gymnasium wrappers its
+``make_env`` uses, written without gymnasium)."""
 
 from __future__ import annotations
 
@@ -159,3 +160,138 @@ class TimeLimit(Wrapper):
         obs, reward, terminated, truncated, info = self.env.step(action)
         self._elapsed += 1
         return obs, reward, terminated, truncated or self._elapsed >= self._max, info
+
+
+class MaskVelocityWrapper(Wrapper):
+    """Zero the velocity components of a classic-control vector observation
+    (a partially observable task).  Keyed on the gymnasium env id, as the
+    JAX wrapper is: other envs raise."""
+
+    velocity_indices: Dict[str, np.ndarray] = {
+        "CartPole-v0": np.array([1, 3]),
+        "CartPole-v1": np.array([1, 3]),
+        "MountainCar-v0": np.array([1]),
+        "MountainCarContinuous-v0": np.array([1]),
+        "Pendulum-v1": np.array([2]),
+        "LunarLander-v2": np.array([2, 3, 5]),
+        "LunarLander-v3": np.array([2, 3, 5]),
+        "LunarLanderContinuous-v2": np.array([2, 3, 5]),
+        "LunarLanderContinuous-v3": np.array([2, 3, 5]),
+    }
+
+    def __init__(self, env: Env, env_id: str):
+        super().__init__(env)
+        if env_id not in self.velocity_indices:
+            raise NotImplementedError(f"Velocity masking not implemented for {env_id}")
+        self.mask = np.ones(env.observation_space.shape, dtype=np.float32)
+        self.mask[self.velocity_indices[env_id]] = 0.0
+
+    def reset(self, **kwargs: Any):
+        obs, info = self.env.reset(**kwargs)
+        return obs * self.mask, info
+
+    def step(self, action: Any):
+        obs, reward, terminated, truncated, info = self.env.step(action)
+        return obs * self.mask, reward, terminated, truncated, info
+
+
+class RewardAsObservationWrapper(Wrapper):
+    """The last reward as an extra ``reward`` observation key (0 after a reset)."""
+
+    def __init__(self, env: Env):
+        super().__init__(env)
+        reward_space = spaces.Box(-np.inf, np.inf, (1,), np.float32)
+        if isinstance(env.observation_space, spaces.Dict):
+            new_spaces = {**env.observation_space.spaces, "reward": reward_space}
+        else:
+            new_spaces = {"obs": env.observation_space, "reward": reward_space}
+        self.observation_space = spaces.Dict(new_spaces)
+
+    @staticmethod
+    def _wrap(obs: Any, reward: float) -> Dict[str, Any]:
+        r = np.array([reward], dtype=np.float32)
+        return {**obs, "reward": r} if isinstance(obs, dict) else {"obs": obs, "reward": r}
+
+    def step(self, action: Any):
+        obs, reward, terminated, truncated, info = self.env.step(action)
+        return self._wrap(obs, float(reward)), reward, terminated, truncated, info
+
+    def reset(self, **kwargs: Any):
+        obs, info = self.env.reset(**kwargs)
+        return self._wrap(obs, 0.0), info
+
+
+class ActionsAsObservationWrapper(Wrapper):
+    """The last ``num_stack`` actions (every ``dilation``-th) as an
+    ``action_stack`` observation key: one-hot for discrete actions, the
+    concatenated one-hots of a multi-discrete one, continuous ones as they
+    are; a reset fills the stack with ``noop``."""
+
+    def __init__(self, env: Env, num_stack: int, noop: Any, dilation: int = 1):
+        super().__init__(env)
+        if num_stack <= 0:
+            raise ValueError(f"num_stack must be positive, got {num_stack}")
+        if dilation <= 0:
+            raise ValueError(f"dilation must be positive, got {dilation}")
+        self._num_stack = num_stack
+        self._dilation = dilation
+        act_space = env.action_space
+        if isinstance(act_space, spaces.Discrete):
+            self._per_action = int(act_space.n)
+        elif isinstance(act_space, spaces.MultiDiscrete):
+            self._per_action = int(np.sum(act_space.nvec))
+        elif isinstance(act_space, spaces.Box):
+            self._per_action = int(np.prod(act_space.shape))
+        else:
+            raise RuntimeError(f"Unsupported action space {type(act_space)}")
+        self._noop = noop
+        self._actions: deque = deque(maxlen=num_stack * dilation)
+        action_obs_space = spaces.Box(-np.inf, np.inf, (num_stack * self._per_action,), np.float32)
+        if isinstance(env.observation_space, spaces.Dict):
+            new_spaces = {**env.observation_space.spaces, "action_stack": action_obs_space}
+        else:
+            new_spaces = {"obs": env.observation_space, "action_stack": action_obs_space}
+        self.observation_space = spaces.Dict(new_spaces)
+
+    def _encode(self, action: Any) -> np.ndarray:
+        act_space = self.env.action_space
+        if isinstance(act_space, spaces.Discrete):
+            out = np.zeros(self._per_action, dtype=np.float32)
+            out[int(np.asarray(action).reshape(()))] = 1.0
+            return out
+        if isinstance(act_space, spaces.MultiDiscrete):
+            parts = []
+            for a, n in zip(np.asarray(action).flatten(), act_space.nvec):
+                oh = np.zeros(int(n), dtype=np.float32)
+                oh[int(a)] = 1.0
+                parts.append(oh)
+            return np.concatenate(parts)
+        return np.asarray(action, dtype=np.float32).flatten()
+
+    def _obs_with_actions(self, obs: Any) -> Dict[str, Any]:
+        actions = list(self._actions)[:: -self._dilation][::-1]
+        stack = np.concatenate([self._encode(a) for a in actions])
+        return {**obs, "action_stack": stack} if isinstance(obs, dict) else {"obs": obs, "action_stack": stack}
+
+    def step(self, action: Any):
+        self._actions.append(action)
+        obs, reward, terminated, truncated, info = self.env.step(action)
+        return self._obs_with_actions(obs), reward, terminated, truncated, info
+
+    def reset(self, **kwargs: Any):
+        obs, info = self.env.reset(**kwargs)
+        for _ in range(self._num_stack * self._dilation):
+            self._actions.append(self._noop)
+        return self._obs_with_actions(obs), info
+
+
+class TransformReward(Wrapper):
+    """``fn`` of every step's reward (``env.clip_rewards``: ``tanh``)."""
+
+    def __init__(self, env: Env, fn: Callable[[float], float]):
+        super().__init__(env)
+        self._fn = fn
+
+    def step(self, action: Any):
+        obs, reward, terminated, truncated, info = self.env.step(action)
+        return obs, self._fn(reward), terminated, truncated, info

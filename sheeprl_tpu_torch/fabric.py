@@ -73,6 +73,11 @@ def _device(accelerator: str) -> torch.device:
     raise ValueError(f"fabric.accelerator={accelerator}: choose auto, gpu or cpu")
 
 
+def run_device(cfg: Any) -> torch.device:
+    """The device of a run with this config (``fabric.accelerator``)."""
+    return _device((cfg.get("fabric") or {}).get("accelerator", "auto"))
+
+
 def build_fabric(cfg: Any) -> Fabric:
     fabric_cfg = cfg.get("fabric") or {}
     if int(fabric_cfg.get("devices", 1) or 1) != 1 or int(fabric_cfg.get("num_nodes", 1) or 1) != 1:
@@ -83,7 +88,7 @@ def build_fabric(cfg: Any) -> Fabric:
             f"fabric.precision={precision}: the port runs 32-true only; bf16 is deferred "
             "(ROADMAP.md, queue A item 4)"
         )
-    device = _device(fabric_cfg.get("accelerator", "auto"))
+    device = run_device(cfg)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return Fabric(device=device, precision=precision)

@@ -1,12 +1,17 @@
-"""Environment factory for the port: ``make_env`` for the dummy envs and a
-synchronous vector env.
+"""Environment factory for the port: ``make_env`` and a synchronous vector
+env (counterpart of ``sheeprl_tpu/utils/env.py``).
 
-Counterpart of ``sheeprl_tpu/utils/env.py`` restricted to the ``dummy``
-wrapper kind: the suite env, then ActionRepeat, FrameStack and TimeLimit,
-seeded like the JAX factory.  Settings this factory does not implement
-raise instead of being dropped.  :func:`vectorize` steps the envs on the
-caller's thread with same-step autoreset and episode statistics, the
-semantics the JAX loops get from gymnasium's vector envs.
+``make_env`` builds the suite env, then the wrapper pipeline of the JAX
+factory in its order: ActionRepeat → velocity masking → a Dict observation
+space → image resize / grayscale → FrameStack → actions as observation →
+reward as observation → reward clipping → TimeLimit; then seeds it.  The
+suites: the dummy envs; the device envs (``wrapper.kind: jax``) behind
+:class:`~sheeprl_tpu_torch.envs.device.adapter.DeviceEnvAdapter` on the run's
+device; gymnasium (``kind: gym``) and DeepMind Control (``kind: dmc``), whose
+packages are imported only when such an env is built.  Settings and suites
+not ported yet raise, naming their ROADMAP item.  :func:`vectorize` steps the
+envs on the caller's thread with same-step autoreset and episode statistics,
+the semantics the JAX loops get from gymnasium's vector envs.
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.dummy import (
     ContinuousDummyEnv,
     DiscreteDummyEnv,
@@ -22,7 +28,17 @@ from sheeprl_tpu_torch.envs.dummy import (
     MultiDiscreteDummyEnv,
     PixelGridDummyEnv,
 )
-from sheeprl_tpu_torch.envs.wrappers import ActionRepeat, FrameStack, RestartOnException, TimeLimit
+from sheeprl_tpu_torch.envs.wrappers import (
+    ActionRepeat,
+    ActionsAsObservationWrapper,
+    FrameStack,
+    MaskVelocityWrapper,
+    RestartOnException,
+    RewardAsObservationWrapper,
+    TimeLimit,
+    TransformReward,
+    Wrapper,
+)
 
 DUMMY_ENVS = {
     "discrete_dummy": DiscreteDummyEnv,
@@ -30,25 +46,138 @@ DUMMY_ENVS = {
     "continuous_dummy": ContinuousDummyEnv,
     "pixel_grid_dummy": PixelGridDummyEnv,
 }
+#: the suites whose packages neither the port's CPU host nor its H100 host has
+UNPORTED_SUITES = {
+    "atari": "ale_py",
+    "crafter": "crafter",
+    "minedojo": "minedojo",
+    "minerl": "minerl",
+    "diambra": "diambra",
+    "super_mario_bros": "gym_super_mario_bros",
+}
 
 
 def _unsupported(cfg: Any, run_name: Optional[str]) -> list:
-    env = cfg.env
     out = []
-    if env.get("mask_velocities", False):
-        out.append("env.mask_velocities")
-    aao = env.get("actions_as_observation") or {}
-    if aao.get("num_stack", -1) > 0:
-        out.append("env.actions_as_observation")
-    if env.get("reward_as_observation", False):
-        out.append("env.reward_as_observation")
-    if env.get("clip_rewards", False):
-        out.append("env.clip_rewards")
-    if env.get("grayscale", False):
-        out.append("env.grayscale")
-    if env.get("capture_video", False) and run_name is not None:
-        out.append("env.capture_video")
+    if cfg.env.get("capture_video", False) and run_name is not None:
+        out.append("env.capture_video (ROADMAP.md, queue A item 6)")
+    faults = cfg.get("fault_injection") or {}
+    if faults.get("enabled") and any(str(f.get("site", "")).startswith("env.") for f in faults.get("plan") or []):
+        out.append("fault injection at the env sites (ROADMAP.md, queue A item 6)")
     return out
+
+
+def _wrapper_config(cfg: Any) -> Dict[str, Any]:
+    """``cfg.env.wrapper`` (a dict, a bare suite name or the "???"
+    placeholder) as a dict with a ``kind`` entry."""
+    wrapper_cfg = cfg.env.get("wrapper") or {}
+    if not isinstance(wrapper_cfg, dict):
+        wrapper_cfg = {"kind": str(wrapper_cfg)} if wrapper_cfg != "???" else {}
+    return {"kind": "gym", **wrapper_cfg}
+
+
+def _make_base_env(cfg: Any, seed: Optional[int], render_mode: str) -> Env:
+    env_id = cfg.env.id
+    wrapper_cfg = _wrapper_config(cfg)
+    kind = wrapper_cfg["kind"]
+    kwargs = {k: v for k, v in wrapper_cfg.items() if k not in ("kind", "id")}
+    if env_id in DUMMY_ENVS:
+        return DUMMY_ENVS[env_id](**kwargs)
+    if kind == "jax":
+        from sheeprl_tpu_torch.envs.device.adapter import DeviceEnvAdapter
+        from sheeprl_tpu_torch.envs.device.registry import env_kwargs, make_device_env
+        from sheeprl_tpu_torch.fabric import run_device
+
+        env = make_device_env(wrapper_cfg.get("id") or env_id, **env_kwargs(cfg))
+        return DeviceEnvAdapter(env, run_device(cfg))
+    if kind == "gym":
+        from sheeprl_tpu_torch.envs.gymnasium_env import GymnasiumEnv
+
+        return GymnasiumEnv(env_id, render_mode=render_mode, **kwargs)
+    if kind == "dmc":
+        from sheeprl_tpu_torch.envs.dmc import DMCWrapper
+
+        return DMCWrapper(env_id, seed=seed, **kwargs)
+    if kind in UNPORTED_SUITES:
+        raise NotImplementedError(
+            f"env.wrapper.kind={kind} is not ported: its package ({UNPORTED_SUITES[kind]}) is on neither machine "
+            "the port runs on (ROADMAP.md, queue A item 2)"
+        )
+    raise ValueError(f"Unknown env wrapper kind '{kind}'")
+
+
+class _DictObs(Wrapper):
+    """Any observation space as a Dict: vectors under 'state', images under 'rgb'."""
+
+    def __init__(self, env: Env):
+        super().__init__(env)
+        obs_space = env.observation_space
+        if isinstance(obs_space, spaces.Dict):
+            self._key = None
+        else:
+            self._key = "rgb" if len(obs_space.shape or ()) == 3 else "state"
+            self.observation_space = spaces.Dict({self._key: obs_space})
+
+    def _observation(self, obs: Any) -> Dict[str, Any]:
+        return obs if self._key is None else {self._key: obs}
+
+    def reset(self, **kwargs: Any):
+        obs, info = self.env.reset(**kwargs)
+        return self._observation(obs), info
+
+    def step(self, action: Any):
+        obs, reward, terminated, truncated, info = self.env.step(action)
+        return self._observation(obs), reward, terminated, truncated, info
+
+
+class _ImageTransform(Wrapper):
+    """Every image key as ``(screen, screen, C)`` uint8: resized with
+    ``cv2.INTER_AREA``, turned gray (``COLOR_RGB2GRAY``) or given three
+    channels as ``grayscale`` asks, CHW frames turned HWC."""
+
+    def __init__(self, env: Env, cnn_keys: List[str], screen_size: int, grayscale: bool):
+        super().__init__(env)
+        import cv2
+
+        self._cv2 = cv2
+        self._cnn_keys = cnn_keys
+        self._screen = screen_size
+        self._gray = grayscale
+        new_spaces = dict(env.observation_space.spaces)
+        for k in cnn_keys:
+            new_spaces[k] = spaces.Box(0, 255, (screen_size, screen_size, 1 if grayscale else 3), np.uint8)
+        self.observation_space = spaces.Dict(new_spaces)
+
+    def _transform(self, img: np.ndarray) -> np.ndarray:
+        cv2 = self._cv2
+        img = np.asarray(img)
+        if img.ndim == 2:
+            img = img[..., None]
+        if img.shape[0] in (1, 3) and img.shape[-1] not in (1, 3):
+            img = np.transpose(img, (1, 2, 0))
+        if img.shape[:2] != (self._screen, self._screen):
+            img = cv2.resize(img, (self._screen, self._screen), interpolation=cv2.INTER_AREA)
+            if img.ndim == 2:
+                img = img[..., None]
+        if self._gray and img.shape[-1] == 3:
+            img = cv2.cvtColor(img, cv2.COLOR_RGB2GRAY)[..., None]
+        elif not self._gray and img.shape[-1] == 1:
+            img = np.repeat(img, 3, axis=-1)
+        return img.astype(np.uint8)
+
+    def _observation(self, obs: Dict[str, Any]) -> Dict[str, Any]:
+        out = dict(obs)
+        for k in self._cnn_keys:
+            out[k] = self._transform(obs[k])
+        return out
+
+    def reset(self, **kwargs: Any):
+        obs, info = self.env.reset(**kwargs)
+        return self._observation(obs), info
+
+    def step(self, action: Any):
+        obs, reward, terminated, truncated, info = self.env.step(action)
+        return self._observation(obs), reward, terminated, truncated, info
 
 
 def make_env(
@@ -59,32 +188,33 @@ def make_env(
     prefix: str = "",
     vector_env_idx: int = 0,
 ) -> Callable[[], Env]:
-    """Build a thunk creating one wrapped dummy environment instance."""
-    env_id = cfg.env.id
-    if env_id not in DUMMY_ENVS:
-        raise NotImplementedError(
-            f"sheeprl_tpu_torch.make_env builds the dummy envs only ({sorted(DUMMY_ENVS)}), not '{env_id}'"
-        )
+    """Build a thunk creating one wrapped environment instance; a device env
+    steps on the run's device (``fabric.accelerator``)."""
     unsupported = _unsupported(cfg, run_name)
     if unsupported:
         raise NotImplementedError(f"sheeprl_tpu_torch.make_env does not implement {unsupported} yet")
 
     def _build() -> Env:
-        wrapper_cfg = cfg.env.get("wrapper") or {}
-        kwargs = {k: v for k, v in dict(wrapper_cfg).items() if k not in ("kind", "id")}
-        env: Env = DUMMY_ENVS[env_id](**kwargs)
+        render_mode = cfg.env.get("render_mode", "rgb_array")
+        env = _make_base_env(cfg, seed, render_mode)
         if cfg.env.action_repeat > 1:
             env = ActionRepeat(env, cfg.env.action_repeat)
+        if cfg.env.get("mask_velocities", False):
+            # keyed on gymnasium ids: any other env raises, as in the JAX factory
+            env = MaskVelocityWrapper(env, cfg.env.id if _wrapper_config(cfg)["kind"] == "gym" else "")
+        env = _DictObs(env)
         cnn_keys = [k for k, sp in env.observation_space.spaces.items() if len(sp.shape) in (2, 3)]
-        for k in cnn_keys:
-            shape = env.observation_space[k].shape
-            if shape[:2] != (cfg.env.screen_size, cfg.env.screen_size):
-                raise NotImplementedError(
-                    f"sheeprl_tpu_torch.make_env does not resize images ({k} is {shape}, "
-                    f"env.screen_size={cfg.env.screen_size})"
-                )
+        if cnn_keys:
+            env = _ImageTransform(env, cnn_keys, cfg.env.screen_size, cfg.env.grayscale)
         if cfg.env.frame_stack > 1 and cnn_keys:
             env = FrameStack(env, cfg.env.frame_stack, cnn_keys, cfg.env.frame_stack_dilation)
+        aao = cfg.env.get("actions_as_observation") or {}
+        if aao.get("num_stack", -1) > 0:
+            env = ActionsAsObservationWrapper(env, aao["num_stack"], aao["noop"], aao.get("dilation", 1))
+        if cfg.env.get("reward_as_observation", False):
+            env = RewardAsObservationWrapper(env)
+        if cfg.env.get("clip_rewards", False):
+            env = TransformReward(env, lambda r: float(np.tanh(r)))
         if cfg.env.max_episode_steps is not None and cfg.env.max_episode_steps > 0:
             env = TimeLimit(env, cfg.env.max_episode_steps)
         if seed is not None:

@@ -7,7 +7,8 @@ snapshot, one Plan2Explore-DreamerV3 update steps, PPO, A2C and recurrent
 PPO each train one iteration through ``cli.run`` and commit a snapshot that
 ``cli.evaluation`` plays and, for PPO, a player serves, and SAC, DroQ and
 SAC-AE each train through ``cli.run`` and commit a snapshot that
-``cli.evaluation`` plays and, for SAC, a player serves.
+``cli.evaluation`` plays and, for SAC, a player serves, PPO trains one
+Anakin iteration on the device cartpole, and the other device envs step.
 
 A subprocess, because the test session has imported JAX already.
 """
@@ -126,6 +127,23 @@ SCRIPT = textwrap.dedent(
                                           "state": np.zeros((2, 4), np.float32)}})
                 _, acts = ppo_player.step_batch(ppo_player.params, (), obs, 0, np.array([True, False]))
                 assert acts.shape == (2, 1)
+
+    # one Anakin PPO iteration on the device cartpole (the env stepped inside the iteration)
+    import io, contextlib
+    from sheeprl_tpu_torch.envs.device import VectorDeviceEnv, make_device_env
+    with tempfile.TemporaryDirectory() as tmp:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            run(["exp=ppo", "env=jax_cartpole", "dry_run=True", "env.num_envs=4", "fabric.accelerator=cpu",
+                 "metric/logger=csv", "algo.rollout_steps=8", "algo.per_rank_batch_size=16", "algo.dense_units=4",
+                 "algo.mlp_layers=1", f"log_dir={{tmp}}"])
+        assert "an Anakin rollout of 4 env(s) on cpu" in out.getvalue(), out.getvalue()
+        (snapshot,) = glob.glob(f"{{tmp}}/**/checkpoint/step_*", recursive=True)
+        assert load_step_dir(snapshot)["policy_step"] == 32
+    for name in ("forage", "multiroom", "pendulum"):
+        venv = VectorDeviceEnv(make_device_env(name), 2, "cpu", torch.Generator().manual_seed(0))
+        state, obs = venv.reset()
+        venv.step(state, torch.zeros((2, 1)) if name == "pendulum" else torch.zeros(2, dtype=torch.long))
 
     # the off-policy algorithms: a prefill and a few updates each, evaluated; the SAC snapshot served
     for exp, extra in (("sac", ["algo.mlp_keys.encoder=[state]"]), ("droq", ["algo.mlp_keys.encoder=[state]"]),

@@ -399,9 +399,13 @@ def test_ppo_snapshot_is_served_by_policy_service(tmp_path):
         assert client.stats()["served"] == 12
 
 
-@pytest.mark.parametrize("override", ["algo.anakin=True", "population.size=2"])
-def test_on_policy_unported_paths_raise_naming_the_roadmap_item(tmp_path, override):
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
+@pytest.mark.parametrize("override,error,match", [
+    # the Anakin path is ported: forcing it on a host env raises as in JAX
+    ("algo.anakin=True", ValueError, "algo.anakin=True requires a device env"),
+    ("population.size=2", NotImplementedError, "queue A item 6"),
+], ids=["algo.anakin=True", "population.size=2"])
+def test_on_policy_unported_paths_raise_naming_the_roadmap_item(tmp_path, override, error, match):
+    with pytest.raises(error, match=match):
         run([*ON_POLICY["ppo"][:1], *ON_POLICY_COMMON, *ON_POLICY["ppo"][1:], "dry_run=True",
              f"log_dir={tmp_path}", override])
     assert latest_checkpoint(tmp_path) is None
@@ -534,3 +538,106 @@ def test_off_policy_recipes_compose_with_the_dummy_env(exp, checks):
     got = {k: cfg.algo[k.split(".")[0]][k.split(".")[1]] if "." in k else cfg.algo.get(k) for k in checks}
     got["parameters"] = trained
     assert {k: got[k] for k in checks} == checks
+
+
+# -- the device envs (env=jax_*) through the same entry points ---------------------
+DEVICE_ENV_COMMON = ["fabric.accelerator=cpu", "metric.log_level=1", "metric.log_every=1", "metric/logger=csv",
+                     "buffer.memmap=False", "checkpoint.every=1000000", "checkpoint.async_save=False",
+                     "env.num_envs=2", "algo.run_test=True"]
+DEVICE_ENV_RUNS = {
+    # id: (overrides, the path the banner names)
+    "ppo-cartpole": (["exp=ppo", "env=jax_cartpole", "algo.rollout_steps=8", "algo.per_rank_batch_size=8",
+                      "algo.dense_units=8", "algo.mlp_layers=1", "env.max_episode_steps=6", "algo.total_steps=32",
+                      "algo.anneal_lr=True", "algo.anneal_ent_coef=True", "algo.ent_coef=0.01"], "Anakin"),
+    "a2c-cartpole": (["exp=a2c", "env=jax_cartpole", "algo.rollout_steps=8", "algo.dense_units=8",
+                      "algo.mlp_layers=1", "env.max_episode_steps=6", "algo.total_steps=32"], "Anakin"),
+    "ppo_recurrent-cartpole": (["exp=ppo_recurrent", "env=jax_cartpole", "env.mask_velocities=False",
+                                "algo.rollout_steps=8", "algo.per_rank_batch_size=8", "algo.dense_units=8",
+                                "algo.rnn.lstm.hidden_size=8", "env.max_episode_steps=6", "algo.total_steps=32"],
+                               "Anakin"),
+    "ppo-forage-adapter": (["exp=ppo", "env=jax_forage", "algo.anakin=False", "algo.rollout_steps=4",
+                            "algo.per_rank_batch_size=8", "algo.dense_units=8", "algo.mlp_layers=1",
+                            "algo.cnn_keys.encoder=[rgb]", "algo.mlp_keys.encoder=[]",
+                            "algo.encoder.cnn_features_dim=16", "env.max_episode_steps=6", "algo.total_steps=16"],
+                           "stepped synchronously"),
+    "dreamer_v3-forage": ([*[o for o in TINY if not o.startswith(("env", "algo.mlp_keys"))], "env=jax_forage",
+                           "env.num_envs=2", "algo.mlp_keys.encoder=[]", "env.max_episode_steps=20", "dry_run=True"],
+                          "replay"),
+    "sac-pendulum": (["exp=sac", "env=jax_pendulum", "buffer.size=32", "algo.total_steps=16",
+                      "algo.learning_starts=4", "algo.per_rank_batch_size=4", "algo.hidden_size=8",
+                      "env.max_episode_steps=6"], "replay"),
+}
+
+
+@pytest.mark.parametrize("case", list(DEVICE_ENV_RUNS))
+def test_device_env_run_commits_and_evaluates(case, tmp_path, capsys):
+    """The device envs train through ``cli.run``: PPO, A2C and recurrent PPO
+    on the Anakin rollout (auto on ``env=jax_*``), PPO with ``algo.anakin=False``,
+    DreamerV3 (the fused RSSM layout; its encoder on the ``rgb`` key alone) and
+    SAC through the adapter; the losses are finite, a test episode ran, an
+    Anakin run resumes from its snapshot, and ``cli.evaluation`` plays the
+    snapshot."""
+    overrides, path = DEVICE_ENV_RUNS[case]
+    run([*DEVICE_ENV_COMMON, *overrides, f"log_dir={tmp_path}"])
+    banner = capsys.readouterr().out
+    assert path in banner, banner
+    (snapshot,) = _snapshots(tmp_path)
+    with open(glob.glob(f"{tmp_path}/**/metrics.csv", recursive=True)[0]) as f:
+        rows = {name: float(value) for step, name, value in list(csv.reader(f))[1:]}
+    losses = [n for n in rows if n.startswith("Loss/")]
+    assert losses and all(math.isfinite(rows[n]) for n in losses)
+    assert "Test/cumulative_reward" in rows
+    if path == "Anakin":
+        # a resume goes on with the update counter and all three generators (the envs' among them)
+        state = load_step_dir(snapshot)
+        assert "Rewards/rew_avg" in rows and state["policy_step"] == 32 and state["update"] == 2
+        assert set(state["generators"]) == {"train", "player", "env"}
+        run([*DEVICE_ENV_COMMON, *overrides, "algo.total_steps=64", "algo.run_test=False",
+             f"checkpoint.resume_from={snapshot}", f"log_dir={tmp_path / 'resumed'}"])
+        (snapshot,) = _snapshots(tmp_path / "resumed")
+        after = load_step_dir(snapshot)
+        assert after["update"] == 4 and after["policy_step"] == 64
+        assert not torch.equal(after["generators"]["env"], state["generators"]["env"])
+    reward = evaluation([f"checkpoint_path={snapshot}", "fabric.accelerator=cpu"])
+    assert math.isfinite(reward)
+
+
+@pytest.mark.parametrize("overrides,setting", [
+    # the recurrent recipe masks velocities by default: on the Anakin rollout that raises
+    (["exp=ppo_recurrent", "env=jax_cartpole"], "env.mask_velocities"),
+    (["exp=ppo", "env=jax_cartpole", "env.clip_rewards=True"], "env.clip_rewards"),
+    (["exp=a2c", "env=jax_cartpole", "env.action_repeat=2"], "env.action_repeat"),
+    (["exp=ppo", "env=jax_cartpole", "env.reward_as_observation=True"], "env.reward_as_observation"),
+    (["exp=ppo", "env=jax_cartpole", "env.actions_as_observation.num_stack=2"], "env.actions_as_observation"),
+    (["exp=ppo_atari", "env=jax_forage"], "env.frame_stack"),
+    (["exp=ppo", "env=jax_forage", "env.screen_size=84"], "env.screen_size"),
+    (["exp=ppo", "env=jax_forage", "env.grayscale=True"], "env.grayscale"),
+], ids=["recurrent-mask_velocities", "clip_rewards", "action_repeat", "reward_as_observation",
+        "actions_as_observation", "frame_stack", "screen_size", "grayscale"])
+def test_anakin_refuses_the_wrapper_settings_it_does_not_apply(tmp_path, overrides, setting):
+    """The Anakin rollout steps the bare device env: a wrapper setting that
+    would change it raises, naming the setting, before the run writes a
+    snapshot."""
+    with pytest.raises(NotImplementedError, match=setting):
+        run([*DEVICE_ENV_COMMON, *overrides, "dry_run=True", f"log_dir={tmp_path}"])
+    assert latest_checkpoint(tmp_path) is None
+
+def test_ppo_atari_recipe_sees_four_gray_channels():
+    """``exp=ppo_atari`` on forage resized to 84x84, gray and stacked 4 times:
+    the CNN's first convolution takes Atari's 4 channels of 84x84."""
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo.utils import spaces_to_dims
+    from sheeprl_tpu_torch.config.compose import compose
+    from sheeprl_tpu_torch.fabric import build_fabric
+    from sheeprl_tpu_torch.serve.loader import probe_spaces
+
+    cfg = compose(["exp=ppo_atari", "env=jax_forage", "env.screen_size=84", "env.grayscale=True",
+                   "env.frame_stack=4", "algo.anakin=False", "fabric.accelerator=cpu"])
+    obs_space, act_space = probe_spaces(cfg)
+    assert obs_space["rgb"].shape == (4, 84, 84, 1)
+    agent = build_agent(build_fabric(cfg), *spaces_to_dims(act_space), cfg, obs_space)
+    first = next(m for m in agent.modules() if isinstance(m, torch.nn.Conv2d))
+    assert first.in_channels == 4
+    with torch.no_grad():
+        out, value = agent({"rgb": torch.zeros(2, 84, 84, 4)})
+    assert out.shape == (2, 5) and value.shape == (2, 1)
