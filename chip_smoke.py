@@ -137,6 +137,36 @@ prints no result line):
               gray, 4 frames): the CNN sees 4 channels; env steps/s.
 30. sac pendulum — SAC's recipe on ``jax_pendulum`` through the adapter.
 
+``buffer.device=auto`` puts the replay ring on the card, so phases
+11-15, 28 and 30 train from it; phases 7 and 20-22 pin the host ring
+(``buffer.device=False``), the baselines of phases 32 and 34.
+
+31. replay ring — a ring on the card and one on the CPU fed the same adds
+              (3 envs, a window of 16, 23 steps, subset rows, a
+              ``repair_tail``, wrapping): contents, cursors, uniform batches
+              (with ``derive_next``) and sequence blocks at the same draws,
+              and the ring's and the spill tier's checkpoint round trips
+              equal bit for bit.
+32. replay xl — phase 7's XL recipe with ``buffer.size=1000000`` (the
+              recipe's), ``buffer.transfer_guard=True`` and the default 8 GiB
+              budget, so the window shrinks and the spill (memmapped in the
+              run directory, deleted after) is armed: the window, the ring's
+              bytes on the card, updates/s beside phase 7's from this run,
+              first-update seconds, peak memory, 80 rssm launches in every
+              update, every window after the first under ``steady_guard``.
+33. replay parity — one XL window at the same indices from a card ring and
+              a host ring holding the same adds: the blocks equal bit for
+              bit, one update on each gives the same ten losses.
+34. replay off-policy — SAC, DroQ and SAC-AE on the card's ring at phases
+              20-22's widths, the guard armed: updates/s beside phases
+              20-22's, launches per update and busy share of one update.
+35. replay resume — SAC under a budget that arms the spill, and a small
+              DreamerV3, checkpointed and resumed: the ring a resume loads
+              equals the one saved, and training continues.
+36. replay guard — inside ``steady_guard(True)`` a blocking copy from the
+              host (``torch.tensor(x, device=...)``, a pageable ``.to``) and
+              a read back raise; explicit staging does not.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -144,13 +174,18 @@ Other modes, each alone: ``--timing ROOT`` times the kernels of the port
 under ``ROOT``; ``--first-window`` trains the first window of the default
 XL recipe (1024 updates, about 12 minutes on an H100); ``--on-policy``
 runs phases 16-19 alone, ``--off-policy`` phases 20-24 (they build and
-launch no kernel) and ``--envs`` phases 25-30.
+launch no kernel), ``--envs`` phases 25-30, ``--replay`` phases 31-36
+(beside host-ring runs of phase 7's and phases 20-22's recipes) and
+``--replay-ab`` the host ring and the card's in turns (host, card, card,
+host) for DreamerV3-XL, SAC and SAC-AE, timed alike.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import os
 import re
 import shutil
 import statistics
@@ -213,6 +248,10 @@ XL_TRAIN_STEPS = ("algo.replay_ratio=0.125", "algo.total_steps=81")
 S_TRAIN = (*XL_TRAIN, "algo=dreamer_v3_S", "algo.replay_ratio=0.03125", "algo.total_steps=97",
            "algo.run_test=False", "algo.world_model.recurrent_model.use_pallas=True")
 FUSED = "algo.world_model.recurrent_model.fused_pallas=True"
+# phases 7 and 20-22 keep the host ring (``buffer.device=auto`` is the card's
+# ring): they are the baselines phases 32 and 34 are read beside;
+# ``--first-window`` keeps it too (it measures the host path's chunks)
+HOST_RING = "buffer.device=False"
 # replay ratio 1/16: the first window at step 65 takes int(65 / 16) = 4
 # updates, then one more at step 81
 P2E_XL = ("exp=p2e_dv3_exploration", *XL_TRAIN[1:], FUSED, "algo.replay_ratio=0.0625", "algo.total_steps=81")
@@ -274,11 +313,11 @@ OFF_POLICY = ("env=dummy", "env.id=continuous_dummy", "fabric.accelerator=gpu", 
               "checkpoint.async_save=False", "buffer.memmap=False", "buffer.checkpoint=False", "env.num_envs=1",
               "seed=5")
 # a prefill of 100 random steps, which the first window repays (100 updates), then one update per step: 400
-SAC_STATE = ("exp=sac", *OFF_POLICY, "algo.learning_starts=100", "algo.total_steps=400")
+SAC_STATE = ("exp=sac", *OFF_POLICY, HOST_RING, "algo.learning_starts=100", "algo.total_steps=400")
 # replay ratio 20: the first window at step 50 takes 1,000 updates, then 20 per step: 1,200
-DROQ_STATE = ("exp=droq", *OFF_POLICY, "algo.learning_starts=50", "algo.total_steps=60")
+DROQ_STATE = ("exp=droq", *OFF_POLICY, HOST_RING, "algo.learning_starts=50", "algo.total_steps=60")
 # the recipe's prefill of 1,000 steps cut to 128: 128 updates in the first window, then 50 more
-SAC_AE_RGB = ("exp=sac_ae", *OFF_POLICY, "algo.learning_starts=128", "algo.total_steps=178")
+SAC_AE_RGB = ("exp=sac_ae", *OFF_POLICY, HOST_RING, "algo.learning_starts=128", "algo.total_steps=178")
 # One SAC train phase (U 8, batch 256) and one SAC-AE train phase (U 4, batch
 # 128) on the card against the CPU (phase 23), stepped with SGD for every
 # group for phase 17's reason; the recipe's Adam is reported beside it.
@@ -654,14 +693,18 @@ LOSS_NAMES = ("Loss/world_model_loss", "Loss/observation_loss", "Loss/reward_los
 
 
 def _train(torch, overrides, log_dir: Path, kernel, per_update_launches: int = LAUNCHES_PER_UPDATE,
-           trainer_cls=None, metric_names=LOSS_NAMES) -> dict:
+           trainer_cls=None, metric_names=LOSS_NAMES, events_only: bool = False) -> dict:
     """One training run through ``cli.run`` with every launch count zeroed
     just before and read just after, each update timed (the device
     synchronised around it) with its own launches; returns the per-update
     numbers, the counts, the snapshot and the logged metrics.  ``kernel``
     (``rssm`` or ``gru``) must launch ``per_update_launches`` times in every
     update; ``None``: no kernel may launch at all.  ``trainer_cls`` is the
-    trainer whose ``train_step`` runs (DreamerV3's by default)."""
+    trainer whose ``train_step`` runs (DreamerV3's by default).  Every
+    update is also timed by CUDA events around it (``updates_per_s_events``:
+    the device timeline from its first launch to its last finishing); with
+    ``events_only`` (a run whose windows run under ``steady_guard``, where
+    the host may not wait on the device) those are its only times."""
     import csv
 
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer
@@ -673,17 +716,23 @@ def _train(torch, overrides, log_dir: Path, kernel, per_update_launches: int = L
     def counts_now():
         return {"rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]}
 
-    seconds, launches, intrinsic = [], [], []
+    seconds, launches, intrinsic, events = [], [], [], []
     train_step = trainer_cls.train_step
 
     def timed_step(self, *args, **kwargs):
-        torch.cuda.synchronize()
+        if not events_only:
+            torch.cuda.synchronize()
         t0, before = time.perf_counter(), counts_now()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         out = train_step(self, *args, **kwargs)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
+        end.record()
+        events.append((start, end))
+        if not events_only:
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
         launches.append({k: n - before[k] for k, n in counts_now().items()})
-        if getattr(self, "last_intrinsic", None) is not None:
+        if not events_only and getattr(self, "last_intrinsic", None) is not None:
             intrinsic.append(float(self.last_intrinsic))
         return out
 
@@ -698,6 +747,10 @@ def _train(torch, overrides, log_dir: Path, kernel, per_update_launches: int = L
     finally:
         trainer_cls.train_step = train_step
     wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    event_s = [a.elapsed_time(b) / 1e3 for a, b in events]
+    if events_only:
+        seconds = event_s
     counts = counts_now()
     peak = torch.cuda.max_memory_allocated()
     snapshots = sorted(log_dir.glob("**/checkpoint/step_*"))
@@ -721,14 +774,17 @@ def _train(torch, overrides, log_dir: Path, kernel, per_update_launches: int = L
     if intrinsic and not np.isfinite(intrinsic).all():
         raise AssertionError(f"intrinsic reward not finite: {intrinsic}")
     steady = statistics.median(seconds[1:]) if len(seconds) > 1 else seconds[0]
+    steady_events = statistics.median(event_s[1:]) if len(event_s) > 1 else event_s[0]
     out = {"updates": len(seconds), "first_update_s": seconds[0], "updates_per_s": 1.0 / steady,
+           "updates_per_s_events": 1.0 / steady_events, "event_s": event_s,
            "median_update_s": steady, "peak_bytes": peak, "counts": counts, "per_update": per_update,
            "update_launches": launches,
            "snapshot": snapshots[-1], "wall_s": wall, "logged": {n: logged[n] for n in metric_names},
            "intrinsic": intrinsic}
     shown = ", ".join(f"{x:.4f}" for x in seconds[:12]) + (", ..." if len(seconds) > 12 else "")
     log(f"[train] {len(seconds)} updates in a {wall:.1f} s run: first update {seconds[0]:.3f} s, then median "
-        f"{steady:.4f} s = {1.0 / steady:.3f} updates/s (updates {shown} s); peak device memory "
+        f"{steady:.4f} s = {1.0 / steady:.3f} updates/s ({'CUDA events' if events_only else 'wall'}; updates {shown} "
+        f"s; by CUDA events {1.0 / steady_events:.3f} updates/s); peak device memory "
         f"{peak / 2**30:.2f} GiB; {kernel} launches per update {sorted(set(per_update))}, run total {counts}")
     log("[train] metrics " + ", ".join(f"{n} {logged[n]:.6g}" for n in metric_names)
         + (f"; intrinsic reward per update {', '.join(f'{x:.6g}' for x in intrinsic)}" if intrinsic else ""))
@@ -1295,26 +1351,34 @@ def phase_on_policy_family(torch, run_root: Path) -> dict:
 
 
 # -- the off-policy algorithms -----------------------------------------------
-def _train_off_policy(torch, overrides, log_dir: Path, trainer_cls) -> dict:
+def _train_off_policy(torch, overrides, log_dir: Path, trainer_cls, events_only: bool = False) -> dict:
     """One off-policy run through ``cli.run`` with every launch count zeroed
     just before and read just after (none may launch): each update timed
-    with the device synchronised around it, and each train window's end
-    (a steady iteration is one env step and its window: the time between
-    two windows' ends).  Keeps the last window's trainer and batches."""
+    with the device synchronised around it (with ``events_only``, by CUDA
+    events alone: the windows run under ``steady_guard``), and each train
+    window's end (a steady iteration is one env step and its window: the
+    time between two windows' ends).  Keeps the last window's trainer and
+    batches."""
     import csv
 
     from sheeprl_tpu_torch.cli import run
     from sheeprl_tpu_torch.ops import gru, rssm
 
-    seconds, ends, kept = [], [], {}
+    seconds, ends, kept, events = [], [], {}, []
     update, train_phase = trainer_cls.update, trainer_cls.train_phase
 
     def timed_update(self, *args, **kwargs):
-        torch.cuda.synchronize()
+        if not events_only:
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         out = update(self, *args, **kwargs)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
+        end.record()
+        events.append((start, end))
+        if not events_only:
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
         return out
 
     def kept_phase(self, batches, *args, **kwargs):
@@ -1334,6 +1398,10 @@ def _train_off_policy(torch, overrides, log_dir: Path, trainer_cls) -> dict:
     finally:
         trainer_cls.update, trainer_cls.train_phase = update, train_phase
     wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    event_s = [a.elapsed_time(b) / 1e3 for a, b in events]
+    if events_only:
+        seconds = event_s
     counts = {"rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]}
     peak = torch.cuda.max_memory_allocated()
     if any(counts.values()):
@@ -1347,13 +1415,16 @@ def _train_off_policy(torch, overrides, log_dir: Path, trainer_cls) -> dict:
     if missing:
         raise AssertionError(f"metrics missing or not finite: {missing}")
     steady = statistics.median(seconds[1:])
+    steady_events = statistics.median(event_s[1:])
     iteration = statistics.median(b - a for a, b in zip(ends, ends[1:]))
     out = {"updates": len(seconds), "windows": len(ends), "first_update_s": seconds[0],
-           "median_update_s": steady, "updates_per_s": 1.0 / steady, "env_steps_per_s": 1.0 / iteration,
+           "median_update_s": steady, "updates_per_s": 1.0 / steady, "updates_per_s_events": 1.0 / steady_events,
+           "env_steps_per_s": 1.0 / iteration,
            "peak_bytes": peak, "counts": counts, "snapshot": snapshots[-1], "wall_s": wall,
            "logged": {n: logged[n] for n in trainer_cls.LOSS_NAMES}, **kept}
     log(f"[{log_dir.name}] {len(seconds)} updates in {len(ends)} windows, a {wall:.1f} s run: first update "
-        f"{seconds[0]:.4f} s, then median {steady * 1e3:.3f} ms = {out['updates_per_s']:.1f} updates/s; a steady "
+        f"{seconds[0]:.4f} s, then median {steady * 1e3:.3f} ms = {out['updates_per_s']:.1f} updates/s "
+        f"({'CUDA events' if events_only else 'wall'}; by CUDA events {1.0 / steady_events:.1f}); a steady "
         f"iteration (one env step and its window) {iteration * 1e3:.3f} ms = {out['env_steps_per_s']:.1f} env "
         f"steps/s; peak device memory {peak / 2**30:.3f} GiB; launches {counts}")
     log(f"[{log_dir.name}] metrics " + ", ".join(f"{n} {logged[n]:.6g}" for n in trainer_cls.LOSS_NAMES))
@@ -1827,6 +1898,472 @@ def envs_summary(envs: dict) -> dict:
     }
 
 
+# -- the device-resident replay (phases 31-36) --------------------------------
+# Phase 32: phase 7's XL recipe on the recipe's million-step ring
+# (configs/exp/dreamer_v3.yaml), on the card by buffer.device=auto, under the
+# default 8 GiB budget: the window shrinks and the host spill, memmapped in
+# the run directory, shadows the whole million.  Replay ratio 1/8: 8 updates
+# at step 65, then one every 8 env steps: 12 by step 97, the last 4 windows
+# under the guard.
+REPLAY_DV3_XL = (*(o for o in XL_TRAIN if not o.startswith(("buffer.size", "buffer.memmap"))), FUSED,
+                 "buffer.size=1000000", "buffer.memmap=True", "buffer.transfer_guard=True",
+                 "algo.replay_ratio=0.125", "algo.total_steps=97", "algo.run_test=False")
+# Phase 34: phases 20-22's widths on the card's ring, the guard armed; DroQ's
+# first window cut from 1,000 updates to 500, then 20 a step: 700
+REPLAY_OFF_POLICY = {
+    "sac": (*(o for o in SAC_STATE if o != HOST_RING), "buffer.transfer_guard=True"),
+    "droq": (*(o for o in DROQ_STATE if o not in (HOST_RING, "algo.learning_starts=50", "algo.total_steps=60")),
+             "algo.learning_starts=25", "algo.total_steps=35", "buffer.transfer_guard=True"),
+    "sac_ae": (*(o for o in SAC_AE_RGB if o != HOST_RING), "buffer.transfer_guard=True"),
+}
+# Phase 35: SAC under a byte budget of 256 steps (a step is 48 bytes: the
+# observation and the next one, 4 x fp32 each, the 2-wide action, reward and
+# terminated), so the spill is armed and the checkpoint comes from it; the
+# first run wraps the window (300 steps, 200 updates), the resumed one
+# re-waits the 100-step prefill and trains 100 more.  Then a small
+# DreamerV3 (the XS preset, 2 envs) whose checkpoint is the ring itself.
+REPLAY_SAC_BUDGET = 48 * 256
+REPLAY_SAC_RESUME = ("exp=sac", *(o for o in OFF_POLICY if o != "buffer.checkpoint=False"), "buffer.checkpoint=True",
+                     "buffer.transfer_guard=True", "algo.learning_starts=100")
+REPLAY_DV3_SMALL = ("exp=dreamer_v3", "env=dummy", "env.id=discrete_dummy", "algo=dreamer_v3_XS", "env.num_envs=2",
+                    "fabric.accelerator=gpu", "metric/logger=csv", "checkpoint.save_last=True",
+                    "checkpoint.every=1000000000", "checkpoint.async_save=False", "buffer.memmap=False",
+                    "buffer.checkpoint=True", "buffer.size=400", "buffer.transfer_guard=True",
+                    "algo.per_rank_batch_size=4", "algo.per_rank_sequence_length=16", "algo.learning_starts=40",
+                    "algo.replay_ratio=0.25", "algo.cnn_keys.encoder=[rgb]", "algo.mlp_keys.encoder=[state]",
+                    "algo.run_test=False", "seed=5")
+# (first run's policy steps, the resumed run's, whether the checkpoint comes from the spill)
+REPLAY_RESUMES = {"sac": (REPLAY_SAC_RESUME, 300, 500, True), "dv3": (REPLAY_DV3_SMALL, 120, 240, False)}
+
+
+def _host(x):
+    return x.detach().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
+
+
+def _same(a, b) -> bool:
+    """Two snapshots (nested dicts and lists of arrays, tensors and scalars) equal bit for bit."""
+    if isinstance(a, dict):
+        return isinstance(b, dict) and set(a) == set(b) and all(_same(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    x, y = _host(a), _host(b)
+    return x.shape == y.shape and x.dtype == y.dtype and np.array_equal(x, y)
+
+
+def phase_replay_ring(torch) -> dict:
+    """Phase 31: one ring on the card and one on the CPU fed the same adds (3
+    envs, a window of 16, 23 steps with a row for env 2 alone every 4th, one
+    ``repair_tail``, wrapping): contents and cursors, the uniform batches
+    (with ``derive_next``) and sequence blocks gathered at the same draws,
+    and both checkpoint round trips (the ring's snapshot and the spill
+    tier's) equal bit for bit."""
+    from sheeprl_tpu_torch.data.device_replay import DeviceReplay, HostSpill, draw_sequence, draw_uniform
+
+    def filled(device, spill: bool):
+        rng = np.random.default_rng(31)
+        rb = DeviceReplay(16, 3, device, spill=HostSpill(40, 3, sequential=True) if spill else None)
+        for t in range(23):
+            rows = {"obs": rng.standard_normal((1, 3, 4)).astype(np.float32),
+                    "rgb": rng.integers(0, 256, (1, 3, 64, 64, 3), dtype=np.uint8),
+                    **{k: (rng.random((1, 3, 1)) < 0.2).astype(np.float32)
+                       for k in ("terminated", "truncated", "is_first")}}
+            rb.add(rows)
+            if t % 4 == 0:
+                rb.add({k: v[:, :1] for k, v in rows.items()}, indices=[2])
+            if t == 11:
+                rb.repair_tail(1)
+        return rb
+
+    def tail_patched(rb):
+        ring = {k: v.clone() for k, v in rb.buffers.items()}
+        ring["truncated"][torch.as_tensor((rb._pos_h - 1) % rb.capacity), torch.arange(rb.n_envs)] = 1.0
+        return ring
+
+    t0 = time.perf_counter()
+    cpu, card = filled("cpu", False), filled(CARD, False)
+    bad = [k for k in cpu.keys() if not torch.equal(cpu.buffers[k], card.buffers[k].cpu())]
+    bad += [f"cursor {c}" for c in ("pos", "filled") if not torch.equal(cpu.cursor[c], card.cursor[c].cpu())]
+    gen = torch.Generator().manual_seed(31)
+    uniform, sequence = draw_uniform(gen, 64, 3), draw_sequence(gen, 24, 3)
+    for derive in (False, True):
+        idx = [rb.uniform_indices_from(*(d.to(rb.device) for d in uniform), sample_next_obs=derive) for rb in (cpu, card)]
+        got = [rb.sample_uniform(None, 16, 4, derive_next=("obs", "rgb") if derive else (), indices=i)
+               for rb, i in zip((cpu, card), idx)]
+        bad += [f"uniform{'+next' * derive} {k}" for k in got[0] if not torch.equal(got[0][k], got[1][k].cpu())]
+    idx = [rb.sequence_indices_from(*(d.to(rb.device) for d in sequence), 5) for rb in (cpu, card)]
+    got = [rb.sample_sequences(None, 8, 5, 3, indices=i) for rb, i in zip((cpu, card), idx)]
+    bad += [f"sequence {k}" for k in got[0] if not torch.equal(got[0][k], got[1][k].cpu())]
+    state = card.state_dict()
+    bad += [] if _same(state, cpu.state_dict()) else ["the ring's snapshot"]
+    again = DeviceReplay(16, 3, CARD).load_state_dict(state)
+    bad += [] if _same(again.buffers, tail_patched(card)) else ["the ring restored from its snapshot"]
+    cpu_s, card_s = filled("cpu", True), filled(CARD, True)
+    state = card_s.state_dict()
+    bad += [] if state["device_replay"]["from_spill"] and _same(state, cpu_s.state_dict()) else ["the spill's snapshot"]
+    again_s = DeviceReplay(16, 3, CARD, spill=HostSpill(40, 3, sequential=True)).load_state_dict(state)
+    bad += [] if _same(again_s.buffers, tail_patched(card_s)) else ["the ring restored from the spill"]
+    bad += [] if _same(again_s.cursor, card_s.cursor) else ["the cursors restored from the spill"]
+    for rb in (cpu_s, card_s, again_s):
+        rb.spill.close()
+    log(f"[replay-ring] card vs CPU, 3 envs x window 16, 23 steps + subset rows + repair_tail: {len(cpu.keys())} "
+        f"ring tensors, both cursors, 2 x 64 uniform draws, 24 sequences of 5, the ring's and the spill's "
+        f"snapshots and their restores: {'all equal bit for bit' if not bad else 'DIFFER: ' + ', '.join(bad)} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if bad:
+        raise AssertionError(f"the card's ring differs from the CPU's: {bad}")
+    return {"checked": True}
+
+
+def phase_replay_dv3(torch, run_root: Path, host: dict) -> dict:
+    """Phase 32: DreamerV3-XL on the card's ring through ``cli.run``
+    (``REPLAY_DV3_XL``): the window, the ring's bytes on the card, updates/s
+    beside phase 7's host ring from the same run, 80 rssm launches in every
+    update, every window after the first under ``steady_guard``."""
+    from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3
+    from sheeprl_tpu_torch.data.device_replay import DeviceReplay
+
+    seen, flags = {}, []
+    init, add, guard = DeviceReplay.__init__, DeviceReplay.add, dreamer_v3.steady_guard
+
+    def spy_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        seen["rb"] = self
+
+    def spy_add(self, data, indices=None):
+        if "ring_bytes" in seen:
+            return add(self, data, indices)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        add(self, data, indices)  # the first add allocates every key of the ring
+        torch.cuda.synchronize()
+        seen["ring_bytes"] = torch.cuda.memory_allocated() - before
+
+    @contextlib.contextmanager
+    def spy_guard(enabled):
+        flags.append(bool(enabled))
+        with guard(enabled):
+            yield
+
+    DeviceReplay.__init__, DeviceReplay.add, dreamer_v3.steady_guard = spy_init, spy_add, spy_guard
+    try:
+        run_ = _train(torch, REPLAY_DV3_XL, run_root / "replay_xl", "rssm", events_only=True)
+    finally:
+        DeviceReplay.__init__, DeviceReplay.add, dreamer_v3.steady_guard = init, add, guard
+    rb = seen.pop("rb")
+    if rb.device.type != torch.device(CARD).type or rb.spill is None or not rb.capacity < 1_000_000 or rb.spill.degraded:
+        raise AssertionError(f"expected a card ring under the budget with a healthy spill: {rb.device}, window "
+                             f"{rb.capacity}, spill {rb.spill}")
+    if run_["counts"]["gru"] or flags[0] or flags != sorted(flags) or flags.count(True) < 3:
+        raise AssertionError(f"launches {run_['counts']}, guarded windows {flags}")
+    memmaps = sorted((run_root / "replay_xl").glob("**/memmap_buffer"))
+    files = [f for d in memmaps for f in d.rglob("*") if f.is_file()]
+    apparent, on_disk = sum(f.stat().st_size for f in files), sum(f.stat().st_blocks * 512 for f in files)
+    for d in memmaps:
+        shutil.rmtree(d)
+    if not memmaps or any(d.exists() for d in memmaps):
+        raise AssertionError(f"the spill's memmap under the run directory: {memmaps}")
+    out = {"window": rb.capacity, "ring_bytes": seen["ring_bytes"], "hbm_bytes": rb.hbm_bytes,
+           "spill_files_bytes": apparent, "spill_disk_bytes": on_disk, "guarded_windows": flags.count(True),
+           **{k: run_[k] for k in ("updates", "updates_per_s", "first_update_s", "peak_bytes", "per_update",
+                                    "update_launches", "counts", "event_s")}}
+    log(f"[replay-xl] DreamerV3-XL on the card's ring: buffer.size 1,000,000 -> a window of {rb.capacity:,} steps, "
+        f"{seen['ring_bytes'] / 2**30:.3f} GiB on the card (torch.cuda.memory_allocated across the first add; the "
+        f"ring's tensors {rb.hbm_bytes / 2**30:.3f} GiB); the spill's memmap {apparent / 2**30:.2f} GiB in files, "
+        f"{on_disk / 2**20:.1f} MiB on disk, deleted; {run_['updates']} updates, {flags.count(True)} of "
+        f"{len(flags)} chunks under steady_guard; {run_['updates_per_s']:.3f} updates/s (CUDA events), first update "
+        f"{run_['first_update_s']:.3f} s, peak {run_['peak_bytes'] / 2**30:.2f} GiB, rssm launches per update "
+        f"{sorted(set(run_['per_update']))}; phase 7's host ring in this run: {host['updates_per_s_events']:.3f} "
+        f"updates/s (CUDA events), {host['updates_per_s']:.3f} (wall), first update {host['first_update_s']:.3f} s, "
+        f"peak {host['peak_bytes'] / 2**30:.2f} GiB")
+    return out
+
+
+def phase_replay_window_parity(torch, snapshot: Path) -> dict:
+    """Phase 33: one XL window at the same indices from a card ring and from
+    a host ring holding the same adds (2 envs, a window of 144, 200 steps
+    and a row for env 1 alone every 7th): the blocks equal bit for bit, and
+    one update on each (phase 7's weights, the same noise and categorical
+    samples) gives the same ten losses."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import blocks_to_device, draw_noise, prep_blocks
+    from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, SequentialReplayBuffer
+    from sheeprl_tpu_torch.data.device_replay import DeviceReplay
+    from sheeprl_tpu_torch.utils.distribution import OneHotCategorical
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, trainer, dims = _trainer_from_snapshot(torch, snapshot)
+    L, B, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size), int(cfg.algo.horizon)
+    cap, E = 2 * L + 16, 2
+    card = DeviceReplay(cap, E, CARD)
+    host = EnvIndependentReplayBuffer(cap, n_envs=E, buffer_cls=SequentialReplayBuffer)
+    rng = np.random.default_rng(33)
+    for t in range(200):
+        rows = {"rgb": rng.integers(0, 256, (1, E, 64, 64, 3), dtype=np.uint8),
+                "state": rng.standard_normal((1, E, 4)).astype(np.float32),
+                "actions": np.eye(dims[0], dtype=np.float32)[rng.integers(0, dims[0], (1, E))],
+                **{k: (rng.random((1, E, 1)) < 0.02).astype(np.float32)
+                   for k in ("rewards", "terminated", "truncated", "is_first")}}
+        for rb in (card, host):
+            rb.add(rows)
+            if t % 7 == 0:
+                rb.add({k: v[:, 1:] for k, v in rows.items()}, indices=[1])
+    t_idx, env = card.sequence_indices(torch.Generator(CARD).manual_seed(33), B, L)
+    card_blocks = prep_blocks(card.sample_sequences(None, B, L, 1, indices=(t_idx, env)), trainer.cnn_keys,
+                              trainer.mlp_keys)
+    t_h, e_h = t_idx.cpu().numpy(), env.cpu().numpy()
+    sample = {k: np.stack([host.buffer[e][k][t_h[i], 0] for i, e in enumerate(e_h)], axis=1)[None]
+              for k in host.buffer[0].keys()}
+    host_blocks = blocks_to_device(sample, trainer.cnn_keys, trainer.mlp_keys, CARD)
+    unequal = sorted(set(card_blocks) ^ set(host_blocks)) + [
+        k for k in host_blocks if k in card_blocks and not torch.equal(host_blocks[k], card_blocks[k])]
+    if unequal:
+        raise AssertionError(f"the card ring's blocks differ from the host ring's: {unequal}")
+
+    # the layer this phase holds: one update's (L, B) block made ready on the
+    # card, drawn and gathered there, against sampled on the host and copied
+    def timed_ms(make, n: int = 20) -> float:
+        make()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            make()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return statistics.median(times) * 1e3
+
+    gen = torch.Generator(CARD).manual_seed(1)
+    block_ms = {
+        "card": timed_ms(lambda: prep_blocks(card.sample_sequences(gen, B, L, 1), trainer.cnn_keys, trainer.mlp_keys)),
+        "host": timed_ms(lambda: blocks_to_device(host.sample(B, n_samples=1, sequence_length=L), trainer.cnn_keys,
+                                                  trainer.mlp_keys, CARD)),
+    }
+    block_bytes = sum(v.numel() * v.element_size() for v in card_blocks.values())
+
+    noise = draw_noise(trainer.world_model, trainer.actor, 1, L, B, H, torch.Generator(CARD).manual_seed(33),
+                       trainer.task_rollout)
+    start = trainer.snapshot()
+    samples, replay = [], {"on": False, "i": 0}
+    sample_from_noise = OneHotCategorical.sample_from_noise
+
+    def recorded_sample(self, n):
+        if replay["on"]:
+            replay["i"] += 1
+            return samples[replay["i"] - 1]
+        samples.append(sample_from_noise(self, n))
+        return samples[-1]
+
+    OneHotCategorical.sample_from_noise = recorded_sample
+    try:
+        card_m = np.array([float(m) for m in trainer.train_phase(card_blocks, noise, 1)])
+        trainer.restore(start)
+        replay["on"] = True
+        host_m = np.array([float(m) for m in trainer.train_phase(host_blocks, noise, 1)])
+    finally:
+        OneHotCategorical.sample_from_noise = sample_from_noise
+    rel = np.abs(card_m - host_m) / np.maximum(np.abs(host_m), 1e-6)
+    log(f"[replay-parity] one XL window (batch {B} x sequence {L}) at the same indices: {len(host_blocks)} blocks "
+        f"equal bit for bit; one update on each: {int((card_m == host_m).sum())} of 10 losses equal bit for bit, "
+        f"max rel diff {rel.max():.3g} (limit {TRAIN_TOL_REL}; {len(samples)} categorical samples replayed); one "
+        f"update's block ({block_bytes / 2**20:.2f} MiB) ready on the card in {block_ms['card']:.3f} ms drawn and "
+        f"gathered there, {block_ms['host']:.3f} ms sampled on the host and copied (medians of 20, synchronised)")
+    if not (rel.max() <= TRAIN_TOL_REL and np.isfinite(card_m).all()):
+        raise AssertionError(f"the update on the card ring's blocks differs: {card_m} vs {host_m}")
+    del trainer, start
+    torch.cuda.empty_cache()
+    return {"blocks_equal": True, "losses_equal": int((card_m == host_m).sum()), "loss_rel": float(rel.max()),
+            "block_ms": block_ms, "block_bytes": block_bytes}
+
+
+def phase_replay_off_policy(torch, run_root: Path, host: dict) -> dict:
+    """Phase 34: SAC, DroQ and SAC-AE on the card's ring at phases 20-22's
+    widths, the guard armed: updates/s beside phases 20-22's host ring,
+    launches per update and the busy share of one update drawn from the ring."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sheeprl_tpu_torch.algos.sac import sac
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import SACAETrainer
+
+    out = {}
+    guard, fused = sac.steady_guard, sac.fused_uniform_train
+    for name, trainer_cls in (("sac", sac.SACTrainer), ("droq", sac.SACTrainer), ("sac_ae", SACAETrainer)):
+        flags, last = [], {}
+
+        @contextlib.contextmanager
+        def spy_guard(enabled, flags=flags):
+            flags.append(bool(enabled))
+            with guard(enabled):
+                yield
+
+        def spy_fused(*args, last=last):
+            last["args"] = args
+            return fused(*args)
+
+        sac.steady_guard, sac.fused_uniform_train = spy_guard, spy_fused
+        try:
+            run_ = _train_off_policy(torch, REPLAY_OFF_POLICY[name], run_root / f"{name}_replay", trainer_cls,
+                                     events_only=True)
+        finally:
+            sac.steady_guard, sac.fused_uniform_train = guard, fused
+        if flags[0] or flags != sorted(flags) or flags.count(True) < 3:
+            raise AssertionError(f"{name}: guarded chunks {flags}")
+        trainer, replay, generator, batch_size, _, prep, _ = last["args"]
+
+        def one():
+            fused(trainer, replay, generator, batch_size, 1, prep, 0)
+
+        one()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            one()
+            torch.cuda.synchronize()
+        total, launches = _log_profile(f"{name}-replay", prof, wall_ms,
+                                       f"one {name} update drawn and gathered from the card's ring")
+        run_.pop("trainer", None)
+        run_.pop("batches", None)
+        out[name] = {**{k: run_[k] for k in ("updates", "updates_per_s", "first_update_s", "peak_bytes",
+                                             "env_steps_per_s")},
+                     "guarded_windows": flags.count(True), "update_device_ms": total, "update_wall_ms": wall_ms,
+                     "update_launches": launches, "busy": total / wall_ms}
+        h = host[name]
+        log(f"[{name}-replay] the card's ring: {run_['updates_per_s']:.1f} updates/s (CUDA events), "
+            f"{run_['env_steps_per_s']:.1f} env steps/s, {flags.count(True)} of {len(flags)} chunks guarded, "
+            f"{launches} launches per update, busy {total / wall_ms:.1%}; phase "
+            f"{ {'sac': 20, 'droq': 21, 'sac_ae': 22}[name]}'s host ring in this run: "
+            f"{h['updates_per_s_events']:.1f} updates/s (CUDA events), {h['updates_per_s']:.1f} (wall), "
+            f"{h['env_steps_per_s']:.1f} env steps/s")
+        del trainer, replay, last
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_replay_resume(torch, run_root: Path) -> dict:
+    """Phase 35: a run on the card's ring checkpointed and resumed: SAC
+    whose snapshot comes from the spill tier, and a small DreamerV3 whose
+    snapshot is the ring with its tail patch; the ring a resume loads equals
+    the one saved, and training continues."""
+    from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.data.device_replay import DeviceReplay
+
+    saves, loads, out = [], [], {}
+    state_dict, load_state_dict = DeviceReplay.state_dict, DeviceReplay.load_state_dict
+    budget = os.environ.get("SHEEPRL_REPLAY_BUDGET_BYTES")
+
+    def spy_save(self):
+        saves.append(({k: v.clone() for k, v in self.buffers.items()}, self._pos_h.copy()))
+        return state_dict(self)
+
+    def spy_load(self, state):
+        done = load_state_dict(self, state)
+        loads.append({k: v.clone() for k, v in self.buffers.items()})
+        return done
+
+    DeviceReplay.state_dict, DeviceReplay.load_state_dict = spy_save, spy_load
+    try:
+        for name, (overrides, first, second, spilled) in REPLAY_RESUMES.items():
+            t0 = time.perf_counter()
+            if spilled:
+                os.environ["SHEEPRL_REPLAY_BUDGET_BYTES"] = str(REPLAY_SAC_BUDGET)
+            saves.clear()
+            loads.clear()
+            run([*overrides, f"algo.total_steps={first}", f"log_dir={run_root / f'{name}_resume_a'}"])
+            snapshot = sorted((run_root / f"{name}_resume_a").glob("**/checkpoint/step_*"))[-1]
+            saved = load_step_dir(snapshot)
+            ring, pos = saves[-1]
+            run([*overrides, f"algo.total_steps={second}", f"checkpoint.resume_from={snapshot}",
+                 f"log_dir={run_root / f'{name}_resume_b'}"])
+            _restore_env("SHEEPRL_REPLAY_BUDGET_BYTES", budget)
+            resumed = load_step_dir(sorted((run_root / f"{name}_resume_b").glob("**/checkpoint/step_*"))[-1])
+            if "truncated" in ring:  # no next rows: the write-head rows carry the checkpoint's truncation mark
+                cap = ring["truncated"].shape[0]
+                ring["truncated"][torch.as_tensor((pos - 1) % cap), torch.arange(len(pos))] = 1.0
+            (loaded,) = loads
+            equal = _same(ring, loaded)
+            from_spill = bool(saved["rb"]["device_replay"]["from_spill"])
+            out[name] = {"window": int(next(iter(ring.values())).shape[0]), "from_spill": from_spill,
+                         "ring_equal": equal, "grad_steps": (int(saved["grad_steps"]), int(resumed["grad_steps"]))}
+            log(f"[{name}-resume] window {out[name]['window']}, snapshot from the "
+                f"{'spill tier' if from_spill else 'ring'}: the resumed ring {'equals' if equal else 'DIFFERS FROM'} "
+                f"the saved one bit for bit; gradient steps {saved['grad_steps']} -> {resumed['grad_steps']} "
+                f"({time.perf_counter() - t0:.1f} s)")
+            if not equal or from_spill != spilled or resumed["grad_steps"] <= saved["grad_steps"]:
+                raise AssertionError(f"{name}: resume on the card's ring: {out[name]}")
+    finally:
+        DeviceReplay.state_dict, DeviceReplay.load_state_dict = state_dict, load_state_dict
+        _restore_env("SHEEPRL_REPLAY_BUDGET_BYTES", budget)
+    return out
+
+
+def _restore_env(name: str, value) -> None:
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
+
+
+def phase_replay_guard(torch) -> dict:
+    """Phase 36: inside ``steady_guard(True)`` on the card a blocking copy
+    from the host and a read back raise; explicit staging and work that
+    stays on the card do not."""
+    from sheeprl_tpu_torch.data.device_replay import stage, stage_scalar, steady_guard
+
+    x = torch.ones(1024, device=CARD)
+    probes = {
+        "torch.tensor(x, device=cuda)": lambda: torch.tensor([1.0, 2.0], device=CARD),
+        "a pageable .to(cuda)": lambda: torch.ones(1024).to(CARD),
+        ".item()": lambda: x.sum().item(),
+        ".cpu()": lambda: x.cpu(),
+        "a truth value": lambda: bool(x.sum() > 0),
+    }
+    legal = {
+        "stage (pinned, non-blocking)": lambda: stage(np.ones(1024, np.float32), CARD),
+        "stage_scalar (a fill)": lambda: stage_scalar(0.5, CARD),
+        "work on the card": lambda: (x * 2).sum(),
+    }
+    raised = {}
+    for name, fn in {**probes, **legal, "torch.cuda.synchronize()": torch.cuda.synchronize}.items():
+        try:
+            with steady_guard(True):
+                fn()
+            raised[name] = False
+        except RuntimeError:
+            raised[name] = True
+    torch.cuda.synchronize()
+    log("[replay-guard] inside steady_guard(True): " + "; ".join(
+        f"{name} {'raises' if r else 'passes'}" for name, r in raised.items()))
+    wrong = [n for n in probes if not raised[n]] + [n for n in legal if raised[n]]
+    if wrong:
+        raise AssertionError(f"steady_guard on the card: {wrong} behaved otherwise than required")
+    return raised
+
+
+def phase_replay(torch, run_root: Path, host_dv3: dict, host_off: dict) -> dict:
+    """Phases 31-36, beside phase 7's and phases 20-22's host-ring runs."""
+    t0 = time.perf_counter()
+    out = {"ring": phase_replay_ring(torch)}
+    out["dv3"] = phase_replay_dv3(torch, run_root, host_dv3)
+    out["window_parity"] = phase_replay_window_parity(torch, host_dv3["snapshot"])
+    out["off_policy"] = phase_replay_off_policy(torch, run_root, host_off)
+    out["resume"] = phase_replay_resume(torch, run_root)
+    out["guard"] = phase_replay_guard(torch)
+    log(f"[replay] phases 31-36 in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def replay_summary(replay: dict) -> dict:
+    dv3 = replay["dv3"]
+    return {"dv3_xl": {k: dv3[k] for k in ("window", "ring_bytes", "hbm_bytes", "updates", "updates_per_s",
+                                            "first_update_s", "peak_bytes", "guarded_windows")},
+            "dv3_rssm_per_update": sorted(set(dv3["per_update"])),
+            "window_parity": replay["window_parity"], "off_policy": replay["off_policy"],
+            "resume": replay["resume"], "guard": replay["guard"]}
+
+
 def timing_only(torch, package_root: str) -> int:
     """``--timing ROOT``: build and time the kernels of the port found under
     ``ROOT`` (for example an unpacked older commit) at every timed batch,
@@ -1856,9 +2393,8 @@ def first_window(torch) -> int:
     run_root = ROOT / "build" / "chip_smoke_first_window"
     shutil.rmtree(run_root, ignore_errors=True)
     try:
-        train = _train(torch, [*XL_TRAIN, "algo.world_model.recurrent_model.fused_pallas=True",
-                               "algo.learning_starts=1024", "algo.replay_ratio=1", "algo.total_steps=1024",
-                               "algo.run_test=False"], run_root, "rssm")
+        train = _train(torch, [*XL_TRAIN, FUSED, HOST_RING, "algo.learning_starts=1024", "algo.replay_ratio=1",
+                               "algo.total_steps=1024", "algo.run_test=False"], run_root, "rssm")
     finally:
         shutil.rmtree(run_root, ignore_errors=True)
     if train["updates"] != 1024:
@@ -1930,6 +2466,79 @@ def envs_only(torch) -> int:
     return 0
 
 
+def replay_only(torch) -> int:
+    """``--replay``: phases 31-36 alone, beside host-ring runs of phase 7's
+    and phases 20-22's recipes; one JSON line of their numbers goes last."""
+    from sheeprl_tpu_torch.algos.sac.sac import SACTrainer
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import SACAETrainer
+
+    device = phase_device(torch)
+    phase_build()
+    run_root = ROOT / "build" / "chip_smoke_replay"
+    shutil.rmtree(run_root, ignore_errors=True)
+    try:
+        host_dv3 = _train(torch, [*XL_TRAIN, *XL_TRAIN_STEPS, FUSED, HOST_RING], run_root / "train_xl", "rssm")
+        host_off = {}
+        for name, overrides, trainer_cls in (("sac", SAC_STATE, SACTrainer), ("droq", DROQ_STATE, SACTrainer),
+                                             ("sac_ae", SAC_AE_RGB, SACAETrainer)):
+            host_off[name] = _train_off_policy(torch, overrides, run_root / f"{name}_train", trainer_cls)
+            host_off[name].pop("trainer", None)
+            host_off[name].pop("batches", None)
+        replay = phase_replay(torch, run_root / "replay", host_dv3, host_off)
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    print(json.dumps({**replay_summary(replay), "host_dv3_updates_per_s": host_dv3["updates_per_s_events"],
+                      "host_off_policy_updates_per_s": {n: r["updates_per_s_events"] for n, r in host_off.items()},
+                      "device": device}, default=float), flush=True)
+    return 0
+
+
+# ``--replay-ab``: the ring's place in turns on one card (host, card, card,
+# host), every run timed alike (CUDA events alone, nothing synchronised around
+# an update): phase 7's XL recipe (a 4,096-step ring, no spill) and phases 20
+# and 22's SAC and SAC-AE
+REPLAY_AB = {
+    "dv3_xl": ((*XL_TRAIN, *XL_TRAIN_STEPS, FUSED), "rssm"),
+    "sac": (tuple(o for o in SAC_STATE if o != HOST_RING), None),
+    "sac_ae": (tuple(o for o in SAC_AE_RGB if o != HOST_RING), None),
+}
+
+
+def replay_ab(torch) -> int:
+    """``--replay-ab``: the host ring against the card's ring, in turns, for
+    the recipes of ``REPLAY_AB``; updates/s (per update, CUDA events), env
+    steps/s (off-policy: one env step and its window) and each run's wall
+    seconds.  One JSON line of them goes last."""
+    from sheeprl_tpu_torch.algos.sac.sac import SACTrainer
+    from sheeprl_tpu_torch.algos.sac_ae.sac_ae import SACAETrainer
+
+    device = phase_device(torch)
+    phase_build()
+    run_root = ROOT / "build" / "chip_smoke_replay_ab"
+    shutil.rmtree(run_root, ignore_errors=True)
+    trainers = {"sac": SACTrainer, "sac_ae": SACAETrainer}
+    rows = {}
+    try:
+        for name, (overrides, kernel) in REPLAY_AB.items():
+            for turn, ring in enumerate(("host", "card", "card", "host")):
+                ov, log_dir = (*overrides, f"buffer.device={ring == 'card'}"), run_root / f"{name}_{turn}_{ring}"
+                if name in trainers:
+                    r = _train_off_policy(torch, ov, log_dir, trainers[name], events_only=True)
+                else:
+                    r = _train(torch, ov, log_dir, kernel, events_only=True)
+                row = {"ring": ring, "updates_per_s": r["updates_per_s"], "wall_s": r["wall_s"],
+                       "env_steps_per_s": r.get("env_steps_per_s")}
+                rows.setdefault(name, []).append(row)
+                log(f"[replay-ab] {name}, turn {turn + 1}, the {ring} ring: {row['updates_per_s']:.3f} updates/s"
+                    + (f", {row['env_steps_per_s']:.1f} env steps/s" if row["env_steps_per_s"] else "")
+                    + f", the run {row['wall_s']:.1f} s")
+                shutil.rmtree(log_dir, ignore_errors=True)
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    print(json.dumps({"replay_ab": rows, "device": device}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -1954,6 +2563,10 @@ def main() -> int:
         return off_policy_only(torch)
     if sys.argv[1:2] == ["--envs"]:
         return envs_only(torch)
+    if sys.argv[1:2] == ["--replay"]:
+        return replay_only(torch)
+    if sys.argv[1:2] == ["--replay-ab"]:
+        return replay_ab(torch)
 
     run_root = ROOT / "build" / "chip_smoke"
     shutil.rmtree(run_root, ignore_errors=True)
@@ -1982,8 +2595,7 @@ def main() -> int:
 
         rung = {"rssm": main_rung(served["stats"]), "gru": main_rung(gru_served["stats"])}
         timing = time_kernels(torch, za, sorted({*TIMED_BATCHES, *rung.values()}))
-        train = _train(torch, [*XL_TRAIN, *XL_TRAIN_STEPS, "algo.world_model.recurrent_model.fused_pallas=True"],
-                       run_root / "train_xl", "rssm")
+        train = _train(torch, [*XL_TRAIN, *XL_TRAIN_STEPS, FUSED, HOST_RING], run_root / "train_xl", "rssm")
         if train["counts"]["gru"]:
             raise AssertionError(f"the fused-RSSM training run launched the gru kernel: {train['counts']}")
         train_parity = phase_train_parity(torch, train["snapshot"])
@@ -2009,6 +2621,8 @@ def main() -> int:
         off_policy = phase_off_policy(torch, run_root / "off_policy")
         envs = phase_envs(torch, run_root / "envs")
         log("[envs] " + json.dumps(envs_summary(envs), default=float))
+        replay = phase_replay(torch, run_root / "replay", train, off_policy["train"])
+        log("[replay] " + json.dumps(replay_summary(replay), default=float))
 
         launches = {"rssm": train["counts"]["rssm"], "gru": train_gru["counts"]["gru"]}
         new_paths = {"p2e_explore": p2e, "p2e_finetune": finetune, "decoupled": decoupled}
@@ -2039,6 +2653,8 @@ def main() -> int:
                 by_path[path.replace("-", "_")] = run_["counts"][name]
             by_path["ppo_atari_forage"] = envs["ppo_atari_forage"]["counts"][name]
             by_path["sac_pendulum"] = envs["sac_pendulum"]["counts"][name]
+            by_path["replay_dv3_xl"] = replay["dv3"]["counts"][name]
+            by_path["replay_dv3_xl_per_update"] = max(n[name] for n in replay["dv3"]["update_launches"])
         sources = {
             "rssm": ("sheeprl_tpu_torch/csrc/rssm.cu",
                      "sheeprl_tpu/ops/rssm_pallas.py:70 (_rssm_kernel), sheeprl_tpu/ops/rssm_pallas.py:260 "
@@ -2070,7 +2686,9 @@ def main() -> int:
             f"L2), SAC served {off_policy['serve']['stats']['served']} actions; Anakin PPO "
             f"{envs['ppo']['anakin']['env_steps_per_s']:.0f} env steps/s at 1024 envs (adapter "
             f"{envs['ppo']['adapter']['env_steps_per_s']:.0f} at 16), DV3-XL on forage "
-            f"{envs['dv3_forage']['train']['updates_per_s']:.3f} updates/s; total "
+            f"{envs['dv3_forage']['train']['updates_per_s']:.3f} updates/s; DV3-XL on the card's ring (window "
+            f"{replay['dv3']['window']:,}) {replay['dv3']['updates_per_s']:.3f} updates/s beside the host ring's "
+            f"{train['updates_per_s_events']:.3f} (CUDA events); total "
             f"{time.perf_counter() - t_start:.1f} s")
     except BaseException:
         traceback.print_exc()

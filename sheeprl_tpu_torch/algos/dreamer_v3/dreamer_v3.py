@@ -29,11 +29,15 @@ plain version, as the JAX ``custom_vjp`` does.
 :func:`dreamer_family_loop` is the env/replay/train loop of every Dreamer
 (V1, V2, V3 and their Plan2Explore phases, which differ in modules and
 update, not in the loop): random prefill up to ``learning_starts``, the
-latent player, replay adds with reset rows (a sequential host ring, or the
-``EpisodeBuffer`` with ``buffer.type=episode``), ``Ratio``-governed train
-windows of ``(U, L, B, *)`` blocks (sampled and moved to the device in
-chunks, :func:`window_chunks`), metrics, checkpoints, resume, ``dry_run``
-and the final test episode.
+latent player, replay adds with reset rows, ``Ratio``-governed train windows
+of ``(U, L, B, *)`` blocks, metrics, checkpoints, resume, ``dry_run`` and the
+final test episode.  The replay is the device-resident ring of
+``data/device_replay.py`` when ``buffer.device`` resolves on (``auto``: the
+run's device is CUDA), each window sampled on the device inside
+:func:`~sheeprl_tpu_torch.data.device_replay.fused_sequence_train` in
+power-of-two chunks; otherwise a sequential host ring, or the
+``EpisodeBuffer`` with ``buffer.type=episode``, sampled with numpy and moved
+to the device in chunks (:func:`window_chunks`).
 """
 
 from __future__ import annotations
@@ -59,6 +63,14 @@ from sheeprl_tpu_torch.algos.p2e_utils import choose_actor
 from sheeprl_tpu_torch.algos.ppo.utils import actions_for_env, spaces_to_dims
 from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, EpisodeBuffer, SequentialReplayBuffer
+from sheeprl_tpu_torch.data.device_replay import (
+    build_device_replay,
+    estimate_step_bytes,
+    fused_sequence_train,
+    resolve_device_replay,
+    steady_guard,
+    update_chunks,
+)
 from sheeprl_tpu_torch.fabric import PlayerSync
 from sheeprl_tpu_torch.resilience.health import HealthSentinel
 from sheeprl_tpu_torch.utils.distribution import (
@@ -105,7 +117,6 @@ def check_supported(cfg: Any) -> None:
         "pipeline.microbatches > 1": int(pipe.get("microbatches", 1)) > 1,
         "pipeline.imagination_microbatches > 1": int(pipe.get("imagination_microbatches", 1)) > 1,
         "algo.remat=True": bool(cfg.algo.get("remat", False)),
-        "buffer.device=True": cfg.buffer.get("device", "auto") is True,
     }
     for name, on in deferred.items():
         if on:
@@ -569,6 +580,24 @@ def blocks_to_device(sample: Dict[str, np.ndarray], cnn_keys, mlp_keys, device) 
     return out
 
 
+def prep_blocks(b: Dict[str, torch.Tensor], cnn_keys, mlp_keys) -> Dict[str, torch.Tensor]:
+    """Blocks gathered from the device ring, laid out as
+    :func:`blocks_to_device` lays out a host sample (bit for bit): images
+    uint8 (frame stacks merged into channels), vectors float32 flattened to
+    (U, L, B, -1), ``rewards``/``terminated``/``is_first`` (U, L, B)."""
+    out: Dict[str, torch.Tensor] = {}
+    for k in cnn_keys:
+        x = b[k]
+        out[k] = merge_framestack(x) if x.ndim == 7 else x
+    for k in mlp_keys:
+        x = b[k].to(torch.float32)
+        out[k] = x.reshape(*x.shape[:3], -1)
+    out["actions"] = b["actions"].to(torch.float32)
+    for k in ("rewards", "terminated", "is_first"):
+        out[k] = b[k][..., 0].to(torch.float32)
+    return out
+
+
 def sampled_bytes_per_update(obs_space: Any, cnn_keys, mlp_keys, act_width: int, L: int, B: int) -> int:
     """Bytes of one update's ``(L, B, *)`` block on the device, as
     :func:`blocks_to_device` lays it out."""
@@ -694,13 +723,8 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
     mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
     obs_keys = cnn_keys + mlp_keys
     episodic = cfg.buffer.get("type", "sequential") == "episode"
-    print(
-        f"{cfg.algo.name} on {fabric.device}: player on {player_device}, replay in "
-        + ("an EpisodeBuffer on the host" if episodic else
-           f"a host ring (buffer.device={cfg.buffer.get('device', 'auto')} resolves to the host ring in this port)")
-        + f", {num_envs} env(s) stepped synchronously",
-        flush=True,
-    )
+    # the EpisodeBuffer layout has no ring: it keeps the host path, as in JAX
+    use_device_replay = not episodic and resolve_device_replay(cfg, fabric.device)
 
     state: Dict[str, Any] = dict(initial_state or {})
     if cfg.checkpoint.get("resume_from"):
@@ -739,14 +763,27 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
     # every member of the family samples the same (L, B, *) block per update
     bytes_per_update = sampled_bytes_per_update(obs_space, cnn_keys, mlp_keys, act_width, seq_len, batch_size)
     memmap_dir = os.path.join(log_dir, "memmap_buffer", "rank_0") if cfg.buffer.memmap else None
+    rb: Any
     if episodic:
         rb = EpisodeBuffer(max(int(cfg.buffer.size), seq_len * 4), sequence_length=seq_len, n_envs=num_envs,
                            prioritize_ends=bool(cfg.buffer.get("prioritize_ends", False)),
                            memmap=cfg.buffer.memmap, memmap_dir=memmap_dir)
+        where = "an EpisodeBuffer on the host"
+    elif use_device_replay:
+        # the whole ring on the device, sampled inside the update; capacity
+        # beyond the byte budget's window lives in the host spill tier
+        rb = build_device_replay(cfg, max(int(cfg.buffer.size) // num_envs, seq_len * 2), num_envs, fabric.device,
+                                 estimate_step_bytes(obs_space, obs_keys, extra_bytes=4 * (act_width + 4)),
+                                 sequential=True, memmap_dir=memmap_dir)
+        where = rb.describe()
     else:
         capacity = max(int(cfg.buffer.size) // num_envs, seq_len * 2)
         rb = EnvIndependentReplayBuffer(capacity, n_envs=num_envs, buffer_cls=SequentialReplayBuffer,
                                         memmap=cfg.buffer.memmap, memmap_dir=memmap_dir)
+        where = "a host ring"
+    guard_on = bool(cfg.buffer.get("transfer_guard", False)) and use_device_replay
+    print(f"{cfg.algo.name} on {fabric.device}: player on {player_device}, replay in {where}, "
+          f"{num_envs} env(s) stepped synchronously", flush=True)
     # present only when saved with buffer.checkpoint, or carried over by a
     # finetuning run's buffer.load_from_exploration
     if state.get("rb") is not None:
@@ -777,6 +814,7 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
         step_data[k] = np.zeros((1, num_envs), np.float32)
     step_data["is_first"] = np.ones((1, num_envs), np.float32)
     last_metrics = None
+    train_windows = 0  # the guard arms past the first window
 
     for update in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
@@ -856,6 +894,8 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
         # ---------------- training ---------------------------------------------
         if episodic:
             can_sample = len(rb) > seq_len and len(rb.buffer) > 0
+        elif use_device_replay:
+            can_sample = rb.can_sample_sequences(seq_len)
         else:
             can_sample = any(len(b) > seq_len for b in rb.buffer)
         if update >= learning_starts and can_sample:
@@ -867,17 +907,32 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
                     psync.before_dispatch()
                     # a long window (the first one repays every prefill step)
                     # is sampled, moved and guarded chunk by chunk, as the
-                    # JAX loop dispatches it
-                    for u in window_chunks(per_rank_gradient_steps, bytes_per_update):
-                        sample = rb.sample(batch_size, n_samples=u, sequence_length=seq_len)
-                        blocks = blocks_to_device(sample, cnn_keys, mlp_keys, fabric.device)
-                        del sample
+                    # JAX loop dispatches it.  On the device ring each chunk
+                    # draws and gathers its sequences there: nothing is copied
+                    # from the host, and with buffer.transfer_guard a chunk
+                    # after the first window that waits on the host raises (the
+                    # health check reads its flag after the guarded chunk)
+                    chunks = (update_chunks(per_rank_gradient_steps,
+                                            bytes_per_update=rb.sampled_bytes_per_update(batch_size, seq_len))
+                              if use_device_replay else window_chunks(per_rank_gradient_steps, bytes_per_update))
+                    for u in chunks:
                         backup = trainer.snapshot() if sentinel is not None else None
-                        last_metrics = trainer.train_phase(blocks, train_gen, grad_step_counter)
+                        if use_device_replay:
+                            with steady_guard(guard_on and train_windows > 0):
+                                grad_step_counter, last_metrics = fused_sequence_train(
+                                    trainer, rb, train_gen, batch_size, seq_len, u,
+                                    lambda b: prep_blocks(b, cnn_keys, mlp_keys), grad_step_counter)
+                        else:
+                            sample = rb.sample(batch_size, n_samples=u, sequence_length=seq_len)
+                            blocks = blocks_to_device(sample, cnn_keys, mlp_keys, fabric.device)
+                            del sample
+                            last_metrics = trainer.train_phase(blocks, train_gen, grad_step_counter)
+                            del blocks
+                            grad_step_counter += u
                         if sentinel is not None and not sentinel.check(last_metrics, trainer.tensors(), policy_step):
                             trainer.restore(backup)
-                        del backup, blocks
-                        grad_step_counter += u
+                        del backup
+                    train_windows += 1
                     psync.after_dispatch()
 
         # ---------------- logging ------------------------------------------------
@@ -912,6 +967,8 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
             ckpt_mgr.save(policy_step, ckpt_state)
 
     envs.close()
+    if getattr(rb, "spill", None) is not None:
+        rb.spill.close()
     ckpt_mgr.finalize()
     if cfg.algo.run_test:
         # the deferred-sync player may be a window behind: sync once more

@@ -22,7 +22,10 @@ def moments_update(
     The quantiles interpolate linearly, as ``jnp.quantile`` does
     (``torch.quantile`` takes at most 2**24 elements)."""
     x = x.detach().float().reshape(-1)
-    q = torch.quantile(x, torch.tensor([plow, phigh], device=x.device, dtype=x.dtype))
+    # the percentiles made on the device by fills: a tensor from host data
+    # would be a blocking copy inside a guarded window
+    at = torch.stack([torch.full((), p, device=x.device, dtype=x.dtype) for p in (plow, phigh)])
+    q = torch.quantile(x, at)
     new_low = decay * moments["low"] + (1 - decay) * q[0]
     new_high = decay * moments["high"] + (1 - decay) * q[1]
     invscale = torch.clamp(new_high - new_low, min=1.0 / max_)

@@ -6,7 +6,11 @@ One iteration of :func:`on_policy_loop`:
 * a rollout of ``algo.rollout_steps`` env steps with the player on
   ``algo.player.device`` (the card by default), acting with the current
   weights; a truncated episode's reward takes ``γ·V(final obs)``;
-* the trainer's ``train_phase`` on the rollout.  :meth:`PPOTrainer.train_phase`
+* the trainer's ``train_phase`` on the rollout, staged to the device
+  explicitly (``data/device_replay.stage_rollout``, the annealed
+  coefficients by ``stage_scalar``); with ``buffer.transfer_guard`` every
+  train phase after the run's first runs under ``steady_guard``, where a
+  call that waits on the host raises.  :meth:`PPOTrainer.train_phase`
   recomputes the values in one batched forward, runs GAE, then
   ``update_epochs`` × ``num_minibatches`` clipped-PPO steps over the
   minibatch order of :func:`epoch_permutation` (drawn from the train
@@ -20,7 +24,9 @@ On a device env (``env=jax_*``; ``algo.anakin``, see
 is the Anakin one (:mod:`~sheeprl_tpu_torch.envs.device.anakin`): the envs
 step on the run's device inside the iteration, the schedules are taken from
 the actor's update counter before the rollout, and the rollout goes to the
-same ``train_phase`` on the device.  The JAX package's population path
+same ``train_phase`` on the device; ``buffer.transfer_guard`` guards the
+rollout and the train phase together, as the JAX package guards its one
+Anakin dispatch.  The JAX package's population path
 (whole agents vmapped over a population on the Anakin axis) and its
 multi-process samplers are not ported: :func:`check_supported` raises for them.
 """
@@ -38,6 +44,7 @@ from sheeprl_tpu_torch.algos.ppo.agent import build_agent, evaluate_actions, sam
 from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_loss
 from sheeprl_tpu_torch.algos.ppo.utils import (
     actions_for_env,
+    merge_image_stack,
     normalize_obs_keys,
     prepare_obs,
     spaces_to_dims,
@@ -45,6 +52,7 @@ from sheeprl_tpu_torch.algos.ppo.utils import (
 )
 from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
+from sheeprl_tpu_torch.data.device_replay import stage_rollout, stage_scalar, steady_guard
 from sheeprl_tpu_torch.envs.device import anakin_enabled, vector_env_from_cfg
 from sheeprl_tpu_torch.envs.device.anakin import episode_stats_from_device, init_actor_state, make_rollout_fn
 from sheeprl_tpu_torch.utils.env import episode_stats, final_obs_rows, make_env, vectorize
@@ -190,13 +198,17 @@ class PPOTrainer(OnPolicyTrainer):
 
 def rollout_to_device(buffer: Dict[str, np.ndarray], cnn_keys: Sequence[str], mlp_keys: Sequence[str],
                       device: Any) -> Rollout:
-    """A host rollout ring ``(T, B, ...)`` → the trainer's tensors: images
-    moved as bytes and scaled on ``device``, the per-step scalars
-    squeezed to ``(T, B)``."""
-    out = prepare_obs(buffer, cnn_keys, mlp_keys, device, rollout=True)
-    out["actions"] = torch.from_numpy(np.asarray(buffer["actions"])).to(device)
+    """A host rollout ring ``(T, B, ...)`` → the trainer's tensors, staged
+    explicitly (``stage_rollout``): images moved as bytes and scaled on
+    ``device``, the per-step scalars squeezed to ``(T, B)``."""
+    host = {k: merge_image_stack(buffer[k], rollout=True) for k in cnn_keys}
+    host.update({k: np.asarray(buffer[k], np.float32) for k in mlp_keys})
+    host["actions"] = np.asarray(buffer["actions"])
     for k in ("logprobs", "rewards", "dones"):
-        out[k] = torch.from_numpy(np.ascontiguousarray(np.asarray(buffer[k])[..., 0])).to(device)
+        host[k] = np.asarray(buffer[k])[..., 0]
+    out = stage_rollout(host, device)
+    for k in cnn_keys:
+        out[k] = out[k].to(torch.float32) / 255.0
     return out
 
 
@@ -285,6 +297,8 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
                           obs_keys=obs_keys)
         obs, _ = envs.reset(seed=int(cfg.seed))
     last_losses = None
+    # buffer.transfer_guard: an update past the first that waits on the host raises
+    guard_on = bool(cfg.buffer.get("transfer_guard", False))
 
     def player_values(o: Dict[str, np.ndarray]) -> np.ndarray:
         with torch.inference_mode():
@@ -295,8 +309,10 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
             # the env steps inside the iteration: the rollout and the update are one train time
             with timer("Time/train_time"):
                 apply_schedules(actor["update"])
-                actor, rollout, last_obs, ep_stats = rollout_fn(actor, player_gen)
-                last_losses = trainer.train_phase(rollout, last_obs, train_gen, coef["clip_coef"], coef["ent_coef"])
+                with steady_guard(guard_on and update > start_iter):
+                    actor, rollout, last_obs, ep_stats = rollout_fn(actor, player_gen)
+                    last_losses = trainer.train_phase(rollout, last_obs, train_gen, coef["clip_coef"],
+                                                      coef["ent_coef"])
                 del rollout, last_obs
             policy_step += policy_steps_per_iter
             if cfg.metric.log_level > 0:
@@ -339,7 +355,9 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
             with timer("Time/train_time"):
                 rollout = rollout_to_device(rb.buffer, cnn_keys, mlp_keys, fabric.device)
                 last_obs = prepare_obs(obs, cnn_keys, mlp_keys, fabric.device)
-                last_losses = trainer.train_phase(rollout, last_obs, train_gen, coef["clip_coef"], coef["ent_coef"])
+                clip_coef, ent_coef = (stage_scalar(coef[k], fabric.device) for k in ("clip_coef", "ent_coef"))
+                with steady_guard(guard_on and update > start_iter):
+                    last_losses = trainer.train_phase(rollout, last_obs, train_gen, clip_coef, ent_coef)
                 del rollout, last_obs
                 if player is not agent:
                     player.load_state_dict(agent.state_dict())

@@ -12,6 +12,9 @@ sequences.  On a device env the rollout is the Anakin one
 (:func:`~sheeprl_tpu_torch.envs.device.anakin.make_recurrent_rollout_fn`):
 the LSTM state, the previous actions and the episode-start mask stay on the
 device in the actor carry, and the schedules come from its update counter.
+With ``buffer.transfer_guard`` every update after the run's first (on the
+Anakin path, the rollout with it) runs under ``steady_guard``; the host
+rollout is staged before it (``stage_rollout``, ``stage_scalar``).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from sheeprl_tpu_torch.algos.ppo_recurrent.agent import Carry, build_agent, one_
 from sheeprl_tpu_torch.algos.ppo_recurrent.utils import flat_obs, test
 from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
+from sheeprl_tpu_torch.data.device_replay import stage_rollout, stage_scalar, steady_guard
 from sheeprl_tpu_torch.envs.device import anakin_enabled, vector_env_from_cfg
 from sheeprl_tpu_torch.envs.device.anakin import (
     episode_stats_from_device,
@@ -199,13 +203,16 @@ def main(fabric: Any, cfg: Any) -> None:
         rb = ReplayBuffer(rollout_steps, num_envs, memmap=False, obs_keys=mlp_keys)
         obs, _ = envs.reset(seed=int(cfg.seed))
     last_losses = None
+    # buffer.transfer_guard: an update past the first that waits on the host raises
+    guard_on = bool(cfg.buffer.get("transfer_guard", False))
 
     for update in range(start_iter, total_iters + 1):
         if use_anakin:
             with timer("Time/train_time"):
                 apply_schedules(actor["update"])
-                actor, rollout, init_carry, last_v, ep_stats = rollout_fn(actor, player_gen)
-                last_losses = trainer.train_phase(rollout, init_carry, last_v, train_gen, ent_coef)
+                with steady_guard(guard_on and update > start_iter):
+                    actor, rollout, init_carry, last_v, ep_stats = rollout_fn(actor, player_gen)
+                    last_losses = trainer.train_phase(rollout, init_carry, last_v, train_gen, ent_coef)
                 del rollout
             policy_step += policy_steps_per_iter
             if cfg.metric.log_level > 0:
@@ -260,15 +267,17 @@ def main(fabric: Any, cfg: Any) -> None:
             with timer("Time/train_time"):
                 dev = fabric.device
                 local = rb.buffer
-                rollout = {k: torch.from_numpy(np.asarray(local[k], np.float32)).to(dev)
-                           for k in (*mlp_keys, "actions", "prev_actions", "is_first")}
+                host = {k: np.asarray(local[k], np.float32) for k in (*mlp_keys, "actions", "prev_actions", "is_first")}
                 for k in ("logprobs", "rewards", "dones"):
-                    rollout[k] = torch.from_numpy(np.ascontiguousarray(local[k][..., 0])).to(dev)
+                    host[k] = local[k][..., 0]
+                rollout = stage_rollout(host, dev)
                 # bootstrap values of the state after the rollout, with the rollout's weights
                 with torch.no_grad():
                     _, (_, last_v) = player.step(carry, flat_obs(obs, mlp_keys, player_device), prev_actions, is_first)
-                last_losses = trainer.train_phase(rollout, tuple(c.to(dev) for c in init_carry),
-                                                  last_v[..., 0].to(dev), train_gen, ent_coef)
+                carry0, last_v = tuple(c.to(dev) for c in init_carry), last_v[..., 0].to(dev)
+                ent = stage_scalar(ent_coef, dev)
+                with steady_guard(guard_on and update > start_iter):
+                    last_losses = trainer.train_phase(rollout, carry0, last_v, train_gen, ent)
                 del rollout
                 if player is not agent:
                     player.load_state_dict(agent.state_dict())

@@ -23,14 +23,17 @@ the draws JAX's keys make.
 ``learning_starts`` prefill, then the actor's samples mapped back to the
 env's bounds.  A done env's stored next observation is its real final one.
 ``Ratio`` (accrued over ``algo.train_window_iters`` iterations by
-``TrainWindow``) decides the updates of each iteration, sampled from a host
-replay ring; the health guard undoes a window whose losses or weights are
-not finite; checkpoints carry the replay buffer when ``buffer.checkpoint``,
-so a resumed run continues; the test episode runs last.
+``TrainWindow``) decides the updates of each iteration.  With
+``buffer.device`` on (``auto``: the run's device is CUDA) the replay ring
+lives on the device and each window is drawn, gathered and trained there in
+power-of-two chunks (``data/device_replay.fused_uniform_train``, the
+layout's ``prep``); otherwise a host ring is sampled with numpy.  The health
+guard undoes a chunk whose losses or weights are not finite; checkpoints
+carry the replay buffer when ``buffer.checkpoint``, so a resumed run
+continues; the test episode runs last.
 
-Not ported: the device-resident replay (``buffer.device=True``; ``auto``
-resolves to the host ring) and the decoupled topology, both the scale
-layer's (ROADMAP.md, queue A item 5).
+Not ported: the decoupled topology, the scale layer's (ROADMAP.md, queue A
+item 5).
 """
 
 from __future__ import annotations
@@ -51,6 +54,14 @@ from sheeprl_tpu_torch.algos.sac.loss import actor_loss, alpha_loss, critic_loss
 from sheeprl_tpu_torch.algos.sac.utils import prepare_obs, test, to_env_actions, to_tanh_space
 from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
+from sheeprl_tpu_torch.data.device_replay import (
+    build_device_replay,
+    estimate_step_bytes,
+    fused_uniform_train,
+    resolve_device_replay,
+    steady_guard,
+    update_chunks,
+)
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.fabric import PlayerSync
 from sheeprl_tpu_torch.resilience.health import HealthSentinel
@@ -70,11 +81,6 @@ UpdateNoise = Dict[str, Any]
 def check_supported(cfg: Any) -> None:
     """Raise for the off-policy settings the port does not implement yet,
     naming the ROADMAP item that will, and warn of those it does not act on."""
-    if cfg.buffer.get("device", "auto") is True:
-        raise NotImplementedError(
-            "buffer.device=True is not ported yet: the device-resident replay comes with the scale layer "
-            "(ROADMAP.md, queue A item 5)"
-        )
     if cfg.fabric.get("decoupled"):
         raise NotImplementedError(
             "fabric.decoupled is not ported yet: the decoupled topologies come with the scale layer "
@@ -259,6 +265,13 @@ class VectorLayout:
             out[k] = torch.from_numpy(np.ascontiguousarray(sample[k][..., 0])).to(device)
         return out
 
+    def prep(self, b: Batch) -> Batch:
+        """A batch gathered from the device ring, as :meth:`batches` lays out a host sample."""
+        out = {k: b[k] for k in ("obs", "next_obs", "actions")}
+        for k in ("rewards", "terminated"):
+            out[k] = b[k][..., 0]
+        return out
+
 
 def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, trainer_cls: Any = SACTrainer,
                     layout_cls: Any = VectorLayout) -> None:
@@ -282,11 +295,9 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
     act_space = envs.single_action_space
     if not isinstance(act_space, spaces.Box):
         raise ValueError(f"{cfg.algo.name} supports continuous (Box) action spaces only, like the reference")
-    layout = layout_cls(cfg, envs.single_observation_space)
+    obs_space = envs.single_observation_space
+    layout = layout_cls(cfg, obs_space)
     act_dim = int(np.prod(act_space.shape))
-    print(f"{cfg.algo.name} on {fabric.device}: player on {player_device}, replay in a host ring "
-          f"(buffer.device={cfg.buffer.get('device', 'auto')} resolves to the host ring in this port), "
-          f"{num_envs} env(s) stepped synchronously", flush=True)
 
     state: Dict[str, Any] = {}
     if cfg.checkpoint.get("resume_from"):
@@ -320,13 +331,30 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
         psync.load_state_dict(state["psync"])
 
     memmap_dir = os.path.join(log_dir, "memmap_buffer", "rank_0") if cfg.buffer.memmap else None
-    rb = ReplayBuffer(int(cfg.buffer.size) // num_envs, num_envs, memmap=cfg.buffer.memmap, memmap_dir=memmap_dir)
+    capacity = int(cfg.buffer.size) // num_envs
+    use_device_replay = resolve_device_replay(cfg, fabric.device)
+    rb: Any
+    if use_device_replay:
+        # the ring on the device, each row with its next observation; capacity
+        # beyond the byte budget's window lives in the host spill tier
+        rb = build_device_replay(
+            cfg, capacity, num_envs, fabric.device,
+            estimate_step_bytes(obs_space, layout.obs_keys, extra_bytes=4 * (act_dim + 2), copies_per_key=2),
+            sequential=False, memmap_dir=memmap_dir)
+        where = rb.describe()
+    else:
+        rb = ReplayBuffer(capacity, num_envs, memmap=cfg.buffer.memmap, memmap_dir=memmap_dir)
+        where = "a host ring"
+    guard_on = bool(cfg.buffer.get("transfer_guard", False)) and use_device_replay
+    print(f"{cfg.algo.name} on {fabric.device}: player on {player_device}, replay in {where}, "
+          f"{num_envs} env(s) stepped synchronously", flush=True)
     if state.get("rb") is not None:
         rb.load_state_dict(_rb_state_from_checkpoint(state["rb"]))
     batch_size = int(cfg.algo.per_rank_batch_size)
 
     obs, _ = envs.reset(seed=int(cfg.seed))
     last_losses = None
+    train_windows = 0  # the guard arms past the first window
     for update in range(start_iter, total_iters + 1):
         policy_step += num_envs
         with timer("Time/env_interaction_time"):
@@ -365,14 +393,28 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
             if due > 0:
                 with timer("Time/train_time"):
                     psync.before_dispatch()
-                    for u in update_chunks(due) if trainer_cls.CHUNKED else (due,):
-                        batches = layout.batches(rb.sample(batch_size, n_samples=u), fabric.device)
+                    # on the device ring each chunk draws and gathers its
+                    # batches there (power-of-two chunks, as JAX's), the health
+                    # check reading its flag after the guarded chunk
+                    if use_device_replay:
+                        chunks = update_chunks(due, bytes_per_update=rb.sampled_bytes_per_update(batch_size))
+                    else:
+                        chunks = update_chunks(due) if trainer_cls.CHUNKED else (due,)
+                    for u in chunks:
                         backup = trainer.snapshot() if sentinel is not None else None
-                        last_losses = trainer.train_phase(batches, train_gen, grad_step_counter)
+                        if use_device_replay:
+                            with steady_guard(guard_on and train_windows > 0):
+                                grad_step_counter, last_losses = fused_uniform_train(
+                                    trainer, rb, train_gen, batch_size, u, layout.prep, grad_step_counter)
+                        else:
+                            batches = layout.batches(rb.sample(batch_size, n_samples=u), fabric.device)
+                            last_losses = trainer.train_phase(batches, train_gen, grad_step_counter)
+                            del batches
+                            grad_step_counter += u
                         if sentinel is not None and not sentinel.check(last_losses, trainer.tensors(), policy_step):
                             trainer.restore(backup)
-                        del backup, batches
-                        grad_step_counter += u
+                        del backup
+                    train_windows += 1
                     psync.after_dispatch()
 
         # ---------------- logging ------------------------------------------------
@@ -408,6 +450,8 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
             ckpt_mgr.save(policy_step, ckpt_state)
 
     envs.close()
+    if getattr(rb, "spill", None) is not None:
+        rb.spill.close()
     ckpt_mgr.finalize()
     if cfg.algo.run_test:
         # the deferred-sync player may be a window behind: sync once more
@@ -415,21 +459,6 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
         test(test_actor(trainer_cls, modules, layout, player_device, int(cfg.seed)), cfg, log_dir, logger)
     if logger is not None:
         logger.close()
-
-
-def update_chunks(n_updates: int, cap: Optional[int] = None) -> List[int]:
-    """A window of ``n_updates`` as power-of-two chunks, largest first, each
-    at most ``cap`` (``SHEEPRL_MAX_WINDOW_UPDATES``, 1024 by default): the
-    JAX package's host-path ``update_chunks``."""
-    if cap is None:
-        cap = int(os.environ.get("SHEEPRL_MAX_WINDOW_UPDATES", 1024))
-    cap = 1 << (max(1, int(cap)).bit_length() - 1)
-    chunks, remaining = [], int(n_updates)
-    while remaining > 0:
-        step = min(cap, 1 << (remaining.bit_length() - 1))
-        chunks.append(step)
-        remaining -= step
-    return chunks
 
 
 def test_actor(trainer_cls: Any, modules: Dict[str, torch.nn.Module], layout: Any, device: Any, seed: int):

@@ -16,9 +16,10 @@ its host-ring path), on the off-policy loop of ``algos/sac/sac.py``.
 * every ``critic.per_rank_target_network_update_freq`` updates, the EMA of
   the critic (``tau``) and of the encoder (``encoder.tau``).
 
-Images are stored as uint8 with explicit ``next_<key>`` rows, scaled by
-1/255 on the device, frame stacks merged into channels.  A long window is
-sampled and run in power-of-two chunks, as the JAX host path dispatches it.
+Images are stored as uint8 with explicit ``next_<key>`` rows (on the device
+ring too, as in JAX: no row is derived from its successor), scaled by 1/255
+on the device, frame stacks merged into channels.  A long window is sampled
+and run in power-of-two chunks, as the JAX package dispatches it.
 """
 
 from __future__ import annotations
@@ -187,6 +188,18 @@ class PixelLayout:
             for src in (k, f"next_{k}"):
                 x = np.asarray(sample[src], np.float32)
                 out[src] = torch.from_numpy(np.ascontiguousarray(x.reshape(*x.shape[:2], -1))).to(device)
+        return out
+
+    def prep(self, b: Batch) -> Batch:
+        """A batch gathered from the device ring, as :meth:`batches` lays out a host sample."""
+        out = {"actions": b["actions"], "rewards": b["rewards"][..., 0], "terminated": b["terminated"][..., 0]}
+        for k in self.cnn_keys:
+            for src in (k, f"next_{k}"):
+                out[src] = merge_framestack(b[src]) if b[src].ndim >= 6 else b[src]
+        for k in self.mlp_keys:
+            for src in (k, f"next_{k}"):
+                x = b[src].to(torch.float32)
+                out[src] = x.reshape(*x.shape[:2], -1)
         return out
 
 

@@ -7,7 +7,9 @@ divergence detector (counterpart of ``sheeprl_tpu/resilience/health.py``).
   means of its metrics) and, with ``health.check_params``, the updated
   parameters to one finiteness flag.  A window that fails is undone: the
   loop restores the copy, so a NaN never reaches the weights.  One device
-  synchronisation per window reads the flag.
+  synchronisation per window reads the flag; the loops make that read
+  after a window's ``steady_guard`` block (``buffer.transfer_guard``), never
+  inside it, since the guard refuses a read that waits on the device.
 * **Divergence detector.**  An EMA of the finite window loss; a window
   spikes when ``loss - ema > spike_factor * (|ema| + spike_min)`` after
   ``min_windows`` windows, and ``patience`` consecutive spikes latch the

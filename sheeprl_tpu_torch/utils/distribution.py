@@ -156,8 +156,9 @@ def kl_categorical(p: OneHotCategorical, q: OneHotCategorical) -> torch.Tensor:
 class Normal:
     def __init__(self, loc: torch.Tensor, scale, event_dims: int = 0):
         self.loc = loc
-        self.scale = scale if isinstance(scale, torch.Tensor) else torch.as_tensor(scale, dtype=loc.dtype,
-                                                                                   device=loc.device)
+        # a number becomes a fill on the device, not a copy from the host
+        self.scale = scale if isinstance(scale, torch.Tensor) else torch.full((), float(scale), dtype=loc.dtype,
+                                                                              device=loc.device)
         self.event_dims = event_dims
 
     @staticmethod

@@ -108,10 +108,11 @@ def normalize_tensor(x: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
     return (x - x.mean()) / (x.std() + eps)
 
 
-def merge_framestack(x: np.ndarray) -> np.ndarray:
-    """``(..., S, H, W, C)`` framestacked pixels -> ``(..., H, W, S*C)``."""
+def merge_framestack(x: Any) -> Any:
+    """``(..., S, H, W, C)`` framestacked pixels -> ``(..., H, W, S*C)``, a
+    numpy array or a tensor (on its device)."""
     s = x.shape
-    x = np.moveaxis(x, -4, -2)  # (..., H, W, S, C)
+    x = x.movedim(-4, -2) if isinstance(x, torch.Tensor) else np.moveaxis(x, -4, -2)  # (..., H, W, S, C)
     return x.reshape(*s[:-4], s[-3], s[-2], s[-4] * s[-1])
 
 

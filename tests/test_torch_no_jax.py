@@ -8,7 +8,9 @@ PPO each train one iteration through ``cli.run`` and commit a snapshot that
 ``cli.evaluation`` plays and, for PPO, a player serves, and SAC, DroQ and
 SAC-AE each train through ``cli.run`` and commit a snapshot that
 ``cli.evaluation`` plays and, for SAC, a player serves, PPO trains one
-Anakin iteration on the device cartpole, and the other device envs step.
+Anakin iteration on the device cartpole, the other device envs step, and
+SAC and DreamerV3 train from the device-resident replay (forced on, the
+guard armed) whose spill tier round-trips a checkpoint.
 
 A subprocess, because the test session has imported JAX already.
 """
@@ -163,6 +165,34 @@ SCRIPT = textwrap.dedent(
                 obs = sac_player.prepare({{"state": np.zeros((2, 4), np.float32)}})
                 _, acts = sac_player.step_batch(sac_player.params, (), obs, 0, np.array([True, False]))
                 assert acts.shape == (2, 2)
+
+    # the device-resident replay, forced on the CPU: SAC and DreamerV3 train from it, a spill round-trips
+    from sheeprl_tpu_torch.data.device_replay import DeviceReplay, HostSpill
+    with tempfile.TemporaryDirectory() as tmp:
+        run(["exp=sac", "env=dummy", "env.id=continuous_dummy", "algo.mlp_keys.encoder=[state]", "env.num_envs=2",
+             "fabric.accelerator=cpu", "metric/logger=csv", "buffer.memmap=False", "buffer.size=32",
+             "algo.total_steps=12", "algo.learning_starts=4", "algo.per_rank_batch_size=2", "algo.hidden_size=4",
+             "buffer.device=True", "buffer.transfer_guard=True", f"log_dir={{tmp}}"])
+        (snapshot,) = glob.glob(f"{{tmp}}/**/checkpoint/step_*", recursive=True)
+        state = load_step_dir(snapshot)
+        assert state["grad_steps"] == 12 and state["rb"]["device_replay"]["from_spill"] is False
+    with tempfile.TemporaryDirectory() as tmp:
+        run(["exp=dreamer_v3", "env=dummy", "algo=dreamer_v3_XS", "dry_run=True", "env.num_envs=2",
+             "fabric.accelerator=cpu", "metric/logger=csv", "buffer.memmap=False", f"log_dir={{tmp}}",
+             "algo.per_rank_batch_size=2", "algo.per_rank_sequence_length=8", "algo.horizon=4",
+             "algo.cnn_keys.encoder=[]", "algo.mlp_keys.encoder=[state]", "algo.dense_units=8",
+             "algo.world_model.recurrent_model.recurrent_state_size=8",
+             "algo.world_model.transition_model.hidden_size=8",
+             "algo.world_model.representation_model.hidden_size=8", "algo.run_test=False",
+             "buffer.device=True", "buffer.transfer_guard=True"])
+        (snapshot,) = glob.glob(f"{{tmp}}/**/checkpoint/step_*", recursive=True)
+        assert load_step_dir(snapshot)["grad_steps"] == 1
+    rb = DeviceReplay(4, 2, "cpu", spill=HostSpill(8, 2, sequential=True))
+    for t in range(6):
+        rb.add({{"x": np.full((1, 2, 1), t, np.float32)}})
+    again = DeviceReplay(4, 2, "cpu", spill=HostSpill(8, 2, sequential=True)).load_state_dict(rb.state_dict())
+    assert torch.equal(again.buffers["x"], rb.buffers["x"])
+    rb.spill.close(); again.spill.close()
 
     leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
     assert not leaked, leaked

@@ -137,7 +137,6 @@ def test_committed_snapshot_evaluates_through_the_cli(dry_run, monkeypatch, caps
 @pytest.mark.parametrize(
     "override,item",
     [
-        ("buffer.device=True", "queue A item 5"),
         ("pipeline.stages=2", "queue A item 5"),
         ("algo.remat=True", "queue A item 5"),
         ("pipeline.imagination_microbatches=2", "queue A item 5"),
@@ -500,8 +499,7 @@ def test_off_policy_run_commits_resumes_with_its_buffer_and_evaluates(exp, tmp_p
 
 
 @pytest.mark.parametrize("exp,override,item", [
-    ("sac", "buffer.device=True", "queue A item 5"),
-    ("sac_ae", "buffer.device=True", "queue A item 5"),
+    ("sac", "fabric.decoupled=True", "queue A item 5"),
     ("sac_decoupled", None, "queue A item 5"),
 ])
 def test_off_policy_unported_paths_raise_naming_the_roadmap_item(tmp_path, exp, override, item):
