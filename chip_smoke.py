@@ -131,8 +131,9 @@ prints no result line):
               A2C on ``jax_cartpole`` under both RMSprops and recurrent PPO,
               2 iterations each under the same gate.
 28. dv3 forage — phase 7's XL recipe on ``jax_forage`` through the adapter
-              (``rgb`` alone, fused RSSM kernel): 80 rssm launches per
-              update, one update held to the plain RSSM at phase 8's limits.
+              (``rgb`` alone, fused RSSM kernel), 8 updates: 80 rssm
+              launches per update, one update held to the plain RSSM at
+              phase 8's limits.
 29. ppo atari forage — ``exp=ppo_atari`` on forage at Atari's input (84x84,
               gray, 4 frames): the CNN sees 4 channels; env steps/s.
 30. sac pendulum — SAC's recipe on ``jax_pendulum`` through the adapter.
@@ -167,6 +168,40 @@ prints no result line):
               host (``torch.tensor(x, device=...)``, a pageable ``.to``) and
               a read back raise; explicit staging does not.
 
+Every route of the loops goes through ``fabric.compile`` (``parallel/compile.py``):
+the DreamerV3 window (phases 7, 10, 13, 14, 28, 32: chunks of up to 4
+updates, one captured CUDA graph per chunk size, each replay credited with
+the kernel launches its capture recorded), the DreamerV3 player, the served
+DreamerV3 step (phases 4, 6, 9) and PPO's Anakin rollout (phase 26) are
+replayed graphs; ``_train`` times the window route per chunk.
+
+37. graphs layer — a small function captured: replay equals eager bit for
+              bit (a registered generator's draws included), one capture
+              per signature, ``max_recompiles=0`` raises before a second
+              capture, a function calling ``.item()`` fails to capture and
+              raises, and a later capture still works.
+38. graphs dv3-xl — one chunk of 4 XL updates of the fused window on the
+              card's ring (RSSM kernel), from one state and generator
+              state, eager twice and through ``fabric.compile`` twice (first
+              call eager then captured, then replayed) under cuDNN's
+              deterministic algorithms: drawn indices, the ten losses and
+              every parameter equal bit for bit where the two eager runs
+              are; 80 rssm launches per update credited per replay; then
+              eager and replayed chunks in turns (eager, graph, graph,
+              eager): updates/s, host ms and host calls per update, device
+              operations and ms per update, 3 captures for chunk sizes 4, 2
+              and 1, peak memory.
+39. graphs dv3-s-gru — phase 38 for DreamerV3-S with the GRU kernel.
+40. graphs serve — the served DreamerV3-XL step: every ladder rung captured
+              at warm-up, rungs 1 and 32 equal eager bit for bit for the
+              same seeds, then 16 sessions x 8 steps over HTTP in turns
+              (captured, eager, eager, captured) on one server.
+41. graphs anakin — Anakin PPO on ``jax_cartpole`` at 1024 envs: one
+              rollout eager and replayed from one state, trajectories,
+              episode statistics and the new state bit for bit; env
+              steps/s in turns, host calls per rollout step, the card's
+              busy share.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -177,7 +212,8 @@ runs phases 16-19 alone, ``--off-policy`` phases 20-24 (they build and
 launch no kernel), ``--envs`` phases 25-30, ``--replay`` phases 31-36
 (beside host-ring runs of phase 7's and phases 20-22's recipes) and
 ``--replay-ab`` the host ring and the card's in turns (host, card, card,
-host) for DreamerV3-XL, SAC and SAC-AE, timed alike.
+host) for DreamerV3-XL, SAC and SAC-AE, timed alike, ``--graphs`` phases
+37-41 (after phase 4's served snapshot and captured service run).
 """
 
 from __future__ import annotations
@@ -561,36 +597,18 @@ def _build_snapshot(torch, overrides, run_dir: Path) -> None:
         f"(world model + actor + critic) in {time.perf_counter() - t0:.1f} s")
 
 
-def _drive(torch, run_dir: Path, sessions: int, steps: int) -> dict:
-    """Serve ``run_dir`` over HTTP to ``sessions`` concurrent sessions of
-    ``steps`` requests, with every launch count zeroed just before and read
-    just after.  Returns the service's stats, the client latencies and the
-    counts."""
-    from sheeprl_tpu_torch.ops import gru, rssm
+def _client_sessions(url: str, player, valid, sessions: int, steps: int):
+    """``sessions`` concurrent HTTP sessions of ``steps`` requests each against
+    ``url``, greedy and sampled rows mixed, every action checked by
+    ``valid``; returns the wall seconds and the client latencies."""
     from sheeprl_tpu_torch.serve.client import PolicyClient
-    from sheeprl_tpu_torch.serve.server import PolicyServer
-    from sheeprl_tpu_torch.serve.service import PolicyService
 
-    t0 = time.perf_counter()
-    service = PolicyService.from_checkpoint(run_dir)
-    log(f"[serve] PolicyService.from_checkpoint: {time.perf_counter() - t0:.1f} s on {service.player.device}")
-    spec = service.player.obs_spec
-    player = service.player
-    if player.is_continuous:
-        from sheeprl_tpu_torch.serve.loader import probe_spaces
-
-        space = probe_spaces(service.cfg)[1]
-
-        def valid(a) -> bool:
-            return a.shape == player.action_shape and bool(np.all((a >= space.low) & (a <= space.high)))
-    else:
-        def valid(a) -> bool:
-            return a.shape == player.action_shape and 0 <= int(a) < int(player.actions_dim[0])
+    spec = player.obs_spec
     latencies, errors = [], []
     lock = threading.Lock()
 
     def session(i: int) -> None:
-        client = PolicyClient(server.url, packed=True, timeout=120)
+        client = PolicyClient(url, packed=True, timeout=120)
         rng = np.random.default_rng(i)
         try:
             for step in range(steps):
@@ -606,23 +624,57 @@ def _drive(torch, run_dir: Path, sessions: int, steps: int) -> dict:
         except BaseException as e:  # noqa: BLE001 - re-raised on the main thread
             errors.append(e)
 
+    t_run = time.perf_counter()
+    threads = [threading.Thread(target=session, args=(i,)) for i in range(sessions)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(300)
+    wall = time.perf_counter() - t_run
+    if any(t.is_alive() for t in threads):
+        raise RuntimeError("a client session did not finish within 300 s")
+    if errors:
+        raise errors[0]
+    return wall, latencies
+
+
+def _action_check(service):
+    """Whether an action is valid for the service's action space."""
+    player = service.player
+    if player.is_continuous:
+        from sheeprl_tpu_torch.serve.loader import probe_spaces
+
+        space = probe_spaces(service.cfg)[1]
+        return lambda a: a.shape == player.action_shape and bool(np.all((a >= space.low) & (a <= space.high)))
+    return lambda a: a.shape == player.action_shape and 0 <= int(a) < int(player.actions_dim[0])
+
+
+def _drive(torch, run_dir: Path, sessions: int, steps: int, eager: bool = False) -> dict:
+    """Serve ``run_dir`` over HTTP to ``sessions`` concurrent sessions of
+    ``steps`` requests, with every launch count zeroed just before and read
+    just after.  Returns the service's stats, the client latencies and the
+    counts.  ``eager`` serves the unwrapped step (the A/B of phase 40): the
+    player's ``dispatch`` through ``fabric.compile`` is taken out."""
+    from sheeprl_tpu_torch.ops import gru, rssm
+    from sheeprl_tpu_torch.serve.client import PolicyClient
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+    from sheeprl_tpu_torch.serve.service import PolicyService
+
+    t0 = time.perf_counter()
+    service = PolicyService.from_checkpoint(run_dir)
+    log(f"[serve] PolicyService.from_checkpoint: {time.perf_counter() - t0:.1f} s on {service.player.device}"
+        f"{', the step eager (unwrapped)' if eager else ''}")
+    if eager:
+        service.player.dispatch = None
+    player = service.player
+    valid = _action_check(service)
     rssm.LAUNCHES["rssm"] = gru.LAUNCHES["gru"] = 0
     server = PolicyServer(service, port=0)
     t_warm = time.perf_counter()
     server.start()
     log(f"[serve] warm-up of ladder {list(service.ladder)}: {time.perf_counter() - t_warm:.1f} s; {server.url}")
     try:
-        t_run = time.perf_counter()
-        threads = [threading.Thread(target=session, args=(i,)) for i in range(sessions)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join(300)
-        wall = time.perf_counter() - t_run
-        if any(t.is_alive() for t in threads):
-            raise RuntimeError("a client session did not finish within 300 s")
-        if errors:
-            raise errors[0]
+        wall, latencies = _client_sessions(server.url, player, valid, sessions, steps)
         stats = PolicyClient(server.url).stats()
         health = PolicyClient(server.url).health()
     finally:
@@ -637,7 +689,7 @@ def _drive(torch, run_dir: Path, sessions: int, steps: int) -> dict:
         f"{stats['served'] / wall:.1f} actions/s; client p50 {np.percentile(lat, 50):.1f} ms "
         f"p99 {np.percentile(lat, 99):.1f} ms; service p50 {stats['p50_ms']:.1f} ms p99 {stats['p99_ms']:.1f} ms; "
         f"batches {stats['batches']} rungs {stats['rungs']} avg batch {stats['avg_batch']}; launches {counts}")
-    return {"stats": stats, "counts": counts, "service": service}
+    return {"stats": stats, "counts": counts, "service": service, "actions_per_s": stats["served"] / wall}
 
 
 def main_rung(stats) -> int:
@@ -692,46 +744,70 @@ LOSS_NAMES = ("Loss/world_model_loss", "Loss/observation_loss", "Loss/reward_los
               "State/prior_entropy")
 
 
+WINDOW_NAMES = (".train_phase", ".train_phase_device")  # the Dreamer loop's window routes
+
+
 def _train(torch, overrides, log_dir: Path, kernel, per_update_launches: int = LAUNCHES_PER_UPDATE,
            trainer_cls=None, metric_names=LOSS_NAMES, events_only: bool = False) -> dict:
     """One training run through ``cli.run`` with every launch count zeroed
-    just before and read just after, each update timed (the device
-    synchronised around it) with its own launches; returns the per-update
-    numbers, the counts, the snapshot and the logged metrics.  ``kernel``
-    (``rssm`` or ``gru``) must launch ``per_update_launches`` times in every
-    update; ``None``: no kernel may launch at all.  ``trainer_cls`` is the
-    trainer whose ``train_step`` runs (DreamerV3's by default).  Every
-    update is also timed by CUDA events around it (``updates_per_s_events``:
-    the device timeline from its first launch to its last finishing); with
-    ``events_only`` (a run whose windows run under ``steady_guard``, where
-    the host may not wait on the device) those are its only times."""
+    just before and read just after.  Every call of the loop's train window
+    (``fabric.compile``'s route ``<algo>.train_phase[_device]``: a chunk of
+    ``U`` updates, one captured CUDA graph per chunk size for DreamerV3 on
+    the card, eager for the rest of the family) is timed with the device
+    synchronised around it and counted with its launches; an update's numbers
+    are its chunk's over ``U``.  ``kernel`` (``rssm`` or ``gru``) must launch
+    ``per_update_launches`` times in every update (a replay is credited with
+    the launches its graph recorded); ``None``: no kernel may launch at all.
+    ``trainer_cls`` is the run's trainer (DreamerV3's by default): an eager
+    one with an intrinsic reward (Plan2Explore) has it read after every
+    update.  Every chunk is also timed by CUDA events around it
+    (``updates_per_s_events``); with ``events_only`` (a run whose windows run
+    under ``steady_guard``, where the host may not wait on the device) those
+    are its only times.  ``first_update_s`` is the first chunk's time, its
+    capture included, over its updates."""
     import csv
 
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer
     from sheeprl_tpu_torch.cli import run
     from sheeprl_tpu_torch.ops import gru, rssm
+    from sheeprl_tpu_torch.parallel.compile import GraphFunction
 
     trainer_cls = trainer_cls or DV3Trainer
 
     def counts_now():
         return {"rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]}
 
-    seconds, launches, intrinsic, events = [], [], [], []
+    seconds, launches, intrinsic, events, chunks, graphed, built = [], [], [], [], [], [], []
+    call = GraphFunction.__call__
     train_step = trainer_cls.train_step
 
-    def timed_step(self, *args, **kwargs):
+    def timed_call(self, *args, **kwargs):
+        if not self.name.endswith(WINDOW_NAMES):
+            return call(self, *args, **kwargs)
+        U = int(args[0])
         if not events_only:
             torch.cuda.synchronize()
+        entries = self.cache_size()
         t0, before = time.perf_counter(), counts_now()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        out = train_step(self, *args, **kwargs)
+        out = call(self, *args, **kwargs)
         end.record()
-        events.append((start, end))
+        events.append((start, end, U))
         if not events_only:
             torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
-        launches.append({k: n - before[k] for k, n in counts_now().items()})
+            seconds.extend([(time.perf_counter() - t0) / U] * U)
+        delta = {k: n - before[k] for k, n in counts_now().items()}
+        if any(n % U for n in delta.values()):
+            raise AssertionError(f"a chunk of {U} updates launched {delta}: not a whole number per update")
+        launches.extend([{k: n // U for k, n in delta.items()}] * U)
+        chunks.append(U)
+        graphed.append(self.graphs)
+        built.extend([self.cache_size() > entries] * U)  # this chunk's first call: eager, then captured
+        return out
+
+    def step_with_intrinsic(self, *args, **kwargs):
+        out = train_step(self, *args, **kwargs)
         if not events_only and getattr(self, "last_intrinsic", None) is not None:
             intrinsic.append(float(self.last_intrinsic))
         return out
@@ -740,15 +816,18 @@ def _train(torch, overrides, log_dir: Path, kernel, per_update_launches: int = L
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     rssm.LAUNCHES["rssm"] = gru.LAUNCHES["gru"] = 0
-    trainer_cls.train_step = timed_step
+    GraphFunction.__call__ = timed_call
+    if trainer_cls.graph_eager_reason is not None:  # eager: read per update (a graph replays no Python)
+        trainer_cls.train_step = step_with_intrinsic
     t0 = time.perf_counter()
     try:
         run([*overrides, f"log_dir={log_dir}"])
     finally:
+        GraphFunction.__call__ = call
         trainer_cls.train_step = train_step
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
-    event_s = [a.elapsed_time(b) / 1e3 for a, b in events]
+    event_s = [a.elapsed_time(b) / 1e3 / U for a, b, U in events for _ in range(U)]
     if events_only:
         seconds = event_s
     counts = counts_now()
@@ -773,19 +852,26 @@ def _train(torch, overrides, log_dir: Path, kernel, per_update_launches: int = L
             raise AssertionError(f"{kernel} launches per update {per_update}, expected {per_update_launches} each")
     if intrinsic and not np.isfinite(intrinsic).all():
         raise AssertionError(f"intrinsic reward not finite: {intrinsic}")
-    steady = statistics.median(seconds[1:]) if len(seconds) > 1 else seconds[0]
-    steady_events = statistics.median(event_s[1:]) if len(event_s) > 1 else event_s[0]
-    out = {"updates": len(seconds), "first_update_s": seconds[0], "updates_per_s": 1.0 / steady,
-           "updates_per_s_events": 1.0 / steady_events, "event_s": event_s,
+    # the steady rate: updates in chunks that replayed an entry built earlier
+    # (a chunk size's first call runs eagerly and then captures); failing
+    # those, every chunk after the first
+    first_chunk = chunks[0]
+    replayed = [i for i, b in enumerate(built) if not b] or list(range(first_chunk, len(seconds))) or [0]
+    steady = statistics.median(seconds[i] for i in replayed)
+    steady_events = statistics.median(event_s[i] for i in replayed)
+    out = {"updates": len(seconds), "first_update_s": seconds[0], "first_chunk_s": seconds[0] * first_chunk,
+           "updates_per_s": 1.0 / steady, "updates_per_s_events": 1.0 / steady_events, "event_s": event_s,
            "median_update_s": steady, "peak_bytes": peak, "counts": counts, "per_update": per_update,
-           "update_launches": launches,
+           "update_launches": launches, "chunks": chunks, "captured": all(graphed),
+           "replayed_updates": sum(not b for b in built),
            "snapshot": snapshots[-1], "wall_s": wall, "logged": {n: logged[n] for n in metric_names},
            "intrinsic": intrinsic}
-    shown = ", ".join(f"{x:.4f}" for x in seconds[:12]) + (", ..." if len(seconds) > 12 else "")
-    log(f"[train] {len(seconds)} updates in a {wall:.1f} s run: first update {seconds[0]:.3f} s, then median "
-        f"{steady:.4f} s = {1.0 / steady:.3f} updates/s ({'CUDA events' if events_only else 'wall'}; updates {shown} "
-        f"s; by CUDA events {1.0 / steady_events:.3f} updates/s); peak device memory "
-        f"{peak / 2**30:.2f} GiB; {kernel} launches per update {sorted(set(per_update))}, run total {counts}")
+    log(f"[train] {len(seconds)} updates in chunks {chunks} ({'CUDA graphs' if all(graphed) else 'eager'}; "
+        f"{out['replayed_updates']} of them in chunks that reused an entry) in a {wall:.1f} s run: first chunk "
+        f"{out['first_chunk_s']:.3f} s, then median {steady:.4f} s = "
+        f"{1.0 / steady:.3f} updates/s ({'CUDA events' if events_only else 'wall'}; by CUDA events "
+        f"{1.0 / steady_events:.3f} updates/s); peak device memory {peak / 2**30:.2f} GiB; {kernel} launches per "
+        f"update {sorted(set(per_update))}, run total {counts}")
     log("[train] metrics " + ", ".join(f"{n} {logged[n]:.6g}" for n in metric_names)
         + (f"; intrinsic reward per update {', '.join(f'{x:.6g}' for x in intrinsic)}" if intrinsic else ""))
     return out
@@ -1645,9 +1731,10 @@ ANAKIN_A2C = ("exp=a2c", "env=jax_cartpole", *ENVS_COMMON, "env.num_envs=1024", 
 ANAKIN_RECURRENT = ("exp=ppo_recurrent", "env=jax_cartpole", *ENVS_COMMON, "env.mask_velocities=False",
                     "env.num_envs=64", "algo.per_rank_batch_size=4096", "algo.total_steps=16384")
 # phase 7's XL recipe on forage (rgb alone), the fused kernel; replay ratio
-# 1/16: int(65 / 16) = 4 updates at step 65
+# 1/8: int(65 / 8) = 8 updates at step 65, two chunks of 4 (the second one a
+# replay of the first one's graph, so the run has a steady rate)
 DV3_FORAGE = (*(o for o in XL_TRAIN if not o.startswith(("env=", "env.id=", "algo.mlp_keys"))), "env=jax_forage",
-              "algo.mlp_keys.encoder=[]", FUSED, "algo.replay_ratio=0.0625", "algo.total_steps=65",
+              "algo.mlp_keys.encoder=[]", FUSED, "algo.replay_ratio=0.125", "algo.total_steps=65",
               "algo.run_test=False")
 # ppo_atari's recipe at Atari's input: forage resized to 84x84, gray, 4 frames; 2 iterations of 1024 steps
 PPO_ATARI_FORAGE = ("exp=ppo_atari", "env=jax_forage", *ENVS_COMMON, "env.screen_size=84", "env.grayscale=True",
@@ -1713,37 +1800,50 @@ def phase_env_parity(torch) -> dict:
 
 
 def _instrument_rollouts(torch, module, attr: str) -> dict:
-    """Wrap ``module.<attr>`` (an Anakin rollout factory) so that every
-    rollout it builds is timed with the device synchronised around it and
-    runs under ``torch.cuda.set_sync_debug_mode("error")``: any call inside
-    its T steps that makes the host wait for the device raises.  Returns the
-    record the wrapped rollouts fill (the last call's rollout and arguments
-    among it); ``undo`` restores the module."""
-    rec = {"ms": [], "gated": 0, "steps": None, "last": None}
+    """Record the rollout length ``module.<attr>`` (an Anakin rollout
+    factory) is built with, and time every call of the loop's rollout route
+    (``fabric.compile``'s ``<algo>.rollout``: one captured CUDA graph for
+    PPO on the card, eager for A2C and recurrent PPO) with the device
+    synchronised around it, under ``torch.cuda.set_sync_debug_mode("error")``:
+    any call inside its T steps that makes the host wait for the device
+    raises (the first call's capture included).  Returns the record the
+    calls fill (the last call's route and arguments among it); ``undo``
+    restores the module and the route."""
+    from sheeprl_tpu_torch.parallel.compile import GraphFunction
+
+    rec = {"ms": [], "gated": 0, "steps": None, "last": None, "graphs": []}
     make = getattr(module, attr)
+    call = GraphFunction.__call__
 
-    def make_instrumented(*args, **kwargs):
-        rollout = make(*args, **kwargs)
+    def make_recording(*args, **kwargs):
         rec["steps"] = int(kwargs["rollout_steps"])
+        return make(*args, **kwargs)
 
-        def instrumented(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                result = rollout(*a, **k)
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            torch.cuda.synchronize()
-            rec["ms"].append((time.perf_counter() - t0) * 1e3)
-            rec["gated"] += 1
-            rec["last"] = (rollout, a, k)
-            return result
+    def timed(self, *a, **k):
+        if not self.name.endswith(".rollout"):
+            return call(self, *a, **k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            result = call(self, *a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["gated"] += 1
+        rec["last"] = (self, a, k)
+        rec["graphs"].append(self.graphs)
+        return result
 
-        return instrumented
+    setattr(module, attr, make_recording)
+    GraphFunction.__call__ = timed
 
-    setattr(module, attr, make_instrumented)
-    rec["undo"] = lambda: setattr(module, attr, make)
+    def undo():
+        setattr(module, attr, make)
+        GraphFunction.__call__ = call
+
+    rec["undo"] = undo
     return rec
 
 
@@ -1774,10 +1874,12 @@ def _anakin_run(torch, name: str, overrides, log_dir: Path, trainer_cls, module,
                                    "first_iteration_s", "snapshot", "counts")},
            "env_steps_per_s": run_["iterations_per_s"] * T * num_envs, "rollout_ms": rec["ms"],
            "rollout_step_ms": rollout_ms / T, "gated_rollouts": rec["gated"], "sync_free": True}
+    out["rollout_graphs"] = all(rec["graphs"])
     log(f"[{name}] {num_envs} envs x {T} steps: {out['env_steps_per_s']:.1f} env steps/s; rollouts "
         f"{', '.join(f'{ms:.1f}' for ms in rec['ms'])} ms ({out['rollout_step_ms']:.3f} ms per step after the "
-        f"first); {rec['gated']} rollouts under set_sync_debug_mode('error'), no synchronising call; peak device "
-        f"memory {run_['peak_bytes'] / 2**30:.2f} GiB")
+        f"first; {'a captured CUDA graph' if out['rollout_graphs'] else 'eager'}); {rec['gated']} rollouts under "
+        f"set_sync_debug_mode('error'), no synchronising call; peak device memory {run_['peak_bytes'] / 2**30:.2f} "
+        f"GiB")
     rollout, a, k = rec.pop("last")
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.cuda.set_sync_debug_mode("error")
@@ -2364,6 +2466,516 @@ def replay_summary(replay: dict) -> dict:
             "resume": replay["resume"], "guard": replay["guard"]}
 
 
+# -- the compile-once layer: captured CUDA graphs (phases 37-41) ---------------
+GRAPH_CHUNK = 4  # the updates of phases 38-39's window: the loop's GRAPH_WINDOW_UPDATES
+GRAPH_TURN_CHUNKS = 1  # chunks per timed turn (eager, graph, graph, eager)
+
+
+def _profiled(torch, fn) -> tuple:
+    """``(device ms, device operations)`` of one call of ``fn``: the kernels,
+    copies and fills the card ran, as the CUDA profiler saw them.  Run
+    eagerly, each was one call of the host; a replay's host calls are the
+    graph function's own count (``replays`` + ``input_copies``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms, n = 0.0, 0
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            ms += (e.time_range.end - e.time_range.start) / 1e3
+            n += 1
+    return ms, n
+
+
+def _host_calls(f, fn) -> int:
+    """Host calls that put work on the card in one replayed call ``fn()`` of
+    the graph function ``f``: its graph launches and input copies."""
+    before = f.replays + f.input_copies
+    fn()
+    return f.replays + f.input_copies - before
+
+
+def _turns(torch, runs: dict, order=("eager", "graph", "graph", "eager"), calls: int = GRAPH_TURN_CHUNKS) -> dict:
+    """Wall seconds of ``calls`` calls of each of ``runs`` in turns, the device
+    synchronised around each turn, and the host's seconds until each turn's
+    last call returned (before the synchronise)."""
+    out = {name: {"s": [], "host_s": []} for name in runs}
+    for name in order:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            runs[name]()
+        host = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        out[name]["s"].append(time.perf_counter() - t0)
+        out[name]["host_s"].append(host)
+    return out
+
+
+def phase_graph_layer(torch) -> dict:
+    """Phase 37: the compile-once layer alone on the card."""
+    from sheeprl_tpu_torch.parallel.compile import GraphFunction
+    from sheeprl_tpu_torch.telemetry.monitors import CompileMonitor, RecompileLimitExceeded
+
+    dev = torch.device(CARD)
+    g = torch.Generator(dev).manual_seed(37)
+    w = torch.randn(256, 256, device=dev, generator=g)
+    draws = torch.Generator(dev)
+    runs = []
+
+    def probe(x, scale):
+        y = torch.tanh(x @ w) + scale * torch.rand(x.shape, generator=draws, device=dev)
+        return y, y.sum(-1)
+
+    def counted(x, scale):
+        runs.append(1)
+        return probe(x, scale)
+
+    monitor = CompileMonitor()
+    f = GraphFunction(counted, name="graphs.probe", device=dev, generators=(draws,), monitor=monitor)
+    x, x2 = torch.randn(64, 256, device=dev, generator=g), torch.randn(64, 256, device=dev, generator=g)
+    draws.manual_seed(1)
+    want = [probe(x, 0.5) for _ in range(3)] + [probe(x2, 0.5)]
+    draws.manual_seed(1)
+    got = [tuple(t.clone() for t in f(x, 0.5)) for _ in range(3)] + [tuple(t.clone() for t in f(x2, 0.5))]
+    torch.cuda.synchronize()
+    equal = all(torch.equal(a, b) for w_, g_ in zip(want, got) for a, b in zip(w_, g_))
+    ran_first = len(runs)  # the first call ran the function twice (eager, then under capture); replays ran it not at all
+    f(x[:16], 0.5)
+    f(x[:16], 0.5)
+    f(x, 0.25)
+    builds = monitor.count("graphs.probe")
+    if not (equal and ran_first == 2 and builds == f.cache_size() == 3 and len(runs) == 6):
+        raise AssertionError(f"graph layer: replay equals eager {equal}, runs {ran_first}/{len(runs)}, builds "
+                             f"{builds}, cache {f.cache_size()}")
+    capped = GraphFunction(counted, name="graphs.capped", device=dev, generators=(draws,), max_recompiles=0,
+                           monitor=CompileMonitor())
+    capped(x, 0.5)
+    before = len(runs)
+    try:
+        capped(x[:16], 0.5)
+        raise AssertionError("max_recompiles=0 let a second shape through")
+    except RecompileLimitExceeded:
+        pass
+    if len(runs) != before or capped.cache_size() != 1:
+        raise AssertionError("the budget tripped after paying for the capture")
+    eager_ms = time_ms(torch, lambda: probe(x, 0.5))
+    graph_ms = time_ms(torch, lambda: f(x, 0.5))
+    bad_monitor = CompileMonitor()
+    bad = GraphFunction(lambda x: x * x.sum().item(), name="graphs.item", device=dev, monitor=bad_monitor)
+    try:
+        bad(x)
+        raise AssertionError("a function that calls .item() was captured")
+    except RuntimeError as e:
+        message = str(e).splitlines()[0]
+    if bad.cache_size() or bad_monitor.count("graphs.item"):
+        raise AssertionError("a failed capture stayed in the cache or the audit")
+    after = GraphFunction(probe, name="graphs.after", device=dev, generators=(draws,), monitor=CompileMonitor())
+    draws.manual_seed(3)
+    a = probe(x, 0.5)[0]
+    draws.manual_seed(3)
+    after(x, 0.5)
+    draws.manual_seed(3)
+    b = after(x, 0.5)[0]
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        raise AssertionError("a capture after the failed one disagrees with eager")
+    log(f"[graphs-layer] replay equals eager bit for bit (4 calls, the generator's draws among them); 3 signatures "
+        f"-> 3 captures (the function ran twice at each first call, never on a replay); max_recompiles=0 raised "
+        f"before capturing a second shape; .item() under capture raised: {message[:160]}; a capture after it "
+        f"equals eager; the probe {eager_ms:.4f} ms eager, {graph_ms:.4f} ms replayed")
+    return {"eager_ms": eager_ms, "graph_ms": graph_ms, "captures": builds}
+
+
+def _fresh_window(torch, overrides, seed: int = 38):
+    """A trainer at the recipe's widths (weights from the config's seed) and a
+    ring on the card holding 300 random steps of one env."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer, build_dv3_optimizers
+    from sheeprl_tpu_torch.algos.ppo.utils import spaces_to_dims
+    from sheeprl_tpu_torch.config.compose import compose
+    from sheeprl_tpu_torch.data.device_replay import DeviceReplay
+    from sheeprl_tpu_torch.fabric import build_fabric
+    from sheeprl_tpu_torch.serve.loader import probe_spaces
+
+    cfg = compose(list(overrides))
+    fabric = build_fabric(cfg)
+    obs_space, action_space = probe_spaces(cfg)
+    dims, cont = spaces_to_dims(action_space)
+    modules = build_agent(fabric, dims, cont, cfg, obs_space)
+    cnn, mlp = tuple(cfg.algo.cnn_keys.encoder), tuple(cfg.algo.mlp_keys.encoder)
+    trainer = DV3Trainer(cfg, modules, build_dv3_optimizers(cfg, modules, capturable=True), cnn, mlp, cont)
+    rng = np.random.default_rng(seed)
+    T = 300
+    flag = lambda p: (rng.random((T, 1, 1)) < p).astype(np.float32)  # noqa: E731
+    rb = DeviceReplay(320, 1, fabric.device)
+    rb.add({"rgb": rng.integers(0, 256, (T, 1, 64, 64, 3), dtype=np.uint8),
+            "state": rng.standard_normal((T, 1, 4)).astype(np.float32),
+            "actions": np.eye(dims[0], dtype=np.float32)[rng.integers(0, dims[0], (T, 1))],
+            "rewards": rng.standard_normal((T, 1, 1)).astype(np.float32), "terminated": flag(0.02),
+            "truncated": np.zeros((T, 1, 1), np.float32), "is_first": flag(0.02)})
+    return cfg, trainer, rb
+
+
+def phase_graph_window(torch, tag: str, overrides, kernel: str) -> dict:
+    """Phases 38-39: one chunk of GRAPH_CHUNK updates of the fused window on
+    the card's ring (draw, gather, prep, the trainer's updates), from one
+    state and one generator state, eager twice (the device's own
+    non-determinism) and through ``fabric.compile`` twice (the first call
+    eager then captured, the second replayed); then the two in turns."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import prep_blocks
+    from sheeprl_tpu_torch.data.device_replay import fused_sequence_train
+    from sheeprl_tpu_torch.ops import gru, rssm
+    from sheeprl_tpu_torch.parallel.compile import GraphFunction
+    from sheeprl_tpu_torch.telemetry.monitors import CompileMonitor
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counter_of = {"rssm": rssm.LAUNCHES, "gru": gru.LAUNCHES}[kernel]
+    cfg, trainer, rb = _fresh_window(torch, overrides)
+    L, B = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
+    dev = trainer.device
+    gen = torch.Generator(dev).manual_seed(39)
+
+    def window(n, counter):
+        idx = rb.sequence_indices(gen, n * B, L)
+        counter, metrics = fused_sequence_train(trainer, rb, gen, B, L, n,
+                                                lambda b: prep_blocks(b, trainer.cnn_keys, trainer.mlp_keys),
+                                                counter, indices=idx)
+        return idx, counter, metrics
+
+    start, g_start = trainer.snapshot(), gen.get_state()
+    counter0 = torch.full((), 1, dtype=torch.int64, device=dev)
+
+    def run(fn):
+        trainer.restore(start)
+        gen.set_state(g_start)
+        before = counter_of[kernel]
+        idx, counter, metrics = fn(GRAPH_CHUNK, counter0)
+        torch.cuda.synchronize()
+        return {"idx": idx[0].clone(), "env": idx[1].clone(), "counter": int(counter),
+                "metrics": np.array([float(m) for m in metrics]), "launches": counter_of[kernel] - before,
+                "params": [t.detach().clone() for t in trainer.tensors()]}
+
+    def compiled(monitor):
+        return GraphFunction(window, name=f"{tag}.train_phase_device", static_argnums=(0,), device=dev,
+                             generators=(gen,), monitor=monitor)
+
+    # the equalities with cuDNN's deterministic algorithms; two eager runs show
+    # what else the device leaves non-deterministic (atomics), which four
+    # updates compound
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        f_eq = compiled(CompileMonitor())
+        a, b = run(window), run(window)
+        t0 = time.perf_counter()
+        c = run(f_eq)
+        capture_s = time.perf_counter() - t0
+        d = run(f_eq)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del f_eq
+    same_idx = all(torch.equal(r["idx"], a["idx"]) and torch.equal(r["env"], a["env"]) for r in (b, c, d))
+
+    def rel(x, y):
+        return np.abs(x - y) / np.maximum(np.abs(y), 1e-6)
+
+    rel_d, rel_b = rel(d["metrics"], a["metrics"]), rel(b["metrics"], a["metrics"])
+    det_losses = rel_b == 0
+    floor = max(float((pb - pa).abs().max()) for pa, pb in zip(a["params"], b["params"]))
+    det = [i for i, (pa, pb) in enumerate(zip(a["params"], b["params"])) if torch.equal(pa, pb)]
+    det_equal = all(torch.equal(d["params"][i], a["params"][i]) for i in det)
+    worst = max(float((pd - pa).abs().max()) for pa, pd in zip(a["params"], d["params"]))
+    bit_params = sum(torch.equal(pa, pd) for pa, pd in zip(a["params"], d["params"]))
+    param_tol = max(TRAIN_TOL_LATENT, 4 * floor)
+    loss_tol = max(TRAIN_TOL_REL, 4 * float(rel_b.max()))
+    expected = LAUNCHES_PER_UPDATE * GRAPH_CHUNK
+    log(f"[{tag}] one chunk of {GRAPH_CHUNK} updates (batch {B} x sequence {L}), cuDNN deterministic, eager vs "
+        f"replayed: indices equal {same_idx}; the ten losses rel diff {', '.join(f'{x:.2e}' for x in rel_d)} "
+        f"({int((rel_d == 0).sum())} of 10 bit for bit; eager vs eager {', '.join(f'{x:.2e}' for x in rel_b)}); "
+        f"parameters {bit_params} of {len(a['params'])} tensors bit for bit, max abs diff {worst:.3g} (eager vs "
+        f"eager: {len(det)} bit for bit, max abs diff {floor:.3g}); counter {d['counter']}; {kernel} launches "
+        f"{a['launches']} eager, {d['launches']} credited to the replay; first call (eager + capture) "
+        f"{capture_s:.2f} s")
+    if not (same_idx and det_equal and all(rel_d[det_losses] == 0) and rel_d.max() <= loss_tol
+            and worst <= param_tol and d["counter"] == 1 + GRAPH_CHUNK and a["launches"] == d["launches"] == expected):
+        raise AssertionError(f"{tag}: the replayed window disagrees with eager execution (losses within "
+                             f"{loss_tol:.3g}, parameters within {param_tol:.3g})")
+    del a, b, c, d
+    monitor = CompileMonitor()
+    f = compiled(monitor)  # the loop's algorithms from here on
+
+    def eager_chunk():
+        window(GRAPH_CHUNK, counter0)
+
+    def graph_chunk():
+        f(GRAPH_CHUNK, counter0)
+
+    graph_chunk()  # the capture, before the turns
+    for n in (2, 1):  # every chunk size of a window is one capture
+        f(n, counter0)
+    # one update each way under the profiler (a chunk of 1: its graph is captured above)
+    eager_prof = _profiled(torch, lambda: window(1, counter0))
+    graph_prof = _profiled(torch, lambda: f(1, counter0))
+    host_graph = _host_calls(f, lambda: f(GRAPH_CHUNK, counter0)) / GRAPH_CHUNK
+    turns = _turns(torch, {"eager": eager_chunk, "graph": graph_chunk})
+    per = GRAPH_CHUNK * GRAPH_TURN_CHUNKS
+    ups = {k: [per / t for t in v["s"]] for k, v in turns.items()}
+    host_ms = {k: [1e3 * t / per for t in v["host_s"]] for k, v in turns.items()}
+    captures = monitor.count(f.name)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    out = {"updates_per_s": ups, "host_ms_per_update": host_ms, "captures": captures, "chunk_sizes": [4, 2, 1],
+           "host_launches_per_update": {"eager": eager_prof[1], "graph": host_graph},
+           "device_kernels_per_update": {"eager": eager_prof[1], "graph": graph_prof[1]},
+           "device_ms_per_update": {"eager": eager_prof[0], "graph": graph_prof[0]},
+           "launches_per_update": expected // GRAPH_CHUNK, "loss_rel": float(rel_d.max()), "param_abs": worst,
+           "peak_bytes": peak, "capture_s": capture_s}
+    log(f"[{tag}] updates/s in turns eager {ups['eager'][0]:.3f}, graph {ups['graph'][0]:.3f}, graph "
+        f"{ups['graph'][1]:.3f}, eager {ups['eager'][1]:.3f}; host ms per update eager "
+        f"{', '.join(f'{x:.1f}' for x in host_ms['eager'])}, graph {', '.join(f'{x:.2f}' for x in host_ms['graph'])}; "
+        f"host calls per update eager {out['host_launches_per_update']['eager']:.0f} (every device operation), "
+        f"graph {out['host_launches_per_update']['graph']:.2f} (graph launches and input copies); device operations "
+        f"per update "
+        f"{out['device_kernels_per_update']['eager']:.0f} / {out['device_kernels_per_update']['graph']:.0f}, device "
+        f"ms per update {out['device_ms_per_update']['eager']:.1f} / {out['device_ms_per_update']['graph']:.1f}; "
+        f"{captures} captures for chunk sizes [4, 2, 1]; {kernel} launches per update {expected // GRAPH_CHUNK} "
+        f"credited per replay; peak device memory {peak / 2**30:.2f} GiB")
+    if captures != 3:
+        raise AssertionError(f"{tag}: {captures} captures for 3 chunk sizes")
+    del f, trainer, rb, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_graph_serve(torch, run_dir: Path, graph_run: dict) -> dict:
+    """Phase 40: the served DreamerV3-XL step.  Every ladder rung captured at
+    warm-up; at rungs 1 and 32 the replayed step gives the carry and the
+    action eager execution gives for the same seed; then an eager service
+    (the unwrapped step) over HTTP beside phase 4's captured one."""
+    from sheeprl_tpu_torch.serve.service import PolicyService
+
+    service = PolicyService.from_checkpoint(run_dir)
+    player = service.player
+    t0 = time.perf_counter()
+    service.warm_up()
+    warm_s = time.perf_counter() - t0
+    compiled = player.compiled
+    if not (compiled.graphs and compiled.cache_size() == len(service.ladder)):
+        raise AssertionError(f"warm-up built {compiled.cache_size()} entries for ladder {service.ladder}")
+    wm = player.params["world_model"]
+    dev = player.device
+    g = torch.Generator(dev).manual_seed(40)
+    rng = np.random.default_rng(40)
+    worst = 0.0
+    for B in (1, 32):
+        raw = {"rgb": rng.integers(0, 256, (B, 64, 64, 3), dtype=np.uint8),
+               "state": rng.standard_normal((B, 4)).astype(np.float32)}
+        obs = {k: torch.from_numpy(v).to(dev) for k, v in player.prepare(raw).items()}
+        h = torch.tanh(torch.randn(B, wm.recurrent_size, device=dev, generator=g))
+        z = torch.nn.functional.one_hot(torch.randint(0, wm.discrete_size, (B, wm.stochastic_size), device=dev,
+                                                      generator=g), wm.discrete_size).float().reshape(B, -1)
+        a = torch.nn.functional.one_hot(torch.randint(0, 4, (B,), device=dev, generator=g), 4).float()
+        greedy = torch.arange(B, device=dev) % 2 == 0
+        for seed in (3, 4):
+            with torch.inference_mode():
+                eager = player.step(player.params, (h, z, a), obs, seed, greedy)
+                graph = player.dispatch((h, z, a), obs, seed, greedy)
+                e = [t.clone() for t in (*eager[0], eager[1])]
+                r = [t.clone() for t in (*graph[0], graph[1])]
+            torch.cuda.synchronize()
+            worst = max(worst, max(float((x - y).abs().max()) for x, y in zip(e, r)))
+            if not all(torch.equal(x, y) for x, y in zip(e, r)):
+                raise AssertionError(f"rung {B}, seed {seed}: the replayed step differs from eager ({worst:.3g})")
+    from sheeprl_tpu_torch.serve.batcher import LatencyTracker
+    from sheeprl_tpu_torch.serve.client import PolicyClient
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+
+    # the captured and the unwrapped step in turns on one server (dispatch
+    # swapped between turns, when no request is in flight)
+    ladder, dispatch, valid = list(service.ladder), player.dispatch, _action_check(service)
+    server = PolicyServer(service, port=0)
+    server.start()
+    turns = {"graph": [], "eager": []}
+    try:
+        for mode in ("graph", "eager", "eager", "graph"):
+            player.dispatch = dispatch if mode == "graph" else None
+            service.latency = LatencyTracker(8192)
+            served0 = PolicyClient(server.url).stats()["served"]
+            wall, lat = _client_sessions(server.url, player, valid, SERVE_SESSIONS, SERVE_STEPS)
+            st = PolicyClient(server.url).stats()
+            if st["served"] - served0 != SERVE_SESSIONS * SERVE_STEPS or st["errors"]:
+                raise AssertionError(f"{mode} turn: served {st['served'] - served0}, errors {st['errors']}")
+            lat = np.asarray(lat) * 1e3
+            turns[mode].append({"actions_per_s": SERVE_SESSIONS * SERVE_STEPS / wall, "p50_ms": st["p50_ms"],
+                                "p99_ms": st["p99_ms"], "client_p50_ms": float(np.percentile(lat, 50)),
+                                "client_p99_ms": float(np.percentile(lat, 99))})
+    finally:
+        player.dispatch = dispatch
+        server.stop()
+    del service, player, compiled, server
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def show(rows):
+        return "; ".join(f"{r['actions_per_s']:.1f} actions/s, service p50 {r['p50_ms']:.1f} / p99 {r['p99_ms']:.1f} "
+                         f"ms" for r in rows)
+
+    log(f"[graphs-serve] ladder {ladder} captured at warm-up in {warm_s:.1f} s; rungs 1 and 32, seeds 3 and 4: "
+        f"carry and action of the replayed step equal eager bit for bit; 16 sessions x 8 steps over HTTP in turns "
+        f"(graph, eager, eager, graph): captured {show(turns['graph'])}; eager {show(turns['eager'])}; phase 4 "
+        f"(captured, a fresh server): {graph_run['actions_per_s']:.1f} actions/s, service p50 "
+        f"{graph_run['stats']['p50_ms']:.1f} / p99 {graph_run['stats']['p99_ms']:.1f} ms")
+    stats = turns
+    return {"warm_s": warm_s, **stats}
+
+
+def phase_graph_anakin(torch, loop: dict) -> dict:
+    """Phase 41: Anakin PPO on jax_cartpole at 1024 envs.  One rollout from one
+    state (env state, episode sums, the player's and the env's generators)
+    eager and through ``compile_rollout`` twice (first call eager then
+    captured, then replayed): trajectories, episode statistics and the new
+    state equal bit for bit; then eager and replayed rollouts in turns."""
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent, sample_actions
+    from sheeprl_tpu_torch.algos.ppo.utils import normalize_obs_keys, spaces_to_dims
+    from sheeprl_tpu_torch.config.compose import compose
+    from sheeprl_tpu_torch.envs.device import vector_env_from_cfg
+    from sheeprl_tpu_torch.envs.device.anakin import compile_rollout, init_actor_state, make_rollout_fn
+    from sheeprl_tpu_torch.fabric import build_fabric
+
+    cfg = compose(list(ANAKIN_PPO))
+    fabric = build_fabric(cfg)
+    _, player_gen = fabric.seed_everything(int(cfg.seed), fabric.device)
+    venv = vector_env_from_cfg(cfg, fabric.device)
+    obs_space, act_space = venv.single_observation_space, venv.single_action_space
+    normalize_obs_keys(cfg, obs_space)
+    dims, cont = spaces_to_dims(act_space)
+    agent = build_agent(fabric, dims, cont, cfg, obs_space, None)
+    T, E = int(cfg.algo.rollout_steps), int(cfg.env.num_envs)
+    raw = make_rollout_fn(venv, agent, lambda out, noise: sample_actions(out, dims, cont, noise),
+                          cnn_keys=tuple(cfg.algo.cnn_keys.encoder), mlp_keys=tuple(cfg.algo.mlp_keys.encoder),
+                          action_space=act_space, gamma=float(cfg.algo.gamma), rollout_steps=T)
+    compiled = compile_rollout(fabric, raw, player_gen, venv.generator, name="graphs.ppo.rollout")
+    actor0 = init_actor_state(venv, 0)
+    gens = (player_gen, venv.generator)
+    g0 = [gen.get_state() for gen in gens]
+
+    def clone(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.clone()
+        if hasattr(tree, "_fields"):
+            return type(tree)(*(clone(v) for v in tree))
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(clone(v) for v in tree)
+        return tree
+
+    def leaves(tree):
+        if isinstance(tree, torch.Tensor):
+            return [tree]
+        if isinstance(tree, dict):
+            return [x for v in tree.values() for x in leaves(v)]
+        if isinstance(tree, (tuple, list)):
+            return [x for v in tree for x in leaves(v)]
+        return []
+
+    def once(fn):
+        for gen, st in zip(gens, g0):
+            gen.set_state(st)
+        out = clone(fn(clone(actor0), player_gen))
+        torch.cuda.synchronize()
+        return out
+
+    eager, first, replay = once(raw), once(compiled), once(compiled)
+    pairs = list(zip(leaves(eager), leaves(replay)))
+    equal = all(torch.equal(x, y) for x, y in pairs) and all(
+        torch.equal(x, y) for x, y in zip(leaves(eager), leaves(first)))
+    graphs = compiled.compiled.graphs and compiled.compiled.cache_size() == 1
+    if not (equal and graphs):
+        raise AssertionError(f"the replayed Anakin rollout: equal to eager {equal}, one captured graph {graphs}")
+    state = {"eager": clone(actor0), "graph": clone(actor0)}
+
+    def step(kind, fn):
+        def go():
+            state[kind] = fn(state[kind], player_gen)[0]
+        return go
+
+    eager_prof = _profiled(torch, step("eager", raw))
+    graph_prof = _profiled(torch, step("graph", compiled))
+    host_graph = _host_calls(compiled.compiled, step("graph", compiled))
+    turns = _turns(torch, {"eager": step("eager", raw), "graph": step("graph", compiled)}, calls=3)
+    sps = {k: [3 * T * E / t for t in v["s"]] for k, v in turns.items()}
+    graph_rollout_ms = 1e3 * statistics.median(turns["graph"]["s"]) / 3
+    eager_rollout_ms = 1e3 * statistics.median(turns["eager"]["s"]) / 3
+    out = {"env_steps_per_s": sps, "host_launches_per_step": {"eager": eager_prof[1] / T, "graph": host_graph / T},
+           "device_kernels_per_step": {"eager": eager_prof[1] / T, "graph": graph_prof[1] / T},
+           "busy": {"eager": eager_prof[0] / eager_rollout_ms, "graph": graph_prof[0] / graph_rollout_ms},
+           "rollout_ms": {"eager": eager_rollout_ms, "graph": graph_rollout_ms}}
+    log(f"[graphs-anakin] {E} envs x {T} steps: trajectories, episode statistics and the new state of the replayed "
+        f"rollout equal eager bit for bit ({len(pairs)} tensors); env steps/s of the rollout in turns eager "
+        f"{sps['eager'][0]:.0f}, graph {sps['graph'][0]:.0f}, graph {sps['graph'][1]:.0f}, eager {sps['eager'][1]:.0f}; "
+        f"host calls per rollout step eager {out['host_launches_per_step']['eager']:.1f} (every device operation), "
+        f"graph {out['host_launches_per_step']['graph']:.3f} (graph launches and input copies); device operations "
+        f"per step "
+        f"{out['device_kernels_per_step']['eager']:.1f} / {out['device_kernels_per_step']['graph']:.1f}; the card busy "
+        f"{out['busy']['eager']:.1%} of an eager rollout, {out['busy']['graph']:.1%} of a replayed one"
+        + (f"; phase 26 (the loop, rollout captured): {loop['env_steps_per_s']:.0f} env steps/s, "
+           f"{loop['rollout_step_ms']:.3f} ms per rollout step" if loop else ""))
+    return out
+
+
+def phase_graphs(torch, run_root: Path, served: dict, fused_dir: Path, anakin: dict = None) -> dict:
+    """Phases 37-41."""
+    t0 = time.perf_counter()
+    out = {"layer": phase_graph_layer(torch)}
+    out["dv3_xl"] = phase_graph_window(torch, "graphs-dv3-xl", [*XL_TRAIN, FUSED], "rssm")
+    out["dv3_s_gru"] = phase_graph_window(torch, "graphs-dv3-s-gru", S_TRAIN, "gru")
+    out["serve"] = phase_graph_serve(torch, fused_dir, served)
+    out["anakin"] = phase_graph_anakin(torch, anakin)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[graphs] phases 37-41: {out['seconds']:.1f} s")
+    return out
+
+
+def graphs_only(torch) -> int:
+    """``--graphs``: phases 37-41 alone (after phase 4's served snapshot and
+    captured service run, which phase 40 reads beside its eager one)."""
+    run_root = ROOT / "build" / "chip_smoke_graphs"
+    shutil.rmtree(run_root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        device = phase_device(torch)
+        phase_build()
+        fused_dir = run_root / "fused_pallas"
+        _build_snapshot(torch, [*XL_SERVE, FUSED], fused_dir)
+        served = _drive(torch, fused_dir, SERVE_SESSIONS, SERVE_STEPS)
+        del served["service"]
+        graphs = phase_graphs(torch, run_root, served, fused_dir)
+        log("[graphs] " + json.dumps(graphs_summary(graphs), default=float))
+        log(f"[graphs] total {time.perf_counter() - t0:.1f} s")
+    except BaseException:
+        traceback.print_exc()
+        return 1
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
+def graphs_summary(graphs: dict) -> dict:
+    keep = ("updates_per_s", "host_ms_per_update", "host_launches_per_update", "device_kernels_per_update",
+            "captures", "peak_bytes", "launches_per_update", "loss_rel", "param_abs")
+    return {"layer": graphs["layer"], **{k: {x: graphs[k][x] for x in keep} for k in ("dv3_xl", "dv3_s_gru")},
+            "serve": graphs["serve"], "anakin": graphs["anakin"], "seconds": graphs["seconds"]}
+
+
 def timing_only(torch, package_root: str) -> int:
     """``--timing ROOT``: build and time the kernels of the port found under
     ``ROOT`` (for example an unpacked older commit) at every timed batch,
@@ -2567,6 +3179,8 @@ def main() -> int:
         return replay_only(torch)
     if sys.argv[1:2] == ["--replay-ab"]:
         return replay_ab(torch)
+    if sys.argv[1:2] == ["--graphs"]:
+        return graphs_only(torch)
 
     run_root = ROOT / "build" / "chip_smoke"
     shutil.rmtree(run_root, ignore_errors=True)
@@ -2623,6 +3237,8 @@ def main() -> int:
         log("[envs] " + json.dumps(envs_summary(envs), default=float))
         replay = phase_replay(torch, run_root / "replay", train, off_policy["train"])
         log("[replay] " + json.dumps(replay_summary(replay), default=float))
+        graphs = phase_graphs(torch, run_root / "graphs", served, fused_dir, envs["ppo"]["anakin"])
+        log("[graphs] " + json.dumps(graphs_summary(graphs), default=float))
 
         launches = {"rssm": train["counts"]["rssm"], "gru": train_gru["counts"]["gru"]}
         new_paths = {"p2e_explore": p2e, "p2e_finetune": finetune, "decoupled": decoupled}

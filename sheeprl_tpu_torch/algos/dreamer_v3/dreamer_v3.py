@@ -14,7 +14,9 @@ One update (:meth:`DV3Trainer.train_step`) follows the JAX
   posterior latent with the updated world model, λ-returns, the Moments
   percentile normaliser, the actor loss, then the critic's two-hot NLL plus
   the target regulariser;
-* the target-critic EMA when ``counter % target_freq == 0``.
+* the target-critic EMA where ``counter % target_freq == 0``, in the
+  device-side form of JAX's ``do_ema`` (a ``torch.where`` blend), so one
+  captured graph serves every counter.
 
 The scans are Python loops over time.  Every random draw of an update comes
 in as a tensor (:func:`draw_noise`), so a test can hand the port the draws
@@ -38,6 +40,13 @@ run's device is CUDA), each window sampled on the device inside
 power-of-two chunks; otherwise a sequential host ring, or the
 ``EpisodeBuffer`` with ``buffer.type=episode``, sampled with numpy and moved
 to the device in chunks (:func:`window_chunks`).
+
+The loop's train window and its player step go through ``fabric.compile``
+(``parallel/compile.py``): on the card DreamerV3's window is one captured
+CUDA graph per chunk size (:data:`GRAPH_WINDOW_UPDATES` updates at most,
+the RSSM kernel inside) and its player one graph per batch, replayed after
+their first call; the other members of the family, and a player on the
+host, run eagerly under the same recompile audit.
 """
 
 from __future__ import annotations
@@ -106,6 +115,11 @@ METRIC_NAMES = (
 #: window is sampled and moved in chunks.
 WINDOW_BYTES_ENV = "SHEEPRL_MAX_HBM_WINDOW_BYTES"
 WINDOW_BYTES_DEFAULT = 2 << 30
+#: Updates in one captured window graph at most: a longer window replays a
+#: chunk's graph several times.  A graph holds every launch of its updates
+#: (≈ 18 k per DreamerV3-XL update), so capturing the first window's 1,024
+#: updates whole would build a graph of millions of nodes.
+GRAPH_WINDOW_UPDATES = 4
 
 
 def check_supported(cfg: Any) -> None:
@@ -159,13 +173,13 @@ def frozen(*modules: torch.nn.Module) -> Iterator[None]:
             p.requires_grad_(True)
 
 
-def build_dv3_optimizers(cfg: Any, modules: Dict[str, torch.nn.Module],
-                         saved: Optional[Dict[str, Any]] = None) -> Dict[str, ClippedOptimizer]:
+def build_dv3_optimizers(cfg: Any, modules: Dict[str, torch.nn.Module], saved: Optional[Dict[str, Any]] = None,
+                         capturable: bool = False) -> Dict[str, ClippedOptimizer]:
     """The world model's, actor's and critic's optimizers, with their saved
-    state when given."""
+    state when given; ``capturable`` for a window captured as a CUDA graph."""
     algo = cfg.algo
     groups = {"world_model": algo.world_model, "actor": algo.actor, "critic": algo.critic}
-    return build_group_optimizers(modules, groups, saved)
+    return build_group_optimizers(modules, groups, saved, capturable=capturable)
 
 
 def draw_noise(world_model: Any, actor: Actor, U: int, L: int, B: int, horizon: int,
@@ -214,13 +228,13 @@ def _tree_state(tree: Any) -> Any:
 
 
 def _tree_load(tree: Dict[str, Any], state: Dict[str, Any]) -> None:
-    """Load ``state`` into ``tree`` in place: modules by ``load_state_dict``;
-    a tensor entry (Moments) is replaced by a copy in its dict."""
+    """Load ``state`` into ``tree`` in place: modules by ``load_state_dict``,
+    a tensor entry (Moments) by a copy into it."""
     for k, v in tree.items():
         if isinstance(v, torch.nn.Module):
             v.load_state_dict(state[k])
         elif isinstance(v, torch.Tensor):
-            tree[k] = state[k].to(v.device, v.dtype).clone()
+            v.copy_(state[k])
         else:
             _tree_load(v, state[k])
 
@@ -245,6 +259,9 @@ class DreamerTrainer:
 
     #: whether each update imagines a second rollout, for a task actor
     task_rollout = False
+    #: why the loop runs this trainer's window eagerly on the card (None:
+    #: captured as a CUDA graph per chunk size)
+    graph_eager_reason: Optional[str] = "its window is not captured yet (ROADMAP.md, queue A item 3)"
 
     def __init__(self, cfg: Any, modules: Dict[str, Any], optimizers: Dict[str, ClippedOptimizer],
                  cnn_keys: Sequence[str], mlp_keys: Sequence[str], is_continuous: bool):
@@ -287,12 +304,12 @@ class DreamerTrainer:
         return _clone({"agent": self.agent_state(), "opt": self.opt_state()})
 
     def restore(self, snap: Dict[str, Any]) -> None:
-        """Load ``snap``; it stays intact (``Optimizer.load_state_dict`` keeps
-        the tensors it is given, so it gets copies)."""
+        """Load ``snap`` by copying into the state's own tensors (a captured
+        window keeps the addresses it saw); ``snap`` stays intact."""
         with torch.no_grad():
             _tree_load(self.state_tree(), snap["agent"])
         for name, opt in self.optimizers.items():
-            opt.load_state_dict(_clone(snap["opt"][name]))
+            opt.copy_state_(snap["opt"][name])
 
     # -- update pieces -------------------------------------------------------
     def encode_block(self, data: Dict[str, torch.Tensor]):
@@ -366,11 +383,13 @@ class DreamerTrainer:
         raise NotImplementedError
 
     def train_phase(self, blocks: Dict[str, torch.Tensor], noise: Union[Dict[str, Any], torch.Generator],
-                    counter0: int):
+                    counter0: Union[int, torch.Tensor]):
         """``U`` updates in order over ``(U, L, B, *)`` blocks; returns the
         mean of each of the ten metrics over the window.  ``noise`` is every
         draw of the ``U`` updates (:func:`draw_noise`), or a generator from
-        which each update draws its own just before it runs."""
+        which each update draws its own just before it runs.  ``counter0`` is
+        the gradient-step count before the window: an int, or a 0-d tensor
+        on the device (what a captured window takes)."""
         U, L, B = blocks["rewards"].shape
         metrics = []
         for u in range(U):
@@ -386,6 +405,8 @@ class DreamerTrainer:
 class DV3Trainer(DreamerTrainer):
     """The modules, Moments state and optimizers of one DreamerV3 run, and
     its update."""
+
+    graph_eager_reason = None
 
     def __init__(self, cfg: Any, modules: Dict[str, Any], optimizers: Dict[str, ClippedOptimizer],
                  cnn_keys: Sequence[str], mlp_keys: Sequence[str], is_continuous: bool,
@@ -518,7 +539,9 @@ class DV3Trainer(DreamerTrainer):
             advantage = (lambda_values - offset) / invscale - (values[:-1] - offset) / invscale
             policy_loss = self.actor_objective(actor, traj, actions_seq, advantage, discount)
             self.step_optimizer(actor_opt, policy_loss)
-        moments.update(new_moments)
+        with torch.no_grad():
+            for k, v in new_moments.items():
+                moments[k].copy_(v)  # in place: a captured window keeps the address
         value_loss = self.critic_regression(critic, target_critic, traj, lambda_values, discount, critic_opt)
         return policy_loss.detach(), value_loss
 
@@ -527,10 +550,15 @@ class DV3Trainer(DreamerTrainer):
         return self.behavior(self.actor, self.critic, self.target_critic, self.moments, latents, terminated,
                              noise["actions"], noise["imagination"])
 
-    def target_update(self, counter: int) -> None:
-        """The target critic's EMA, every ``target_freq`` updates."""
-        if counter % self.target_freq == 0:
-            ema_(self.target_critic, self.critic, self.tau)
+    def target_update(self, counter: Union[int, torch.Tensor]) -> None:
+        """The target critic's EMA where ``counter % target_freq == 0`` — JAX's
+        ``do_ema`` on the device: the blend is computed every update and kept
+        by ``torch.where``, so no Python branch reads the counter and one
+        captured graph serves every counter."""
+        do = counter % self.target_freq == 0
+        if not isinstance(do, torch.Tensor):
+            do = torch.full((), bool(do), dtype=torch.bool, device=self.device)
+        ema_where_(self.target_critic, self.critic, self.tau, do)
 
     def train_step(self, data: Dict[str, torch.Tensor], noise: Dict[str, Any], counter: int) -> Tuple[torch.Tensor, ...]:
         """One update on an ``(L, B, *)`` block; returns the ten metrics."""
@@ -545,6 +573,13 @@ def ema_(target: torch.nn.Module, online: torch.nn.Module, tau: float) -> None:
     with torch.no_grad():
         for t, o in zip(target.parameters(), online.parameters()):
             t.copy_((1 - tau) * t + tau * o)
+
+
+def ema_where_(target: torch.nn.Module, online: torch.nn.Module, tau: float, do: torch.Tensor) -> None:
+    """:func:`ema_` where the 0-d bool ``do`` holds, else ``target`` as it is."""
+    with torch.no_grad():
+        for t, o in zip(target.parameters(), online.parameters()):
+            t.copy_(torch.where(do, (1 - tau) * t + tau * o, t))
 
 
 def _clone(tree: Any) -> Any:
@@ -705,6 +740,7 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
       one, it skips the random prefill."""
     check_supported(cfg)
     warn_unacted_settings(cfg)
+    fabric.warm_kernels(cfg)
     player_device = fabric.player_device(cfg)
     train_gen, player_gen = fabric.seed_everything(int(cfg.seed), player_device)
 
@@ -735,7 +771,12 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
         for name, gen in (("train", train_gen), ("player", player_gen)):
             gen.set_state(state["generators"][name].cpu())
     modules = build_agent_fn(fabric, actions_dim, is_continuous, cfg, obs_space, state.get("agent"))
-    optimizers = (optimizer_builder or build_dv3_optimizers)(cfg, modules, state.get("opt_state"))
+    if optimizer_builder is None:
+        # a window captured on the card needs Adam's step count on the card
+        capturable = fabric.device.type == "cuda" and make_trainer_fn.graph_eager_reason is None
+        optimizers = build_dv3_optimizers(cfg, modules, state.get("opt_state"), capturable=capturable)
+    else:
+        optimizers = optimizer_builder(cfg, modules, state.get("opt_state"))
     trainer = make_trainer_fn(cfg, modules, optimizers, cnn_keys, mlp_keys, is_continuous, state.get("agent"))
     sentinel = HealthSentinel.from_config(cfg)
 
@@ -746,9 +787,15 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
     rec_size = trainer.world_model.recurrent_size
     stoch_flat = trainer.world_model.stoch_flat
 
-    def player_step(carry, obs, greedy: bool = False):
+    def player_step_fn(carry, obs, greedy: bool = False):
         return latent_player_step(psync.modules["world_model"], psync.modules["actor"], carry, obs, player_gen,
                                   greedy)
+
+    max_recompiles = cfg.algo.get("max_recompiles")
+    # one graph per (batch, greedy) on a card player; a host player runs eagerly
+    player_step = fabric.compile(player_step_fn, name=f"{cfg.algo.name}.player_step", static_argnames=("greedy",),
+                                 max_recompiles=max_recompiles, device=player_device, generators=(player_gen,),
+                                 eager_reason=trainer.graph_eager_reason)
 
     def init_player_carry(batch: int):
         return (torch.zeros(batch, rec_size, device=player_device),
@@ -782,8 +829,28 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
                                         memmap=cfg.buffer.memmap, memmap_dir=memmap_dir)
         where = "a host ring"
     guard_on = bool(cfg.buffer.get("transfer_guard", False)) and use_device_replay
+
+    # the train window: on the device ring the whole chunk (draw, gather,
+    # prep, updates) is one function; on the host ring the updates on blocks
+    # sampled and moved by the loop.  Both take the gradient-step count
+    # before the chunk and return it after.
+    def prep(b):
+        return prep_blocks(b, cnn_keys, mlp_keys)
+
+    def device_window(n_updates, counter):
+        return fused_sequence_train(trainer, rb, train_gen, batch_size, seq_len, n_updates, prep, counter)
+
+    def host_window(n_updates, blocks, counter):
+        return counter + n_updates, trainer.train_phase(blocks, train_gen, counter)
+
+    train_window = fabric.compile(device_window if use_device_replay else host_window,
+                                  name=f"{cfg.algo.name}.train_phase" + ("_device" if use_device_replay else ""),
+                                  static_argnums=(0,), max_recompiles=max_recompiles, generators=(train_gen,),
+                                  eager_reason=trainer.graph_eager_reason)
+    captured = train_window.graphs
     print(f"{cfg.algo.name} on {fabric.device}: player on {player_device}, replay in {where}, "
-          f"{num_envs} env(s) stepped synchronously", flush=True)
+          f"{num_envs} env(s) stepped synchronously, train window "
+          f"{'captured as CUDA graphs' if captured else 'eager'}", flush=True)
     # present only when saved with buffer.checkpoint, or carried over by a
     # finetuning run's buffer.load_from_exploration
     if state.get("rb") is not None:
@@ -815,6 +882,9 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
     step_data["is_first"] = np.ones((1, num_envs), np.float32)
     last_metrics = None
     train_windows = 0  # the guard arms past the first window
+    # a captured window reads the count from the card (a fill, no copy)
+    counter = (torch.full((), grad_step_counter, dtype=torch.int64, device=fabric.device) if captured
+               else grad_step_counter)
 
     for update in range(start_iter, total_iters + 1):
         policy_step += policy_steps_per_iter
@@ -912,23 +982,28 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
                     # from the host, and with buffer.transfer_guard a chunk
                     # after the first window that waits on the host raises (the
                     # health check reads its flag after the guarded chunk)
-                    chunks = (update_chunks(per_rank_gradient_steps,
-                                            bytes_per_update=rb.sampled_bytes_per_update(batch_size, seq_len))
-                              if use_device_replay else window_chunks(per_rank_gradient_steps, bytes_per_update))
+                    # a captured window runs in power-of-two chunks of at most
+                    # GRAPH_WINDOW_UPDATES updates, one graph per chunk size
+                    cap = GRAPH_WINDOW_UPDATES if captured else None
+                    if use_device_replay:
+                        chunks = update_chunks(per_rank_gradient_steps, cap=cap,
+                                               bytes_per_update=rb.sampled_bytes_per_update(batch_size, seq_len))
+                    elif captured:
+                        chunks = update_chunks(per_rank_gradient_steps, cap=cap, bytes_per_update=bytes_per_update)
+                    else:
+                        chunks = window_chunks(per_rank_gradient_steps, bytes_per_update)
                     for u in chunks:
                         backup = trainer.snapshot() if sentinel is not None else None
                         if use_device_replay:
                             with steady_guard(guard_on and train_windows > 0):
-                                grad_step_counter, last_metrics = fused_sequence_train(
-                                    trainer, rb, train_gen, batch_size, seq_len, u,
-                                    lambda b: prep_blocks(b, cnn_keys, mlp_keys), grad_step_counter)
+                                counter, last_metrics = train_window(u, counter)
                         else:
                             sample = rb.sample(batch_size, n_samples=u, sequence_length=seq_len)
                             blocks = blocks_to_device(sample, cnn_keys, mlp_keys, fabric.device)
                             del sample
-                            last_metrics = trainer.train_phase(blocks, train_gen, grad_step_counter)
+                            counter, last_metrics = train_window(u, blocks, counter)
                             del blocks
-                            grad_step_counter += u
+                        grad_step_counter += u
                         if sentinel is not None and not sentinel.check(last_metrics, trainer.tensors(), policy_step):
                             trainer.restore(backup)
                         del backup

@@ -74,6 +74,7 @@ class P2EDV3Trainer(DV3Trainer):
     task rollout's (``actions_task``, ``imagination_task``)."""
 
     task_rollout = True
+    graph_eager_reason = "Plan2Explore's window is not captured yet (ROADMAP.md, queue A item 3)"
 
     def __init__(self, cfg: Any, modules: Dict[str, Any], optimizers: Dict[str, ClippedOptimizer],
                  cnn_keys: Sequence[str], mlp_keys: Sequence[str], is_continuous: bool,

@@ -26,7 +26,11 @@ step on the run's device inside the iteration, the schedules are taken from
 the actor's update counter before the rollout, and the rollout goes to the
 same ``train_phase`` on the device; ``buffer.transfer_guard`` guards the
 rollout and the train phase together, as the JAX package guards its one
-Anakin dispatch.  The JAX package's population path
+Anakin dispatch.  Every route goes through ``fabric.compile``: PPO's Anakin
+rollout is one captured CUDA graph on the card
+(:func:`~sheeprl_tpu_torch.envs.device.anakin.compile_rollout`); the
+update, the host path's player and A2C's rollout run eagerly under the
+same recompile audit, each with its reason at the call site.  The JAX package's population path
 (whole agents vmapped over a population on the Anakin axis) and its
 multi-process samplers are not ported: :func:`check_supported` raises for them.
 """
@@ -54,7 +58,12 @@ from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.data.device_replay import stage_rollout, stage_scalar, steady_guard
 from sheeprl_tpu_torch.envs.device import anakin_enabled, vector_env_from_cfg
-from sheeprl_tpu_torch.envs.device.anakin import episode_stats_from_device, init_actor_state, make_rollout_fn
+from sheeprl_tpu_torch.envs.device.anakin import (
+    compile_rollout,
+    episode_stats_from_device,
+    init_actor_state,
+    make_rollout_fn,
+)
 from sheeprl_tpu_torch.utils.env import episode_stats, final_obs_rows, make_env, vectorize
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, flush_metrics
@@ -113,6 +122,8 @@ class OnPolicyTrainer:
     SCHEDULES: Tuple[str, ...] = ("lr",)
     #: whether the update reads the rollout's log-probs
     STORES_LOGPROBS = True
+    #: why the loop runs the Anakin rollout eagerly on the card (None: captured)
+    ROLLOUT_EAGER_REASON: Any = "A2C's Anakin phase is captured with its update (ROADMAP.md, queue A item 3(a))"
 
     def __init__(self, cfg: Any, agent: torch.nn.Module, optimizer: ClippedOptimizer, obs_keys: Sequence[str],
                  actions_dim: Sequence[int], is_continuous: bool, T: int, B: int):
@@ -156,6 +167,7 @@ class PPOTrainer(OnPolicyTrainer):
     minibatch steps."""
 
     SCHEDULES = ("lr", "clip_coef", "ent_coef")
+    ROLLOUT_EAGER_REASON = None
 
     def __init__(self, cfg: Any, *args: Any):
         super().__init__(cfg, *args)
@@ -284,12 +296,22 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
             if cfg.algo.get(f"anneal_{name}", False) and name in trainer.SCHEDULES:
                 coef[name] = polynomial_decay(step, initial=initial[name], final=0.0, max_decay_steps=total_iters)
 
+    max_recompiles = cfg.algo.get("max_recompiles")
+    # the update runs eagerly: the learning rate and the annealed coefficients
+    # are Python values a graph would freeze (GAE and the update: ROADMAP.md,
+    # queue A item 3(a))
+    train_phase = fabric.compile(trainer.train_phase, name=f"{cfg.algo.name}.train_phase",
+                                 max_recompiles=max_recompiles,
+                                 eager_reason="the annealed learning rate and coefficients are Python values")
     if use_anakin:
-        rollout_fn = make_rollout_fn(
-            venv, agent, lambda out, noise: sample_actions(out, actions_dim, is_continuous, noise,
-                                                            dist_type=dist_type),
-            cnn_keys=cnn_keys, mlp_keys=mlp_keys, action_space=act_space, gamma=gamma,
-            rollout_steps=rollout_steps, store_logprobs=trainer_cls.STORES_LOGPROBS)
+        rollout_fn = compile_rollout(
+            fabric, make_rollout_fn(
+                venv, agent, lambda out, noise: sample_actions(out, actions_dim, is_continuous, noise,
+                                                                dist_type=dist_type),
+                cnn_keys=cnn_keys, mlp_keys=mlp_keys, action_space=act_space, gamma=gamma,
+                rollout_steps=rollout_steps, store_logprobs=trainer_cls.STORES_LOGPROBS),
+            player_gen, venv.generator, name=f"{cfg.algo.name}.rollout", max_recompiles=max_recompiles,
+            eager_reason=trainer_cls.ROLLOUT_EAGER_REASON)
         actor = init_actor_state(venv, start_iter - 1)
     else:
         rb = ReplayBuffer(rollout_steps, num_envs, memmap=cfg.buffer.memmap,
@@ -299,6 +321,16 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
     last_losses = None
     # buffer.transfer_guard: an update past the first that waits on the host raises
     guard_on = bool(cfg.buffer.get("transfer_guard", False))
+
+    def player_act(o: Dict[str, torch.Tensor]):
+        out, _ = player(o)
+        return sample_actions(out, actions_dim, is_continuous, player_gen, dist_type=dist_type)
+
+    # the host path's player: one step per env step, synchronised by the copy
+    # of its actions to the env; it runs eagerly under the audit
+    player_step = fabric.compile(player_act, name=f"{cfg.algo.name}.player_step", device=player_device,
+                                 max_recompiles=max_recompiles,
+                                 eager_reason="the host loop copies every step's actions to the env")
 
     def player_values(o: Dict[str, np.ndarray]) -> np.ndarray:
         with torch.inference_mode():
@@ -311,8 +343,7 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
                 apply_schedules(actor["update"])
                 with steady_guard(guard_on and update > start_iter):
                     actor, rollout, last_obs, ep_stats = rollout_fn(actor, player_gen)
-                    last_losses = trainer.train_phase(rollout, last_obs, train_gen, coef["clip_coef"],
-                                                      coef["ent_coef"])
+                    last_losses = train_phase(rollout, last_obs, train_gen, coef["clip_coef"], coef["ent_coef"])
                 del rollout, last_obs
             policy_step += policy_steps_per_iter
             if cfg.metric.log_level > 0:
@@ -324,9 +355,7 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
                 for _ in range(rollout_steps):
                     policy_step += num_envs
                     with torch.inference_mode():
-                        out, _ = player(prepare_obs(obs, cnn_keys, mlp_keys, player_device))
-                        actions, logprobs, _ = sample_actions(out, actions_dim, is_continuous, player_gen,
-                                                              dist_type=dist_type)
+                        actions, logprobs, _ = player_step(prepare_obs(obs, cnn_keys, mlp_keys, player_device))
                     actions_np = actions.cpu().numpy()
                     next_obs, rewards, terminated, truncated, info = envs.step(actions_for_env(actions_np, act_space))
                     dones = np.logical_or(terminated, truncated)
@@ -357,7 +386,7 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
                 last_obs = prepare_obs(obs, cnn_keys, mlp_keys, fabric.device)
                 clip_coef, ent_coef = (stage_scalar(coef[k], fabric.device) for k in ("clip_coef", "ent_coef"))
                 with steady_guard(guard_on and update > start_iter):
-                    last_losses = trainer.train_phase(rollout, last_obs, train_gen, clip_coef, ent_coef)
+                    last_losses = train_phase(rollout, last_obs, train_gen, clip_coef, ent_coef)
                 del rollout, last_obs
                 if player is not agent:
                     player.load_state_dict(agent.state_dict())

@@ -36,6 +36,7 @@ from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.data.device_replay import stage_rollout, stage_scalar, steady_guard
 from sheeprl_tpu_torch.envs.device import anakin_enabled, vector_env_from_cfg
 from sheeprl_tpu_torch.envs.device.anakin import (
+    compile_rollout,
     episode_stats_from_device,
     init_actor_state,
     make_recurrent_rollout_fn,
@@ -192,11 +193,22 @@ def main(fabric: Any, cfg: Any) -> None:
     carry = player.initial_state(num_envs, player_device)
     prev_actions = torch.zeros(num_envs, act_width, device=player_device)
     is_first = torch.ones(num_envs, 1, device=player_device)
+    max_recompiles = cfg.algo.get("max_recompiles")
+    # every route through the compile-once audit; all run eagerly so far
+    train_phase = fabric.compile(trainer.train_phase, name=f"{cfg.algo.name}.train_phase",
+                                 max_recompiles=max_recompiles,
+                                 eager_reason="the annealed learning rate and entropy coefficient are Python values")
+    player_step = fabric.compile(player.step, name=f"{cfg.algo.name}.player_step",
+                                 device=player_device, max_recompiles=max_recompiles,
+                                 eager_reason="the host loop copies every step's actions to the env")
     if use_anakin:
-        rollout_fn = make_recurrent_rollout_fn(
-            venv, agent.step, lambda out, noise: _sample(out, actions_dim, is_continuous, noise),
-            lambda a: one_hot_actions(a, actions_dim, is_continuous), mlp_keys=mlp_keys, action_space=act_space,
-            gamma=gamma, rollout_steps=rollout_steps)
+        rollout_fn = compile_rollout(
+            fabric, make_recurrent_rollout_fn(
+                venv, agent.step, lambda out, noise: _sample(out, actions_dim, is_continuous, noise),
+                lambda a: one_hot_actions(a, actions_dim, is_continuous), mlp_keys=mlp_keys, action_space=act_space,
+                gamma=gamma, rollout_steps=rollout_steps),
+            player_gen, venv.generator, name=f"{cfg.algo.name}.rollout", max_recompiles=max_recompiles,
+            eager_reason="the recurrent Anakin phase is captured with its update (ROADMAP.md, queue A item 3(a))")
         actor = init_actor_state(venv, start_iter - 1,
                                  {"carry": carry, "prev_actions": prev_actions, "is_first": is_first})
     else:
@@ -212,7 +224,7 @@ def main(fabric: Any, cfg: Any) -> None:
                 apply_schedules(actor["update"])
                 with steady_guard(guard_on and update > start_iter):
                     actor, rollout, init_carry, last_v, ep_stats = rollout_fn(actor, player_gen)
-                    last_losses = trainer.train_phase(rollout, init_carry, last_v, train_gen, ent_coef)
+                    last_losses = train_phase(rollout, init_carry, last_v, train_gen, ent_coef)
                 del rollout
             policy_step += policy_steps_per_iter
             if cfg.metric.log_level > 0:
@@ -226,7 +238,7 @@ def main(fabric: Any, cfg: Any) -> None:
                     policy_step += num_envs
                     with torch.no_grad():
                         step_obs = flat_obs(obs, mlp_keys, player_device)
-                        next_carry, (actor_out, _) = player.step(carry, step_obs, prev_actions, is_first)
+                        next_carry, (actor_out, _) = player_step(carry, step_obs, prev_actions, is_first)
                         actions, logprobs = _sample(actor_out, actions_dim, is_continuous, player_gen)
                     actions_np = actions.cpu().numpy()
                     next_obs, rewards, terminated, truncated, info = envs.step(actions_for_env(actions_np, act_space))
@@ -277,7 +289,7 @@ def main(fabric: Any, cfg: Any) -> None:
                 carry0, last_v = tuple(c.to(dev) for c in init_carry), last_v[..., 0].to(dev)
                 ent = stage_scalar(ent_coef, dev)
                 with steady_guard(guard_on and update > start_iter):
-                    last_losses = trainer.train_phase(rollout, carry0, last_v, train_gen, ent)
+                    last_losses = train_phase(rollout, carry0, last_v, train_gen, ent)
                 del rollout
                 if player is not agent:
                     player.load_state_dict(agent.state_dict())

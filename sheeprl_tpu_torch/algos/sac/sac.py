@@ -352,6 +352,19 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
         rb.load_state_dict(_rb_state_from_checkpoint(state["rb"]))
     batch_size = int(cfg.algo.per_rank_batch_size)
 
+    # every route through the compile-once audit; all run eagerly so far
+    max_recompiles = cfg.algo.get("max_recompiles")
+    eager = "the off-policy update is captured later (ROADMAP.md, queue A item 3(e))"
+    train_window = fabric.compile(
+        (lambda n, counter: fused_uniform_train(trainer, rb, train_gen, batch_size, n, layout.prep, counter))
+        if use_device_replay else (lambda batches, counter: trainer.train_phase(batches, train_gen, counter)),
+        name=f"{cfg.algo.name}.train_phase" + ("_device" if use_device_replay else ""),
+        static_argnums=(0,) if use_device_replay else (), max_recompiles=max_recompiles, eager_reason=eager)
+    player_step = fabric.compile(lambda o: trainer.act(psync.modules, o, player_gen),
+                                 name=f"{cfg.algo.name}.player_step", device=player_device,
+                                 max_recompiles=max_recompiles,
+                                 eager_reason="the host loop copies every step's actions to the env")
+
     obs, _ = envs.reset(seed=int(cfg.seed))
     last_losses = None
     train_windows = 0  # the guard arms past the first window
@@ -363,7 +376,7 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
                 actions = to_tanh_space(env_actions, act_space)
             else:
                 with torch.inference_mode():
-                    actions = trainer.act(psync.modules, layout.player_obs(obs, player_device), player_gen)
+                    actions = player_step(layout.player_obs(obs, player_device))
                 actions = actions.cpu().numpy()
                 env_actions = to_env_actions(actions, act_space)
             next_obs, rewards, terminated, truncated, info = envs.step(env_actions)
@@ -404,11 +417,10 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
                         backup = trainer.snapshot() if sentinel is not None else None
                         if use_device_replay:
                             with steady_guard(guard_on and train_windows > 0):
-                                grad_step_counter, last_losses = fused_uniform_train(
-                                    trainer, rb, train_gen, batch_size, u, layout.prep, grad_step_counter)
+                                grad_step_counter, last_losses = train_window(u, grad_step_counter)
                         else:
                             batches = layout.batches(rb.sample(batch_size, n_samples=u), fabric.device)
-                            last_losses = trainer.train_phase(batches, train_gen, grad_step_counter)
+                            last_losses = train_window(batches, grad_step_counter)
                             del batches
                             grad_step_counter += u
                         if sentinel is not None and not sentinel.check(last_losses, trainer.tensors(), policy_step):

@@ -811,7 +811,11 @@ def fused_sequence_train(trainer: Any, replay: DeviceReplay, generator: torch.Ge
                          noise: Any = None) -> Tuple[int, Tuple[torch.Tensor, ...]]:
     """The sequence twin of :func:`fused_uniform_train` (the Dreamer
     family): ``(n_samples, L, B, *)`` blocks drawn and gathered on the
-    device, then the trainer's window of updates."""
+    device, then the trainer's window of updates.  This is the function the
+    DreamerV3 loop captures as one CUDA graph per chunk size: it reads the
+    cursors in place from the ring's two persistent tensors, draws from
+    ``generator`` (registered with the graph), and takes ``counter`` as a
+    0-d tensor on the device there (an int when it runs eagerly)."""
     blocks = replay.sample_sequences(generator, batch_size, sequence_length, n_samples, indices=indices)
     metrics = trainer.train_phase(prep(blocks), generator if noise is None else noise, counter)
     return counter + int(n_samples), metrics

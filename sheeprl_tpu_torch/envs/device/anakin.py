@@ -6,9 +6,10 @@ truncation bootstrap → episode accounting} inside one compiled program.
 Here the rollout is a Python loop of ``T`` steps over device tensors: every
 step enqueues its launches and none of them waits for the device, so the
 host runs ahead of the card for the whole rollout and the env's state never
-leaves it.  Nothing in the loop may synchronise: no ``.item()``, no Python
-``if`` on a tensor, no ``nonzero`` or boolean-mask indexing, no copy to the
-host.  Autoreset is ``torch.where`` over every leaf
+leaves it (:func:`compile_rollout` captures the whole loop as one CUDA
+graph on the card).  Nothing in the loop may synchronise: no ``.item()``, no
+Python ``if`` on a tensor, no ``nonzero`` or boolean-mask indexing, no copy
+to the host.  Autoreset is ``torch.where`` over every leaf
 (:class:`~sheeprl_tpu_torch.envs.device.core.VectorDeviceEnv`), and the
 episode statistics stay on the device until :func:`episode_stats_from_device`
 pulls them once per rollout.
@@ -183,6 +184,42 @@ def make_recurrent_rollout_fn(venv: VectorDeviceEnv, step_fn: Callable, sample_f
         return new_actor, _stack(traj), actor["carry"], last_v[..., 0], _stack(stats)
 
     return rollout
+
+
+def compile_rollout(fabric: Any, rollout: Callable, noise_generator: torch.Generator,
+                    env_generator: torch.Generator, *, name: str, max_recompiles: Optional[int] = None,
+                    eager_reason: Optional[str] = None) -> Callable:
+    """``rollout`` (:func:`make_rollout_fn` or :func:`make_recurrent_rollout_fn`)
+    through ``fabric.compile``: on the card the whole rollout of ``T`` steps
+    is one captured CUDA graph (every step's observe, forward, sample, env
+    step, autoreset, bootstrap forward and episode accounting), replayed
+    each iteration.  The player's and the env's generators are registered
+    with it, so a replay draws the actions and resets eager execution would;
+    handed-in noise and ``reset_draws`` are inputs like the env state.  The
+    actor's ``update`` counter stays a host int outside the graph.  Returns
+    a callable with ``rollout``'s signature; ``.compiled`` is the
+    :class:`~sheeprl_tpu_torch.parallel.compile.GraphFunction`.
+
+    The JAX package compiles the rollout, GAE and the update epochs as one
+    program; the port captures the rollout alone so far (the update and GAE
+    are ROADMAP.md, queue A item 3(a))."""
+
+    def run(carry: Dict[str, Any], noise: Any, reset_draws: Any):
+        actor, *rest = rollout({**carry, "update": 0}, noise_generator if noise is None else noise, reset_draws)
+        return ({k: v for k, v in actor.items() if k != "update"}, *rest)
+
+    compiled = fabric.compile(run, name=name, max_recompiles=max_recompiles,
+                              generators=(noise_generator, env_generator), eager_reason=eager_reason)
+
+    def call(actor: Dict[str, Any], noise: Noise, reset_draws: Optional[Sequence[Dict]] = None):
+        if isinstance(noise, torch.Generator) and noise is not noise_generator:
+            raise ValueError(f"{name}: draws from the generator it was compiled with, not another")
+        carry = {k: v for k, v in actor.items() if k != "update"}
+        new, *rest = compiled(carry, None if isinstance(noise, torch.Generator) else noise, reset_draws)
+        return ({**new, "update": actor["update"] + 1}, *rest)
+
+    call.compiled = compiled
+    return call
 
 
 def episode_stats_from_device(stats: Dict[str, torch.Tensor]) -> Tuple[np.ndarray, np.ndarray]:

@@ -4,8 +4,10 @@
 ``fabric.accelerator`` ``auto`` or ``gpu``/``cuda`` means ``cuda:0`` and
 raises when no GPU is present; only ``cpu`` gives the CPU.  ``32-true`` is
 full fp32: TF32 is switched off for matrix products and for cuDNN's
-convolutions.  :class:`PlayerSync` keeps the env player's own copy of the
-weights it acts with, refreshed after train windows.
+convolutions.  :meth:`Fabric.compile` is the compile-once entry point
+(``parallel/compile.py``: one captured CUDA graph per signature on the
+card).  :class:`PlayerSync` keeps the env player's own copy of the weights
+it acts with, refreshed after train windows.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ import copy
 import os
 import random
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, Tuple, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -52,6 +54,51 @@ class Fabric:
         if where == "host":
             return torch.device("cpu")
         raise ValueError(f"algo.player.device={where}: choose accelerator or host")
+
+    def compile(
+        self,
+        fn: Callable,
+        *,
+        name: Optional[str] = None,
+        max_recompiles: Optional[int] = None,
+        static_argnums: Tuple[int, ...] = (),
+        static_argnames: Tuple[str, ...] = (),
+        device: Any = None,
+        generators: Sequence[torch.Generator] = (),
+        eager_reason: Optional[str] = None,
+    ) -> Any:
+        """The compile-once entry point (``sheeprl_tpu/parallel/fabric.py``'s
+        ``compile``): a :class:`~sheeprl_tpu_torch.parallel.compile.GraphFunction`
+        that captures one CUDA graph per signature when ``device`` (this
+        fabric's by default) is the card, and runs eagerly on the CPU or for
+        a route marked ``eager_reason``, counted in the recompile audit either
+        way.  ``generators`` are the generators ``fn`` draws from."""
+        from sheeprl_tpu_torch.parallel.compile import compile_once
+
+        return compile_once(fn, name=name, static_argnums=static_argnums, static_argnames=static_argnames,
+                            max_recompiles=max_recompiles, device=self.device if device is None else device,
+                            generators=generators, eager_reason=eager_reason)
+
+    @property
+    def compile_pool(self) -> Any:
+        """The process-wide warm-up pool (created at first use)."""
+        from sheeprl_tpu_torch.parallel.compile import get_compile_pool
+
+        return get_compile_pool()
+
+    def warm_kernels(self, cfg: Any) -> None:
+        """With ``algo.compile_warmup`` on a CUDA run, submit the ``nvcc``
+        builds of the kernels the model's config asks for to
+        :attr:`compile_pool`, so they overlap the env and ring set-up (the
+        JAX loops submit their player compile there)."""
+        if self.device.type != "cuda" or not bool(cfg.algo.get("compile_warmup", True)):
+            return
+        from sheeprl_tpu_torch.ops import _build
+
+        rec = ((cfg.algo.get("world_model") or {}).get("recurrent_model") or {})
+        names = [n for n, flag in (("rssm", "fused_pallas"), ("gru", "use_pallas")) if rec.get(flag)]
+        if names:
+            self.compile_pool.submit_fn(_build.build, names)
 
     def get_checkpoint_manager(self, cfg: Any, log_dir: Union[str, os.PathLike]):
         from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
@@ -120,10 +167,14 @@ class PlayerSync:
         self.staleness_max = 0
 
     def init(self) -> Dict[str, torch.nn.Module]:
-        """The player's modules, copies of the current trained ones."""
+        """The player's modules, copies of the current trained ones.  Called
+        again, it loads the trained weights into the same modules, so a
+        graph captured on them stays valid."""
         self._player_version = self._windows
         self._pending = None
-        self.modules = {}
+        if self.modules:
+            self._load({name: m.state_dict() for name, m in self.extract().items()})
+            return self.modules
         for name, module in self.extract().items():
             player = copy.deepcopy(module).to(self.device)
             player.requires_grad_(False)

@@ -27,6 +27,7 @@ NVCC_FLAGS = (
 )
 
 _LOCK = threading.Lock()
+_BUILD_LOCK = threading.Lock()  # one build at a time: a warm-up thread's and a first call's
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
 
@@ -54,6 +55,11 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     """Compile every library in ``names`` that is not built yet: one ``nvcc``
     per source, all started together.  Returns ``{name: ptxas report}`` for
     the sources compiled by this call (registers, shared memory, spills)."""
+    with _BUILD_LOCK:
+        return _build(names)
+
+
+def _build(names: Iterable[str]) -> Dict[str, str]:
     todo = [n for n in names if not library_path(n).exists()]
     if not todo:
         return {}

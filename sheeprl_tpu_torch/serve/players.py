@@ -12,6 +12,12 @@ on the player's device, and a host-side ``postprocess``.
   counterpart of ``jax.random.PRNGKey(seed)``.  It cannot give JAX's bits,
   so the DreamerV3 step also takes the posterior's Gumbel noise explicitly,
   and the PPO and SAC steps their actions' noise.
+* :meth:`PolicyPlayer.step_batch` dispatches through ``dispatch``, built by
+  ``fabric.compile``: the DreamerV3 step is one captured CUDA graph per
+  ladder rung on the card, drawing from one generator registered with the
+  graphs and reseeded per dispatch (so a seed gives the action and carry
+  that ``step`` gives eagerly); the PPO and SAC steps run eagerly under the
+  same recompile audit.
 * ``carry`` is ``()`` for stateless players (ppo, sac) and the latent-state tuple
   ``(h, z, a)`` for dreamer_v3; the service keeps per-session carries on the
   host.
@@ -57,6 +63,10 @@ class PolicyPlayer:
     stateful: bool = False
     carry_spec: Tuple[Tuple[Tuple[int, ...], str], ...] = ()
     checkpoint_step: int = -1
+    #: ``(carry, obs, seed, greedy) -> (carry, actions)`` on the player's own
+    #: ``params``, through ``fabric.compile`` (``compiled``)
+    dispatch: Optional[Callable] = None
+    compiled: Any = None
     _prep_spec: Dict[str, Tuple[Tuple[int, ...], str]] = field(default_factory=dict)
 
     def zero_carry(self, batch: int) -> Tuple[np.ndarray, ...]:
@@ -80,7 +90,10 @@ class PolicyPlayer:
             carry_t = tuple(torch.from_numpy(np.ascontiguousarray(c)).to(dev) for c in carry)
             obs_t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in obs.items()}
             greedy_t = torch.from_numpy(np.asarray(greedy, bool)).to(dev)
-            new_carry, actions = self.step(params, carry_t, obs_t, int(seed), greedy_t)
+            if self.dispatch is not None and params is self.params:
+                new_carry, actions = self.dispatch(carry_t, obs_t, int(seed), greedy_t)
+            else:
+                new_carry, actions = self.step(params, carry_t, obs_t, int(seed), greedy_t)
             return tuple(c.cpu().numpy() for c in new_carry), actions.cpu().numpy()
 
     def batch_specs(self, batch: int) -> Tuple[Any, ...]:
@@ -119,8 +132,10 @@ def build_dreamer_v3_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_sp
     cnn_keys = tuple(cfg.algo.cnn_keys.encoder)
     mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
     actions_dim, is_continuous = spaces_to_dims(action_space)
+    fabric.warm_kernels(cfg)
     modules = build_agent(fabric, actions_dim, is_continuous, cfg, obs_space, state["agent"])
     world_model, actor = modules["world_model"], modules["actor"]
+    params = {"world_model": world_model, "actor": actor}
     act_width = int(sum(actions_dim))
     rec_size = int(cfg.algo.world_model.recurrent_model.recurrent_state_size)
 
@@ -129,9 +144,11 @@ def build_dreamer_v3_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_sp
         sample draws ``post_noise`` (Gumbel, (B, stoch, discrete)) when given,
         else noise from the dispatch generator; it is sampled even on greedy
         rows, and only the actor arm is greedy."""
+        return _forward(p, carry, obs, torch.Generator(fabric.device).manual_seed(int(seed)), greedy, post_noise)
+
+    def _forward(p, carry, obs, gen: torch.Generator, greedy, post_noise: Optional[torch.Tensor] = None):
         wm, act = p["world_model"], p["actor"]
         h, z, prev_a = carry
-        gen = torch.Generator(fabric.device).manual_seed(int(seed))
         if post_noise is None:
             post_noise = wm.posterior_noise(h.shape[0], gen)
         embed = wm.encode(obs)
@@ -140,6 +157,16 @@ def build_dreamer_v3_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_sp
         out = act(torch.cat([z, h], dim=-1))
         a = torch.where(greedy[:, None], act.sample(out, gen, greedy=True), act.sample(out, gen, greedy=False))
         return (h, z, a), a
+
+    # one generator for every dispatch, registered with each rung's graph and
+    # reseeded per dispatch: the draws of a fresh generator with that seed
+    dispatch_gen = torch.Generator(fabric.device)
+    compiled = fabric.compile(lambda carry, obs, greedy: _forward(params, carry, obs, dispatch_gen, greedy),
+                              name=f"serve_step:{cfg.algo.name}", generators=(dispatch_gen,))
+
+    def dispatch(carry, obs, seed: int, greedy):
+        dispatch_gen.manual_seed(int(seed))
+        return compiled(carry, obs, greedy)
 
     def prepare(obs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         out: Dict[str, np.ndarray] = {}
@@ -160,8 +187,10 @@ def build_dreamer_v3_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_sp
 
     return PolicyPlayer(
         algo=cfg.algo.name,
-        params={"world_model": world_model, "actor": actor},
+        params=params,
         step=_step,
+        dispatch=dispatch,
+        compiled=compiled,
         prepare=prepare,
         postprocess=postprocess,
         obs_spec=_obs_spec_from_space(obs_space, cnn_keys + mlp_keys),
@@ -200,6 +229,12 @@ def build_ppo_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_space: An
         a_greedy, _, _ = sample_actions(out, actions_dim, is_continuous, greedy=True, dist_type=dist_type)
         return carry, torch.where(greedy[:, None], a_greedy, a_sample)
 
+    params = {"agent": agent}
+    compiled = fabric.compile(lambda carry, obs, seed, greedy: _step(params, carry, obs, seed, greedy),
+                              name=f"serve_step:{cfg.algo.name}",
+                              eager_reason="a fresh generator per dispatch; the PPO player is captured later "
+                                           "(ROADMAP.md, queue A item 3)")
+
     def prepare(obs: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
         out = {k: obs_to_np(obs[k], is_image=True) for k in cnn_keys}
         out.update({k: obs_to_np(obs[k], is_image=False) for k in mlp_keys})
@@ -207,8 +242,10 @@ def build_ppo_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_space: An
 
     return PolicyPlayer(
         algo=cfg.algo.name,
-        params={"agent": agent},
+        params=params,
         step=_step,
+        dispatch=compiled,
+        compiled=compiled,
         prepare=prepare,
         postprocess=lambda a: actions_for_env(a, action_space),
         obs_spec=_obs_spec_from_space(obs_space, cnn_keys + mlp_keys),
@@ -245,10 +282,18 @@ def build_sac_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_space: An
         mode, _ = sample_action(p["actor"], x, greedy=True)
         return carry, torch.where(greedy[:, None], mode, sampled)
 
+    params = {"actor": actor}
+    compiled = fabric.compile(lambda carry, obs, seed, greedy: _step(params, carry, obs, seed, greedy),
+                              name=f"serve_step:{cfg.algo.name}",
+                              eager_reason="a fresh generator per dispatch; the SAC player is captured with the "
+                                           "SAC update (ROADMAP.md, queue A item 3(e))")
+
     return PolicyPlayer(
         algo=cfg.algo.name,
-        params={"actor": actor},
+        params=params,
         step=_step,
+        dispatch=compiled,
+        compiled=compiled,
         prepare=lambda obs: {"__sac_obs__": prepare_obs(obs, mlp_keys)},
         postprocess=lambda a: to_env_actions(np.asarray(a, np.float32), action_space),
         obs_spec=_obs_spec_from_space(obs_space, mlp_keys),

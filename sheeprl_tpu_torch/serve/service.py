@@ -4,8 +4,8 @@
 :class:`PolicyService` glues the pieces together around one model:
 
 * a :class:`~sheeprl_tpu_torch.serve.players.PolicyPlayer`,
-* the batch-size ladder, each rung run once by :meth:`warm_up` before
-  traffic is admitted,
+* the batch-size ladder, each rung built by :meth:`warm_up` (one captured
+  CUDA graph per rung for DreamerV3 on the card) before traffic is admitted,
 * an :class:`~sheeprl_tpu_torch.serve.batcher.AdmissionQueue` and one
   dispatcher thread doing pad-to-ladder coalescing,
 * per-session latent carries for stateful players (dreamer_v3).
@@ -78,10 +78,14 @@ class PolicyService:
 
     # -- lifecycle -----------------------------------------------------------
     def warm_up(self) -> None:
-        """Run the step once at every ladder rung (cuDNN algorithm choice,
-        allocator pools, the kernels' first launch) before traffic."""
-        for size in self.ladder:
-            self.player.step_batch(*self.player.batch_specs(size))
+        """Build the step at every ladder rung before traffic: the kernels'
+        builds joined, then each rung dispatched once, which captures its
+        CUDA graph on the card (cuDNN's algorithm choice and the kernels'
+        first launch happen in that first call)."""
+        from sheeprl_tpu_torch.parallel.compile import warmup_batch_ladder
+
+        warmup_batch_ladder(self.player.step_batch, self.player.batch_specs, self.ladder,
+                            pool=self.fabric.compile_pool)
 
     def start(self, warm: bool = True) -> "PolicyService":
         if self._started:

@@ -5,7 +5,12 @@ optimizer behind optax's global-norm clip: :class:`ClippedOptimizer` scales
 the group's gradients by ``max_norm / norm`` only when ``norm >= max_norm``
 and adds no epsilon (``optax.clip_by_global_norm``), unlike
 ``torch.nn.utils.clip_grad_norm_``.  ``torch.optim.Adam`` is optax's Adam:
-the same bias correction, eps outside the square root.  Both RMSprops are
+the same bias correction, eps outside the square root.  For an update
+that is captured as a CUDA graph (``parallel/compile.py``) Adam and AdamW
+are built ``capturable``: the step counter lives on the card and the bias
+correction is computed there in fp32, where the eager optimizer takes
+float64 host scalars; it is off on the CPU and for every update that runs
+eagerly.  Both RMSprops are
 :class:`RMSprop`, written out because optax's differ from
 ``torch.optim.RMSprop`` where a momentum buffer meets a changing learning
 rate.  :func:`set_learning_rate` / :func:`get_learning_rate` are the
@@ -14,6 +19,7 @@ annealing schedules' handle on the wrapped optimizer.
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Iterable, List, Optional
 
 import torch
@@ -106,22 +112,49 @@ class ClippedOptimizer:
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         self.optimizer.load_state_dict(state)
 
+    def copy_state_(self, state: Dict[str, Any]) -> None:
+        """Load ``state`` (a ``state_dict`` of this optimizer) by copying into
+        the state tensors it already has, so a graph that captured them
+        stays valid; a parameter the saved state has no entry for gets zeros
+        (Adam's state before its first step).  An optimizer with no state
+        yet, or another optimizer missing an entry, loads a copy as usual."""
+        fresh_is_zero = isinstance(self.optimizer, (torch.optim.Adam, torch.optim.AdamW))
+        missing = any(i not in state["state"] for i, p in enumerate(self.params) if self.optimizer.state.get(p))
+        if not self.optimizer.state or (missing and not fresh_is_zero):
+            self.load_state_dict(copy.deepcopy(state))
+            return
+        with torch.no_grad():
+            for i, p in enumerate(self.params):
+                saved = state["state"].get(i)
+                for k, t in self.optimizer.state[p].items():
+                    if not isinstance(t, torch.Tensor):
+                        self.optimizer.state[p][k] = saved[k] if saved else t
+                    elif saved:
+                        t.copy_(saved[k])
+                    else:
+                        t.zero_()  # a state saved before this parameter's first step
+
 
 def build_optimizer(
-    params: Iterable[torch.nn.Parameter], optim_cfg: Any, max_grad_norm: Optional[float] = None
+    params: Iterable[torch.nn.Parameter], optim_cfg: Any, max_grad_norm: Optional[float] = None,
+    capturable: bool = False,
 ) -> ClippedOptimizer:
-    """Build from an ``optim`` config group entry: {name, lr, eps, ...}."""
+    """Build from an ``optim`` config group entry: {name, lr, eps, ...}.
+    ``capturable`` (an update captured as a CUDA graph, parameters on the
+    card) builds Adam and AdamW with their step on the card; the other
+    optimizers need nothing for a capture."""
     params = list(params)
     name = optim_cfg.get("name", "adam")
     lr = float(optim_cfg.get("lr", 1e-3))
+    capturable = capturable and bool(params) and all(p.device.type == "cuda" for p in params)
     if name == "adam":
         betas = optim_cfg.get("betas", [0.9, 0.999])
         opt = torch.optim.Adam(params, lr=lr, betas=(float(betas[0]), float(betas[1])),
-                               eps=float(optim_cfg.get("eps", 1e-8)))
+                               eps=float(optim_cfg.get("eps", 1e-8)), capturable=capturable)
     elif name == "adamw":
         # optax.adamw keeps its default betas; the config sets lr, eps, decay
         opt = torch.optim.AdamW(params, lr=lr, eps=float(optim_cfg.get("eps", 1e-8)),
-                                weight_decay=float(optim_cfg.get("weight_decay", 1e-2)))
+                                weight_decay=float(optim_cfg.get("weight_decay", 1e-2)), capturable=capturable)
     elif name == "sgd":
         opt = torch.optim.SGD(params, lr=lr, momentum=float(optim_cfg.get("momentum", 0.0)))
     elif name in ("rmsprop", "rmsprop_tf"):
@@ -147,11 +180,13 @@ def get_learning_rate(optimizer: ClippedOptimizer) -> float:
 
 
 def build_group_optimizers(modules: Dict[str, torch.nn.Module], groups: Dict[str, Any],
-                           saved: Optional[Dict[str, Any]] = None) -> Dict[str, ClippedOptimizer]:
+                           saved: Optional[Dict[str, Any]] = None,
+                           capturable: bool = False) -> Dict[str, ClippedOptimizer]:
     """One optimizer per named module, from the config section that carries
     its ``optimizer`` and ``clip_gradients``; a saved state is loaded where
     ``saved`` has one for that name."""
-    opts = {name: build_optimizer(modules[name].parameters(), section.optimizer, section.get("clip_gradients"))
+    opts = {name: build_optimizer(modules[name].parameters(), section.optimizer, section.get("clip_gradients"),
+                                  capturable=capturable)
             for name, section in groups.items()}
     for name, opt in opts.items():
         if saved and name in saved:

@@ -116,3 +116,29 @@ def test_gradients_match_autograd_of_the_plain_versions(dev, B, wrt):
                 continue
             torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * want.abs().max().item(),
                                        msg=f"{name} input {i}")
+
+
+@pytest.mark.parametrize("B", [1, 16, 1024])
+def test_captured_graph_replays_the_kernels(dev, B):
+    """Both kernels inside one captured CUDA graph (``parallel/compile.py``):
+    the replay equals the eager call bit for bit, on the capture's inputs and
+    on new ones copied into its buffers, and each replay is credited with
+    the launches the capture recorded."""
+    from sheeprl_tpu_torch.parallel.compile import GraphFunction
+    from sheeprl_tpu_torch.telemetry.monitors import CompileMonitor
+
+    w = _weights(1028, 1024, 4096, dev)
+
+    def step(x, y, h):
+        return rssm.fused_rssm_recurrent(x, h, *w), gru.fused_layernorm_gru(y, h, *w[4:])
+
+    f = GraphFunction(step, name="kernels", device=dev, monitor=CompileMonitor())
+    for _ in range(2):
+        x, y = torch.randn(B, 1028, device=dev), torch.randn(B, 1024, device=dev)
+        h = torch.tanh(torch.randn(B, 4096, device=dev))
+        want = step(x, y, h)
+        before = (rssm.LAUNCHES["rssm"], gru.LAUNCHES["gru"])
+        got = [t.clone() for t in f(x, y, h)]
+        assert (rssm.LAUNCHES["rssm"], gru.LAUNCHES["gru"]) == (before[0] + 1, before[1] + 1)
+        assert all(torch.equal(a, b) for a, b in zip(want, got))
+    assert f.cache_size() == 1 and f.replays == 1

@@ -1,7 +1,9 @@
 """The port runs with JAX absent: in a fresh interpreter whose import system
 refuses ``jax``, ``flax``, ``optax`` and ``sheeprl_tpu``, every module of
 ``sheeprl_tpu_torch`` imports (every algorithm of the Dreamer family among
-them, and PPO, A2C and recurrent PPO), a DreamerV3 player takes one CPU
+them, and PPO, A2C and recurrent PPO, and the compile-once layer:
+``parallel/compile.py``, ``telemetry/monitors.py``, ``utils/profiler.py``,
+whose ``GraphFunction`` audits a probe on the CPU), a DreamerV3 player takes one CPU
 step, a tiny dry run through ``cli.run`` trains one update and commits a
 snapshot, one Plan2Explore-DreamerV3 update steps, PPO, A2C and recurrent
 PPO each train one iteration through ``cli.run`` and commit a snapshot that
@@ -43,6 +45,20 @@ SCRIPT = textwrap.dedent(
     names = [m.name for m in pkgutil.walk_packages(sheeprl_tpu_torch.__path__, "sheeprl_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    for name in ("parallel.compile", "telemetry.monitors", "utils.profiler"):
+        assert "sheeprl_tpu_torch." + name in names, name
+
+    import torch
+    from sheeprl_tpu_torch.parallel.compile import GraphFunction
+    from sheeprl_tpu_torch.utils.profiler import COMPILE_MONITOR, RecompileLimitExceeded
+    probe = GraphFunction(lambda x: x + 1, name="no_jax.probe", max_recompiles=0)
+    assert torch.equal(probe(torch.zeros(2)), torch.ones(2))
+    try:
+        probe(torch.zeros(3))
+        raise AssertionError("a second shape under max_recompiles=0 must raise")
+    except RecompileLimitExceeded:
+        pass
+    assert COMPILE_MONITOR.count("no_jax.probe") == 1
 
     from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
     from sheeprl_tpu_torch.algos.ppo.utils import spaces_to_dims

@@ -544,9 +544,11 @@ DEVICE_ENV_COMMON = ["fabric.accelerator=cpu", "metric.log_level=1", "metric.log
                      "env.num_envs=2", "algo.run_test=True"]
 DEVICE_ENV_RUNS = {
     # id: (overrides, the path the banner names)
+    # under the strict compile-once budget: one rollout and one update signature
     "ppo-cartpole": (["exp=ppo", "env=jax_cartpole", "algo.rollout_steps=8", "algo.per_rank_batch_size=8",
                       "algo.dense_units=8", "algo.mlp_layers=1", "env.max_episode_steps=6", "algo.total_steps=32",
-                      "algo.anneal_lr=True", "algo.anneal_ent_coef=True", "algo.ent_coef=0.01"], "Anakin"),
+                      "algo.anneal_lr=True", "algo.anneal_ent_coef=True", "algo.ent_coef=0.01",
+                      "algo.max_recompiles=0"], "Anakin"),
     "a2c-cartpole": (["exp=a2c", "env=jax_cartpole", "algo.rollout_steps=8", "algo.dense_units=8",
                       "algo.mlp_layers=1", "env.max_episode_steps=6", "algo.total_steps=32"], "Anakin"),
     "ppo_recurrent-cartpole": (["exp=ppo_recurrent", "env=jax_cartpole", "env.mask_velocities=False",

@@ -22,6 +22,10 @@ Tolerances:
   the parameters after one update are held to an absolute tolerance of half
   the learning rate, which any wrong gradient sign or scale of more than a
   few elements would exceed.
+
+On the card Adam is built ``capturable`` (its step count on the device, so a
+window can be captured as a CUDA graph); on the CPU, where these tests run,
+the flag is off and the optimizer is the one they held before it existed.
 """
 
 import jax
@@ -75,6 +79,11 @@ CASES = {
     "multidiscrete-use_pallas-U2": ("multidiscrete_dummy", False, "use_pallas", SGD, 2, 1,
                                     ("algo.critic.per_rank_target_network_update_freq=2",)),
     "discrete-pixels-adam": ("discrete_dummy", True, None, (), 1, 0, ()),
+    # the target critic's EMA on the device (a counter tensor and a
+    # torch.where blend, as a captured window runs it): updates 0, 2 and 4 of
+    # five blend, 1 and 3 do not
+    "discrete-vector-ema-U5-counter-tensor": ("discrete_dummy", False, None, SGD, 5, 0,
+                                              ("algo.critic.per_rank_target_network_update_freq=2",)),
 }
 
 
@@ -153,7 +162,9 @@ def test_update_matches_jax_train_phase(case):
     key = jax.random.PRNGKey(11)
     S, D = pcfg.algo.world_model.stochastic_size, pcfg.algo.world_model.discrete_size
     noise = _noise_from_keys(key, U, actions_dim, is_cont, S, D)
-    p_metrics = trainer.train_phase(blocks_to_device(block, cnn_keys, mlp_keys, "cpu"), noise, counter0)
+    counter = torch.tensor(counter0) if case.endswith("counter-tensor") else counter0
+    p_metrics = trainer.train_phase(blocks_to_device(block, cnn_keys, mlp_keys, "cpu"), noise, counter)
+    assert all(not o.optimizer.defaults.get("capturable", False) for o in trainer.optimizers.values())
 
     # -- JAX -----------------------------------------------------------------------
     world_model, actor, critic, params = jax_build_agent(jfabric, actions_dim, is_cont, jcfg, obs_space, params)
