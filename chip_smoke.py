@@ -202,6 +202,42 @@ replayed graphs; ``_train`` times the window route per chunk.
               steps/s in turns, host calls per rollout step, the card's
               busy share.
 
+``fabric.precision=bf16-mixed`` (the JAX policy: bf16 compute, fp32
+parameters and optimizer state, the kernels fed fp32 at their wrappers):
+
+42. precision kernels — each kernel at XL, B in {1, 32, 1024}, on bf16 ``x``
+              and ``h``: bit for bit its call on the fp32 upcasts, within
+              1e-4 of its plain version; the wrapper timed beside the kernel
+              on fp32 operands and the two casts alone.
+43. precision dv3-xl — DreamerV3-XL (``fused_pallas``) under bf16-mixed:
+              trained through ``cli.run`` as phase 7 (10 updates, 80 rssm
+              launches in each, the snapshot kept for phase 46); phase 38's
+              window (replay equals eager bit for bit, 3 captures, 80
+              launches per update credited per replay, peak memory); a
+              bf16-mixed and a 32-true trainer from the same weights: the
+              first update's ten losses from the same draws within the
+              stated tier, one eager update of each by kind of device work
+              (products, convolutions, the kernel, copies and casts, the
+              rest), chunks of 4 updates in turns (bf16, fp32, fp32, bf16)
+              captured and eager.
+44. precision dv3-s-gru — phase 43's window and turns for DreamerV3-S with the
+              GRU kernel (``use_pallas``), 80 gru launches per update.
+45. precision p2e — Plan2Explore-DV3-XL exploration under bf16-mixed through
+              ``cli.run`` (phase 11's recipe): 96 rssm launches per update,
+              updates/s beside phase 11's.
+46. precision serve — phase 43's snapshot (fp32 weights, loaded unchanged)
+              served under its own bf16-mixed: rungs 1 and 32 replayed equal
+              eager bit for bit; 16 sessions x 8 steps over HTTP in turns
+              with a 32-true server of the same snapshot.
+47. precision families — PPO and A2C at their Atari widths, recurrent PPO,
+              SAC, DroQ and SAC-AE at their recipes', DreamerV2 and V1 at
+              their defaults (rows cut: rollouts of 64 steps, 16 for recurrent PPO, off-policy 2
+              updates of 64, the Dreamers' batch 4 x sequence 16): one train
+              phase under bf16-mixed on the card against the same phase on
+              the CPU under bf16-mixed (same weights, inputs and draws, SGD),
+              the CPU's fp32 phase beside it; the card's phase timed under
+              both precisions in turns.
+
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 
@@ -213,7 +249,8 @@ launch no kernel), ``--envs`` phases 25-30, ``--replay`` phases 31-36
 (beside host-ring runs of phase 7's and phases 20-22's recipes) and
 ``--replay-ab`` the host ring and the card's in turns (host, card, card,
 host) for DreamerV3-XL, SAC and SAC-AE, timed alike, ``--graphs`` phases
-37-41 (after phase 4's served snapshot and captured service run).
+37-41 (after phase 4's served snapshot and captured service run),
+``--precision`` phases 42-47 (beside 32-true runs of phases 7 and 11).
 """
 
 from __future__ import annotations
@@ -2976,6 +3013,614 @@ def graphs_summary(graphs: dict) -> dict:
             "serve": graphs["serve"], "anakin": graphs["anakin"], "seconds": graphs["seconds"]}
 
 
+# -- the precision policy (phases 42-47) -------------------------------------
+BF16_MIXED = "fabric.precision=bf16-mixed"
+# The first update of a bf16-mixed window against a 32-true window from the
+# same weights, data and draws.  The world-model losses and entropies move by
+# bf16 rounding (tests/test_torch_precision.py measures JAX's own bf16 against
+# its fp32 at 5.4e-04 to 1.7e-02 relative); the policy and value losses also
+# move with every latent or action sample a rounding flips, which JAX's own
+# bf16 does too (up to 16% and 7% from a half-ulp change of the weights).
+PRECISION_TOL_WM_REL = 5e-2
+PRECISION_TOL_BEHAVIOUR_REL, PRECISION_TOL_BEHAVIOUR_ABS = 0.35, 5e-2
+PRECISION_BATCHES = (1, 32, 1024)
+# device work of one update by kind (first match wins); copies and dtype casts
+# share PyTorch's copy kernel, so the casts are the copies bf16 adds to fp32's
+KINDS = (
+    ("kernel (sheeprl::)", ("sheeprl::",)),
+    ("convolutions", ("cudnn", "conv", "implicit_gemm", "wgrad", "dgrad", "fprop")),
+    ("products", ("gemm", "gemv", "Kernel2", "nvjet", "xmma")),
+    ("copies and casts", ("copy_kernel", "Memcpy", "Memset")),
+)
+OTHER_KIND = "elementwise and reductions"
+
+
+def _by_kind(torch, fn) -> dict:
+    """Device ms and operations of one call of ``fn`` by kind (:data:`KINDS`)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kinds = {k: [0.0, 0] for k, _ in KINDS}
+    kinds[OTHER_KIND] = [0.0, 0]
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            kind = next((k for k, keys in KINDS if any(m in e.name for m in keys)), OTHER_KIND)
+            kinds[kind][0] += (e.time_range.end - e.time_range.start) / 1e3
+            kinds[kind][1] += 1
+    return {k: {"ms": ms, "ops": n} for k, (ms, n) in kinds.items()}
+
+
+def _show_kinds(kinds: dict) -> str:
+    total = sum(v["ms"] for v in kinds.values())
+    return f"{total:.1f} ms: " + ", ".join(f"{k} {v['ms']:.1f} ms ({v['ms'] / max(total, 1e-9):.0%}, {v['ops']} ops)"
+                                          for k, v in kinds.items())
+
+
+def phase_precision_kernels(torch) -> dict:
+    """Phase 42: each kernel at XL on bf16 ``x`` and ``h`` (cast to fp32 by its
+    wrapper): bit for bit its call on the fp32 upcasts, within TOL of its plain
+    version; the wrapper timed beside the kernel on fp32 operands and the two
+    casts alone."""
+    from sheeprl_tpu_torch.ops import gru, rssm
+
+    D, H = PRESETS["XL"]
+    za = ZAS[0]
+    dev = torch.device(CARD)
+    g = torch.Generator(dev).manual_seed(42)
+    w = _rssm_weights(torch, za, D, H, g, dev)
+    bf16 = torch.bfloat16
+    out = {"rssm": {}, "gru": {}}
+    worst = {"rssm": 0.0, "gru": 0.0}
+    for B in PRECISION_BATCHES:
+        x = torch.randn(B, za, device=dev, generator=g).to(bf16)
+        y = torch.randn(B, D, device=dev, generator=g).to(bf16)
+        h = torch.tanh(torch.randn(B, H, device=dev, generator=g)).to(bf16)
+        rows = {
+            "rssm": (lambda a, b: rssm.fused_rssm_recurrent(a, b, *w),
+                     lambda a, b: rssm.rssm_recurrent_reference(a, b, *w), x),
+            "gru": (lambda a, b: gru.fused_layernorm_gru(a, b, *w[4:]),
+                    lambda a, b: gru.layernorm_gru_reference(a, b, *w[4:]), y),
+        }
+        for name, (kernel, plain, inp) in rows.items():
+            inp32, h32 = inp.float(), h.float()
+            got, up, ref = kernel(inp, h), kernel(inp32, h32), plain(inp32, h32)
+            torch.cuda.synchronize()
+            err = float((got - ref).abs().max())
+            worst[name] = max(worst[name], err)
+            if not (got.dtype == torch.float32 and torch.equal(got, up) and err <= TOL):
+                raise AssertionError(f"{name} B={B} on bf16 operands: dtype {got.dtype}, equal to the fp32 upcasts "
+                                     f"{torch.equal(got, up)}, max abs err {err:.3g} (limit {TOL})")
+            row = {"wrapper_ms": time_ms(torch, lambda: kernel(inp, h)),
+                   "kernel_ms": time_ms(torch, lambda: kernel(inp32, h32)),
+                   "cast_ms": time_ms(torch, lambda: (inp.float(), h.float())), "max_abs_err": err}
+            out[name][B] = row
+            log(f"[precision-kernels] {name} XL B={B}, bf16 x and h: equal to the fp32 upcasts bit for bit, max abs "
+                f"err {err:.2e} against the plain version; the wrapper {row['wrapper_ms']:.4f} ms = the kernel on "
+                f"fp32 operands {row['kernel_ms']:.4f} ms + the two casts {row['cast_ms']:.4f} ms (2 launches)")
+    out["worst"] = worst
+    return out
+
+
+def _first_update(torch, trainer, rb, seed: int):
+    """The ten losses of one eager update of ``trainer`` on ``rb`` from a
+    generator seeded ``seed``, restoring the trainer's state after it."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import prep_blocks
+    from sheeprl_tpu_torch.data.device_replay import fused_sequence_train
+
+    L, B = int(trainer.cfg.algo.per_rank_sequence_length), int(trainer.cfg.algo.per_rank_batch_size)
+    start = trainer.snapshot()
+    gen = torch.Generator(trainer.device).manual_seed(seed)
+    counter0 = torch.full((), 1, dtype=torch.int64, device=trainer.device)
+    _, metrics = fused_sequence_train(trainer, rb, gen, B, L, 1,
+                                      lambda b: prep_blocks(b, trainer.cnn_keys, trainer.mlp_keys), counter0)
+    losses = np.array([float(m) for m in metrics])
+    trainer.restore(start)
+    return losses
+
+
+def phase_precision_turns(torch, tag: str, overrides, kernel: str) -> dict:
+    """Phases 43-44, beside the bf16 window of :func:`phase_graph_window`: a
+    bf16-mixed and a 32-true trainer from the same weights and ring data; the
+    first update's ten losses of each from the same draws within the stated
+    tier; one eager update of each profiled by kind; then chunks of
+    GRAPH_CHUNK updates in turns (bf16, fp32, fp32, bf16), captured and
+    eager."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import prep_blocks
+    from sheeprl_tpu_torch.data.device_replay import fused_sequence_train
+    from sheeprl_tpu_torch.ops import gru, rssm
+    from sheeprl_tpu_torch.parallel.compile import GraphFunction
+    from sheeprl_tpu_torch.telemetry.monitors import CompileMonitor
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    counter_of = {"rssm": rssm.LAUNCHES, "gru": gru.LAUNCHES}[kernel]
+    runs = {"bf16": _fresh_window(torch, [*overrides, BF16_MIXED]), "fp32": _fresh_window(torch, overrides)}
+    same = all(torch.equal(a, b) for a, b in zip(runs["bf16"][1].tensors(), runs["fp32"][1].tensors()))
+    if not same:
+        raise AssertionError(f"{tag}: the bf16 and fp32 trainers do not start from the same weights")
+    losses = {k: _first_update(torch, trainer, rb, 43) for k, (_, trainer, rb) in runs.items()}
+    rel = np.abs(losses["bf16"] - losses["fp32"]) / np.maximum(np.abs(losses["fp32"]), 1e-6)
+    wm = [0, 1, 2, 3, 4, 5, 8, 9]
+    behaviour_ok = np.all(np.abs(losses["bf16"] - losses["fp32"])[6:8]
+                          <= PRECISION_TOL_BEHAVIOUR_REL * np.abs(losses["fp32"][6:8]) + PRECISION_TOL_BEHAVIOUR_ABS)
+    log(f"[{tag}] the first update from the same weights and draws, bf16-mixed against 32-true: the ten losses rel "
+        f"diff {', '.join(f'{x:.2e}' for x in rel)}; bf16 {', '.join(f'{x:.6g}' for x in losses['bf16'])}")
+    if not (np.isfinite(losses["bf16"]).all() and np.all(rel[wm] <= PRECISION_TOL_WM_REL) and behaviour_ok):
+        raise AssertionError(f"{tag}: the bf16 update is off its fp32 twin beyond the tier (world model "
+                             f"{PRECISION_TOL_WM_REL}, behaviour {PRECISION_TOL_BEHAVIOUR_REL} rel + "
+                             f"{PRECISION_TOL_BEHAVIOUR_ABS})")
+    windows, graphs, kinds, launches = {}, {}, {}, {}
+    for name, (cfg, trainer, rb) in runs.items():
+        L, B = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
+        gen = torch.Generator(trainer.device).manual_seed(44)
+        counter0 = torch.full((), 1, dtype=torch.int64, device=trainer.device)
+
+        def window(n, counter, trainer=trainer, rb=rb, gen=gen, L=L, B=B):
+            return fused_sequence_train(trainer, rb, gen, B, L, n,
+                                        lambda b: prep_blocks(b, trainer.cnn_keys, trainer.mlp_keys), counter)
+
+        f = GraphFunction(window, name=f"{tag}.{name}.train_phase_device", static_argnums=(0,),
+                          device=trainer.device, generators=(gen,), monitor=CompileMonitor())
+        before = counter_of[kernel]
+        kinds[name] = _by_kind(torch, lambda w=window, c=counter0: w(1, c))
+        launches[name] = counter_of[kernel] - before
+        f(GRAPH_CHUNK, counter0)  # eager, then captured
+        windows[name] = (lambda w=window, c=counter0: w(GRAPH_CHUNK, c))
+        graphs[name] = (lambda f=f, c=counter0: f(GRAPH_CHUNK, c))
+    if launches["bf16"] != LAUNCHES_PER_UPDATE:
+        raise AssertionError(f"{tag}: one bf16 update launched {launches['bf16']} {kernel} kernels, expected "
+                             f"{LAUNCHES_PER_UPDATE}")
+    order = ("bf16", "fp32", "fp32", "bf16")
+    graph_turns = _turns(torch, graphs, order=order)
+    eager_turns = _turns(torch, windows, order=order)
+    ups = {"graph": {k: [GRAPH_CHUNK / t for t in v["s"]] for k, v in graph_turns.items()},
+           "eager": {k: [GRAPH_CHUNK / t for t in v["s"]] for k, v in eager_turns.items()}}
+    busy = {k: sum(v["ms"] for v in kinds[k].values()) / (1e3 / statistics.median(ups["graph"][k])) for k in runs}
+    for name in runs:
+        log(f"[{tag}] {name}: one eager update's device work {_show_kinds(kinds[name])}; {kernel} launches per "
+            f"update {launches[name]}; busy {busy[name]:.1%} of a replayed update")
+    log(f"[{tag}] updates/s in turns (bf16, fp32, fp32, bf16): captured {ups['graph']['bf16'][0]:.3f}, "
+        f"{ups['graph']['fp32'][0]:.3f}, {ups['graph']['fp32'][1]:.3f}, {ups['graph']['bf16'][1]:.3f}; eager "
+        f"{ups['eager']['bf16'][0]:.3f}, {ups['eager']['fp32'][0]:.3f}, {ups['eager']['fp32'][1]:.3f}, "
+        f"{ups['eager']['bf16'][1]:.3f}")
+    del runs, windows, graphs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"loss_rel": rel.tolist(), "losses": {k: v.tolist() for k, v in losses.items()}, "kinds": kinds,
+            "launches_per_update": launches, "updates_per_s": ups, "busy": busy}
+
+
+def phase_precision_serve(torch, snapshot: Path) -> dict:
+    """Phase 46: the snapshot of a bf16-mixed training run served under its
+    own precision: its weights fp32 and loaded unchanged; every rung
+    captured at warm-up, rungs 1 and 32 replayed equal eager bit for bit;
+    then 16 sessions x 8 steps over HTTP in turns with a 32-true server of the
+    same snapshot (bf16, fp32, fp32, bf16), the launch counts zeroed before
+    and read after the bf16 turns."""
+    from sheeprl_tpu_torch.ops import gru, rssm
+    from sheeprl_tpu_torch.serve.batcher import LatencyTracker
+    from sheeprl_tpu_torch.serve.client import PolicyClient
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+    from sheeprl_tpu_torch.serve.service import PolicyService
+
+    services = {"bf16": PolicyService.from_checkpoint(snapshot),
+                "fp32": PolicyService.from_checkpoint(snapshot, ["fabric.precision=32-true"])}
+    if services["bf16"].fabric.precision.name != "bf16-mixed":
+        raise AssertionError(f"the snapshot's run config served {services['bf16'].fabric.precision}")
+    state = services["bf16"].fabric.load(snapshot)["agent"]
+    player = services["bf16"].player
+    wm, actor = player.params["world_model"], player.params["actor"]
+    saved = {**{f"world_model.{k}": v for k, v in state["world_model"].items()},
+             **{f"actor.{k}": v for k, v in state["actor"].items()}}
+    loaded = {**{f"world_model.{k}": v for k, v in wm.state_dict().items()},
+              **{f"actor.{k}": v for k, v in actor.state_dict().items()}}
+    if not (all(v.dtype == torch.float32 for v in saved.values())
+            and all(torch.equal(saved[k], loaded[k]) for k in saved)):
+        raise AssertionError("the bf16-trained snapshot is not fp32, or the loader changed its weights")
+    if wm.recurrent_model.compute_dtype != torch.bfloat16:
+        raise AssertionError("the served world model does not compute in bf16")
+    for service in services.values():
+        service.warm_up()
+    dev = player.device
+    g = torch.Generator(dev).manual_seed(46)
+    rng = np.random.default_rng(46)
+    for B in (1, 32):
+        raw = {"rgb": rng.integers(0, 256, (B, 64, 64, 3), dtype=np.uint8),
+               "state": rng.standard_normal((B, 4)).astype(np.float32)}
+        obs = {k: torch.from_numpy(v).to(dev) for k, v in player.prepare(raw).items()}
+        h = torch.tanh(torch.randn(B, wm.recurrent_size, device=dev, generator=g))
+        z = torch.nn.functional.one_hot(torch.randint(0, wm.discrete_size, (B, wm.stochastic_size), device=dev,
+                                                      generator=g), wm.discrete_size).float().reshape(B, -1)
+        a = torch.nn.functional.one_hot(torch.randint(0, 4, (B,), device=dev, generator=g), 4).float()
+        greedy = torch.arange(B, device=dev) % 2 == 0
+        with torch.inference_mode():
+            eager = player.step(player.params, (h, z, a), obs, 5, greedy)
+            e = [t.clone() for t in (*eager[0], eager[1])]
+            graph = player.dispatch((h, z, a), obs, 5, greedy)
+            r = [t.clone() for t in (*graph[0], graph[1])]
+        torch.cuda.synchronize()
+        if not (all(torch.equal(x, y) for x, y in zip(e, r)) and e[0].dtype == torch.float32):
+            raise AssertionError(f"rung {B}: the replayed bf16 step differs from eager")
+    servers = {k: PolicyServer(s, port=0) for k, s in services.items()}
+    for server in servers.values():
+        server.start()
+    turns = {"bf16": [], "fp32": []}
+    try:
+        for mode in ("bf16", "fp32", "fp32", "bf16"):
+            service, server = services[mode], servers[mode]
+            service.latency = LatencyTracker(8192)
+            served0 = PolicyClient(server.url).stats()["served"]
+            rssm.LAUNCHES["rssm"] = gru.LAUNCHES["gru"] = 0
+            wall, lat = _client_sessions(server.url, service.player, _action_check(service), SERVE_SESSIONS,
+                                         SERVE_STEPS)
+            counts = {"rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]}
+            st = PolicyClient(server.url).stats()
+            if st["served"] - served0 != SERVE_SESSIONS * SERVE_STEPS or st["errors"] or not counts["rssm"]:
+                raise AssertionError(f"{mode} turn: served {st['served'] - served0}, errors {st['errors']}, "
+                                     f"launches {counts}")
+            lat = np.asarray(lat) * 1e3
+            turns[mode].append({"actions_per_s": SERVE_SESSIONS * SERVE_STEPS / wall, "p50_ms": st["p50_ms"],
+                                "p99_ms": st["p99_ms"], "client_p50_ms": float(np.percentile(lat, 50)),
+                                "client_p99_ms": float(np.percentile(lat, 99)), "counts": counts})
+    finally:
+        for server in servers.values():
+            server.stop()
+    del services, servers, player, wm, actor
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def show(rows):
+        return "; ".join(f"{r['actions_per_s']:.1f} actions/s, service p50 {r['p50_ms']:.1f} / p99 {r['p99_ms']:.1f} "
+                         f"ms" for r in rows)
+
+    log(f"[precision-serve] the bf16-mixed snapshot: fp32 weights loaded unchanged; rungs 1 and 32 replayed equal "
+        f"eager bit for bit; 16 sessions x 8 steps over HTTP in turns (bf16, fp32, fp32, bf16): bf16 "
+        f"{show(turns['bf16'])}; fp32 {show(turns['fp32'])}; rssm launches in the bf16 turns "
+        f"{[r['counts']['rssm'] for r in turns['bf16']]}")
+    return turns
+
+
+# Phase 47: every other family under bf16-mixed, one train phase on the card
+# against the same phase on the CPU under bf16-mixed (same weights, inputs and
+# draws, SGD for every group).  Rows are cut (rollout 64 steps, off-policy
+# U 2 x batch 64, the Dreamers' batch 4 x sequence 16; recurrent PPO 16 steps); the models keep their
+# recipes' widths.  The gates are the CPU tests' bf16 tiers against JAX
+# (tests/test_torch_precision.py): the losses within 3e-2 relative (+1e-3)
+# and each module's parameter changes within 0.1 relative L2 where no sample
+# is redrawn inside the phase; the Dreamers', whose latent and action samples
+# a rounding can flip, within UPDATE_TIERS.
+PRECISION_FAMILY_TIER = {"loss_rel": 3e-2, "loss_abs": 1e-3, "change_l2": 0.1}
+PRECISION_DREAMER_TIER = {"wm_metric_rel": 5e-2, "behaviour_metric_rel": 0.35, "behaviour_metric_abs": 5e-2,
+                          "world_model_l2": 0.25, "behaviour_l2": 0.6}
+PRECISION_FAMILIES = {
+    # name: (overrides, kind)
+    "ppo": ((*PPO_ATARI, "algo.rollout_steps=64", "algo.per_rank_batch_size=32"), "on_policy"),
+    "a2c": ((*A2C_ATARI,), "on_policy"),
+    "ppo_recurrent": ((*PPO_RECURRENT, "algo.rollout_steps=16"), "recurrent"),
+    "sac": ((*SAC_STATE,), "off_policy"),
+    "droq": ((*DROQ_STATE,), "off_policy"),
+    "sac_ae": ((*SAC_AE_RGB,), "off_policy"),
+    "dreamer_v2": (("exp=dreamer_v2", *FAMILY, "algo.per_rank_batch_size=4", "algo.per_rank_sequence_length=16"),
+                   "dreamer"),
+    "dreamer_v1": (("exp=dreamer_v1", *FAMILY, "algo.per_rank_batch_size=4", "algo.per_rank_sequence_length=16"),
+                   "dreamer"),
+}
+
+
+def _family_case(torch, name: str, overrides, kind: str):
+    """``make(device, precision) -> (state_of, run)`` for one family: a
+    trainer from the family's seed weights on ``device`` under
+    ``precision`` with SGD for every group, ``run()`` one train phase on the
+    case's fixed inputs and draws (the losses), ``state_of()`` the trained
+    tensors on the CPU."""
+    import copy
+
+    from sheeprl_tpu_torch.algos.ppo.utils import spaces_to_dims
+    from sheeprl_tpu_torch.config.compose import compose
+    from sheeprl_tpu_torch.fabric import Fabric, Precision
+    from sheeprl_tpu_torch.serve.loader import probe_spaces
+    from sheeprl_tpu_torch.utils.optim import build_optimizer
+
+    cfg = compose([*overrides, "fabric.accelerator=cpu"])
+    obs_space, act_space = probe_spaces(cfg)
+    dims, cont = spaces_to_dims(act_space)
+    cnn, mlp = tuple(cfg.algo.cnn_keys.encoder), tuple(cfg.algo.mlp_keys.encoder)
+    rng = np.random.default_rng(47)
+
+    def fabric(device, precision):
+        return Fabric(torch.device(device), Precision.from_string(precision))
+
+    def sgd(run_cfg, groups):
+        for g in groups:
+            run_cfg.algo[g].optimizer = dict(CARD_PARITY_SGD)
+        return run_cfg
+
+    if kind in ("on_policy", "recurrent"):
+        from sheeprl_tpu_torch.algos.a2c.a2c import A2CTrainer
+        from sheeprl_tpu_torch.algos.ppo.ppo import PPOTrainer, epoch_permutation, rollout_to_device
+        from sheeprl_tpu_torch.algos.ppo.utils import prepare_obs
+        from sheeprl_tpu_torch.algos.ppo_recurrent.ppo_recurrent import RecurrentPPOTrainer
+
+        if kind == "on_policy":
+            from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+        else:
+            from sheeprl_tpu_torch.algos.ppo_recurrent.agent import build_agent
+        T, B = int(cfg.algo.rollout_steps), int(cfg.env.num_envs)
+        seed_state = {k: v.detach().clone() for k, v in
+                      build_agent(fabric("cpu", "32-true"), dims, cont, cfg, obs_space).state_dict().items()}
+        host = {k: rng.integers(0, 256, (T, B, *obs_space[k].shape), dtype=np.uint8) for k in cnn}
+        host.update({k: rng.standard_normal((T, B, *obs_space[k].shape)).astype(np.float32) for k in mlp})
+        host["actions"] = np.stack([rng.integers(0, d, (T, B)) for d in dims], -1).astype(np.float32)
+        host["rewards"] = rng.standard_normal((T, B, 1)).astype(np.float32)
+        host["dones"] = (rng.random((T, B, 1)) < 0.05).astype(np.float32)
+        host["logprobs"] = (np.log(1.0 / dims[0]) + 0.3 * rng.standard_normal((T, B, 1))).astype(np.float32)
+        last = {k: rng.integers(0, 256, (B, *obs_space[k].shape), dtype=np.uint8) for k in cnn}
+        last.update({k: rng.standard_normal((B, *obs_space[k].shape)).astype(np.float32) for k in mlp})
+        carry = tuple(np.tanh(rng.standard_normal((B, int(cfg.algo.rnn.lstm.hidden_size)))).astype(np.float32)
+                      for _ in range(2)) if kind == "recurrent" else None
+        last_values = rng.standard_normal(B).astype(np.float32)
+
+        def make(device, precision):
+            agent = build_agent(fabric(device, precision), dims, cont, cfg, obs_space,
+                                {k: v.clone() for k, v in seed_state.items()})
+            optimizer = build_optimizer(agent.parameters(), CARD_PARITY_SGD, cfg.algo.max_grad_norm)
+            if kind == "recurrent":
+                trainer = RecurrentPPOTrainer(cfg, agent, optimizer, dims, cont, T, B)
+                perms = [torch.randperm(B, generator=torch.Generator().manual_seed(e)).to(device)
+                         for e in range(trainer.update_epochs)]
+                perms = [torch.cat([p, p[:trainer.num_minibatches * trainer.env_bs - B]]) for p in perms]
+                is_first = np.concatenate([np.ones((1, B, 1)), host["dones"][:-1]], 0).astype(np.float32)
+                prev = np.concatenate([np.zeros((1, B, dims[0]), np.float32),
+                                       np.eye(dims[0], dtype=np.float32)[host["actions"][:-1, :, 0].astype(int)]], 0)
+                rollout = {**{k: torch.from_numpy(host[k]).to(device) for k in mlp},
+                           "actions": torch.from_numpy(host["actions"]).to(device),
+                           "prev_actions": torch.from_numpy(prev * (1.0 - is_first)).to(device),
+                           "is_first": torch.from_numpy(is_first).to(device),
+                           **{k: torch.from_numpy(host[k][..., 0]).to(device)
+                              for k in ("rewards", "dones", "logprobs")}}
+
+                def run():
+                    return trainer.train_phase(rollout, tuple(torch.from_numpy(c).to(device) for c in carry),
+                                               torch.from_numpy(last_values).to(device), perms, 0.01)
+            else:
+                trainer = (A2CTrainer if name == "a2c" else PPOTrainer)(cfg, agent, optimizer, cnn + mlp, dims, cont,
+                                                                         T, B)
+                perms = None if name == "a2c" else [  # A2C takes the whole rollout in one step
+                    epoch_permutation(torch.Generator().manual_seed(e), T, B, trainer.batch_size,
+                                      trainer.num_minibatches).to(device) for e in range(trainer.update_epochs)]
+                rollout, last_obs = rollout_to_device(host, cnn, mlp, device), prepare_obs(last, cnn, mlp, device)
+
+                def run():
+                    return trainer.train_phase(rollout, last_obs, perms, 0.1, 0.01)
+            return (lambda: {k: v.detach().cpu() for k, v in agent.state_dict().items()}), run, seed_state
+        return make
+    if kind == "off_policy":
+        from sheeprl_tpu_torch.algos.droq.agent import build_agent as droq_agent
+        from sheeprl_tpu_torch.algos.sac.agent import build_agent as sac_agent
+        from sheeprl_tpu_torch.algos.sac.sac import SACTrainer
+        from sheeprl_tpu_torch.algos.sac_ae.agent import build_agent as sac_ae_agent
+        from sheeprl_tpu_torch.algos.sac_ae.sac_ae import SACAETrainer
+
+        build = {"sac": sac_agent, "droq": droq_agent, "sac_ae": sac_ae_agent}[name]
+        trainer_cls = SACAETrainer if name == "sac_ae" else SACTrainer
+        groups = ("actor", "critic", "alpha", "encoder", "decoder")[:5 if name == "sac_ae" else 3]
+        U, B = 2, 64
+        act_dim = int(np.prod(act_space.shape))
+        host = {"actions": rng.uniform(-0.99, 0.99, (U, B, act_dim)).astype(np.float32),
+                "rewards": rng.standard_normal((U, B)).astype(np.float32),
+                "terminated": (rng.random((U, B)) < 0.1).astype(np.float32)}
+        if name == "sac_ae":
+            agent_input = obs_space
+            for k in ("rgb", "next_rgb"):
+                host[k] = rng.integers(0, 256, (U, B, *obs_space["rgb"].shape), dtype=np.uint8)
+        else:
+            agent_input = int(sum(np.prod(obs_space[k].shape) for k in mlp))
+            for k in ("obs", "next_obs"):
+                host[k] = rng.standard_normal((U, B, agent_input)).astype(np.float32)
+        seed_state = {k: v.detach().clone() for k, v in
+                      build(fabric("cpu", "32-true"), act_dim, cfg, agent_input).state_dict().items()}
+        probe = trainer_cls(cfg, build(fabric("cpu", "32-true"), act_dim, cfg, agent_input, seed_state), {}, act_dim)
+        noise_gen = torch.Generator().manual_seed(47)
+        noise = [probe.draw_noise(B, noise_gen) for _ in range(U)]
+
+        def make(device, precision):
+            run_cfg = sgd(copy.deepcopy(cfg), groups)
+            agent = build(fabric(device, precision), act_dim, run_cfg, agent_input,
+                          {k: v.clone() for k, v in seed_state.items()})
+            trainer = trainer_cls(run_cfg, agent, trainer_cls.build_optimizers(run_cfg, agent), act_dim)
+            batches = {k: torch.from_numpy(v).to(device) for k, v in host.items()}
+            dev_noise = _to_device(noise, device)
+
+            def run():
+                return trainer.train_phase(batches, dev_noise, 0)
+            return (lambda: {k: v.detach().cpu() for k, v in agent.state_dict().items()}), run, seed_state
+        return make
+    from sheeprl_tpu_torch.algos.dreamer_v1.agent import build_agent as dv1_agent
+    from sheeprl_tpu_torch.algos.dreamer_v1.dreamer_v1 import DV1Trainer
+    from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import DV2Trainer
+    from sheeprl_tpu_torch.algos.dreamer_v2.dreamer_v2 import build_agent as dv2_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import blocks_to_device, build_dv3_optimizers, draw_noise
+
+    build, trainer_cls = (dv2_agent, DV2Trainer) if name == "dreamer_v2" else (dv1_agent, DV1Trainer)
+    L, B, H = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size), int(cfg.algo.horizon)
+    block = {"rgb": rng.integers(0, 256, (1, L, B, *obs_space["rgb"].shape), dtype=np.uint8),
+             "state": rng.standard_normal((1, L, B, 4)).astype(np.float32),
+             "actions": np.eye(dims[0], dtype=np.float32)[rng.integers(0, dims[0], (1, L, B))],
+             "rewards": rng.standard_normal((1, L, B, 1)).astype(np.float32),
+             "terminated": (rng.random((1, L, B, 1)) < 0.02).astype(np.float32),
+             "is_first": (rng.random((1, L, B, 1)) < 0.02).astype(np.float32)}
+    seed_modules = build(fabric("cpu", "32-true"), dims, cont, cfg, obs_space)
+    seed_state = {n: {k: v.detach().clone() for k, v in m.state_dict().items()} for n, m in seed_modules.items()}
+    noise = draw_noise(seed_modules["world_model"], seed_modules["actor"], 1, L, B, H,
+                       torch.Generator().manual_seed(47))
+    del seed_modules
+
+    def make(device, precision):
+        run_cfg = sgd(copy.deepcopy(cfg), ("world_model", "actor", "critic"))
+        modules = build(fabric(device, precision), dims, cont, run_cfg, obs_space,
+                        {n: {k: v.clone() for k, v in s.items()} for n, s in seed_state.items()})
+        trainer = trainer_cls(run_cfg, modules, build_dv3_optimizers(run_cfg, modules), cnn, mlp, cont)
+        blocks, dev_noise = blocks_to_device(block, cnn, mlp, device), _to_device(noise, device)
+
+        def run():
+            return trainer.train_phase(blocks, dev_noise, 0)
+        def state_of():
+            return {f"{n}.{k}": v.detach().cpu() for n, m in modules.items() for k, v in m.state_dict().items()}
+        return state_of, run, {f"{n}.{k}": v for n, s in seed_state.items() for k, v in s.items()}
+    return make
+
+
+def _family_gaps(start, got, ref, losses, ref_losses, dreamer: bool) -> dict:
+    """``got`` against ``ref`` (flat state dicts after one phase from
+    ``start``): the losses' relative differences and each top module's
+    relative L2 difference of the parameter changes."""
+    groups = {}
+    for k, r in ref.items():
+        top = k.split(".")[0]
+        jd, pd = (r - start[k]).double(), (got[k] - start[k]).double()
+        num, den = groups.get(top, (0.0, 0.0))
+        groups[top] = (num + float(((pd - jd) ** 2).sum()), den + float((jd ** 2).sum()))
+    l2 = {top: float(np.sqrt(n / d)) if d > 0 else 0.0 for top, (n, d) in groups.items()}
+    rel = np.abs(losses - ref_losses) / np.maximum(np.abs(ref_losses), 1e-6)
+    if dreamer:
+        wm = [0, 1, 2, 3, 4, 5, 8, 9]
+        t = PRECISION_DREAMER_TIER
+        ok = bool(np.all(rel[wm] <= t["wm_metric_rel"]) and np.all(
+            np.abs(losses - ref_losses)[6:8] <= t["behaviour_metric_rel"] * np.abs(ref_losses[6:8])
+            + t["behaviour_metric_abs"]) and all(
+            v <= (t["world_model_l2"] if top == "world_model" else t["behaviour_l2"]) for top, v in l2.items()
+            if "target" not in top))
+    else:
+        t = PRECISION_FAMILY_TIER
+        ok = bool(np.all(np.abs(losses - ref_losses) <= t["loss_rel"] * np.abs(ref_losses) + t["loss_abs"])
+                  and all(v <= t["change_l2"] for v in l2.values()))
+    return {"ok": ok, "loss_rel": rel.tolist(), "change_l2": l2}
+
+
+def phase_precision_families(torch) -> dict:
+    """Phase 47: :data:`PRECISION_FAMILIES`, each one train phase under
+    bf16-mixed on the card against the same phase on the CPU (the gate), the
+    CPU's bf16 against its fp32 beside it (what bf16 itself moves); then the
+    card's phase timed under bf16-mixed and 32-true in turns (bf16, fp32,
+    fp32, bf16)."""
+    out = {}
+    for name, (overrides, kind) in PRECISION_FAMILIES.items():
+        t0 = time.perf_counter()
+        make = _family_case(torch, name, overrides, kind)
+        results = {}
+        for device, precision in (("cpu", "bf16-mixed"), ("cpu", "32-true"), (CARD, "bf16-mixed")):
+            state_of, run, start = make(device, precision)
+            losses = np.array([float(x) for x in run()])
+            results[device, precision] = (state_of(), losses)
+        (cpu_b, cpu_bl), (cpu_f, cpu_fl), (card_b, card_bl) = (results[k] for k in (
+            ("cpu", "bf16-mixed"), ("cpu", "32-true"), (CARD, "bf16-mixed")))
+        dreamer = kind == "dreamer"
+        gate = _family_gaps(start, card_b, cpu_b, card_bl, cpu_bl, dreamer)
+        effect = _family_gaps(start, cpu_b, cpu_f, cpu_bl, cpu_fl, dreamer)
+        runs = {p: make(CARD, p)[1] for p in ("bf16-mixed", "32-true")}
+        for fn in runs.values():
+            fn()  # cuDNN's algorithm choice and the first launches
+        turns = _turns(torch, runs, order=("bf16-mixed", "32-true", "32-true", "bf16-mixed"))
+        per = {"on_policy": 1, "recurrent": 1, "off_policy": 2, "dreamer": 1}[kind]
+        rates = {p: [per / s for s in v["s"]] for p, v in turns.items()}
+        unit = "train phases/s (one iteration's update)" if per == 1 and not dreamer else "updates/s"
+        log(f"[precision-{name}] one train phase under bf16-mixed, card vs CPU: losses rel diff "
+            f"{', '.join(f'{x:.2e}' for x in gate['loss_rel'])}, changes rel L2 "
+            f"{', '.join(f'{k} {v:.3g}' for k, v in gate['change_l2'].items())}; the CPU's bf16 vs its fp32: losses "
+            f"{', '.join(f'{x:.2e}' for x in effect['loss_rel'])}, changes "
+            f"{', '.join(f'{k} {v:.3g}' for k, v in effect['change_l2'].items())}; on the card in turns (bf16, fp32, "
+            f"fp32, bf16) {rates['bf16-mixed'][0]:.2f}, {rates['32-true'][0]:.2f}, {rates['32-true'][1]:.2f}, "
+            f"{rates['bf16-mixed'][1]:.2f} {unit}; {time.perf_counter() - t0:.1f} s")
+        if not (gate["ok"] and np.isfinite(card_bl).all()):
+            raise AssertionError(f"{name}: the bf16 train phase on the card disagrees with the CPU's beyond the tier")
+        out[name] = {"gate": gate, "bf16_effect": effect, "rates": rates, "unit": unit}
+        del runs, results
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_precision(torch, run_root: Path, fp32: dict) -> dict:
+    """Phases 42-47.  ``fp32`` holds this run's 32-true readings of the same
+    paths (phases 7, 11 and 38-39), each printed beside its bf16 one."""
+    t0 = time.perf_counter()
+    out = {"kernels": phase_precision_kernels(torch)}
+    train = _train(torch, [*XL_TRAIN, *XL_TRAIN_STEPS, FUSED, HOST_RING, BF16_MIXED], run_root / "train_xl_bf16",
+                   "rssm")
+    log(f"[precision-train] DreamerV3-XL under bf16-mixed through cli.run: {train['updates_per_s']:.3f} updates/s, "
+        f"peak {train['peak_bytes'] / 2**30:.2f} GiB, rssm launches per update {sorted(set(train['per_update']))}; "
+        f"32-true (phase 7): " + (f"{fp32['train']['updates_per_s']:.3f} updates/s, peak "
+                                 f"{fp32['train']['peak_bytes'] / 2**30:.2f} GiB" if fp32.get("train") else "not run"))
+    out["train"] = train
+    out["dv3_xl"] = phase_graph_window(torch, "precision-dv3-xl", [*XL_TRAIN, FUSED, BF16_MIXED], "rssm")
+    out["dv3_xl_turns"] = phase_precision_turns(torch, "precision-dv3-xl", [*XL_TRAIN, FUSED], "rssm")
+    out["dv3_s_gru"] = phase_graph_window(torch, "precision-dv3-s-gru", [*S_TRAIN, BF16_MIXED], "gru")
+    out["dv3_s_gru_turns"] = phase_precision_turns(torch, "precision-dv3-s-gru", S_TRAIN, "gru")
+    from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import P2EDV3Trainer
+
+    p2e = _train(torch, [*P2E_XL, BF16_MIXED], run_root / "p2e_explore_bf16", "rssm", P2E_LAUNCHES_PER_UPDATE,
+                 trainer_cls=P2EDV3Trainer)
+    if len(p2e["intrinsic"]) != p2e["updates"]:
+        raise AssertionError(f"P2E bf16: intrinsic rewards {p2e['intrinsic']} for {p2e['updates']} updates")
+    log(f"[precision-p2e] P2E-DV3-XL exploration under bf16-mixed: {p2e['updates_per_s']:.3f} updates/s, peak "
+        f"{p2e['peak_bytes'] / 2**30:.2f} GiB, rssm launches per update {sorted(set(p2e['per_update']))}; 32-true "
+        + (f"(phase 11): {fp32['p2e']['updates_per_s']:.3f} updates/s, peak {fp32['p2e']['peak_bytes'] / 2**30:.2f} GiB"
+           if fp32.get("p2e") else "not run"))
+    out["p2e"] = p2e
+    out["serve"] = phase_precision_serve(torch, train["snapshot"])
+    out["families"] = phase_precision_families(torch)
+    for key in ("dv3_xl", "dv3_s_gru"):
+        if fp32.get(key):
+            bf16 = out[key]["updates_per_s"]["graph"]
+            log(f"[precision] {key}: replayed updates/s bf16 {', '.join(f'{x:.3f}' for x in bf16)}"
+                f" against 32-true (phase {38 if key == 'dv3_xl' else 39}) "
+                f"{', '.join(f'{x:.3f}' for x in fp32[key]['updates_per_s']['graph'])}; peak "
+                f"{out[key]['peak_bytes'] / 2**30:.2f} against {fp32[key]['peak_bytes'] / 2**30:.2f} GiB")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[precision] phases 42-47: {out['seconds']:.1f} s")
+    return out
+
+
+def precision_summary(p: dict) -> dict:
+    keep = ("updates_per_s", "host_ms_per_update", "device_ms_per_update", "captures", "peak_bytes",
+            "launches_per_update", "loss_rel", "param_abs")
+    train_keep = ("updates", "updates_per_s", "updates_per_s_events", "first_update_s", "peak_bytes", "per_update")
+    return {"kernels": p["kernels"], "train": {k: p["train"][k] for k in train_keep},
+            "p2e": {k: p["p2e"][k] for k in train_keep},
+            **{k: {x: p[k][x] for x in keep} for k in ("dv3_xl", "dv3_s_gru")},
+            "dv3_xl_turns": p["dv3_xl_turns"], "dv3_s_gru_turns": p["dv3_s_gru_turns"], "serve": p["serve"],
+            "families": p["families"], "seconds": p["seconds"]}
+
+
+def precision_only(torch) -> int:
+    """``--precision``: phases 42-47 alone, beside 32-true runs of phase 7's
+    and phase 11's recipes."""
+    from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import P2EDV3Trainer
+
+    run_root = ROOT / "build" / "chip_smoke_precision"
+    shutil.rmtree(run_root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        device = phase_device(torch)
+        phase_build()
+        fp32 = {"train": _train(torch, [*XL_TRAIN, *XL_TRAIN_STEPS, FUSED, HOST_RING], run_root / "train_xl", "rssm"),
+                "p2e": _train(torch, P2E_XL, run_root / "p2e_explore", "rssm", P2E_LAUNCHES_PER_UPDATE,
+                              trainer_cls=P2EDV3Trainer)}
+        precision = phase_precision(torch, run_root, fp32)
+        log("[precision] " + json.dumps(precision_summary(precision), default=float))
+        log(f"[precision] total {time.perf_counter() - t0:.1f} s")
+    except BaseException:
+        traceback.print_exc()
+        return 1
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
 def timing_only(torch, package_root: str) -> int:
     """``--timing ROOT``: build and time the kernels of the port found under
     ``ROOT`` (for example an unpacked older commit) at every timed batch,
@@ -3181,6 +3826,8 @@ def main() -> int:
         return replay_ab(torch)
     if sys.argv[1:2] == ["--graphs"]:
         return graphs_only(torch)
+    if sys.argv[1:2] == ["--precision"]:
+        return precision_only(torch)
 
     run_root = ROOT / "build" / "chip_smoke"
     shutil.rmtree(run_root, ignore_errors=True)
@@ -3239,6 +3886,10 @@ def main() -> int:
         log("[replay] " + json.dumps(replay_summary(replay), default=float))
         graphs = phase_graphs(torch, run_root / "graphs", served, fused_dir, envs["ppo"]["anakin"])
         log("[graphs] " + json.dumps(graphs_summary(graphs), default=float))
+        precision = phase_precision(torch, run_root / "precision", {"train": train, "p2e": p2e,
+                                                                     "dv3_xl": graphs["dv3_xl"],
+                                                                     "dv3_s_gru": graphs["dv3_s_gru"]})
+        log("[precision] " + json.dumps(precision_summary(precision), default=float))
 
         launches = {"rssm": train["counts"]["rssm"], "gru": train_gru["counts"]["gru"]}
         new_paths = {"p2e_explore": p2e, "p2e_finetune": finetune, "decoupled": decoupled}
@@ -3271,6 +3922,13 @@ def main() -> int:
             by_path["sac_pendulum"] = envs["sac_pendulum"]["counts"][name]
             by_path["replay_dv3_xl"] = replay["dv3"]["counts"][name]
             by_path["replay_dv3_xl_per_update"] = max(n[name] for n in replay["dv3"]["update_launches"])
+            for path in ("train", "p2e"):
+                by_path[f"bf16_{path}_xl"] = precision[path]["counts"][name]
+                by_path[f"bf16_{path}_xl_per_update"] = max(n[name] for n in precision[path]["update_launches"])
+            by_path["bf16_serve"] = sum(r["counts"][name] for r in precision["serve"]["bf16"])
+            # the bf16 windows of phases 43-44 (XL with the RSSM kernel, S with the GRU kernel)
+            window = precision["dv3_xl" if name == "rssm" else "dv3_s_gru"]
+            by_path["bf16_window_per_update"] = window["launches_per_update"]
         sources = {
             "rssm": ("sheeprl_tpu_torch/csrc/rssm.cu",
                      "sheeprl_tpu/ops/rssm_pallas.py:70 (_rssm_kernel), sheeprl_tpu/ops/rssm_pallas.py:260 "
@@ -3288,6 +3946,8 @@ def main() -> int:
                 "shape": list(t["shape"]),
                 "timing_by_batch": {str(b): {k: v for k, v in row.items() if k not in ("shape", "breakdown")}
                                     for b, row in timing[name].items()},
+                "bf16_operands": {"max_abs_err": precision["kernels"]["worst"][name],
+                                  "by_batch": {str(b): row for b, row in precision["kernels"][name].items()}},
             })
         log(f"[done] serve parity err {parity_err:.2e}; train parity {train_parity['diffs']['loss_rel']:.3g} rel; "
             f"XL training {train['updates_per_s']:.3f} updates/s; P2E-DV3 XL exploration {p2e['updates_per_s']:.3f} "
@@ -3304,7 +3964,9 @@ def main() -> int:
             f"{envs['ppo']['adapter']['env_steps_per_s']:.0f} at 16), DV3-XL on forage "
             f"{envs['dv3_forage']['train']['updates_per_s']:.3f} updates/s; DV3-XL on the card's ring (window "
             f"{replay['dv3']['window']:,}) {replay['dv3']['updates_per_s']:.3f} updates/s beside the host ring's "
-            f"{train['updates_per_s_events']:.3f} (CUDA events); total "
+            f"{train['updates_per_s_events']:.3f} (CUDA events); DV3-XL under bf16-mixed "
+            f"{precision['train']['updates_per_s']:.3f} updates/s through cli.run, replayed "
+            f"{statistics.median(precision['dv3_xl']['updates_per_s']['graph']):.3f}; total "
             f"{time.perf_counter() - t_start:.1f} s")
     except BaseException:
         traceback.print_exc()

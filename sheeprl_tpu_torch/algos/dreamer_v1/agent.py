@@ -46,6 +46,7 @@ class GaussianWorldModel(nn.Module):
         stochastic_size: int = 30,
         min_std: float = 0.1,
         act: str = "elu",
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.stochastic_size = self.stoch_flat = stochastic_size
@@ -53,16 +54,20 @@ class GaussianWorldModel(nn.Module):
         self.min_std = min_std
         latent = stochastic_size + recurrent_size
         self.encoder = Encoder(cnn_keys, mlp_keys, cnn_shapes, mlp_shapes, cnn_mult=cnn_mult, mlp_units=dense_units,
-                               mlp_layers=mlp_layers, act=act, layer_norm=False, symlog_inputs=False)
-        self.recurrent_model = RecurrentModel(stochastic_size + int(sum(actions_dim)), recurrent_size, dense_units)
+                               mlp_layers=mlp_layers, act=act, layer_norm=False, symlog_inputs=False, dtype=dtype)
+        self.recurrent_model = RecurrentModel(stochastic_size + int(sum(actions_dim)), recurrent_size, dense_units,
+                                              dtype=dtype)
         self.representation_model = DreamerMLP(recurrent_size + self.encoder.out_features, hidden_size, 1,
-                                               output_dim=2 * stochastic_size, act=act, layer_norm=False)
+                                               output_dim=2 * stochastic_size, act=act, layer_norm=False, dtype=dtype)
         self.transition_model = DreamerMLP(recurrent_size, hidden_size, 1, output_dim=2 * stochastic_size, act=act,
-                                           layer_norm=False)
+                                           layer_norm=False, dtype=dtype)
         self.observation_model = Decoder(latent, cnn_keys, mlp_keys, cnn_shapes, mlp_shapes, cnn_mult=cnn_mult,
-                                         mlp_units=dense_units, mlp_layers=mlp_layers, act=act, layer_norm=False)
-        self.reward_model = DreamerMLP(latent, dense_units, mlp_layers, output_dim=1, act=act, layer_norm=False)
-        self.continue_model = DreamerMLP(latent, dense_units, mlp_layers, output_dim=1, act=act, layer_norm=False)
+                                         mlp_units=dense_units, mlp_layers=mlp_layers, act=act, layer_norm=False,
+                                         dtype=dtype)
+        self.reward_model = DreamerMLP(latent, dense_units, mlp_layers, output_dim=1, act=act, layer_norm=False,
+                                       dtype=dtype)
+        self.continue_model = DreamerMLP(latent, dense_units, mlp_layers, output_dim=1, act=act, layer_norm=False,
+                                         dtype=dtype)
 
     def init_weights(self, g: torch.Generator) -> None:
         for name in ("encoder", "recurrent_model", "representation_model", "transition_model",
@@ -114,25 +119,27 @@ def latent_size(cfg: Any) -> int:
     return int(wm_cfg.stochastic_size) + int(wm_cfg.recurrent_model.recurrent_state_size)
 
 
-def new_actor(cfg: Any, actions_dim: Sequence[int], is_continuous: bool) -> Actor:
+def new_actor(cfg: Any, actions_dim: Sequence[int], is_continuous: bool, dtype: torch.dtype = torch.float32) -> Actor:
     a = cfg.algo.actor
     return Actor(latent_size(cfg), actions_dim, is_continuous, dense_units=a.dense_units, mlp_layers=a.mlp_layers,
                  act=cfg.algo.dense_act, layer_norm=False, unimix=0.0, min_std=a.min_std, init_std=a.init_std,
-                 action_clip=1.0)
+                 action_clip=1.0, dtype=dtype)
 
 
-def new_critic(cfg: Any) -> Critic:
+def new_critic(cfg: Any, dtype: torch.dtype = torch.float32) -> Critic:
     c = cfg.algo.critic
     return Critic(latent_size(cfg), dense_units=c.dense_units, mlp_layers=c.mlp_layers, act=cfg.algo.dense_act,
-                  layer_norm=False, bins=1)
+                  layer_norm=False, bins=1, dtype=dtype)
 
 
 def build_agent(fabric: Any, actions_dim: Sequence[int], is_continuous: bool, cfg: Any, obs_space: Any,
                 state: Optional[Dict[str, Any]] = None) -> Dict[str, nn.Module]:
     """World model, actor and value network in eval mode on
-    ``fabric.device``: from ``state``, or initialised from ``cfg.seed``."""
+    ``fabric.device``: from ``state``, or initialised from ``cfg.seed``.  The
+    modules compute in ``fabric.precision.compute_dtype``."""
     cnn_shapes, mlp_shapes = obs_shapes(cfg, obs_space)
     wm_cfg = cfg.algo.world_model
+    dtype = fabric.precision.compute_dtype
     with torch.device("meta" if state is not None else fabric.device):
         modules = {
             "world_model": GaussianWorldModel(
@@ -140,10 +147,10 @@ def build_agent(fabric: Any, actions_dim: Sequence[int], is_continuous: bool, cf
                 tuple(actions_dim), cnn_mult=wm_cfg.encoder.cnn_channels_multiplier, dense_units=cfg.algo.dense_units,
                 mlp_layers=cfg.algo.mlp_layers, recurrent_size=wm_cfg.recurrent_model.recurrent_state_size,
                 hidden_size=wm_cfg.transition_model.hidden_size, stochastic_size=wm_cfg.stochastic_size,
-                min_std=float(wm_cfg.min_std), act=cfg.algo.dense_act,
+                min_std=float(wm_cfg.min_std), act=cfg.algo.dense_act, dtype=dtype,
             ),
-            "actor": new_actor(cfg, actions_dim, is_continuous),
-            "critic": new_critic(cfg),
+            "actor": new_actor(cfg, actions_dim, is_continuous, dtype),
+            "critic": new_critic(cfg, dtype),
         }
     place_modules(modules, state, fabric.device, int(cfg.seed))
     return modules

@@ -48,26 +48,28 @@ def latent_size(cfg: Any) -> int:
     return int(wm_cfg.stochastic_size) * int(wm_cfg.discrete_size) + int(wm_cfg.recurrent_model.recurrent_state_size)
 
 
-def new_actor(cfg: Any, actions_dim: Sequence[int], is_continuous: bool) -> Actor:
+def new_actor(cfg: Any, actions_dim: Sequence[int], is_continuous: bool, dtype: torch.dtype = torch.float32) -> Actor:
     a = cfg.algo.actor
     return Actor(latent_size(cfg), actions_dim, is_continuous, dense_units=a.dense_units, mlp_layers=a.mlp_layers,
                  act=cfg.algo.dense_act, layer_norm=bool(cfg.algo.layer_norm), unimix=0.0, min_std=a.min_std,
-                 max_std=1.0, init_std=a.init_std, action_clip=1.0)
+                 max_std=1.0, init_std=a.init_std, action_clip=1.0, dtype=dtype)
 
 
-def new_critic(cfg: Any) -> Critic:
+def new_critic(cfg: Any, dtype: torch.dtype = torch.float32) -> Critic:
     c = cfg.algo.critic
     return Critic(latent_size(cfg), dense_units=c.dense_units, mlp_layers=c.mlp_layers, act=cfg.algo.dense_act,
-                  layer_norm=bool(cfg.algo.layer_norm), bins=1)
+                  layer_norm=bool(cfg.algo.layer_norm), bins=1, dtype=dtype)
 
 
 def build_agent(fabric: Any, actions_dim: Sequence[int], is_continuous: bool, cfg: Any, obs_space: Any,
                 state: Optional[Dict[str, Any]] = None) -> Dict[str, torch.nn.Module]:
     """World model, actor, critic and target critic with the V2 settings, in
     eval mode on ``fabric.device``: from ``state``, or initialised from
-    ``cfg.seed`` with the target a copy of the critic."""
+    ``cfg.seed`` with the target a copy of the critic.  The modules compute in
+    ``fabric.precision.compute_dtype``."""
     cnn_shapes, mlp_shapes = obs_shapes(cfg, obs_space)
     wm_cfg = cfg.algo.world_model
+    dtype = fabric.precision.compute_dtype
     with torch.device("meta" if state is not None else fabric.device):
         modules = {
             "world_model": WorldModel(
@@ -79,11 +81,11 @@ def build_agent(fabric: Any, actions_dim: Sequence[int], is_continuous: bool, cf
                 repr_hidden_size=wm_cfg.representation_model.hidden_size,
                 stochastic_size=wm_cfg.stochastic_size, discrete_size=wm_cfg.discrete_size, unimix=0.0, bins=1,
                 act=cfg.algo.dense_act, layer_norm=bool(cfg.algo.layer_norm), symlog_inputs=False,
-                learnable_initial_state=False,
+                learnable_initial_state=False, dtype=dtype,
             ),
-            "actor": new_actor(cfg, actions_dim, is_continuous),
-            "critic": new_critic(cfg),
-            "target_critic": new_critic(cfg),
+            "actor": new_actor(cfg, actions_dim, is_continuous, dtype),
+            "critic": new_critic(cfg, dtype),
+            "target_critic": new_critic(cfg, dtype),
         }
     place_modules(modules, state, fabric.device, int(cfg.seed), {"target_critic": "critic"})
     return modules

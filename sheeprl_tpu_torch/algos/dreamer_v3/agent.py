@@ -10,6 +10,11 @@ flattens its last feature map in H, W, C order, as flax does.
 ``fused_pallas`` runs the whole recurrent step as the CUDA kernel of
 ``ops/rssm.py``, ``use_pallas`` only the GRU cell (``ops/gru.py``).  With
 both off it is the ordinary module path (Linear + LayerNorm + GRU cell).
+
+Every module takes the fabric's compute ``dtype`` where the flax module
+does: products and convolutions run in it, with fp32 LayerNorm islands, fp32
+heads (actor, critic, reward, continue, the MLP decoder's heads and the last
+deconvolution) and an fp32 recurrent state carried between steps.
 """
 
 from __future__ import annotations
@@ -21,6 +26,9 @@ import torch
 import torch.nn as nn
 
 from sheeprl_tpu_torch.models.models import (
+    Conv,
+    ConvTranspose,
+    Dense,
     LayerNorm,
     LayerNormGRUCell,
     StackedLayerNorm,
@@ -62,7 +70,8 @@ def _ln_(ln: LayerNorm) -> None:
 
 
 class DreamerMLP(nn.Module):
-    """Linear → LayerNorm(1e-3) → act stack, with an optional head."""
+    """Linear → LayerNorm(1e-3) → act stack in ``dtype``, with an optional
+    fp32 head."""
 
     def __init__(
         self,
@@ -73,20 +82,23 @@ class DreamerMLP(nn.Module):
         act: str = "silu",
         layer_norm: bool = True,
         zero_head: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.layers = layers
         self.layer_norm = layer_norm
         self.zero_head = zero_head
+        self.compute_dtype = dtype
         self.act = get_activation(act)
         for i in range(layers):
-            self.add_module(f"dense_{i}", nn.Linear(in_features if i == 0 else units, units))
+            self.add_module(f"dense_{i}", Dense(in_features if i == 0 else units, units, dtype=dtype))
             if layer_norm:
-                self.add_module(f"ln_{i}", LayerNorm(units, eps=1e-3))
-        self.head = nn.Linear(units if layers else in_features, output_dim) if output_dim is not None else None
+                self.add_module(f"ln_{i}", LayerNorm(units, eps=1e-3, dtype=dtype))
+        self.head = Dense(units if layers else in_features, output_dim) if output_dim is not None else None
         self.out_features = output_dim if output_dim is not None else (units if layers else in_features)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.compute_dtype)
         for i in range(self.layers):
             x = getattr(self, f"dense_{i}")(x)
             if self.layer_norm:
@@ -157,12 +169,14 @@ class Encoder(nn.Module):
         act: str = "silu",
         layer_norm: bool = True,
         symlog_inputs: bool = True,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.cnn_keys = tuple(cnn_keys)
         self.mlp_keys = tuple(mlp_keys)
         self.layer_norm = layer_norm
         self.symlog_inputs = symlog_inputs
+        self.compute_dtype = dtype
         self.act = get_activation(act)
         self.out_features = 0
         if self.cnn_keys:
@@ -173,21 +187,22 @@ class Encoder(nn.Module):
             stages = [cnn_mult * m for m in (1, 2, 4, 8)]
             for i, c in enumerate(stages):
                 # flax "SAME" with k=4, s=2 on an even size pads one pixel each side
-                self.add_module(f"conv_{i}", nn.Conv2d(c_in, c, 4, stride=2, padding=1, bias=not layer_norm))
+                self.add_module(f"conv_{i}", Conv(c_in, c, 4, stride=2, padding=1, bias=not layer_norm, dtype=dtype))
                 if layer_norm:
-                    self.add_module(f"cnn_ln_{i}", LayerNorm(c, eps=1e-3))
+                    self.add_module(f"cnn_ln_{i}", LayerNorm(c, eps=1e-3, dtype=dtype))
                 c_in = c
             self.out_features += (h // 16) * (w // 16) * stages[-1]
         if self.mlp_keys:
             self.mlp_encoder = DreamerMLP(
-                sum(mlp_shapes[k] for k in self.mlp_keys), mlp_units, mlp_layers, act=act, layer_norm=layer_norm
+                sum(mlp_shapes[k] for k in self.mlp_keys), mlp_units, mlp_layers, act=act, layer_norm=layer_norm,
+                dtype=dtype,
             )
             self.out_features += self.mlp_encoder.out_features
 
     def forward(self, obs: Dict[str, torch.Tensor]) -> torch.Tensor:
         feats = []
         if self.cnn_keys:
-            x = torch.cat([obs[k] for k in self.cnn_keys], dim=-1)
+            x = torch.cat([obs[k] for k in self.cnn_keys], dim=-1).to(self.compute_dtype)
             lead = x.shape[:-3]
             x = x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2)
             for i in range(4):
@@ -228,6 +243,7 @@ class Decoder(nn.Module):
         mlp_layers: int = 2,
         act: str = "silu",
         layer_norm: bool = True,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.cnn_keys = tuple(cnn_keys)
@@ -238,21 +254,22 @@ class Decoder(nn.Module):
         self.act = get_activation(act)
         if self.cnn_keys:
             total_c = sum(self.cnn_shapes[k][-1] for k in self.cnn_keys)
-            self.cnn_in = nn.Linear(latent_size, 4 * 4 * cnn_mult * 8)
+            self.cnn_in = Dense(latent_size, 4 * 4 * cnn_mult * 8, dtype=dtype)
             c_in = cnn_mult * 8
             for i, c in enumerate((cnn_mult * 4, cnn_mult * 2, cnn_mult)):
                 # flax ConvTranspose "SAME", k=4, s=2 doubles the size: torch padding=1
                 self.add_module(
-                    f"deconv_{i}", nn.ConvTranspose2d(c_in, c, 4, stride=2, padding=1, bias=not layer_norm)
+                    f"deconv_{i}",
+                    ConvTranspose(c_in, c, 4, stride=2, padding=1, bias=not layer_norm, dtype=dtype),
                 )
                 if layer_norm:
-                    self.add_module(f"cnn_ln_{i}", LayerNorm(c, eps=1e-3))
+                    self.add_module(f"cnn_ln_{i}", LayerNorm(c, eps=1e-3, dtype=dtype))
                 c_in = c
-            self.deconv_out = nn.ConvTranspose2d(c_in, total_c, 4, stride=2, padding=1)
+            self.deconv_out = ConvTranspose(c_in, total_c, 4, stride=2, padding=1)  # fp32, as in JAX
         if self.mlp_keys:
-            self.mlp_decoder = DreamerMLP(latent_size, mlp_units, mlp_layers, act=act)
+            self.mlp_decoder = DreamerMLP(latent_size, mlp_units, mlp_layers, act=act, dtype=dtype)
             for k in self.mlp_keys:
-                self.add_module(f"head_{k}", nn.Linear(mlp_units, mlp_shapes[k]))
+                self.add_module(f"head_{k}", Dense(mlp_units, mlp_shapes[k]))
 
     def forward(self, latent: torch.Tensor) -> Dict[str, torch.Tensor]:
         out: Dict[str, torch.Tensor] = {}
@@ -298,7 +315,8 @@ class RecurrentModel(nn.Module):
     ``fused_pallas`` declares the flat parameters of the JAX flag
     (``in_kernel`` (Z+A, D), ``in_bias``, ``ln_scale``, ``ln_bias``,
     ``gru_kernel`` (D+H, 3H), ``gru_ln_scale``, ``gru_ln_bias``; kernels in
-    (in, out) order) and runs ``fused_rssm_recurrent``."""
+    (in, out) order) and runs ``fused_rssm_recurrent`` (fp32 inside), its
+    output cast to ``dtype`` as JAX casts it."""
 
     def __init__(
         self,
@@ -307,9 +325,11 @@ class RecurrentModel(nn.Module):
         dense_units: int,
         use_pallas: bool = False,
         fused_pallas: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.fused_pallas = fused_pallas
+        self.compute_dtype = dtype
         D, H = dense_units, recurrent_size
         if fused_pallas:
             self.in_kernel = nn.Parameter(variance_scaling_(torch.empty(input_size, D), input_size, D, "fan_avg"))
@@ -320,16 +340,16 @@ class RecurrentModel(nn.Module):
             self.gru_ln_scale = nn.Parameter(torch.ones(3 * H))
             self.gru_ln_bias = nn.Parameter(torch.zeros(3 * H))
         else:
-            self.add_module("in", nn.Linear(input_size, D))
-            self.ln = LayerNorm(D, eps=1e-3)
-            self.gru = LayerNormGRUCell(D, H, layer_norm=True, use_pallas=use_pallas)
+            self.add_module("in", Dense(input_size, D, dtype=dtype))
+            self.ln = LayerNorm(D, eps=1e-3, dtype=dtype)
+            self.gru = LayerNormGRUCell(D, H, layer_norm=True, use_pallas=use_pallas, dtype=dtype)
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
         if self.fused_pallas:
             return fused_rssm_recurrent(
                 x, h, self.in_kernel, self.in_bias, self.ln_scale, self.ln_bias,
                 self.gru_kernel, self.gru_ln_scale, self.gru_ln_bias,
-            )
+            ).to(self.compute_dtype)
         y = torch.nn.functional.silu(self.ln(getattr(self, "in")(x)))
         new_h, _ = self.gru(h, y)
         return new_h
@@ -384,6 +404,7 @@ class WorldModel(nn.Module):
         decoupled_rssm: bool = False,
         use_pallas_gru: bool = False,
         fused_pallas_rssm: bool = False,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.stochastic_size = stochastic_size
@@ -396,29 +417,31 @@ class WorldModel(nn.Module):
         latent = self.stoch_flat + recurrent_size
         self.encoder = Encoder(
             cnn_keys, mlp_keys, cnn_shapes, mlp_shapes, cnn_mult=cnn_mult, mlp_units=dense_units,
-            mlp_layers=mlp_layers, act=act, layer_norm=layer_norm, symlog_inputs=symlog_inputs,
+            mlp_layers=mlp_layers, act=act, layer_norm=layer_norm, symlog_inputs=symlog_inputs, dtype=dtype,
         )
         self.recurrent_model = RecurrentModel(
             self.stoch_flat + int(sum(actions_dim)), recurrent_size, dense_units,
-            use_pallas=use_pallas_gru, fused_pallas=fused_pallas_rssm,
+            use_pallas=use_pallas_gru, fused_pallas=fused_pallas_rssm, dtype=dtype,
         )
         embed = self.encoder.out_features
         self.representation_model = DreamerMLP(
             embed if decoupled_rssm else recurrent_size + embed, repr_hidden_size, 1,
-            output_dim=self.stoch_flat, act=act, layer_norm=layer_norm,
+            output_dim=self.stoch_flat, act=act, layer_norm=layer_norm, dtype=dtype,
         )
         self.transition_model = DreamerMLP(
-            recurrent_size, hidden_size, 1, output_dim=self.stoch_flat, act=act, layer_norm=layer_norm
+            recurrent_size, hidden_size, 1, output_dim=self.stoch_flat, act=act, layer_norm=layer_norm, dtype=dtype
         )
         self.observation_model = Decoder(
             latent, cnn_keys, mlp_keys, cnn_shapes, mlp_shapes, cnn_mult=cnn_mult,
-            mlp_units=dense_units, mlp_layers=mlp_layers, act=act, layer_norm=layer_norm,
+            mlp_units=dense_units, mlp_layers=mlp_layers, act=act, layer_norm=layer_norm, dtype=dtype,
         )
         self.reward_model = DreamerMLP(
-            latent, dense_units, mlp_layers, output_dim=bins, act=act, layer_norm=layer_norm, zero_head=True
+            latent, dense_units, mlp_layers, output_dim=bins, act=act, layer_norm=layer_norm, zero_head=True,
+            dtype=dtype,
         )
         self.continue_model = DreamerMLP(
-            latent, dense_units, mlp_layers, output_dim=1, act=act, layer_norm=layer_norm, zero_head=True
+            latent, dense_units, mlp_layers, output_dim=1, act=act, layer_norm=layer_norm, zero_head=True,
+            dtype=dtype,
         )
         if learnable_initial_state:
             self.initial_recurrent = nn.Parameter(torch.zeros(recurrent_size))
@@ -537,6 +560,7 @@ class Actor(nn.Module):
         max_std: float = 1.0,
         init_std: float = 2.0,
         action_clip: float = 1.0,
+        dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.actions_dim = tuple(int(d) for d in actions_dim)
@@ -544,8 +568,8 @@ class Actor(nn.Module):
         self.unimix = unimix
         self.min_std, self.max_std, self.init_std = min_std, max_std, init_std
         self.action_clip = action_clip
-        self.trunk = DreamerMLP(latent_size, dense_units, mlp_layers, act=act, layer_norm=layer_norm)
-        self.head = nn.Linear(dense_units, sum(self.actions_dim) * (2 if is_continuous else 1))
+        self.trunk = DreamerMLP(latent_size, dense_units, mlp_layers, act=act, layer_norm=layer_norm, dtype=dtype)
+        self.head = Dense(dense_units, sum(self.actions_dim) * (2 if is_continuous else 1))
 
     def forward(self, latent: torch.Tensor) -> torch.Tensor:
         return self.head(self.trunk(latent))
@@ -611,11 +635,11 @@ class Critic(nn.Module):
 
     def __init__(
         self, latent_size: int, dense_units: int = 512, mlp_layers: int = 2, act: str = "silu",
-        layer_norm: bool = True, bins: int = 255,
+        layer_norm: bool = True, bins: int = 255, dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
-        self.trunk = DreamerMLP(latent_size, dense_units, mlp_layers, act=act, layer_norm=layer_norm)
-        self.head = nn.Linear(dense_units, bins)
+        self.trunk = DreamerMLP(latent_size, dense_units, mlp_layers, act=act, layer_norm=layer_norm, dtype=dtype)
+        self.head = Dense(dense_units, bins)
 
     def forward(self, latent: torch.Tensor) -> torch.Tensor:
         return self.head(self.trunk(latent))
@@ -638,18 +662,19 @@ def obs_shapes(cfg: Any, obs_space: Any) -> Tuple[Dict[str, Tuple[int, int, int]
     return cnn_shapes, mlp_shapes
 
 
-def new_actor(cfg: Any, latent: int, actions_dim: Sequence[int], is_continuous: bool) -> Actor:
+def new_actor(cfg: Any, latent: int, actions_dim: Sequence[int], is_continuous: bool,
+              dtype: torch.dtype = torch.float32) -> Actor:
     """The DreamerV3 actor of ``cfg.algo.actor`` on ``latent``-wide inputs."""
     a = cfg.algo.actor
     return Actor(latent, actions_dim, is_continuous, dense_units=a.dense_units, mlp_layers=a.mlp_layers,
                  unimix=a.unimix, min_std=a.min_std, max_std=a.max_std, init_std=a.init_std,
-                 action_clip=a.action_clip)
+                 action_clip=a.action_clip, dtype=dtype)
 
 
-def new_critic(cfg: Any, latent: int) -> Critic:
+def new_critic(cfg: Any, latent: int, dtype: torch.dtype = torch.float32) -> Critic:
     """The DreamerV3 critic of ``cfg.algo.critic`` on ``latent``-wide inputs."""
     c = cfg.algo.critic
-    return Critic(latent, dense_units=c.dense_units, mlp_layers=c.mlp_layers, bins=c.bins)
+    return Critic(latent, dense_units=c.dense_units, mlp_layers=c.mlp_layers, bins=c.bins, dtype=dtype)
 
 
 def place_modules(modules: Dict[str, Any], state: Optional[Dict[str, Any]], device: Any, seed: int,
@@ -691,8 +716,10 @@ def build_agent(
     """``world_model``, ``actor``, ``critic`` and ``target_critic`` on
     ``fabric.device``, in eval mode.  ``state`` holds their ``state_dict``s
     under those names; without it the weights are the Hafner initialization
-    drawn from ``cfg.seed``, and the target critic copies the critic."""
+    drawn from ``cfg.seed``, and the target critic copies the critic.  The
+    modules compute in ``fabric.precision.compute_dtype``."""
     cnn_shapes, mlp_shapes = obs_shapes(cfg, obs_space)
+    dtype = fabric.precision.compute_dtype
     wm_cfg = cfg.algo.world_model
     stoch = wm_cfg.stochastic_size * wm_cfg.discrete_size
     latent = stoch + wm_cfg.recurrent_model.recurrent_state_size
@@ -718,10 +745,11 @@ def build_agent(
                 decoupled_rssm=wm_cfg.decoupled_rssm,
                 use_pallas_gru=bool(wm_cfg.recurrent_model.get("use_pallas", False)),
                 fused_pallas_rssm=bool(wm_cfg.recurrent_model.get("fused_pallas", False)),
+                dtype=dtype,
             ),
-            "actor": new_actor(cfg, latent, actions_dim, is_continuous),
-            "critic": new_critic(cfg, latent),
-            "target_critic": new_critic(cfg, latent),
+            "actor": new_actor(cfg, latent, actions_dim, is_continuous, dtype),
+            "critic": new_critic(cfg, latent, dtype),
+            "target_critic": new_critic(cfg, latent, dtype),
         }
     place_modules(modules, state, fabric.device, int(cfg.seed), {"target_critic": "critic"})
     return modules

@@ -850,7 +850,7 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
     captured = train_window.graphs
     print(f"{cfg.algo.name} on {fabric.device}: player on {player_device}, replay in {where}, "
           f"{num_envs} env(s) stepped synchronously, train window "
-          f"{'captured as CUDA graphs' if captured else 'eager'}", flush=True)
+          f"{'captured as CUDA graphs' if captured else 'eager'}, precision {fabric.precision.name}", flush=True)
     # present only when saved with buffer.checkpoint, or carried over by a
     # finetuning run's buffer.load_from_exploration
     if state.get("rb") is not None:

@@ -22,16 +22,18 @@ from sheeprl_tpu_torch.models.models import StackedLayerNorm, StackedLinear
 
 class DroQCriticEnsemble(nn.Module):
     """``q_ensemble.{dense_0, ln_0, dense_1, ln_1, head}`` of stacked weights
-    (the LayerNorm is the repo's fp32 wrapper, eps 1e-5); output (N, B)."""
+    (the LayerNorm is the repo's fp32 wrapper, eps 1e-5); output (N, B).  The
+    layers compute in ``dtype``, the head in fp32, as in JAX."""
 
-    def __init__(self, in_dim: int, n_critics: int = 2, hidden_size: int = 256, dropout: float = 0.01):
+    def __init__(self, in_dim: int, n_critics: int = 2, hidden_size: int = 256, dropout: float = 0.01,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n, self.hidden, self.dropout = int(n_critics), int(hidden_size), float(dropout)
         self.q_ensemble = nn.Module()
         d = in_dim
         for i in range(2):
-            self.q_ensemble.add_module(f"dense_{i}", StackedLinear(self.n, d, self.hidden))
-            self.q_ensemble.add_module(f"ln_{i}", StackedLayerNorm(self.n, self.hidden, eps=1e-5))
+            self.q_ensemble.add_module(f"dense_{i}", StackedLinear(self.n, d, self.hidden, dtype))
+            self.q_ensemble.add_module(f"ln_{i}", StackedLayerNorm(self.n, self.hidden, eps=1e-5, dtype=dtype))
             d = self.hidden
         self.q_ensemble.add_module("head", StackedLinear(self.n, d, 1))
 
@@ -69,9 +71,10 @@ class DroQCriticEnsemble(nn.Module):
 def build_agent(fabric: Any, act_dim: int, cfg: Any, obs_dim: int,
                 state: Optional[Dict[str, torch.Tensor]] = None) -> SACAgent:
     a = cfg.algo
+    dtype = fabric.precision.compute_dtype
     with torch.device("meta" if state is not None else fabric.device):
-        agent = SACAgent(SACActor(obs_dim, act_dim, int(a.actor.hidden_size)),
+        agent = SACAgent(SACActor(obs_dim, act_dim, int(a.actor.hidden_size), dtype=dtype),
                          DroQCriticEnsemble(obs_dim + act_dim, int(a.critic.n), int(a.critic.hidden_size),
-                                            float(a.critic.dropout)),
+                                            float(a.critic.dropout), dtype),
                          float(a.alpha.alpha))
     return place_agent(agent, state, fabric.device, int(cfg.seed))

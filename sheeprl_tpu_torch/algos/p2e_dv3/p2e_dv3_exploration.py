@@ -54,12 +54,15 @@ def build_agent(fabric: Any, actions_dim: Sequence[int], is_continuous: bool, cf
     stoch_flat = modules["world_model"].stoch_flat
     latent = stoch_flat + int(cfg.algo.world_model.recurrent_model.recurrent_state_size)
     ens = cfg.algo.ensembles
+    dtype = fabric.precision.compute_dtype
     with torch.device("meta" if state is not None else fabric.device):
         extra = {
-            "actor_task": new_actor(cfg, latent, actions_dim, is_continuous),
+            "actor_task": new_actor(cfg, latent, actions_dim, is_continuous, dtype),
+            # fp32 whatever the policy: the JAX ensembles' DreamerMLP keeps its default dtype
             "ensembles": Ensembles(int(ens.n), latent + int(sum(actions_dim)), int(ens.dense_units),
                                    int(ens.mlp_layers), stoch_flat, act=cfg.algo.dense_act),
-            "critics_exploration": {name: {"critic": new_critic(cfg, latent), "target": new_critic(cfg, latent)}
+            "critics_exploration": {name: {"critic": new_critic(cfg, latent, dtype),
+                                           "target": new_critic(cfg, latent, dtype)}
                                     for name in cfg.algo.critics_exploration},
         }
     place_modules(extra, state, fabric.device, int(cfg.seed) + 1, {"target": "critic"})

@@ -98,7 +98,7 @@ def exploration_initial_state(cfg: Any, project: Callable[[Dict[str, Any], str],
 
 def add_exploration_modules(fabric: Any, cfg: Any, modules: Dict[str, torch.nn.Module],
                             actions_dim: Sequence[int], is_continuous: bool, state: Optional[Dict[str, Any]],
-                            new_actor: Callable[..., torch.nn.Module], new_critic: Callable[[Any], torch.nn.Module],
+                            new_actor: Callable[..., torch.nn.Module], new_critic: Callable[..., torch.nn.Module],
                             target_critic: bool) -> Dict[str, torch.nn.Module]:
     """The base agent ``modules`` plus what P2E-DV1/DV2 add: the ensembles
     (no LayerNorm) over latent ⊕ action, the task actor, the exploration
@@ -106,16 +106,17 @@ def add_exploration_modules(fabric: Any, cfg: Any, modules: Dict[str, torch.nn.M
     are initialised from ``cfg.seed + 1``, in that order."""
     ens = cfg.algo.ensembles
     wm = modules["world_model"]
+    dtype = fabric.precision.compute_dtype
     with torch.device("meta" if state is not None else fabric.device):
         extra = {
             "ensembles": Ensembles(int(ens.n), wm.stoch_flat + wm.recurrent_size + int(sum(actions_dim)),
                                    int(ens.dense_units), int(ens.mlp_layers), wm.stoch_flat, act=cfg.algo.dense_act,
-                                   layer_norm=False),
-            "actor_task": new_actor(cfg, actions_dim, is_continuous),
-            "critic_exploration": new_critic(cfg),
+                                   layer_norm=False),  # fp32 whatever the policy, as in JAX
+            "actor_task": new_actor(cfg, actions_dim, is_continuous, dtype),
+            "critic_exploration": new_critic(cfg, dtype),
         }
         if target_critic:
-            extra["target_critic_exploration"] = new_critic(cfg)
+            extra["target_critic_exploration"] = new_critic(cfg, dtype)
     place_modules(extra, state, fabric.device, int(cfg.seed) + 1, {"target_critic_exploration": "critic_exploration"})
     return {**modules, **extra}
 

@@ -29,11 +29,13 @@ Noise = Union[torch.Generator, Sequence[torch.Tensor]]
 
 class PPOAgent(nn.Module):
     """``forward(obs) -> (actor_out, value)``; ``obs`` holds NHWC images in
-    [0, 1] (frame stacks merged into channels) and flat vectors."""
+    [0, 1] (frame stacks merged into channels) and flat vectors.  The
+    modules compute in ``dtype``; both outputs come back fp32, as in JAX."""
 
     def __init__(self, actions_dim: Sequence[int], is_continuous: bool, cnn_keys: Sequence[str],
                  mlp_keys: Sequence[str], cnn_shapes: Dict[str, Tuple[int, int, int]], mlp_shapes: Dict[str, int],
-                 encoder_cfg: Dict[str, Any], actor_cfg: Dict[str, Any], critic_cfg: Dict[str, Any]):
+                 encoder_cfg: Dict[str, Any], actor_cfg: Dict[str, Any], critic_cfg: Dict[str, Any],
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         enc = encoder_cfg
         self.feature_extractor = MultiEncoder(
@@ -44,23 +46,24 @@ class PPOAgent(nn.Module):
             mlp_layer_norm=enc.get("layer_norm", False),
             mlp_features_dim=enc.get("mlp_features_dim"),
             activation=enc.get("dense_act", "tanh"),
+            dtype=dtype,
         )
         d = self.feature_extractor.out_features
-        self.actor = _head(d, actor_cfg, sum(actions_dim) * (2 if is_continuous else 1))
-        self.critic = _head(d, critic_cfg, 1)
+        self.actor = _head(d, actor_cfg, sum(actions_dim) * (2 if is_continuous else 1), dtype)
+        self.critic = _head(d, critic_cfg, 1, dtype)
 
     def forward(self, obs: Dict[str, torch.Tensor]) -> Tuple[torch.Tensor, torch.Tensor]:
         features = self.feature_extractor(obs)
-        return self.actor(features), self.critic(features)
+        return self.actor(features).float(), self.critic(features).float()
 
     def init_weights(self, generator: torch.Generator) -> None:
         for module in (self.feature_extractor, self.actor, self.critic):
             module.init_weights(generator)
 
 
-def _head(input_dim: int, cfg: Dict[str, Any], output_dim: int) -> MLP:
+def _head(input_dim: int, cfg: Dict[str, Any], output_dim: int, dtype: torch.dtype = torch.float32) -> MLP:
     return MLP(input_dim, (cfg.get("dense_units", 64),) * cfg.get("mlp_layers", 2), output_dim,
-               activation=cfg.get("dense_act", "tanh"), layer_norm=cfg.get("layer_norm", False))
+               activation=cfg.get("dense_act", "tanh"), layer_norm=cfg.get("layer_norm", False), dtype=dtype)
 
 
 def split_actor_out(actor_out: torch.Tensor, actions_dim: Sequence[int], is_continuous: bool):
@@ -168,5 +171,5 @@ def build_agent(fabric: Any, actions_dim: Sequence[int], is_continuous: bool, cf
     with torch.device("meta" if agent_state is not None else fabric.device):
         agent = PPOAgent(tuple(actions_dim), is_continuous, tuple(cfg.algo.cnn_keys.encoder),
                          tuple(cfg.algo.mlp_keys.encoder), cnn_shapes, mlp_shapes, dict(cfg.algo.encoder),
-                         dict(cfg.algo.actor), dict(cfg.algo.critic))
+                         dict(cfg.algo.actor), dict(cfg.algo.critic), fabric.precision.compute_dtype)
     return place_agent(agent, agent_state, fabric.device, 0)

@@ -7,6 +7,10 @@ The LSTM is ``torch.nn.LSTMCell``: flax's ``OptimizedLSTMCell`` computes the
 same gates in the same ``i, f, g, o`` order, and ``convert.py`` stacks its
 per-gate kernels into the cell's ``weight_ih`` / ``weight_hh``.  The carry is
 ``(c, h)``, as in flax.  The time loop is a Python loop over T.
+
+The MLPs compute in the compute ``dtype``; the LSTM stays fp32 under every
+policy, as flax's cell does (it takes no ``dtype``, so its bf16 input is
+promoted to its fp32 kernels), and the heads' outputs come back fp32.
 """
 
 from __future__ import annotations
@@ -28,17 +32,17 @@ class RecurrentPPOAgent(nn.Module):
     def __init__(self, actions_dim: Sequence[int], is_continuous: bool, mlp_keys: Sequence[str], obs_dim: int,
                  encoder_units: int, mlp_layers: int, dense_act: str, layer_norm: bool, lstm_size: int,
                  pre_rnn: Dict[str, Any], post_rnn: Dict[str, Any], actor_cfg: Dict[str, Any],
-                 critic_cfg: Dict[str, Any]):
+                 critic_cfg: Dict[str, Any], dtype: torch.dtype = torch.float32):
         super().__init__()
         self.mlp_keys = tuple(mlp_keys)
         self.lstm_size = lstm_size
         self.encoder = MLP(obs_dim + int(sum(actions_dim)), (encoder_units,) * mlp_layers, activation=dense_act,
-                           layer_norm=layer_norm)
+                           layer_norm=layer_norm, dtype=dtype)
         d = self.encoder.out_features
         self.pre_rnn_mlp = self.post_rnn_mlp = None
         if pre_rnn.get("apply"):
             self.pre_rnn_mlp = MLP(d, (pre_rnn["dense_units"],), activation=pre_rnn.get("activation", "relu"),
-                                   layer_norm=pre_rnn.get("layer_norm", False))
+                                   layer_norm=pre_rnn.get("layer_norm", False), dtype=dtype)
             d = self.pre_rnn_mlp.out_features
         self.lstm = nn.LSTMCell(d, lstm_size)
         # flax's input kernels have no bias: bias_ih stays zero and untrained
@@ -46,10 +50,10 @@ class RecurrentPPOAgent(nn.Module):
         d = lstm_size
         if post_rnn.get("apply"):
             self.post_rnn_mlp = MLP(d, (post_rnn["dense_units"],), activation=post_rnn.get("activation", "relu"),
-                                    layer_norm=post_rnn.get("layer_norm", False))
+                                    layer_norm=post_rnn.get("layer_norm", False), dtype=dtype)
             d = self.post_rnn_mlp.out_features
-        self.actor = _head(d, actor_cfg, int(sum(actions_dim)) * (2 if is_continuous else 1))
-        self.critic = _head(d, critic_cfg, 1)
+        self.actor = _head(d, actor_cfg, int(sum(actions_dim)) * (2 if is_continuous else 1), dtype)
+        self.critic = _head(d, critic_cfg, 1, dtype)
 
     def step(self, carry: Carry, obs: Dict[str, torch.Tensor], prev_actions: torch.Tensor,
              is_first: torch.Tensor) -> Tuple[Carry, Tuple[torch.Tensor, torch.Tensor]]:
@@ -60,9 +64,9 @@ class RecurrentPPOAgent(nn.Module):
         x = self.encoder(torch.cat([obs[k] for k in self.mlp_keys] + [prev_actions], dim=-1))
         if self.pre_rnn_mlp is not None:
             x = self.pre_rnn_mlp(x)
-        h, c = self.lstm(x, (h, c))
+        h, c = self.lstm(x.float(), (h, c))
         out = self.post_rnn_mlp(h) if self.post_rnn_mlp is not None else h
-        return (c, h), (self.actor(out), self.critic(out))
+        return (c, h), (self.actor(out).float(), self.critic(out).float())
 
     def forward(self, obs_seq: Dict[str, torch.Tensor], prev_actions_seq: torch.Tensor, is_first_seq: torch.Tensor,
                 initial_state: Carry) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -96,9 +100,9 @@ class RecurrentPPOAgent(nn.Module):
             self.lstm.bias_hh.zero_()
 
 
-def _head(input_dim: int, cfg: Dict[str, Any], output_dim: int) -> MLP:
+def _head(input_dim: int, cfg: Dict[str, Any], output_dim: int, dtype: torch.dtype = torch.float32) -> MLP:
     return MLP(input_dim, (cfg.get("dense_units", 64),) * cfg.get("mlp_layers", 1), output_dim,
-               activation=cfg.get("dense_act", "relu"), layer_norm=cfg.get("layer_norm", False))
+               activation=cfg.get("dense_act", "relu"), layer_norm=cfg.get("layer_norm", False), dtype=dtype)
 
 
 def one_hot_actions(actions: torch.Tensor, actions_dim: Sequence[int], is_continuous: bool) -> torch.Tensor:
@@ -123,5 +127,6 @@ def build_agent(fabric: Any, actions_dim: Sequence[int], is_continuous: bool, cf
             encoder_units=a.encoder.dense_units, mlp_layers=a.mlp_layers, dense_act=a.dense_act,
             layer_norm=a.layer_norm, lstm_size=a.rnn.lstm.hidden_size, pre_rnn=dict(a.rnn.pre_rnn_mlp),
             post_rnn=dict(a.rnn.post_rnn_mlp), actor_cfg=dict(a.actor), critic_cfg=dict(a.critic),
+            dtype=fabric.precision.compute_dtype,
         )
     return place_agent(agent, agent_state, fabric.device, int(cfg.seed))

@@ -23,7 +23,7 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import torch
 import torch.nn as nn
 
-from sheeprl_tpu_torch.models.models import MLP, StackedLinear, lecun_init_
+from sheeprl_tpu_torch.models.models import MLP, Dense, StackedLinear, lecun_init_
 from sheeprl_tpu_torch.utils.distribution import TanhNormal
 
 LOG_STD_MIN, LOG_STD_MAX = -5.0, 2.0
@@ -32,11 +32,14 @@ Noise = Union[torch.Generator, torch.Tensor, None]
 
 
 class SACActor(nn.Module):
-    def __init__(self, obs_dim: int, act_dim: int, hidden_size: int = 256, num_layers: int = 2):
+    """A ReLU trunk in ``dtype``, then fp32 ``mean`` and ``log_std`` heads."""
+
+    def __init__(self, obs_dim: int, act_dim: int, hidden_size: int = 256, num_layers: int = 2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.trunk = MLP(obs_dim, (hidden_size,) * num_layers, activation="relu")
-        self.mean = nn.Linear(hidden_size, act_dim)
-        self.log_std = nn.Linear(hidden_size, act_dim)
+        self.trunk = MLP(obs_dim, (hidden_size,) * num_layers, activation="relu", dtype=dtype)
+        self.mean = Dense(hidden_size, act_dim)
+        self.log_std = Dense(hidden_size, act_dim)
 
     def forward(self, obs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         x = self.trunk(obs)
@@ -52,17 +55,19 @@ class SACCriticEnsemble(nn.Module):
     """N ReLU MLP Q-functions on ``[obs, action]``: ``q_ensemble.dense_{i}``
     and ``q_ensemble.head`` of stacked weights; output (N, B).  ``train`` and
     ``masks`` are the dropout critic's (:class:`~sheeprl_tpu_torch.algos.droq.agent.DroQCriticEnsemble`)
-    and change nothing here."""
+    and change nothing here.  Every layer, the head too, computes in
+    ``dtype``, as the JAX ensemble's MLP does."""
 
-    def __init__(self, in_dim: int, n_critics: int = 2, hidden_size: int = 256, num_layers: int = 2):
+    def __init__(self, in_dim: int, n_critics: int = 2, hidden_size: int = 256, num_layers: int = 2,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.n_layers = num_layers
         self.q_ensemble = nn.Module()
         d = in_dim
         for i in range(num_layers):
-            self.q_ensemble.add_module(f"dense_{i}", StackedLinear(n_critics, d, hidden_size))
+            self.q_ensemble.add_module(f"dense_{i}", StackedLinear(n_critics, d, hidden_size, dtype))
             d = hidden_size
-        self.q_ensemble.add_module("head", StackedLinear(n_critics, d, 1))
+        self.q_ensemble.add_module("head", StackedLinear(n_critics, d, 1, dtype))
 
     def forward(self, obs: torch.Tensor, action: torch.Tensor, train: bool = False,
                 masks: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
@@ -139,10 +144,12 @@ def place_agent(agent: nn.Module, state: Optional[Dict[str, torch.Tensor]], devi
 def build_agent(fabric: Any, act_dim: int, cfg: Any, obs_dim: int,
                 state: Optional[Dict[str, torch.Tensor]] = None) -> SACAgent:
     """The agent on ``fabric.device``, from ``state`` (its ``state_dict``) or
-    initialised like flax from ``cfg.seed``; ``log_alpha = log(alpha.alpha)``."""
+    initialised like flax from ``cfg.seed``; ``log_alpha = log(alpha.alpha)``.
+    The modules compute in ``fabric.precision.compute_dtype``."""
     a = cfg.algo
+    dtype = fabric.precision.compute_dtype
     with torch.device("meta" if state is not None else fabric.device):
-        agent = SACAgent(SACActor(obs_dim, act_dim, int(a.actor.hidden_size)),
-                         SACCriticEnsemble(obs_dim + act_dim, int(a.critic.n), int(a.critic.hidden_size)),
+        agent = SACAgent(SACActor(obs_dim, act_dim, int(a.actor.hidden_size), dtype=dtype),
+                         SACCriticEnsemble(obs_dim + act_dim, int(a.critic.n), int(a.critic.hidden_size), dtype=dtype),
                          float(a.alpha.alpha))
     return place_agent(agent, state, fabric.device, int(cfg.seed))

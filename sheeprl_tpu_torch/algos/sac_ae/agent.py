@@ -22,13 +22,16 @@ import torch.nn as nn
 
 from sheeprl_tpu_torch.algos.ppo.agent import encoder_shapes
 from sheeprl_tpu_torch.algos.sac.agent import SACActor, SACAgent, SACCriticEnsemble, place_agent
-from sheeprl_tpu_torch.models.models import CNN, MLP, LayerNorm, MultiDecoder, lecun_init_
+from sheeprl_tpu_torch.models.models import CNN, MLP, Dense, LayerNorm, MultiDecoder, lecun_init_
 
 
 class AEEncoder(nn.Module):
+    """The CNN and the MLP compute in ``dtype``; ``proj``, ``ln`` and the
+    features stay fp32, as in JAX."""
+
     def __init__(self, cnn_keys: Sequence[str], mlp_keys: Sequence[str], cnn_shapes: Dict[str, Tuple[int, int, int]],
                  mlp_shapes: Dict[str, int], features_dim: int = 64, cnn_mult: int = 16, dense_units: int = 64,
-                 mlp_layers: int = 2):
+                 mlp_layers: int = 2, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.cnn_keys, self.mlp_keys = tuple(cnn_keys), tuple(mlp_keys)
         d = 0
@@ -36,12 +39,13 @@ class AEEncoder(nn.Module):
             h, w, _ = cnn_shapes[self.cnn_keys[0]]
             c = sum(cnn_shapes[k][-1] for k in self.cnn_keys)
             self.cnn = CNN((h, w, c), (cnn_mult, cnn_mult * 2, cnn_mult * 4), kernel_size=4, stride=2,
-                           activation="relu")
+                           activation="relu", dtype=dtype)
             d += self.cnn.out_features
         if self.mlp_keys:
-            self.mlp = MLP(sum(mlp_shapes[k] for k in self.mlp_keys), (dense_units,) * mlp_layers, activation="relu")
+            self.mlp = MLP(sum(mlp_shapes[k] for k in self.mlp_keys), (dense_units,) * mlp_layers, activation="relu",
+                           dtype=dtype)
             d += self.mlp.out_features
-        self.proj = nn.Linear(d, features_dim)
+        self.proj = Dense(d, features_dim)
         self.ln = LayerNorm(features_dim, eps=1e-6)
         self.out_features = features_dim
 
@@ -86,17 +90,19 @@ def build_agent(fabric: Any, act_dim: int, cfg: Any, obs_space: Any,
     """The agent on ``fabric.device``, from ``state`` or initialised like flax
     from ``cfg.seed``; frame stacks of 4-d image spaces merge into channels."""
     a = cfg.algo
+    dtype = fabric.precision.compute_dtype
     cnn_keys, mlp_keys = tuple(a.cnn_keys.encoder), tuple(a.mlp_keys.encoder)
     cnn_shapes, mlp_shapes = encoder_shapes(cfg, obs_space)
     features = int(a.encoder.features_dim)
     dec_mult = int(a.decoder.cnn_channels_multiplier)
     with torch.device("meta" if state is not None else fabric.device):
         encoder = AEEncoder(cnn_keys, mlp_keys, cnn_shapes, mlp_shapes, features, int(a.encoder.cnn_channels_multiplier),
-                            int(a.encoder.dense_units), int(a.encoder.mlp_layers))
+                            int(a.encoder.dense_units), int(a.encoder.mlp_layers), dtype)
         decoder = MultiDecoder(features, cnn_keys, mlp_keys, cnn_shapes, mlp_shapes,
                                cnn_channels=(dec_mult * 2, dec_mult), cnn_stem_channels=dec_mult * 4,
-                               mlp_sizes=(int(a.decoder.dense_units),) * int(a.decoder.mlp_layers), activation="relu")
-        agent = SACAEAgent(encoder, decoder, SACActor(features, act_dim, int(a.hidden_size)),
-                           SACCriticEnsemble(features + act_dim, int(a.critic.n), int(a.hidden_size)),
+                               mlp_sizes=(int(a.decoder.dense_units),) * int(a.decoder.mlp_layers), activation="relu",
+                               dtype=dtype)
+        agent = SACAEAgent(encoder, decoder, SACActor(features, act_dim, int(a.hidden_size), dtype=dtype),
+                           SACCriticEnsemble(features + act_dim, int(a.critic.n), int(a.hidden_size), dtype=dtype),
                            float(a.alpha.alpha))
     return place_agent(agent, state, fabric.device, int(cfg.seed))

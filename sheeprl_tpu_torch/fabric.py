@@ -2,9 +2,11 @@
 ``sheeprl_tpu/parallel/fabric.py``: one device, no mesh).
 
 ``fabric.accelerator`` ``auto`` or ``gpu``/``cuda`` means ``cuda:0`` and
-raises when no GPU is present; only ``cpu`` gives the CPU.  ``32-true`` is
-full fp32: TF32 is switched off for matrix products and for cuDNN's
-convolutions.  :meth:`Fabric.compile` is the compile-once entry point
+raises when no GPU is present; only ``cpu`` gives the CPU.
+``fabric.precision`` is the :class:`Precision` policy of the JAX fabric:
+``32-true`` is full fp32 (TF32 off for matrix products and for cuDNN's
+convolutions); ``bf16-mixed`` and ``bf16-true`` compute in bf16 with fp32
+accumulation.  :meth:`Fabric.compile` is the compile-once entry point
 (``parallel/compile.py``: one captured CUDA graph per signature on the
 card).  :class:`PlayerSync` keeps the env player's own copy of the weights
 it acts with, refreshed after train windows.
@@ -15,7 +17,7 @@ from __future__ import annotations
 import copy
 import os
 import random
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -23,9 +25,37 @@ import torch
 
 
 @dataclass(frozen=True)
+class Precision:
+    """The JAX fabric's table of Lightning precision names: ``param_dtype``
+    (what parameters are stored in) and ``compute_dtype`` (what the modules
+    cast their inputs and weights to at call time).
+
+    The JAX package reads only ``compute_dtype``: every module declares fp32
+    parameters, so under ``bf16-true`` parameters and optimizer state stay
+    fp32 and a run computes as under ``bf16-mixed``.  The port does the same.
+    """
+
+    name: str
+    param_dtype: torch.dtype
+    compute_dtype: torch.dtype
+
+    @staticmethod
+    def from_string(precision: str) -> "Precision":
+        table = {
+            "32-true": (torch.float32, torch.float32),
+            "bf16-mixed": (torch.float32, torch.bfloat16),
+            "bf16-true": (torch.bfloat16, torch.bfloat16),
+        }
+        if precision not in table:
+            raise ValueError(f"Unknown precision '{precision}'; choose from {list(table)}")
+        param, compute = table[precision]
+        return Precision(precision, param, compute)
+
+
+@dataclass(frozen=True)
 class Fabric:
     device: torch.device
-    precision: str = "32-true"
+    precision: Precision = field(default_factory=lambda: Precision.from_string("32-true"))
 
     def load(self, path: Union[str, os.PathLike]) -> Dict[str, Any]:
         """State of a committed snapshot directory, tensors on this device."""
@@ -129,15 +159,14 @@ def build_fabric(cfg: Any) -> Fabric:
     fabric_cfg = cfg.get("fabric") or {}
     if int(fabric_cfg.get("devices", 1) or 1) != 1 or int(fabric_cfg.get("num_nodes", 1) or 1) != 1:
         raise NotImplementedError("sheeprl_tpu_torch runs on one device (fabric.devices=1, num_nodes=1)")
-    precision = str(fabric_cfg.get("precision", "32-true"))
-    if precision != "32-true":
-        raise NotImplementedError(
-            f"fabric.precision={precision}: the port runs 32-true only; bf16 is deferred "
-            "(ROADMAP.md, queue A item 4)"
-        )
+    precision = Precision.from_string(str(fabric_cfg.get("precision", "32-true")))
     device = run_device(cfg)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if precision.compute_dtype == torch.bfloat16:
+        # cuBLAS may otherwise reduce split-K bf16 products in bf16; XLA
+        # accumulates bf16 dots in fp32
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return Fabric(device=device, precision=precision)
 
 

@@ -5,6 +5,13 @@ maps onto a ``state_dict`` key by rule (see ``convert.py``).  Unlike flax,
 a torch module is told its input width when it is built.  Images are NHWC
 at every module boundary, as in the JAX package; the convolutions run NCHW
 inside.
+
+Every module takes the compute ``dtype`` of the precision policy, as the
+flax modules do: parameters stay fp32, and :class:`Dense`, :class:`Conv` and
+:class:`ConvTranspose` cast their input, weight and bias to ``dtype`` at call
+time (flax's ``nn.Dense(dtype=..., param_dtype=float32)``), so gradients
+reach the fp32 parameters through the casts.  :class:`LayerNorm` computes in
+fp32 and returns ``dtype``.
 """
 
 from __future__ import annotations
@@ -54,19 +61,58 @@ def variance_scaling_(
         return nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
 
 
-class LayerNorm(nn.Module):
-    """LayerNorm over the last axis, computed in fp32, output cast back to
-    the input's dtype."""
+class Dense(nn.Linear):
+    """``nn.Linear`` computing in ``dtype``: input, weight and bias are cast
+    at call time (a no-op in fp32)."""
 
-    def __init__(self, features: int, eps: float = 1e-5):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        return F.linear(x.to(d), self.weight.to(d), None if self.bias is None else self.bias.to(d))
+
+
+class Conv(nn.Conv2d):
+    """``nn.Conv2d`` computing in ``dtype`` (see :class:`Dense`)."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        return self._conv_forward(x.to(d), self.weight.to(d), None if self.bias is None else self.bias.to(d))
+
+
+class ConvTranspose(nn.ConvTranspose2d):
+    """``nn.ConvTranspose2d`` computing in ``dtype`` (see :class:`Dense`)."""
+
+    def __init__(self, *args, dtype: torch.dtype = torch.float32, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        d = self.compute_dtype
+        return F.conv_transpose2d(x.to(d), self.weight.to(d), None if self.bias is None else self.bias.to(d),
+                                  self.stride, self.padding, self.output_padding, self.groups, self.dilation)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over the last axis, computed in fp32, output cast to
+    ``dtype`` (the compute dtype, not the input's)."""
+
+    def __init__(self, features: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
+        self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), self.weight.shape, self.weight.float(), self.bias.float(), self.eps)
-        return y.to(x.dtype)
+        return y.to(self.compute_dtype)
 
 
 class LayerNormGRUCell(nn.Module):
@@ -75,37 +121,41 @@ class LayerNormGRUCell(nn.Module):
 
     ``use_pallas`` keeps the JAX flag's name and parameter layout (flat
     ``fused_kernel`` (D+H, 3H) in (in, out) order, ``ln_scale``, ``ln_bias``)
-    and runs the fused kernel of ``ops/gru.py``; otherwise the cell is a
-    bias-free ``Linear`` + :class:`LayerNorm`, the flax path.
+    and runs the fused kernel of ``ops/gru.py`` (fp32 inside; its output is
+    cast to ``dtype``); otherwise the cell is a bias-free :class:`Dense` +
+    :class:`LayerNorm` with the gates in ``dtype``, the flax path.
     """
 
-    def __init__(self, input_size: int, units: int, layer_norm: bool = True, use_pallas: bool = False):
+    def __init__(self, input_size: int, units: int, layer_norm: bool = True, use_pallas: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.units = units
         self.layer_norm = layer_norm
         self.use_pallas = use_pallas and layer_norm
+        self.compute_dtype = dtype
         d_in = input_size + units
         if self.use_pallas:
             self.fused_kernel = nn.Parameter(variance_scaling_(torch.empty(d_in, 3 * units), d_in, 3 * units, "fan_in"))
             self.ln_scale = nn.Parameter(torch.ones(3 * units))
             self.ln_bias = nn.Parameter(torch.zeros(3 * units))
         else:
-            self.fused = nn.Linear(d_in, 3 * units, bias=not layer_norm)
+            self.fused = Dense(d_in, 3 * units, bias=not layer_norm, dtype=dtype)
             if layer_norm:
-                self.ln = LayerNorm(3 * units)
+                self.ln = LayerNorm(3 * units, dtype=dtype)
 
     def forward(self, h: torch.Tensor, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        d = self.compute_dtype
         if self.use_pallas:
-            new_h = fused_layernorm_gru(x, h, self.fused_kernel, self.ln_scale, self.ln_bias).to(x.dtype)
+            new_h = fused_layernorm_gru(x, h, self.fused_kernel, self.ln_scale, self.ln_bias).to(d)
             return new_h, new_h
-        parts = self.fused(torch.cat([x, h.to(x.dtype)], dim=-1))
+        parts = self.fused(torch.cat([x.to(d), h.to(d)], dim=-1))
         if self.layer_norm:
             parts = self.ln(parts)
         reset, cand, update = torch.chunk(parts, 3, dim=-1)
         reset = torch.sigmoid(reset)
         cand = torch.tanh(reset * cand)
         update = torch.sigmoid(update - 1.0)
-        new_h = update * cand + (1.0 - update) * h.to(x.dtype)
+        new_h = update * cand + (1.0 - update) * h.to(d)
         return new_h, new_h
 
 
@@ -135,21 +185,24 @@ class MLP(nn.Module):
     optional linear ``head``."""
 
     def __init__(self, input_dim: int, hidden_sizes: Sequence[int] = (), output_dim: Optional[int] = None,
-                 activation: Union[str, Activation] = "tanh", layer_norm: bool = False):
+                 activation: Union[str, Activation] = "tanh", layer_norm: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = get_activation(activation)
         self.layer_norm = layer_norm
         self.n_hidden = len(hidden_sizes)
+        self.compute_dtype = dtype
         d = input_dim
         for i, size in enumerate(hidden_sizes):
-            self.add_module(f"dense_{i}", nn.Linear(d, size))
+            self.add_module(f"dense_{i}", Dense(d, size, dtype=dtype))
             if layer_norm:
-                self.add_module(f"ln_{i}", LayerNorm(size))
+                self.add_module(f"ln_{i}", LayerNorm(size, dtype=dtype))
             d = size
-        self.head = nn.Linear(d, output_dim) if output_dim is not None else None
+        self.head = Dense(d, output_dim, dtype=dtype) if output_dim is not None else None
         self.out_features = output_dim if output_dim is not None else d
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.to(self.compute_dtype)
         for i in range(self.n_hidden):
             x = getattr(self, f"dense_{i}")(x)
             if self.layer_norm:
@@ -173,23 +226,24 @@ class CNN(nn.Module):
     flax flattens it."""
 
     def __init__(self, in_shape: Tuple[int, int, int], channels: Sequence[int], kernel_size: int = 3,
-                 stride: int = 2, activation: Union[str, Activation] = "relu"):
+                 stride: int = 2, activation: Union[str, Activation] = "relu", dtype: torch.dtype = torch.float32):
         super().__init__()
         self.act = get_activation(activation)
         self.n = len(channels)
+        self.compute_dtype = dtype
         h, w, c_in = in_shape
         self.pads = []
         for i, c in enumerate(channels):
             (top, bottom), (left, right) = same_padding(h, kernel_size, stride), same_padding(w, kernel_size, stride)
             self.pads.append((left, right, top, bottom))
-            self.add_module(f"conv_{i}", nn.Conv2d(c_in, c, kernel_size, stride=stride))
+            self.add_module(f"conv_{i}", Conv(c_in, c, kernel_size, stride=stride, dtype=dtype))
             h, w, c_in = -(-h // stride), -(-w // stride), c
         self.out_shape = (h, w, c_in)
         self.out_features = h * w * c_in
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         lead = x.shape[:-3]
-        x = x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2)
+        x = x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2).to(self.compute_dtype)
         for i in range(self.n):
             x = self.act(getattr(self, f"conv_{i}")(F.pad(x, self.pads[i])))
         return x.permute(0, 2, 3, 1).reshape(*lead, -1)
@@ -212,7 +266,7 @@ class MultiEncoder(nn.Module):
                  mlp_shapes: Dict[str, int], cnn_channels: Sequence[int] = (32, 64, 128, 256),
                  cnn_features_dim: Optional[int] = None, mlp_sizes: Sequence[int] = (256, 256),
                  mlp_layer_norm: bool = False, mlp_features_dim: Optional[int] = None,
-                 activation: Union[str, Activation] = "silu"):
+                 activation: Union[str, Activation] = "silu", dtype: torch.dtype = torch.float32):
         super().__init__()
         if not cnn_keys and not mlp_keys:
             raise ValueError("MultiEncoder needs at least one cnn or mlp key")
@@ -223,18 +277,19 @@ class MultiEncoder(nn.Module):
         if self.cnn_keys:
             h, w, _ = cnn_shapes[self.cnn_keys[0]]
             c = sum(cnn_shapes[k][-1] for k in self.cnn_keys)
-            self.cnn_encoder = CNN((h, w, c), cnn_channels, kernel_size=4, stride=2, activation=activation)
+            self.cnn_encoder = CNN((h, w, c), cnn_channels, kernel_size=4, stride=2, activation=activation,
+                                   dtype=dtype)
             d = self.cnn_encoder.out_features
             if cnn_features_dim:
-                self.cnn_proj = nn.Linear(d, cnn_features_dim)
+                self.cnn_proj = Dense(d, cnn_features_dim, dtype=dtype)
                 d = cnn_features_dim
             self.out_features += d
         if self.mlp_keys:
             self.mlp_encoder = MLP(sum(mlp_shapes[k] for k in self.mlp_keys), mlp_sizes, activation=activation,
-                                   layer_norm=mlp_layer_norm)
+                                   layer_norm=mlp_layer_norm, dtype=dtype)
             d = self.mlp_encoder.out_features
             if mlp_features_dim:
-                self.mlp_proj = nn.Linear(d, mlp_features_dim)
+                self.mlp_proj = Dense(d, mlp_features_dim, dtype=dtype)
                 d = mlp_features_dim
             self.out_features += d
 
@@ -260,15 +315,17 @@ class MultiEncoder(nn.Module):
 class StackedLinear(nn.Module):
     """``n`` dense layers side by side, the layout of a flax params-vmapped
     ``Dense``: ``kernel`` (n, in, out), ``bias`` (n, out).  ``x`` (M, in) or
-    (n, M, in) → (n, M, out), one batched product."""
+    (n, M, in) → (n, M, out), one batched product in ``dtype``."""
 
-    def __init__(self, n: int, in_features: int, out_features: int):
+    def __init__(self, n: int, in_features: int, out_features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
+        self.compute_dtype = dtype
         self.kernel = nn.Parameter(torch.empty(n, in_features, out_features))
         self.bias = nn.Parameter(torch.zeros(n, out_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.matmul(x, self.kernel) + self.bias[:, None, :]
+        d = self.compute_dtype
+        return torch.matmul(x.to(d), self.kernel.to(d)) + self.bias.to(d)[:, None, :]
 
     def init_weights(self, generator: torch.Generator, mode: str = "fan_in") -> None:
         """Each member's kernel as flax's default Dense init (``fan_in``) or
@@ -281,17 +338,18 @@ class StackedLinear(nn.Module):
 
 class StackedLayerNorm(nn.Module):
     """``n`` fp32 LayerNorms side by side over (n, M, features):
-    ``weight``, ``bias`` (n, features)."""
+    ``weight``, ``bias`` (n, features); the output in ``dtype``."""
 
-    def __init__(self, n: int, features: int, eps: float = 1e-5):
+    def __init__(self, n: int, features: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.eps = eps
+        self.compute_dtype = dtype
         self.weight = nn.Parameter(torch.ones(n, features))
         self.bias = nn.Parameter(torch.zeros(n, features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), x.shape[-1:], eps=self.eps)
-        return (y * self.weight[:, None, :] + self.bias[:, None, :]).to(x.dtype)
+        return (y * self.weight[:, None, :] + self.bias[:, None, :]).to(self.compute_dtype)
 
 
 def deconv_init_(layer: nn.ConvTranspose2d, generator: Optional[torch.Generator] = None) -> None:
@@ -313,7 +371,7 @@ class DeCNN(nn.Module):
     supported."""
 
     def __init__(self, in_channels: int, channels: Sequence[int], kernel_size: int = 4, stride: int = 2,
-                 activation: Union[str, Activation] = "relu"):
+                 activation: Union[str, Activation] = "relu", dtype: torch.dtype = torch.float32):
         super().__init__()
         if (kernel_size, stride) != (4, 2):
             raise ValueError(f"DeCNN supports kernel 4, stride 2 (SAME), got kernel {kernel_size}, stride {stride}")
@@ -321,7 +379,7 @@ class DeCNN(nn.Module):
         self.n = len(channels)
         c_in = in_channels
         for i, c in enumerate(channels):
-            self.add_module(f"deconv_{i}", nn.ConvTranspose2d(c_in, c, kernel_size, stride=stride, padding=1))
+            self.add_module(f"deconv_{i}", ConvTranspose(c_in, c, kernel_size, stride=stride, padding=1, dtype=dtype))
             c_in = c
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -352,7 +410,7 @@ class MultiDecoder(nn.Module):
                  cnn_shapes: Dict[str, Tuple[int, int, int]], mlp_shapes: Dict[str, int],
                  cnn_channels: Sequence[int] = (64, 32), cnn_stem_channels: int = 128,
                  mlp_sizes: Sequence[int] = (256, 256), kernel_size: int = 4, stride: int = 2,
-                 activation: Union[str, Activation] = "relu"):
+                 activation: Union[str, Activation] = "relu", dtype: torch.dtype = torch.float32):
         super().__init__()
         if not cnn_keys and not mlp_keys:
             raise ValueError("MultiDecoder needs at least one cnn or mlp key")
@@ -364,12 +422,13 @@ class MultiDecoder(nn.Module):
             h, w, _ = self.cnn_shapes[self.cnn_keys[0]]
             self.stem = (h // 2**n_deconvs, w // 2**n_deconvs, cnn_stem_channels)
             total_c = sum(self.cnn_shapes[k][-1] for k in self.cnn_keys)
-            self.cnn_in = nn.Linear(features_dim, self.stem[0] * self.stem[1] * cnn_stem_channels)
-            self.decnn = DeCNN(cnn_stem_channels, (*cnn_channels, total_c), kernel_size, stride, activation)
+            self.cnn_in = Dense(features_dim, self.stem[0] * self.stem[1] * cnn_stem_channels, dtype=dtype)
+            self.decnn = DeCNN(cnn_stem_channels, (*cnn_channels, total_c), kernel_size, stride, activation, dtype)
         if self.mlp_keys:
-            self.mlp = MLP(features_dim, mlp_sizes, activation=activation)
+            self.mlp = MLP(features_dim, mlp_sizes, activation=activation, dtype=dtype)
             for k in self.mlp_keys:
-                self.add_module(f"head_{k}", nn.Linear(self.mlp.out_features, int(mlp_shapes[k])))
+                # the heads emit fp32 whatever the compute dtype, as in JAX
+                self.add_module(f"head_{k}", Dense(self.mlp.out_features, int(mlp_shapes[k])))
 
     def forward(self, features: torch.Tensor) -> Dict[str, torch.Tensor]:
         out: Dict[str, torch.Tensor] = {}

@@ -95,14 +95,17 @@ def fused_layernorm_gru(
     """One LayerNorm-GRU step.
 
     Args:
-        x: (..., D) inputs.  h: (..., H) previous state.  w: (D+H, 3H) fused
+        x: (..., D) inputs.  h: (..., H) previous state; either may be in a
+        lower compute dtype (cast to fp32 here).  w: (D+H, 3H) fused
         kernel, (in, out) layout.  ln_scale/ln_bias: (3H,) LayerNorm params.
     Returns:
         (..., H) new state, fp32.
     """
     lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    h2 = h.reshape(-1, h.shape[-1])
+    # the kernel is fp32: inputs in the compute dtype are cast here, as the
+    # JAX op casts them (the backward returns their gradients through the cast)
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    h2 = h.reshape(-1, h.shape[-1]).float()
     if x.device.type == "cpu":
         out = layernorm_gru_reference(x2, h2, w, ln_scale, ln_bias)
     elif x.device.type == "cuda":

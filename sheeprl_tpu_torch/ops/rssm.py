@@ -110,14 +110,17 @@ def fused_rssm_recurrent(x, h, w_in, b_in, ln_in_scale, ln_in_bias, w_gru, gru_s
     """``RecurrentModel`` forward: ``GRU(h, SiLU(LN(x @ W_in + b)))``.
 
     Args:
-        x: (..., Z+A) inputs (z ⊕ action).  h: (..., H) recurrent state.
+        x: (..., Z+A) inputs (z ⊕ action).  h: (..., H) recurrent state;
+        either may be in a lower compute dtype (cast to fp32 here).
         w_in (Z+A, D) / b_in (D,): input Dense.  ln_in_*: (D,) input LayerNorm.
         w_gru: (D+H, 3H) fused GRU kernel.  gru_*: (3H,) GRU LayerNorm.
     Returns:
         (..., H) new recurrent state, fp32.
     """
     lead = x.shape[:-1]
-    args = (x.reshape(-1, x.shape[-1]), h.reshape(-1, h.shape[-1]),
+    # the kernel is fp32: inputs in the compute dtype are cast here, as the
+    # JAX op casts them (the backward returns their gradients through the cast)
+    args = (x.reshape(-1, x.shape[-1]).float(), h.reshape(-1, h.shape[-1]).float(),
             w_in, b_in, ln_in_scale, ln_in_bias, w_gru, gru_scale, gru_bias)
     if x.device.type == "cpu":
         out = rssm_recurrent_reference(*args)

@@ -269,7 +269,7 @@ def build_sac_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_space: An
     act_dim = int(np.prod(action_space.shape))
     actor_state = {k[len("actor."):]: v for k, v in state["agent"].items() if k.startswith("actor.")}
     with torch.device("meta"):
-        actor = SACActor(obs_dim, act_dim, int(cfg.algo.actor.hidden_size))
+        actor = SACActor(obs_dim, act_dim, int(cfg.algo.actor.hidden_size), dtype=fabric.precision.compute_dtype)
     actor = place_agent(actor, actor_state, fabric.device, int(cfg.seed)).eval()
 
     def _step(p, carry, obs, seed: int, greedy, noise: Optional[torch.Tensor] = None):

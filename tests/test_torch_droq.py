@@ -18,6 +18,8 @@ in: every parameter within 1e-5 absolute, the losses' means within 1e-5
 relative.
 """
 
+from typing import Any
+
 import flax.linen as nn
 import jax
 import jax.numpy as jnp
@@ -63,35 +65,38 @@ class _KeepDropout(nn.Module):
 class _OneQ(nn.Module):
     hidden: int
     dropout: float
+    dtype: Any = jnp.float32
 
     @nn.compact
     def __call__(self, x):
         keeps = []
         for i in range(2):
-            x = nn.Dense(self.hidden, name=f"dense_{i}")(x)
+            x = nn.Dense(self.hidden, dtype=self.dtype, name=f"dense_{i}")(x)
             x, keep = _KeepDropout(self.dropout, name=f"Dropout_{i}")(x)
             keeps.append(keep)
-            x = nn.relu(JaxLayerNorm(name=f"ln_{i}")(x))
-        return nn.Dense(1, name="head")(x), keeps
+            x = nn.relu(JaxLayerNorm(dtype=self.dtype, name=f"ln_{i}")(x))
+        return nn.Dense(1, dtype=jnp.float32, name="head")(x), keeps
 
 
 class _MaskProbe(nn.Module):
     n: int
     hidden: int
     dropout: float
+    dtype: Any = jnp.float32
 
     @nn.compact
     def __call__(self, obs, action):
         q_net = nn.vmap(_OneQ, in_axes=None, out_axes=0, axis_size=self.n, variable_axes={"params": 0},
                         split_rngs={"params": True, "dropout": True})
-        q, keeps = q_net(self.hidden, self.dropout, name="q_ensemble")(jnp.concatenate([obs, action], -1))
+        q, keeps = q_net(self.hidden, self.dropout, self.dtype, name="q_ensemble")(jnp.concatenate([obs, action], -1))
         return q[..., 0], keeps
 
 
 def jax_masks(critic, variables, key, obs, act):
     """The keep masks JAX's train-mode ``critic`` draws from ``key`` (they
-    depend on the key and the shapes only), checked against its own output."""
-    probe = _MaskProbe(critic.n_critics, critic.hidden_size, critic.dropout)
+    depend on the key and the shapes only), checked against its own output
+    (the probe computes in the critic's dtype)."""
+    probe = _MaskProbe(critic.n_critics, critic.hidden_size, critic.dropout, critic.dtype)
     q, keeps = probe.apply(variables, obs, act, rngs={"dropout": key})
     np.testing.assert_array_equal(np.asarray(q), np.asarray(dropout_apply(critic, variables, obs, act, key)))
     return [_t(k) for k in keeps]

@@ -190,8 +190,17 @@ def test_build_fabric_refuses_to_fall_back_to_cpu(monkeypatch):
         with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
             build_fabric(compose([*TINY, f"fabric.accelerator={accelerator}"]))
     assert build_fabric(compose(list(TINY))).device.type == "cpu"
-    with pytest.raises(NotImplementedError, match="bf16"):
-        build_fabric(compose([*TINY, "fabric.precision=bf16-mixed"]))
+    # the precision policy is JAX's table, in torch dtypes
+    from sheeprl_tpu.parallel.fabric import Precision as JaxPrecision
+
+    for name in ("32-true", "bf16-mixed", "bf16-true"):
+        policy = build_fabric(compose([*TINY, f"fabric.precision={name}"])).precision
+        ref = JaxPrecision.from_string(name)
+        assert policy.name == name
+        assert (str(policy.param_dtype), str(policy.compute_dtype)) == (
+            f"torch.{np.dtype(ref.param_dtype).name}", f"torch.{np.dtype(ref.compute_dtype).name}")
+    with pytest.raises(ValueError, match="Unknown precision"):
+        build_fabric(compose([*TINY, "fabric.precision=16-mixed"]))
 
 
 # -- the sac player --------------------------------------------------------------

@@ -280,13 +280,12 @@ def _group_lr(cfg, path):
     return float(cfg.algo[group].optimizer.lr)
 
 
-def family_parity(jax_agent_mod, jax_phase_fn, jax_opts_fn, port_build, port_trainer, port_opts_fn, overrides,
-                  pixels, U, counter0, n_split, rollouts, adam=False, gaussian=False):
-    """One window of the port's trainer against the JAX train phase on the
-    same parameter tree, block and draws; the ten metrics to 1e-5 relative
-    (2e-5 absolute), and every trained tensor after it: with ``sgd`` each
-    change to 1e-3 of the largest change of its tensor plus 1e-4 relative,
-    with Adam to half the learning rate."""
+def family_run(jax_agent_mod, jax_phase_fn, jax_opts_fn, port_build, port_trainer, port_opts_fn, overrides,
+               pixels, U, counter0, n_split, rollouts, gaussian=False):
+    """One window of the port's trainer and of the JAX train phase on the
+    same parameter tree, block and draws: ``(trainer, pcfg, j_metrics,
+    p_metrics, start, after)`` with ``start`` / ``after`` the JAX tree before
+    and after as flat port states."""
     jcfg, pcfg = jax_compose(list(overrides)), compose(list(overrides))
     jfabric, pfabric = jax_build_fabric(jcfg), build_fabric(pcfg)
     obs_space, action_space = jax_probe_spaces(jcfg)
@@ -317,13 +316,24 @@ def family_parity(jax_agent_mod, jax_phase_fn, jax_opts_fn, port_build, port_tra
     j_blocks = {k: jnp.asarray(v.numpy()) for k, v in blocks_to_device(block, cnn_keys, mlp_keys, "cpu").items()}
     new_params, _, j_metrics = phase(params, opt_state, j_blocks, key, jnp.int32(counter0))
 
-    j_metrics = np.array([float(m) for m in j_metrics])
-    p_metrics = np.array([float(m) for m in p_metrics])
-    assert np.isfinite(p_metrics).all()
-    np.testing.assert_allclose(p_metrics, j_metrics, rtol=1e-5, atol=2e-5)
-
     after = dict(_flat_states(agent_state_from_jax(jax.tree.map(np.array, new_params), pcfg)))
     start = dict(_flat_states(agent_state_from_jax(before, pcfg)))
+    return (trainer, pcfg, np.array([float(m) for m in j_metrics]), np.array([float(m) for m in p_metrics]), start,
+            after)
+
+
+def family_parity(jax_agent_mod, jax_phase_fn, jax_opts_fn, port_build, port_trainer, port_opts_fn, overrides,
+                  pixels, U, counter0, n_split, rollouts, adam=False, gaussian=False):
+    """One window of the port's trainer against the JAX train phase on the
+    same parameter tree, block and draws (:func:`family_run`); the ten
+    metrics to 1e-5 relative (2e-5 absolute), and every trained tensor after
+    it: with ``sgd`` each change to 1e-3 of the largest change of its tensor
+    plus 1e-4 relative, with Adam to half the learning rate."""
+    trainer, pcfg, j_metrics, p_metrics, start, after = family_run(
+        jax_agent_mod, jax_phase_fn, jax_opts_fn, port_build, port_trainer, port_opts_fn, overrides, pixels, U,
+        counter0, n_split, rollouts, gaussian)
+    assert np.isfinite(p_metrics).all()
+    np.testing.assert_allclose(p_metrics, j_metrics, rtol=1e-5, atol=2e-5)
     ported = dict(_flat_states(trainer.agent_state()))
     assert set(ported) == set(after)
     for path, j_after in after.items():
