@@ -47,7 +47,7 @@ prints no result line):
               (``use_pallas``), 3 updates; the gru launches per update.
 11. p2e explore — Plan2Explore-DreamerV3 exploration at XL through
               ``cli.run`` (``exp=p2e_dv3_exploration``, the phase-7 recipe,
-              fused RSSM kernel), 5 updates: 96 rssm launches per update (64
+              fused RSSM kernel), 4 updates: 96 rssm launches per update (64
               posterior steps + two imagination rollouts of 16), no gru
               launch; the ten metrics and the intrinsic reward finite.
 12. p2e parity — one XL exploration update from phase 11's snapshot, fused
@@ -96,7 +96,7 @@ prints no result line):
               with its launches and the device's busy share, no kernel
               launch; the snapshot evaluated through ``cli.evaluation``.
 21. droq train — DroQ the same at replay ratio 20 and dropout 0.01 (masks
-              drawn on the card): a prefill of 50 steps, then 1,200 updates.
+              drawn on the card): a prefill of 20 steps, then 600 updates.
 22. sac_ae train — SAC-AE on the 64x64 ``rgb`` (``exp=sac_ae``: encoder
               16/32/64 to 64 features, actor and critics at 1024, decoder
               64/32/16 → 3, batch 128; the actor and targets every 2
@@ -131,7 +131,7 @@ prints no result line):
               A2C on ``jax_cartpole`` under both RMSprops and recurrent PPO,
               2 iterations each under the same gate.
 28. dv3 forage — phase 7's XL recipe on ``jax_forage`` through the adapter
-              (``rgb`` alone, fused RSSM kernel), 8 updates: 80 rssm
+              (``rgb`` alone, fused RSSM kernel), 4 updates: 80 rssm
               launches per update, one update held to the plain RSSM at
               phase 8's limits.
 29. ppo atari forage — ``exp=ppo_atari`` on forage at Atari's input (84x84,
@@ -148,9 +148,9 @@ prints no result line):
               (with ``derive_next``) and sequence blocks at the same draws,
               and the ring's and the spill tier's checkpoint round trips
               equal bit for bit.
-32. replay xl — phase 7's XL recipe with ``buffer.size=1000000`` (the
-              recipe's), ``buffer.transfer_guard=True`` and the default 8 GiB
-              budget, so the window shrinks and the spill (memmapped in the
+32. replay xl — phase 7's XL recipe with ``buffer.size=250000`` (the
+              recipe's million cut by 4), ``buffer.transfer_guard=True`` and
+              a 2 GiB budget, so the window shrinks and the spill (memmapped in the
               run directory, deleted after) is armed: the window, the ring's
               bytes on the card, updates/s beside phase 7's from this run,
               first-update seconds, peak memory, 80 rssm launches in every
@@ -212,14 +212,14 @@ parameters and optimizer state, the kernels fed fp32 at their wrappers):
 43. precision dv3-xl — DreamerV3-XL (``fused_pallas``) under bf16-mixed:
               trained through ``cli.run`` as phase 7 (10 updates, 80 rssm
               launches in each, the snapshot kept for phase 46); phase 38's
-              window (replay equals eager bit for bit, 3 captures, 80
+              window (replay equals eager bit for bit, one capture, 80
               launches per update credited per replay, peak memory); a
               bf16-mixed and a 32-true trainer from the same weights: the
               first update's ten losses from the same draws within the
               stated tier, one eager update of each by kind of device work
               (products, convolutions, the kernel, copies and casts, the
               rest), chunks of 4 updates in turns (bf16, fp32, fp32, bf16)
-              captured and eager.
+              captured, and once each eager.
 44. precision dv3-s-gru — phase 43's window and turns for DreamerV3-S with the
               GRU kernel (``use_pallas``), 80 gru launches per update.
 45. precision p2e — Plan2Explore-DV3-XL exploration under bf16-mixed through
@@ -238,8 +238,36 @@ parameters and optimizer state, the kernels fed fp32 at their wrappers):
               the CPU's fp32 phase beside it; the card's phase timed under
               both precisions in turns.
 
-The line before the last is ``{"kernels": [...]}``; the last line is
-``{"ok": true, "device": {...}}``.
+The runtime services a default run turns on (the health guard inside the
+train window, preemption, fault plans, rollback):
+
+48. runtime guard — phase 38's XL chunk (RSSM kernel) and 39's S chunk (GRU
+              kernel) with the health guard inside the captured window,
+              from one state under cuDNN's deterministic algorithms, every
+              replay under ``steady_guard``: bit for bit the unguarded
+              window (``health.enabled=False``); a planted
+              ``update.grads nonfinite at=2`` window skipped, every trained
+              tensor equal to its input; 80 launches per update; guarded and
+              unguarded replays in turns and the peak of each.
+49. preemption — DV3-XL through ``cli.run`` in a subprocess (fused RSSM
+              kernel, captured, the card's ring cut to 4096 steps), SIGTERM
+              after its first replayed window: exit 0, one committed
+              snapshot that ``verify_checkpoint`` passes, the seconds from
+              the signal to the commit; ``resume_from=auto`` continues its
+              counters, generators and ring cursor and launches the kernel
+              in its first window; a process whose preempted save's commit
+              hangs (a planted ``checkpoint.commit`` hang) dies on a second
+              SIGTERM and its torn step is never chosen on resume.
+50. faults — a commit hang past a short ``hang_warn_s`` gives one watchdog
+              stall; a ``checkpoint.write_shard corrupt`` snapshot is
+              quarantined on resume; the XL server under a ``serve.http``
+              raise plan answers every request (the client retries); a
+              planted ``update.grads divergence`` rolls SAC back on the card
+              to its committed snapshot, raises ``DivergenceError`` past the
+              budget, and raises it in DreamerV3.
+
+Each phase prints its seconds (``[seconds]``).  The line before the last is
+``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 
 Other modes, each alone: ``--timing ROOT`` times the kernels of the port
 under ``ROOT``; ``--first-window`` trains the first window of the default
@@ -250,17 +278,23 @@ launch no kernel), ``--envs`` phases 25-30, ``--replay`` phases 31-36
 ``--replay-ab`` the host ring and the card's in turns (host, card, card,
 host) for DreamerV3-XL, SAC and SAC-AE, timed alike, ``--graphs`` phases
 37-41 (after phase 4's served snapshot and captured service run),
-``--precision`` phases 42-47 (beside 32-true runs of phases 7 and 11).
+``--precision`` phases 42-47 (beside 32-true runs of phases 7 and 11),
+``--runtime`` phases 48-50, ``--health-ab ROOT`` phase 7's and 20's
+recipes with ``health.enabled`` on and off in turns for the port under
+``ROOT`` (``--preempt-child`` and ``--commit-hang-child`` are phase 49's
+child processes).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import gc
 import json
 import os
 import re
 import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -282,6 +316,7 @@ ZAS = (32 * 32 + 4, 32 * 32 + 6)  # stochastic state + the served 4-wide action,
 LEADS = ((1,), (7,), (8,), (16,), (32,), (128,), (1024,), (2, 3))  # rungs 1/8/32/128, training 16/1024
 TOL = 1e-4
 SERVE_SESSIONS, SERVE_STEPS = 16, 8
+PRECISION_SERVE_STEPS = 4  # phase 46's steps per session in each of its four turns
 # One XL update, fused kernel against the plain RSSM (phase 8), both replaying
 # the same categorical samples: max abs difference of the posterior h over
 # the 64 steps (phase 3's bound on one call), and relative difference of each
@@ -313,6 +348,7 @@ XL_TRAIN = (
     "algo.per_rank_sequence_length=64",
     "algo.horizon=15",
     "algo.learning_starts=65",  # one sequence of 64 steps can be sampled at step 65
+    "env.max_episode_steps=32",  # episodes, test episodes among them, of 32 steps, not 128
     "seed=5",
 )
 # replay ratio 1/8: the first window at step 65 takes int(65 / 8) = 8 updates,
@@ -325,9 +361,8 @@ FUSED = "algo.world_model.recurrent_model.fused_pallas=True"
 # ring): they are the baselines phases 32 and 34 are read beside;
 # ``--first-window`` keeps it too (it measures the host path's chunks)
 HOST_RING = "buffer.device=False"
-# replay ratio 1/16: the first window at step 65 takes int(65 / 16) = 4
-# updates, then one more at step 81
-P2E_XL = ("exp=p2e_dv3_exploration", *XL_TRAIN[1:], FUSED, "algo.replay_ratio=0.0625", "algo.total_steps=81")
+# replay ratio 1/16: the first window at step 65 takes int(65 / 16) = 4 updates
+P2E_XL = ("exp=p2e_dv3_exploration", *XL_TRAIN[1:], FUSED, "algo.replay_ratio=0.0625", "algo.total_steps=65")
 # finetuning starts from a state, so it has no random prefill and trains from
 # step 66 (learning_starts + 1): int(66 / 32) = 2 updates
 P2E_FINETUNE = ("exp=p2e_dv3_finetuning", *XL_TRAIN[1:], FUSED, "algo.replay_ratio=0.03125", "algo.total_steps=66",
@@ -356,7 +391,7 @@ FAMILY_RUNS = {
 # the on-policy algorithms at their recipes' widths on the dummy env
 ON_POLICY = ("env=dummy", "env.id=discrete_dummy", "fabric.accelerator=gpu", "algo.player.device=accelerator",
              "metric/logger=csv", "checkpoint.save_last=True", "checkpoint.every=1000000000",
-             "checkpoint.async_save=False", "buffer.memmap=False", "seed=5")
+             "checkpoint.async_save=False", "buffer.memmap=False", "env.max_episode_steps=32", "seed=5")
 ATARI = ("env.screen_size=84", "env.wrapper.image_size=[84,84,3]", "env.frame_stack=4", "env.num_envs=1")
 # 2 iterations of 1024 steps, 4 minibatches of 256 x 3 epochs each
 PPO_ATARI = ("exp=ppo_atari", *ON_POLICY, *ATARI, "algo.total_steps=2048")
@@ -384,11 +419,11 @@ CARD_PARITY_TOL_LOSS = 1e-4
 OFF_POLICY = ("env=dummy", "env.id=continuous_dummy", "fabric.accelerator=gpu", "algo.player.device=accelerator",
               "metric/logger=csv", "checkpoint.save_last=True", "checkpoint.every=1000000000",
               "checkpoint.async_save=False", "buffer.memmap=False", "buffer.checkpoint=False", "env.num_envs=1",
-              "seed=5")
+              "env.max_episode_steps=32", "seed=5")
 # a prefill of 100 random steps, which the first window repays (100 updates), then one update per step: 400
 SAC_STATE = ("exp=sac", *OFF_POLICY, HOST_RING, "algo.learning_starts=100", "algo.total_steps=400")
-# replay ratio 20: the first window at step 50 takes 1,000 updates, then 20 per step: 1,200
-DROQ_STATE = ("exp=droq", *OFF_POLICY, HOST_RING, "algo.learning_starts=50", "algo.total_steps=60")
+# replay ratio 20: the first window at step 20 takes 400 updates, then 20 per step: 600
+DROQ_STATE = ("exp=droq", *OFF_POLICY, HOST_RING, "algo.learning_starts=20", "algo.total_steps=30")
 # the recipe's prefill of 1,000 steps cut to 128: 128 updates in the first window, then 50 more
 SAC_AE_RGB = ("exp=sac_ae", *OFF_POLICY, HOST_RING, "algo.learning_starts=128", "algo.total_steps=178")
 # One SAC train phase (U 8, batch 256) and one SAC-AE train phase (U 4, batch
@@ -406,6 +441,25 @@ XL_SERVE = (
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+def _log_seconds(fn):
+    """``fn`` logging its wall seconds on a line of its own when it returns or raises."""
+    @functools.wraps(fn)
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            log(f"[seconds] {fn.__name__}: {time.perf_counter() - t0:.1f}")
+    return timed
+
+
+def log_phase_seconds() -> None:
+    """Make every phase function (and the runs the whole script makes outside
+    them) log its seconds; nested phases log their own too."""
+    for name in [n for n in globals() if n.startswith("phase_")] + ["_train", "_drive", "time_kernels"]:
+        globals()[name] = _log_seconds(globals()[name])
 
 
 # -- bounds: the least time the card could take for the same work ------------
@@ -1589,7 +1643,7 @@ def phase_off_policy_train(torch, run_root: Path) -> dict:
 
     out = {}
     for name, overrides, trainer_cls, least in (("sac", SAC_STATE, SACTrainer, 300),
-                                                ("droq", DROQ_STATE, SACTrainer, 1000),
+                                                ("droq", DROQ_STATE, SACTrainer, 500),
                                                 ("sac_ae", SAC_AE_RGB, SACAETrainer, 50)):
         run_ = out[name] = _train_off_policy(torch, overrides, run_root / f"{name}_train", trainer_cls)
         if run_["updates"] < least:
@@ -1768,10 +1822,9 @@ ANAKIN_A2C = ("exp=a2c", "env=jax_cartpole", *ENVS_COMMON, "env.num_envs=1024", 
 ANAKIN_RECURRENT = ("exp=ppo_recurrent", "env=jax_cartpole", *ENVS_COMMON, "env.mask_velocities=False",
                     "env.num_envs=64", "algo.per_rank_batch_size=4096", "algo.total_steps=16384")
 # phase 7's XL recipe on forage (rgb alone), the fused kernel; replay ratio
-# 1/8: int(65 / 8) = 8 updates at step 65, two chunks of 4 (the second one a
-# replay of the first one's graph, so the run has a steady rate)
+# 1/16: int(65 / 16) = 4 updates at step 65, one chunk
 DV3_FORAGE = (*(o for o in XL_TRAIN if not o.startswith(("env=", "env.id=", "algo.mlp_keys"))), "env=jax_forage",
-              "algo.mlp_keys.encoder=[]", FUSED, "algo.replay_ratio=0.125", "algo.total_steps=65",
+              "algo.mlp_keys.encoder=[]", FUSED, "algo.replay_ratio=0.0625", "algo.total_steps=65",
               "algo.run_test=False")
 # ppo_atari's recipe at Atari's input: forage resized to 84x84, gray, 4 frames; 2 iterations of 1024 steps
 PPO_ATARI_FORAGE = ("exp=ppo_atari", "env=jax_forage", *ENVS_COMMON, "env.screen_size=84", "env.grayscale=True",
@@ -2038,21 +2091,23 @@ def envs_summary(envs: dict) -> dict:
 
 
 # -- the device-resident replay (phases 31-36) --------------------------------
-# Phase 32: phase 7's XL recipe on the recipe's million-step ring
-# (configs/exp/dreamer_v3.yaml), on the card by buffer.device=auto, under the
-# default 8 GiB budget: the window shrinks and the host spill, memmapped in
-# the run directory, shadows the whole million.  Replay ratio 1/8: 8 updates
-# at step 65, then one every 8 env steps: 12 by step 97, the last 4 windows
-# under the guard.
+# Phase 32: phase 7's XL recipe on a 250,000-step ring (the recipe's
+# 1,000,000 under the default 8 GiB budget, cut by 4 in both), on the card by
+# buffer.device=auto, under a 2 GiB budget: the window shrinks and the host
+# spill, memmapped in the run directory, shadows the whole ring.  Replay
+# ratio 1/8: 8 updates at step 65, then one every 8 env steps: 12 by step
+# 97, the last 4 windows under the guard.
+REPLAY_XL_BUDGET = 2 << 30
+REPLAY_BUDGET_ENV = "SHEEPRL_REPLAY_BUDGET_BYTES"
 REPLAY_DV3_XL = (*(o for o in XL_TRAIN if not o.startswith(("buffer.size", "buffer.memmap"))), FUSED,
-                 "buffer.size=1000000", "buffer.memmap=True", "buffer.transfer_guard=True",
+                 "buffer.size=250000", "buffer.memmap=True", "buffer.transfer_guard=True",
                  "algo.replay_ratio=0.125", "algo.total_steps=97", "algo.run_test=False")
 # Phase 34: phases 20-22's widths on the card's ring, the guard armed; DroQ's
 # first window cut from 1,000 updates to 500, then 20 a step: 700
 REPLAY_OFF_POLICY = {
     "sac": (*(o for o in SAC_STATE if o != HOST_RING), "buffer.transfer_guard=True"),
-    "droq": (*(o for o in DROQ_STATE if o not in (HOST_RING, "algo.learning_starts=50", "algo.total_steps=60")),
-             "algo.learning_starts=25", "algo.total_steps=35", "buffer.transfer_guard=True"),
+    "droq": (*(o for o in DROQ_STATE if o not in (HOST_RING, "algo.learning_starts=20", "algo.total_steps=30")),
+             "algo.learning_starts=10", "algo.total_steps=20", "buffer.transfer_guard=True"),
     "sac_ae": (*(o for o in SAC_AE_RGB if o != HOST_RING), "buffer.transfer_guard=True"),
 }
 # Phase 35: SAC under a byte budget of 256 steps (a step is 48 bytes: the
@@ -2184,12 +2239,15 @@ def phase_replay_dv3(torch, run_root: Path, host: dict) -> dict:
             yield
 
     DeviceReplay.__init__, DeviceReplay.add, dreamer_v3.steady_guard = spy_init, spy_add, spy_guard
+    budget = os.environ.get(REPLAY_BUDGET_ENV)
+    os.environ[REPLAY_BUDGET_ENV] = str(REPLAY_XL_BUDGET)
     try:
         run_ = _train(torch, REPLAY_DV3_XL, run_root / "replay_xl", "rssm", events_only=True)
     finally:
         DeviceReplay.__init__, DeviceReplay.add, dreamer_v3.steady_guard = init, add, guard
+        _restore_env(REPLAY_BUDGET_ENV, budget)
     rb = seen.pop("rb")
-    if rb.device.type != torch.device(CARD).type or rb.spill is None or not rb.capacity < 1_000_000 or rb.spill.degraded:
+    if rb.device.type != torch.device(CARD).type or rb.spill is None or not rb.capacity < 250_000 or rb.spill.degraded:
         raise AssertionError(f"expected a card ring under the budget with a healthy spill: {rb.device}, window "
                              f"{rb.capacity}, spill {rb.spill}")
     if run_["counts"]["gru"] or flags[0] or flags != sorted(flags) or flags.count(True) < 3:
@@ -2205,7 +2263,8 @@ def phase_replay_dv3(torch, run_root: Path, host: dict) -> dict:
            "spill_files_bytes": apparent, "spill_disk_bytes": on_disk, "guarded_windows": flags.count(True),
            **{k: run_[k] for k in ("updates", "updates_per_s", "first_update_s", "peak_bytes", "per_update",
                                     "update_launches", "counts", "event_s")}}
-    log(f"[replay-xl] DreamerV3-XL on the card's ring: buffer.size 1,000,000 -> a window of {rb.capacity:,} steps, "
+    log(f"[replay-xl] DreamerV3-XL on the card's ring: buffer.size 250,000 under a {REPLAY_XL_BUDGET / 2**30:.0f} GiB "
+        f"budget -> a window of {rb.capacity:,} steps, "
         f"{seen['ring_bytes'] / 2**30:.3f} GiB on the card (torch.cuda.memory_allocated across the first add; the "
         f"ring's tensors {rb.hbm_bytes / 2**30:.3f} GiB); the spill's memmap {apparent / 2**30:.2f} GiB in files, "
         f"{on_disk / 2**20:.1f} MiB on disk, deleted; {run_['updates']} updates, {flags.count(True)} of "
@@ -2657,12 +2716,15 @@ def _fresh_window(torch, overrides, seed: int = 38):
     return cfg, trainer, rb
 
 
-def phase_graph_window(torch, tag: str, overrides, kernel: str) -> dict:
+def phase_graph_window(torch, tag: str, overrides, kernel: str, light: bool = False) -> dict:
     """Phases 38-39: one chunk of GRAPH_CHUNK updates of the fused window on
     the card's ring (draw, gather, prep, the trainer's updates), from one
     state and one generator state, eager twice (the device's own
     non-determinism) and through ``fabric.compile`` twice (the first call
-    eager then captured, the second replayed); then the two in turns."""
+    eager then captured, the second replayed); then the two in turns.
+    ``light`` (phases 43-44, whose turns against 32-true and device time by
+    kind come from ``phase_precision_turns``): the same equalities, then two
+    replayed chunks timed, with no other chunk size, profile or eager turn."""
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import prep_blocks
     from sheeprl_tpu_torch.data.device_replay import fused_sequence_train
     from sheeprl_tpu_torch.ops import gru, rssm
@@ -2754,6 +2816,23 @@ def phase_graph_window(torch, tag: str, overrides, kernel: str) -> dict:
         f(GRAPH_CHUNK, counter0)
 
     graph_chunk()  # the capture, before the turns
+    if light:
+        turns = _turns(torch, {"graph": graph_chunk}, order=("graph", "graph"))
+        ups = {"graph": [GRAPH_CHUNK * GRAPH_TURN_CHUNKS / t for t in turns["graph"]["s"]]}
+        captures = monitor.count(f.name)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"[{tag}] replayed updates/s {', '.join(f'{x:.3f}' for x in ups['graph'])}; {captures} capture; "
+            f"{kernel} launches per update {expected // GRAPH_CHUNK} credited per replay; peak device memory "
+            f"{peak / 2**30:.2f} GiB")
+        if captures != 1:
+            raise AssertionError(f"{tag}: {captures} captures for one chunk size")
+        del f, trainer, rb, start
+        gc.collect()
+        torch.cuda.empty_cache()
+        return {"updates_per_s": ups, "host_ms_per_update": None, "device_ms_per_update": None,
+                "captures": captures, "peak_bytes": peak, "launches_per_update": expected // GRAPH_CHUNK,
+                "loss_rel": float(rel_d.max()), "param_abs": worst, "capture_s": capture_s}
     for n in (2, 1):  # every chunk size of a window is one capture
         f(n, counter0)
     # one update each way under the profiler (a chunk of 1: its graph is captured above)
@@ -3175,7 +3254,8 @@ def phase_precision_turns(torch, tag: str, overrides, kernel: str) -> dict:
                              f"{LAUNCHES_PER_UPDATE}")
     order = ("bf16", "fp32", "fp32", "bf16")
     graph_turns = _turns(torch, graphs, order=order)
-    eager_turns = _turns(torch, windows, order=order)
+    # eager chunks once each (their host-bound rate moves little between turns)
+    eager_turns = _turns(torch, windows, order=("bf16", "fp32"))
     ups = {"graph": {k: [GRAPH_CHUNK / t for t in v["s"]] for k, v in graph_turns.items()},
            "eager": {k: [GRAPH_CHUNK / t for t in v["s"]] for k, v in eager_turns.items()}}
     busy = {k: sum(v["ms"] for v in kinds[k].values()) / (1e3 / statistics.median(ups["graph"][k])) for k in runs}
@@ -3184,8 +3264,7 @@ def phase_precision_turns(torch, tag: str, overrides, kernel: str) -> dict:
             f"update {launches[name]}; busy {busy[name]:.1%} of a replayed update")
     log(f"[{tag}] updates/s in turns (bf16, fp32, fp32, bf16): captured {ups['graph']['bf16'][0]:.3f}, "
         f"{ups['graph']['fp32'][0]:.3f}, {ups['graph']['fp32'][1]:.3f}, {ups['graph']['bf16'][1]:.3f}; eager "
-        f"{ups['eager']['bf16'][0]:.3f}, {ups['eager']['fp32'][0]:.3f}, {ups['eager']['fp32'][1]:.3f}, "
-        f"{ups['eager']['bf16'][1]:.3f}")
+        f"(bf16, fp32) {ups['eager']['bf16'][0]:.3f}, {ups['eager']['fp32'][0]:.3f}")
     del runs, windows, graphs
     gc.collect()
     torch.cuda.empty_cache()
@@ -3197,7 +3276,7 @@ def phase_precision_serve(torch, snapshot: Path) -> dict:
     """Phase 46: the snapshot of a bf16-mixed training run served under its
     own precision: its weights fp32 and loaded unchanged; every rung
     captured at warm-up, rungs 1 and 32 replayed equal eager bit for bit;
-    then 16 sessions x 8 steps over HTTP in turns with a 32-true server of the
+    then 16 sessions x 4 steps over HTTP in turns with a 32-true server of the
     same snapshot (bf16, fp32, fp32, bf16), the launch counts zeroed before
     and read after the bf16 turns."""
     from sheeprl_tpu_torch.ops import gru, rssm
@@ -3255,14 +3334,14 @@ def phase_precision_serve(torch, snapshot: Path) -> dict:
             served0 = PolicyClient(server.url).stats()["served"]
             rssm.LAUNCHES["rssm"] = gru.LAUNCHES["gru"] = 0
             wall, lat = _client_sessions(server.url, service.player, _action_check(service), SERVE_SESSIONS,
-                                         SERVE_STEPS)
+                                         PRECISION_SERVE_STEPS)
             counts = {"rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]}
             st = PolicyClient(server.url).stats()
-            if st["served"] - served0 != SERVE_SESSIONS * SERVE_STEPS or st["errors"] or not counts["rssm"]:
+            if st["served"] - served0 != SERVE_SESSIONS * PRECISION_SERVE_STEPS or st["errors"] or not counts["rssm"]:
                 raise AssertionError(f"{mode} turn: served {st['served'] - served0}, errors {st['errors']}, "
                                      f"launches {counts}")
             lat = np.asarray(lat) * 1e3
-            turns[mode].append({"actions_per_s": SERVE_SESSIONS * SERVE_STEPS / wall, "p50_ms": st["p50_ms"],
+            turns[mode].append({"actions_per_s": SERVE_SESSIONS * PRECISION_SERVE_STEPS / wall, "p50_ms": st["p50_ms"],
                                 "p99_ms": st["p99_ms"], "client_p50_ms": float(np.percentile(lat, 50)),
                                 "client_p99_ms": float(np.percentile(lat, 99)), "counts": counts})
     finally:
@@ -3555,9 +3634,9 @@ def phase_precision(torch, run_root: Path, fp32: dict) -> dict:
         f"32-true (phase 7): " + (f"{fp32['train']['updates_per_s']:.3f} updates/s, peak "
                                  f"{fp32['train']['peak_bytes'] / 2**30:.2f} GiB" if fp32.get("train") else "not run"))
     out["train"] = train
-    out["dv3_xl"] = phase_graph_window(torch, "precision-dv3-xl", [*XL_TRAIN, FUSED, BF16_MIXED], "rssm")
+    out["dv3_xl"] = phase_graph_window(torch, "precision-dv3-xl", [*XL_TRAIN, FUSED, BF16_MIXED], "rssm", light=True)
     out["dv3_xl_turns"] = phase_precision_turns(torch, "precision-dv3-xl", [*XL_TRAIN, FUSED], "rssm")
-    out["dv3_s_gru"] = phase_graph_window(torch, "precision-dv3-s-gru", [*S_TRAIN, BF16_MIXED], "gru")
+    out["dv3_s_gru"] = phase_graph_window(torch, "precision-dv3-s-gru", [*S_TRAIN, BF16_MIXED], "gru", light=True)
     out["dv3_s_gru_turns"] = phase_precision_turns(torch, "precision-dv3-s-gru", S_TRAIN, "gru")
     from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import P2EDV3Trainer
 
@@ -3595,6 +3674,533 @@ def precision_summary(p: dict) -> dict:
             "families": p["families"], "seconds": p["seconds"]}
 
 
+# -- the runtime services (phases 48-50) ------------------------------------------
+def phase_runtime_guard(torch, tag: str, overrides, kernel: str) -> dict:
+    """Phase 48: phase 38's chunk (39's for S) with the health guard inside
+    the captured window, from one state and generator state under cuDNN's
+    deterministic algorithms: the unguarded window (``health.enabled=False``)
+    replayed once; the guarded one, built under a planted ``update.grads
+    nonfinite at=2``, called three times (the first call eager, then
+    captured; the second replayed and poisoned, so skipped; the third
+    replayed clean), every replay inside ``steady_guard`` (a host read
+    raises); then unguarded and guarded replays in turns (the guarded graph
+    carries the planted fault's predicate, one ``torch.where`` per parameter
+    that selects it unchanged)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import prep_blocks
+    from sheeprl_tpu_torch.data.device_replay import fused_sequence_train, steady_guard
+    from sheeprl_tpu_torch.ops import gru, rssm
+    from sheeprl_tpu_torch.parallel.compile import GraphFunction
+    from sheeprl_tpu_torch.resilience import faults
+    from sheeprl_tpu_torch.resilience.health import HealthSentinel
+    from sheeprl_tpu_torch.telemetry.monitors import CompileMonitor
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    counter_of = {"rssm": rssm.LAUNCHES, "gru": gru.LAUNCHES}[kernel]
+    cfg, trainer, rb = _fresh_window(torch, overrides, seed=48)
+    L, B = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
+    dev = trainer.device
+    gen = torch.Generator(dev).manual_seed(48)
+
+    def window(n, counter):
+        return fused_sequence_train(trainer, rb, gen, B, L, n,
+                                    lambda b: prep_blocks(b, trainer.cnn_keys, trainer.mlp_keys), counter)
+
+    trainer.guarded_state()  # the optimizers' state made before the first step, as the loop's guard makes it
+    start, g_start = trainer.snapshot(), gen.get_state()
+    counter0 = torch.full((), 1, dtype=torch.int64, device=dev)
+
+    def compiled(fn, name):
+        return GraphFunction(fn, name=f"{tag}.{name}", static_argnums=(0,), device=dev, generators=(gen,),
+                             monitor=CompileMonitor())
+
+    def run(f, replay: bool = True):
+        trainer.restore(start)
+        gen.set_state(g_start)
+        before = counter_of[kernel]
+        with steady_guard(replay):
+            _, metrics = f(GRAPH_CHUNK, counter0)
+        torch.cuda.synchronize()
+        params, opt = trainer.guarded_state()
+        return {"metrics": np.array([float(m) for m in metrics]), "launches": counter_of[kernel] - before,
+                "state": [t.detach().clone() for t in (*params, *opt)]}
+
+    def guarded_by(sentinel, name):
+        return compiled(sentinel.wrap(window, trainer.guarded_state, dev), name)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = compiled(window, "train_phase_device")
+        run(plain, replay=False)  # the first call: eager, then captured
+        u1 = run(plain)
+        torch.cuda.synchronize()
+        peak_plain = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        faults.install_plan(faults.FaultPlan.from_specs([{"site": "update.grads", "kind": "nonfinite", "at": 2}]))
+        try:
+            sentinel = HealthSentinel.from_config(cfg)  # resolves the plan now
+        finally:
+            faults.clear_plan()
+        guarded = guarded_by(sentinel, "train_phase_device_guarded")
+        run(guarded, replay=False)  # guarded window 1: eager, then captured; applied
+        p2 = run(guarded)  # window 2, replayed: poisoned, skipped
+        g = run(guarded)  # window 3, replayed: applied
+        torch.cuda.synchronize()
+        peak_guarded = torch.cuda.max_memory_allocated()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    sentinel.poll(0)
+    health = sentinel.metrics()
+    bit = [i for i, (a, b) in enumerate(zip(u1["state"], g["state"])) if torch.equal(a, b)]
+    worst = max(float((a.double() - b.double()).abs().max()) for a, b in zip(u1["state"], g["state"]))
+    skipped_equal = sum(torch.equal(a, b) for a, b in zip(p2["state"], [t for t in start_state(trainer, start)]))
+    expected = LAUNCHES_PER_UPDATE * GRAPH_CHUNK
+    n = len(u1["state"])
+    log(f"[{tag}] one chunk of {GRAPH_CHUNK} updates, cuDNN deterministic, replays under steady_guard: guarded vs "
+        f"unguarded {len(bit)} of {n} trained tensors bit for bit (max abs diff {worst:.3g}), losses bit for bit "
+        f"{int((g['metrics'] == u1['metrics']).sum())} of 10; "
+        f"planted nonfinite window 2: {skipped_equal} of {n} tensors equal to its input, Health/skipped "
+        f"{health['Health/skipped']:.0f} of {health['Health/windows']:.0f} windows; {kernel} "
+        f"launches per replay unguarded {u1['launches']}, guarded {g['launches']} "
+        f"({expected // GRAPH_CHUNK} per update)")
+    # every tensor and loss bit for bit (phase 38 found two deterministic
+    # replays equal in all of them)
+    if not (len(bit) == n and np.array_equal(g["metrics"], u1["metrics"]) and skipped_equal == n
+            and health["Health/skipped"] == 1 and health["Health/windows"] == 3
+            and u1["launches"] == g["launches"] == expected):
+        raise AssertionError(f"{tag}: the guarded window disagrees with the unguarded one, or the planted "
+                             "nonfinite window was not skipped bit for bit")
+    turns = _turns(torch, {"unguarded": lambda: plain(GRAPH_CHUNK, counter0),
+                           "guarded": lambda: guarded(GRAPH_CHUNK, counter0)},
+                   order=("unguarded", "guarded", "guarded", "unguarded"))
+    ups = {k: [GRAPH_CHUNK * GRAPH_TURN_CHUNKS / t for t in v["s"]] for k, v in turns.items()}
+    backup = sum(b.numel() * b.element_size() for b in sentinel._backup)
+    out = {"updates_per_s": ups, "peak_bytes": {"unguarded": peak_plain, "guarded": peak_guarded},
+           "backup_bytes": backup, "launches_per_update": g["launches"] // GRAPH_CHUNK,
+           "bit_for_bit": len(bit), "tensors": n}
+    log(f"[{tag}] updates/s in turns unguarded {ups['unguarded'][0]:.3f}, guarded {ups['guarded'][0]:.3f}, guarded "
+        f"{ups['guarded'][1]:.3f}, unguarded {ups['unguarded'][1]:.3f}; peak device memory unguarded "
+        f"{peak_plain / 2**30:.2f} GiB, guarded {peak_guarded / 2**30:.2f} GiB (the guard's backup "
+        f"{backup / 2**30:.2f} GiB)")
+    del plain, guarded, trainer, rb, start
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def start_state(trainer, snap):
+    """The trained tensors of ``snap`` (a ``trainer.snapshot()``) in the order
+    of ``trainer.guarded_state()``."""
+    trainer.restore(snap)
+    params, opt = trainer.guarded_state()
+    return [t.detach().clone() for t in (*params, *opt)]
+
+
+PREEMPT_DIR = "preempt"
+# phase 7's XL recipe (fused RSSM kernel, captured) on the card's ring, cut to
+# 4096 steps and kept in the snapshot: the first window at step 65 is 8
+# updates, chunks of 4 (the first captured, the second replayed); the run
+# ends only when preempted
+PREEMPT_XL = (*XL_TRAIN, FUSED, "buffer.checkpoint=True", "algo.replay_ratio=0.125", "algo.total_steps=1000000",
+              "algo.run_test=False", f"root_dir={PREEMPT_DIR}")
+
+
+@contextlib.contextmanager
+def _window_log(emit):
+    """Inside the block, each call of a loop's train window is reported to
+    ``emit``: its updates, whether it replayed an entry built earlier, and
+    the kernel launches it made (or was credited with)."""
+    from sheeprl_tpu_torch.ops import gru, rssm
+    from sheeprl_tpu_torch.parallel.compile import GraphFunction
+
+    call = GraphFunction.__call__
+
+    def logged(self, *args, **kwargs):
+        if not self.name.endswith(WINDOW_NAMES):
+            return call(self, *args, **kwargs)
+        entries, before = self.cache_size(), (rssm.LAUNCHES["rssm"], gru.LAUNCHES["gru"])
+        out = call(self, *args, **kwargs)
+        emit({"updates": int(args[0]), "replayed": self.cache_size() == entries,
+              "rssm": rssm.LAUNCHES["rssm"] - before[0], "gru": gru.LAUNCHES["gru"] - before[1]})
+        return out
+
+    GraphFunction.__call__ = logged
+    try:
+        yield
+    finally:
+        GraphFunction.__call__ = call
+
+
+def preempt_child(torch, argv) -> int:
+    """``--preempt-child OVERRIDES``: ``cli.run`` with each call of the train
+    window logged on a line, for phase 49's parent to read."""
+    from sheeprl_tpu_torch.cli import run
+
+    with _window_log(lambda w: log("[child] window " + json.dumps(w))):
+        run(list(argv))
+    return 0
+
+
+def commit_hang_child(torch, root: str) -> int:
+    """``--commit-hang-child DIR``: phase 49's hung final commit, without a
+    training run: a checkpoint manager with ``save_on_preemption`` arms the
+    latch, says so on a line, waits for SIGTERM, then saves a state
+    synchronously as a preempted loop does; its commit hangs under the
+    planted ``checkpoint.commit`` plan (``SHEEPRL_FAULT_PLAN``) until a
+    second SIGTERM ends the process."""
+    from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
+    from sheeprl_tpu_torch.resilience.faults import install_from_env
+    from sheeprl_tpu_torch.utils.structured import dotdict
+
+    install_from_env()
+    mgr = CheckpointManager(dotdict({"checkpoint": {"every": 0, "save_last": False}}), root)
+    mgr.should_save(TORN_STEP, 0)  # arms the latch
+    log("[child] ready")
+    while not mgr.should_save(TORN_STEP, 0):
+        time.sleep(0.05)
+    mgr.save(TORN_STEP, {"w": torch.arange(1 << 20, dtype=torch.float32)})
+    return 0
+
+
+#: the hung commit's step: above every step the preempted runs commit
+TORN_STEP = 10**9
+
+
+def _child(overrides, log_dir: Path, env=None):
+    return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--preempt-child", *overrides,
+                             f"log_dir={log_dir}"], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env={**os.environ, **(env or {})})
+
+
+def _read_lines(proc, lines: list, seen: threading.Event, marker) -> threading.Thread:
+    def reader():
+        for line in proc.stdout:
+            lines.append(line)
+            if marker(line):
+                seen.set()
+
+    t = threading.Thread(target=reader, daemon=True)
+    t.start()
+    return t
+
+
+def _replayed(line: str) -> bool:
+    return line.startswith("[child] window ") and json.loads(line[len("[child] window "):])["replayed"]
+
+
+def _preempt(tag: str, proc, timeout: float = 300.0) -> dict:
+    """SIGTERM ``proc`` after its first replayed window; its exit code, its
+    output and the wall time the signal was sent."""
+    lines, seen = [], threading.Event()
+    reader = _read_lines(proc, lines, seen, _replayed)
+    try:
+        if not seen.wait(timeout):
+            raise AssertionError(f"[{tag}] no replayed window within {timeout} s:\n{''.join(lines)[-4000:]}")
+        t_signal = time.time()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(10)
+    return {"rc": rc, "out": "".join(lines), "t_signal": t_signal}
+
+
+def _windows(out: str) -> list:
+    return [json.loads(line[len("[child] window "):]) for line in out.splitlines()
+            if line.startswith("[child] window ")]
+
+
+def phase_runtime_preempt(torch, run_root: Path) -> dict:
+    """Phase 49: ``cli.run`` of DV3-XL (fused RSSM kernel, captured, the
+    card's ring cut to 4096 steps) in a subprocess, SIGTERM after its first
+    replayed window: exit 0 and one committed snapshot that
+    ``verify_checkpoint`` passes; ``checkpoint.resume_from=auto`` (a run 8
+    steps long, in this process) continues the counters, generators and
+    ring cursor and launches the RSSM kernel in its first window; then a
+    process whose
+    preempted save's commit hangs (a planted ``checkpoint.commit`` hang) is
+    killed by a second SIGTERM, and its torn step, above every committed
+    one, is never chosen on resume."""
+    from sheeprl_tpu_torch.checkpoint.manager import resolve_auto_resume
+    from sheeprl_tpu_torch.checkpoint.protocol import (
+        checkpoint_step,
+        is_committed,
+        list_checkpoints,
+        load_step_dir,
+        verify_checkpoint,
+    )
+
+    log_dir = run_root / "preempt"
+
+    def committed(min_step=-1):
+        dirs = [d for root in log_dir.glob(f"{PREEMPT_DIR}/*/version_*/checkpoint") for d in list_checkpoints(root)]
+        return sorted((d for d in dirs if checkpoint_step(d) > min_step), key=lambda d: (d / "COMMIT").stat().st_mtime)
+
+    first = _preempt("preempt", _child(PREEMPT_XL, log_dir))
+    if first["rc"] != 0 or "Preemption: committed checkpoint" not in first["out"]:
+        raise AssertionError(f"[preempt] rc {first['rc']}:\n{first['out'][-4000:]}")
+    (saved_dir,) = committed()
+    problems = verify_checkpoint(saved_dir)
+    to_commit = (saved_dir / "COMMIT").stat().st_mtime - first["t_signal"]
+    saved = load_step_dir(saved_dir, map_location="cpu")
+    first_windows = _windows(first["out"])
+    log(f"[preempt] DV3-XL preempted after {len(first_windows)} window calls "
+        f"({sum(w['updates'] for w in first_windows)} updates, rssm {sum(w['rssm'] for w in first_windows)}): "
+        f"exit {first['rc']}, committed {saved_dir.name} "
+        f"{to_commit:.2f} s after the signal, verify_checkpoint {problems or 'passes'}")
+    if problems:
+        raise AssertionError(f"[preempt] {saved_dir}: {problems}")
+
+    # the resumed run, in this process: it trains at once (learning_starts 1)
+    # and ends 8 steps on, one window of 1 update, then its final save
+    from sheeprl_tpu_torch.cli import run
+
+    chosen_first = resolve_auto_resume(log_dir, PREEMPT_DIR)
+    resumed_windows = []
+    with _window_log(resumed_windows.append):
+        run([*PREEMPT_XL, "checkpoint.resume_from=auto", "algo.learning_starts=1",
+             f"algo.total_steps={int(saved['policy_step']) + 8}", f"log_dir={log_dir}"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    if chosen_first != saved_dir:
+        raise AssertionError(f"[resume] resume_from=auto chose {chosen_first}, not {saved_dir}")
+    resumed_dir = committed(saved["policy_step"])[-1]
+    resumed = load_step_dir(resumed_dir, map_location="cpu")
+    k = int(resumed["update"]) - int(saved["update"])
+    cap = int(saved["rb"]["buffer_size"])
+    fresh = torch.Generator().manual_seed(5).get_state()
+    chained = {
+        "policy_step": resumed["policy_step"] == saved["policy_step"] + k * int(saved["rb"]["n_envs"]),
+        "ring cursor": bool(np.array_equal(np.asarray(resumed["rb"]["pos"]),
+                                           (np.asarray(saved["rb"]["pos"]) + k) % cap)),
+        "ring rows": all(np.array_equal(np.asarray(resumed["rb"]["buffer"][key])[: int(saved["rb"]["pos"][0]) - 1],
+                                        np.asarray(saved["rb"]["buffer"][key])[: int(saved["rb"]["pos"][0]) - 1])
+                         for key in ("rgb", "actions")),
+        "grad steps": resumed["grad_steps"] > saved["grad_steps"],
+        "generators": not torch.equal(resumed["generators"]["train"], saved["generators"]["train"])
+        and not torch.equal(saved["generators"]["train"], fresh),
+        "first window launches the kernel": bool(resumed_windows) and resumed_windows[0]["rssm"]
+        == LAUNCHES_PER_UPDATE * resumed_windows[0]["updates"] > 0,
+    }
+    log(f"[resume] resumed from {saved_dir.name}: {k} iterations on, its final save {resumed_dir.name}; "
+        + ", ".join(f"{name} {ok}" for name, ok in chained.items())
+        + f"; first window {resumed_windows[0] if resumed_windows else None}")
+    if not all(chained.values()):
+        raise AssertionError(f"[resume] the resumed run does not continue the saved one: {chained}")
+
+    plan = json.dumps({"plan": [{"site": "checkpoint.commit", "kind": "hang", "at": 1, "seconds": 120}]})
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--commit-hang-child",
+                             str(log_dir / PREEMPT_DIR / "commit_hang" / "version_0")], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env={**os.environ, "SHEEPRL_FAULT_PLAN": plan})
+    lines, seen = [], threading.Event()
+    reader = _read_lines(proc, lines, seen, lambda line: line.startswith("[child] ready"))
+    try:
+        if not seen.wait(120):
+            raise AssertionError(f"[torn] the child never armed its latch:\n{''.join(lines)[-4000:]}")
+        proc.send_signal(signal.SIGTERM)
+        deadline = time.monotonic() + 120
+        torn = []
+        while not torn and time.monotonic() < deadline:
+            torn = [d for d in log_dir.glob(f"{PREEMPT_DIR}/*/version_*/checkpoint/step_*")
+                    if (d / "shard_r00000.meta.json").exists() and not is_committed(d)]
+            time.sleep(0.1)
+        if not torn:
+            raise AssertionError(f"[torn] the final save never reached its commit:\n{''.join(lines)[-4000:]}")
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+        killed_s = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    reader.join(10)
+    chosen = resolve_auto_resume(log_dir, PREEMPT_DIR)
+    log(f"[torn] a preempted save's commit hung; the second SIGTERM ended it in {killed_s:.2f} s with rc {rc}; "
+        f"torn {torn[0].name} committed {is_committed(torn[0])}; resume_from=auto chooses {chosen}")
+    if rc != -signal.SIGTERM or is_committed(torn[0]) or chosen != resumed_dir:
+        raise AssertionError(f"[torn] rc {rc}, chosen {chosen}:\n{''.join(lines)[-4000:]}")
+    return {"signal_to_commit_s": to_commit, "preempted_updates": sum(w["updates"] for w in first_windows),
+            "preempted": {n: sum(w[n] for w in first_windows) for n in ("rssm", "gru")},
+            "resumed": {n: sum(w[n] for w in resumed_windows) for n in ("rssm", "gru")},
+            "resumed_first_window_per_update": {n: resumed_windows[0][n] // resumed_windows[0]["updates"]
+                                                for n in ("rssm", "gru")},
+            "killed_s": killed_s}
+
+
+def phase_runtime_faults(torch, run_root: Path, served_dir: Path) -> dict:
+    """Phase 50: a planted ``checkpoint.commit`` hang past a short
+    ``hang_warn_s`` gives one watchdog stall; a ``checkpoint.write_shard
+    corrupt`` snapshot is quarantined on resume; a ``serve.http raise`` plan
+    on the XL server loses no request (the client retries); a planted
+    ``update.grads divergence`` rolls SAC back on the card to its committed
+    snapshot, raises ``DivergenceError`` past the budget, and raises it in
+    DreamerV3."""
+    import warnings
+
+    from sheeprl_tpu_torch.checkpoint.manager import CheckpointManager
+    from sheeprl_tpu_torch.checkpoint.protocol import write_snapshot
+    from sheeprl_tpu_torch.cli import resolve_resume_target, run
+    from sheeprl_tpu_torch.config.compose import compose
+    from sheeprl_tpu_torch.resilience import faults
+    from sheeprl_tpu_torch.resilience.health import DivergenceError
+    from sheeprl_tpu_torch.serve.client import PolicyClient
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+    from sheeprl_tpu_torch.serve.service import PolicyService
+    from sheeprl_tpu_torch.telemetry.monitors import RESILIENCE_MONITOR
+    from sheeprl_tpu_torch.utils.structured import dotdict
+
+    def install(*specs):
+        faults.install_plan(faults.FaultPlan.from_specs(list(specs)))
+
+    out = {}
+    try:
+        # the writer's watchdog
+        stalls = RESILIENCE_MONITOR.totals()["stalls"]
+        install({"site": "checkpoint.commit", "kind": "hang", "at": 1, "seconds": 1.0})
+        mgr = CheckpointManager(dotdict({"checkpoint": {"async_save": True, "hang_warn_s": 0.2}}),
+                                run_root / "watchdog")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            mgr.save(1, {"w": torch.ones(1024, device=CARD)})
+            mgr.finalize()
+        out["watchdog_stalls"] = RESILIENCE_MONITOR.totals()["stalls"] - stalls
+        stall_warnings = sum("no progress" in str(w.message) for w in caught)
+        log(f"[faults] a 1.0 s commit hang under hang_warn_s 0.2: {out['watchdog_stalls']} watchdog stall, "
+            f"{stall_warnings} warning, committed {mgr.latest() is not None}")
+        if out["watchdog_stalls"] != 1 or stall_warnings != 1 or mgr.latest() is None:
+            raise AssertionError("[faults] the writer's watchdog did not flag the hung commit once")
+
+        # a corrupt shard, quarantined on resume
+        root = run_root / "quarantine"
+        ckpt = root / "q" / "run" / "version_0" / "checkpoint"
+        faults.clear_plan()
+        good = write_snapshot(ckpt, 1, {"w": torch.arange(4096.0)})
+        time.sleep(0.05)  # discovery orders commits by time
+        install({"site": "checkpoint.write_shard", "kind": "corrupt", "at": 1})
+        bad = write_snapshot(ckpt, 2, {"w": torch.arange(4096.0)})
+        faults.clear_plan()
+        quarantined = RESILIENCE_MONITOR.totals()["quarantined"]
+        cfg = resolve_resume_target(dotdict({"log_dir": str(root), "root_dir": "q",
+                                             "checkpoint": {"resume_from": "auto"}}))
+        out["quarantined"] = RESILIENCE_MONITOR.totals()["quarantined"] - quarantined
+        log(f"[faults] resume_from=auto with a corrupt newest shard: chose {Path(cfg.checkpoint.resume_from).name}, "
+            f"quarantined {out['quarantined']} ({bad.name} exists {bad.exists()})")
+        if Path(cfg.checkpoint.resume_from) != good or bad.exists() or out["quarantined"] != 1:
+            raise AssertionError("[faults] the corrupt snapshot was not quarantined on resume")
+
+        # the XL server under a serve.http raise plan
+        injected = RESILIENCE_MONITOR.totals()["injected_by_site"].get("serve.http", 0)
+        service = PolicyService.from_checkpoint(served_dir, ["serve.batch_ladder=[1]"])
+        install({"site": "serve.http", "kind": "raise", "every": 4})
+        rng = np.random.default_rng(50)
+        with PolicyServer(service, port=0) as server:
+            client = PolicyClient(server.url, packed=True, retry_base_s=0.01, timeout=120)
+            actions = [client.act({"rgb": rng.integers(0, 256, (64, 64, 3), dtype=np.uint8),
+                                   "state": rng.standard_normal(4).astype(np.float32)}) for _ in range(16)]
+            served = service.stats()["served"]
+        faults.clear_plan()
+        out["http_injected"] = RESILIENCE_MONITOR.totals()["injected_by_site"].get("serve.http", 0) - injected
+        log(f"[faults] XL server, serve.http raise every 4th request: {len(actions)} of 16 actions returned, "
+            f"{served} served, {out['http_injected']} faults injected and retried")
+        if len(actions) != 16 or served != 16 or out["http_injected"] < 4:
+            raise AssertionError("[faults] the served requests were not all answered under the serve.http plan")
+        del service
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # rollback on the card
+        sac = [*(o for o in SAC_STATE if not o.startswith("algo.")), "buffer.checkpoint=False", "algo.run_test=False",
+               "algo.learning_starts=8", "algo.total_steps=40", "checkpoint.every=4", "health.poll_every_updates=1",
+               "health.min_windows=2", "health.patience=1", "health.divergence.action=rollback"]
+        import sheeprl_tpu_torch.algos.sac.sac as sac_module
+
+        targets, rollback_state = [], sac_module.rollback_state
+        sac_module.rollback_state = lambda mgr, fabric: targets.append(rollback_state(mgr, fabric)) or targets[-1]
+        divergence = json.dumps({"plan": [{"site": "update.grads", "kind": "divergence", "at": 6}]})
+        os.environ["SHEEPRL_FAULT_PLAN"] = divergence
+        try:
+            run([*sac, f"log_dir={run_root / 'rollback'}"])
+            rolled = _metric_rows(run_root / "rollback", "Health/rollbacks")
+            try:
+                run([*sac, "health.divergence.max_rollbacks=0", f"log_dir={run_root / 'budget'}"])
+                budget = "no error"
+            except DivergenceError as e:
+                budget = str(e)
+            os.environ["SHEEPRL_FAULT_PLAN"] = json.dumps(
+                {"plan": [{"site": "update.grads", "kind": "divergence", "at": 2}]})
+            try:
+                run([*REPLAY_DV3_SMALL, "health.poll_every_updates=1", "health.min_windows=1", "health.patience=1",
+                     "health.divergence.action=rollback", f"log_dir={run_root / 'dv3_divergence'}"])
+                dreamer = "no error"
+            except DivergenceError as e:
+                dreamer = str(e)
+        finally:
+            del os.environ["SHEEPRL_FAULT_PLAN"]
+            sac_module.rollback_state = rollback_state
+        out["sac_rollbacks"] = rolled[-1] if rolled else 0.0
+        first = targets[0] if targets else (None, None)
+        log(f"[faults] SAC on the card, divergence at guarded window 6: Health/rollbacks {out['sac_rollbacks']:.0f}, "
+            f"the first to {first[1].name if first[1] else None} (policy step "
+            f"{first[0]['policy_step'] if first[0] else None}); with max_rollbacks=0: {budget}; DreamerV3 (XS), "
+            f"divergence at window 2: {dreamer}")
+        if (out["sac_rollbacks"] < 1 or first[0] is None or "exhausted" not in budget
+                or "resume_from=auto" not in dreamer):
+            raise AssertionError("[faults] the divergence drills did not roll back or raise as they should")
+    finally:
+        faults.clear_plan()
+    return out
+
+
+def _metric_rows(log_dir: Path, name: str) -> list:
+    import csv
+
+    with open(next(log_dir.glob("**/metrics.csv"))) as f:
+        return [float(v) for _, n, v in list(csv.reader(f))[1:] if n == name]
+
+
+def phase_runtime(torch, run_root: Path, served_dir: Path) -> dict:
+    """Phases 48-50."""
+    t0 = time.perf_counter()
+    out = {"dv3_xl": phase_runtime_guard(torch, "runtime-dv3-xl", [*XL_TRAIN, FUSED], "rssm"),
+           "dv3_s_gru": phase_runtime_guard(torch, "runtime-dv3-s-gru", S_TRAIN, "gru"),
+           "preempt": phase_runtime_preempt(torch, run_root),
+           "faults": phase_runtime_faults(torch, run_root, served_dir)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[runtime] phases 48-50 in {out['seconds']:.1f} s")
+    return out
+
+
+def runtime_only(torch) -> int:
+    """``--runtime``: phases 48-50 alone (the served snapshot of phase 50
+    built as phase 4 builds it)."""
+    log_phase_seconds()
+    phase_device(torch)
+    phase_build()
+    run_root = ROOT / "build" / "chip_smoke_runtime"
+    shutil.rmtree(run_root, ignore_errors=True)
+    try:
+        served_dir = run_root / "fused_pallas"
+        _build_snapshot(torch, [*XL_SERVE, FUSED], served_dir)
+        runtime = phase_runtime(torch, run_root, served_dir)
+        log("[runtime] " + json.dumps(runtime_summary(runtime), default=float))
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    return 0
+
+
+def runtime_summary(r: dict) -> dict:
+    return {"seconds": r["seconds"],
+            **{f"{k}_updates_per_s": r[k]["updates_per_s"] for k in ("dv3_xl", "dv3_s_gru")},
+            **{f"{k}_peak_gib": {n: b / 2**30 for n, b in r[k]["peak_bytes"].items()} for k in ("dv3_xl", "dv3_s_gru")},
+            "preempt": r["preempt"], "faults": r["faults"]}
+
+
 def precision_only(torch) -> int:
     """``--precision``: phases 42-47 alone, beside 32-true runs of phase 7's
     and phase 11's recipes."""
@@ -3611,6 +4217,8 @@ def precision_only(torch) -> int:
                               trainer_cls=P2EDV3Trainer)}
         precision = phase_precision(torch, run_root, fp32)
         log("[precision] " + json.dumps(precision_summary(precision), default=float))
+        runtime = phase_runtime(torch, run_root / "runtime", fused_dir)
+        log("[runtime] " + json.dumps(runtime_summary(runtime), default=float))
         log(f"[precision] total {time.perf_counter() - t0:.1f} s")
     except BaseException:
         traceback.print_exc()
@@ -3632,6 +4240,110 @@ def timing_only(torch, package_root: str) -> int:
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(timing, indent=1))
     log(f"[timing] rows written to {out}")
+    return 0
+
+
+# phase 7's XL recipe and phase 20's SAC recipe, each with the health guard on
+# and off (``--health-ab ROOT``)
+GUARD_AB = {
+    "dv3_xl": (*XL_TRAIN, *XL_TRAIN_STEPS, FUSED, HOST_RING, "algo.run_test=False"),
+    "sac": (*SAC_STATE, "algo.run_test=False"),
+}
+
+
+def _guard_ab_run(torch, overrides, log_dir: Path) -> dict:
+    """One run through ``cli.run``: each call of the loop's train window
+    (``<algo>.train_phase[_device]``) timed with the device synchronised
+    around it, and, where the package has them, the health guard's host
+    steps outside the window (``snapshot`` of the trained state before a
+    chunk, ``HealthSentinel.check`` after it) timed the same way.  Returns
+    the updates, the window's median ms per update over
+    the calls that reused a built entry, the guard's host ms per update, and
+    the peak memory."""
+    import sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 as dv3
+    import sheeprl_tpu_torch.algos.sac.sac as sac
+    import sheeprl_tpu_torch.resilience.health as health
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.parallel.compile import GraphFunction
+
+    windows, guard = [], []
+    call = GraphFunction.__call__
+
+    def timed_call(self, *args, **kwargs):
+        if not self.name.endswith(WINDOW_NAMES):
+            return call(self, *args, **kwargs)
+        U = args[0] if isinstance(args[0], int) else int(args[0]["rewards"].shape[0])
+        entries = self.cache_size()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = call(self, *args, **kwargs)
+        torch.cuda.synchronize()
+        windows.append((U, time.perf_counter() - t0, self.cache_size() > entries))
+        return out
+
+    def timed(fn):
+        def wrapper(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            guard.append(time.perf_counter() - t0)
+            return out
+        return wrapper
+
+    patches = [(GraphFunction, "__call__", timed_call)]
+    for owner, name in ((dv3.DreamerTrainer, "snapshot"), (sac.SACTrainer, "snapshot"),
+                        (health.HealthSentinel, "check")):
+        if hasattr(owner, name):
+            patches.append((owner, name, timed(getattr(owner, name))))
+    saved = [(owner, name, owner.__dict__[name]) for owner, name, _ in patches]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for owner, name, fn in patches:
+        setattr(owner, name, fn)
+    try:
+        run([*overrides, f"log_dir={log_dir}"])
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+    torch.cuda.synchronize()
+    updates = sum(u for u, _, _ in windows)
+    # steady: the calls that reused an entry (a signature's first call runs
+    # eagerly and, on the card, captures its graph)
+    steady = [s / u for u, s, built in windows if not built] or [s / u for u, s, _ in windows]
+    return {"updates": updates, "windows": len(windows), "window_ms_per_update": 1e3 * statistics.median(steady),
+            "guard_host_calls": len(guard), "guard_ms_per_update": 1e3 * sum(guard) / max(updates, 1),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+
+
+def health_ab(torch, package_root: str) -> int:
+    """``--health-ab ROOT``: phase 7's XL recipe (fused RSSM kernel, host
+    ring) and phase 20's SAC recipe with the port found under ``ROOT``, each
+    run with ``health.enabled`` True and False in turns (on, off, off, on):
+    the window's ms per update, the guard's host ms per update outside the
+    window, and the peak memory of each run; the rows go to
+    ``chiprun_out/health-ab-<dir name>.json``."""
+    phase_device(torch)
+    phase_build()
+    rows = {}
+    run_root = ROOT / "build" / "health_ab"
+    shutil.rmtree(run_root, ignore_errors=True)
+    try:
+        for recipe, overrides in GUARD_AB.items():
+            for i, on in enumerate((True, False, False, True)):
+                r = _guard_ab_run(torch, [*overrides, f"health.enabled={on}"], run_root / f"{recipe}_{i}")
+                rows.setdefault(recipe, []).append({"health": on, **r})
+                log(f"[health-ab] {recipe} health {'on ' if on else 'off'}: {r['updates']} updates in "
+                    f"{r['windows']} windows, window {r['window_ms_per_update']:.3f} ms/update, guard outside "
+                    f"the window {r['guard_ms_per_update']:.3f} ms/update ({r['guard_host_calls']} host calls), "
+                    f"peak {r['peak_bytes'] / 2**30:.3f} GiB")
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    out = ROOT / "chiprun_out" / f"health-ab-{Path(package_root).resolve().name}.json"
+    out.parent.mkdir(exist_ok=True)
+    out.write_text(json.dumps(rows, indent=1))
+    log(f"[health-ab] rows written to {out}")
     return 0
 
 
@@ -3802,7 +4514,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: CUDA is not available; it runs on an NVIDIA GPU", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--timing"]:
+    if sys.argv[1:2] in (["--timing"], ["--health-ab"]):
         sys.path.insert(0, str(Path(sys.argv[2]).resolve()))
     try:
         import sheeprl_tpu_torch  # noqa: F401
@@ -3812,6 +4524,15 @@ def main() -> int:
     if sys.argv[1:2] == ["--timing"]:
         log(f"[timing] sheeprl_tpu_torch from {Path(sheeprl_tpu_torch.__file__).parent}")
         return timing_only(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--preempt-child"]:
+        return preempt_child(torch, sys.argv[2:])
+    if sys.argv[1:2] == ["--commit-hang-child"]:
+        return commit_hang_child(torch, sys.argv[2])
+    if sys.argv[1:2] == ["--runtime"]:
+        return runtime_only(torch)
+    if sys.argv[1:2] == ["--health-ab"]:
+        log(f"[health-ab] sheeprl_tpu_torch from {Path(sheeprl_tpu_torch.__file__).parent}")
+        return health_ab(torch, sys.argv[2])
     if sys.argv[1:2] == ["--first-window"]:
         return first_window(torch)
     if sys.argv[1:2] == ["--on-policy"]:
@@ -3831,6 +4552,7 @@ def main() -> int:
 
     run_root = ROOT / "build" / "chip_smoke"
     shutil.rmtree(run_root, ignore_errors=True)
+    log_phase_seconds()
     try:
         t_start = time.perf_counter()
         device = phase_device(torch)
@@ -3890,6 +4612,8 @@ def main() -> int:
                                                                      "dv3_xl": graphs["dv3_xl"],
                                                                      "dv3_s_gru": graphs["dv3_s_gru"]})
         log("[precision] " + json.dumps(precision_summary(precision), default=float))
+        runtime = phase_runtime(torch, run_root / "runtime", fused_dir)
+        log("[runtime] " + json.dumps(runtime_summary(runtime), default=float))
 
         launches = {"rssm": train["counts"]["rssm"], "gru": train_gru["counts"]["gru"]}
         new_paths = {"p2e_explore": p2e, "p2e_finetune": finetune, "decoupled": decoupled}
@@ -3929,6 +4653,13 @@ def main() -> int:
             # the bf16 windows of phases 43-44 (XL with the RSSM kernel, S with the GRU kernel)
             window = precision["dv3_xl" if name == "rssm" else "dv3_s_gru"]
             by_path["bf16_window_per_update"] = window["launches_per_update"]
+            # phases 48-49: the guarded windows (XL with the RSSM kernel, S with
+            # the GRU kernel), the preempted XL run and its resumed run
+            by_path["guarded_window_per_update"] = runtime["dv3_xl" if name == "rssm" else "dv3_s_gru"][
+                "launches_per_update"]
+            by_path["preempted_xl"] = runtime["preempt"]["preempted"][name]
+            by_path["resumed_xl"] = runtime["preempt"]["resumed"][name]
+            by_path["resumed_xl_first_window_per_update"] = runtime["preempt"]["resumed_first_window_per_update"][name]
         sources = {
             "rssm": ("sheeprl_tpu_torch/csrc/rssm.cu",
                      "sheeprl_tpu/ops/rssm_pallas.py:70 (_rssm_kernel), sheeprl_tpu/ops/rssm_pallas.py:260 "
@@ -3966,7 +4697,11 @@ def main() -> int:
             f"{replay['dv3']['window']:,}) {replay['dv3']['updates_per_s']:.3f} updates/s beside the host ring's "
             f"{train['updates_per_s_events']:.3f} (CUDA events); DV3-XL under bf16-mixed "
             f"{precision['train']['updates_per_s']:.3f} updates/s through cli.run, replayed "
-            f"{statistics.median(precision['dv3_xl']['updates_per_s']['graph']):.3f}; total "
+            f"{statistics.median(precision['dv3_xl']['updates_per_s']['graph']):.3f}; DV3-XL guarded window "
+            f"{statistics.median(runtime['dv3_xl']['updates_per_s']['guarded']):.3f} updates/s beside unguarded "
+            f"{statistics.median(runtime['dv3_xl']['updates_per_s']['unguarded']):.3f}, preempted run committed "
+            f"{runtime['preempt']['signal_to_commit_s']:.2f} s after SIGTERM (phases 48-50 "
+            f"{runtime['seconds']:.1f} s); total "
             f"{time.perf_counter() - t_start:.1f} s")
     except BaseException:
         traceback.print_exc()

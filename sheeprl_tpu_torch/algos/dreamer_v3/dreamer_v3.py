@@ -81,7 +81,7 @@ from sheeprl_tpu_torch.data.device_replay import (
     update_chunks,
 )
 from sheeprl_tpu_torch.fabric import PlayerSync
-from sheeprl_tpu_torch.resilience.health import HealthSentinel
+from sheeprl_tpu_torch.resilience.health import DivergenceError, HealthSentinel
 from sheeprl_tpu_torch.utils.distribution import (
     Bernoulli,
     MSEDistribution,
@@ -92,7 +92,7 @@ from sheeprl_tpu_torch.utils.distribution import (
 from sheeprl_tpu_torch.utils.env import episode_stats, final_obs_rows, make_env, vectorize
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, flush_metrics
-from sheeprl_tpu_torch.utils.optim import ClippedOptimizer, build_group_optimizers
+from sheeprl_tpu_torch.utils.optim import ClippedOptimizer, build_group_optimizers, optimizer_state_tensors
 from sheeprl_tpu_torch.utils.registry import register_algorithm, register_evaluation
 from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import Ratio, merge_framestack, save_configs
@@ -141,10 +141,10 @@ def check_supported(cfg: Any) -> None:
 
 def warn_unacted_settings(cfg: Any) -> None:
     """Warn of the settings that are on but that the port does not act on
-    yet (ROADMAP.md, queue A item 6); every train loop calls this at its start."""
+    yet (ROADMAP.md, queue A item 6(b)); every train loop calls this at its start."""
     tel = cfg.get("telemetry") or {}
     on = {
-        "checkpoint.save_on_preemption": bool(cfg.checkpoint.get("save_on_preemption", False)),
+        "model_manager.disabled=False": not bool((cfg.get("model_manager") or {}).get("disabled", True)),
         "telemetry.spans.enabled": bool((tel.get("spans") or {}).get("enabled", False)),
         "telemetry.recorder.enabled": bool((tel.get("recorder") or {}).get("enabled", False)),
         "telemetry.introspect.port": (tel.get("introspect") or {}).get("port") is not None,
@@ -154,8 +154,8 @@ def warn_unacted_settings(cfg: Any) -> None:
     unacted = [name for name, value in on.items() if value]
     if unacted:
         warnings.warn(
-            f"{', '.join(unacted)}: set, but not acted on by the port yet (preemption signals, the telemetry "
-            "hub and the profiler come with the runtime services, ROADMAP.md, queue A item 6)",
+            f"{', '.join(unacted)}: set, but not acted on by the port yet (the model registry, the telemetry "
+            "hub and the profiler come with the rest of the runtime services, ROADMAP.md, queue A item 6(b))",
             UserWarning,
         )
 
@@ -251,7 +251,7 @@ class DreamerTrainer:
     """What the Dreamer family's trainers share: the modules (``agent``, the
     dict the loop's ``build_agent_fn`` returns), the extra state (Moments)
     and the optimizers of a run, as one tree (:meth:`state_tree`) that the
-    checkpoint, the health guard's snapshot and its restore walk; the window
+    checkpoint and the health guard walk; the window
     of updates (:meth:`train_phase`); and the imagination scan.  A subclass
     gives :meth:`train_step` (one update on an ``(L, B, *)`` block returning
     the ten metrics of :data:`METRIC_NAMES`) and adds its extra state to
@@ -299,8 +299,12 @@ class DreamerTrainer:
         """Every trained tensor: parameters, target networks and Moments."""
         return _tree_tensors(self.state_tree())
 
+    def guarded_state(self) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """What the health guard covers: :meth:`tensors` and the optimizers' state."""
+        return self.tensors(), optimizer_state_tensors(self.optimizers)
+
     def snapshot(self) -> Dict[str, Any]:
-        """A device copy of the whole trained state (for the health guard)."""
+        """A device copy of the whole trained state."""
         return _clone({"agent": self.agent_state(), "opt": self.opt_state()})
 
     def restore(self, snap: Dict[str, Any]) -> None:
@@ -843,7 +847,11 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
     def host_window(n_updates, blocks, counter):
         return counter + n_updates, trainer.train_phase(blocks, train_gen, counter)
 
-    train_window = fabric.compile(device_window if use_device_replay else host_window,
+    window_fn = device_window if use_device_replay else host_window
+    if sentinel is not None:
+        # the health guard inside the window: backup, chunk, select, detector
+        window_fn = sentinel.wrap(window_fn, trainer.guarded_state, fabric.device)
+    train_window = fabric.compile(window_fn,
                                   name=f"{cfg.algo.name}.train_phase" + ("_device" if use_device_replay else ""),
                                   static_argnums=(0,), max_recompiles=max_recompiles, generators=(train_gen,),
                                   eager_reason=trainer.graph_eager_reason)
@@ -981,8 +989,8 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
                     # draws and gathers its sequences there: nothing is copied
                     # from the host, and with buffer.transfer_guard a chunk
                     # after the first window that waits on the host raises (the
-                    # health check reads its flag after the guarded chunk)
-                    # a captured window runs in power-of-two chunks of at most
+                    # health guard inside the chunk reads nothing back); a
+                    # captured window runs in power-of-two chunks of at most
                     # GRAPH_WINDOW_UPDATES updates, one graph per chunk size
                     cap = GRAPH_WINDOW_UPDATES if captured else None
                     if use_device_replay:
@@ -993,7 +1001,6 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
                     else:
                         chunks = window_chunks(per_rank_gradient_steps, bytes_per_update)
                     for u in chunks:
-                        backup = trainer.snapshot() if sentinel is not None else None
                         if use_device_replay:
                             with steady_guard(guard_on and train_windows > 0):
                                 counter, last_metrics = train_window(u, counter)
@@ -1004,11 +1011,19 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
                             counter, last_metrics = train_window(u, blocks, counter)
                             del blocks
                         grad_step_counter += u
-                        if sentinel is not None and not sentinel.check(last_metrics, trainer.tensors(), policy_step):
-                            trainer.restore(backup)
-                        del backup
                     train_windows += 1
                     psync.after_dispatch()
+
+        # ---------------- training-health sentinel -------------------------------
+        # the guard's state is read every health.poll_every_updates
+        # iterations; the family rolls back through the process boundary, as
+        # in JAX: a relaunch with checkpoint.resume_from=auto
+        if (sentinel is not None and train_windows and sentinel.should_poll(update, total_iters)
+                and sentinel.poll(policy_step) == "rollback"):
+            raise DivergenceError(
+                f"training diverged at step {policy_step}; relaunch with checkpoint.resume_from=auto to roll back "
+                "to the last committed snapshot"
+            )
 
         # ---------------- logging ------------------------------------------------
         if cfg.metric.log_level > 0 and (
@@ -1024,6 +1039,8 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
 
         # ---------------- checkpoint ---------------------------------------------
         if ckpt_mgr.should_save(policy_step, last_checkpoint, final=update == total_iters):
+            if sentinel is not None:
+                sentinel.settle()  # the last window's host-resident select, before its state is saved
             last_checkpoint = policy_step
             ckpt_state = {
                 "agent": trainer.agent_state(),
@@ -1040,12 +1057,15 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
             if cfg.buffer.checkpoint:
                 ckpt_state["rb"] = rb.state_dict()
             ckpt_mgr.save(policy_step, ckpt_state)
+            if ckpt_mgr.preempted:
+                print(f"Preemption: committed checkpoint at step {policy_step}, exiting", flush=True)
+                break
 
     envs.close()
     if getattr(rb, "spill", None) is not None:
         rb.spill.close()
     ckpt_mgr.finalize()
-    if cfg.algo.run_test:
+    if cfg.algo.run_test and not ckpt_mgr.preempted:
         # the deferred-sync player may be a window behind: sync once more
         psync.init()
 

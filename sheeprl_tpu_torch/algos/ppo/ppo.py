@@ -416,11 +416,14 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
                 "last_checkpoint": last_checkpoint,
                 **trainer.checkpoint_extras(),
             })
+            if ckpt_mgr.preempted:
+                print(f"Preemption: committed checkpoint at step {policy_step}, exiting", flush=True)
+                break
 
     if envs is not None:
         envs.close()
     ckpt_mgr.finalize()
-    if cfg.algo.run_test:
+    if cfg.algo.run_test and not ckpt_mgr.preempted:
         test(player, cfg, log_dir, logger)
     if logger is not None:
         logger.close()

@@ -315,11 +315,14 @@ def main(fabric: Any, cfg: Any) -> None:
                 "last_log": last_log,
                 "last_checkpoint": last_checkpoint,
             })
+            if ckpt_mgr.preempted:
+                print(f"Preemption: committed checkpoint at step {policy_step}, exiting", flush=True)
+                break
 
     if envs is not None:
         envs.close()
     ckpt_mgr.finalize()
-    if cfg.algo.run_test:
+    if cfg.algo.run_test and not ckpt_mgr.preempted:
         test(player, cfg, log_dir, logger)
     if logger is not None:
         logger.close()

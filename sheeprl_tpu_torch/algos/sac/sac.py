@@ -28,9 +28,13 @@ env's bounds.  A done env's stored next observation is its real final one.
 lives on the device and each window is drawn, gathered and trained there in
 power-of-two chunks (``data/device_replay.fused_uniform_train``, the
 layout's ``prep``); otherwise a host ring is sampled with numpy.  The health
-guard undoes a chunk whose losses or weights are not finite; checkpoints
-carry the replay buffer when ``buffer.checkpoint``, so a resumed run
-continues; the test episode runs last.
+guard inside the window skips a chunk whose losses or weights are not
+finite (``resilience/health.py``), and with
+``health.divergence.action=rollback`` a diverged run reloads its newest
+committed snapshot in the loop, keeping its replay, at most
+``health.divergence.max_rollbacks`` times; checkpoints carry the replay
+buffer when ``buffer.checkpoint``, so a resumed run continues; a preempted
+run exits after its final committed save; the test episode runs last.
 
 Not ported: the decoupled topology, the scale layer's (ROADMAP.md, queue A
 item 5).
@@ -53,6 +57,7 @@ from sheeprl_tpu_torch.algos.sac.agent import build_agent, ema_update, sample_ac
 from sheeprl_tpu_torch.algos.sac.loss import actor_loss, alpha_loss, critic_loss
 from sheeprl_tpu_torch.algos.sac.utils import prepare_obs, test, to_env_actions, to_tanh_space
 from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
+from sheeprl_tpu_torch.checkpoint.rollback import rollback_state
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.data.device_replay import (
     build_device_replay,
@@ -64,12 +69,12 @@ from sheeprl_tpu_torch.data.device_replay import (
 )
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.fabric import PlayerSync
-from sheeprl_tpu_torch.resilience.health import HealthSentinel
+from sheeprl_tpu_torch.resilience.health import DivergenceError, HealthSentinel
 from sheeprl_tpu_torch.utils.distribution import Normal
 from sheeprl_tpu_torch.utils.env import episode_stats, final_obs_rows, make_env, vectorize
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, flush_metrics
-from sheeprl_tpu_torch.utils.optim import ClippedOptimizer, build_optimizer
+from sheeprl_tpu_torch.utils.optim import ClippedOptimizer, build_optimizer, optimizer_state_tensors
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 from sheeprl_tpu_torch.utils.timer import timer
 from sheeprl_tpu_torch.utils.utils import Ratio, TrainWindow, save_configs
@@ -148,17 +153,23 @@ class SACTrainer:
         """Every trained tensor: the parameters and the target networks."""
         return list(self.agent.state_dict().values())
 
+    def guarded_state(self) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """What the health guard covers: :meth:`tensors` and the optimizers' state."""
+        return self.tensors(), optimizer_state_tensors(self.optimizers)
+
     def snapshot(self) -> Dict[str, Any]:
-        """A device copy of the agent and the optimizers (for the health guard)."""
+        """A device copy of the agent and the optimizers."""
         return _clone({"agent": self.agent.state_dict(), "opt": self.opt_state()})
 
     def restore(self, snap: Dict[str, Any]) -> None:
-        """Load ``snap``; it stays intact (``Optimizer.load_state_dict`` keeps
-        the tensors it is given, so it gets copies)."""
+        """Load ``snap`` (a :meth:`snapshot`, or a checkpoint's ``agent`` and
+        ``opt_state`` as ``{"agent", "opt"}``) by copying into the live
+        tensors, so the guard's backup and the player keep theirs; ``snap``
+        stays intact."""
         with torch.no_grad():
             self.agent.load_state_dict(snap["agent"])
         for name, opt in self.optimizers.items():
-            opt.load_state_dict(_clone(snap["opt"][name]))
+            opt.copy_state_(snap["opt"][name])
 
     # -- one update --------------------------------------------------------------
     def draw_noise(self, batch_size: int, generator: torch.Generator) -> UpdateNoise:
@@ -352,13 +363,20 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
         rb.load_state_dict(_rb_state_from_checkpoint(state["rb"]))
     batch_size = int(cfg.algo.per_rank_batch_size)
 
-    # every route through the compile-once audit; all run eagerly so far
+    # every route through the compile-once audit; all run eagerly so far.
+    # Both windows return (the gradient-step count after them, the losses)
     max_recompiles = cfg.algo.get("max_recompiles")
     eager = "the off-policy update is captured later (ROADMAP.md, queue A item 3(e))"
+    if use_device_replay:
+        def window_fn(n, counter):
+            return fused_uniform_train(trainer, rb, train_gen, batch_size, n, layout.prep, counter)
+    else:
+        def window_fn(batches, counter):
+            return counter + batches["rewards"].shape[0], trainer.train_phase(batches, train_gen, counter)
+    if sentinel is not None:
+        window_fn = sentinel.wrap(window_fn, trainer.guarded_state, fabric.device)
     train_window = fabric.compile(
-        (lambda n, counter: fused_uniform_train(trainer, rb, train_gen, batch_size, n, layout.prep, counter))
-        if use_device_replay else (lambda batches, counter: trainer.train_phase(batches, train_gen, counter)),
-        name=f"{cfg.algo.name}.train_phase" + ("_device" if use_device_replay else ""),
+        window_fn, name=f"{cfg.algo.name}.train_phase" + ("_device" if use_device_replay else ""),
         static_argnums=(0,) if use_device_replay else (), max_recompiles=max_recompiles, eager_reason=eager)
     player_step = fabric.compile(lambda o: trainer.act(psync.modules, o, player_gen),
                                  name=f"{cfg.algo.name}.player_step", device=player_device,
@@ -407,27 +425,45 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
                 with timer("Time/train_time"):
                     psync.before_dispatch()
                     # on the device ring each chunk draws and gathers its
-                    # batches there (power-of-two chunks, as JAX's), the health
-                    # check reading its flag after the guarded chunk
+                    # batches there (power-of-two chunks, as JAX's); the
+                    # health guard inside the chunk reads nothing back
                     if use_device_replay:
                         chunks = update_chunks(due, bytes_per_update=rb.sampled_bytes_per_update(batch_size))
                     else:
                         chunks = update_chunks(due) if trainer_cls.CHUNKED else (due,)
                     for u in chunks:
-                        backup = trainer.snapshot() if sentinel is not None else None
                         if use_device_replay:
                             with steady_guard(guard_on and train_windows > 0):
                                 grad_step_counter, last_losses = train_window(u, grad_step_counter)
                         else:
                             batches = layout.batches(rb.sample(batch_size, n_samples=u), fabric.device)
-                            last_losses = train_window(batches, grad_step_counter)
+                            grad_step_counter, last_losses = train_window(batches, grad_step_counter)
                             del batches
-                            grad_step_counter += u
-                        if sentinel is not None and not sentinel.check(last_losses, trainer.tensors(), policy_step):
-                            trainer.restore(backup)
-                        del backup
                     train_windows += 1
                     psync.after_dispatch()
+
+        # ---------------- training-health sentinel -------------------------------
+        # the guard's state is read every health.poll_every_updates
+        # iterations; a diverged run rolls back to its newest committed
+        # snapshot in the loop (JAX's sac.py), keeping the replay: what the
+        # diverged policy collected is still valid off-policy data
+        if (sentinel is not None and train_windows and sentinel.should_poll(update, total_iters)
+                and sentinel.poll(policy_step) == "rollback"):
+            sentinel.begin_rollback(policy_step)  # raises past the budget
+            rb_state, rb_dir = rollback_state(ckpt_mgr, fabric)
+            if rb_state is None:
+                raise DivergenceError(
+                    f"training diverged at step {policy_step} with no committed checkpoint to roll back to")
+            trainer.restore({"agent": rb_state["agent"], "opt": rb_state["opt_state"]})
+            for name, gen in (("train", train_gen), ("player", player_gen)):
+                gen.set_state(rb_state["generators"][name].cpu())
+            grad_step_counter = int(rb_state.get("grad_steps", grad_step_counter))
+            sentinel.reseed_state()
+            psync.init()
+            last_losses = None
+            print(f"health: diverged at step {policy_step} — rolled back to committed snapshot {rb_dir}",
+                  flush=True)
+            sentinel.rolled_back()
 
         # ---------------- logging ------------------------------------------------
         if cfg.metric.log_level > 0 and (
@@ -443,6 +479,8 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
 
         # ---------------- checkpoint ---------------------------------------------
         if ckpt_mgr.should_save(policy_step, last_checkpoint, final=update == total_iters):
+            if sentinel is not None:
+                sentinel.settle()  # the last window's host-resident select, before its state is saved
             last_checkpoint = policy_step
             ckpt_state = {
                 "agent": agent.state_dict(),
@@ -460,12 +498,15 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
             if cfg.buffer.checkpoint:
                 ckpt_state["rb"] = rb.state_dict()
             ckpt_mgr.save(policy_step, ckpt_state)
+            if ckpt_mgr.preempted:
+                print(f"Preemption: committed checkpoint at step {policy_step}, exiting", flush=True)
+                break
 
     envs.close()
     if getattr(rb, "spill", None) is not None:
         rb.spill.close()
     ckpt_mgr.finalize()
-    if cfg.algo.run_test:
+    if cfg.algo.run_test and not ckpt_mgr.preempted:
         # the deferred-sync player may be a window behind: sync once more
         modules = psync.init()
         test(test_actor(trainer_cls, modules, layout, player_device, int(cfg.seed)), cfg, log_dir, logger)

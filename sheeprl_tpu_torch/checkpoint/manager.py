@@ -11,10 +11,24 @@ retention and resume discovery.
 * retention: keep the newest ``checkpoint.keep_last`` committed snapshots
   plus every one whose step is a multiple of ``checkpoint.keep_every``;
 * resume: :func:`resolve_auto_resume` finds the newest committed snapshot of
-  the experiment (``checkpoint.resume_from=auto``).
+  the experiment (``checkpoint.resume_from=auto``);
+  :meth:`CheckpointManager.latest` the newest of this run (the rollback's
+  target, ``rollback.py``);
+* preemption (``checkpoint.save_on_preemption``, ``preemption.py``): the
+  first ``should_save`` installs the SIGTERM/SIGINT latch; once it is set,
+  ``should_save`` answers True, ``save`` commits synchronously, and the loop
+  exits after that save, without its test episode;
+* liveness: the writer arms a watchdog with ``checkpoint.hang_warn_s``
+  around each job (``writer.py``).
 
-Preemption signals (``checkpoint.save_on_preemption``) are not handled by
-the port yet (ROADMAP.md, queue A item 6).
+Two settings of the JAX manager act only above one process, where the port
+does not run yet (ROADMAP.md, queue A item 5(b)):
+``checkpoint.commit_timeout_s`` bounds rank 0's wait for the other ranks'
+shards before the commit (one process has written its only shard before it
+commits, so nothing is waited for), and
+``checkpoint.preemption_poll_every`` spaces the collective by which the
+ranks agree on a preemption (one process reads its latch at once, as JAX's
+``preempted`` does with one process).
 """
 
 from __future__ import annotations
@@ -28,10 +42,12 @@ from typing import Any, Dict, Optional, Union
 import numpy as np
 import torch
 
+from sheeprl_tpu_torch.checkpoint.preemption import PREEMPTION_GUARD
 from sheeprl_tpu_torch.checkpoint.protocol import (
     checkpoint_step,
     fsync_dir,
     is_committed,
+    latest_checkpoint,
     list_checkpoints,
     step_dir_name,
     write_commit,
@@ -95,11 +111,41 @@ class CheckpointManager:
         self.queue_size = int(ckpt_cfg.get("queue_size", 2) or 2)
         self.io_retries = int(ckpt_cfg.get("io_retries", 3) or 1)
         self.io_retry_base_s = float(ckpt_cfg.get("io_retry_base_s", 0.5))
+        self.hang_warn_s = float(ckpt_cfg.get("hang_warn_s", 120.0) or 0)
+        self.save_on_preemption = bool(ckpt_cfg.get("save_on_preemption", True))
+        # read as JAX reads them; both act only above one process (module docstring)
+        self.commit_timeout_s = float(ckpt_cfg.get("commit_timeout_s", 300.0))
+        self.preemption_poll_every = int(ckpt_cfg.get("preemption_poll_every", 10) or 10)
         self.root = Path(log_dir) / "checkpoint"
         self._writer: Optional[AsyncCheckpointWriter] = None
+        self._guard = PREEMPTION_GUARD
+        self._preempted = False
         self._finalized = False
 
+    # -- cadence -----------------------------------------------------------------
+    @property
+    def preempted(self) -> bool:
+        """Whether a preemption is pending: the process's SIGTERM/SIGINT latch,
+        read at once (one process), or :meth:`force_preempt`."""
+        if not self._preempted and self._guard.requested():
+            self._preempted = True
+        return self._preempted
+
+    def force_preempt(self) -> None:
+        """Adopt a preemption decided outside the latch: the next
+        ``should_save`` answers True and the save is synchronous."""
+        self._preempted = True
+
     def should_save(self, policy_step: int, last_checkpoint: int, final: bool = False) -> bool:
+        """The cadence every loop shares: ``checkpoint.every`` policy steps,
+        the final ``save_last`` save, or a pending preemption, which saves
+        now whatever the cadence.  With ``checkpoint.save_on_preemption`` the
+        first call installs the SIGTERM/SIGINT latch (idempotent): only a
+        loop that reads the latch swallows the first signal."""
+        if self.save_on_preemption:
+            self._guard.install()
+        if self.preempted:
+            return True
         if self.every > 0 and policy_step - last_checkpoint >= self.every:
             return True
         return final and self.save_last
@@ -108,8 +154,12 @@ class CheckpointManager:
         return self.root / step_dir_name(step)
 
     def save(self, step: int, state: Dict[str, Any], sync: Optional[bool] = None) -> Path:
-        """Snapshot ``state`` now (host copies) and commit it as ``step``."""
-        sync = not self.async_save if sync is None else sync
+        """Snapshot ``state`` now (host copies) and commit it as ``step``;
+        synchronously with ``checkpoint.async_save=False`` or once preempted
+        (the final save must be committed before the process exits).  The
+        copies to the host wait for the work queued on the device, a
+        replayed window's included, so call it outside ``steady_guard``."""
+        sync = (not self.async_save or self.preempted) if sync is None else sync
         step_dir = self.step_dir(step)
         step_dir.mkdir(parents=True, exist_ok=True)
         snap = to_host(state)
@@ -125,9 +175,20 @@ class CheckpointManager:
             run_with_io_retry(job, self.io_retries, self.io_retry_base_s)
         else:
             if self._writer is None:
-                self._writer = AsyncCheckpointWriter(self.queue_size, self.io_retries, self.io_retry_base_s)
+                self._writer = AsyncCheckpointWriter(self.queue_size, self.io_retries, self.io_retry_base_s,
+                                                     self.hang_warn_s)
             self._writer.submit(job)
         return step_dir
+
+    def latest(self) -> Optional[Path]:
+        """The newest committed snapshot of this run."""
+        return latest_checkpoint(self.root)
+
+    def flush(self) -> None:
+        """Wait for the queued saves without finalizing (a rollback needs the
+        pending commits on disk, then keeps checkpointing)."""
+        if self._writer is not None:
+            self._writer.flush()
 
     def finalize(self, timeout_s: Optional[float] = 300.0) -> None:
         """Drain outstanding async saves (idempotent; call before teardown)."""

@@ -30,6 +30,9 @@ from typing import Any, Dict, List, Optional, Union
 
 import torch
 
+from sheeprl_tpu_torch.resilience.faults import fault_bytes, fault_point
+from sheeprl_tpu_torch.telemetry.monitors import RESILIENCE_MONITOR
+
 COMMIT_FILE = "COMMIT"
 MANIFEST_FILE = "MANIFEST.json"
 STEP_PREFIX = "step_"
@@ -109,6 +112,10 @@ def write_shard(step_dir: PathLike, rank: int, state: Any) -> Dict[str, int]:
     torch.save(state, buf)
     payload = buf.getvalue()
     meta = {"crc32": zlib.crc32(payload) & 0xFFFFFFFF, "bytes": len(payload)}
+    # fault site: raise/hang is a dying disk; corrupt/truncate damage the
+    # payload after its CRC was taken, the bit-rotted or short shard that
+    # verify_checkpoint must catch (the meta keeps the intended size and CRC)
+    payload = fault_bytes("checkpoint.write_shard", payload)
     durable_write(step_dir / shard_name(rank), payload)
     durable_write(step_dir / _meta_name(rank), json.dumps(meta).encode())
     return meta
@@ -124,6 +131,9 @@ def write_commit(step_dir: PathLike, step: int, world: int = 1) -> bool:
     for r in range(world):
         with open(step_dir / _meta_name(r)) as f:
             shards[shard_name(r)] = json.load(f)
+    # fault site: a crash or hang here, after the shards and before COMMIT,
+    # is the torn snapshot that resume and serving must never choose
+    fault_point("checkpoint.commit")
     manifest = {"step": int(step), "world": int(world), "time": time.time(), "shards": shards}
     durable_write(step_dir / MANIFEST_FILE, json.dumps(manifest, indent=1).encode())
     durable_write(step_dir / COMMIT_FILE, b"")
@@ -192,6 +202,7 @@ def quarantine_checkpoint(step_dir: PathLike) -> Optional[Path]:
     except OSError:
         return None
     fsync_dir(step_dir.parent)
+    RESILIENCE_MONITOR.record_quarantine(target)
     return target
 
 

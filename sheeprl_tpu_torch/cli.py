@@ -114,10 +114,18 @@ def resolve_resume_target(cfg: dotdict) -> dotdict:
 def run(argv: Optional[List[str]] = None) -> None:
     """Compose the config, check it, and run the registered algorithm on the
     fabric's device."""
+    from sheeprl_tpu_torch.checkpoint.preemption import PREEMPTION_GUARD
     from sheeprl_tpu_torch.fabric import build_fabric
+    from sheeprl_tpu_torch.resilience.faults import install_from_config
 
     argv = list(sys.argv[1:] if argv is None else argv)
+    # a preemption latched during an earlier run in this interpreter was
+    # honoured by that run's final save: this run starts un-preempted
+    PREEMPTION_GUARD.clear_latch()
     cfg = compose(argv)
+    # arm (or clear) the fault plan before anything touches envs or
+    # checkpoints; SHEEPRL_FAULT_PLAN wins over the config group
+    install_from_config(cfg)
     cfg = resolve_resume_target(cfg)
     if cfg.checkpoint.get("resume_from"):
         cfg = resume_from_checkpoint(cfg)
@@ -145,11 +153,16 @@ def serve(argv: Optional[List[str]] = None) -> None:
 
     The service runs every batch-ladder rung once before the socket is bound.
     """
+    from sheeprl_tpu_torch.resilience.faults import install_from_config, install_from_env
     from sheeprl_tpu_torch.serve.server import PolicyServer
     from sheeprl_tpu_torch.serve.service import PolicyService
 
     checkpoint_path, rest = _split_checkpoint_arg(argv, "serve")
+    # a SHEEPRL_FAULT_PLAN plan covers the load too; a config-group plan is
+    # known only once the run's config is loaded beside the checkpoint
+    install_from_env()
     service = PolicyService.from_checkpoint(checkpoint_path, rest)
+    install_from_config(service.cfg)
     serve_cfg = service.cfg.get("serve") or {}
     server = PolicyServer(
         service, host=str(serve_cfg.get("host", "127.0.0.1")), port=int(serve_cfg.get("port", 7455))

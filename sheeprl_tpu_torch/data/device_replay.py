@@ -37,6 +37,7 @@ a no-op, and this port has no mesh.
 from __future__ import annotations
 
 import contextlib
+import functools
 import math
 import os
 import queue
@@ -46,6 +47,8 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence, Tupl
 
 import numpy as np
 import torch
+
+from sheeprl_tpu_torch.resilience.faults import fault_rows
 
 Arrays = Dict[str, np.ndarray]
 Cursor = Dict[str, torch.Tensor]
@@ -207,9 +210,10 @@ class HostSpill:
     An error in the worker is parked: :attr:`degraded` flips, the device
     ring keeps training and a checkpoint falls back to the device ring.
 
-    :attr:`fault` is the ``replay.spill`` fault site: when set, the worker
-    passes each job's rows through it before writing (the fault-injection
-    layer installs it; nothing does yet)."""
+    :attr:`fault` is the ``replay.spill`` fault site: the worker passes each
+    job's rows through it before writing (by default the active fault plan's
+    :func:`~sheeprl_tpu_torch.resilience.faults.fault_rows`, a no-op without
+    a plan)."""
 
     def __init__(
         self,
@@ -229,7 +233,7 @@ class HostSpill:
             )
         else:
             self._rb = ReplayBuffer(int(capacity), int(n_envs), memmap=memmap, memmap_dir=memmap_dir)
-        self.fault: Optional[Callable[[Arrays], Arrays]] = None
+        self.fault: Optional[Callable[[Arrays], Arrays]] = functools.partial(fault_rows, "replay.spill")
         self._queue: "queue.Queue[Optional[Tuple[Any, Any]]]" = queue.Queue(
             maxsize=max(1, int(queue_size))
         )

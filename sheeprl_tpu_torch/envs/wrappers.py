@@ -12,6 +12,8 @@ import numpy as np
 
 from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.dummy import Env
+from sheeprl_tpu_torch.resilience.faults import fault_point
+from sheeprl_tpu_torch.telemetry.monitors import RESILIENCE_MONITOR
 
 
 class Wrapper(Env):
@@ -50,10 +52,26 @@ class ActionRepeat(Wrapper):
         return obs, total_reward, terminated, truncated, info
 
 
+class FaultInjectionEnv(Wrapper):
+    """Fire the ``env.step`` / ``env.reset`` fault sites
+    (``resilience/faults.py``) around the wrapped env.  ``make_env`` adds it
+    only when the active plan targets an ``env.*`` site, inside
+    :class:`RestartOnException`, so an injected crash exercises the real
+    restart path."""
+
+    def step(self, action: Any):
+        fault_point("env.step")
+        return self.env.step(action)
+
+    def reset(self, **kwargs: Any):
+        fault_point("env.reset")
+        return self.env.reset(**kwargs)
+
+
 class RestartOnException(Wrapper):
     """Recreate a crashed environment; at most ``max_restarts`` within
     ``window`` seconds, then the exception propagates.  A restart sets
-    ``info["restart_on_exception"]``."""
+    ``info["restart_on_exception"]`` and counts in ``Resilience/env_restarts``."""
 
     def __init__(self, env_fn: Callable[[], Env], max_restarts: int = 5, window: float = 60.0):
         self._env_fn = env_fn
@@ -71,6 +89,7 @@ class RestartOnException(Wrapper):
                 f"Environment crashed {len(self._restart_times)} times within {self._window}s; giving up"
             )
         self._restart_times.append(now)
+        RESILIENCE_MONITOR.record_env_restart()
         try:
             self.env.close()
         except Exception:

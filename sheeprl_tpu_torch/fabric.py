@@ -23,6 +23,8 @@ from typing import Any, Callable, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from sheeprl_tpu_torch.resilience.faults import fault_point
+
 
 @dataclass(frozen=True)
 class Precision:
@@ -204,6 +206,7 @@ class PlayerSync:
         if self.modules:
             self._load({name: m.state_dict() for name, m in self.extract().items()})
             return self.modules
+        fault_point("fabric.copy_to")
         for name, module in self.extract().items():
             player = copy.deepcopy(module).to(self.device)
             player.requires_grad_(False)
@@ -211,6 +214,9 @@ class PlayerSync:
         return self.modules
 
     def _load(self, states: Dict[str, Dict[str, torch.Tensor]]) -> None:
+        # fault site (JAX's Fabric.copy_to, which moves the player's weights):
+        # raise is a link dropped mid-copy, latency a congested one
+        fault_point("fabric.copy_to")
         with torch.no_grad():
             for name, state in states.items():
                 self.modules[name].load_state_dict(state)

@@ -29,6 +29,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
+from sheeprl_tpu_torch.resilience.faults import fault_point
 from sheeprl_tpu_torch.serve.batcher import QueueFull, ServiceStopped
 
 
@@ -134,6 +135,9 @@ def _make_handler(service: Any):
 
         def do_GET(self) -> None:  # noqa: N802 (stdlib naming)
             try:
+                # fault site: raise → 500 (the client retries an idempotent
+                # request), hang/latency → a slow or stuck reply
+                fault_point("serve.http")
                 if self.path == "/healthz":
                     player = service.player
                     self._reply(
@@ -160,6 +164,7 @@ def _make_handler(service: Any):
 
         def do_POST(self) -> None:  # noqa: N802
             try:
+                fault_point("serve.http")
                 if self.path == "/v1/act":
                     self._act()
                 elif self.path == "/v1/reset":

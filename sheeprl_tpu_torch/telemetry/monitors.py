@@ -1,12 +1,16 @@
-"""The compile monitor (counterpart of ``sheeprl_tpu/telemetry/monitors.py``).
+"""The compile and resilience monitors (counterpart of
+``sheeprl_tpu/telemetry/monitors.py``).
 
 :class:`CompileMonitor` counts the programs built for each compile-once
 function of the port — on the card one captured CUDA graph per signature,
 on the CPU one eager entry per signature (``parallel/compile.py``) — and
-keeps each one's signature.  The JAX module also registers its monitors
-with the telemetry hub and writes compiles to the flight recorder; neither
-exists in the port yet (ROADMAP.md, queue A item 6), so this copy keeps the
-accounting alone.
+keeps each one's signature.  :class:`ResilienceMonitor` counts what the
+resilience layer (``resilience/``) did: retries, watchdog stalls, breaker
+openings, quarantined snapshots and injected faults; the train loops flush
+its ``Resilience/*`` metrics with their own.  The JAX module also registers
+its monitors with the telemetry hub and writes events to the flight
+recorder; neither exists in the port yet (ROADMAP.md, queue A item 6(b)),
+so this copy keeps the accounting alone.
 """
 
 from __future__ import annotations
@@ -81,3 +85,73 @@ class CompileMonitor:
 
 #: The process-global monitor every GraphFunction reports into.
 COMPILE_MONITOR = CompileMonitor()
+
+
+class ResilienceMonitor:
+    """Process-global accounting of the resilience layer: primitives record
+    from any thread, :meth:`metrics` gives the ``Resilience/*`` counters.
+    When nothing has been recorded it returns ``{}``, so a run with no
+    fault plan and no recovery logs no ``Resilience/*`` metric."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self.reset()
+
+    def reset(self) -> None:
+        with self._lock:
+            self._counts = {k: 0 for k in _RESILIENCE_METRICS}
+            self._injected_by_site: Dict[str, int] = {}
+
+    def _add(self, key: str, n: int = 1) -> None:
+        with self._lock:
+            self._counts[key] += int(n)
+
+    def record_retry(self, site: str = "") -> None:
+        self._add("retries")
+
+    def record_retry_success(self, site: str = "") -> None:
+        self._add("retry_successes")
+
+    def record_giveup(self, site: str = "") -> None:
+        self._add("giveups")
+
+    def record_stall(self, name: str = "") -> None:
+        self._add("stalls")
+
+    def record_env_restart(self, count: int = 1) -> None:
+        self._add("env_restarts", count)
+
+    def record_breaker(self, name: str, state: str) -> None:
+        if state == "open":
+            self._add("breaker_opens")
+
+    def record_quarantine(self, path: Any = None) -> None:
+        self._add("quarantined")
+
+    def record_injection(self, site: str, kind: str) -> None:
+        with self._lock:
+            self._counts["injected"] += 1
+            self._injected_by_site[site] = self._injected_by_site.get(site, 0) + 1
+
+    def metrics(self) -> Dict[str, float]:
+        with self._lock:
+            return {name: float(self._counts[k]) for k, name in _RESILIENCE_METRICS.items() if self._counts[k]}
+
+    def totals(self) -> Dict[str, Any]:
+        with self._lock:
+            return {**self._counts, "injected_by_site": dict(self._injected_by_site)}
+
+
+_RESILIENCE_METRICS = {
+    "retries": "Resilience/retries",
+    "retry_successes": "Resilience/retry_successes",
+    "giveups": "Resilience/giveups",
+    "stalls": "Resilience/watchdog_stalls",
+    "env_restarts": "Resilience/env_restarts",
+    "breaker_opens": "Resilience/breaker_opens",
+    "quarantined": "Resilience/quarantined_snapshots",
+    "injected": "Resilience/faults_injected",
+}
+
+#: The process-global monitor every resilience primitive reports into.
+RESILIENCE_MONITOR = ResilienceMonitor()

@@ -31,6 +31,7 @@ from sheeprl_tpu_torch.envs.dummy import (
 from sheeprl_tpu_torch.envs.wrappers import (
     ActionRepeat,
     ActionsAsObservationWrapper,
+    FaultInjectionEnv,
     FrameStack,
     MaskVelocityWrapper,
     RestartOnException,
@@ -39,6 +40,7 @@ from sheeprl_tpu_torch.envs.wrappers import (
     TransformReward,
     Wrapper,
 )
+from sheeprl_tpu_torch.resilience.faults import active_plan
 
 DUMMY_ENVS = {
     "discrete_dummy": DiscreteDummyEnv,
@@ -61,9 +63,6 @@ def _unsupported(cfg: Any, run_name: Optional[str]) -> list:
     out = []
     if cfg.env.get("capture_video", False) and run_name is not None:
         out.append("env.capture_video (ROADMAP.md, queue A item 6)")
-    faults = cfg.get("fault_injection") or {}
-    if faults.get("enabled") and any(str(f.get("site", "")).startswith("env.") for f in faults.get("plan") or []):
-        out.append("fault injection at the env sites (ROADMAP.md, queue A item 6)")
     return out
 
 
@@ -220,6 +219,12 @@ def make_env(
         if seed is not None:
             env.reset(seed=seed + rank * cfg.env.num_envs + vector_env_idx)
             env.action_space.seed(seed + rank * cfg.env.num_envs + vector_env_idx)
+        # the env fault sites, only when the active plan targets them; after
+        # seeding (a construction reset is no target) and inside
+        # RestartOnException, so an injected crash takes the real restart path
+        plan = active_plan()
+        if plan is not None and plan.targets("env."):
+            env = FaultInjectionEnv(env)
         return env
 
     def thunk() -> Env:

@@ -12,6 +12,8 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
+from sheeprl_tpu_torch.telemetry.monitors import RESILIENCE_MONITOR
+
 
 def _to_float(v: Any) -> Optional[float]:
     if hasattr(v, "detach"):  # a torch tensor
@@ -98,7 +100,8 @@ def flush_metrics(
 ) -> int:
     """The end-of-interval flush every train loop shares: compute and reset
     the aggregator, drain the named timers, derive the two steps-per-second
-    rates, merge ``extra_metrics``, log, and return the new ``last_log``."""
+    rates, merge ``extra_metrics`` and the resilience layer's
+    ``Resilience/*`` counters, log, and return the new ``last_log``."""
     metrics = aggregator.compute()
     aggregator.reset()
     times = timer_obj.to_dict(reset=True)
@@ -109,6 +112,7 @@ def flush_metrics(
         metrics["Time/sps_train"] = steps_since / max(times["Time/train_time"], 1e-9)
     if extra_metrics:
         metrics.update(extra_metrics)
+    metrics.update(RESILIENCE_MONITOR.metrics())
     metrics.update(times)
     if logger is not None and metrics:
         logger.log_metrics(metrics, policy_step)

@@ -25,7 +25,7 @@ from typing import Any, Dict, Iterable, List, Optional
 import torch
 
 __all__ = ["ClippedOptimizer", "RMSprop", "build_optimizer", "clip_by_global_norm_", "get_learning_rate",
-           "set_learning_rate"]
+           "optimizer_state_tensors", "set_learning_rate"]
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
@@ -53,6 +53,15 @@ class RMSprop(torch.optim.Optimizer):
         super().__init__(params, dict(lr=lr, alpha=alpha, eps=eps, momentum=momentum, centered=centered,
                                       tf_style=tf_style))
 
+    def init_param_state(self, p: torch.Tensor, group: Dict[str, Any]) -> None:
+        """The state ``p`` starts from (its first step makes it)."""
+        state = self.state[p]
+        state["square_avg"] = torch.ones_like(p) if group["tf_style"] else torch.zeros_like(p)
+        if group["centered"]:
+            state["grad_avg"] = torch.zeros_like(p)
+        if group["momentum"] > 0:
+            state["momentum_buffer"] = torch.zeros_like(p)
+
     @torch.no_grad()
     def step(self, closure=None):
         for group in self.param_groups:
@@ -62,11 +71,7 @@ class RMSprop(torch.optim.Optimizer):
                     continue
                 g, state = p.grad, self.state[p]
                 if not state:
-                    state["square_avg"] = torch.ones_like(p) if group["tf_style"] else torch.zeros_like(p)
-                    if group["centered"]:
-                        state["grad_avg"] = torch.zeros_like(p)
-                    if momentum > 0:
-                        state["momentum_buffer"] = torch.zeros_like(p)
+                    self.init_param_state(p, group)
                 v = state["square_avg"].mul_(alpha).addcmul_(g, g, value=1 - alpha)
                 if group["centered"]:
                     m = state["grad_avg"].mul_(alpha).add_(g, alpha=1 - alpha)
@@ -106,6 +111,44 @@ class ClippedOptimizer:
     def zero_grad(self) -> None:
         self.optimizer.zero_grad(set_to_none=True)
 
+    @torch.no_grad()
+    def init_state_(self) -> None:
+        """Make the state of every parameter that has none yet, as its first
+        step would, without stepping, so the health guard's backup covers a
+        fixed set of tensors from the first window on: Adam's and AdamW's
+        zero moments and zero step, the RMSprops' start, SGD's zero momentum
+        buffer (where the first step's ``buf = grad`` and ``buf = 0 *
+        momentum + grad`` agree: no dampening).  Idempotent."""
+        opt = self.optimizer
+        for group in opt.param_groups:
+            for p in group["params"]:
+                if opt.state.get(p):
+                    continue
+                if isinstance(opt, (torch.optim.Adam, torch.optim.AdamW)):
+                    scalar = torch.float64 if torch.get_default_dtype() == torch.float64 else torch.float32
+                    on_device = group["capturable"] or group.get("fused")
+                    state = opt.state[p]
+                    state["step"] = (torch.zeros((), dtype=scalar, device=p.device) if on_device
+                                     else torch.tensor(0.0, dtype=scalar))
+                    state["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                    state["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                    if group["amsgrad"]:
+                        state["max_exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                elif isinstance(opt, RMSprop):
+                    opt.init_param_state(p, group)
+                elif isinstance(opt, torch.optim.SGD) and not group["dampening"]:
+                    if group["momentum"]:
+                        opt.state[p]["momentum_buffer"] = torch.zeros_like(p)
+                else:
+                    raise NotImplementedError(
+                        f"the health guard cannot make the first state of {type(opt).__name__} "
+                        f"({ {k: v for k, v in group.items() if k != 'params'} }) before its first step")
+
+    def state_tensors(self) -> List[torch.Tensor]:
+        """Every tensor of the optimizer's state, parameter by parameter."""
+        return [t for p in self.params for t in self.optimizer.state.get(p, {}).values()
+                if isinstance(t, torch.Tensor)]
+
     def state_dict(self) -> Dict[str, Any]:
         return self.optimizer.state_dict()
 
@@ -133,6 +176,15 @@ class ClippedOptimizer:
                         t.copy_(saved[k])
                     else:
                         t.zero_()  # a state saved before this parameter's first step
+
+
+def optimizer_state_tensors(optimizers: Dict[str, ClippedOptimizer]) -> List[torch.Tensor]:
+    """Every tensor of the optimizers' state, made first where a parameter
+    has none yet (:meth:`ClippedOptimizer.init_state_`): what the health
+    guard backs up and selects besides the parameters."""
+    for opt in optimizers.values():
+        opt.init_state_()
+    return [t for opt in optimizers.values() for t in opt.state_tensors()]
 
 
 def build_optimizer(

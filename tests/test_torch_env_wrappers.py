@@ -191,9 +191,25 @@ def test_unported_suites_raise_naming_the_roadmap_item(group):
 
 @pytest.mark.parametrize("override", ["env.capture_video=True", "fault_injection=chaos_env"])
 def test_unported_runtime_settings_raise_naming_the_roadmap_item(tmp_path, override):
+    """``env.capture_video`` still raises, naming its item.  The env fault
+    sites are ported now: ``fault_injection=chaos_env``, installed as
+    ``cli.run`` installs it, wraps the env, and its 40th step crashes into
+    ``RestartOnException``."""
+    from sheeprl_tpu_torch.resilience.faults import clear_plan, install_from_config
+
     cfg = compose(["exp=ppo", "env=dummy", "fabric.accelerator=cpu", "env.capture_video=False", override])
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        make_env(cfg, 0, run_name=str(tmp_path))
+    if override == "env.capture_video=True":
+        with pytest.raises(NotImplementedError, match="queue A item 6"):
+            make_env(cfg, 0, run_name=str(tmp_path))
+        return
+    install_from_config(cfg)
+    try:
+        cfg.env.restart_on_exception = True
+        env = make_env(cfg, 0, run_name=str(tmp_path))()
+        restarts = [i for i in range(40) if env.step(env.action_space.sample())[-1].get("restart_on_exception")]
+    finally:
+        clear_plan()
+    assert restarts == [39]
 
 
 @pytest.mark.parametrize("name", ["cartpole", "pendulum", "forage", "multiroom"])

@@ -1,9 +1,11 @@
 """The port runs with JAX absent: in a fresh interpreter whose import system
 refuses ``jax``, ``flax``, ``optax`` and ``sheeprl_tpu``, every module of
 ``sheeprl_tpu_torch`` imports (every algorithm of the Dreamer family among
-them, and PPO, A2C and recurrent PPO, and the compile-once layer:
+them, and PPO, A2C and recurrent PPO, the compile-once layer:
 ``parallel/compile.py``, ``telemetry/monitors.py``, ``utils/profiler.py``,
-whose ``GraphFunction`` audits a probe on the CPU), a DreamerV3 player takes one CPU
+whose ``GraphFunction`` audits a probe on the CPU, and the runtime services:
+``checkpoint/{preemption,rollback}.py``, ``resilience/{retry,faults,health}.py``),
+a DreamerV3 player takes one CPU
 step, a tiny dry run through ``cli.run`` trains one update and commits a
 snapshot, one Plan2Explore-DreamerV3 update steps, PPO, A2C and recurrent
 PPO each train one iteration through ``cli.run`` and commit a snapshot that
@@ -45,7 +47,8 @@ SCRIPT = textwrap.dedent(
     names = [m.name for m in pkgutil.walk_packages(sheeprl_tpu_torch.__path__, "sheeprl_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
-    for name in ("parallel.compile", "telemetry.monitors", "utils.profiler"):
+    for name in ("parallel.compile", "telemetry.monitors", "utils.profiler", "checkpoint.preemption",
+                 "checkpoint.rollback", "resilience.retry", "resilience.faults", "resilience.health"):
         assert "sheeprl_tpu_torch." + name in names, name
 
     import torch

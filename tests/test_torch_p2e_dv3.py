@@ -204,7 +204,7 @@ def test_p2e_first_window_is_chunked_and_draws_per_update(tmp_path, monkeypatch)
     tiny = [c for c in TINY if not c.startswith("algo.world_model.discrete_size")]
     cli = [c for c in CLI if c not in ("dry_run=True", "algo.world_model.recurrent_model.fused_pallas=True")]
     per_update = (64 * 64 * 3 + 4 * 4 + 4 * (4 + 3)) * L * B  # rgb, state, actions, 3 scalars
-    monkeypatch.setenv(dreamer_v3.WINDOW_BYTES_ENV, str(5 * per_update + 1))
+    monkeypatch.setenv(dreamer_v3.WINDOW_BYTES_ENV, str(4 * per_update + 1))
     chunks, draws = [], []
     to_device, draw = dreamer_v3.blocks_to_device, dreamer_v3.draw_noise
 
@@ -219,9 +219,9 @@ def test_p2e_first_window_is_chunked_and_draws_per_update(tmp_path, monkeypatch)
 
     monkeypatch.setattr(dreamer_v3, "blocks_to_device", spy_blocks)
     monkeypatch.setattr(dreamer_v3, "draw_noise", spy_noise)
-    run([*tiny, *cli, "algo.total_steps=20", f"log_dir={tmp_path}"])
-    # sequences of 8 can be sampled from policy step 18: 18 updates, then 2
-    assert chunks == [5, 5, 5, 3, 2]
-    assert len(draws) == 20
+    run([*tiny, *cli, "algo.total_steps=20", "algo.replay_ratio=0.5", f"log_dir={tmp_path}"])
+    # sequences of 8 can be sampled from policy step 18: 9 updates, then 1
+    assert chunks == [4, 4, 1, 1]
+    assert len(draws) == 10
     assert all(set(n) == {"posterior", "actions", "imagination", "actions_task", "imagination_task"}
                and n["posterior"].shape[0] == 1 and n["imagination_task"].shape[:2] == (1, H + 1) for n in draws)

@@ -83,15 +83,15 @@ def test_resume_restores_counters_ratio_buffer_and_optimizer(dry_run, tmp_path):
     _, snapshot = dry_run
     saved = load_step_dir(snapshot)
     log_dir = tmp_path / "logs"
-    run([*TINY, "dry_run=False", "algo.run_test=False", "algo.total_steps=56", f"log_dir={log_dir}",
+    run([*TINY, "dry_run=False", "algo.run_test=False", "algo.total_steps=48", f"log_dir={log_dir}",
          f"checkpoint.resume_from={snapshot}"])
     (resumed,) = _snapshots(log_dir)
     state = load_step_dir(resumed)
     # the loop went on from update 21 at policy step 42, with the saved Ratio
-    assert state["update"] == 28 and state["policy_step"] == 56
+    assert state["update"] == 24 and state["policy_step"] == 48
     new_steps = state["grad_steps"] - saved["grad_steps"]
-    assert new_steps == 56 - saved["ratio"]["prev"] and state["ratio"]["prev"] == 56
-    assert state["psync"]["windows"] == saved["psync"]["windows"] + 8
+    assert new_steps == 48 - saved["ratio"]["prev"] and state["ratio"]["prev"] == 48
+    assert state["psync"]["windows"] == saved["psync"]["windows"] + 4
     # the optimizers counted on from the saved state
     for name in ("world_model", "actor", "critic"):
         assert state["opt_state"][name]["state"][0]["step"].item() == saved["grad_steps"] + new_steps
@@ -197,28 +197,46 @@ def test_restore_leaves_the_snapshot_intact():
 
 
 def test_health_guard_undoes_a_non_finite_window():
+    """The guard inside the window skips a window whose loss is not finite:
+    the trained tensors and the optimizers' state stay bit for bit as they
+    were; the next, finite window stands."""
     from sheeprl_tpu_torch.resilience.health import HealthSentinel
 
     cfg, trainer, dims = _tiny_trainer()
     sentinel = HealthSentinel.from_config(cfg)
+    window = sentinel.wrap(lambda blocks, noise, c: (c + 1, trainer.train_phase(blocks, noise, c)),
+                           trainer.guarded_state, "cpu")
+    trainer.guarded_state()
     before = trainer.snapshot()
     blocks, noise = _tiny_window(trainer, dims, nan_reward=True)
-    metrics = trainer.train_phase(blocks, noise, 0)
-    assert not sentinel.check(metrics, trainer.tensors())
-    trainer.restore(before)
+    window(blocks, noise, 0)
     for name, module in trainer.modules().items():
         for k, v in module.state_dict().items():
             assert torch.equal(v, before["agent"][name][k]), f"{name}.{k}"
+    for name, opt in trainer.optimizers.items():
+        for i, st in opt.state_dict()["state"].items():
+            assert all(torch.equal(v, before["opt"][name]["state"][i][k]) for k, v in st.items()), f"{name}[{i}]"
     blocks, noise = _tiny_window(trainer, dims)
-    assert sentinel.check(trainer.train_phase(blocks, noise, 1), trainer.tensors())
+    window(blocks, noise, 1)
+    assert sentinel.poll(0) == "none"
     assert sentinel.metrics()["Health/skipped"] == 1.0 and sentinel.metrics()["Health/applied"] == 1.0
+    assert not torch.equal(trainer.world_model.state_dict()[next(iter(before["agent"]["world_model"]))],
+                           next(iter(before["agent"]["world_model"].values())))
 
 
 def test_divergence_rollback_is_not_ported_yet():
+    """Rollback is ported now: ``health.divergence.action=rollback`` builds,
+    and a diverged window makes ``poll`` ask for the rollback (the loops'
+    side is in ``tests/test_torch_health.py``)."""
     from sheeprl_tpu_torch.resilience.health import HealthSentinel
 
-    with pytest.raises(NotImplementedError, match="queue A item 6"):
-        HealthSentinel({"divergence": {"action": "rollback"}})
+    sentinel = HealthSentinel({"divergence": {"action": "rollback"}, "min_windows": 1, "patience": 1})
+    window = sentinel.wrap(lambda loss: (None, [torch.tensor(loss)]), lambda: ([], []), "cpu")
+    for loss in (1.0, 1.0, 1e6):
+        window(loss)
+    assert sentinel.poll(0) == "rollback"
+    with pytest.raises(ValueError, match="none|rollback"):
+        HealthSentinel({"divergence": {"action": "restart"}})
 
 
 def _noise_bytes(noise):
@@ -275,14 +293,14 @@ def test_window_chunks(n, per_update, budget, chunks):
 
 
 def test_long_first_window_is_sampled_in_chunks(monkeypatch, tmp_path):
-    """The first window repays every prefill step at once (18 updates here);
+    """The first window repays every prefill step at once (9 updates here);
     the loop samples, moves and guards it in chunks under the byte budget,
     and every update draws its own noise.  The run also warns of the
     settings it does not act on."""
     from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3
 
     per_update = (64 * 64 * 3 + 4 * 4 + 4 * (4 + 3)) * 8 * 2  # rgb, state, actions, 3 scalars; L 8, B 2
-    monkeypatch.setenv(dreamer_v3.WINDOW_BYTES_ENV, str(5 * per_update + 1))
+    monkeypatch.setenv(dreamer_v3.WINDOW_BYTES_ENV, str(4 * per_update + 1))
     chunks, noise_u = [], []
     to_device, draw = dreamer_v3.blocks_to_device, dreamer_v3.draw_noise
 
@@ -296,13 +314,14 @@ def test_long_first_window_is_sampled_in_chunks(monkeypatch, tmp_path):
 
     monkeypatch.setattr(dreamer_v3, "blocks_to_device", spy_blocks)
     monkeypatch.setattr(dreamer_v3, "draw_noise", spy_noise)
-    with pytest.warns(UserWarning, match="checkpoint.save_on_preemption.*queue A item 6"):
-        run([*TINY, "algo.run_test=False", "algo.total_steps=20", f"log_dir={tmp_path}"])
-    # sequences of 8 can be sampled from policy step 18: 18 updates, then 2
-    assert chunks == [5, 5, 5, 3, 2]
-    assert noise_u == [1] * 20
+    with pytest.warns(UserWarning, match="model_manager.disabled=False.*queue A item 6"):
+        run([*TINY, "algo.run_test=False", "algo.total_steps=20", "algo.replay_ratio=0.5",
+             "model_manager.disabled=False", f"log_dir={tmp_path}"])
+    # sequences of 8 can be sampled from policy step 18: 9 updates, then 1
+    assert chunks == [4, 4, 1, 1]
+    assert noise_u == [1] * 10
     state = load_step_dir(_snapshots(tmp_path)[-1])
-    assert state["grad_steps"] == 20 and state["psync"]["windows"] == 2
+    assert state["grad_steps"] == 10 and state["psync"]["windows"] == 2
 
 
 # -- the on-policy algorithms through the same entry points -----------------------
