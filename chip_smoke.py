@@ -266,6 +266,33 @@ train window, preemption, fault plans, rollback):
               to its committed snapshot, raises ``DivergenceError`` past the
               budget, and raises it in DreamerV3.
 
+The telemetry subsystem and serving's hot reload a default run turns on:
+
+51. telemetry — DV3-XL (``fused_pallas``) through ``cli.run`` with the default
+              telemetry, ``telemetry.introspect.port=0`` and trace windows at
+              dispatches 1 (the first window: a chunk run eagerly and
+              captured) and 3 (a replay), one dispatch each: ``/healthz``,
+              ``/metrics`` and ``/v1/phase`` scraped mid-run; each trace's
+              ``sheeprl::`` kernel events equal the rssm launches credited
+              while its window was open; the same run untraced, both under
+              cuDNN's deterministic algorithms: every trained tensor and the
+              ten losses bit for bit; then spans on and off in turns around
+              phase 38's captured XL chunk and SAC's eager update.
+52. signals — phase 49's preempted child takes a SIGUSR1 after its first
+              replayed window: one trace window of the live run; its SIGTERM
+              commits, then ``postmortem.json`` says ``preemption``; a small
+              DreamerV3 run with a planted ``checkpoint.write_shard`` raise, in
+              a subprocess, dumps it with its ``crash`` event and lands the
+              final flush.
+53. reload  — the XL server under 16 sessions while a newer committed
+              snapshot (other weights) lands: every request answered, the
+              watcher finds it within ``serve.reload_poll_s``, the install
+              copies into the captured step's tensors (no capture: the
+              compile monitor unchanged), and the step for a fixed
+              observation and seed equals a fresh service's on the new
+              snapshot bit for bit; a corrupt snapshot is quarantined while
+              serving goes on.
+
 Each phase prints its seconds (``[seconds]``).  The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -279,7 +306,8 @@ launch no kernel), ``--envs`` phases 25-30, ``--replay`` phases 31-36
 host) for DreamerV3-XL, SAC and SAC-AE, timed alike, ``--graphs`` phases
 37-41 (after phase 4's served snapshot and captured service run),
 ``--precision`` phases 42-47 (beside 32-true runs of phases 7 and 11),
-``--runtime`` phases 48-50, ``--health-ab ROOT`` phase 7's and 20's
+``--runtime`` phases 48-50, ``--telemetry`` phases 51-53 (beside phase 4's
+snapshot, a short SAC run and phase 49's preempted child), ``--health-ab ROOT`` phase 7's and 20's
 recipes with ``health.enabled`` on and off in turns for the port under
 ``ROOT`` (``--preempt-child`` and ``--commit-hang-child`` are phase 49's
 child processes).
@@ -1648,7 +1676,10 @@ def phase_off_policy_train(torch, run_root: Path) -> dict:
         run_ = out[name] = _train_off_policy(torch, overrides, run_root / f"{name}_train", trainer_cls)
         if run_["updates"] < least:
             raise AssertionError(f"{name} ran {run_['updates']} updates, expected at least {least}")
-        run_.update(_profile_update(torch, f"{name}-train", run_.pop("trainer"), run_.pop("batches")))
+        trainer, batches = run_.pop("trainer"), run_.pop("batches")
+        run_.update(_profile_update(torch, f"{name}-train", trainer, batches))
+        if name == "sac":  # phase 51 times spans around this update
+            run_["kept"] = {"trainer": trainer, "batches": batches}
         t0 = time.perf_counter()
         run_["eval_reward"] = evaluation([f"checkpoint_path={run_['snapshot']}", "fabric.accelerator=gpu"])
         if not np.isfinite(run_["eval_reward"]):
@@ -3890,14 +3921,28 @@ def _replayed(line: str) -> bool:
     return line.startswith("[child] window ") and json.loads(line[len("[child] window "):])["replayed"]
 
 
-def _preempt(tag: str, proc, timeout: float = 300.0) -> dict:
+def _preempt(tag: str, proc, timeout: float = 300.0, usr1_dir: Path = None) -> dict:
     """SIGTERM ``proc`` after its first replayed window; its exit code, its
-    output and the wall time the signal was sent."""
+    output and the wall time the signal was sent.  With ``usr1_dir``, a
+    SIGUSR1 first, after that window: the next dispatch opens a trace window
+    (phase 52), and the SIGTERM waits until the dispatch after it has run
+    (its tick closed and wrote the trace) and a ``trace.json`` is under
+    ``usr1_dir``."""
     lines, seen = [], threading.Event()
     reader = _read_lines(proc, lines, seen, _replayed)
+    usr1 = None
     try:
         if not seen.wait(timeout):
             raise AssertionError(f"[{tag}] no replayed window within {timeout} s:\n{''.join(lines)[-4000:]}")
+        if usr1_dir is not None:
+            n0 = len(_windows("".join(lines)))
+            proc.send_signal(signal.SIGUSR1)
+            deadline = time.monotonic() + timeout
+            while not (len(_windows("".join(lines))) >= n0 + 2 and list(usr1_dir.glob("**/trace/*/trace.json"))):
+                if time.monotonic() > deadline or proc.poll() is not None:
+                    raise AssertionError(f"[{tag}] SIGUSR1 opened no trace window:\n{''.join(lines)[-4000:]}")
+                time.sleep(0.1)
+            usr1 = {"windows_before": n0, "windows_after": len(_windows("".join(lines)))}
         t_signal = time.time()
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=300)
@@ -3906,12 +3951,45 @@ def _preempt(tag: str, proc, timeout: float = 300.0) -> dict:
             proc.kill()
             proc.wait()
     reader.join(10)
-    return {"rc": rc, "out": "".join(lines), "t_signal": t_signal}
+    return {"rc": rc, "out": "".join(lines), "t_signal": t_signal, "usr1": usr1}
 
 
 def _windows(out: str) -> list:
     return [json.loads(line[len("[child] window "):]) for line in out.splitlines()
             if line.startswith("[child] window ")]
+
+
+def _committed(log_dir: Path, min_step: int = -1) -> list:
+    """The committed snapshots of the preemption runs under ``log_dir``, oldest commit first."""
+    from sheeprl_tpu_torch.checkpoint.protocol import checkpoint_step, list_checkpoints
+
+    dirs = [d for root in log_dir.glob(f"{PREEMPT_DIR}/*/version_*/checkpoint") for d in list_checkpoints(root)]
+    return sorted((d for d in dirs if checkpoint_step(d) > min_step), key=lambda d: (d / "COMMIT").stat().st_mtime)
+
+
+def _preempted_xl(torch, log_dir: Path) -> tuple:
+    """Phase 49's preempted DV3-XL child (``PREEMPT_XL``): a SIGUSR1 after its
+    first replayed window (phase 52: one trace window of the live run), then
+    the SIGTERM; exit 0, one committed snapshot that ``verify_checkpoint``
+    passes.  Returns the child's record (with the seconds from the signal to
+    the commit) and the committed step directory."""
+    from sheeprl_tpu_torch.checkpoint.protocol import verify_checkpoint
+
+    first = _preempt("preempt", _child(PREEMPT_XL, log_dir), usr1_dir=log_dir)
+    if first["rc"] != 0 or "Preemption: committed checkpoint" not in first["out"]:
+        raise AssertionError(f"[preempt] rc {first['rc']}:\n{first['out'][-4000:]}")
+    (saved_dir,) = _committed(log_dir)
+    problems = verify_checkpoint(saved_dir)
+    first["signal_to_commit_s"] = (saved_dir / "COMMIT").stat().st_mtime - first["t_signal"]
+    first_windows = _windows(first["out"])
+    log(f"[preempt] DV3-XL preempted after {len(first_windows)} window calls "
+        f"({sum(w['updates'] for w in first_windows)} updates, rssm {sum(w['rssm'] for w in first_windows)}; "
+        f"SIGUSR1 after window call {first['usr1']['windows_before']}): exit {first['rc']}, committed "
+        f"{saved_dir.name} {first['signal_to_commit_s']:.2f} s after the SIGTERM, verify_checkpoint "
+        f"{problems or 'passes'}")
+    if problems:
+        raise AssertionError(f"[preempt] {saved_dir}: {problems}")
+    return first, saved_dir
 
 
 def phase_runtime_preempt(torch, run_root: Path) -> dict:
@@ -3937,23 +4015,12 @@ def phase_runtime_preempt(torch, run_root: Path) -> dict:
     log_dir = run_root / "preempt"
 
     def committed(min_step=-1):
-        dirs = [d for root in log_dir.glob(f"{PREEMPT_DIR}/*/version_*/checkpoint") for d in list_checkpoints(root)]
-        return sorted((d for d in dirs if checkpoint_step(d) > min_step), key=lambda d: (d / "COMMIT").stat().st_mtime)
+        return _committed(log_dir, min_step)
 
-    first = _preempt("preempt", _child(PREEMPT_XL, log_dir))
-    if first["rc"] != 0 or "Preemption: committed checkpoint" not in first["out"]:
-        raise AssertionError(f"[preempt] rc {first['rc']}:\n{first['out'][-4000:]}")
-    (saved_dir,) = committed()
-    problems = verify_checkpoint(saved_dir)
-    to_commit = (saved_dir / "COMMIT").stat().st_mtime - first["t_signal"]
+    first, saved_dir = _preempted_xl(torch, log_dir)
     saved = load_step_dir(saved_dir, map_location="cpu")
     first_windows = _windows(first["out"])
-    log(f"[preempt] DV3-XL preempted after {len(first_windows)} window calls "
-        f"({sum(w['updates'] for w in first_windows)} updates, rssm {sum(w['rssm'] for w in first_windows)}): "
-        f"exit {first['rc']}, committed {saved_dir.name} "
-        f"{to_commit:.2f} s after the signal, verify_checkpoint {problems or 'passes'}")
-    if problems:
-        raise AssertionError(f"[preempt] {saved_dir}: {problems}")
+    to_commit = first["signal_to_commit_s"]
 
     # the resumed run, in this process: it trains at once (learning_starts 1)
     # and ends 8 steps on, one window of 1 update, then its final save
@@ -4026,6 +4093,7 @@ def phase_runtime_preempt(torch, run_root: Path) -> dict:
     if rc != -signal.SIGTERM or is_committed(torn[0]) or chosen != resumed_dir:
         raise AssertionError(f"[torn] rc {rc}, chosen {chosen}:\n{''.join(lines)[-4000:]}")
     return {"signal_to_commit_s": to_commit, "preempted_updates": sum(w["updates"] for w in first_windows),
+            "first": first, "saved_dir": saved_dir,
             "preempted": {n: sum(w[n] for w in first_windows) for n in ("rssm", "gru")},
             "resumed": {n: sum(w[n] for w in resumed_windows) for n in ("rssm", "gru")},
             "resumed_first_window_per_update": {n: resumed_windows[0][n] // resumed_windows[0]["updates"]
@@ -4198,7 +4266,521 @@ def runtime_summary(r: dict) -> dict:
     return {"seconds": r["seconds"],
             **{f"{k}_updates_per_s": r[k]["updates_per_s"] for k in ("dv3_xl", "dv3_s_gru")},
             **{f"{k}_peak_gib": {n: b / 2**30 for n, b in r[k]["peak_bytes"].items()} for k in ("dv3_xl", "dv3_s_gru")},
-            "preempt": r["preempt"], "faults": r["faults"]}
+            "preempt": {k: v for k, v in r["preempt"].items() if k not in ("first", "saved_dir")},
+            "faults": r["faults"]}
+
+
+# -- the telemetry subsystem and serving's hot reload (phases 51-53) ---------
+# phase 7's XL recipe without its test episode, traced at dispatches 1 (the
+# first window: chunk 4 run eagerly and captured, then replayed) and 3 (a
+# replay of the 1-update chunk), one dispatch per window
+TELEMETRY_XL = (*XL_TRAIN, *XL_TRAIN_STEPS, FUSED, "algo.run_test=False", "telemetry.introspect.port=0")
+TRACE_AT = (1, 3)
+RSSM_KERNELS_PER_LAUNCH = 4  # csrc/rssm.cu: four launches on the caller's stream per call
+SPANS_AB_SAC_CALLS = 200  # SAC updates per timed turn of phase 51's span A/B
+RELOAD_POLL_S = 0.5  # phase 53's serve.reload_poll_s
+RELOAD_SEED = 9  # the newer snapshot's weights
+
+
+def _http_get(url: str) -> tuple:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _trace_kernels(path: Path) -> dict:
+    """Kernel events of one Chrome trace: all of them and the port's
+    (``sheeprl::`` in the name).  The trace of an XL window is hundreds of
+    MB: its kernel events are matched in the text, and the JSON is parsed
+    only when that finds none."""
+    text = path.read_text()
+    names = re.findall(r'"cat":\s*"kernel",\s*"name":\s*"([^"]*)"', text)
+    if not names:
+        names = [e.get("name", "") for e in json.loads(text)["traceEvents"] if e.get("cat") == "kernel"]
+    return {"kernels": len(names), "sheeprl": sum("sheeprl::" in n for n in names), "bytes": path.stat().st_size}
+
+
+def _telemetry_run(torch, overrides, log_dir: Path, traced: bool) -> dict:
+    """One DV3-XL run of ``TELEMETRY_XL`` through ``cli.run`` under cuDNN's
+    deterministic algorithms, every launch count zeroed just before and read
+    just after.  ``traced``: trace windows at ``TRACE_AT`` (the launches
+    credited between each window's start and stop are kept), and
+    ``/healthz``, ``/metrics`` and ``/v1/phase`` scraped on another thread
+    once two update dispatches have completed."""
+    from sheeprl_tpu_torch import telemetry
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.ops import gru, rssm
+    from sheeprl_tpu_torch.telemetry.spans import SPANS
+    from sheeprl_tpu_torch.telemetry.tracer import TRACER
+
+    windows, scraped, done = [], {}, threading.Event()
+    start, stop = TRACER._start, TRACER._stop
+
+    def counted_start(n):
+        windows.append({"update": n, "at_start": rssm.LAUNCHES["rssm"]})
+        start(n)
+
+    def counted_stop(n=None):
+        stop(n)
+        windows[-1]["at_stop"] = rssm.LAUNCHES["rssm"]
+
+    def scrape():
+        first = SPANS.updates_done
+        while not done.is_set():
+            server = telemetry.introspection_server()
+            if server is not None and SPANS.updates_done >= first + 2:
+                for path in ("/healthz", "/metrics", "/v1/phase"):
+                    scraped[path] = _http_get(server.url + path)
+                scraped["during_update"] = SPANS.depth()
+                return
+            time.sleep(0.05)
+
+    extra = [f"telemetry.trace_at=[{','.join(map(str, TRACE_AT))}]", "telemetry.trace_updates=1"] if traced else []
+    gc.collect()
+    torch.cuda.empty_cache()
+    rssm.LAUNCHES["rssm"] = gru.LAUNCHES["gru"] = 0
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    TRACER._start, TRACER._stop = counted_start, counted_stop
+    scraper = threading.Thread(target=scrape, daemon=True)
+    if traced:
+        scraper.start()
+    t0 = time.perf_counter()
+    try:
+        run([*overrides, *extra, f"log_dir={log_dir}"])
+    finally:
+        done.set()
+        TRACER._start, TRACER._stop = start, stop
+        torch.backends.cudnn.deterministic = deterministic
+    wall = time.perf_counter() - t0
+    if traced:
+        scraper.join(10)
+    counts = {"rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]}
+    return {"wall_s": wall, "counts": counts, "windows": windows, "scraped": scraped,
+            "snapshot": sorted(log_dir.glob("**/checkpoint/step_*"))[-1],
+            "traces": sorted(log_dir.glob("**/trace/update_*/trace.json"))}
+
+
+def phase_telemetry_traced(torch, run_root: Path) -> dict:
+    """Phase 51 (first half): DV3-XL (``fused_pallas``) through ``cli.run``
+    with the default telemetry, ``telemetry.introspect.port=0`` and trace
+    windows at dispatches 1 and 3, beside the same run untraced."""
+    import csv
+
+    from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
+
+    traced = _telemetry_run(torch, TELEMETRY_XL, run_root / "traced", traced=True)
+    untraced = _telemetry_run(torch, TELEMETRY_XL, run_root / "untraced", traced=False)
+    a, b = (load_step_dir(r["snapshot"], map_location="cpu") for r in (traced, untraced))
+    pairs = [(x, y) for name in ("agent", "opt_state") for x, y in zip(_tensor_leaves(a[name]), _tensor_leaves(b[name]))]
+    equal = sum(torch.equal(x, y) for x, y in pairs)
+
+    def losses(r):
+        with open(r["snapshot"].parents[1] / "metrics.csv") as f:
+            return {(step, n): v for step, n, v in list(csv.reader(f))[1:] if n in LOSS_NAMES}
+
+    la, lb = losses(traced), losses(untraced)
+    same_losses = la == lb and len(la) >= len(LOSS_NAMES)
+    with open(traced["snapshot"].parents[1] / "metrics.csv") as f:
+        names = {n for _, n, _ in list(csv.reader(f))[1:]}
+    kernels = [_trace_kernels(p) for p in traced["traces"]]
+    credited = [w.get("at_stop", 0) - w["at_start"] for w in traced["windows"]]
+    scraped = traced["scraped"]
+    health = json.loads(scraped["/healthz"][1]) if "/healthz" in scraped else {}
+    metrics_text = scraped.get("/metrics", (0, ""))[1]
+    phase = json.loads(scraped["/v1/phase"][1]) if "/v1/phase" in scraped else {}
+    log(f"[telemetry] DV3-XL through cli.run, traced at dispatches {list(TRACE_AT)} ({traced['wall_s']:.1f} s) and "
+        f"untraced ({untraced['wall_s']:.1f} s), cuDNN deterministic: {equal} of {len(pairs)} trained tensors and "
+        f"the ten losses {'equal' if same_losses else 'NOT equal'} bit for bit; trace windows at updates "
+        f"{[w['update'] for w in traced['windows']]}: sheeprl:: kernels in the traces "
+        f"{[k['sheeprl'] for k in kernels]} of {[k['kernels'] for k in kernels]} kernels "
+        f"({[round(k['bytes'] / 2**20, 1) for k in kernels]} MiB), rssm launches credited in the windows "
+        f"{credited} x {RSSM_KERNELS_PER_LAUNCH} kernels each; run launches traced {traced['counts']}, untraced {untraced['counts']}")
+    log(f"[telemetry] scraped mid-run: /healthz {scraped.get('/healthz', (None,))[0]} (updates_done "
+        f"{health.get('updates_done')}, sources {health.get('sources')}), /metrics "
+        f"{scraped.get('/metrics', (None,))[0]} ({metrics_text.count(chr(10)) // 2} metrics), /v1/phase "
+        f"{scraped.get('/v1/phase', (None,))[0]} (phases {sorted(phase.get('phases', {}))}); Phase/* logged "
+        f"{sorted(n for n in names if n.startswith('Phase/'))}")
+    ok = (equal == len(pairs) and same_losses and len(kernels) == len(TRACE_AT)
+          and [k["sheeprl"] for k in kernels] == [RSSM_KERNELS_PER_LAUNCH * c for c in credited]
+          and all(c > 0 for c in credited)
+          and traced["counts"] == untraced["counts"]
+          and scraped.get("/healthz", (0,))[0] == 200 and health.get("ok") is True
+          and scraped.get("/metrics", (0,))[0] == 200 and "sheeprl_compile_executables" in metrics_text
+          and scraped.get("/v1/phase", (0,))[0] == 200 and {"Phase/rollout", "Phase/update.dispatch"} <= names)
+    if not ok:
+        raise AssertionError("[telemetry] the traced run differs from the untraced one, a trace misses the kernel's "
+                             "launches, or the endpoints did not answer")
+    return {"traced": traced, "untraced": untraced, "trace_kernels": kernels, "credited": credited,
+            "bit_for_bit": equal, "tensors": len(pairs)}
+
+
+def _tensor_leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [t for k in sorted(tree, key=str) for t in _tensor_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in _tensor_leaves(x)]
+    return [tree] if hasattr(tree, "dtype") and hasattr(tree, "shape") else []
+
+
+def phase_telemetry_spans(torch, sac_run: dict) -> dict:
+    """Phase 51 (second half): a fenced span (``telemetry.spans.sync``)
+    around a replayed XL chunk inside ``steady_guard`` must not trip the
+    guard; then spans on and off in turns (on, off, off, on) around phase
+    38's captured XL chunk and around SAC's eager update (``sac_run``: a SAC
+    run's ``trainer`` and last ``batches``), each call inside
+    ``timer("Time/train_time")`` as the loops make it (the
+    ``update.dispatch`` span, no trace window: no fence)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import prep_blocks
+    from sheeprl_tpu_torch.data.device_replay import fused_sequence_train
+    from sheeprl_tpu_torch.parallel.compile import GraphFunction
+    from sheeprl_tpu_torch.telemetry.monitors import CompileMonitor
+    from sheeprl_tpu_torch.telemetry.spans import SPANS
+    from sheeprl_tpu_torch.utils.timer import timer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, trainer, rb = _fresh_window(torch, [*XL_TRAIN, FUSED], seed=51)
+    L, B = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
+    dev = trainer.device
+    gen = torch.Generator(dev).manual_seed(51)
+    f = GraphFunction(lambda n, counter: fused_sequence_train(
+        trainer, rb, gen, B, L, n, lambda b: prep_blocks(b, trainer.cnn_keys, trainer.mlp_keys), counter),
+        name="telemetry.train_phase_device", static_argnums=(0,), device=dev, generators=(gen,),
+        monitor=CompileMonitor())
+    counter0 = torch.full((), 1, dtype=torch.int64, device=dev)
+    f(GRAPH_CHUNK, counter0)  # eager, then captured
+
+    sac_trainer, batches = sac_run["trainer"], sac_run["batches"]
+    one = {k: v[:1] for k, v in batches.items()}
+    sac_gen = torch.Generator(one["rewards"].device)
+
+    def spanned(fn, on: bool, calls: int = 1):
+        def turn():
+            SPANS.enabled = on
+            for _ in range(calls):
+                with timer("Time/train_time"):
+                    fn()
+        return turn
+
+    # a fenced span edge (spans.sync) inside steady_guard: the fence is an
+    # explicit synchronise, which the guard's sync debug mode lets through
+    from sheeprl_tpu_torch.data.device_replay import steady_guard
+    from sheeprl_tpu_torch.telemetry.spans import span
+
+    SPANS.sync = True
+    try:
+        with steady_guard(True), span("replay.write"):
+            f(GRAPH_CHUNK, counter0)
+    finally:
+        SPANS.sync = False
+    log("[telemetry-spans] a fenced span around a replayed XL chunk inside steady_guard: no error")
+
+    xl = lambda: f(GRAPH_CHUNK, counter0)  # noqa: E731
+    sac = lambda: sac_trainer.train_phase(one, sac_gen.manual_seed(0), 0)  # noqa: E731
+    order = ("spans", "no spans", "no spans", "spans")
+    try:
+        xl_turns = _turns(torch, {"spans": spanned(xl, True), "no spans": spanned(xl, False)}, order=order)
+        sac_turns = _turns(torch, {"spans": spanned(sac, True, SPANS_AB_SAC_CALLS),
+                                   "no spans": spanned(sac, False, SPANS_AB_SAC_CALLS)}, order=order)
+    finally:
+        SPANS.enabled = True
+        timer.to_dict(reset=True)
+    out = {"dv3_xl": {k: [GRAPH_CHUNK / t for t in v["s"]] for k, v in xl_turns.items()},
+           "sac": {k: [SPANS_AB_SAC_CALLS / t for t in v["s"]] for k, v in sac_turns.items()}}
+    for name, rates in out.items():
+        log(f"[telemetry-spans] {name}: updates/s in turns spans {rates['spans'][0]:.3f}, no spans "
+            f"{rates['no spans'][0]:.3f}, no spans {rates['no spans'][1]:.3f}, spans {rates['spans'][1]:.3f}")
+    del f, trainer, rb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_telemetry_signals(torch, run_root: Path, preempt: dict) -> dict:
+    """Phase 52, in subprocesses: phase 49's preempted DV3-XL child took a
+    SIGUSR1 after its first replayed window (one trace window of the live
+    run) before its SIGTERM, whose committed save comes before the
+    ``preemption`` postmortem; a planted raise (``checkpoint.write_shard``)
+    in a small DreamerV3 run dumps ``postmortem.json`` with its ``crash``
+    event and lands the final flush."""
+    import csv
+
+    first, saved_dir = preempt["first"], preempt["saved_dir"]
+    run_dir = saved_dir.parents[1]
+    traces = sorted(run_dir.glob("trace/update_*/trace.json"))
+    kernels = [_trace_kernels(p) for p in traces]
+    with open(run_dir / "postmortem.json") as f:
+        doc = json.load(f)
+    kinds = [e["kind"] for e in doc["events"]]
+    dumped_after = (run_dir / "postmortem.json").stat().st_mtime - (saved_dir / "COMMIT").stat().st_mtime
+    saves = [e["seconds"] for e in doc["events"] if e["kind"] == "ckpt.save"]
+    log(f"[telemetry-signals] SIGUSR1: {len(traces)} trace window ({[t.parent.name for t in traces]}, sheeprl:: "
+        f"kernels {[k['sheeprl'] for k in kernels]}); SIGTERM: committed {first['signal_to_commit_s']:.2f} s after "
+        f"the signal (phase 49's run; the save itself {saves[-1] if saves else None} s), postmortem "
+        f"'{doc['reason']}' {dumped_after:.3f} s after the commit, events {sorted(set(kinds))}")
+    if not (len(traces) == 1 and kernels[0]["sheeprl"] > 0 and doc["reason"] == "preemption"
+            and {"trace.start", "trace.stop", "ckpt.save", "preemption"} <= set(kinds) and dumped_after >= 0):
+        raise AssertionError("[telemetry-signals] the live run's trace window or its preemption postmortem is wrong")
+
+    log_dir = run_root / "crash"
+    plan = json.dumps({"plan": [{"site": "checkpoint.write_shard", "kind": "raise", "at": 1}]})
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--preempt-child", *REPLAY_DV3_SMALL,
+                           "algo.total_steps=64", "checkpoint.io_retries=1", f"log_dir={log_dir}"], cwd=ROOT,
+                          capture_output=True,
+                          text=True, timeout=180, env={**os.environ, "SHEEPRL_FAULT_PLAN": plan})
+    (pm,) = log_dir.glob("**/postmortem.json")
+    with open(pm) as f:
+        crash = json.load(f)
+    crash_kinds = [e["kind"] for e in crash["events"]]
+    with open(next(log_dir.glob("**/metrics.csv"))) as f:
+        rows = list(csv.reader(f))[1:]
+    last = max(int(s) for s, _, _ in rows)
+    landed = any(n == "Resilience/faults_injected" and int(s) == last for s, n, _ in rows)
+    log(f"[telemetry-signals] planted raise: exit {proc.returncode}, postmortem '{crash['reason']}', crash event "
+        f"{[e.get('error') for e in crash['events'] if e['kind'] == 'crash']}, final flush landed "
+        f"Resilience/faults_injected at step {last}: {landed}")
+    if not (proc.returncode != 0 and crash["reason"] == "exception" and "crash" in crash_kinds and landed):
+        raise AssertionError(f"[telemetry-signals] the planted raise left no postmortem:\n{proc.stdout[-3000:]}"
+                             f"\n{proc.stderr[-3000:]}")
+    return {"signal_to_commit_s": first["signal_to_commit_s"], "postmortem_after_commit_s": dumped_after,
+            "save_s": saves[-1] if saves else None,
+            "usr1_trace_kernels": kernels[0], "crash_rc": proc.returncode}
+
+
+def _stage_snapshot(torch, overrides, staging: Path, step: int, corrupt: bool = False) -> Path:
+    """A committed snapshot of an agent initialised on the card from the
+    config's seed, written under ``staging`` (to be moved into a watched
+    root at once); with ``corrupt``, a small one whose shard is damaged after
+    its CRC was taken (a ``checkpoint.write_shard corrupt`` plan)."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo.utils import spaces_to_dims
+    from sheeprl_tpu_torch.checkpoint.protocol import write_snapshot
+    from sheeprl_tpu_torch.config.compose import compose
+    from sheeprl_tpu_torch.fabric import build_fabric
+    from sheeprl_tpu_torch.resilience import faults
+    from sheeprl_tpu_torch.serve.loader import probe_spaces
+
+    if corrupt:  # the watcher's CRC check refuses it before any load
+        faults.install_plan(faults.FaultPlan.from_specs([{"site": "checkpoint.write_shard", "kind": "corrupt",
+                                                          "at": 1}]))
+        try:
+            return write_snapshot(staging, step, {"agent": {"w": torch.arange(4096.0)}})
+        finally:
+            faults.clear_plan()
+    cfg = compose(list(overrides))
+    fabric = build_fabric(cfg)
+    obs_space, action_space = probe_spaces(cfg)
+    dims, cont = spaces_to_dims(action_space)
+    modules = build_agent(fabric, dims, cont, cfg, obs_space)
+    step_dir = write_snapshot(staging, step, {"agent": {n: m.state_dict() for n, m in modules.items()}})
+    del modules
+    torch.cuda.empty_cache()
+    return step_dir
+
+
+def phase_telemetry_reload(torch, run_root: Path, served_dir: Path) -> dict:
+    """Phase 53: the XL server (``fused_pallas``, every rung a captured
+    graph) under 16 sessions while a newer committed snapshot (other
+    weights) lands in its watched root: every request answered, the
+    watcher's load starts within ``serve.reload_poll_s`` of the commit, the
+    install copies into the captured step's tensors (no capture: the compile
+    monitor's totals unchanged), and the served action and carry for a fixed
+    observation and seed equal a fresh service's on the new snapshot bit for
+    bit; then a corrupt snapshot is quarantined while serving goes on."""
+    from sheeprl_tpu_torch.ops import gru, rssm
+    from sheeprl_tpu_torch.serve.client import PolicyClient
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+    from sheeprl_tpu_torch.serve.service import PolicyService
+    from sheeprl_tpu_torch.telemetry.monitors import COMPILE_MONITOR
+
+    from sheeprl_tpu_torch.checkpoint import protocol
+
+    root = served_dir / "checkpoint"
+    staging = run_root / "reload_staging"
+    newer = _stage_snapshot(torch, [*XL_SERVE, FUSED, f"seed={RELOAD_SEED}"], staging, 2)
+    bad = _stage_snapshot(torch, None, staging, 3, corrupt=True)
+    service = PolicyService.from_checkpoint(served_dir, [f"serve.reload_poll_s={RELOAD_POLL_S}"])
+    watcher = service.watcher
+    found, loads, installs = [], [], []
+    load_params, newer_checkpoint = watcher._load_params, protocol.newer_checkpoint
+
+    def seen_newer(ckpt_root, after_step):
+        out = newer_checkpoint(ckpt_root, after_step)
+        if out is not None:
+            found.append((time.time(), out.name))
+        return out
+
+    def timed_load(step_dir):
+        t0 = time.time()
+        try:
+            return load_params(step_dir)
+        finally:
+            loads.append((t0, time.time(), step_dir.name))
+
+    watcher._load_params = timed_load
+    watcher._on_reload = lambda gen, step: installs.append((time.time(), gen, step))
+    server = PolicyServer(service, port=0).start()
+    mark = COMPILE_MONITOR.totals()
+    player = service.player
+    valid = _action_check(service)
+    stop, errors, answered = threading.Event(), [], [0]
+    lock = threading.Lock()
+
+    def session(i: int) -> None:
+        client = PolicyClient(server.url, packed=True, timeout=120)
+        rng = np.random.default_rng(i)
+        try:
+            while not stop.is_set():
+                obs = {k: rng.integers(0, 256, shape, dtype=np.uint8) if dtype == "uint8"
+                       else rng.standard_normal(shape).astype(np.float32) for k, (shape, dtype) in
+                       player.obs_spec.items()}
+                action = client.act(obs, session=f"s{i}", greedy=i % 2 == 0)
+                if not valid(action):
+                    raise AssertionError(f"invalid action {action!r}")
+                with lock:
+                    answered[0] += 1
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    rssm.LAUNCHES["rssm"] = gru.LAUNCHES["gru"] = 0
+    threads = [threading.Thread(target=session, args=(i,), daemon=True) for i in range(SERVE_SESSIONS)]
+    protocol.newer_checkpoint = seen_newer
+    try:
+        try:
+            for t in threads:
+                t.start()
+            time.sleep(2.0)
+            t_land = time.time()
+            os.replace(newer, root / newer.name)  # the commit lands in the watched root at once
+            deadline = time.monotonic() + 120
+            while service.store.step != 2 and time.monotonic() < deadline and not errors:
+                time.sleep(0.02)
+            time.sleep(1.0)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(120)
+        counts = {"rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]}
+        stats = service.stats()
+        if errors:
+            raise errors[0]
+        detect = found[0][0] - t_land if found else None
+        swap = installs[0][0] - t_land if installs else None
+        log(f"[reload] XL server, {SERVE_SESSIONS} sessions while step 2 (seed {RELOAD_SEED}) landed: {answered[0]} "
+            f"requests answered, {stats['errors']} errors, {stats['served']} served in {stats['batches']} batches; the "
+            f"watcher found it {detect:.3f} s after the commit (poll {RELOAD_POLL_S} s), read + stage "
+            f"{loads[0][1] - loads[0][0]:.3f} s, installed {swap:.3f} s after the commit with a "
+            f"{stats['reload_pause_ms']:.3f} ms pause; generation {stats['generation']}, step {stats['checkpoint_step']}; "
+            f"compile totals {mark} -> {COMPILE_MONITOR.totals()}; launches {counts}")
+        if not (answered[0] == stats["served"] and stats["errors"] == 0 and installs and installs[0][1:] == (1, 2)
+                and detect is not None and detect <= RELOAD_POLL_S + 0.5 and COMPILE_MONITOR.totals() == mark
+                and counts["rssm"] >= stats["batches"]):
+            raise AssertionError("[reload] a request failed, the reload was late or recaptured")
+
+        rng = np.random.default_rng(53)
+        raw = {"rgb": rng.integers(0, 256, (1, 64, 64, 3), dtype=np.uint8),
+               "state": rng.standard_normal((1, 4)).astype(np.float32)}
+
+        def fixed_step(svc):
+            obs = svc.player.prepare(raw)
+            with svc.store.serving() as (params, _, _):
+                return svc.player.step_batch(params, svc.player.zero_carry(1), obs, 1234, np.zeros((1,), bool))
+
+        reloaded = fixed_step(service)
+
+        # a corrupt snapshot lands: quarantined after reload_failure_threshold loads, serving goes on
+        os.replace(bad, root / bad.name)
+        client = PolicyClient(server.url, packed=True, timeout=120)
+        served_meanwhile = 0
+        deadline = time.monotonic() + 120
+        while watcher.quarantined < 1 and time.monotonic() < deadline:
+            client.act({k: np.zeros(shape, np.dtype(dtype)) for k, (shape, dtype) in player.obs_spec.items()})
+            served_meanwhile += 1
+        health = client.health()
+        log(f"[reload] corrupt step 3: quarantined {watcher.quarantined} ({(root / bad.name).exists()} left in the root), "
+            f"{served_meanwhile} requests served meanwhile, step {service.store.step}, /healthz degraded "
+            f"{health['degraded']} ({health['reload_breaker']['state']}); {watcher.last_error}")
+    finally:
+        protocol.newer_checkpoint = newer_checkpoint
+    if not (watcher.quarantined == 1 and not (root / bad.name).exists() and service.store.step == 2
+            and health["degraded"] and served_meanwhile > 0):
+        raise AssertionError("[reload] the corrupt snapshot was not quarantined while the old parameters served")
+    server.stop()
+    del service, server, client
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    fresh = PolicyService.from_checkpoint(root / "step_000000000002", ["serve.watch_commits=False"]).start()
+    try:
+        expected = fixed_step(fresh)
+    finally:
+        fresh.stop()
+    same = all(np.array_equal(a, b) for a, b in zip(reloaded[0], expected[0])) and np.array_equal(reloaded[1],
+                                                                                                    expected[1])
+    log(f"[reload] the reloaded server's step for a fixed observation and seed against a fresh service on step 2: "
+        f"carry and action {'equal' if same else 'NOT equal'} bit for bit")
+    if not same:
+        raise AssertionError("[reload] the reloaded parameters do not serve as the new snapshot does")
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"answered": answered[0], "counts": counts, "detect_s": detect, "swap_s": swap,
+            "load_s": loads[0][1] - loads[0][0], "pause_ms": stats["reload_pause_ms"], "batches": stats["batches"]}
+
+
+def phase_telemetry(torch, run_root: Path, served_dir: Path, sac_run: dict, preempt: dict) -> dict:
+    """Phases 51-53."""
+    t0 = time.perf_counter()
+    out = {"traced": phase_telemetry_traced(torch, run_root / "telemetry"),
+           "spans": phase_telemetry_spans(torch, sac_run),
+           "signals": phase_telemetry_signals(torch, run_root / "telemetry", preempt),
+           "reload": phase_telemetry_reload(torch, run_root / "telemetry", served_dir)}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[telemetry] phases 51-53 in {out['seconds']:.1f} s")
+    return out
+
+
+def telemetry_summary(t: dict) -> dict:
+    return {"seconds": t["seconds"], "trace_kernels": t["traced"]["trace_kernels"], "credited": t["traced"]["credited"],
+            "bit_for_bit": [t["traced"]["bit_for_bit"], t["traced"]["tensors"]],
+            "traced_wall_s": t["traced"]["traced"]["wall_s"], "untraced_wall_s": t["traced"]["untraced"]["wall_s"],
+            "spans_updates_per_s": t["spans"], "signals": t["signals"], "reload": t["reload"]}
+
+
+def telemetry_only(torch) -> int:
+    """``--telemetry``: phases 51-53 alone, beside what they read of earlier
+    phases: phase 4's served snapshot, a short SAC run (phase 20's recipe,
+    40 updates) and phase 49's preempted DV3-XL child."""
+    log_phase_seconds()
+    run_root = ROOT / "build" / "chip_smoke_telemetry"
+    shutil.rmtree(run_root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        device = phase_device(torch)
+        phase_build()
+        served_dir = run_root / "fused_pallas"
+        _build_snapshot(torch, [*XL_SERVE, FUSED], served_dir)
+        from sheeprl_tpu_torch.algos.sac.sac import SACTrainer
+
+        sac = _train_off_policy(torch, (*SAC_STATE[:-1], "algo.total_steps=140", "algo.run_test=False"),
+                                run_root / "sac", SACTrainer)
+        first, saved_dir = _preempted_xl(torch, run_root / "preempt")
+        telemetry = phase_telemetry(torch, run_root, served_dir, sac, {"first": first, "saved_dir": saved_dir})
+        log("[telemetry] " + json.dumps(telemetry_summary(telemetry), default=float))
+        log(f"[telemetry] total {time.perf_counter() - t0:.1f} s")
+    except BaseException:
+        traceback.print_exc()
+        return 1
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
 
 
 def precision_only(torch) -> int:
@@ -4217,8 +4799,6 @@ def precision_only(torch) -> int:
                               trainer_cls=P2EDV3Trainer)}
         precision = phase_precision(torch, run_root, fp32)
         log("[precision] " + json.dumps(precision_summary(precision), default=float))
-        runtime = phase_runtime(torch, run_root / "runtime", fused_dir)
-        log("[runtime] " + json.dumps(runtime_summary(runtime), default=float))
         log(f"[precision] total {time.perf_counter() - t0:.1f} s")
     except BaseException:
         traceback.print_exc()
@@ -4549,6 +5129,8 @@ def main() -> int:
         return graphs_only(torch)
     if sys.argv[1:2] == ["--precision"]:
         return precision_only(torch)
+    if sys.argv[1:2] == ["--telemetry"]:
+        return telemetry_only(torch)
 
     run_root = ROOT / "build" / "chip_smoke"
     shutil.rmtree(run_root, ignore_errors=True)
@@ -4614,6 +5196,9 @@ def main() -> int:
         log("[precision] " + json.dumps(precision_summary(precision), default=float))
         runtime = phase_runtime(torch, run_root / "runtime", fused_dir)
         log("[runtime] " + json.dumps(runtime_summary(runtime), default=float))
+        telemetry = phase_telemetry(torch, run_root, fused_dir, off_policy["train"]["sac"]["kept"],
+                                    runtime["preempt"])
+        log("[telemetry] " + json.dumps(telemetry_summary(telemetry), default=float))
 
         launches = {"rssm": train["counts"]["rssm"], "gru": train_gru["counts"]["gru"]}
         new_paths = {"p2e_explore": p2e, "p2e_finetune": finetune, "decoupled": decoupled}
@@ -4660,6 +5245,15 @@ def main() -> int:
             by_path["preempted_xl"] = runtime["preempt"]["preempted"][name]
             by_path["resumed_xl"] = runtime["preempt"]["resumed"][name]
             by_path["resumed_xl_first_window_per_update"] = runtime["preempt"]["resumed_first_window_per_update"][name]
+            # phases 51-53: DV3-XL traced and untraced through cli.run, the launches
+            # credited inside its two trace windows and the sheeprl:: kernels
+            # their traces hold, the XL server hot-reloaded under load
+            by_path["traced_xl"] = telemetry["traced"]["traced"]["counts"][name]
+            by_path["untraced_xl"] = telemetry["traced"]["untraced"]["counts"][name]
+            by_path["trace_windows_credited"] = sum(telemetry["traced"]["credited"]) if name == "rssm" else 0
+            by_path["trace_windows_events"] = (sum(k["sheeprl"] for k in telemetry["traced"]["trace_kernels"])
+                                               if name == "rssm" else 0)
+            by_path["reload_serve"] = telemetry["reload"]["counts"][name]
         sources = {
             "rssm": ("sheeprl_tpu_torch/csrc/rssm.cu",
                      "sheeprl_tpu/ops/rssm_pallas.py:70 (_rssm_kernel), sheeprl_tpu/ops/rssm_pallas.py:260 "
@@ -4701,7 +5295,11 @@ def main() -> int:
             f"{statistics.median(runtime['dv3_xl']['updates_per_s']['guarded']):.3f} updates/s beside unguarded "
             f"{statistics.median(runtime['dv3_xl']['updates_per_s']['unguarded']):.3f}, preempted run committed "
             f"{runtime['preempt']['signal_to_commit_s']:.2f} s after SIGTERM (phases 48-50 "
-            f"{runtime['seconds']:.1f} s); total "
+            f"{runtime['seconds']:.1f} s); traced DV3-XL equal to untraced in {telemetry['traced']['bit_for_bit']} of "
+            f"{telemetry['traced']['tensors']} tensors, trace windows hold {telemetry['traced']['credited']} rssm "
+            f"launches; hot reload under {SERVE_SESSIONS} sessions answered {telemetry['reload']['answered']} requests, "
+            f"installed {telemetry['reload']['swap_s']:.2f} s after the commit with a "
+            f"{telemetry['reload']['pause_ms']:.2f} ms pause (phases 51-53 {telemetry['seconds']:.1f} s); total "
             f"{time.perf_counter() - t_start:.1f} s")
     except BaseException:
         traceback.print_exc()

@@ -92,6 +92,7 @@ from sheeprl_tpu_torch.utils.distribution import (
 from sheeprl_tpu_torch.utils.env import episode_stats, final_obs_rows, make_env, vectorize
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, flush_metrics
+from sheeprl_tpu_torch.utils.profiler import ProfilerGate
 from sheeprl_tpu_torch.utils.optim import ClippedOptimizer, build_group_optimizers, optimizer_state_tensors
 from sheeprl_tpu_torch.utils.registry import register_algorithm, register_evaluation
 from sheeprl_tpu_torch.utils.timer import timer
@@ -142,20 +143,14 @@ def check_supported(cfg: Any) -> None:
 def warn_unacted_settings(cfg: Any) -> None:
     """Warn of the settings that are on but that the port does not act on
     yet (ROADMAP.md, queue A item 6(b)); every train loop calls this at its start."""
-    tel = cfg.get("telemetry") or {}
     on = {
         "model_manager.disabled=False": not bool((cfg.get("model_manager") or {}).get("disabled", True)),
-        "telemetry.spans.enabled": bool((tel.get("spans") or {}).get("enabled", False)),
-        "telemetry.recorder.enabled": bool((tel.get("recorder") or {}).get("enabled", False)),
-        "telemetry.introspect.port": (tel.get("introspect") or {}).get("port") is not None,
-        "telemetry.trace_at": bool(tel.get("trace_at")),
-        "metric.profiler": bool((cfg.metric.get("profiler") or {}).get("enabled", False)),
     }
     unacted = [name for name, value in on.items() if value]
     if unacted:
         warnings.warn(
-            f"{', '.join(unacted)}: set, but not acted on by the port yet (the model registry, the telemetry "
-            "hub and the profiler come with the rest of the runtime services, ROADMAP.md, queue A item 6(b))",
+            f"{', '.join(unacted)}: set, but not acted on by the port yet (the model registry comes with the rest "
+            "of the runtime services, ROADMAP.md, queue A item 6(b))",
             UserWarning,
         )
 
@@ -783,6 +778,8 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
         optimizers = optimizer_builder(cfg, modules, state.get("opt_state"))
     trainer = make_trainer_fn(cfg, modules, optimizers, cnn_keys, mlp_keys, is_continuous, state.get("agent"))
     sentinel = HealthSentinel.from_config(cfg)
+    if sentinel is not None:
+        sentinel.register()
 
     aggregator = MetricAggregator(cfg.metric.aggregator.metrics if cfg.metric.log_level > 0 else {})
     timer.configure(cfg.metric)
@@ -894,7 +891,9 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
     counter = (torch.full((), grad_step_counter, dtype=torch.int64, device=fabric.device) if captured
                else grad_step_counter)
 
+    profiler = ProfilerGate(cfg, log_dir)
     for update in range(start_iter, total_iters + 1):
+        profiler.step(update)
         policy_step += policy_steps_per_iter
         with timer("Time/env_interaction_time"):
             if update <= learning_starts and not state:
@@ -1033,8 +1032,6 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
                 for name, value in zip(METRIC_NAMES, last_metrics):
                     aggregator.update(name, value)
             extra = {"Params/replay_ratio": grad_step_counter / max(policy_step, 1), **psync.metrics()}
-            if sentinel is not None:
-                extra.update(sentinel.metrics())
             last_log = flush_metrics(aggregator, timer, logger, policy_step, last_log, extra_metrics=extra)
 
         # ---------------- checkpoint ---------------------------------------------
@@ -1061,7 +1058,10 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
                 print(f"Preemption: committed checkpoint at step {policy_step}, exiting", flush=True)
                 break
 
+    profiler.close()
     envs.close()
+    if sentinel is not None:
+        sentinel.close()
     if getattr(rb, "spill", None) is not None:
         rb.spill.close()
     ckpt_mgr.finalize()

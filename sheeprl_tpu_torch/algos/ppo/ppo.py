@@ -67,6 +67,7 @@ from sheeprl_tpu_torch.envs.device.anakin import (
 from sheeprl_tpu_torch.utils.env import episode_stats, final_obs_rows, make_env, vectorize
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, flush_metrics
+from sheeprl_tpu_torch.utils.profiler import ProfilerGate
 from sheeprl_tpu_torch.utils.optim import ClippedOptimizer, build_optimizer, set_learning_rate
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 from sheeprl_tpu_torch.utils.timer import timer
@@ -336,7 +337,9 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
         with torch.inference_mode():
             return player(prepare_obs(o, cnn_keys, mlp_keys, player_device))[1][..., 0].cpu().numpy()
 
+    profiler = ProfilerGate(cfg, log_dir)
     for update in range(start_iter, total_iters + 1):
+        profiler.step(update)
         if use_anakin:
             # the env steps inside the iteration: the rollout and the update are one train time
             with timer("Time/train_time"):
@@ -420,6 +423,7 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
                 print(f"Preemption: committed checkpoint at step {policy_step}, exiting", flush=True)
                 break
 
+    profiler.close()
     if envs is not None:
         envs.close()
     ckpt_mgr.finalize()

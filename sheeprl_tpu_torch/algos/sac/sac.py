@@ -74,6 +74,7 @@ from sheeprl_tpu_torch.utils.distribution import Normal
 from sheeprl_tpu_torch.utils.env import episode_stats, final_obs_rows, make_env, vectorize
 from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.metric import MetricAggregator, flush_metrics
+from sheeprl_tpu_torch.utils.profiler import ProfilerGate
 from sheeprl_tpu_torch.utils.optim import ClippedOptimizer, build_optimizer, optimizer_state_tensors
 from sheeprl_tpu_torch.utils.registry import register_algorithm
 from sheeprl_tpu_torch.utils.timer import timer
@@ -319,6 +320,8 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
     agent = build_agent_fn(fabric, act_dim, cfg, layout.agent_input, state.get("agent"))
     trainer = trainer_cls(cfg, agent, trainer_cls.build_optimizers(cfg, agent, state.get("opt_state")), act_dim)
     sentinel = HealthSentinel.from_config(cfg) if trainer_cls.HEALTH else None
+    if sentinel is not None:
+        sentinel.register()
 
     aggregator = MetricAggregator(cfg.metric.aggregator.metrics if cfg.metric.log_level > 0 else {})
     timer.configure(cfg.metric)
@@ -386,7 +389,9 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
     obs, _ = envs.reset(seed=int(cfg.seed))
     last_losses = None
     train_windows = 0  # the guard arms past the first window
+    profiler = ProfilerGate(cfg, log_dir)
     for update in range(start_iter, total_iters + 1):
+        profiler.step(update)
         policy_step += num_envs
         with timer("Time/env_interaction_time"):
             if update <= learning_starts and not state:
@@ -463,7 +468,7 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
             last_losses = None
             print(f"health: diverged at step {policy_step} — rolled back to committed snapshot {rb_dir}",
                   flush=True)
-            sentinel.rolled_back()
+            sentinel.rolled_back(policy_step, rb_dir)
 
         # ---------------- logging ------------------------------------------------
         if cfg.metric.log_level > 0 and (
@@ -473,8 +478,6 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
                 for name, value in zip(trainer_cls.LOSS_NAMES, last_losses):
                     aggregator.update(name, float(value))
             extra = {"Params/replay_ratio": grad_step_counter / max(policy_step, 1), **psync.metrics()}
-            if sentinel is not None:
-                extra.update(sentinel.metrics())
             last_log = flush_metrics(aggregator, timer, logger, policy_step, last_log, extra_metrics=extra)
 
         # ---------------- checkpoint ---------------------------------------------
@@ -502,7 +505,10 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
                 print(f"Preemption: committed checkpoint at step {policy_step}, exiting", flush=True)
                 break
 
+    profiler.close()
     envs.close()
+    if sentinel is not None:
+        sentinel.close()
     if getattr(rb, "spill", None) is not None:
         rb.spill.close()
     ckpt_mgr.finalize()

@@ -36,6 +36,7 @@ from __future__ import annotations
 import glob
 import os
 import shutil
+import time
 from pathlib import Path
 from typing import Any, Dict, Optional, Union
 
@@ -43,6 +44,7 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.checkpoint.preemption import PREEMPTION_GUARD
+from sheeprl_tpu_torch.telemetry.monitors import CHECKPOINT_MONITOR
 from sheeprl_tpu_torch.checkpoint.protocol import (
     checkpoint_step,
     fsync_dir,
@@ -164,15 +166,18 @@ class CheckpointManager:
         step_dir.mkdir(parents=True, exist_ok=True)
         snap = to_host(state)
 
-        def job() -> None:
-            write_shard(step_dir, 0, snap)
+        def job() -> int:
+            nbytes = write_shard(step_dir, 0, snap)["bytes"]
             if write_commit(step_dir, step, world=1):
                 gc_checkpoints(self.root, self.keep_last, self.keep_every)
+            return nbytes
 
         if sync:
             if self._writer is not None:
                 self._writer.flush()
-            run_with_io_retry(job, self.io_retries, self.io_retry_base_s)
+            t0 = time.perf_counter()
+            nbytes = run_with_io_retry(job, self.io_retries, self.io_retry_base_s)
+            CHECKPOINT_MONITOR.record_save(seconds=time.perf_counter() - t0, nbytes=nbytes, asynchronous=False)
         else:
             if self._writer is None:
                 self._writer = AsyncCheckpointWriter(self.queue_size, self.io_retries, self.io_retry_base_s,

@@ -234,6 +234,16 @@ def latest_checkpoint(root: PathLike) -> Optional[Path]:
     return ckpts[-1] if ckpts else None
 
 
+def newer_checkpoint(root: PathLike, after_step: int) -> Optional[Path]:
+    """Newest COMMITTED snapshot under ``root`` with step > ``after_step``,
+    or None — the serving layer's commit-watch primitive (torn snapshots
+    are invisible here by construction)."""
+    newest = latest_checkpoint(root)
+    if newest is not None and checkpoint_step(newest) > int(after_step):
+        return newest
+    return None
+
+
 def load_step_dir(step_dir: PathLike, rank: int = 0, map_location: Any = None) -> Any:
     """One rank's state from a committed snapshot (shard 0 when this rank
     has none), tensors placed by ``map_location``."""

@@ -18,19 +18,23 @@ Liveness, as in the JAX writer:
   wait is bounded, and a worker that cannot be joined is abandoned with a
   warning (it is a daemon thread, so interpreter exit does not wait on it).
 
-The JAX writer also reports each save's seconds and bytes to its
-checkpoint monitor and opens a telemetry span; neither exists in the port
-yet (ROADMAP.md, queue A item 6(b)).
+Each job runs inside a ``ckpt.snapshot`` span (writer-thread time, shown
+as concurrent time in the phase breakdown), and its seconds and bytes, a
+parked error and the queue's depth go to ``CHECKPOINT_MONITOR``
+(``Checkpoint/*``).
 """
 
 from __future__ import annotations
 
 import queue
 import threading
+import time
 import warnings
 from typing import Any, Callable, Optional
 
 from sheeprl_tpu_torch.resilience.retry import Watchdog, retry
+from sheeprl_tpu_torch.telemetry.monitors import CHECKPOINT_MONITOR
+from sheeprl_tpu_torch.telemetry.spans import span
 
 
 def run_with_io_retry(job: Callable[[], Any], attempts: int, base_s: float) -> Any:
@@ -72,12 +76,17 @@ class AsyncCheckpointWriter:
             if job is None:
                 self._queue.task_done()
                 return
+            t0 = time.perf_counter()
             if self._watchdog is not None:
                 self._watchdog.arm()
             try:
-                run_with_io_retry(job, self._io_retries, self._io_retry_base_s)
+                with span("ckpt.snapshot"):
+                    nbytes = run_with_io_retry(job, self._io_retries, self._io_retry_base_s)
+                CHECKPOINT_MONITOR.record_save(seconds=time.perf_counter() - t0, nbytes=int(nbytes or 0),
+                                               asynchronous=True)
             except BaseException as e:  # parked, raised on the next submit/flush
                 self._error = e
+                CHECKPOINT_MONITOR.record_error()
             finally:
                 if self._watchdog is not None:
                     self._watchdog.disarm()
@@ -97,7 +106,8 @@ class AsyncCheckpointWriter:
             raise RuntimeError("async checkpoint save failed") from err
 
     def submit(self, job: Callable[[], Any]) -> None:
-        """Enqueue a save job; blocks while the bounded queue is full."""
+        """Enqueue a save job (a callable returning the bytes written);
+        blocks while the bounded queue is full."""
         if self._closed:
             raise RuntimeError("AsyncCheckpointWriter is closed")
         self._raise_pending()
@@ -105,6 +115,7 @@ class AsyncCheckpointWriter:
             self._pending += 1
             self._idle.clear()
         self._queue.put(job)
+        CHECKPOINT_MONITOR.record_depth(self.in_flight)
 
     def flush(self, timeout_s: Optional[float] = None) -> bool:
         """Wait until every queued job has finished, then raise a parked

@@ -114,6 +114,7 @@ def resolve_resume_target(cfg: dotdict) -> dotdict:
 def run(argv: Optional[List[str]] = None) -> None:
     """Compose the config, check it, and run the registered algorithm on the
     fabric's device."""
+    from sheeprl_tpu_torch import telemetry
     from sheeprl_tpu_torch.checkpoint.preemption import PREEMPTION_GUARD
     from sheeprl_tpu_torch.fabric import build_fabric
     from sheeprl_tpu_torch.resilience.faults import install_from_config
@@ -122,6 +123,12 @@ def run(argv: Optional[List[str]] = None) -> None:
     # a preemption latched during an earlier run in this interpreter was
     # honoured by that run's final save: this run starts un-preempted
     PREEMPTION_GUARD.clear_latch()
+    # the same for the hub and the flight recorder: an earlier run's logger
+    # and step must not take this run's final flush, a postmortem of this
+    # run holds this run's events, and a crashed loop's health source goes
+    telemetry.HUB.reset()
+    telemetry.HUB.unregister("health")
+    telemetry.RECORDER.clear()
     cfg = compose(argv)
     # arm (or clear) the fault plan before anything touches envs or
     # checkpoints; SHEEPRL_FAULT_PLAN wins over the config group
@@ -133,7 +140,25 @@ def run(argv: Optional[List[str]] = None) -> None:
     check_configs(cfg)
     entry = resolve_algorithm(cfg.algo.name, decoupled=cfg.fabric.get("decoupled"))
     fabric = build_fabric(cfg)
-    resolve_entrypoint(entry)(fabric, cfg)
+    try:
+        resolve_entrypoint(entry)(fabric, cfg)
+    except BaseException as e:
+        # every abnormal exit leaves evidence: the recorder's ring (faults,
+        # stalls, restarts, span edges, the crash) as postmortem.json
+        telemetry.RECORDER.record("crash", error=f"{type(e).__name__}: {e}")
+        telemetry.RECORDER.dump("exception")
+        raise
+    finally:
+        # a preempted loop has committed its final save by now, so the dump
+        # adds nothing to the signal-to-commit time
+        if PREEMPTION_GUARD.requested():
+            telemetry.RECORDER.record("preemption", signal=PREEMPTION_GUARD.signal_name)
+            telemetry.RECORDER.dump("preemption")
+        # the monitors' counters since the last metric interval land through
+        # the attached logger, then trace windows and the introspection
+        # server stop; telemetry never masks the real exception
+        telemetry.HUB.final_flush()
+        telemetry.shutdown_run()
 
 
 def _split_checkpoint_arg(argv: Optional[List[str]], command: str) -> Tuple[str, List[str]]:

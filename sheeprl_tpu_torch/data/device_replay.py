@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.resilience.faults import fault_rows
+from sheeprl_tpu_torch.telemetry.spans import span
 
 Arrays = Dict[str, np.ndarray]
 Cursor = Dict[str, torch.Tensor]
@@ -512,10 +513,12 @@ class DeviceReplay:
             self._ensure(k, np.shape(v)[2:], np.asarray(v).dtype)
         # the ring slots each env is about to write (host math, no device read)
         t_idx = (self._pos_h[env_sel][None, :] + np.arange(steps)[:, None]) % self._capacity  # (T, K)
-        t_dev = stage(t_idx, self.device)
-        e_dev = stage(env_sel, self.device)
-        for k, v in data.items():
-            self._buf[k][t_dev, e_dev[None, :]] = self._rows(np.asarray(v)[-steps:])
+        # host→ring staging is its own telemetry phase (replay.write)
+        with span("replay.write"):
+            t_dev = stage(t_idx, self.device)
+            e_dev = stage(env_sel, self.device)
+            for k, v in data.items():
+                self._buf[k][t_dev, e_dev[None, :]] = self._rows(np.asarray(v)[-steps:])
         self._pos_h[env_sel] = (self._pos_h[env_sel] + steps) % self._capacity
         self._filled_h[env_sel] = np.minimum(self._filled_h[env_sel] + steps, self._capacity)
         self._refresh_cursor()

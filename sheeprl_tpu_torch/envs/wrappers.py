@@ -14,6 +14,7 @@ from sheeprl_tpu_torch.envs import spaces
 from sheeprl_tpu_torch.envs.dummy import Env
 from sheeprl_tpu_torch.resilience.faults import fault_point
 from sheeprl_tpu_torch.telemetry.monitors import RESILIENCE_MONITOR
+from sheeprl_tpu_torch.telemetry.recorder import RECORDER
 
 
 class Wrapper(Env):
@@ -85,6 +86,11 @@ class RestartOnException(Wrapper):
         while self._restart_times and now - self._restart_times[0] > self._window:
             self._restart_times.popleft()
         if len(self._restart_times) >= self._max_restarts:
+            # the exhausted restart budget kills the run: leave the evidence
+            # now (the restart trail and this giveup), even if something
+            # swallows the raise upstream
+            RECORDER.record("watchdog.giveup", reason="env crashed", restarts=len(self._restart_times))
+            RECORDER.dump("watchdog")
             raise RuntimeError(
                 f"Environment crashed {len(self._restart_times)} times within {self._window}s; giving up"
             )

@@ -40,10 +40,11 @@ and the divergence detector (counterpart of ``sheeprl_tpu/resilience/health.py``
   planted fault adds no host traffic.
 
 The guard skips a whole window (a chunk of updates), as JAX's does: the
-window is one program and cannot say which update went bad.  JAX also
-publishes the state through its telemetry hub and flight recorder; the port
-has neither yet (ROADMAP.md, queue A item 6(b)), so the loops log
-:meth:`HealthSentinel.metrics` with their own.
+window is one program and cannot say which update went bad.  A loop's
+sentinel registers with the telemetry hub (:meth:`HealthSentinel.register`,
+source ``health``), which reads the ``Health/*`` values cached at the last
+poll and never the device, and its skips, spikes, divergence and rollbacks
+land in the flight recorder.
 """
 
 from __future__ import annotations
@@ -56,6 +57,8 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.resilience.faults import active_plan
+from sheeprl_tpu_torch.telemetry.hub import HUB
+from sheeprl_tpu_torch.telemetry.recorder import RECORDER
 
 #: ``() -> (parameters, optimizer state)``: the trained tensors a guarded window covers
 StateFn = Callable[[], Tuple[Sequence[torch.Tensor], Sequence[torch.Tensor]]]
@@ -136,6 +139,8 @@ class HealthSentinel:
        returns ``"rollback"`` when the detector fired and rollback is set.
     """
 
+    HUB_SOURCE = "health"
+
     def __init__(self, hcfg: Any):
         hcfg = hcfg or {}
         self.check_params = bool(hcfg.get("check_params", True))
@@ -165,8 +170,9 @@ class HealthSentinel:
         self._ok_host: Optional[torch.Tensor] = None
         self._ok_event: Any = None
         self._metrics: Dict[str, float] = {}
-        self._prev = {"dispatches": 0, "skipped": 0, "spike_total": 0}
+        self._prev = {"dispatches": 0, "skipped": 0, "nonfinite_loss": 0, "spike_total": 0}
         self._diverged_reported = False
+        self._registered = False
 
     @classmethod
     def from_config(cls, cfg: Any) -> Optional["HealthSentinel"]:
@@ -304,6 +310,17 @@ class HealthSentinel:
                     t.copy_(b)
 
     # -- the host side ------------------------------------------------------------
+    def register(self) -> "HealthSentinel":
+        """Publish :meth:`metrics` through the telemetry hub."""
+        HUB.register(self.HUB_SOURCE, self.metrics)
+        self._registered = True
+        return self
+
+    def close(self) -> None:
+        if self._registered:
+            HUB.unregister(self.HUB_SOURCE)
+            self._registered = False
+
     def metrics(self) -> Dict[str, float]:
         """The newest polled ``Health/*`` values (empty before the first poll)."""
         return dict(self._metrics)
@@ -318,6 +335,7 @@ class HealthSentinel:
         self.settle()
         vals = dict(zip(HealthState._fields, torch.stack([t.double() for t in self.state]).tolist()))
         d, skipped, spike_total = int(vals["dispatches"]), int(vals["skipped"]), int(vals["spike_total"])
+        nonfinite = int(vals["nonfinite_loss"])
         diverged = bool(vals["diverged"])
         lo = self._prev["dispatches"]
         if d > lo and self._trace_specs:
@@ -326,15 +344,24 @@ class HealthSentinel:
             for spec in self._trace_specs:
                 for _ in range(_spec_fire_count(spec, lo, d)):
                     RESILIENCE_MONITOR.record_injection("update.grads", spec.kind)
+        new_skips = skipped - self._prev["skipped"]
+        if new_skips > 0:
+            RECORDER.record("health.skip", count=new_skips, nonfinite_loss=nonfinite - self._prev["nonfinite_loss"],
+                            step=int(policy_step))
+        new_spikes = spike_total - self._prev["spike_total"]
+        if new_spikes > 0:
+            RECORDER.record("health.spike", count=new_spikes, loss=vals["last_loss"], ema=vals["ema"],
+                            step=int(policy_step))
         if diverged and not self._diverged_reported:
             self._diverged_reported = True
+            RECORDER.record("health.diverged", step=int(policy_step), ema=vals["ema"])
             if self.action != "rollback":
                 warnings.warn(
                     f"training-health sentinel: loss diverged at step {policy_step} (health.divergence.action=none "
                     "— continuing; set health.divergence.action=rollback to restore the last committed checkpoint)",
                     RuntimeWarning,
                 )
-        self._prev = {"dispatches": d, "skipped": skipped, "spike_total": spike_total}
+        self._prev = {"dispatches": d, "skipped": skipped, "nonfinite_loss": nonfinite, "spike_total": spike_total}
         self._metrics = {
             "Health/windows": float(d),
             "Health/applied": vals["applied"],
@@ -357,7 +384,7 @@ class HealthSentinel:
             for name, t in zip(HealthState._fields, self.state):
                 if name != "dispatches":
                     t.zero_()
-        self._prev.update(skipped=0, spike_total=0)
+        self._prev.update(skipped=0, nonfinite_loss=0, spike_total=0)
         self._diverged_reported = False
 
     def begin_rollback(self, policy_step: int) -> None:
@@ -370,5 +397,6 @@ class HealthSentinel:
                 f"(health.divergence.max_rollbacks={self.max_rollbacks}) is exhausted"
             )
 
-    def rolled_back(self) -> None:
+    def rolled_back(self, policy_step: int, resume_step: Any) -> None:
+        RECORDER.record("health.rollback", step=int(policy_step), resume_step=str(resume_step))
         self._metrics["Health/rollbacks"] = float(self.rollbacks)

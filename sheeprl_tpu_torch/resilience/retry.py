@@ -4,10 +4,9 @@ no JAX in it).
 
 Every primitive reports into
 :data:`sheeprl_tpu_torch.telemetry.monitors.RESILIENCE_MONITOR`, whose
-``Resilience/*`` counters the train loops flush with their metrics, so no
-handle is threaded through the loops.  The telemetry hub and the flight
-recorder the JAX monitor also reports to are not ported yet (ROADMAP.md,
-queue A item 6(b)).
+``Resilience/*`` counters reach every metric flush through the telemetry
+hub and whose notable transitions land in the flight recorder, so no
+handle is threaded through the loops.
 """
 
 from __future__ import annotations

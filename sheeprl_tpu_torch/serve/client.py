@@ -105,6 +105,21 @@ class PolicyClient:
     def reset(self, session: str) -> None:
         self._call("POST", "/v1/reset", {"session": session})
 
+    def reload(self) -> Dict[str, Any]:
+        """Force one commit-watch poll on the server."""
+        return self._call("POST", "/v1/reload", {})
+
+    def session_carry(self, session: str) -> Optional[Dict[str, Any]]:
+        """A session's CRC-stamped carry snapshot (None when the server has no
+        carry for it or the player is stateless)."""
+        from urllib.parse import quote
+
+        return self._call("GET", f"/v1/session_carry?session={quote(session, safe='')}").get("snapshot")
+
+    def restore_session_carry(self, session: str, snapshot: Dict[str, Any]) -> Dict[str, Any]:
+        """Install a carry snapshot under ``session``; not idempotent, as an act."""
+        return self._call("POST", "/v1/session_carry", {"session": session, "snapshot": snapshot}, idempotent=False)
+
     def stats(self) -> Dict[str, Any]:
         return self._call("GET", "/v1/stats")
 

@@ -21,6 +21,9 @@ on the player's device, and a host-side ``postprocess``.
 * ``carry`` is ``()`` for stateless players (ppo, sac) and the latent-state tuple
   ``(h, z, a)`` for dreamer_v3; the service keeps per-session carries on the
   host.
+* ``extract`` maps a snapshot's ``agent`` state to the ``state_dict`` of each
+  of the player's modules: what a hot reload copies into the served
+  parameters.
 """
 
 from __future__ import annotations
@@ -67,6 +70,8 @@ class PolicyPlayer:
     #: ``params``, through ``fabric.compile`` (``compiled``)
     dispatch: Optional[Callable] = None
     compiled: Any = None
+    #: snapshot ``agent`` state → ``{module name: state_dict}`` of ``params``
+    extract: Optional[Callable[[Dict[str, Any]], Dict[str, Dict[str, torch.Tensor]]]] = None
     _prep_spec: Dict[str, Tuple[Tuple[int, ...], str]] = field(default_factory=dict)
 
     def zero_carry(self, batch: int) -> Tuple[np.ndarray, ...]:
@@ -198,6 +203,7 @@ def build_dreamer_v3_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_sp
         is_continuous=is_continuous,
         actions_dim=tuple(actions_dim),
         device=fabric.device,
+        extract=lambda agent: {"world_model": agent["world_model"], "actor": agent["actor"]},
         stateful=True,
         carry_spec=(
             ((rec_size,), "float32"),
@@ -253,6 +259,7 @@ def build_ppo_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_space: An
         is_continuous=is_continuous,
         actions_dim=tuple(actions_dim),
         device=fabric.device,
+        extract=lambda agent: {"agent": agent},
     ).finalize()
 
 
@@ -301,4 +308,5 @@ def build_sac_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_space: An
         is_continuous=True,
         actions_dim=(act_dim,),
         device=fabric.device,
+        extract=lambda agent: {"actor": {k[len("actor."):]: v for k, v in agent.items() if k.startswith("actor.")}},
     ).finalize()

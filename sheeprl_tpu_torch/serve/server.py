@@ -10,13 +10,19 @@ Endpoints (all JSON):
 * ``POST /v1/act``   — ``{"obs": {...}, "greedy"?: bool, "session"?: str}``
   → ``{"action": [...], "shape": [...], "dtype": "...", "generation": n}``
 * ``POST /v1/reset`` — ``{"session": str}`` drops a stateful episode carry
+* ``POST /v1/reload`` — one synchronous commit check (install a newer
+  committed snapshot now) → ``{"reloaded": bool, "generation": n, ...}``
+* ``GET  /v1/session_carry?session=<id>`` — that session's CRC-stamped carry
+  snapshot; ``POST /v1/session_carry`` ``{"session", "snapshot"}`` installs
+  one (400 when it fails its checks)
 * ``GET  /v1/stats`` — the service's stats dict
-* ``GET  /healthz``  — liveness + model identity
+* ``GET  /metrics``  — every telemetry-hub metric (``Serve/*`` included) in
+  Prometheus text exposition format
+* ``GET  /healthz``  — liveness + model identity; ``degraded: true`` while the
+  reload breaker is open (new commits fail to load, the old parameters serve)
 
 Arrays travel as nested JSON lists or as packed
 ``{"__nd__": {"b64": ..., "shape": [...], "dtype": "..."}}`` blobs.
-``/v1/reload``, ``/v1/session_carry`` and ``/metrics`` of the JAX server
-are not ported yet and answer 404.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import json
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional, Tuple
+from urllib.parse import parse_qs, urlparse
 
 import numpy as np
 
@@ -140,10 +147,14 @@ def _make_handler(service: Any):
                 fault_point("serve.http")
                 if self.path == "/healthz":
                     player = service.player
+                    watcher = service.watcher
                     self._reply(
                         200,
                         {
                             "ok": True,
+                            # liveness over freshness: the old parameters serve
+                            "degraded": watcher.degraded if watcher else False,
+                            "reload_breaker": watcher.breaker.snapshot() if watcher else None,
                             "algo": player.algo,
                             "device": str(player.device),
                             "checkpoint_step": service.store.step,
@@ -155,6 +166,21 @@ def _make_handler(service: Any):
                     )
                 elif self.path == "/v1/stats":
                     self._reply(200, service.stats())
+                elif self.path.startswith("/v1/session_carry"):
+                    session = (parse_qs(urlparse(self.path).query).get("session") or [""])[0]
+                    if not session:
+                        self._reply(400, {"error": "session_carry requires ?session=<id>"})
+                    else:
+                        self._reply(200, {"session": session, "snapshot": service.get_session_carry(session)})
+                elif self.path == "/metrics":
+                    from sheeprl_tpu_torch.telemetry import HUB, PROMETHEUS_CONTENT_TYPE, prometheus_text
+
+                    body = prometheus_text(HUB.collect()).encode()
+                    self.send_response(200)
+                    self.send_header("Content-Type", PROMETHEUS_CONTENT_TYPE)
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
                 else:
                     self._reply(404, {"error": f"unknown path {self.path}"})
             except BrokenPipeError:
@@ -171,6 +197,23 @@ def _make_handler(service: Any):
                     body = self._read_json()
                     service.reset_session(str(body.get("session", "")))
                     self._reply(200, {"ok": True})
+                elif self.path == "/v1/reload":
+                    gen = service.watcher.poll_once() if service.watcher else None
+                    self._reply(200, {"reloaded": gen is not None, "generation": service.store.generation,
+                                      "checkpoint_step": service.store.step})
+                elif self.path == "/v1/session_carry":
+                    body = self._read_json()
+                    session = str(body.get("session", ""))
+                    snapshot = body.get("snapshot")
+                    if not session or not isinstance(snapshot, dict):
+                        self._reply(400, {"error": "session_carry requires 'session' and 'snapshot'"})
+                        return
+                    try:
+                        service.restore_session_carry(session, snapshot)
+                    except ValueError as e:
+                        self._reply(400, {"error": str(e)})
+                        return
+                    self._reply(200, {"ok": True, "session": session})
                 else:
                     self._reply(404, {"error": f"unknown path {self.path}"})
             except BrokenPipeError:
@@ -208,16 +251,18 @@ def _make_handler(service: Any):
                 self._reply(504, {"error": str(e)})
                 return
             action = np.asarray(action)
-            self._reply(
-                200,
-                {
-                    "action": encode_array(action, packed=bool(body.get("packed"))),
-                    "shape": list(action.shape),
-                    "dtype": str(action.dtype),
-                    "generation": service.store.generation,
-                    "checkpoint_step": service.store.step,
-                },
-            )
+            payload = {
+                "action": encode_array(action, packed=bool(body.get("packed"))),
+                "shape": list(action.shape),
+                "dtype": str(action.dtype),
+                "generation": service.store.generation,
+                "checkpoint_step": service.store.step,
+            }
+            session = body.get("session")
+            if body.get("return_carry") and session is not None:
+                # the post-step carry rides the act response
+                payload["carry"] = service.get_session_carry(str(session))
+            self._reply(200, payload)
 
         def _safe_error(self, code: int, e: Exception) -> None:
             try:

@@ -8,18 +8,20 @@
   CUDA graph per rung for DreamerV3 on the card) before traffic is admitted,
 * an :class:`~sheeprl_tpu_torch.serve.batcher.AdmissionQueue` and one
   dispatcher thread doing pad-to-ladder coalescing,
-* per-session latent carries for stateful players (dreamer_v3).
-
-Hot reload on a new ``COMMIT`` (the JAX package's ``CommitWatcher``) is not
-ported yet: with ``serve.watch_commits`` on, :meth:`start` says so on stderr
-and the service keeps serving the snapshot it loaded.
+* a :class:`~sheeprl_tpu_torch.serve.reload.CommitWatcher` installing the
+  parameters of a new ``COMMIT`` into the served (captured) step between
+  batches, without dropping a request (``serve.watch_commits``),
+* per-session latent carries for stateful players (dreamer_v3), with a
+  CRC-stamped snapshot of one session's carry to migrate it
+  (:meth:`PolicyService.get_session_carry` / :meth:`restore_session_carry`),
+* ``Serve/*`` metrics through the telemetry hub (source ``serve``).
 """
 
 from __future__ import annotations
 
-import sys
 import threading
 import time
+import zlib
 from collections import Counter
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -32,7 +34,8 @@ from sheeprl_tpu_torch.serve.batcher import (
     _Request,
     pick_ladder_size,
 )
-from sheeprl_tpu_torch.serve.reload import ParamStore
+from sheeprl_tpu_torch.serve.reload import CommitWatcher, ParamStore, StagedParams, live_tensors
+from sheeprl_tpu_torch.telemetry.hub import HUB
 
 DEFAULT_LADDER = (1, 8, 32, 128)
 
@@ -54,7 +57,18 @@ class PolicyService:
         self.queue = AdmissionQueue(int(serve_cfg.get("max_pending", 1024)))
         self.store = ParamStore(player.params, step=player.checkpoint_step)
         self.latency = LatencyTracker(int(serve_cfg.get("latency_window", 8192)))
-        self.watch_requested = bool(serve_cfg.get("watch_commits", True)) and ckpt_root is not None
+        self._watch = bool(serve_cfg.get("watch_commits", True)) and ckpt_root is not None
+        self.watcher: Optional[CommitWatcher] = None
+        if ckpt_root is not None:
+            self.watcher = CommitWatcher(
+                ckpt_root,
+                self.store,
+                self._load_player_params,
+                poll_s=float(serve_cfg.get("reload_poll_s", 2.0)),
+                failure_threshold=int(serve_cfg.get("reload_failure_threshold", 3)),
+                breaker_reset_s=float(serve_cfg.get("reload_breaker_reset_s", 30.0)),
+                quarantine=bool(serve_cfg.get("quarantine_poisoned", True)),
+            )
         self._sessions: Dict[str, tuple] = {}
         self._sessions_lock = threading.Lock()
         self._dispatcher: Optional[threading.Thread] = None
@@ -92,16 +106,13 @@ class PolicyService:
             return self
         if warm:
             self.warm_up()
-        if self.watch_requested:
-            print(
-                "serve.watch_commits: hot reload is not ported to sheeprl_tpu_torch yet; "
-                f"serving checkpoint step {self.store.step} until restarted",
-                file=sys.stderr,
-                flush=True,
-            )
         self._dispatcher = threading.Thread(target=self._dispatch_loop, name="sheeprl-serve-dispatch", daemon=True)
         self._dispatcher.start()
+        if self.watcher is not None and self._watch:
+            self.watcher.start()
         self._started = True
+        # /v1/stats' numbers (and the server's /metrics) through the hub
+        HUB.register("serve", self.hub_metrics)
         return self
 
     def stop(self, drain: bool = True, timeout: float = 30.0) -> None:
@@ -115,6 +126,9 @@ class PolicyService:
         else:
             for req in pending:
                 req.fail(ServiceStopped("service stopped before dispatch"))
+        if self.watcher is not None:
+            self.watcher.stop()
+        HUB.unregister("serve")
         self._started = False
 
     def __enter__(self) -> "PolicyService":
@@ -156,6 +170,58 @@ class PolicyService:
         with self._sessions_lock:
             self._sessions.pop(session, None)
 
+    # -- carry migration -----------------------------------------------------
+    def get_session_carry(self, session: str) -> Optional[Dict[str, Any]]:
+        """Host-side, CRC-stamped snapshot of one session's latent carry:
+        packed base64 leaves in ``carry_spec`` order plus a CRC over the raw
+        buffers, so a torn copy cannot resurrect a session with a corrupted
+        latent state.  None for unknown sessions and stateless players."""
+        if not self.player.stateful:
+            return None
+        with self._sessions_lock:
+            carry = self._sessions.get(session)
+        if carry is None:
+            return None
+        from sheeprl_tpu_torch.serve.server import encode_array
+
+        leaves = [np.ascontiguousarray(np.asarray(c)) for c in carry]
+        return {
+            "session": session,
+            "algo": self.player.algo,
+            "generation": self.store.generation,
+            "carry": [encode_array(leaf, packed=True) for leaf in leaves],
+            "crc": _carry_crc(leaves),
+        }
+
+    def restore_session_carry(self, session: str, snapshot: Dict[str, Any]) -> None:
+        """Install a :meth:`get_session_carry` snapshot as ``session``'s carry,
+        checking the algo, each leaf's shape and dtype against ``carry_spec``
+        and the CRC stamp.  Raises ValueError on any mismatch."""
+        if not self.player.stateful:
+            raise ValueError(f"player '{self.player.algo}' is stateless: no carry to restore")
+        algo = snapshot.get("algo")
+        if algo not in (None, self.player.algo):
+            raise ValueError(f"carry snapshot is for algo '{algo}', not '{self.player.algo}'")
+        from sheeprl_tpu_torch.serve.server import decode_array
+
+        spec = self.player.carry_spec
+        raw = snapshot.get("carry")
+        if not isinstance(raw, (list, tuple)) or len(raw) != len(spec):
+            got = len(raw) if isinstance(raw, (list, tuple)) else type(raw).__name__
+            raise ValueError(f"carry snapshot has {got} leaves, expected {len(spec)}")
+        leaves = []
+        for i, (value, (shape, dtype)) in enumerate(zip(raw, spec)):
+            leaf = np.ascontiguousarray(decode_array(value))
+            want = (1, *shape)
+            if leaf.shape != want or leaf.dtype != np.dtype(dtype):
+                raise ValueError(f"carry leaf {i} is {leaf.shape}/{leaf.dtype}, expected {want}/{dtype}")
+            leaves.append(leaf)
+        stamp = snapshot.get("crc")
+        if stamp is None or int(stamp) != _carry_crc(leaves):
+            raise ValueError("carry snapshot failed its CRC check (torn or corrupted copy)")
+        with self._sessions_lock:
+            self._sessions[session] = tuple(leaves)
+
     # -- dispatch ------------------------------------------------------------
     def _next_seed(self) -> int:
         with self._seed_lock:
@@ -186,7 +252,6 @@ class PolicyService:
         try:
             k = len(batch)
             size = pick_ladder_size(k, self.ladder)
-            params, _, _ = self.store.snapshot()
             raw = {key: np.stack([np.asarray(r.obs[key]) for r in batch]) for key in player.obs_spec}
             obs = {key: _pad_rows(v, size) for key, v in player.prepare(raw).items()}
             if player.stateful:
@@ -199,7 +264,10 @@ class PolicyService:
                 carry = ()
             greedy = np.zeros((size,), bool)
             greedy[:k] = [r.greedy for r in batch]
-            new_carry, actions = player.step_batch(params, carry, obs, self._next_seed(), greedy)
+            # the whole step under the store's lock: a reload installs
+            # between batches, so a batch finishes on the generation it began
+            with self.store.serving() as (params, _, _):
+                new_carry, actions = player.step_batch(params, carry, obs, self._next_seed(), greedy)
             env_actions = player.postprocess(actions[:k])
             now = time.perf_counter()
             for i, req in enumerate(batch):
@@ -227,12 +295,24 @@ class PolicyService:
                 return carry
         return self.player.zero_carry_row()
 
+    def _load_player_params(self, step_dir: Any) -> StagedParams:
+        """Hot-reload read, on the watcher's thread: the snapshot on the host,
+        the player's modules' tensors taken out of it and staged beside the
+        live ones (pinned memory, then the card on a side stream)."""
+        from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
+
+        state = load_step_dir(step_dir, map_location="cpu")
+        return StagedParams(live_tensors(self.player.params), self.player.extract(state["agent"]))
+
     # -- observability -------------------------------------------------------
     def stats(self) -> Dict[str, Any]:
+        from sheeprl_tpu_torch.telemetry.monitors import COMPILE_MONITOR
+
         with self._stats_lock:
             served, batches = self._served, self._batches
             padded, errors = self._padded_rows, self._errors
             rungs = {str(size): n for size, n in sorted(self._rungs.items())}
+        n_exe, compile_s = COMPILE_MONITOR.totals()
         with self._sessions_lock:
             sessions = len(self._sessions)
         out = {
@@ -247,11 +327,44 @@ class PolicyService:
             "rungs": rungs,
             "generation": self.store.generation,
             "checkpoint_step": self.store.step,
+            "reloads": self.watcher.reloads if self.watcher else 0,
+            "reload_error": self.watcher.last_error if self.watcher else None,
+            # the reload breaker open or half-open: new commits fail to load
+            # and the server keeps serving the old parameters
+            "degraded": self.watcher.degraded if self.watcher else False,
+            "reload_breaker": self.watcher.breaker.snapshot() if self.watcher else None,
+            "quarantined": self.watcher.quarantined if self.watcher else 0,
+            "reload_pause_ms": round(self.store.last_install_s * 1e3, 3),
             "batch_ladder": list(self.ladder),
+            "compile_executables": n_exe,
+            "compile_time_s": round(compile_s, 3),
             "sessions": sessions,
         }
         out.update(self.latency.percentiles((50, 99)))
         return out
+
+    def hub_metrics(self) -> Dict[str, float]:
+        """The numeric subset of :meth:`stats` as ``Serve/*`` hub metrics
+        (the hub source registered by :meth:`start`)."""
+        s = self.stats()
+        out: Dict[str, float] = {}
+        for key in ("served", "batches", "errors", "pending", "avg_batch", "padded_frac", "generation",
+                    "checkpoint_step", "reloads", "quarantined", "sessions", "p50_ms", "p99_ms"):
+            value = s.get(key)
+            if isinstance(value, (int, float)) and not isinstance(value, bool):
+                out[f"Serve/{key}"] = float(value)
+        out["Serve/degraded"] = 1.0 if s.get("degraded") else 0.0
+        return out
+
+
+def _carry_crc(leaves: Sequence[np.ndarray]) -> int:
+    """CRC32 over every carry leaf's shape/dtype header and raw C-order
+    bytes — the integrity stamp on a migrated session carry."""
+    crc = 0
+    for leaf in leaves:
+        crc = zlib.crc32(f"{leaf.shape}:{leaf.dtype}".encode(), crc)
+        crc = zlib.crc32(np.ascontiguousarray(leaf).tobytes(), crc)
+    return crc & 0xFFFFFFFF
 
 
 def _session_waves(batch: List[_Request]) -> List[List[_Request]]:

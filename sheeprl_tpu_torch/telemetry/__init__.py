@@ -1,6 +1,99 @@
-"""Process-global monitors of the port (counterpart of ``sheeprl_tpu/telemetry/``).
+"""The telemetry subsystem of the port (counterpart of ``sheeprl_tpu/telemetry/``).
 
-Only the compile accounting is ported so far (:mod:`.monitors`); the hub,
-the flight recorder and the checkpoint and resilience monitors come with
-the runtime services (ROADMAP.md, queue A item 6).
+* :mod:`~sheeprl_tpu_torch.telemetry.hub`        — ``HUB``: one
+  registration API, one ``flush()`` contract over every metric source
+* :mod:`~sheeprl_tpu_torch.telemetry.monitors`   — the compile / checkpoint /
+  resilience monitors (``utils.profiler`` re-exports them)
+* :mod:`~sheeprl_tpu_torch.telemetry.spans`      — ``SPANS``: nestable
+  step-phase spans → per-window ``Phase/*`` breakdown fractions
+* :mod:`~sheeprl_tpu_torch.telemetry.tracer`     — ``TRACER``: on-demand
+  ``torch.profiler`` windows (``telemetry.trace_at`` / ``SHEEPRL_TRACE_AT``
+  / ``SIGUSR1``)
+* :mod:`~sheeprl_tpu_torch.telemetry.recorder`   — ``RECORDER``: bounded
+  flight recorder → ``postmortem.json`` on a crash, an env's exhausted
+  restart budget or a preemption
+* :mod:`~sheeprl_tpu_torch.telemetry.introspect` — read-only HTTP endpoint
+  (``/healthz``, ``/metrics`` Prometheus text, ``/v1/phase``,
+  ``/v1/recorder``) armed via ``telemetry.introspect.port``
+
+``setup_run`` is the per-run entry point, called centrally from
+``utils.logger.get_logger`` — no per-loop wiring.
 """
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Optional
+
+from sheeprl_tpu_torch.telemetry.hub import HUB, TelemetryHub  # noqa: F401
+from sheeprl_tpu_torch.telemetry.introspect import (  # noqa: F401
+    PROMETHEUS_CONTENT_TYPE,
+    IntrospectionServer,
+    prometheus_text,
+)
+from sheeprl_tpu_torch.telemetry.monitors import (  # noqa: F401
+    CHECKPOINT_MONITOR,
+    COMPILE_MONITOR,
+    RESILIENCE_MONITOR,
+    CheckpointMonitor,
+    CompileMonitor,
+    RecompileLimitExceeded,
+    ResilienceMonitor,
+)
+from sheeprl_tpu_torch.telemetry.recorder import RECORDER, FlightRecorder  # noqa: F401
+from sheeprl_tpu_torch.telemetry.spans import SPANS, SpanTracker, span  # noqa: F401
+from sheeprl_tpu_torch.telemetry.tracer import TRACER, TraceScheduler  # noqa: F401
+
+_SERVER: Optional[IntrospectionServer] = None
+_SERVER_LOCK = threading.Lock()
+
+
+def introspection_server() -> Optional[IntrospectionServer]:
+    """The live run's introspection server, if one is armed."""
+    return _SERVER
+
+
+def setup_run(cfg: Any, log_dir: Optional[str], rank: int = 0) -> None:
+    """Configure the telemetry subsystem for one run.
+
+    Called from ``utils.logger.get_logger`` — the one construction step
+    every training loop and evaluation already goes through — so spans, the tracer's trace windows, the
+    flight recorder's run directory, and the introspection endpoint are
+    armed without per-loop wiring.  Idempotent across repeated calls; the
+    introspection server restarts only when a port is configured."""
+    tcfg = (cfg.get("telemetry") or {}) if hasattr(cfg, "get") else {}
+    SPANS.configure(tcfg.get("spans") or {})
+    RECORDER.configure(tcfg.get("recorder") or {}, run_dir=log_dir)
+    TRACER.configure(tcfg, log_dir)
+    TRACER.install_signal()  # SIGUSR1 → one trace window (main thread only)
+
+    if rank != 0:
+        return
+    icfg = tcfg.get("introspect") or {}
+    port = icfg.get("port", None)
+    global _SERVER
+    with _SERVER_LOCK:
+        if _SERVER is not None:
+            _SERVER.stop()
+            _SERVER = None
+        if port is None:
+            return
+        _SERVER = IntrospectionServer(
+            host=str(icfg.get("host", "127.0.0.1")),
+            port=int(port),
+            stall_after_s=float(tcfg.get("stall_after_s", 600.0) or 0.0),
+        ).start()
+    # flush: harnesses parse this line off a pipe while the run itself may
+    # not print again for minutes
+    print(f"telemetry introspection on {_SERVER.url}", flush=True)
+
+
+def shutdown_run() -> None:
+    """End-of-run teardown: stop an open trace window and the introspection
+    server.  Called from the ``finally`` path of ``cli.run``."""
+    TRACER.close()
+    global _SERVER
+    with _SERVER_LOCK:
+        if _SERVER is not None:
+            _SERVER.stop()
+            _SERVER = None

@@ -1,0 +1,144 @@
+"""The telemetry hub: one registration API and one flush contract
+(a copy of ``sheeprl_tpu/telemetry/hub.py``).
+
+* a **source** is anything that can answer "your metrics, now" — a
+  callable returning ``{name: float}`` or an object with a ``metrics()``
+  method.  Sources register once (the monitors at import, the span
+  tracker, a loop's health sentinel, the policy service at start) and are
+  polled by every flush; a source that raises is skipped, never fatal.  A
+  source returns host values: a flush runs on the introspection thread
+  while a window may be in flight on the card, so no source reads the
+  device.
+* :meth:`flush` merges every source's metrics into one dict.  It is
+  non-destructive by default so the introspection endpoint can scrape
+  freely; ``roll=True`` (used by the per-window metric flush) also fires
+  each source's ``on_roll`` hook — e.g. the span tracker resetting its
+  phase-breakdown window.
+* the hub remembers the run's **logger** (attached by
+  ``utils.logger.get_logger``) and the last policy step it flushed at, so
+  :meth:`final_flush` — called from the ``finally`` path of ``cli.run`` —
+  can land the last window of ``Compile/*`` / ``Checkpoint/*`` /
+  ``Resilience/*`` / ``Phase/*`` counters even when the loop died
+  mid-window.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+
+class TelemetryHub:
+    """Process-global metric-source registry + merged flush."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._sources: Dict[str, Tuple[Callable[[], Dict[str, float]], Optional[Callable[[], None]]]] = {}
+        self._logger: Any = None
+        self.last_step: int = 0
+        self._namespace: Optional[str] = None
+
+    # -- namespacing (multi-process runs) ------------------------------------
+    def set_namespace(self, prefix: Optional[str]) -> None:
+        """Prefix every flushed metric with ``<prefix>/`` (a rank, so the
+        scrapes of several processes stay distinguishable).  ``None`` clears."""
+        with self._lock:
+            self._namespace = str(prefix) if prefix else None
+
+    # -- registration --------------------------------------------------------
+    def register(
+        self,
+        name: str,
+        source: Any,
+        on_roll: Optional[Callable[[], None]] = None,
+    ) -> None:
+        """Register a metric source under ``name`` (replacing any previous
+        holder of the name — re-registration is how a new run's sources
+        supersede the finished run's)."""
+        fn = source if callable(source) else getattr(source, "metrics")
+        with self._lock:
+            self._sources[name] = (fn, on_roll)
+
+    def unregister(self, name: str) -> None:
+        with self._lock:
+            self._sources.pop(name, None)
+
+    def source_names(self) -> List[str]:
+        with self._lock:
+            return sorted(self._sources)
+
+    # -- flushing ------------------------------------------------------------
+    def flush(self, roll: bool = False) -> Dict[str, float]:
+        """Merge every source's metrics.  A broken source is skipped — one
+        bad exporter must never take down the metric stream (or a scrape).
+        ``roll=True`` additionally fires the per-source window-roll hooks
+        AFTER collection, so rolling flushes see the full window."""
+        with self._lock:
+            items = list(self._sources.items())
+            namespace = self._namespace
+        out: Dict[str, float] = {}
+        for _, (fn, _on_roll) in items:
+            try:
+                out.update(fn() or {})
+            except Exception:
+                continue
+        if namespace:
+            out = {f"{namespace}/{k}": v for k, v in out.items()}
+        if roll:
+            for _, (_fn, on_roll) in items:
+                if on_roll is not None:
+                    try:
+                        on_roll()
+                    except Exception:
+                        continue
+        return out
+
+    def collect(self) -> Dict[str, float]:
+        """Non-destructive scrape (the ``/metrics`` endpoint's read)."""
+        return self.flush(roll=False)
+
+    # -- logger plumbing (the crash-flush path) ------------------------------
+    def attach_logger(self, logger: Any) -> None:
+        """Remember the run's logger so :meth:`final_flush` has somewhere to
+        land the last window.  Called by ``utils.logger.get_logger``."""
+        if logger is not None:
+            with self._lock:
+                self._logger = logger
+
+    def note_step(self, step: int) -> None:
+        """Track the newest policy step flushed (``metric.flush_metrics``
+        calls this) — the step :meth:`final_flush` stamps its metrics at."""
+        with self._lock:
+            self.last_step = max(self.last_step, int(step))
+
+    def final_flush(self) -> Dict[str, float]:
+        """Land whatever the sources still hold through the attached logger.
+
+        Runs on the ``finally`` path of ``cli.run``: a loop that exited via
+        an exception or the preemption latch never reached its next metric
+        interval, so the monitors' buffered counters (the final ``Compile/*``
+        executable count, the ``Resilience/*`` evidence of the fault that
+        killed it) would otherwise be silently lost.  Best-effort by
+        design — the logger may already be closed; telemetry must never
+        mask the original exception."""
+        with self._lock:
+            logger, self._logger = self._logger, None
+            step = self.last_step
+        metrics = self.flush(roll=True)
+        if logger is not None and metrics:
+            try:
+                logger.log_metrics(metrics, step)
+            except Exception:
+                pass
+        return metrics
+
+    def reset(self) -> None:
+        """Detach the logger and forget the step (tests / sequential runs).
+        Registered sources stay — they are process-global monitors."""
+        with self._lock:
+            self._logger = None
+            self.last_step = 0
+
+
+#: The process-global hub every monitor registers into and every flush reads.
+HUB = TelemetryHub()

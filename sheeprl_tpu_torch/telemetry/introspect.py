@@ -1,0 +1,213 @@
+"""Read-only live introspection endpoint for training runs (a copy of
+``sheeprl_tpu/telemetry/introspect.py``).
+
+The serving layer's ``server.py`` pattern (stdlib ``ThreadingHTTPServer``
++ JSON, every handler a dict read) over the telemetry subsystem:
+
+* ``GET /healthz``     — liveness: pid, uptime, run dir, hub sources, and
+  the stall rule (HTTP 503 past ``telemetry.stall_after_s``)
+* ``GET /metrics``     — every hub metric in Prometheus text exposition
+  format (``text/plain; version=0.0.4``), ready for a scrape config
+* ``GET /v1/phase``    — the span tracker's current phase breakdown
+* ``GET /v1/recorder`` — the flight recorder's newest events (``?n=``)
+
+Armed per run via ``telemetry.introspect.port`` (``0`` binds an
+ephemeral port; the chosen URL is printed at startup for harnesses to
+parse).  Strictly read-only, and no handler reads the device: every
+value is a host value the sources cached.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import threading
+import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any, Dict, Optional, Tuple
+from urllib.parse import parse_qs, urlparse
+
+#: The Prometheus text exposition content type (version is part of the
+#: scrape contract — tests golden it).
+PROMETHEUS_CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
+
+_NAME_RE = re.compile(r"[^a-zA-Z0-9_]")
+
+
+def prometheus_name(key: str) -> str:
+    """``Compile/executables`` → ``sheeprl_compile_executables``."""
+    name = _NAME_RE.sub("_", key.strip()).lower().strip("_")
+    return f"sheeprl_{name}"
+
+
+def prometheus_text(metrics: Dict[str, float]) -> str:
+    """Render a metric dict in the Prometheus text exposition format.
+
+    Every hub metric is a gauge (the counters are cumulative values read
+    at scrape time, which Prometheus models fine as gauges; claiming
+    ``counter`` would require never-reset semantics the monitors don't
+    promise).  Keys sort for a stable, diffable exposition."""
+    lines = []
+    seen = set()
+    for key in sorted(metrics):
+        name = prometheus_name(key)
+        if name in seen:  # two keys collapsing to one name: first wins
+            continue
+        seen.add(name)
+        try:
+            value = float(metrics[key])
+        except (TypeError, ValueError):
+            continue
+        lines.append(f"# TYPE {name} gauge")
+        lines.append(f"{name} {value}")
+    return "\n".join(lines) + ("\n" if lines else "")
+
+
+class IntrospectionServer:
+    """HTTP wrapper over the hub/spans/recorder globals.
+
+    ``port=0`` binds an ephemeral port; :attr:`url` is resolved after
+    construction.  The server thread is a daemon — it must never keep a
+    finished training process alive."""
+
+    def __init__(self, host: str = "127.0.0.1", port: int = 0, stall_after_s: float = 0.0):
+        self._started_at = time.time()
+        #: /healthz reports ``stalled: true`` (HTTP 503) when the newest
+        #: completed update dispatch is older than this (0 = detection off).
+        #: Set from ``telemetry.stall_after_s`` by ``telemetry.setup_run``.
+        self.stall_after_s = float(stall_after_s or 0.0)
+        self._httpd = ThreadingHTTPServer((host, int(port)), _make_handler(self))
+        self._httpd.daemon_threads = True
+        self._thread: Optional[threading.Thread] = None
+
+    @property
+    def address(self) -> Tuple[str, int]:
+        return self._httpd.server_address[:2]
+
+    @property
+    def url(self) -> str:
+        host, port = self.address
+        return f"http://{host}:{port}"
+
+    @property
+    def uptime_s(self) -> float:
+        return time.time() - self._started_at
+
+    def start(self) -> "IntrospectionServer":
+        self._thread = threading.Thread(
+            target=self._httpd.serve_forever, name="sheeprl-introspect", daemon=True
+        )
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._httpd.shutdown()
+        self._httpd.server_close()
+        if self._thread is not None:
+            self._thread.join(5.0)
+            self._thread = None
+
+    def __enter__(self) -> "IntrospectionServer":
+        return self.start()
+
+    def __exit__(self, *exc: Any) -> None:
+        self.stop()
+
+
+def _make_handler(server: IntrospectionServer):
+    class Handler(BaseHTTPRequestHandler):
+        protocol_version = "HTTP/1.1"
+
+        def log_message(self, fmt: str, *args: Any) -> None:  # quiet
+            pass
+
+        def _reply_bytes(self, code: int, body: bytes, content_type: str) -> None:
+            self.send_response(code)
+            self.send_header("Content-Type", content_type)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def _reply_json(self, code: int, payload: Dict[str, Any]) -> None:
+            self._reply_bytes(
+                code, json.dumps(payload, default=str).encode(), "application/json"
+            )
+
+        def do_GET(self) -> None:  # noqa: N802 (stdlib naming)
+            from sheeprl_tpu_torch.telemetry.hub import HUB
+            from sheeprl_tpu_torch.telemetry.recorder import RECORDER
+            from sheeprl_tpu_torch.telemetry.spans import SPANS
+            from sheeprl_tpu_torch.telemetry.tracer import TRACER
+
+            try:
+                parsed = urlparse(self.path)
+                path = parsed.path.rstrip("/") or "/"
+                if path == "/healthz":
+                    # liveness detail: how stale is the training
+                    # loop?  `last_update_age_s` is seconds since the newest
+                    # COMPLETED update dispatch (null before the first one —
+                    # warm-up compiles are not a stall); past
+                    # telemetry.stall_after_s the probe flips `stalled` and
+                    # answers 503, so a supervisor and external
+                    # probes can tell hung from healthy without killing blind.
+                    age = SPANS.last_update_age_s()
+                    stalled = bool(
+                        server.stall_after_s > 0
+                        and age is not None
+                        and age > server.stall_after_s
+                    )
+                    self._reply_json(
+                        503 if stalled else 200,
+                        {
+                            "ok": not stalled,
+                            "stalled": stalled,
+                            "last_update_age_s": None if age is None else round(age, 3),
+                            "updates_done": SPANS.updates_done,
+                            "stall_after_s": server.stall_after_s,
+                            "pid": os.getpid(),
+                            "uptime_s": round(server.uptime_s, 3),
+                            "run_dir": RECORDER.run_dir,
+                            "last_step": HUB.last_step,
+                            "sources": HUB.source_names(),
+                            "trace_active": TRACER.active,
+                            "recorder_events": len(RECORDER),
+                        },
+                    )
+                elif path == "/metrics":
+                    metrics = dict(HUB.collect())
+                    metrics["Telemetry/uptime_s"] = round(server.uptime_s, 3)
+                    metrics["Telemetry/recorder_events"] = float(len(RECORDER))
+                    metrics["Telemetry/last_step"] = float(HUB.last_step)
+                    self._reply_bytes(
+                        200, prometheus_text(metrics).encode(), PROMETHEUS_CONTENT_TYPE
+                    )
+                elif path == "/v1/phase":
+                    self._reply_json(200, SPANS.breakdown())
+                elif path == "/v1/recorder":
+                    qs = parse_qs(parsed.query)
+                    n = None
+                    if "n" in qs:
+                        try:
+                            n = max(1, int(qs["n"][0]))
+                        except ValueError:
+                            n = None
+                    self._reply_json(
+                        200,
+                        {
+                            "events": RECORDER.snapshot(n),
+                            "total": len(RECORDER),
+                            "last_dump": RECORDER.last_dump,
+                        },
+                    )
+                else:
+                    self._reply_json(404, {"error": f"unknown path {self.path}"})
+            except BrokenPipeError:
+                pass
+            except Exception as e:
+                try:
+                    self._reply_json(500, {"error": f"{type(e).__name__}: {e}"})
+                except Exception:
+                    pass
+
+    return Handler

@@ -1,0 +1,193 @@
+"""On-demand ``torch.profiler`` trace windows (counterpart of
+``sheeprl_tpu/telemetry/tracer.py``, which opens ``jax.profiler`` windows).
+
+:class:`TraceScheduler` arms a trace window of a live run three ways:
+
+* ``telemetry.trace_at=[120,4000]`` — update numbers from the config;
+* ``SHEEPRL_TRACE_AT=120,4000``      — the same list via the environment
+  (the spelling that reaches an already-launched job's restart);
+* ``SIGUSR1``                        — one window at the next update of a
+  live process (``kill -USR1 <pid>``), no restart at all.
+
+Update numbering is the train-dispatch count: the span layer calls
+:meth:`tick` whenever a top-level ``update.dispatch`` span opens (the
+``Time/train_time`` phase every loop already wraps), so no per-loop wiring
+exists.  Each window captures ``telemetry.trace_updates`` dispatches into
+``<log_dir>/trace/update_<n>/trace.json``, a Chrome trace that Perfetto
+and ``chrome://tracing`` open.  The profiler records the host (CPU) and,
+when CUDA is available, the card's kernels (CUDA), the kernels a replayed
+CUDA graph runs included.  While a window is open the span layer fences
+the device at span edges, so the host markers line up with the device's
+work; when no window is armed the fence — and its cost — is absent.
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import threading
+from typing import Any, Callable, List, Optional
+
+ENV_VAR = "SHEEPRL_TRACE_AT"
+TRACE_FILE = "trace.json"
+
+#: the profiler of the open default window and its directory
+_OPEN: List[Any] = []
+
+
+def _default_start(path: str) -> None:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    os.makedirs(path, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    prof = profile(activities=activities)
+    prof.start()
+    _OPEN.append((prof, path))
+
+
+def _default_stop() -> None:
+    if not _OPEN:
+        return
+    prof, path = _OPEN.pop()
+    prof.stop()
+    prof.export_chrome_trace(os.path.join(path, TRACE_FILE))
+
+
+class TraceScheduler:
+    """Arms/stops profiler trace windows on the update-tick stream."""
+
+    def __init__(
+        self,
+        start_fn: Optional[Callable[[str], None]] = None,
+        stop_fn: Optional[Callable[[], None]] = None,
+    ) -> None:
+        self._lock = threading.Lock()
+        self._start_fn = start_fn or _default_start
+        self._stop_fn = stop_fn or _default_stop
+        self._at: frozenset = frozenset()
+        self._window = 2
+        self._dir: Optional[str] = None
+        self._count = 0
+        self._stop_at = 0
+        self._signal_armed = False
+        self._signal_installed = False
+        #: a window is open right now — the span layer reads this to decide
+        #: whether span edges fence the device
+        self.active = False
+        self.windows_captured = 0
+
+    # -- configuration -------------------------------------------------------
+    def configure(self, tcfg: Any = None, log_dir: Optional[str] = None) -> None:
+        """Apply the ``telemetry.*`` trace knobs for a new run.  Resets the
+        update counter (update numbers are per run); an open window from a
+        previous run in this interpreter is closed first."""
+        tcfg = tcfg or {}
+        self.close()
+        env_at: List[int] = []
+        raw = os.environ.get(ENV_VAR, "").strip()
+        if raw:
+            try:
+                env_at = [int(tok) for tok in raw.replace(",", " ").split()]
+            except ValueError:
+                import warnings
+
+                warnings.warn(f"ignoring malformed {ENV_VAR}={raw!r}", RuntimeWarning)
+        cfg_at = [int(v) for v in (tcfg.get("trace_at") or [])]
+        with self._lock:
+            self._at = frozenset(cfg_at + env_at)
+            self._window = max(1, int(tcfg.get("trace_updates", 2)))
+            self._dir = tcfg.get("trace_dir") or (os.path.join(log_dir, "trace") if log_dir else None)
+            self._count = 0
+            self._signal_armed = False
+
+    def install_signal(self) -> bool:
+        """SIGUSR1 → arm one window at the next update.  Main thread only
+        (CPython restricts ``signal.signal``); elsewhere it is a no-op — the
+        preemption guard's contract.  The preemption guard's SIGTERM/SIGINT
+        handlers are left as they are."""
+        if self._signal_installed:
+            return True
+        if threading.current_thread() is not threading.main_thread():
+            return False
+        if not hasattr(signal, "SIGUSR1"):  # pragma: no cover - non-POSIX
+            return False
+        try:
+            signal.signal(signal.SIGUSR1, self._handle_signal)
+        except (ValueError, OSError):
+            return False
+        self._signal_installed = True
+        return True
+
+    def _handle_signal(self, signum: int, frame: Any) -> None:
+        self.request()
+
+    def request(self) -> None:
+        """Arm one trace window at the next tick (the SIGUSR1 path, also
+        callable directly)."""
+        with self._lock:
+            self._signal_armed = True
+
+    # -- the tick stream -----------------------------------------------------
+    def tick(self) -> None:
+        """One train dispatch is about to run.  Called by the span layer on
+        every top-level ``update.dispatch`` span open; cheap when nothing is
+        armed (one lock, two int tests)."""
+        with self._lock:
+            self._count += 1
+            n = self._count
+            fire_stop = self.active and n >= self._stop_at
+            fire_start = (not self.active and not fire_stop) and (n in self._at or self._signal_armed)
+            if fire_start:
+                self._signal_armed = False
+        if fire_stop:
+            self._stop(n)
+            with self._lock:  # a stop tick can also be an armed start tick
+                fire_start = n in self._at or self._signal_armed
+                if fire_start:
+                    self._signal_armed = False
+        if fire_start:
+            self._start(n)
+
+    @property
+    def update_count(self) -> int:
+        with self._lock:
+            return self._count
+
+    # -- window edges --------------------------------------------------------
+    def _start(self, n: int) -> None:
+        from sheeprl_tpu_torch.telemetry.recorder import RECORDER
+
+        path = os.path.join(self._dir or os.getcwd(), f"update_{n:06d}")
+        try:
+            self._start_fn(path)
+        except Exception as e:  # tracing must never take down training
+            RECORDER.record("trace.error", update=n, error=f"{type(e).__name__}: {e}")
+            return
+        with self._lock:
+            self.active = True
+            self._stop_at = n + self._window
+        RECORDER.record("trace.start", update=n, path=path, updates=self._window)
+
+    def _stop(self, n: Optional[int] = None) -> None:
+        from sheeprl_tpu_torch.telemetry.recorder import RECORDER
+
+        try:
+            self._stop_fn()
+        except Exception as e:
+            RECORDER.record("trace.error", update=n, error=f"{type(e).__name__}: {e}")
+        with self._lock:
+            self.active = False
+            self.windows_captured += 1
+        RECORDER.record("trace.stop", update=n if n is not None else self._count)
+
+    def close(self) -> None:
+        """Stop an open window (end of run / reconfigure)."""
+        if self.active:
+            self._stop()
+
+
+#: The process-global trace scheduler the span layer ticks.
+TRACER = TraceScheduler()

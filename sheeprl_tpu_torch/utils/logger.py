@@ -66,12 +66,25 @@ def get_log_dir(root_dir: str, run_name: str, base: str = "logs/runs") -> str:
 
 
 def get_logger(cfg: Any, log_dir: str) -> Optional[Any]:
-    """The configured logger, or None at ``metric.log_level`` 0."""
+    """The configured logger, or None at ``metric.log_level`` 0.
+
+    Also the central telemetry arm-point: every train loop and evaluation
+    builds its logger here, so ``telemetry.setup_run`` (spans, trace
+    windows, the flight recorder's run directory, the introspection
+    endpoint) needs no per-loop wiring.  The logger is attached to the hub,
+    so the ``finally`` path of ``cli.run`` lands the last metric window
+    after a crash."""
+    from sheeprl_tpu_torch import telemetry
+
+    telemetry.setup_run(cfg, log_dir, rank=0)
     if cfg.metric.get("log_level", 1) <= 0:
         return None
     kind = cfg.metric.logger.kind if "logger" in cfg.metric else "tensorboard"
     if kind == "tensorboard":
-        return TensorBoardLogger(log_dir)
-    if kind == "csv":
-        return CSVLogger(log_dir)
-    raise NotImplementedError(f"metric.logger={kind}: the port has the csv and tensorboard loggers")
+        logger = TensorBoardLogger(log_dir)
+    elif kind == "csv":
+        logger = CSVLogger(log_dir)
+    else:
+        raise NotImplementedError(f"metric.logger={kind}: the port has the csv and tensorboard loggers")
+    telemetry.HUB.attach_logger(logger)
+    return logger

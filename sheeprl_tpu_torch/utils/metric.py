@@ -12,7 +12,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from sheeprl_tpu_torch.telemetry.monitors import RESILIENCE_MONITOR
+from sheeprl_tpu_torch.telemetry.hub import HUB
 
 
 def _to_float(v: Any) -> Optional[float]:
@@ -100,8 +100,10 @@ def flush_metrics(
 ) -> int:
     """The end-of-interval flush every train loop shares: compute and reset
     the aggregator, drain the named timers, derive the two steps-per-second
-    rates, merge ``extra_metrics`` and the resilience layer's
-    ``Resilience/*`` counters, log, and return the new ``last_log``."""
+    rates, merge ``extra_metrics`` and the telemetry hub's sources
+    (``Compile/*``, ``Checkpoint/*``, ``Resilience/*``, ``Phase/*``, a
+    loop's ``Health/*``), log, and return the new ``last_log``.  The hub's
+    flush rolls the span window: the metric interval is the phase window."""
     metrics = aggregator.compute()
     aggregator.reset()
     times = timer_obj.to_dict(reset=True)
@@ -112,8 +114,9 @@ def flush_metrics(
         metrics["Time/sps_train"] = steps_since / max(times["Time/train_time"], 1e-9)
     if extra_metrics:
         metrics.update(extra_metrics)
-    metrics.update(RESILIENCE_MONITOR.metrics())
     metrics.update(times)
+    metrics.update(HUB.flush(roll=True))
+    HUB.note_step(policy_step)
     if logger is not None and metrics:
         logger.log_metrics(metrics, policy_step)
     return policy_step

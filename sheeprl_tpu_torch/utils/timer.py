@@ -1,11 +1,11 @@
-"""Named wall-clock timers (counterpart of ``sheeprl_tpu/utils/timer.py``,
-without the telemetry spans).
+"""Named wall-clock timers (counterpart of ``sheeprl_tpu/utils/timer.py``).
 
 Train loops wrap the env-interaction and train phases; at log time the
 steps-per-second rates are derived and the timers reset.  CUDA work is
 asynchronous, so a phase's time is its host time unless
 ``metric.sync_timers=True``, which synchronises the device at each phase
-boundary.
+boundary.  The two phase timers every loop has are also the telemetry
+spans ``rollout`` and ``update.dispatch`` (``telemetry/spans.py``).
 """
 
 from __future__ import annotations
@@ -13,6 +13,8 @@ from __future__ import annotations
 import time
 from contextlib import ContextDecorator
 from typing import Any, ClassVar, Dict
+
+from sheeprl_tpu_torch.telemetry.spans import SPANS, TIMER_PHASES
 
 
 class timer(ContextDecorator):
@@ -39,10 +41,17 @@ class timer(ContextDecorator):
     def __enter__(self) -> "timer":
         if timer.sync and not timer.disabled:
             timer._drain_device()
+        # the phase-span bridge: independent of `disabled`, so spans (and
+        # the trace scheduler's tick stream they drive) stay live at
+        # metric.log_level=0
+        phase = TIMER_PHASES.get(self.name)
+        self._span = SPANS.push(phase) if phase is not None else None
         self._start = time.perf_counter()
         return self
 
     def __exit__(self, *exc: Any) -> bool:
+        if self._span is not None:
+            SPANS.pop(self._span)
         if not timer.disabled:
             if timer.sync:
                 timer._drain_device()

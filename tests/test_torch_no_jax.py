@@ -4,10 +4,11 @@ refuses ``jax``, ``flax``, ``optax`` and ``sheeprl_tpu``, every module of
 them, and PPO, A2C and recurrent PPO, the compile-once layer:
 ``parallel/compile.py``, ``telemetry/monitors.py``, ``utils/profiler.py``,
 whose ``GraphFunction`` audits a probe on the CPU, and the runtime services:
-``checkpoint/{preemption,rollback}.py``, ``resilience/{retry,faults,health}.py``),
-a DreamerV3 player takes one CPU
-step, a tiny dry run through ``cli.run`` trains one update and commits a
-snapshot, one Plan2Explore-DreamerV3 update steps, PPO, A2C and recurrent
+``checkpoint/{preemption,rollback}.py``, ``resilience/{retry,faults,health}.py``,
+and the telemetry subsystem and hot reload: ``telemetry/{hub,recorder,spans,
+tracer,introspect}.py``, ``serve/reload.py``), a DreamerV3 player takes one CPU
+step, a tiny dry run through ``cli.run`` (introspection endpoint armed) trains
+one update, logs ``Phase/*`` and commits a snapshot, one Plan2Explore-DreamerV3 update steps, PPO, A2C and recurrent
 PPO each train one iteration through ``cli.run`` and commit a snapshot that
 ``cli.evaluation`` plays and, for PPO, a player serves, and SAC, DroQ and
 SAC-AE each train through ``cli.run`` and commit a snapshot that
@@ -48,7 +49,9 @@ SCRIPT = textwrap.dedent(
     for name in names:
         importlib.import_module(name)
     for name in ("parallel.compile", "telemetry.monitors", "utils.profiler", "checkpoint.preemption",
-                 "checkpoint.rollback", "resilience.retry", "resilience.faults", "resilience.health"):
+                 "checkpoint.rollback", "resilience.retry", "resilience.faults", "resilience.health",
+                 "telemetry.hub", "telemetry.recorder", "telemetry.spans", "telemetry.tracer",
+                 "telemetry.introspect", "serve.reload"):
         assert "sheeprl_tpu_torch." + name in names, name
 
     import torch
@@ -99,9 +102,12 @@ SCRIPT = textwrap.dedent(
              "algo.world_model.recurrent_model.recurrent_state_size=8",
              "algo.world_model.transition_model.hidden_size=8",
              "algo.world_model.representation_model.hidden_size=8",
-             "algo.world_model.recurrent_model.fused_pallas=True", "algo.run_test=False"])
+             "algo.world_model.recurrent_model.fused_pallas=True", "algo.run_test=False",
+             "telemetry.introspect.port=0"])
         (snapshot,) = glob.glob(f"{{tmp}}/**/checkpoint/step_*", recursive=True)
         assert load_step_dir(snapshot)["grad_steps"] == 1
+        (metrics_csv,) = glob.glob(f"{{tmp}}/**/metrics.csv", recursive=True)
+        assert ",Phase/update.dispatch," in open(metrics_csv).read()
     # one Plan2Explore-DreamerV3 update (fused RSSM layout, plain version on the CPU)
     import torch
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import blocks_to_device
