@@ -127,7 +127,7 @@ prints no result line):
               (a profiled rollout), peak memory; every rollout runs under
               ``torch.cuda.set_sync_debug_mode("error")``.
               Beside it the adapter path (``algo.anakin=False``) at 16 envs.
-27. anakin family — PPO through the CNN on ``jax_forage`` at 256 envs,
+27. anakin family — PPO through the CNN on ``jax_forage`` at 128 envs,
               A2C on ``jax_cartpole`` under both RMSprops and recurrent PPO,
               2 iterations each under the same gate.
 28. dv3 forage — phase 7's XL recipe on ``jax_forage`` through the adapter
@@ -187,8 +187,8 @@ replayed graphs; ``_train`` times the window route per chunk.
               deterministic algorithms: drawn indices, the ten losses and
               every parameter equal bit for bit where the two eager runs
               are; 80 rssm launches per update credited per replay; then
-              eager and replayed chunks in turns (eager, graph, graph,
-              eager): updates/s, host ms and host calls per update, device
+              a replayed and an eager chunk in turns (graph, eager):
+              updates/s, host ms and host calls per update, device
               operations and ms per update, 3 captures for chunk sizes 4, 2
               and 1, peak memory.
 39. graphs dv3-s-gru — phase 38 for DreamerV3-S with the GRU kernel.
@@ -293,6 +293,31 @@ The telemetry subsystem and serving's hot reload a default run turns on:
               snapshot bit for bit; a corrupt snapshot is quarantined while
               serving goes on.
 
+The deployment surface: the model registry, a snapshot the JAX package
+wrote, the serving fleet:
+
+54. registry — ``cli.registration`` of phase 7's DreamerV3-XL snapshot: the
+              five sub-models at v1, each loaded back equal to the snapshot's
+              tensors bit for bit; phase 51's untraced ``cli.run`` twin runs
+              with ``model_manager.disabled=False`` and registers the same
+              five; ``available_agents`` lists every ported algorithm.
+55. jax snapshot — the DreamerV3 snapshot the JAX package wrote
+              (``tests/fixtures/jax_dv3``, ``fused_pallas=True``) served on
+              the card by ``python -m sheeprl_tpu_torch.serve``: at least one
+              rssm launch per batch and no gru launch (its ``/v1/stats``),
+              each recorded row's h' and, through ``load_policy``'s player,
+              h', the posterior logits and the actor logits within 1e-4 of
+              the JAX values recorded beside it.
+56. fleet   — ``python -m sheeprl_tpu_torch.serve.fleet`` with two XL
+              replicas over phase 4's run directory: 16 sessions x 8 steps
+              through the router and through one server in turns; each
+              replica's rssm launches per batch; a replica SIGKILLed under 16
+              sessions (none dropped, the slot respawned); a session idle
+              through the kill stepped alone on its slot's new process equal
+              bit for bit to the step from its migrated carry here; a new
+              snapshot rolled out under 16 sessions (none failed, no
+              recapture, each replica equal to a fresh service bit for bit).
+
 Each phase prints its seconds (``[seconds]``).  The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -307,7 +332,8 @@ host) for DreamerV3-XL, SAC and SAC-AE, timed alike, ``--graphs`` phases
 37-41 (after phase 4's served snapshot and captured service run),
 ``--precision`` phases 42-47 (beside 32-true runs of phases 7 and 11),
 ``--runtime`` phases 48-50, ``--telemetry`` phases 51-53 (beside phase 4's
-snapshot, a short SAC run and phase 49's preempted child), ``--health-ab ROOT`` phase 7's and 20's
+snapshot, a short SAC run and phase 49's preempted child), ``--deploy`` phases 54-56 (beside phase 4's
+snapshot and phase 51's untraced twin), ``--health-ab ROOT`` phase 7's and 20's
 recipes with ``health.enabled`` on and off in turns for the port under
 ``ROOT`` (``--preempt-child`` and ``--commit-hang-child`` are phase 49's
 child processes).
@@ -1844,14 +1870,16 @@ ANAKIN_PPO = ("exp=ppo", "env=jax_cartpole", *ENVS_COMMON, "env.num_envs=1024", 
 # the same recipe through the adapter at 16 host-stepped envs, 2 iterations
 ADAPTER_PPO = ("exp=ppo", "env=jax_cartpole", *ENVS_COMMON, "algo.anakin=False", "env.num_envs=16",
                "algo.total_steps=4096")
-# PPO through the CNN on forage's 64x64 frames, 256 envs (a 1.6 GB rollout),
-# the recipe's 10 epochs of 8 minibatches; 2 iterations
-ANAKIN_FORAGE = ("exp=ppo", "env=jax_forage", *ENVS_COMMON, "env.num_envs=256", "algo.cnn_keys.encoder=[rgb]",
-                 "algo.mlp_keys.encoder=[]", "algo.per_rank_batch_size=4096", "algo.total_steps=65536")
+# PPO through the CNN on forage's 64x64 frames, 128 envs (an 0.8 GB rollout;
+# 256 until the deployment phases needed the time), the recipe's 10 epochs
+# of 8 minibatches; 2 iterations
+ANAKIN_FORAGE = ("exp=ppo", "env=jax_forage", *ENVS_COMMON, "env.num_envs=128", "algo.cnn_keys.encoder=[rgb]",
+                 "algo.mlp_keys.encoder=[]", "algo.per_rank_batch_size=2048", "algo.total_steps=32768")
 ANAKIN_A2C = ("exp=a2c", "env=jax_cartpole", *ENVS_COMMON, "env.num_envs=1024", "algo.total_steps=262144")
-# recurrent PPO at its defaults, 64 envs in minibatches of 32 env columns; 2 iterations
+# recurrent PPO at its defaults, 32 envs in one minibatch of 32 env columns
+# (64 envs in two until the deployment phases needed the time); 2 iterations
 ANAKIN_RECURRENT = ("exp=ppo_recurrent", "env=jax_cartpole", *ENVS_COMMON, "env.mask_velocities=False",
-                    "env.num_envs=64", "algo.per_rank_batch_size=4096", "algo.total_steps=16384")
+                    "env.num_envs=32", "algo.per_rank_batch_size=4096", "algo.total_steps=8192")
 # phase 7's XL recipe on forage (rgb alone), the fused kernel; replay ratio
 # 1/16: int(65 / 16) = 4 updates at step 65, one chunk
 DV3_FORAGE = (*(o for o in XL_TRAIN if not o.startswith(("env=", "env.id=", "algo.mlp_keys"))), "env=jax_forage",
@@ -2870,7 +2898,9 @@ def phase_graph_window(torch, tag: str, overrides, kernel: str, light: bool = Fa
     eager_prof = _profiled(torch, lambda: window(1, counter0))
     graph_prof = _profiled(torch, lambda: f(1, counter0))
     host_graph = _host_calls(f, lambda: f(GRAPH_CHUNK, counter0)) / GRAPH_CHUNK
-    turns = _turns(torch, {"eager": eager_chunk, "graph": graph_chunk})
+    # one turn each (graph, eager): the eager turns were cut to one to make
+    # room for phases 54-56
+    turns = _turns(torch, {"eager": eager_chunk, "graph": graph_chunk}, order=("graph", "eager"))
     per = GRAPH_CHUNK * GRAPH_TURN_CHUNKS
     ups = {k: [per / t for t in v["s"]] for k, v in turns.items()}
     host_ms = {k: [1e3 * t / per for t in v["host_s"]] for k, v in turns.items()}
@@ -2883,8 +2913,8 @@ def phase_graph_window(torch, tag: str, overrides, kernel: str, light: bool = Fa
            "device_ms_per_update": {"eager": eager_prof[0], "graph": graph_prof[0]},
            "launches_per_update": expected // GRAPH_CHUNK, "loss_rel": float(rel_d.max()), "param_abs": worst,
            "peak_bytes": peak, "capture_s": capture_s}
-    log(f"[{tag}] updates/s in turns eager {ups['eager'][0]:.3f}, graph {ups['graph'][0]:.3f}, graph "
-        f"{ups['graph'][1]:.3f}, eager {ups['eager'][1]:.3f}; host ms per update eager "
+    log(f"[{tag}] updates/s in turns graph {ups['graph'][0]:.3f}, eager {ups['eager'][0]:.3f}; host ms per "
+        f"update eager "
         f"{', '.join(f'{x:.1f}' for x in host_ms['eager'])}, graph {', '.join(f'{x:.2f}' for x in host_ms['graph'])}; "
         f"host calls per update eager {out['host_launches_per_update']['eager']:.0f} (every device operation), "
         f"graph {out['host_launches_per_update']['graph']:.2f} (graph launches and input copies); device operations "
@@ -4375,7 +4405,10 @@ def phase_telemetry_traced(torch, run_root: Path) -> dict:
     from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
 
     traced = _telemetry_run(torch, TELEMETRY_XL, run_root / "traced", traced=True)
-    untraced = _telemetry_run(torch, TELEMETRY_XL, run_root / "untraced", traced=False)
+    # the untraced twin registers its sub-models when it ends (phase 54 reads them)
+    untraced = _telemetry_run(torch, (*TELEMETRY_XL, *registry_overrides(run_root / "registry_run")),
+                              run_root / "untraced", traced=False)
+    untraced["registry_root"] = run_root / "registry_run"
     a, b = (load_step_dir(r["snapshot"], map_location="cpu") for r in (traced, untraced))
     pairs = [(x, y) for name in ("agent", "opt_state") for x, y in zip(_tensor_leaves(a[name]), _tensor_leaves(b[name]))]
     equal = sum(torch.equal(x, y) for x, y in pairs)
@@ -4751,6 +4784,564 @@ def telemetry_summary(t: dict) -> dict:
             "bit_for_bit": [t["traced"]["bit_for_bit"], t["traced"]["tensors"]],
             "traced_wall_s": t["traced"]["traced"]["wall_s"], "untraced_wall_s": t["traced"]["untraced"]["wall_s"],
             "spans_updates_per_s": t["spans"], "signals": t["signals"], "reload": t["reload"]}
+
+
+# -- the deployment surface: registry, a JAX-written snapshot, the fleet (phases 54-56)
+FIXTURE_DIR = ROOT / "tests" / "fixtures" / "jax_dv3"  # tools/write_jax_fixture.py
+DV3_REGISTERED = ("world_model", "actor", "critic", "target_critic", "moments")
+FLEET_REPLICAS = 2
+FLEET_KILL_STEPS = 24  # steps per session of phase 56's kill drill (the kill lands after a third)
+FLEET_ROLL_SEED = 11  # the weights of the snapshot phase 56 rolls out
+DEPLOY_DEVICE = "fabric.accelerator=gpu"
+FLEET_OVERRIDES = (DEPLOY_DEVICE, f"serve.fleet.replicas={FLEET_REPLICAS}", "serve.fleet.port=0",
+                   "serve.fleet.reload_poll_s=0.5", "serve.fleet.health_poll_s=0.25", "serve.fleet.readmit_s=1.0",
+                   "serve.fleet.respawn_backoff_base_s=0.2", "serve.fleet.respawn_backoff_max_s=0.5")
+
+
+def registry_overrides(root: Path) -> tuple:
+    """A run that registers its sub-models under ``root`` when it ends."""
+    return ("model_manager.disabled=False", f"model_manager.registry_root={root}")
+
+
+def _registered(torch, root: Path, snapshot: Path) -> dict:
+    """Each DreamerV3 sub-model registered under ``root``, against the
+    snapshot's tensors, bit for bit."""
+    from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
+    from sheeprl_tpu_torch.serve.loader import load_run_config
+    from sheeprl_tpu_torch.utils.model_manager import FileSystemModelManager
+
+    cfg = load_run_config(snapshot)
+    mm = FileSystemModelManager(root)
+    agent = load_step_dir(snapshot, map_location="cpu")["agent"]
+    out = {}
+    for key in DV3_REGISTERED:
+        name = cfg.model_manager.models[key].model_name
+        got, want = mm.load_model(name), agent[key]
+        out[key] = {"name": name, "version": mm.get_model_info(name)["version"], "tensors": len(want),
+                    "equal": set(got) == set(want) and all(torch.equal(got[k], want[k]) for k in want),
+                    "bytes": Path(mm.download_model(name)).stat().st_size}
+    return out
+
+
+def phase_registry(torch, snapshot: Path, run_root: Path, run_twin: dict) -> dict:
+    """Phase 54: ``cli.registration`` of the trained DreamerV3-XL snapshot
+    (phase 7's): its five sub-models registered at v1, each loaded back equal
+    to the snapshot's tensors bit for bit; phase 51's untraced ``cli.run``
+    twin, run with ``model_manager.disabled=False``, registered the same
+    five at v1 from its own snapshot; ``available_agents`` lists every
+    algorithm the port registers."""
+    import io
+
+    from sheeprl_tpu_torch import cli
+    from sheeprl_tpu_torch.utils.registry import algorithm_registry
+
+    root = run_root / "registry"
+    t0 = time.perf_counter()
+    versions = cli.registration([f"checkpoint_path={snapshot}", f"model_manager.registry_root={root}"])
+    seconds = time.perf_counter() - t0
+    registered = _registered(torch, root, snapshot)
+    twin = _registered(torch, run_twin["registry_root"], run_twin["snapshot"])
+    shown = io.StringIO()
+    with contextlib.redirect_stdout(shown):
+        cli.available_agents()
+    missing = sorted(n for n in algorithm_registry if n not in shown.getvalue())
+    log(f"[registry] cli.registration of {snapshot.name}: {versions} in {seconds:.1f} s; loaded back bit for bit: "
+        + ", ".join(f"{r['name']} v{r['version']} {r['tensors']} tensors {r['bytes'] / 2**20:.1f} MiB "
+                    f"{'equal' if r['equal'] else 'NOT equal'}" for r in registered.values()))
+    log(f"[registry] cli.run with model_manager.disabled=False registered "
+        + ", ".join(f"{r['name']} v{r['version']} {'equal' if r['equal'] else 'NOT equal'}" for r in twin.values())
+        + f"; available_agents lists {len(algorithm_registry) - len(missing)} of {len(algorithm_registry)} algorithms")
+    ok = (versions == {k: 1 for k in DV3_REGISTERED} and not missing
+          and all(r["equal"] and r["version"] == 1 for r in (*registered.values(), *twin.values())))
+    if not ok:
+        raise AssertionError(f"[registry] the registered models are not the snapshot's (missing agents {missing})")
+    return {"seconds": seconds, "registered": registered, "twin": twin, "agents": len(algorithm_registry)}
+
+
+class _ServeChild:
+    """A serving entry point of the port (``python -m <module> <args>``)
+    started in the background, its output collected, so that its start
+    overlaps other work."""
+
+    def __init__(self, args, tag: str):
+        self.tag, self.t0 = tag, time.perf_counter()
+        self.proc = subprocess.Popen([sys.executable, "-m", *args], cwd=ROOT, stdout=subprocess.PIPE,
+                                     stderr=subprocess.STDOUT, text=True)
+        self.lines, self._seen = [], threading.Event()
+        _read_lines(self.proc, self.lines, self._seen, self._is_url)
+
+    @staticmethod
+    def _is_url(line: str) -> bool:  # its own line, not a fleet replica's ([r0] ...)
+        return bool(re.search(r" on http://[\d.]+:\d+", line)) and not line.startswith("[r")
+
+    def url(self, timeout: float = 600.0) -> str:
+        """Its URL once it has bound; ``ready_s``: seconds from its start."""
+        if not self._seen.wait(timeout):
+            self.proc.kill()
+            raise AssertionError(f"[{self.tag}] printed no URL:\n{''.join(self.lines)[-4000:]}")
+        self.ready_s = time.perf_counter() - self.t0
+        return re.search(r" on (http://[\d.]+:\d+)", next(l for l in self.lines if self._is_url(l))).group(1)
+
+
+def _stop_child(proc, sig=signal.SIGINT, timeout: float = 60.0) -> int:
+    if proc.poll() is None:
+        proc.send_signal(sig)
+        try:
+            proc.wait(timeout)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    return proc.returncode
+
+
+def _carry_snapshot(rows, session: str) -> dict:
+    """A ``/v1/session_carry`` snapshot of one session's carry rows."""
+    from sheeprl_tpu_torch.serve.server import encode_array
+    from sheeprl_tpu_torch.serve.service import _carry_crc
+
+    leaves = [np.ascontiguousarray(r, np.float32).reshape(1, -1) for r in rows]
+    return {"session": session, "algo": "dreamer_v3", "carry": [encode_array(x, packed=True) for x in leaves],
+            "crc": _carry_crc(leaves)}
+
+
+def _carry_rows(snapshot: dict) -> list:
+    from sheeprl_tpu_torch.serve.server import decode_array
+
+    return [decode_array(x) for x in snapshot["carry"]]
+
+
+def jax_serve_child(run_root: Path) -> _ServeChild:
+    """Phase 55's server: the fixture copied under ``run_root`` and served
+    on the card by ``python -m sheeprl_tpu_torch.serve``."""
+    run_dir = run_root / "jax_dv3"
+    shutil.copytree(FIXTURE_DIR, run_dir)
+    return _ServeChild(["sheeprl_tpu_torch.serve", f"checkpoint_path={run_dir}", DEPLOY_DEVICE, "serve.port=0",
+                        "serve.watch_commits=false"], "jax-serve")
+
+
+def fleet_child(served_dir: Path) -> _ServeChild:
+    """Phase 56's fleet: ``python -m sheeprl_tpu_torch.serve.fleet`` over ``served_dir``."""
+    return _ServeChild(["sheeprl_tpu_torch.serve.fleet", f"checkpoint_path={served_dir}", *FLEET_OVERRIDES], "fleet")
+
+
+def phase_jax_snapshot(torch, run_root: Path, child: _ServeChild = None) -> dict:
+    """Phase 55: the DreamerV3 snapshot the JAX package wrote
+    (``tests/fixtures/jax_dv3``, ``fused_pallas=True``), served on the card
+    through ``cli.serve`` (``python -m sheeprl_tpu_torch.serve``): its
+    ``/v1/stats`` counts at least one rssm launch per batch and no gru launch;
+    each recorded input row, restored as a session carry and stepped alone,
+    gives JAX's h' within 1e-4; and the player ``load_policy`` builds from
+    it on the card gives JAX's h', posterior logits and actor logits within
+    1e-4 on the recorded batch (the sampled latent and greedy action equal)."""
+    from sheeprl_tpu_torch.ops import gru, rssm
+    from sheeprl_tpu_torch.serve.client import PolicyClient
+    from sheeprl_tpu_torch.serve.loader import load_policy
+
+    child = child or jax_serve_child(run_root)
+    run_dir = run_root / "jax_dv3"
+    x = dict(np.load(run_dir / "outputs.npz"))
+    proc = child.proc
+    try:
+        url = child.url()
+        client = PolicyClient(url, packed=True, timeout=120)
+        health = client.health()
+        valid = lambda a: a.shape == tuple(health["action_shape"]) and 0 <= int(a) < 4  # noqa: E731
+        spec = {k: (tuple(s), d) for k, (s, d) in health["obs_spec"].items()}
+        player_like = type("Spec", (), {"obs_spec": spec, "algo": health["algo"]})
+        wall, latencies = _client_sessions(url, player_like, valid, 4, 4)
+        served_h = []
+        for i in range(len(x["h"])):  # each recorded row alone: rung 1
+            client.restore_session_carry(f"jax-{i}", _carry_snapshot((x["h"][i], x["z"][i], x["a"][i]), f"jax-{i}"))
+            client.act({"rgb": x["rgb"][i], "state": x["state"][i]}, session=f"jax-{i}", greedy=True)
+            served_h.append(_carry_rows(client.session_carry(f"jax-{i}"))[0][0])
+        stats = client.stats()
+    finally:
+        rc = _stop_child(proc)
+    served_err = float(np.abs(np.stack(served_h) - x["h_next"]).max())
+    launches = stats["kernel_launches"]
+
+    rssm.LAUNCHES["rssm"] = gru.LAUNCHES["gru"] = 0
+    _, _, _, player = load_policy(run_dir, [DEPLOY_DEVICE])
+    wm, actor = player.params["world_model"], player.params["actor"]
+    dev = player.device
+    t = {k: torch.from_numpy(x[k]).to(dev) for k in ("h", "z", "a", "noise")}
+    B = t["h"].shape[0]
+    obs = {k: torch.from_numpy(v).to(dev) for k, v in player.prepare({"rgb": x["rgb"], "state": x["state"]}).items()}
+    with torch.no_grad():
+        h, z, post, _ = wm.dynamic_noise(t["h"], t["z"], t["a"], wm.encode(obs), torch.zeros(B, 1, device=dev),
+                                         t["noise"])
+        logits = actor(torch.cat([z, h], -1))
+        greedy = actor.sample(logits, torch.Generator(dev).manual_seed(0), greedy=True)
+    torch.cuda.synchronize()
+    in_process = {"rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]}
+    errs = {name: float(np.abs(v.cpu().numpy() - x[key]).max())
+            for name, v, key in (("h", h, "h_next"), ("post_logits", post, "post_logits"),
+                                 ("actor_logits", logits, "actor_logits"))}
+    shape = (B, *x["noise"].shape[1:])
+    same_z = bool(np.array_equal(z.cpu().numpy().reshape(shape).argmax(-1), x["z_next"].reshape(shape).argmax(-1)))
+    same_a = bool(np.array_equal(greedy.cpu().numpy(), x["greedy_action"]))
+    lat = np.asarray(latencies) * 1e3
+    log(f"[jax-snapshot] the JAX-written fixture served by cli.serve on the card (exit {rc}): {stats['served']} "
+        f"actions in {stats['batches']} batches, launches {launches} (rssm per batch "
+        f"{launches['rssm'] / max(1, stats['batches']):.2f}), client p50 {np.percentile(lat, 50):.1f} ms; each "
+        f"recorded row stepped alone: h' max abs err {served_err:.2e} against JAX; load_policy's player at B={B}: "
+        f"max abs err {', '.join(f'{k} {v:.2e}' for k, v in errs.items())}, latent "
+        f"{'equal' if same_z else 'NOT equal'}, greedy action {'equal' if same_a else 'NOT equal'}, launches "
+        f"{in_process}")
+    ok = (launches["rssm"] >= stats["batches"] > 0 and launches["gru"] == 0 and stats["errors"] == 0
+          and served_err <= TOL and all(e <= TOL for e in errs.values()) and same_z and same_a
+          and in_process["rssm"] >= 1 and in_process["gru"] == 0)
+    if not ok:
+        raise AssertionError("[jax-snapshot] the JAX-written snapshot does not serve as JAX computes it on the card")
+    del player, wm, actor
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"served": stats["served"], "batches": stats["batches"], "launches": launches, "in_process": in_process,
+            "served_h_err": served_err, "errs": errs}
+
+
+def _replica_pid(port: int, parent: int) -> int:
+    """The pid of ``parent``'s child process listening on ``port``: the
+    socket's inode from ``/proc/net/tcp``, matched among the children's
+    file descriptors."""
+    inodes = set()
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        with contextlib.suppress(FileNotFoundError), open(table) as f:
+            for row in list(f)[1:]:
+                cols = row.split()
+                if int(cols[1].rsplit(":", 1)[1], 16) == port and cols[3] == "0A":  # LISTEN
+                    inodes.add(f"socket:[{cols[9]}]")
+    for pid in (int(p) for p in os.listdir("/proc") if p.isdigit()):
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                if int(f.read().rsplit(")", 1)[1].split()[1]) != parent:
+                    continue
+            if any(os.readlink(f"/proc/{pid}/fd/{fd}") in inodes for fd in os.listdir(f"/proc/{pid}/fd")):
+                return pid
+        except (FileNotFoundError, ProcessLookupError, PermissionError):
+            continue
+    raise AssertionError(f"no child of {parent} listens on port {port}")
+
+
+def _fleet_replicas(router_url: str) -> dict:
+    from sheeprl_tpu_torch.serve.client import PolicyClient
+
+    return PolicyClient(router_url, timeout=60).stats()["per_replica"]
+
+
+def _wait_fleet(router_url: str, healthy: int, timeout: float = 600.0) -> float:
+    from sheeprl_tpu_torch.serve.client import PolicyClient
+
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        with contextlib.suppress(Exception):
+            if PolicyClient(router_url, timeout=10, retries=1).health().get("healthy", 0) >= healthy:
+                return time.monotonic() - t0
+        time.sleep(0.1)
+    raise AssertionError(f"[fleet] {healthy} healthy replicas not reached within {timeout} s")
+
+
+def _replica_step(torch, url: str, session: str, rows, raw: dict, seed0: int) -> tuple:
+    """One step of ``session`` on the replica at ``url`` from carry ``rows``
+    and observation ``raw``, alone (rung 1), greedy: the carry after it, the
+    action and the dispatch seed (the replica's seed counter: ``seed0`` plus
+    its batches, every one of them served)."""
+    from sheeprl_tpu_torch.serve.client import PolicyClient
+
+    client = PolicyClient(url, packed=True, timeout=120, retries=1)
+    client.restore_session_carry(session, _carry_snapshot(rows, session))
+    before = client.stats()
+    action = client.act(raw, session=session, greedy=True)
+    after = client.stats()
+    if before["errors"] or after["batches"] != before["batches"] + 1:
+        raise AssertionError(f"[fleet] the probe step on {url} was not one batch of its own: {before} -> {after}")
+    return _carry_rows(client.session_carry(session)), action, seed0 + before["batches"] + 1
+
+
+def _local_step(service, rows, raw: dict, seed: int) -> tuple:
+    """The same step on an in-process service's player: its rung-1 graph,
+    the dispatch seed given."""
+    player = service.player
+    carry = tuple(np.asarray(r, np.float32).reshape(1, -1) for r in rows)
+    obs = player.prepare({k: np.asarray(v)[None] for k, v in raw.items()})
+    with service.store.serving() as (params, _, _):
+        new_carry, actions = player.step_batch(params, carry, obs, seed, np.ones((1,), bool))
+    return list(new_carry), player.postprocess(actions[:1])[0]
+
+
+def _same_step(a: tuple, b: tuple) -> bool:
+    (carry_a, act_a), (carry_b, act_b) = a, b
+    return all(np.array_equal(x, y) for x, y in zip(carry_a, carry_b)) and np.array_equal(act_a, act_b)
+
+
+def phase_fleet(torch, run_root: Path, served_dir: Path, child: _ServeChild = None) -> dict:
+    """Phase 56: ``cli.serve_fleet`` (``python -m sheeprl_tpu_torch.serve.fleet``)
+    with two DreamerV3-XL replicas on the card over phase 4's run directory:
+    16 sessions through the router and through one in-process server on the
+    same snapshot in turns (fleet, single, single, fleet); every replica's
+    rssm launches at least one per batch and no gru; a replica SIGKILLed
+    under 16 sessions (no request dropped, every session complete, its
+    sessions migrated, the slot respawned); a session idle through the kill
+    then stepped alone on its slot's new process equal bit for bit to the
+    same step from its migrated carry at the same seed in this process; and a
+    new committed snapshot rolled out replica by replica under 16 sessions
+    (none failed, no replica recaptured, each replica's step equal to a
+    fresh service's on the new snapshot bit for bit)."""
+    from sheeprl_tpu_torch.checkpoint.protocol import checkpoint_step, latest_checkpoint
+    from sheeprl_tpu_torch.serve.client import PolicyClient
+    from sheeprl_tpu_torch.serve.fleet import assign_replica
+    from sheeprl_tpu_torch.serve.server import PolicyServer
+    from sheeprl_tpu_torch.serve.service import PolicyService
+
+    child = child or fleet_child(served_dir)
+    proc = child.proc
+    replica_pids = {}
+    try:
+        single = PolicyService.from_checkpoint(served_dir, ["serve.watch_commits=False"])  # while the fleet starts
+        server = PolicyServer(single, port=0).start()
+        router_url = child.url()
+        _wait_fleet(router_url, FLEET_REPLICAS)
+        startup_s = time.perf_counter() - child.t0
+        seed0 = int(single.cfg.seed)
+        valid = _action_check(single)
+        replicas = _fleet_replicas(router_url)
+        replica_pids = {rid: _replica_pid(int(r["url"].rsplit(":", 1)[1]), proc.pid) for rid, r in replicas.items()}
+        log(f"[fleet] router {router_url} over {sorted(replicas)} (pids {replica_pids}) up in {startup_s:.1f} s")
+
+        # -- throughput in turns ----------------------------------------------------------------
+        turns = []
+        for where, url in (("fleet", router_url), ("single", server.url), ("single", server.url),
+                           ("fleet", router_url)):
+            wall, latencies = _client_sessions(url, single.player, valid, SERVE_SESSIONS, SERVE_STEPS)
+            lat = np.asarray(latencies) * 1e3
+            turns.append({"where": where, "actions_per_s": len(latencies) / wall,
+                          "p50_ms": float(np.percentile(lat, 50)), "p99_ms": float(np.percentile(lat, 99))})
+            log(f"[fleet] turn {len(turns)} {where}: {SERVE_SESSIONS} sessions x {SERVE_STEPS} steps, "
+                f"{turns[-1]['actions_per_s']:.1f} actions/s, client p50 {turns[-1]['p50_ms']:.1f} ms "
+                f"p99 {turns[-1]['p99_ms']:.1f} ms")
+        server.stop()
+        replica_stats = {rid: PolicyClient(r["url"]).stats() for rid, r in replicas.items()}
+        for rid, s in replica_stats.items():
+            log(f"[fleet] replica {rid}: {s['served']} served in {s['batches']} batches (rungs {s['rungs']}), "
+                f"launches {s['kernel_launches']}, compiled {s['compile_executables']}")
+        launches_ok = all(s["kernel_launches"]["rssm"] >= s["batches"] > 0 and s["kernel_launches"]["gru"] == 0
+                          for s in replica_stats.values())
+
+        # -- the kill drill --------------------------------------------------------------------
+        rng = np.random.default_rng(56)
+        spec = single.player.obs_spec
+        draw = lambda: {k: rng.integers(0, 256, s, dtype=np.uint8) if d == "uint8"  # noqa: E731
+                        else rng.standard_normal(s).astype(np.float32) for k, (s, d) in spec.items()}
+        router = PolicyClient(router_url, packed=True, timeout=120, retries=6, retry_base_s=0.2)
+        # the victim: the replica the router's rendezvous hash gives most of
+        # the drill's sessions; the pinned session is one it also gives it
+        rids = sorted(replicas)
+        homes = [assign_replica(f"k{i}", rids) for i in range(SERVE_SESSIONS)]
+        home = max(rids, key=homes.count)
+        pin = next(f"pin-{j}" for j in range(1000) if assign_replica(f"pin-{j}", rids) == home)
+        for _ in range(2):  # the pinned session's first steps, alone
+            router.act(draw(), session=pin, greedy=True)
+        carry = _carry_rows(PolicyClient(replicas[home]["url"]).session_carry(pin))
+        errors, done, lock, streamed = [], [], threading.Lock(), [0]
+
+        def stream(i: int) -> None:
+            client = PolicyClient(router_url, packed=True, timeout=120, retries=6, retry_base_s=0.2)
+            local = np.random.default_rng(i)
+            try:
+                for step in range(FLEET_KILL_STEPS):
+                    obs = {k: local.integers(0, 256, s, dtype=np.uint8) if d == "uint8"
+                           else local.standard_normal(s).astype(np.float32) for k, (s, d) in spec.items()}
+                    if not valid(client.act(obs, session=f"k{i}", greedy=(i + step) % 2 == 0)):
+                        raise AssertionError("invalid action")
+                    with lock:
+                        streamed[0] += 1
+                with lock:
+                    done.append(i)
+            except BaseException as e:  # noqa: BLE001 - the gate is that none fails
+                errors.append(f"k{i}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=stream, args=(i,), daemon=True) for i in range(SERVE_SESSIONS)]
+        for t in threads:
+            t.start()
+        while streamed[0] < SERVE_SESSIONS * FLEET_KILL_STEPS // 3 and not errors:  # mid-stream
+            time.sleep(0.002)
+        t_kill, streamed_at_kill = time.perf_counter(), streamed[0]
+        os.kill(replica_pids[home], signal.SIGKILL)
+        for t in threads:
+            t.join(300)
+        # the rollout's snapshot is staged while the slot respawns
+        root = served_dir / "checkpoint"
+        step = checkpoint_step(latest_checkpoint(root)) + 1
+        staged = _stage_snapshot(torch, [*XL_SERVE, FUSED, f"seed={FLEET_ROLL_SEED}"], run_root / "fleet_staging", step)
+        after_kill = router.stats()
+        while after_kill["respawns"] < 1 or after_kill["healthy"] < FLEET_REPLICAS:
+            if time.perf_counter() - t_kill > 300:
+                raise AssertionError(f"[fleet] the killed slot did not come back: {after_kill}")
+            time.sleep(0.1)
+            after_kill = router.stats()
+        respawn_s = time.perf_counter() - t_kill
+        log(f"[fleet] SIGKILL of {home} (pid {replica_pids[home]}, {homes.count(home)} of the sessions) after "
+            f"{streamed_at_kill} of {SERVE_SESSIONS} sessions x {FLEET_KILL_STEPS} steps: {len(done)} sessions complete, {len(errors)} failed {errors[:3]}; routed "
+            f"{after_kill['routed']}, failovers {after_kill['failovers']}, migrations {after_kill['migrations']}, "
+            f"ejects {after_kill['ejects']}; the slot respawned and routable {respawn_s:.1f} s after the kill")
+        replicas = after_kill["per_replica"]
+        replica_pids = {rid: _replica_pid(int(r["url"].rsplit(":", 1)[1]), proc.pid) for rid, r in replicas.items()}
+
+        # -- the pinned session, migrated onto its slot's new process -------------------------------
+        raw = draw()
+        before = {rid: PolicyClient(r["url"]).stats() for rid, r in replicas.items()}
+        action = router.act(raw, session=pin, greedy=True)
+        dest = next(rid for rid, r in replicas.items() if PolicyClient(r["url"]).session_carry(pin) is not None)
+        if before[dest]["errors"]:
+            raise AssertionError(f"[fleet] replica {dest} failed requests: {before[dest]}")
+        migrated = (_carry_rows(PolicyClient(replicas[dest]["url"]).session_carry(pin)), action)
+        expected = _local_step(single, carry, raw, seed0 + before[dest]["batches"] + 1)
+        carry_same = _same_step(migrated, expected)
+        log(f"[fleet] session {pin} ({home} before the kill) stepped alone on {dest} after the respawn: carry and "
+            f"action {'equal' if carry_same else 'NOT equal'} bit for bit to the step from its migrated carry in "
+            f"this process (rung 1, the same seed); migrations {router.stats()['migrations']}")
+        single.stop()
+        del single, server
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # -- a rolling reload under 16 sessions ------------------------------------------------------------
+        compiled = {rid: PolicyClient(r["url"]).stats()["compile_executables"] for rid, r in replicas.items()}
+        stop, roll_errors, answered = threading.Event(), [], [0]
+
+        def load(i: int) -> None:
+            client = PolicyClient(router_url, packed=True, timeout=120, retries=6, retry_base_s=0.2)
+            local = np.random.default_rng(100 + i)
+            try:
+                while not stop.is_set():
+                    obs = {k: local.integers(0, 256, s, dtype=np.uint8) if d == "uint8"
+                           else local.standard_normal(s).astype(np.float32) for k, (s, d) in spec.items()}
+                    if not valid(client.act(obs, session=f"r{i}", greedy=i % 2 == 0)):
+                        raise AssertionError("invalid action")
+                    with lock:
+                        answered[0] += 1
+            except BaseException as e:  # noqa: BLE001 - the gate is that none fails
+                roll_errors.append(f"r{i}: {type(e).__name__}: {e}")
+
+        threads = [threading.Thread(target=load, args=(i,), daemon=True) for i in range(SERVE_SESSIONS)]
+        for t in threads:
+            t.start()
+        time.sleep(1.0)
+        t_land = time.perf_counter()
+        os.replace(staged, root / staged.name)
+        rolled = router.stats()
+        while rolled["rolling_reloads"] < 1 and not roll_errors:
+            if time.perf_counter() - t_land > 300:
+                raise AssertionError(f"[fleet] the rollout did not finish: {rolled}")
+            time.sleep(0.1)
+            rolled = router.stats()
+        roll_s = time.perf_counter() - t_land
+        time.sleep(1.0)
+        stop.set()
+        for t in threads:
+            t.join(120)
+        rolled = router.stats()
+        after = {rid: PolicyClient(r["url"]).stats() for rid, r in replicas.items()}
+        recaptured = {rid: after[rid]["compile_executables"] - compiled[rid] for rid in after}
+        log(f"[fleet] rolling reload of step {step} under {SERVE_SESSIONS} sessions: done {roll_s:.2f} s after the "
+            f"commit, {answered[0]} requests answered, {len(roll_errors)} failed {roll_errors[:3]}; replicas reloaded "
+            f"{rolled['replicas_reloaded']}, halts {rolled['reload_halts']}, fleet step {rolled['fleet_step']}; "
+            f"captures during it {recaptured}; replica steps {[a['checkpoint_step'] for a in after.values()]}")
+        fresh = PolicyService.from_checkpoint(root / staged.name, ["serve.watch_commits=False"])
+        fresh.warm_up()
+        rows = tuple(np.zeros(s, np.dtype(d)) for s, d in fresh.player.carry_spec)
+        raw = draw()
+        fresh_same = {}
+        for rid, r in replicas.items():
+            got_carry, got_action, seed = _replica_step(torch, r["url"], f"fresh-{rid}", rows, raw, seed0)
+            fresh_same[rid] = _same_step((got_carry, got_action), _local_step(fresh, rows, raw, seed))
+        log(f"[fleet] each replica's step after the rollout against a fresh service on step {step}: "
+            + ", ".join(f"{rid} {'equal' if same else 'NOT equal'}" for rid, same in fresh_same.items())
+            + " bit for bit")
+        del fresh
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        rc = _stop_child(proc, signal.SIGTERM, timeout=120)
+        orphans = [pid for pid in replica_pids.values() if Path(f"/proc/{pid}").exists()]
+        for pid in orphans:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, signal.SIGKILL)
+    log(f"[fleet] SIGTERM to the fleet: exit {rc}, replicas left running {orphans}")
+    fleet = [t for t in turns if t["where"] == "fleet"]
+    one = [t for t in turns if t["where"] == "single"]
+    ok = (launches_ok and not errors and len(done) == SERVE_SESSIONS and after_kill["migrations"] >= homes.count(home)
+          and carry_same and not roll_errors and rolled["replicas_reloaded"] >= FLEET_REPLICAS
+          and rolled["reload_halts"] == 0 and not any(recaptured.values())
+          and all(a["checkpoint_step"] == step for a in after.values()) and all(fresh_same.values())
+          and rc == 0 and not orphans)
+    if not ok:
+        raise AssertionError("[fleet] a check of phase 56 failed (see the lines above)")
+    return {"startup_s": startup_s, "turns": turns, "replicas": {rid: {k: s[k] for k in ("served", "batches",
+                                                                                          "kernel_launches", "rungs")}
+                                                                 for rid, s in replica_stats.items()},
+            "kill": {"sessions_done": len(done), "errors": len(errors), "respawn_s": respawn_s,
+                     "migrations": after_kill["migrations"], "failovers": after_kill["failovers"]},
+            "carry_bit_for_bit": carry_same, "reload": {"seconds": roll_s, "answered": answered[0],
+                                                        "replicas_reloaded": rolled["replicas_reloaded"],
+                                                        "fresh_bit_for_bit": fresh_same},
+            "fleet_actions_per_s": [t["actions_per_s"] for t in fleet],
+            "single_actions_per_s": [t["actions_per_s"] for t in one],
+            "launches": {"rssm": sum(s["kernel_launches"]["rssm"] for s in replica_stats.values()),
+                         "gru": sum(s["kernel_launches"]["gru"] for s in replica_stats.values())}}
+
+
+def phase_deploy(torch, run_root: Path, snapshot: Path, run_twin: dict, served_dir: Path) -> dict:
+    """Phases 54-56; the servers of 55 and 56 start first, so that their
+    starts overlap phase 54."""
+    t0 = time.perf_counter()
+    jax_child, fleet = jax_serve_child(run_root), fleet_child(served_dir)
+    try:
+        out = {"registry": phase_registry(torch, snapshot, run_root, run_twin),
+               "jax_snapshot": phase_jax_snapshot(torch, run_root, jax_child),
+               "fleet": phase_fleet(torch, run_root, served_dir, fleet)}
+    finally:
+        for child in (jax_child, fleet):
+            _stop_child(child.proc, signal.SIGTERM, timeout=120)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[deploy] phases 54-56 in {out['seconds']:.1f} s")
+    return out
+
+
+def deploy_summary(d: dict) -> dict:
+    f = d["fleet"]
+    return {"seconds": d["seconds"], "registry_s": d["registry"]["seconds"],
+            "jax_snapshot": {k: d["jax_snapshot"][k] for k in ("served", "batches", "launches", "served_h_err",
+                                                                "errs")},
+            "fleet": {k: f[k] for k in ("startup_s", "turns", "replicas", "kill", "carry_bit_for_bit", "reload")}}
+
+
+def deploy_only(torch) -> int:
+    """``--deploy``: phases 54-56 alone, beside what they read of earlier
+    phases: phase 4's served snapshot and phase 51's untraced DV3-XL
+    ``cli.run`` twin, whose snapshot also stands for phase 7's."""
+    log_phase_seconds()
+    run_root = ROOT / "build" / "chip_smoke_deploy"
+    shutil.rmtree(run_root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        device = phase_device(torch)
+        phase_build()
+        served_dir = run_root / "fused_pallas"
+        _build_snapshot(torch, [*XL_SERVE, FUSED], served_dir)
+        twin = _telemetry_run(torch, (*TELEMETRY_XL, *registry_overrides(run_root / "registry_run")),
+                              run_root / "untraced", traced=False)
+        twin["registry_root"] = run_root / "registry_run"
+        deploy = phase_deploy(torch, run_root, twin["snapshot"], twin, served_dir)
+        log("[deploy] " + json.dumps(deploy_summary(deploy), default=float))
+        log(f"[deploy] total {time.perf_counter() - t0:.1f} s")
+    except BaseException:
+        traceback.print_exc()
+        return 1
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
 
 
 def telemetry_only(torch) -> int:
@@ -5131,6 +5722,8 @@ def main() -> int:
         return precision_only(torch)
     if sys.argv[1:2] == ["--telemetry"]:
         return telemetry_only(torch)
+    if sys.argv[1:2] == ["--deploy"]:
+        return deploy_only(torch)
 
     run_root = ROOT / "build" / "chip_smoke"
     shutil.rmtree(run_root, ignore_errors=True)
@@ -5199,6 +5792,8 @@ def main() -> int:
         telemetry = phase_telemetry(torch, run_root, fused_dir, off_policy["train"]["sac"]["kept"],
                                     runtime["preempt"])
         log("[telemetry] " + json.dumps(telemetry_summary(telemetry), default=float))
+        deploy = phase_deploy(torch, run_root, train["snapshot"], telemetry["traced"]["untraced"], fused_dir)
+        log("[deploy] " + json.dumps(deploy_summary(deploy), default=float))
 
         launches = {"rssm": train["counts"]["rssm"], "gru": train_gru["counts"]["gru"]}
         new_paths = {"p2e_explore": p2e, "p2e_finetune": finetune, "decoupled": decoupled}
@@ -5254,6 +5849,12 @@ def main() -> int:
             by_path["trace_windows_events"] = (sum(k["sheeprl"] for k in telemetry["traced"]["trace_kernels"])
                                                if name == "rssm" else 0)
             by_path["reload_serve"] = telemetry["reload"]["counts"][name]
+            # phases 54-56: the DV3-XL run that registered its sub-models (phase 51's
+            # untraced twin), the JAX-written fixture served by cli.serve (its
+            # process's count), the two fleet replicas before the kill
+            by_path["registered_xl"] = telemetry["traced"]["untraced"]["counts"][name]
+            by_path["jax_snapshot_serve"] = deploy["jax_snapshot"]["launches"][name]
+            by_path["fleet_serve"] = deploy["fleet"]["launches"][name]
         sources = {
             "rssm": ("sheeprl_tpu_torch/csrc/rssm.cu",
                      "sheeprl_tpu/ops/rssm_pallas.py:70 (_rssm_kernel), sheeprl_tpu/ops/rssm_pallas.py:260 "
@@ -5299,7 +5900,11 @@ def main() -> int:
             f"{telemetry['traced']['tensors']} tensors, trace windows hold {telemetry['traced']['credited']} rssm "
             f"launches; hot reload under {SERVE_SESSIONS} sessions answered {telemetry['reload']['answered']} requests, "
             f"installed {telemetry['reload']['swap_s']:.2f} s after the commit with a "
-            f"{telemetry['reload']['pause_ms']:.2f} ms pause (phases 51-53 {telemetry['seconds']:.1f} s); total "
+            f"{telemetry['reload']['pause_ms']:.2f} ms pause (phases 51-53 {telemetry['seconds']:.1f} s); the fleet "
+            f"{', '.join(f'{x:.1f}' for x in deploy['fleet']['fleet_actions_per_s'])} actions/s beside one server's "
+            f"{', '.join(f'{x:.1f}' for x in deploy['fleet']['single_actions_per_s'])}, a SIGKILLed replica back in "
+            f"{deploy['fleet']['kill']['respawn_s']:.1f} s with no request dropped (phases 54-56 "
+            f"{deploy['seconds']:.1f} s); total "
             f"{time.perf_counter() - t_start:.1f} s")
     except BaseException:
         traceback.print_exc()

@@ -1,8 +1,24 @@
-"""``python -m sheeprl_tpu_torch [overrides...]`` — train (``cli.run``)."""
+"""``python -m sheeprl_tpu_torch [overrides...]`` — train (``cli.run``).
+
+The first argument may name another entry point, as the JAX package's
+``__main__`` takes it: ``eval`` / ``--eval``, ``serve``,
+``register-model`` / ``--register-model`` and ``agents`` / ``--agents``.
+"""
 
 import sys
 
-from sheeprl_tpu_torch.cli import run
+from sheeprl_tpu_torch.cli import available_agents, evaluation, registration, run, serve
 
 if __name__ == "__main__":
-    run(sys.argv[1:])
+    argv = sys.argv[1:]
+    cmd = argv[0].lstrip("-") if argv else ""
+    if cmd == "eval":
+        evaluation(argv[1:])
+    elif cmd == "serve":
+        serve(argv[1:])
+    elif cmd == "register-model":
+        registration(argv[1:])
+    elif cmd == "agents":
+        available_agents()
+    else:
+        run(argv)

@@ -53,7 +53,6 @@ from __future__ import annotations
 
 import contextlib
 import os
-import warnings
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -138,21 +137,6 @@ def check_supported(cfg: Any) -> None:
             raise NotImplementedError(
                 f"{name} is not ported yet: the scale layer comes later (ROADMAP.md, queue A item 5)"
             )
-
-
-def warn_unacted_settings(cfg: Any) -> None:
-    """Warn of the settings that are on but that the port does not act on
-    yet (ROADMAP.md, queue A item 6(b)); every train loop calls this at its start."""
-    on = {
-        "model_manager.disabled=False": not bool((cfg.get("model_manager") or {}).get("disabled", True)),
-    }
-    unacted = [name for name, value in on.items() if value]
-    if unacted:
-        warnings.warn(
-            f"{', '.join(unacted)}: set, but not acted on by the port yet (the model registry comes with the rest "
-            "of the runtime services, ROADMAP.md, queue A item 6(b))",
-            UserWarning,
-        )
 
 
 @contextlib.contextmanager
@@ -738,7 +722,6 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
       projected exploration snapshot of a finetuning run); like a resumed
       one, it skips the random prefill."""
     check_supported(cfg)
-    warn_unacted_settings(cfg)
     fabric.warm_kernels(cfg)
     player_device = fabric.player_device(cfg)
     train_gen, player_gen = fabric.seed_everything(int(cfg.seed), player_device)

@@ -9,6 +9,9 @@ import torch
 
 from sheeprl_tpu_torch.utils.utils import merge_framestack
 
+#: the sub-models of a snapshot that ``cli.registration`` registers
+MODELS_TO_REGISTER = {"world_model", "actor", "critic", "target_critic", "moments"}
+
 def moments_update(
     moments: Dict[str, torch.Tensor],
     x: torch.Tensor,

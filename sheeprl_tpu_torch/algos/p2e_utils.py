@@ -80,6 +80,7 @@ def exploration_initial_state(cfg: Any, project: Callable[[Dict[str, Any], str],
     projected by ``project`` (on the host, without its replay buffer unless
     ``buffer.load_from_exploration``), or None on a finetuning restart
     (``checkpoint.resume_from``); raises ``ConfigError`` when neither is given."""
+    from sheeprl_tpu_torch.checkpoint.serialize import refuse_jax_resume
     from sheeprl_tpu_torch.serve.loader import resolve_checkpoint
 
     path = cfg.checkpoint.get("exploration_ckpt_path")
@@ -90,7 +91,9 @@ def exploration_initial_state(cfg: Any, project: Callable[[Dict[str, Any], str],
             "p2e finetuning needs checkpoint.exploration_ckpt_path "
             "(or checkpoint.resume_from for a finetuning restart)"
         )
-    state = project(load_step_dir(resolve_checkpoint(path), map_location="cpu"), actor_type_from_cfg(cfg))
+    ckpt = resolve_checkpoint(path)
+    refuse_jax_resume(ckpt, "checkpoint.exploration_ckpt_path")
+    state = project(load_step_dir(ckpt, map_location="cpu"), actor_type_from_cfg(cfg))
     if not cfg.buffer.get("load_from_exploration", False):
         state.pop("rb", None)
     return state

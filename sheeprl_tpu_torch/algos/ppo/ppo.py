@@ -94,9 +94,7 @@ def epoch_permutation(generator: torch.Generator, T: int, B: int, batch_size: in
 
 def check_supported(cfg: Any) -> None:
     """Raise for the on-policy settings the port does not implement yet,
-    naming the ROADMAP item that will, and warn of those it does not act on."""
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import warn_unacted_settings
-
+    naming the ROADMAP item that will."""
     if int((cfg.get("population") or {}).get("size", 0) or 0) > 1:
         raise NotImplementedError(
             "population.size > 1 is not ported yet: population training vmaps whole agents over the Anakin "
@@ -107,7 +105,6 @@ def check_supported(cfg: Any) -> None:
             "fabric.decoupled is not ported yet: the decoupled topologies come with the scale layer "
             "(ROADMAP.md, queue A item 5)"
         )
-    warn_unacted_settings(cfg)
 
 
 class OnPolicyTrainer:

@@ -19,6 +19,7 @@ AGGREGATOR_KEYS = {
     "Loss/policy_loss",
     "Loss/entropy_loss",
 }
+MODELS_TO_REGISTER = {"agent"}
 
 
 def actions_for_env(actions: np.ndarray, action_space: spaces.Space) -> np.ndarray:

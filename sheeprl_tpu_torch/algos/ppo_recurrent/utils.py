@@ -9,6 +9,8 @@ import torch
 
 from sheeprl_tpu_torch.algos.ppo.utils import AGGREGATOR_KEYS  # noqa: F401
 
+MODELS_TO_REGISTER = {"agent"}
+
 
 def flat_obs(obs: Dict[str, np.ndarray], mlp_keys: Sequence[str], device: Any) -> Dict[str, torch.Tensor]:
     """A step batch of vector observations as ``(B, width)`` float tensors on ``device``."""

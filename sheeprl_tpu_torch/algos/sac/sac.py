@@ -51,7 +51,6 @@ import torch
 from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import (
     _clone,
     _rb_state_from_checkpoint,
-    warn_unacted_settings,
 )
 from sheeprl_tpu_torch.algos.sac.agent import build_agent, ema_update, sample_action
 from sheeprl_tpu_torch.algos.sac.loss import actor_loss, alpha_loss, critic_loss
@@ -86,13 +85,12 @@ UpdateNoise = Dict[str, Any]
 
 def check_supported(cfg: Any) -> None:
     """Raise for the off-policy settings the port does not implement yet,
-    naming the ROADMAP item that will, and warn of those it does not act on."""
+    naming the ROADMAP item that will."""
     if cfg.fabric.get("decoupled"):
         raise NotImplementedError(
             "fabric.decoupled is not ported yet: the decoupled topologies come with the scale layer "
             "(ROADMAP.md, queue A item 5)"
         )
-    warn_unacted_settings(cfg)
 
 
 def _optimizer(params, group: Any) -> ClippedOptimizer:

@@ -14,7 +14,10 @@ Every write is tmp-file + fsync + rename + dir-fsync, and ``COMMIT`` lands
 only after every shard's meta file, so :func:`latest_checkpoint` (which
 only considers directories holding ``COMMIT``) never selects a torn
 snapshot.  Shards are read with ``torch.load(weights_only=True)``: tensors
-and plain containers only, no pickled code.
+and plain containers only, no pickled code.  A step directory the JAX
+package wrote has the same layout with ``shard_r*.pkl`` shards: it verifies
+here alike, and :func:`load_step_dir` reads it through the restricted
+unpickler of ``serialize.py``.
 """
 
 from __future__ import annotations
@@ -54,9 +57,11 @@ def _meta_name(rank: int) -> str:
 
 
 def _shard_rank(name: str) -> Optional[int]:
-    if name.startswith("shard_r") and name.endswith(".pt"):
+    """Rank of a shard file, the port's (``.pt``) or the JAX package's (``.pkl``)."""
+    stem, dot, ext = name.partition(".")
+    if stem.startswith("shard_r") and dot and ext in ("pt", "pkl"):
         try:
-            return int(name[len("shard_r"):-len(".pt")])
+            return int(stem[len("shard_r"):])
         except ValueError:
             return None
     return None
@@ -246,12 +251,18 @@ def newer_checkpoint(root: PathLike, after_step: int) -> Optional[Path]:
 
 def load_step_dir(step_dir: PathLike, rank: int = 0, map_location: Any = None) -> Any:
     """One rank's state from a committed snapshot (shard 0 when this rank
-    has none), tensors placed by ``map_location``."""
+    has none), tensors placed by ``map_location``; a snapshot the JAX
+    package wrote comes back as its numpy tree."""
     step_dir = Path(step_dir)
     if not is_committed(step_dir):
         raise FileNotFoundError(
             f"checkpoint {step_dir} has no {COMMIT_FILE} marker — it is a torn snapshot"
         )
+    if any(step_dir.glob("shard_r*.pkl")):  # the JAX package's layout
+        from sheeprl_tpu_torch.checkpoint.serialize import load_jax_pickle
+
+        shard = step_dir / f"shard_r{int(rank):05d}.pkl"
+        return load_jax_pickle(shard if shard.exists() else step_dir / "shard_r00000.pkl")
     shard = step_dir / shard_name(rank)
     if not shard.exists():
         shard = step_dir / shard_name(0)

@@ -1,8 +1,13 @@
-"""Command-line entry points of the port: ``run`` (training), ``serve`` and
-``evaluation`` (counterparts of ``sheeprl_tpu/cli.py``'s).
+"""Command-line entry points of the port: ``run`` (training), ``evaluation``,
+``serve``, ``serve_fleet``, ``registration`` (model export) and
+``available_agents`` (counterparts of ``sheeprl_tpu/cli.py``'s).
 
 Usage:
     python -m sheeprl_tpu_torch exp=dreamer_v3 env=dummy [overrides...]
+    python -m sheeprl_tpu_torch eval checkpoint_path=<ckpt-or-run-dir> [overrides...]
+    python -m sheeprl_tpu_torch serve checkpoint_path=<ckpt-or-run-dir> [overrides...]
+    python -m sheeprl_tpu_torch register-model checkpoint_path=<ckpt-or-run-dir> [overrides...]
+    python -m sheeprl_tpu_torch agents
 """
 
 from __future__ import annotations
@@ -15,7 +20,12 @@ from typing import List, Optional, Tuple
 import yaml
 
 from sheeprl_tpu_torch.config.compose import ConfigError, compose
-from sheeprl_tpu_torch.utils.registry import algorithm_registry, resolve_algorithm, resolve_entrypoint
+from sheeprl_tpu_torch.utils.registry import (
+    algorithm_registry,
+    import_extra_modules,
+    resolve_algorithm,
+    resolve_entrypoint,
+)
 from sheeprl_tpu_torch.utils.structured import deep_merge, dotdict
 
 #: modules whose import registers the port's algorithms and their evaluations
@@ -116,6 +126,7 @@ def run(argv: Optional[List[str]] = None) -> None:
     fabric's device."""
     from sheeprl_tpu_torch import telemetry
     from sheeprl_tpu_torch.checkpoint.preemption import PREEMPTION_GUARD
+    from sheeprl_tpu_torch.checkpoint.serialize import refuse_jax_resume
     from sheeprl_tpu_torch.fabric import build_fabric
     from sheeprl_tpu_torch.resilience.faults import install_from_config
 
@@ -135,13 +146,16 @@ def run(argv: Optional[List[str]] = None) -> None:
     install_from_config(cfg)
     cfg = resolve_resume_target(cfg)
     if cfg.checkpoint.get("resume_from"):
+        refuse_jax_resume(cfg.checkpoint.resume_from, "checkpoint.resume_from")
         cfg = resume_from_checkpoint(cfg)
     register_all_algorithms()
+    import_extra_modules(cfg)
     check_configs(cfg)
     entry = resolve_algorithm(cfg.algo.name, decoupled=cfg.fabric.get("decoupled"))
     fabric = build_fabric(cfg)
     try:
         resolve_entrypoint(entry)(fabric, cfg)
+        _maybe_register_models(cfg)
     except BaseException as e:
         # every abnormal exit leaves evidence: the recorder's ring (faults,
         # stalls, restarts, span edges, the crash) as postmortem.json
@@ -159,6 +173,28 @@ def run(argv: Optional[List[str]] = None) -> None:
         # server stop; telemetry never masks the real exception
         telemetry.HUB.final_flush()
         telemetry.shutdown_run()
+
+
+def _maybe_register_models(cfg: dotdict) -> None:
+    """With ``model_manager.disabled=False``, register the sub-models of the
+    snapshot this run committed last.  Only the newest ``version_*``
+    directory of the run is read: an older run's weights are never
+    registered in place of a run that saved nothing.  The port runs one
+    process, which is rank zero."""
+    if (cfg.get("model_manager") or {}).get("disabled", True):
+        return
+    from sheeprl_tpu_torch.checkpoint.serialize import load_checkpoint
+    from sheeprl_tpu_torch.utils.model_manager import last_checkpoint, register_model_from_checkpoint
+
+    root = pathlib.Path(cfg.get("log_dir", "logs/runs")) / str(cfg.get("root_dir")) / str(cfg.get("run_name"))
+    versions = sorted(root.glob("version_*"), key=lambda p: int(p.name.rsplit("_", 1)[-1]))
+    newest = last_checkpoint(versions[-1]) if versions else None
+    if newest is None:
+        warnings.warn("model_manager.disabled=False but the run saved no checkpoint; nothing registered", UserWarning)
+        return
+    out = register_model_from_checkpoint(None, cfg, load_checkpoint(newest, map_location="cpu"))
+    if out:
+        print(f"Registered models from {newest}: {out}", flush=True)
 
 
 def _split_checkpoint_arg(argv: Optional[List[str]], command: str) -> Tuple[str, List[str]]:
@@ -212,7 +248,7 @@ def evaluation(argv: Optional[List[str]] = None) -> float:
             checkpoint_path=<ckpt-or-run-dir> [fabric.accelerator=cpu] [overrides...]
     """
     from sheeprl_tpu_torch.fabric import build_fabric
-    from sheeprl_tpu_torch.serve.loader import load_run_config, resolve_checkpoint
+    from sheeprl_tpu_torch.serve.loader import load_run_config, load_state, resolve_checkpoint
     from sheeprl_tpu_torch.utils.registry import evaluation_registry
 
     checkpoint_path, rest = _split_checkpoint_arg(argv, "evaluation")
@@ -221,12 +257,126 @@ def evaluation(argv: Optional[List[str]] = None) -> float:
     cfg.fabric.devices = 1
     cfg.env.num_envs = 1
     register_all_algorithms()
+    import_extra_modules(cfg)
     if cfg.algo.name not in evaluation_registry:
         raise ConfigError(
             f"no evaluation registered for algorithm '{cfg.algo.name}' "
             f"(available: {', '.join(sorted(evaluation_registry))})"
         )
     fabric = build_fabric(cfg)
-    reward = evaluation_registry[cfg.algo.name](fabric, cfg, fabric.load(ckpt))
+    reward = evaluation_registry[cfg.algo.name](fabric, cfg, load_state(ckpt, cfg, fabric.device))
     print(f"Test/cumulative_reward: {reward}", flush=True)
     return reward
+
+
+def serve_fleet(argv: Optional[List[str]] = None) -> None:
+    """Serve a committed snapshot through the fleet: N replica processes
+    (``python -m sheeprl_tpu_torch.serve``, each on the run's device) behind
+    one health-checked router.
+
+    Usage:
+        python -m sheeprl_tpu_torch.serve.fleet checkpoint_path=<run-dir> \\
+            [fabric.accelerator=gpu] [serve.fleet.replicas=2] [serve.fleet.port=7456] [overrides...]
+
+    Prefer a run or version directory to a pinned ``step_*`` snapshot: a
+    respawned replica resolves ``checkpoint_path`` again, and a pinned step
+    would come back serving stale parameters after a rolling reload.
+    """
+    import signal
+
+    from sheeprl_tpu_torch.fabric import run_device
+    from sheeprl_tpu_torch.resilience.faults import install_from_config, install_from_env
+    from sheeprl_tpu_torch.serve.fleet import FleetRouter, FleetServer, LocalFleet
+    from sheeprl_tpu_torch.serve.loader import checkpoint_root, ensure_serve_config, load_run_config, resolve_checkpoint
+
+    checkpoint_path, rest = _split_checkpoint_arg(argv, "serve_fleet")
+    install_from_env()
+    ckpt = resolve_checkpoint(checkpoint_path)
+    cfg = ensure_serve_config(load_run_config(ckpt, rest))
+    install_from_config(cfg)
+    fleet_cfg = (cfg.get("serve") or {}).get("fleet") or {}
+    fleet = LocalFleet(
+        checkpoint_path,
+        overrides=rest,
+        replicas=int(fleet_cfg.get("replicas", 2)),
+        respawn_max=int(fleet_cfg.get("respawn_max", 10)),
+        backoff_base_s=float(fleet_cfg.get("respawn_backoff_base_s", 0.5)),
+        backoff_max_s=float(fleet_cfg.get("respawn_backoff_max_s", 30.0)),
+        seed=int(cfg.get("seed", 0) or 0),
+        # a replica that cannot start on the run's device is a failure
+        device=run_device(cfg).type,
+    )
+    # the replicas are this process's children: SIGTERM's default action
+    # would end it before the ``finally`` reaps them, leaving servers bound
+    # to their ports; routed through SystemExit, ``fleet.stop()`` runs
+    signal.signal(signal.SIGTERM, lambda signum, frame: sys.exit(0))
+    fleet.start()
+    try:
+        rolling = bool(fleet_cfg.get("rolling_reload", True))
+        root = checkpoint_root(ckpt) if ckpt.is_dir() and rolling else None
+        router = FleetRouter(fleet.addresses(), cfg, ckpt_root=root)
+        fleet.attach(router)
+        server = FleetServer(router, host=str(fleet_cfg.get("host", "127.0.0.1")), port=int(fleet_cfg.get("port", 7456)))
+        print(
+            f"fleet router over {fleet.n} replicas on {server.url} — rolling reload "
+            f"{'on' if router.ckpt_root is not None else 'off'}, replicas: "
+            + ", ".join(f"{rid}={url}" for rid, url in sorted(fleet.addresses().items())),
+            flush=True,
+        )
+        server.serve_forever()
+    finally:
+        fleet.stop()
+
+
+def registration(argv: Optional[List[str]] = None) -> dict:
+    """Register a snapshot's sub-models with the model registry
+    (``model_manager.*``): the ``MODELS_TO_REGISTER`` of the algorithm's
+    ``utils`` module, else every entry of ``model_manager.models``.  A
+    snapshot the JAX package wrote is converted first.  Returns
+    ``{sub-model: version}``.
+
+    Usage:
+        python -m sheeprl_tpu_torch register-model checkpoint_path=<ckpt-or-run-dir> [overrides...]
+    """
+    import importlib
+
+    from sheeprl_tpu_torch.serve.loader import load_run_config, load_state, resolve_checkpoint
+    from sheeprl_tpu_torch.utils.model_manager import register_model_from_checkpoint
+
+    checkpoint_path, rest = _split_checkpoint_arg(argv, "registration")
+    ckpt = resolve_checkpoint(checkpoint_path)
+    cfg = load_run_config(ckpt, rest)
+    register_all_algorithms()
+    import_extra_modules(cfg)
+    entry = resolve_algorithm(cfg.algo.name)
+    try:
+        utils_mod = importlib.import_module(entry.module.rsplit(".", 1)[0] + ".utils")
+    except ModuleNotFoundError:
+        utils_mod = None
+    state = load_state(ckpt, cfg, "cpu")  # the registry keeps CPU tensors
+    log_models = getattr(utils_mod, "log_models_from_checkpoint", None)
+    if log_models is not None:
+        return log_models(None, cfg, state)
+    versions = register_model_from_checkpoint(None, cfg, state, getattr(utils_mod, "MODELS_TO_REGISTER", None))
+    print(f"Registered models: {versions}", flush=True)
+    return versions
+
+
+def available_agents() -> None:
+    """Print every registered algorithm: name, module, entry point, decoupled."""
+    register_all_algorithms()
+    rows = [(name, e.module, e.entrypoint, str(e.decoupled))
+            for name, entries in sorted(algorithm_registry.items()) for e in entries]
+    try:
+        from rich.console import Console
+        from rich.table import Table
+    except ImportError:
+        for row in rows:
+            print("\t".join(row))
+        return
+    table = Table(title="sheeprl-tpu-torch agents")
+    for column in ("Algorithm", "Module", "Entrypoint", "Decoupled"):
+        table.add_column(column)
+    for row in rows:
+        table.add_row(*row)
+    Console().print(table)

@@ -192,3 +192,34 @@ def env_state_from_jax(state: Any, state_cls: type, device: Any = "cpu") -> Any:
     per-instance ``key`` has no counterpart (the port's vector env holds one
     generator)."""
     return state_cls(**{f: torch.as_tensor(np.array(getattr(state, f)), device=device) for f in state_cls._fields})
+
+
+#: algorithm families → the converter of their agent trees
+POLICY_ALGOS = ("ppo", "ppo_decoupled", "a2c", "ppo_recurrent")
+OFF_POLICY_ALGOS = ("sac", "sac_decoupled", "droq", "sac_ae")
+
+
+def agent_from_jax(agent: Mapping[str, Any], cfg: Any) -> Dict[str, Any]:
+    """The port's ``agent`` state from the ``agent`` tree of a snapshot the
+    JAX package wrote, by ``cfg.algo.name``: :func:`agent_state_from_jax`
+    for the Dreamer family, :func:`policy_state_from_jax` for PPO, A2C and
+    recurrent PPO, :func:`sac_state_from_jax` for SAC, DroQ and SAC-AE."""
+    name = str(cfg.algo.name)
+    if name.startswith(("dreamer_", "p2e_")):
+        return agent_state_from_jax(agent, cfg)
+    if name in POLICY_ALGOS:
+        return policy_state_from_jax(agent)
+    if name in OFF_POLICY_ALGOS:
+        return sac_state_from_jax(agent)
+    raise ValueError(f"no converter from a JAX snapshot of algorithm '{name}'")
+
+
+def state_from_jax(state: Mapping[str, Any], cfg: Any) -> Dict[str, Any]:
+    """A JAX-written snapshot's state as the port reads it to serve,
+    evaluate or register: the converted ``agent`` and the plain counters
+    (``policy_step``, ``update``, ...).  Optimizer states, PRNG keys and the
+    replay buffer have no port counterpart here (resuming from such a
+    snapshot is refused, ``cli.run``)."""
+    out: Dict[str, Any] = {k: v for k, v in state.items() if isinstance(v, (int, float)) and not isinstance(v, bool)}
+    out["agent"] = agent_from_jax(state["agent"], cfg)
+    return out

@@ -25,6 +25,8 @@ installs nothing.
 The port's sites: ``env.step`` / ``env.reset`` (``envs/wrappers.py::
 FaultInjectionEnv``), ``checkpoint.write_shard`` / ``checkpoint.commit``
 (``checkpoint/protocol.py``), ``serve.http`` (``serve/server.py``),
+``serve.router`` (the fleet router's own request handling) and
+``serve.replica`` (each router→replica leg; ``serve/fleet/router.py``),
 ``fabric.copy_to`` (``fabric.py::PlayerSync``, the player's weight copy),
 ``replay.spill`` (``data/device_replay.py::HostSpill``) and
 ``update.grads`` (``resilience/health.py``).  A plan at a site whose module
@@ -102,8 +104,6 @@ ENV_VAR = "SHEEPRL_FAULT_PLAN"
 #: Sites of the JAX package whose module the port does not have yet, and the
 #: ROADMAP item that brings it.
 UNPORTED_SITES = {
-    "serve.router": "serve/fleet/, ROADMAP.md, queue A item 6(b)",
-    "serve.replica": "serve/fleet/, ROADMAP.md, queue A item 6(b)",
     "sebulba.env_worker": "sebulba/, ROADMAP.md, queue A item 5(b)",
     "sebulba.traj_queue": "sebulba/, ROADMAP.md, queue A item 5(b)",
     "dcn.broadcast": "sebulba/transport.py, ROADMAP.md, queue A item 5(b)",

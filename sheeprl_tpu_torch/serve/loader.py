@@ -4,10 +4,15 @@ path of serving, whose discovery and run config ``cli.evaluation`` shares
 
 Discovery accepts a committed ``step_*`` snapshot directory, a
 ``<run>/version_*/checkpoint`` root or a run directory (→ the newest
-committed snapshot).  The run's ``config.yaml`` is found by walking up from
-the checkpoint, merged under CLI overrides, and the player is rebuilt by the
-builder registered in :mod:`sheeprl_tpu_torch.serve.players`.  Snapshots
-written by the JAX package (pickled flax trees) are not read here.
+committed snapshot), and a single-file checkpoint (a legacy ``ckpt_*.ckpt``).
+The run's ``config.yaml`` is found by walking up from the checkpoint, merged
+under CLI overrides, and the player is rebuilt by the builder registered in
+:mod:`sheeprl_tpu_torch.serve.players`.
+
+A run the JAX package wrote is read the same way: its ``shard_r*.pkl``
+shards or ``.ckpt`` pickle through the restricted unpickler of
+``checkpoint/serialize.py`` (no JAX needed), its ``agent`` tree carried to
+the port's modules by ``convert.state_from_jax`` (:func:`load_state`).
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ import pathlib
 import warnings
 from typing import Any, Dict, Optional, Sequence, Tuple
 
+import torch
 import yaml
 
 from sheeprl_tpu_torch.checkpoint.protocol import (
@@ -32,6 +38,7 @@ from sheeprl_tpu_torch.config.compose import (
     _search_dirs,
     apply_cli_overrides,
 )
+from sheeprl_tpu_torch.utils.registry import import_extra_modules
 from sheeprl_tpu_torch.utils.structured import deep_merge, dotdict
 
 
@@ -43,8 +50,8 @@ def resolve_checkpoint(path: Any, verify: bool = True) -> pathlib.Path:
     committed one is used; an explicitly named damaged or torn ``step_*``
     directory raises."""
     p = pathlib.Path(path)
-    if p.is_file():
-        raise ConfigError(f"{p} is a single-file checkpoint; the port reads committed step_* snapshots only")
+    if p.is_file():  # a single-file checkpoint
+        return p
     if not p.exists():
         raise ConfigError(f"checkpoint path does not exist: {p}")
     if checkpoint_step(p) >= 0:
@@ -68,7 +75,35 @@ def resolve_checkpoint(path: Any, verify: bool = True) -> pathlib.Path:
             if not verify or not verify_or_quarantine(candidate):
                 return candidate
             warnings.warn(f"skipping damaged snapshot {candidate} (quarantined)", RuntimeWarning)
+    for root in candidates:  # the legacy flat layout
+        ckpts = sorted(root.glob("ckpt_*.ckpt"), key=lambda f: f.stat().st_mtime) if root.is_dir() else []
+        if ckpts:
+            return ckpts[-1]
     raise ConfigError(f"no committed checkpoint found under {p}")
+
+
+def checkpoint_root(ckpt: Any) -> pathlib.Path:
+    """The directory a commit watcher polls for newer snapshots: the parent
+    of a resolved ``step_*`` directory."""
+    return pathlib.Path(ckpt).parent
+
+
+def load_state(ckpt: Any, cfg: dotdict, device: Any) -> Dict[str, Any]:
+    """A resolved snapshot's state with its tensors on ``device``: the
+    port's as written, a JAX-written one with its ``agent`` converted for
+    ``cfg.algo.name`` (``convert.state_from_jax``)."""
+    from sheeprl_tpu_torch.checkpoint.serialize import is_jax_checkpoint, load_checkpoint
+
+    if not is_jax_checkpoint(ckpt):
+        return load_checkpoint(ckpt, map_location=device)
+    from sheeprl_tpu_torch.convert import state_from_jax
+
+    def to_device(tree: Any) -> Any:
+        if isinstance(tree, dict):
+            return {k: to_device(v) for k, v in tree.items()}
+        return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+    return to_device(state_from_jax(load_checkpoint(ckpt), cfg))
 
 
 def load_run_config(ckpt: Any, overrides: Sequence[str] = ()) -> dotdict:
@@ -145,13 +180,14 @@ def load_policy(
     ckpt = resolve_checkpoint(checkpoint_path)
     if cfg is None:
         cfg = load_run_config(ckpt, overrides)
+    import_extra_modules(cfg)  # an external algorithm's player registers at import
     cfg.fabric.devices = 1
     cfg.env.num_envs = 1
     cfg.env.capture_video = cfg.env.get("capture_video", False)
     cfg = ensure_serve_config(cfg)
     if fabric is None:
         fabric = build_fabric(cfg)
-    state = fabric.load(ckpt)
+    state = load_state(ckpt, cfg, fabric.device)
     player = build_player(fabric, cfg, state)
     player.checkpoint_step = checkpoint_step(ckpt)
     return fabric, cfg, state, player

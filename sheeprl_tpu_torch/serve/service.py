@@ -84,11 +84,11 @@ class PolicyService:
 
     @classmethod
     def from_checkpoint(cls, checkpoint_path: Any, overrides: Sequence[str] = ()) -> "PolicyService":
-        from sheeprl_tpu_torch.serve.loader import load_policy, resolve_checkpoint
+        from sheeprl_tpu_torch.serve.loader import checkpoint_root, load_policy, resolve_checkpoint
 
         ckpt = resolve_checkpoint(checkpoint_path)
         fabric, cfg, _, player = load_policy(ckpt, overrides)
-        return cls(fabric, cfg, player, ckpt_root=ckpt.parent)
+        return cls(fabric, cfg, player, ckpt_root=checkpoint_root(ckpt) if ckpt.is_dir() else None)
 
     # -- lifecycle -----------------------------------------------------------
     def warm_up(self) -> None:
@@ -299,13 +299,14 @@ class PolicyService:
         """Hot-reload read, on the watcher's thread: the snapshot on the host,
         the player's modules' tensors taken out of it and staged beside the
         live ones (pinned memory, then the card on a side stream)."""
-        from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
+        from sheeprl_tpu_torch.serve.loader import load_state
 
-        state = load_step_dir(step_dir, map_location="cpu")
+        state = load_state(step_dir, self.cfg, "cpu")
         return StagedParams(live_tensors(self.player.params), self.player.extract(state["agent"]))
 
     # -- observability -------------------------------------------------------
     def stats(self) -> Dict[str, Any]:
+        from sheeprl_tpu_torch.ops import LAUNCH_COUNTERS
         from sheeprl_tpu_torch.telemetry.monitors import COMPILE_MONITOR
 
         with self._stats_lock:
@@ -339,6 +340,9 @@ class PolicyService:
             "compile_executables": n_exe,
             "compile_time_s": round(compile_s, 3),
             "sessions": sessions,
+            # this process's kernel launches (a replay credited with its
+            # capture's), readable from outside a fleet's replica
+            "kernel_launches": {name: n for counter in LAUNCH_COUNTERS for name, n in counter.items()},
         }
         out.update(self.latency.percentiles((50, 99)))
         return out

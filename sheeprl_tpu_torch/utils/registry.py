@@ -10,7 +10,7 @@ from __future__ import annotations
 
 import sys
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 # name -> list of entries (a name may expose both coupled and decoupled forms
 # under different registered entrypoints, like the reference's ppo/ppo_decoupled)
@@ -79,3 +79,16 @@ def register_evaluation(algorithms: Union[str, Sequence[str]]) -> Callable:
         return fn
 
     return decorator
+
+
+def import_extra_modules(cfg: Any) -> None:
+    """Import the packages of ``algo.extra_modules``, so that their
+    ``@register_algorithm`` / ``@register_evaluation`` (and
+    ``register_player``) decorators run: the extension point of
+    ``howto/register_external_algorithm.md``.  Called by ``cli.run``,
+    ``cli.evaluation``, ``cli.registration`` and, through
+    ``serve.loader.load_policy``, by serving."""
+    import importlib
+
+    for mod in (cfg.get("algo") or {}).get("extra_modules") or []:
+        importlib.import_module(mod)

@@ -6,8 +6,11 @@ them, and PPO, A2C and recurrent PPO, the compile-once layer:
 whose ``GraphFunction`` audits a probe on the CPU, and the runtime services:
 ``checkpoint/{preemption,rollback}.py``, ``resilience/{retry,faults,health}.py``,
 and the telemetry subsystem and hot reload: ``telemetry/{hub,recorder,spans,
-tracer,introspect}.py``, ``serve/reload.py``), a DreamerV3 player takes one CPU
-step, a tiny dry run through ``cli.run`` (introspection endpoint armed) trains
+tracer,introspect}.py``, ``serve/reload.py``, and the deployment surface:
+``utils/{model_manager,mlflow_manager,imports,checkpoint}.py``,
+``checkpoint/serialize.py``, ``serve/fleet/{router,replicas}.py``), a DreamerV3 player takes one CPU
+step, the JAX-written DreamerV3 fixture is read, served one step and
+registered, a tiny dry run through ``cli.run`` (introspection endpoint armed) trains
 one update, logs ``Phase/*`` and commits a snapshot, one Plan2Explore-DreamerV3 update steps, PPO, A2C and recurrent
 PPO each train one iteration through ``cli.run`` and commit a snapshot that
 ``cli.evaluation`` plays and, for PPO, a player serves, and SAC, DroQ and
@@ -51,7 +54,9 @@ SCRIPT = textwrap.dedent(
     for name in ("parallel.compile", "telemetry.monitors", "utils.profiler", "checkpoint.preemption",
                  "checkpoint.rollback", "resilience.retry", "resilience.faults", "resilience.health",
                  "telemetry.hub", "telemetry.recorder", "telemetry.spans", "telemetry.tracer",
-                 "telemetry.introspect", "serve.reload"):
+                 "telemetry.introspect", "serve.reload", "utils.model_manager", "utils.mlflow_manager",
+                 "utils.imports", "utils.checkpoint", "checkpoint.serialize", "serve.fleet.router",
+                 "serve.fleet.replicas"):
         assert "sheeprl_tpu_torch." + name in names, name
 
     import torch
@@ -90,8 +95,22 @@ SCRIPT = textwrap.dedent(
     carry, actions = player.step_batch(player.params, player.zero_carry(2), obs, 0, np.array([True, False]))
     assert actions.shape == (2, 4) and np.isfinite(carry[0]).all()
 
-    import glob, tempfile
+    import glob, shutil, tempfile
     from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
+    from sheeprl_tpu_torch.cli import registration
+    from sheeprl_tpu_torch.serve.loader import load_policy
+    from sheeprl_tpu_torch.utils.model_manager import FileSystemModelManager
+    with tempfile.TemporaryDirectory() as tmp:  # the snapshot the JAX package wrote
+        shutil.copytree({root!r} + "/tests/fixtures/jax_dv3", tmp + "/run")
+        _, _, _, jax_player = load_policy(tmp + "/run", ["fabric.accelerator=cpu"])
+        obs = jax_player.prepare({{"rgb": np.zeros((2, 64, 64, 3), np.uint8), "state": np.zeros((2, 4), np.float32)}})
+        carry, actions = jax_player.step_batch(jax_player.params, jax_player.zero_carry(2), obs, 0,
+                                               np.array([True, False]))
+        assert actions.shape == (2, 4) and np.isfinite(carry[0]).all() and jax_player.checkpoint_step == 40
+        versions = registration([f"checkpoint_path={{tmp}}/run", f"model_manager.registry_root={{tmp}}/registry"])
+        assert versions == {{k: 1 for k in ("world_model", "actor", "critic", "target_critic", "moments")}}
+        assert FileSystemModelManager(tmp + "/registry").load_model(
+            "dreamer_v3_discrete_dummy_actor").keys() == jax_player.params["actor"].state_dict().keys()
     from sheeprl_tpu_torch.cli import run
     with tempfile.TemporaryDirectory() as tmp:
         run(["exp=dreamer_v3", "env=dummy", "algo=dreamer_v3_XS", "dry_run=True", "env.num_envs=2",

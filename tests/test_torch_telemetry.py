@@ -214,15 +214,19 @@ CLI = [*(o for o in TINY if "fused_pallas" not in o), "dry_run=True", "algo.run_
 
 
 def _fresh_monitors():
-    """The checkpoint and resilience monitors of both packages emptied: they
-    are process-global, and an earlier test in this process may have counted
-    into them."""
+    """The checkpoint and resilience monitors and the span trackers of both
+    packages emptied: they are process-global, and an earlier test in this
+    process may have counted into them (a span an earlier test recorded
+    would show as a ``Phase/*`` name of this run's first window)."""
     from sheeprl_tpu.telemetry import monitors as jax_monitors
-    from sheeprl_tpu_torch.telemetry import monitors
+    from sheeprl_tpu.telemetry import spans as jax_spans
+    from sheeprl_tpu_torch.telemetry import monitors, spans
 
     for mod in (monitors, jax_monitors):
         mod.CHECKPOINT_MONITOR.reset()
         mod.RESILIENCE_MONITOR.reset()
+    for mod in (spans, jax_spans):
+        mod.SPANS.reset()
 
 
 def test_cli_run_logs_the_metric_names_jax_logs(tmp_path):

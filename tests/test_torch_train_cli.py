@@ -295,8 +295,8 @@ def test_window_chunks(n, per_update, budget, chunks):
 def test_long_first_window_is_sampled_in_chunks(monkeypatch, tmp_path):
     """The first window repays every prefill step at once (9 updates here);
     the loop samples, moves and guards it in chunks under the byte budget,
-    and every update draws its own noise.  The run also warns of the
-    settings it does not act on."""
+    and every update draws its own noise.  With ``model_manager.disabled=False``
+    the run registers the five sub-models of its last snapshot."""
     from sheeprl_tpu_torch.algos.dreamer_v3 import dreamer_v3
 
     per_update = (64 * 64 * 3 + 4 * 4 + 4 * (4 + 3)) * 8 * 2  # rgb, state, actions, 3 scalars; L 8, B 2
@@ -314,14 +314,23 @@ def test_long_first_window_is_sampled_in_chunks(monkeypatch, tmp_path):
 
     monkeypatch.setattr(dreamer_v3, "blocks_to_device", spy_blocks)
     monkeypatch.setattr(dreamer_v3, "draw_noise", spy_noise)
-    with pytest.warns(UserWarning, match="model_manager.disabled=False.*queue A item 6"):
-        run([*TINY, "algo.run_test=False", "algo.total_steps=20", "algo.replay_ratio=0.5",
-             "model_manager.disabled=False", f"log_dir={tmp_path}"])
+    run([*TINY, "algo.run_test=False", "algo.total_steps=20", "algo.replay_ratio=0.5",
+         "model_manager.disabled=False", f"model_manager.registry_root={tmp_path / 'registry'}", f"log_dir={tmp_path}"])
     # sequences of 8 can be sampled from policy step 18: 9 updates, then 1
     assert chunks == [4, 4, 1, 1]
     assert noise_u == [1] * 10
     state = load_step_dir(_snapshots(tmp_path)[-1])
     assert state["grad_steps"] == 10 and state["psync"]["windows"] == 2
+    from sheeprl_tpu_torch.utils.model_manager import FileSystemModelManager
+
+    registry = FileSystemModelManager(tmp_path / "registry")
+    names = {"world_model", "actor", "critic", "target_critic", "moments"}
+    assert registry.models() == sorted(f"dreamer_v3_discrete_dummy_{n}" for n in names)
+    for name in names:
+        info = registry.get_model_info(f"dreamer_v3_discrete_dummy_{name}")
+        assert info["version"] == 1 and info["metadata"] == {"algo": "dreamer_v3", "env": "discrete_dummy", "seed": 42}
+        registered = registry.load_model(f"dreamer_v3_discrete_dummy_{name}")
+        assert all(torch.equal(registered[k], v) for k, v in state["agent"][name].items())
 
 
 # -- the on-policy algorithms through the same entry points -----------------------
