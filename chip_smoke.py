@@ -47,7 +47,7 @@ prints no result line):
               (``use_pallas``), 3 updates; the gru launches per update.
 11. p2e explore — Plan2Explore-DreamerV3 exploration at XL through
               ``cli.run`` (``exp=p2e_dv3_exploration``, the phase-7 recipe,
-              fused RSSM kernel), 4 updates: 96 rssm launches per update (64
+              fused RSSM kernel), 2 updates: 96 rssm launches per update (64
               posterior steps + two imagination rollouts of 16), no gru
               launch; the ten metrics and the intrinsic reward finite.
 12. p2e parity — one XL exploration update from phase 11's snapshot, fused
@@ -83,7 +83,8 @@ prints no result line):
               every action valid, no kernel launch.
 19. a2c / ppo_recurrent — A2C at its Atari widths (2 iterations of 40
               steps, ``rmsprop``, then ``rmsprop_tf``) and recurrent PPO at
-              its defaults on the vector observation (2 iterations): metrics
+              its defaults on the vector observation (2 iterations of 2
+              epochs): metrics
               finite, no kernel launch, each snapshot evaluated once through
               ``cli.evaluation``.
 
@@ -219,7 +220,7 @@ parameters and optimizer state, the kernels fed fp32 at their wrappers):
               stated tier, one eager update of each by kind of device work
               (products, convolutions, the kernel, copies and casts, the
               rest), chunks of 4 updates in turns (bf16, fp32, fp32, bf16)
-              captured, and once each eager.
+              captured.
 44. precision dv3-s-gru — phase 43's window and turns for DreamerV3-S with the
               GRU kernel (``use_pallas``), 80 gru launches per update.
 45. precision p2e — Plan2Explore-DV3-XL exploration under bf16-mixed through
@@ -268,7 +269,7 @@ train window, preemption, fault plans, rollback):
 
 The telemetry subsystem and serving's hot reload a default run turns on:
 
-51. telemetry — DV3-XL (``fused_pallas``) through ``cli.run`` with the default
+51. telemetry — DV3-XL (``fused_pallas``, 6 updates) through ``cli.run`` with the default
               telemetry, ``telemetry.introspect.port=0`` and trace windows at
               dispatches 1 (the first window: a chunk run eagerly and
               captured) and 3 (a replay), one dispatch each: ``/healthz``,
@@ -318,6 +319,37 @@ wrote, the serving fleet:
               snapshot rolled out under 16 sessions (none failed, no
               recapture, each replica equal to a fresh service bit for bit).
 
+Population training with in-trace PBT on the Anakin axis, and the run
+supervisor:
+
+57. population — PPO's recipe for 8 members x 256 envs of ``jax_cartpole``
+              through ``cli.run`` (``population.exploit_every=2``,
+              ``warmup=2``, 6 updates: exploits at updates 4 and 6), every
+              phase after the first under ``steady_guard``: env steps/s, the
+              phase's device ms (CUDA events), captured or eager and why,
+              host calls per replayed phase, device kernels in one eager
+              phase (profiled); the same at 4 members, whose kernels per
+              phase must be within 10% of 8's; exploits, the members'
+              hyperparameter spread, ``population_summary.json`` read back;
+              an A2C population of 4 (the stacked RMSprop); a PPO population
+              of 4 on ``jax_multiroom`` with ``population.levels=[0,1,2,3]``,
+              each member's level still pinned after autoreset.
+58. population parity — one PPO population window (4 members x 256 envs x
+              32 steps, the exploit gate open) on the card and on the CPU
+              from the same stacked state and draws, SGD with momentum:
+              parameter and momentum changes within phase 17's tolerance,
+              fitness, episode counts, exploits and hyperparameters equal.
+59. supervisor — a DreamerV3-S child (``use_pallas``: the GRU kernel) under
+              the supervisor, a fatal ``env.step`` fault planted past a
+              committed save (``SHEEPRL_FAULT_PLAN``): the crash classified
+              ``transient`` from its postmortem, a restart with
+              ``resume_from=auto`` to the full step count, exit 0 and two
+              episodes in ``supervisor_log.jsonl``; the seconds from the
+              crash to the restarted child's first update and the children's
+              gru launches; then ``python -m sheeprl_tpu_torch.supervisor``
+              with the same fault before any commit, so it recurs at the
+              same step: the breaker opens, exit 2.
+
 Each phase prints its seconds (``[seconds]``).  The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
 
@@ -333,10 +365,10 @@ host) for DreamerV3-XL, SAC and SAC-AE, timed alike, ``--graphs`` phases
 ``--precision`` phases 42-47 (beside 32-true runs of phases 7 and 11),
 ``--runtime`` phases 48-50, ``--telemetry`` phases 51-53 (beside phase 4's
 snapshot, a short SAC run and phase 49's preempted child), ``--deploy`` phases 54-56 (beside phase 4's
-snapshot and phase 51's untraced twin), ``--health-ab ROOT`` phase 7's and 20's
+snapshot and phase 51's untraced twin), ``--population`` phases 57-59, ``--health-ab ROOT`` phase 7's and 20's
 recipes with ``health.enabled`` on and off in turns for the port under
 ``ROOT`` (``--preempt-child`` and ``--commit-hang-child`` are phase 49's
-child processes).
+child processes; ``--supervised-child`` is phase 59's).
 """
 
 from __future__ import annotations
@@ -415,8 +447,8 @@ FUSED = "algo.world_model.recurrent_model.fused_pallas=True"
 # ring): they are the baselines phases 32 and 34 are read beside;
 # ``--first-window`` keeps it too (it measures the host path's chunks)
 HOST_RING = "buffer.device=False"
-# replay ratio 1/16: the first window at step 65 takes int(65 / 16) = 4 updates
-P2E_XL = ("exp=p2e_dv3_exploration", *XL_TRAIN[1:], FUSED, "algo.replay_ratio=0.0625", "algo.total_steps=65")
+# replay ratio 1/32: the first window at step 65 takes int(65 / 32) = 2 updates
+P2E_XL = ("exp=p2e_dv3_exploration", *XL_TRAIN[1:], FUSED, "algo.replay_ratio=0.03125", "algo.total_steps=65")
 # finetuning starts from a state, so it has no random prefill and trains from
 # step 66 (learning_starts + 1): int(66 / 32) = 2 updates
 P2E_FINETUNE = ("exp=p2e_dv3_finetuning", *XL_TRAIN[1:], FUSED, "algo.replay_ratio=0.03125", "algo.total_steps=66",
@@ -452,7 +484,9 @@ PPO_ATARI = ("exp=ppo_atari", *ON_POLICY, *ATARI, "algo.total_steps=2048")
 A2C_ATARI = ("exp=a2c_atari", *ON_POLICY, *ATARI, "algo.total_steps=80")  # 2 iterations of 40 steps
 RMSPROP_TF = ("algo.optimizer.name=rmsprop_tf", "algo.optimizer.alpha=0.9", "algo.optimizer.eps=1e-10")
 # 2 iterations of 128 steps x 4 envs, the recurrent recipe's defaults on the vector observation
-PPO_RECURRENT = ("exp=ppo_recurrent", *ON_POLICY, "env.mask_velocities=False", "algo.total_steps=1024")
+# 2 epochs of the recipe's 10: its eager update took 10 s an iteration
+PPO_RECURRENT = ("exp=ppo_recurrent", *ON_POLICY, "env.mask_velocities=False", "algo.total_steps=1024",
+                 "algo.update_epochs=2")
 ON_POLICY_LOSSES = ("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss")
 # One PPO train phase on the card against the CPU (phase 17): the relative L2
 # difference of the parameters' changes, and the last losses' relative
@@ -1030,16 +1064,36 @@ PROFILE_GROUPS = (
 )
 
 
+def _device_events(prof) -> list:
+    """``(name, ms)`` of every device operation (kernel, copy, fill) a
+    finished ``torch.profiler.profile`` recorded, read from its raw results:
+    its event tree (``events()``, ``key_averages()``) links every kernel to
+    its host call in Python and takes seconds for tens of thousands of
+    kernels."""
+    from torch._C import _demangle
+    from torch.autograd import DeviceType
+
+    names, out = {}, []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        raw = e.name()
+        name = names.get(raw)
+        if name is None:
+            name = names[raw] = _demangle(raw) if len(raw) > 1 else raw
+        out.append((name, (e.end_ns() - e.start_ns()) / 1e6))
+    return out
+
+
 def _log_profile(tag: str, prof, wall_ms: float, what: str, wall_note: str = "") -> tuple:
     """The profiler's device time of ``what``: the total against ``wall_ms``
     (the device's busy and idle shares), the top 10 kernels and the sums by
     kind; returns (total device ms, launches)."""
     rows = {}
-    for e in prof.key_averages():
-        ms = getattr(e, "self_device_time_total", None)
-        ms = (ms if ms is not None else e.self_cuda_time_total) / 1e3
-        if ms > 0:
-            rows[e.key] = (ms, e.count)
+    for name, ms in _device_events(prof):
+        ms0, n0 = rows.get(name, (0.0, 0))
+        rows[name] = (ms0 + ms, n0 + 1)
+    rows = {name: row for name, row in rows.items() if row[0] > 0}
     total = sum(ms for ms, _ in rows.values())
     launches = sum(n for _, n in rows.values())
     log(f"[{tag} profile] {what}: {total:.1f} ms of device time in {launches} kernel launches; the same "
@@ -2637,12 +2691,8 @@ def _profiled(torch, fn) -> tuple:
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    ms, n = 0.0, 0
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
-            ms += (e.time_range.end - e.time_range.start) / 1e3
-            n += 1
-    return ms, n
+    events = _device_events(prof)
+    return sum(ms for _, ms in events), len(events)
 
 
 def _host_calls(f, fn) -> int:
@@ -3185,11 +3235,10 @@ def _by_kind(torch, fn) -> dict:
         torch.cuda.synchronize()
     kinds = {k: [0.0, 0] for k, _ in KINDS}
     kinds[OTHER_KIND] = [0.0, 0]
-    for e in prof.events():
-        if str(e.device_type).endswith("CUDA"):
-            kind = next((k for k, keys in KINDS if any(m in e.name for m in keys)), OTHER_KIND)
-            kinds[kind][0] += (e.time_range.end - e.time_range.start) / 1e3
-            kinds[kind][1] += 1
+    for name, ms in _device_events(prof):
+        kind = next((k for k, keys in KINDS if any(m in name for m in keys)), OTHER_KIND)
+        kinds[kind][0] += ms
+        kinds[kind][1] += 1
     return {k: {"ms": ms, "ops": n} for k, (ms, n) in kinds.items()}
 
 
@@ -3267,7 +3316,7 @@ def phase_precision_turns(torch, tag: str, overrides, kernel: str) -> dict:
     first update's ten losses of each from the same draws within the stated
     tier; one eager update of each profiled by kind; then chunks of
     GRAPH_CHUNK updates in turns (bf16, fp32, fp32, bf16), captured and
-    eager."""
+    nothing else (the eager chunks are not timed)."""
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import prep_blocks
     from sheeprl_tpu_torch.data.device_replay import fused_sequence_train
     from sheeprl_tpu_torch.ops import gru, rssm
@@ -3315,17 +3364,14 @@ def phase_precision_turns(torch, tag: str, overrides, kernel: str) -> dict:
                              f"{LAUNCHES_PER_UPDATE}")
     order = ("bf16", "fp32", "fp32", "bf16")
     graph_turns = _turns(torch, graphs, order=order)
-    # eager chunks once each (their host-bound rate moves little between turns)
-    eager_turns = _turns(torch, windows, order=("bf16", "fp32"))
-    ups = {"graph": {k: [GRAPH_CHUNK / t for t in v["s"]] for k, v in graph_turns.items()},
-           "eager": {k: [GRAPH_CHUNK / t for t in v["s"]] for k, v in eager_turns.items()}}
+    # eager chunks are not timed here: they are host-bound, and phases 38-39 time eager turns
+    ups = {"graph": {k: [GRAPH_CHUNK / t for t in v["s"]] for k, v in graph_turns.items()}}
     busy = {k: sum(v["ms"] for v in kinds[k].values()) / (1e3 / statistics.median(ups["graph"][k])) for k in runs}
     for name in runs:
         log(f"[{tag}] {name}: one eager update's device work {_show_kinds(kinds[name])}; {kernel} launches per "
             f"update {launches[name]}; busy {busy[name]:.1%} of a replayed update")
     log(f"[{tag}] updates/s in turns (bf16, fp32, fp32, bf16): captured {ups['graph']['bf16'][0]:.3f}, "
-        f"{ups['graph']['fp32'][0]:.3f}, {ups['graph']['fp32'][1]:.3f}, {ups['graph']['bf16'][1]:.3f}; eager "
-        f"(bf16, fp32) {ups['eager']['bf16'][0]:.3f}, {ups['eager']['fp32'][0]:.3f}")
+        f"{ups['graph']['fp32'][0]:.3f}, {ups['graph']['fp32'][1]:.3f}, {ups['graph']['bf16'][1]:.3f}")
     del runs, windows, graphs
     gc.collect()
     torch.cuda.empty_cache()
@@ -3997,15 +4043,39 @@ def _committed(log_dir: Path, min_step: int = -1) -> list:
     return sorted((d for d in dirs if checkpoint_step(d) > min_step), key=lambda d: (d / "COMMIT").stat().st_mtime)
 
 
+def _start_crash_child(log_dir: Path) -> tuple:
+    """Phase 52's planted raise (``checkpoint.write_shard``) in a small
+    DreamerV3 run, started in a process of its own, its output to a file:
+    ``(process, log_dir, output path)``."""
+    log_dir.mkdir(parents=True, exist_ok=True)
+    output = log_dir / "output.log"
+    plan = json.dumps({"plan": [{"site": "checkpoint.write_shard", "kind": "raise", "at": 1}]})
+    with open(output, "w") as f:
+        proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--preempt-child", *REPLAY_DV3_SMALL,
+                                 "algo.total_steps=64", "checkpoint.io_retries=1", f"log_dir={log_dir}"], cwd=ROOT,
+                                stdout=f, stderr=subprocess.STDOUT, text=True,
+                                env={**os.environ, "SHEEPRL_FAULT_PLAN": plan})
+    return proc, log_dir, output
+
+
 def _preempted_xl(torch, log_dir: Path) -> tuple:
     """Phase 49's preempted DV3-XL child (``PREEMPT_XL``): a SIGUSR1 after its
     first replayed window (phase 52: one trace window of the live run), then
     the SIGTERM; exit 0, one committed snapshot that ``verify_checkpoint``
-    passes.  Returns the child's record (with the seconds from the signal to
-    the commit) and the committed step directory."""
+    passes.  Phase 52's planted raise (:func:`_start_crash_child`) runs
+    beside it.  Returns the child's record (with the seconds from the signal
+    to the commit, and the planted raise's process under ``"crash"``) and
+    the committed step directory."""
     from sheeprl_tpu_torch.checkpoint.protocol import verify_checkpoint
 
-    first = _preempt("preempt", _child(PREEMPT_XL, log_dir), usr1_dir=log_dir)
+    crash = _start_crash_child(log_dir.parent / "crash")
+    try:
+        first = _preempt("preempt", _child(PREEMPT_XL, log_dir), usr1_dir=log_dir)
+    except BaseException:
+        crash[0].kill()
+        crash[0].wait()
+        raise
+    first["crash"] = crash
     if first["rc"] != 0 or "Preemption: committed checkpoint" not in first["out"]:
         raise AssertionError(f"[preempt] rc {first['rc']}:\n{first['out'][-4000:]}")
     (saved_dir,) = _committed(log_dir)
@@ -4032,7 +4102,28 @@ def phase_runtime_preempt(torch, run_root: Path) -> dict:
     process whose
     preempted save's commit hangs (a planted ``checkpoint.commit`` hang) is
     killed by a second SIGTERM, and its torn step, above every committed
-    one, is never chosen on resume."""
+    one, is never chosen on resume.  That process starts first and waits
+    for its signal meanwhile."""
+    log_dir = run_root / "preempt"
+    plan = json.dumps({"plan": [{"site": "checkpoint.commit", "kind": "hang", "at": 1, "seconds": 120}]})
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--commit-hang-child",
+                             str(log_dir / PREEMPT_DIR / "commit_hang" / "version_0")], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+                            env={**os.environ, "SHEEPRL_FAULT_PLAN": plan})
+    lines, seen = [], threading.Event()
+    reader = _read_lines(proc, lines, seen, lambda line: line.startswith("[child] ready"))
+    try:
+        return _runtime_preempt(torch, log_dir, proc, lines, seen)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        reader.join(10)
+
+
+def _runtime_preempt(torch, log_dir: Path, proc, lines: list, seen: threading.Event) -> dict:
+    """Phase 49 (:func:`phase_runtime_preempt`), the hung commit's process
+    ``proc`` started, its output read into ``lines``."""
     from sheeprl_tpu_torch.checkpoint.manager import resolve_auto_resume
     from sheeprl_tpu_torch.checkpoint.protocol import (
         checkpoint_step,
@@ -4041,8 +4132,6 @@ def phase_runtime_preempt(torch, run_root: Path) -> dict:
         load_step_dir,
         verify_checkpoint,
     )
-
-    log_dir = run_root / "preempt"
 
     def committed(min_step=-1):
         return _committed(log_dir, min_step)
@@ -4089,34 +4178,21 @@ def phase_runtime_preempt(torch, run_root: Path) -> dict:
     if not all(chained.values()):
         raise AssertionError(f"[resume] the resumed run does not continue the saved one: {chained}")
 
-    plan = json.dumps({"plan": [{"site": "checkpoint.commit", "kind": "hang", "at": 1, "seconds": 120}]})
-    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--commit-hang-child",
-                             str(log_dir / PREEMPT_DIR / "commit_hang" / "version_0")], cwd=ROOT,
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                            env={**os.environ, "SHEEPRL_FAULT_PLAN": plan})
-    lines, seen = [], threading.Event()
-    reader = _read_lines(proc, lines, seen, lambda line: line.startswith("[child] ready"))
-    try:
-        if not seen.wait(120):
-            raise AssertionError(f"[torn] the child never armed its latch:\n{''.join(lines)[-4000:]}")
-        proc.send_signal(signal.SIGTERM)
-        deadline = time.monotonic() + 120
-        torn = []
-        while not torn and time.monotonic() < deadline:
-            torn = [d for d in log_dir.glob(f"{PREEMPT_DIR}/*/version_*/checkpoint/step_*")
-                    if (d / "shard_r00000.meta.json").exists() and not is_committed(d)]
-            time.sleep(0.1)
-        if not torn:
-            raise AssertionError(f"[torn] the final save never reached its commit:\n{''.join(lines)[-4000:]}")
-        t0 = time.perf_counter()
-        proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(timeout=60)
-        killed_s = time.perf_counter() - t0
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    reader.join(10)
+    if not seen.wait(120):
+        raise AssertionError(f"[torn] the child never armed its latch:\n{''.join(lines)[-4000:]}")
+    proc.send_signal(signal.SIGTERM)
+    deadline = time.monotonic() + 120
+    torn = []
+    while not torn and time.monotonic() < deadline:
+        torn = [d for d in log_dir.glob(f"{PREEMPT_DIR}/*/version_*/checkpoint/step_*")
+                if (d / "shard_r00000.meta.json").exists() and not is_committed(d)]
+        time.sleep(0.1)
+    if not torn:
+        raise AssertionError(f"[torn] the final save never reached its commit:\n{''.join(lines)[-4000:]}")
+    t0 = time.perf_counter()
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=60)
+    killed_s = time.perf_counter() - t0
     chosen = resolve_auto_resume(log_dir, PREEMPT_DIR)
     log(f"[torn] a preempted save's commit hung; the second SIGTERM ended it in {killed_s:.2f} s with rc {rc}; "
         f"torn {torn[0].name} committed {is_committed(torn[0])}; resume_from=auto chooses {chosen}")
@@ -4304,7 +4380,9 @@ def runtime_summary(r: dict) -> dict:
 # phase 7's XL recipe without its test episode, traced at dispatches 1 (the
 # first window: chunk 4 run eagerly and captured, then replayed) and 3 (a
 # replay of the 1-update chunk), one dispatch per window
-TELEMETRY_XL = (*XL_TRAIN, *XL_TRAIN_STEPS, FUSED, "algo.run_test=False", "telemetry.introspect.port=0")
+# replay ratio 1/16: 4 updates at step 65 (one chunk), then one at steps 81 and 97, so dispatch 3 replays
+TELEMETRY_XL = (*XL_TRAIN, "algo.replay_ratio=0.0625", "algo.total_steps=97", FUSED, "algo.run_test=False",
+                "telemetry.introspect.port=0")
 TRACE_AT = (1, 3)
 RSSM_KERNELS_PER_LAUNCH = 4  # csrc/rssm.cu: four launches on the caller's stream per call
 SPANS_AB_SAC_CALLS = 200  # SAC updates per timed turn of phase 51's span A/B
@@ -4535,13 +4613,13 @@ def phase_telemetry_spans(torch, sac_run: dict) -> dict:
     return out
 
 
-def phase_telemetry_signals(torch, run_root: Path, preempt: dict) -> dict:
+def phase_telemetry_signals(torch, preempt: dict) -> dict:
     """Phase 52, in subprocesses: phase 49's preempted DV3-XL child took a
     SIGUSR1 after its first replayed window (one trace window of the live
     run) before its SIGTERM, whose committed save comes before the
     ``preemption`` postmortem; a planted raise (``checkpoint.write_shard``)
-    in a small DreamerV3 run dumps ``postmortem.json`` with its ``crash``
-    event and lands the final flush."""
+    in a small DreamerV3 run, started beside that child, dumps
+    ``postmortem.json`` with its ``crash`` event and lands the final flush."""
     import csv
 
     first, saved_dir = preempt["first"], preempt["saved_dir"]
@@ -4561,12 +4639,14 @@ def phase_telemetry_signals(torch, run_root: Path, preempt: dict) -> dict:
             and {"trace.start", "trace.stop", "ckpt.save", "preemption"} <= set(kinds) and dumped_after >= 0):
         raise AssertionError("[telemetry-signals] the live run's trace window or its preemption postmortem is wrong")
 
-    log_dir = run_root / "crash"
-    plan = json.dumps({"plan": [{"site": "checkpoint.write_shard", "kind": "raise", "at": 1}]})
-    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--preempt-child", *REPLAY_DV3_SMALL,
-                           "algo.total_steps=64", "checkpoint.io_retries=1", f"log_dir={log_dir}"], cwd=ROOT,
-                          capture_output=True,
-                          text=True, timeout=180, env={**os.environ, "SHEEPRL_FAULT_PLAN": plan})
+    # the planted raise, started beside phase 49's child
+    proc, log_dir, output = first["crash"]
+    try:
+        proc.wait(timeout=180)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
     (pm,) = log_dir.glob("**/postmortem.json")
     with open(pm) as f:
         crash = json.load(f)
@@ -4579,8 +4659,8 @@ def phase_telemetry_signals(torch, run_root: Path, preempt: dict) -> dict:
         f"{[e.get('error') for e in crash['events'] if e['kind'] == 'crash']}, final flush landed "
         f"Resilience/faults_injected at step {last}: {landed}")
     if not (proc.returncode != 0 and crash["reason"] == "exception" and "crash" in crash_kinds and landed):
-        raise AssertionError(f"[telemetry-signals] the planted raise left no postmortem:\n{proc.stdout[-3000:]}"
-                             f"\n{proc.stderr[-3000:]}")
+        raise AssertionError(f"[telemetry-signals] the planted raise left no postmortem:\n"
+                             f"{output.read_text()[-6000:]}")
     return {"signal_to_commit_s": first["signal_to_commit_s"], "postmortem_after_commit_s": dumped_after,
             "save_s": saves[-1] if saves else None,
             "usr1_trace_kernels": kernels[0], "crash_rc": proc.returncode}
@@ -4772,7 +4852,7 @@ def phase_telemetry(torch, run_root: Path, served_dir: Path, sac_run: dict, pree
     t0 = time.perf_counter()
     out = {"traced": phase_telemetry_traced(torch, run_root / "telemetry"),
            "spans": phase_telemetry_spans(torch, sac_run),
-           "signals": phase_telemetry_signals(torch, run_root / "telemetry", preempt),
+           "signals": phase_telemetry_signals(torch, preempt),
            "reload": phase_telemetry_reload(torch, run_root / "telemetry", served_dir)}
     out["seconds"] = time.perf_counter() - t0
     log(f"[telemetry] phases 51-53 in {out['seconds']:.1f} s")
@@ -5316,6 +5396,513 @@ def deploy_summary(d: dict) -> dict:
             "fleet": {k: f[k] for k in ("startup_s", "turns", "replicas", "kill", "carry_bit_for_bit", "reload")}}
 
 
+# -- population training (phases 57-58) and the run supervisor (phase 59) ------
+POP_ENVS = 256  # each member's env shard
+POP_MEMBERS = (8, 4)  # phase 57's two PPO populations: launches must not grow with P
+# PPO's recipe (MLP 64 x 2, rollout 128, 10 epochs of 8 minibatches of a
+# member's 32,768 rows) for every member; PBT every 2 updates past a warm-up
+# of 2, so 6 updates hold the exploits at updates 4 and 6; every phase after
+# the first under steady_guard
+POP_PPO = ("exp=ppo", "env=jax_cartpole", *ENVS_COMMON, f"env.num_envs={POP_ENVS}", "algo.per_rank_batch_size=4096",
+           "population.exploit_every=2", "population.warmup=2", "buffer.transfer_guard=True", "metric.log_level=1")
+POP_UPDATES = 6
+# A2C (the stacked RMSprop) at P = 4, 3 updates, exploits every update past the first
+POP_A2C = ("exp=a2c", "env=jax_cartpole", *ENVS_COMMON, f"env.num_envs={POP_ENVS}", "population.size=4",
+           "population.exploit_every=1", "population.warmup=1", "buffer.transfer_guard=True", "metric.log_level=1",
+           f"algo.total_steps={3 * 4 * POP_ENVS * 128}")
+# PPO through the CNN on multiroom, a level pinned per member; episodes of 16
+# steps, so every member's rows autoreset inside each rollout of 32
+POP_LEVELS = (0.0, 1.0, 2.0, 3.0)
+POP_MULTIROOM = ("exp=ppo", "env=jax_multiroom", *ENVS_COMMON, "env.num_envs=64", "algo.cnn_keys.encoder=[rgb]",
+                 "algo.mlp_keys.encoder=[]", "algo.rollout_steps=32", "algo.per_rank_batch_size=1024",
+                 "algo.update_epochs=2", "env.max_episode_steps=16", "population.size=4",
+                 f"population.levels=[{','.join(str(x) for x in POP_LEVELS)}]", "population.exploit_every=2",
+                 "population.warmup=1", "buffer.transfer_guard=True", "metric.log_level=1",
+                 f"algo.total_steps={3 * 4 * 64 * 32}")
+POP_PARITY = ("exp=ppo", "env=jax_cartpole", f"env.num_envs={POP_ENVS}", "algo.rollout_steps=32",
+              "algo.per_rank_batch_size=2048", "algo.update_epochs=2", "algo.ent_coef=0.01", "algo.max_grad_norm=0.5",
+              "algo.optimizer.name=sgd", "algo.optimizer.lr=0.01", "algo.optimizer.momentum=0.9", "population.size=4",
+              "population.warmup=0", "population.exploit_every=1", "seed=58")
+
+
+def _population_run(torch, tag: str, overrides, log_dir: Path, profiled: bool = True) -> dict:
+    """A population through ``cli.run``: every population phase (the route
+    ``<algo>.population_phase``) timed by CUDA events around it (the phases
+    after the first run under ``steady_guard``, where the host may not wait),
+    its host calls (graph launches and input copies) counted; the kernels'
+    launch counts zeroed before and read after (none may launch); then the
+    captured phase held against eager execution (:func:`_replay_check`),
+    its eager phase under the profiler when ``profiled`` (the device kernels
+    of a phase); the summary and the route read back."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sheeprl_tpu_torch.algos.ppo import population as pop_mod
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.ops import gru, rssm
+    from sheeprl_tpu_torch.parallel.compile import GraphFunction
+
+    routes, calls = [], []
+    init, call = pop_mod.PopulationRoute.__init__, GraphFunction.__call__
+
+    def record(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        routes.append(self)
+
+    def timed(self, *args, **kwargs):
+        if not self.name.endswith(".population_phase"):
+            return call(self, *args, **kwargs)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        host0 = self.replays + self.input_copies
+        start.record()
+        out = call(self, *args, **kwargs)
+        end.record()
+        calls.append({"start": start, "end": end, "host_calls": self.replays + self.input_copies - host0,
+                      "graphs": self.graphs, "eager_reason": self.eager_reason})
+        return out
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rssm.LAUNCHES["rssm"] = gru.LAUNCHES["gru"] = 0
+    pop_mod.PopulationRoute.__init__, GraphFunction.__call__ = record, timed
+    t0 = time.perf_counter()
+    try:
+        run([*overrides, f"log_dir={log_dir}"])
+    finally:
+        pop_mod.PopulationRoute.__init__, GraphFunction.__call__ = init, call
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {"rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]}
+    if any(counts.values()) or len(routes) != 1 or len(calls) < 2:
+        raise AssertionError(f"[{tag}] launches {counts}, {len(routes)} routes, {len(calls)} population phases")
+    route = routes[0]
+    P, B, T = route.size, route.num_envs, route.trainer.T
+    device_ms = [c["start"].elapsed_time(c["end"]) for c in calls]
+    periods = [a["start"].elapsed_time(b["start"]) for a, b in zip(calls, calls[1:])]
+    steady = statistics.median(periods[1:]) if len(periods) > 1 else periods[0]
+    summary = json.loads(next(log_dir.glob("**/population_summary.json")).read_text())
+    host_calls = [c["host_calls"] for c in calls[1:]]
+    eager_ms = kernels = None
+
+    def eager():
+        nonlocal eager_ms, kernels
+        if not profiled:
+            return route.step._fn()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = route.step._fn()
+            torch.cuda.synchronize()
+        eager_ms, kernels = _log_profile(tag, prof, statistics.median(device_ms[1:]),
+                                         "one population phase run eagerly", "(the median replayed phase's device time)")
+        return out
+
+    replay = _replay_check(torch, tag, route, eager)
+    spread = {k: max(v) / min(v) if min(v) > 0 else float("nan") for k, v in summary["hyperparams"].items()}
+    out = {"members": P, "envs": B, "steps": T, "phases": len(calls), "device_ms": device_ms, "period_ms": periods,
+           "env_steps_per_s": P * B * T / (steady / 1e3), "host_calls_per_phase": host_calls,
+           "kernels_per_phase": kernels, "eager_device_ms": eager_ms, "graphs": calls[-1]["graphs"],
+           "eager_reason": calls[-1]["eager_reason"], "guarded_phases": len(calls) - 1, "summary": summary,
+           "hp_spread": spread, "peak_bytes": torch.cuda.max_memory_allocated(), "wall_s": wall, "route": route,
+           "counts": counts, "replay": replay}
+    log(f"[{tag}] {P} members x {B} envs x {T} steps: {len(calls)} population phases in a {wall:.1f} s run; device "
+        f"ms per phase {', '.join(f'{x:.1f}' for x in device_ms)}; steady period {steady:.1f} ms = "
+        f"{out['env_steps_per_s']:.0f} env steps/s; the phase "
+        f"{'captured as one CUDA graph' if out['graphs'] else 'eager (' + (out['eager_reason'] or 'on the CPU') + ')'}, "
+        f"{host_calls} host calls per phase after the first, {kernels or 'not counted:'} device kernels in one "
+        f"eager phase; "
+        f"{len(calls) - 1} phases under steady_guard with no guard error; exploit events "
+        f"{summary['exploit_events']}, fitness {', '.join(f'{x:.1f}' for x in summary['fitness'])}, "
+        f"hyperparameter spread (max/min) {', '.join(f'{k} {v:.3f}' for k, v in spread.items())}; peak device "
+        f"memory {out['peak_bytes'] / 2**30:.2f} GiB")
+    return out
+
+
+def _population_state(route) -> list:
+    """Every tensor a population phase updates in place: the stacked
+    parameters, the optimizer state, the member carry (envs, episode
+    records, update counters), fitness, episode counts, exploits and
+    hyperparameters."""
+    return [*route.agent.tensors(), *route.optimizer.tensors(), *_tensor_leaves(route.pop),
+            *_tensor_leaves(route.hp)]
+
+
+def _replay_check(torch, tag: str, route, eager) -> dict:
+    """The captured population phase against eager execution: from the
+    run's final state with the update counter set so that the next phase
+    exploits, and the same generator states, one eager phase (``eager()``,
+    the route's ``step._fn``) and one replay of the captured graph
+    (``route.step``).  Every tensor the phase updates, and the losses, bit
+    for bit; else the parameters' changes and the losses within phase 17's
+    tolerance, every other float tensor's change likewise, the integer
+    tensors equal.  The run's final state is put back after."""
+    step, pbt = route.step, route.pbt
+    state = _population_state(route)
+    final = [t.detach().clone() for t in state]
+    update = route.pop["members"]["update"]
+    if pbt.exploit_every > 0:  # the gate opens where the phase's new counter is a multiple past the warm-up
+        gate = (int(update[0]) // pbt.exploit_every + 1) * pbt.exploit_every
+        while gate <= pbt.warmup:
+            gate += pbt.exploit_every
+        with torch.no_grad():
+            update.fill_(gate - 1)
+    start = [t.detach().clone() for t in state]
+    gens = [g.get_state() for g in step.generators]
+    exploits0 = int(route.pop["exploits"])
+
+    def restore(tensors):
+        with torch.no_grad():
+            for t, s in zip(state, tensors):
+                t.copy_(s)
+
+    def run(fn):
+        restore(start)
+        for g, s in zip(step.generators, gens):
+            g.set_state(s)
+        losses, _ = fn()
+        torch.cuda.synchronize()
+        return losses.detach().clone(), [t.detach().clone() for t in state]
+
+    ref_losses, ref = run(eager)
+    losses, got = run(step)
+    exploited = int(route.pop["exploits"]) - exploits0
+    restore(final)
+    bit = [torch.equal(a, b) for a, b in zip(ref, got)]
+    same_losses = torch.equal(ref_losses, losses)
+    names = list(route.agent.params)
+    n = len(names)
+    diffs = change_diffs(torch, dict(zip(names, start)), dict(zip(names, got)), losses.cpu().numpy().reshape(-1),
+                         dict(zip(names, ref)), ref_losses.cpu().numpy().reshape(-1))
+    others = []
+    for s0, a, b in zip(start[n:], ref[n:], got[n:]):
+        if not a.is_floating_point():
+            others.append(bool(torch.equal(a, b)))
+        else:
+            change = float((a.double() - s0.double()).norm())
+            others.append(float((b.double() - a.double()).norm()) <= CARD_PARITY_TOL_PARAM * max(change, 1e-30))
+    log(f"[{tag}] the captured phase against eager execution, from one state and one generator state with the "
+        f"exploit gate open ({exploited} members copied): {sum(bit)} of {len(bit)} updated tensors and the "
+        f"losses {'bit for bit' if same_losses else 'not bit for bit'} ({sum(bit[:n])} of {n} parameters); "
+        f"{show_diffs(diffs)}")
+    if not (all(bit) and same_losses) and not (within_parity(diffs) and all(others)):
+        raise AssertionError(f"{tag}: the replayed population phase disagrees with eager execution")
+    if pbt.exploit_every > 0 and exploited != pbt.n_select:
+        raise AssertionError(f"{tag}: {exploited} members copied in a phase whose gate was open")
+    return {"bit_for_bit": sum(bit), "tensors": len(bit), "losses_bit_for_bit": same_losses,
+            "param_l2": diffs["param_l2"], "loss_rel": diffs["loss_rel"], "exploited": exploited}
+
+
+def phase_population_train(torch, run_root: Path) -> dict:
+    """Phase 57: PPO populations of 8 and 4 members through ``cli.run`` on
+    ``jax_cartpole`` (launches per phase must not grow with P), an A2C
+    population (the stacked RMSprop on the card), and a PPO population on
+    ``jax_multiroom`` with a level pinned per member through autoreset."""
+    t0 = time.perf_counter()
+    runs = {}
+    for members in POP_MEMBERS:
+        overrides = (*POP_PPO, f"population.size={members}",
+                     f"algo.total_steps={POP_UPDATES * members * POP_ENVS * 128}")
+        runs[f"ppo_p{members}"] = r = _population_run(torch, f"population-ppo-p{members}", overrides,
+                                                      run_root / f"ppo_p{members}")
+        if r["summary"]["exploit_events"] < 2 * r["route"].pbt.n_select or r["phases"] != POP_UPDATES:
+            raise AssertionError(f"P={members}: {r['phases']} phases, {r['summary']['exploit_events']} exploits")
+        if r["graphs"] and any(n != 1 for n in r["host_calls_per_phase"]):
+            raise AssertionError(f"P={members}: a replayed phase made {r['host_calls_per_phase']} host calls")
+        if not any(v > 1.0 for v in r["hp_spread"].values() if np.isfinite(v)):
+            raise AssertionError(f"P={members}: the members' hyperparameters do not differ: {r['hp_spread']}")
+    big, small = (runs[f"ppo_p{m}"] for m in POP_MEMBERS)
+    ratio = big["kernels_per_phase"] / small["kernels_per_phase"]
+    log(f"[population] device kernels per phase: P={POP_MEMBERS[0]} {big['kernels_per_phase']}, "
+        f"P={POP_MEMBERS[1]} {small['kernels_per_phase']} (ratio {ratio:.3f}); host calls per phase "
+        f"{big['host_calls_per_phase'][-1]} and {small['host_calls_per_phase'][-1]}")
+    if abs(ratio - 1.0) > 0.1:
+        raise AssertionError(f"launches per population phase grew with P: {ratio:.3f}")
+    runs["a2c_p4"] = a2c = _population_run(torch, "population-a2c-p4", POP_A2C, run_root / "a2c_p4", profiled=False)
+    if a2c["summary"]["exploit_events"] < 1:
+        raise AssertionError(f"A2C population: no exploit ({a2c['summary']})")
+    runs["multiroom_p4"] = mr = _population_run(torch, "population-multiroom-p4", POP_MULTIROOM,
+                                                run_root / "multiroom_p4", profiled=False)
+    carry = mr["route"].pop
+    want = torch.tensor(POP_LEVELS).repeat_interleave(mr["envs"]).to(carry["members"]["env"].level.device)
+    episodes = carry["ep_count"].cpu().tolist()
+    if not torch.equal(carry["members"]["env"].level, want) or min(episodes) < mr["envs"]:
+        raise AssertionError(f"multiroom levels after autoreset {carry['members']['env'].level.unique().tolist()}, "
+                             f"episodes per member {episodes}")
+    log(f"[population-multiroom-p4] each member's level still pinned after {sum(episodes)} episodes "
+        f"({episodes} per member, every row reset at least once): levels {list(POP_LEVELS)}")
+    for r in runs.values():
+        r.pop("route")
+    runs["seconds"] = time.perf_counter() - t0
+    return runs
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def phase_population_parity(torch) -> dict:
+    """Phase 58: one PPO population window (4 members x 256 envs x 32 steps,
+    2 epochs of 4 minibatches, the exploit gate open) on the card and on the
+    CPU from the same stacked state and the same draws (action noise, reset
+    draws, minibatch orders, explore factors), stepping with SGD with
+    momentum: the parameters' changes and the losses within phase 17's
+    tolerance, the momentum buffers' changes likewise, fitness, episode
+    counts, exploits and hyperparameters equal."""
+    from sheeprl_tpu_torch.algos.ppo.agent import action_noise
+    from sheeprl_tpu_torch.algos.ppo.population import PopulationRoute
+    from sheeprl_tpu_torch.algos.ppo.ppo import PPOTrainer
+    from sheeprl_tpu_torch.algos.ppo.utils import spaces_to_dims
+    from sheeprl_tpu_torch.config.compose import compose
+    from sheeprl_tpu_torch.envs.device import env_from_cfg
+    from sheeprl_tpu_torch.fabric import build_fabric
+    from sheeprl_tpu_torch.population import perturbation_factors
+    from sheeprl_tpu_torch.population.members import member_permutations
+
+    def route(accelerator: str):
+        cfg = compose([*POP_PARITY, f"fabric.accelerator={accelerator}", "metric.log_level=0"])
+        fabric = build_fabric(cfg)
+        env = env_from_cfg(cfg)
+        dims, cont = spaces_to_dims(env.action_space)
+        gens = {k: torch.Generator(fabric.device).manual_seed(i) for i, k in enumerate(("train", "player", "env"))}
+        return PopulationRoute(fabric, cfg, PPOTrainer, env, env.observation_space, env.action_space, dims, cont,
+                               gens, {}, 1), dims, cont
+
+    cpu, dims, cont = route("cpu")
+    card, _, _ = route("cpu" if CARD == "cpu" else "gpu")
+    card.agent.load_state_dict(_to(cpu.agent.state_dict(), CARD))
+    with torch.no_grad():
+        for dst, src in zip(card.pop["members"]["env"], cpu.pop["members"]["env"]):
+            dst.copy_(src)
+        for k in cpu.hp:
+            card.hp[k].copy_(cpu.hp[k])
+    P, B, T = cpu.size, cpu.num_envs, cpu.trainer.T
+    single = cpu.trainer.single
+    gen = torch.Generator().manual_seed(58)
+    rows = torch.zeros(P * B, sum(dims))
+    draws = {"members": {
+        "noise": [action_noise(rows, dims, cont, "auto", gen) for _ in range(T)],
+        "reset": [cpu.venv.env.draw_reset(P * B, gen, torch.device("cpu")) for _ in range(T)],
+        "perms": torch.stack([member_permutations(gen, P, T * B, single.num_minibatches * single.batch_size)
+                              for _ in range(single.update_epochs)], dim=1)},
+        "factors": perturbation_factors(cpu.pbt, cpu.hp, gen)}
+    start = {k: v.detach().clone() for k, v in cpu.agent.state_dict().items()}
+    mom0 = {k: s["momentum_buffer"].clone() for k, s in cpu.optimizer.state.items()}
+    t0 = time.perf_counter()
+    cpu_losses, _ = cpu.step._fn(draws)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card_losses, _ = card.step._fn(_to(draws, CARD))
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    params = {k: v.detach().cpu() for k, v in card.agent.state_dict().items()}
+    got = change_diffs(torch, start, params, card_losses.cpu().numpy().reshape(-1),
+                       {k: v.detach() for k, v in cpu.agent.state_dict().items()},
+                       cpu_losses.numpy().reshape(-1))
+    mom = change_diffs(torch, mom0, {k: s["momentum_buffer"].cpu() for k, s in card.optimizer.state.items()},
+                       np.ones(1), {k: s["momentum_buffer"] for k, s in cpu.optimizer.state.items()}, np.ones(1))
+    same = {k: bool(torch.equal(card.pop[k].cpu(), cpu.pop[k])) for k in ("fitness", "ep_count", "exploits")}
+    hp_diff = max(float((card.hp[k].cpu() - cpu.hp[k]).abs().max() / cpu.hp[k].abs().max().clamp_min(1e-30))
+                  for k in cpu.hp)
+    log(f"[population-parity] one window of {P} members x {B} envs x {T} steps (SGD lr 0.01, momentum 0.9; CPU "
+        f"{cpu_s:.1f} s, card {card_s:.2f} s, both eager), card vs CPU: {show_diffs(got)}; momentum buffers' "
+        f"changes rel L2 diff {mom['param_l2']:.3g}; fitness, episode counts, exploits equal {same} (exploits "
+        f"{int(cpu.pop['exploits'])}, fitness {', '.join(f'{x:.2f}' for x in cpu.pop['fitness'].tolist())}); "
+        f"hyperparameters max rel diff {hp_diff:.3g}; tolerance L2 {CARD_PARITY_TOL_PARAM}, losses "
+        f"{CARD_PARITY_TOL_LOSS}")
+    if not (within_parity(got) and mom["param_l2"] <= CARD_PARITY_TOL_PARAM and all(same.values())
+            and hp_diff <= 1e-6 and int(cpu.pop["exploits"]) > 0):
+        raise AssertionError("the population window on the card disagrees with the same window on the CPU")
+    return {**got, "momentum_l2": mom["param_l2"], "same": same, "hp_rel": hp_diff, "cpu_s": cpu_s,
+            "card_s": card_s}
+
+
+# DreamerV3-S with the GRU kernel (phase 10's recipe: 2 updates at step 65)
+# under the supervisor: a commit at step 68, a fatal env.step fault at step
+# 72 (past the first window); the rerun resumes from step 68, waits
+# learning_starts again (as JAX's loop does on a resume), trains at step 134
+# and ends at 135, never reaching invocation 72 again
+SUPERVISED_COMMIT, SUPERVISED_FAULT, SUPERVISED_TOTAL = 68, 72, 135
+SUPERVISED_S = (*(o for o in S_TRAIN if not o.startswith(("checkpoint.every", "buffer.checkpoint",
+                                                          "algo.total_steps"))),
+                "buffer.checkpoint=True", "env.restart_on_exception=False", "metric.log_level=1",
+                f"algo.total_steps={SUPERVISED_TOTAL}", "supervisor.backoff_base_s=0.5",
+                "supervisor.poll_interval_s=1.0")
+SUPERVISED_KERNEL = "gru"  # the kernel every window of the supervised children launches
+BREAKER_FAULT = 10  # the breaker drill's fault: before any commit, so a rerun dies at the same step
+
+
+def supervised_child_cmd(events_path: Path):
+    """The supervisor's command for phase 59's child: this script's
+    ``--supervised-child`` around ``cli.run``."""
+    return lambda argv: [sys.executable, str(ROOT / "chip_smoke.py"), "--supervised-child", str(events_path), *argv]
+
+
+def _fault_plan(at: int) -> str:
+    return json.dumps({"plan": [{"site": "env.step", "kind": "raise", "at": at}]})
+
+
+def supervised_child(torch, argv) -> int:
+    """``--supervised-child EVENTS OVERRIDES``: ``cli.run`` with its train
+    windows and its kernel launches appended to ``EVENTS`` (one JSON line
+    each, wall-clock stamped), for phase 59's supervisor to launch."""
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.ops import gru, rssm
+
+    path, argv = argv[0], argv[1:]
+
+    def emit(event: dict) -> None:
+        with open(path, "a") as f:
+            f.write(json.dumps({"pid": os.getpid(), "t": time.time(), **event}) + "\n")
+
+    emit({"event": "start"})
+    try:
+        with _window_log(lambda w: emit({"event": "window", **w})):
+            run(list(argv))
+    finally:
+        emit({"event": "exit", "rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]})
+    return 0
+
+
+def start_breaker_drill(run_root: Path):
+    """Phase 59's breaker drill, started early (its children crash in their
+    prefill and barely touch the card): ``python -m
+    sheeprl_tpu_torch.supervisor`` over the supervised recipe with the fault
+    before any commit, its output to a file.  Returns the process, its
+    experiment root and its output's path."""
+    breaker_dir = run_root / "breaker"
+    breaker_dir.mkdir(parents=True, exist_ok=True)
+    argv = [*SUPERVISED_S, "checkpoint.every=1000000000", f"log_dir={breaker_dir}", "root_dir=breaker"]
+    output = breaker_dir / "output.log"
+    with open(output, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-m", "sheeprl_tpu_torch.supervisor", *argv], cwd=ROOT, stdout=f,
+                                stderr=subprocess.STDOUT, env={**os.environ,
+                                                               "SHEEPRL_FAULT_PLAN": _fault_plan(BREAKER_FAULT)})
+    return proc, breaker_dir / "breaker", output
+
+
+def phase_supervisor(torch, run_root: Path, breaker=None) -> dict:
+    """Phase 59: the supervisor over a DreamerV3-S child (``use_pallas``: the
+    GRU kernel) whose env raises past a committed save: the crash classified
+    ``transient`` from its postmortem, the restart with
+    ``checkpoint.resume_from=auto``, the rerun to the full step count, exit 0
+    and two episodes in ``supervisor_log.jsonl``; then ``python -m
+    sheeprl_tpu_torch.supervisor`` over the same fault planted before any
+    commit, so it recurs at the same step: the breaker opens, exit 2."""
+    from sheeprl_tpu_torch.checkpoint.protocol import checkpoint_step, list_checkpoints
+    from sheeprl_tpu_torch.config.compose import compose
+    from sheeprl_tpu_torch.supervisor import EXIT_BREAKER, EXIT_OK, Supervisor
+
+    t0 = time.perf_counter()
+    log_dir = run_root / "supervised"
+    events_path = log_dir / "events.jsonl"
+    log_dir.mkdir(parents=True, exist_ok=True)
+    argv = [*SUPERVISED_S, f"checkpoint.every={SUPERVISED_COMMIT}", f"log_dir={log_dir}", "root_dir=supervised"]
+    sup = Supervisor(compose(argv), argv, handle_signals=False, child_cmd=supervised_child_cmd(events_path),
+                     child_env={"SHEEPRL_FAULT_PLAN": _fault_plan(SUPERVISED_FAULT)})
+    rc = sup.run()
+    episodes = [json.loads(line) for line in open(sup.audit_path)]
+    events = [json.loads(line) for line in open(events_path)]
+    pids = list(dict.fromkeys(e["pid"] for e in events))
+    by_child = [[e for e in events if e["pid"] == pid] for pid in pids]
+    exits = [next(e for e in child if e["event"] == "exit") for child in by_child]
+    windows = [[e for e in child if e["event"] == "window"] for child in by_child]
+    steps = sorted(checkpoint_step(d) for root in (log_dir / "supervised").glob("*/version_*/checkpoint")
+                   for d in list_checkpoints(root))
+    kinds = [(e["classification"], e["action"]) for e in episodes]
+    launches = {k: sum(e[k] for e in exits) for k in ("rssm", "gru")}
+    doc = json.loads(Path(episodes[0]["postmortem"]).read_text()) if episodes and episodes[0]["postmortem"] else {}
+    injected = any(e.get("kind") == "fault.injected" and e.get("site") == "env.step" for e in doc.get("events", []))
+    if (rc != EXIT_OK or kinds != [("transient", "restart"), ("success", "done")] or not injected
+            or len(by_child) != 2 or not steps or steps[-1] != SUPERVISED_TOTAL or SUPERVISED_COMMIT not in steps
+            or not all(windows) or any(w[k] <= 0 if k == SUPERVISED_KERNEL else w[k]
+                                       for ws in windows for w in ws for k in ("rssm", "gru"))
+            or any(v <= 0 if k == SUPERVISED_KERNEL else v for k, v in launches.items())):
+        raise AssertionError(f"supervised run: rc {rc}, episodes {kinds}, postmortem fault {injected}, "
+                             f"{len(by_child)} children, committed steps {steps}, windows {windows}, launches "
+                             f"{launches}")
+    crash_to_update = windows[1][0]["t"] - exits[0]["t"]
+    log(f"[supervisor] DreamerV3-S (use_pallas) supervised: episode 0 crashed at env step {SUPERVISED_FAULT} "
+        f"(signature {episodes[0]['signature']}), classified {episodes[0]['classification']} "
+        f"from its postmortem, restarted with resume_from=auto in {episodes[0]['next_delay_s']:.2f} s; the rerun "
+        f"resumed at step {SUPERVISED_COMMIT} and committed step {steps[-1]} (all committed {steps}); "
+        f"{crash_to_update:.1f} s from the crash to the restarted child's first update; gru launches "
+        f"{[e['gru'] for e in exits]} ({launches['gru']}), rssm {[e['rssm'] for e in exits]} ({launches['rssm']}); "
+        f"supervisor exit {rc}")
+    proc, exp_root, output = breaker or start_breaker_drill(run_root)
+    try:
+        proc.wait(timeout=900)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = output.read_text()
+    audit = exp_root / "supervisor_log.jsonl"
+    episodes_b = [json.loads(line) for line in open(audit)] if audit.exists() else []
+    b_kinds = [e["classification"] for e in episodes_b]
+    if proc.returncode != EXIT_BREAKER or b_kinds != ["transient", "deterministic"] or \
+            episodes_b[0]["signature"] != episodes_b[1]["signature"]:
+        raise AssertionError(f"breaker drill: exit {proc.returncode}, episodes {b_kinds}, signatures "
+                             f"{[e['signature'] for e in episodes_b]}:\n{out[-5000:]}")
+    log(f"[supervisor] the same fault before any commit, under python -m sheeprl_tpu_torch.supervisor: episodes "
+        f"{b_kinds} with the signature {episodes_b[1]['signature']} twice, the breaker open "
+        f"('{episodes_b[1]['reason'][:60]}...'), exit {proc.returncode}")
+    return {"rc": rc, "episodes": kinds, "steps": steps, "crash_to_update_s": crash_to_update,
+            "launches": launches, "gru_by_child": [e["gru"] for e in exits], "breaker_rc": proc.returncode,
+            "breaker": b_kinds, "seconds": time.perf_counter() - t0}
+
+
+def phase_population(torch, run_root: Path) -> dict:
+    """Phases 57-59 (phase 59's breaker drill runs beside phases 57-58)."""
+    t0 = time.perf_counter()
+    breaker = start_breaker_drill(run_root / "supervisor")
+    try:
+        out = {"train": phase_population_train(torch, run_root / "population"),
+               "parity": phase_population_parity(torch),
+               "supervisor": phase_supervisor(torch, run_root / "supervisor", breaker)}
+    finally:
+        if breaker[0].poll() is None:
+            breaker[0].kill()
+            breaker[0].wait()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def population_summary(p: dict) -> dict:
+    t = p["train"]
+    return {name: {k: r[k] for k in ("members", "phases", "env_steps_per_s", "kernels_per_phase",
+                                     "host_calls_per_phase", "graphs", "eager_reason", "counts", "replay")}
+            | {"exploit_events": r["summary"]["exploit_events"]}
+            for name, r in t.items() if name != "seconds"} | {
+        "parity": {k: p["parity"][k] for k in ("param_l2", "loss_rel", "momentum_l2")},
+        "supervisor": {k: p["supervisor"][k] for k in ("rc", "episodes", "steps", "crash_to_update_s", "launches",
+                                                        "breaker_rc")},
+        "seconds": p["seconds"]}
+
+
+def population_only(torch) -> int:
+    """``--population``: phases 57-59 alone (phase 59 builds the GRU kernel
+    its children launch)."""
+    log_phase_seconds()
+    run_root = ROOT / "build" / "chip_smoke_population"
+    shutil.rmtree(run_root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        device = phase_device(torch)
+        phase_build()
+        population = phase_population(torch, run_root)
+        log("[population] " + json.dumps(population_summary(population), default=float))
+        log(f"[population] total {time.perf_counter() - t0:.1f} s")
+    except BaseException:
+        traceback.print_exc()
+        return 1
+    finally:
+        shutil.rmtree(run_root, ignore_errors=True)
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
+
+
 def deploy_only(torch) -> int:
     """``--deploy``: phases 54-56 alone, beside what they read of earlier
     phases: phase 4's served snapshot and phase 51's untraced DV3-XL
@@ -5724,6 +6311,10 @@ def main() -> int:
         return telemetry_only(torch)
     if sys.argv[1:2] == ["--deploy"]:
         return deploy_only(torch)
+    if sys.argv[1:2] == ["--population"]:
+        return population_only(torch)
+    if sys.argv[1:2] == ["--supervised-child"]:
+        return supervised_child(torch, sys.argv[2:])
 
     run_root = ROOT / "build" / "chip_smoke"
     shutil.rmtree(run_root, ignore_errors=True)
@@ -5794,6 +6385,8 @@ def main() -> int:
         log("[telemetry] " + json.dumps(telemetry_summary(telemetry), default=float))
         deploy = phase_deploy(torch, run_root, train["snapshot"], telemetry["traced"]["untraced"], fused_dir)
         log("[deploy] " + json.dumps(deploy_summary(deploy), default=float))
+        population = phase_population(torch, run_root / "population")
+        log("[population] " + json.dumps(population_summary(population), default=float))
 
         launches = {"rssm": train["counts"]["rssm"], "gru": train_gru["counts"]["gru"]}
         new_paths = {"p2e_explore": p2e, "p2e_finetune": finetune, "decoupled": decoupled}
@@ -5855,6 +6448,12 @@ def main() -> int:
             by_path["registered_xl"] = telemetry["traced"]["untraced"]["counts"][name]
             by_path["jax_snapshot_serve"] = deploy["jax_snapshot"]["launches"][name]
             by_path["fleet_serve"] = deploy["fleet"]["launches"][name]
+            # phases 57-59: the PPO, A2C and multiroom populations (no RSSM or
+            # LN-GRU in their agents) and the supervised DreamerV3-S children
+            for path, run_ in population["train"].items():
+                if path != "seconds":
+                    by_path[f"population_{path}"] = run_["counts"][name]
+            by_path["supervised_s"] = population["supervisor"]["launches"][name]
         sources = {
             "rssm": ("sheeprl_tpu_torch/csrc/rssm.cu",
                      "sheeprl_tpu/ops/rssm_pallas.py:70 (_rssm_kernel), sheeprl_tpu/ops/rssm_pallas.py:260 "
@@ -5904,7 +6503,13 @@ def main() -> int:
             f"{', '.join(f'{x:.1f}' for x in deploy['fleet']['fleet_actions_per_s'])} actions/s beside one server's "
             f"{', '.join(f'{x:.1f}' for x in deploy['fleet']['single_actions_per_s'])}, a SIGKILLed replica back in "
             f"{deploy['fleet']['kill']['respawn_s']:.1f} s with no request dropped (phases 54-56 "
-            f"{deploy['seconds']:.1f} s); total "
+            f"{deploy['seconds']:.1f} s); a PPO population of {POP_MEMBERS[0]} at "
+            f"{population['train'][f'ppo_p{POP_MEMBERS[0]}']['env_steps_per_s']:.0f} env steps/s, "
+            f"{population['train'][f'ppo_p{POP_MEMBERS[0]}']['kernels_per_phase']} / "
+            f"{population['train'][f'ppo_p{POP_MEMBERS[1]}']['kernels_per_phase']} kernels per phase at P = "
+            f"{POP_MEMBERS[0]} / {POP_MEMBERS[1]}, card vs CPU {population['parity']['param_l2']:.3g} rel L2; a "
+            f"supervised DV3-S restarted {population['supervisor']['crash_to_update_s']:.1f} s after its crash to "
+            f"step {population['supervisor']['steps'][-1]} (phases 57-59 {population['seconds']:.1f} s); total "
             f"{time.perf_counter() - t_start:.1f} s")
     except BaseException:
         traceback.print_exc()

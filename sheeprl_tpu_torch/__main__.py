@@ -2,7 +2,9 @@
 
 The first argument may name another entry point, as the JAX package's
 ``__main__`` takes it: ``eval`` / ``--eval``, ``serve``,
-``register-model`` / ``--register-model`` and ``agents`` / ``--agents``.
+``register-model`` / ``--register-model`` and ``agents`` / ``--agents``;
+``supervise`` runs the rest under the self-healing supervisor
+(:mod:`sheeprl_tpu_torch.supervisor`).
 """
 
 import sys
@@ -20,5 +22,9 @@ if __name__ == "__main__":
         registration(argv[1:])
     elif cmd == "agents":
         available_agents()
+    elif cmd == "supervise":
+        from sheeprl_tpu_torch.supervisor import main
+
+        main(argv[1:])
     else:
         run(argv)

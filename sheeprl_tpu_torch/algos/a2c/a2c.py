@@ -33,14 +33,20 @@ class A2CTrainer(OnPolicyTrainer):
         """One gradient step on the whole rollout (``perms`` and
         ``clip_coef`` are unused).  Returns (policy loss, value loss, mean
         entropy): the logged entropy is the positive mean, not a loss."""
-        flat = self.flat_rollout(rollout, last_obs)
-        out, new_values = self.agent({k: flat[k] for k in self.obs_keys})
+        loss, losses = self.loss(self.flat_rollout(rollout, last_obs), clip_coef, ent_coef)
+        self.step(loss)
+        return tuple(x.detach() for x in losses)
+
+    def loss(self, flat: Rollout, clip_coef: Any, ent_coef: Any, agent: Any = None):
+        """``policy_loss + vf_coef · value_loss - ent_coef · mean entropy`` of
+        the whole rollout and its three parts (``clip_coef`` is unused);
+        ``agent`` replaces ``self.agent``, as in PPO's."""
+        out, new_values = (agent or self.agent)({k: flat[k] for k in self.obs_keys})
         lp, ent = evaluate_actions(out, flat["actions"], self.actions_dim, self.is_continuous, self.dist_type)
         pg = policy_loss(lp, flat["advantages"], self.reduction)
         vl = value_loss(new_values[..., 0], flat["returns"], self.reduction)
         e = ent.mean()
-        self.step(pg + self.vf_coef * vl - ent_coef * e)
-        return pg.detach(), vl.detach(), e.detach()
+        return pg + self.vf_coef * vl - ent_coef * e, (pg, vl, e)
 
 
 @register_algorithm()

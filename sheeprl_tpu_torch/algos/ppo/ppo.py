@@ -30,9 +30,16 @@ Anakin dispatch.  Every route goes through ``fabric.compile``: PPO's Anakin
 rollout is one captured CUDA graph on the card
 (:func:`~sheeprl_tpu_torch.envs.device.anakin.compile_rollout`); the
 update, the host path's player and A2C's rollout run eagerly under the
-same recompile audit, each with its reason at the call site.  The JAX package's population path
-(whole agents vmapped over a population on the Anakin axis) and its
-multi-process samplers are not ported: :func:`check_supported` raises for them.
+same recompile audit, each with its reason at the call site.
+
+With ``population.size > 1`` (Anakin only, as in JAX) the loop trains a
+population: :class:`~sheeprl_tpu_torch.algos.ppo.population.PopulationRoute`
+runs every member's rollout and update and the in-trace PBT step as one
+population phase, captured as one CUDA graph on the card; checkpoints hold
+the stacked parameters and optimizer state and the PBT carry, the run
+writes ``population_summary.json`` and tests its fittest member.  The JAX
+package's multi-process samplers are not ported: :func:`check_supported`
+raises for them.
 """
 
 from __future__ import annotations
@@ -44,8 +51,10 @@ from typing import Any, Dict, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from sheeprl_tpu_torch import telemetry
 from sheeprl_tpu_torch.algos.ppo.agent import build_agent, evaluate_actions, sample_actions
 from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_loss
+from sheeprl_tpu_torch.algos.ppo.population import NO_ANAKIN, PopulationRoute, population_size
 from sheeprl_tpu_torch.algos.ppo.utils import (
     actions_for_env,
     merge_image_stack,
@@ -95,11 +104,6 @@ def epoch_permutation(generator: torch.Generator, T: int, B: int, batch_size: in
 def check_supported(cfg: Any) -> None:
     """Raise for the on-policy settings the port does not implement yet,
     naming the ROADMAP item that will."""
-    if int((cfg.get("population") or {}).get("size", 0) or 0) > 1:
-        raise NotImplementedError(
-            "population.size > 1 is not ported yet: population training vmaps whole agents over the Anakin "
-            "rollout's env axis (ROADMAP.md, queue A item 6)"
-        )
     if cfg.fabric.get("decoupled"):
         raise NotImplementedError(
             "fabric.decoupled is not ported yet: the decoupled topologies come with the scale layer "
@@ -175,8 +179,11 @@ class PPOTrainer(OnPolicyTrainer):
         self.batch_size = min(int(a.per_rank_batch_size), self.T * self.B)
         self.num_minibatches = -(-self.T * self.B // self.batch_size)  # ceil: the tail is padded, not dropped
 
-    def loss(self, batch: Rollout, clip_coef: float, ent_coef: float):
-        out, new_values = self.agent({k: batch[k] for k in self.obs_keys})
+    def loss(self, batch: Rollout, clip_coef: Any, ent_coef: Any, agent: Any = None):
+        """The clipped-PPO loss of one minibatch and its (policy, value,
+        entropy) parts; ``agent`` replaces ``self.agent`` (a population runs
+        one member's parameters through it)."""
+        out, new_values = (agent or self.agent)({k: batch[k] for k in self.obs_keys})
         new_logprobs, entropy = evaluate_actions(out, batch["actions"], self.actions_dim, self.is_continuous,
                                                  self.dist_type)
         adv = normalize_tensor(batch["advantages"]) if self.normalize_adv else batch["advantages"]
@@ -228,6 +235,9 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
     actions_dim, is_continuous, T, B)``) is the update."""
     check_supported(cfg)
     use_anakin = anakin_enabled(cfg)
+    pop_size = population_size(cfg)
+    if pop_size > 1 and not use_anakin:
+        raise ValueError(NO_ANAKIN)
     # the Anakin rollout acts with the trained agent itself, on the run's device
     player_device = fabric.device if use_anakin else fabric.player_device(cfg)
     train_gen, player_gen = fabric.seed_everything(int(cfg.seed), player_device)
@@ -244,6 +254,8 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
         generators["env"] = venv.generator
         obs_space, act_space = venv.single_observation_space, venv.single_action_space
         where = f"an Anakin rollout of {num_envs} env(s) on {fabric.device}"
+        if pop_size > 1:
+            where = f"a population of {pop_size} members, each {where}"
     else:
         envs = vectorize(cfg, [make_env(cfg, cfg.seed + i, 0, run_name=log_dir, vector_env_idx=i)
                                for i in range(num_envs)])
@@ -262,21 +274,31 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
     for name, gen in generators.items():
         if name in state.get("generators", {}):
             gen.set_state(state["generators"][name].cpu())
-    agent = build_agent(fabric, actions_dim, is_continuous, cfg, obs_space, state.get("agent"))
-    optimizer = build_optimizer(agent.parameters(), cfg.algo.optimizer, cfg.algo.max_grad_norm)
-    if state.get("opt_state") is not None:
-        optimizer.load_state_dict(state["opt_state"])
     rollout_steps = int(cfg.algo.rollout_steps)
-    trainer = trainer_cls(cfg, agent, optimizer, obs_keys, actions_dim, is_continuous, rollout_steps, num_envs)
-    # on-policy: the player acts with the current weights, refreshed after every update
-    player = agent if player_device == fabric.device else copy.deepcopy(agent).to(player_device)
+    start_iter = int(state.get("update", 0)) + 1 if state else 1
+    max_recompiles = cfg.algo.get("max_recompiles")
+    population = None
+    if pop_size > 1:
+        # every member trains on its own env shard in one population phase
+        population = PopulationRoute(fabric, cfg, trainer_cls, venv.env, obs_space, act_space, actions_dim,
+                                     is_continuous, generators, state, start_iter, max_recompiles)
+        telemetry.HUB.register("population", population.monitor)
+    else:
+        agent = build_agent(fabric, actions_dim, is_continuous, cfg, obs_space, state.get("agent"))
+        optimizer = build_optimizer(agent.parameters(), cfg.algo.optimizer, cfg.algo.max_grad_norm)
+        if state.get("opt_state") is not None:
+            optimizer.load_state_dict(state["opt_state"])
+        trainer = trainer_cls(cfg, agent, optimizer, obs_keys, actions_dim, is_continuous, rollout_steps, num_envs)
+        # on-policy: the player acts with the current weights, refreshed after every update
+        player = agent if player_device == fabric.device else copy.deepcopy(agent).to(player_device)
 
     aggregator = MetricAggregator(cfg.metric.aggregator.metrics if cfg.metric.log_level > 0 else {})
     timer.configure(cfg.metric)
 
-    policy_steps_per_iter = num_envs * rollout_steps
+    # every member steps its own env shard: a population multiplies the env
+    # steps of an iteration, so total_steps buys fewer iterations
+    policy_steps_per_iter = num_envs * rollout_steps * max(pop_size, 1)
     total_iters = 1 if cfg.dry_run else max(int(cfg.algo.total_steps) // policy_steps_per_iter, 1)
-    start_iter = int(state.get("update", 0)) + 1 if state else 1
     policy_step = int(state.get("policy_step", 0))
     last_log = int(state.get("last_log", 0))
     last_checkpoint = int(state.get("last_checkpoint", 0))
@@ -294,50 +316,61 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
             if cfg.algo.get(f"anneal_{name}", False) and name in trainer.SCHEDULES:
                 coef[name] = polynomial_decay(step, initial=initial[name], final=0.0, max_decay_steps=total_iters)
 
-    max_recompiles = cfg.algo.get("max_recompiles")
-    # the update runs eagerly: the learning rate and the annealed coefficients
-    # are Python values a graph would freeze (GAE and the update: ROADMAP.md,
-    # queue A item 3(a))
-    train_phase = fabric.compile(trainer.train_phase, name=f"{cfg.algo.name}.train_phase",
-                                 max_recompiles=max_recompiles,
-                                 eager_reason="the annealed learning rate and coefficients are Python values")
-    if use_anakin:
-        rollout_fn = compile_rollout(
-            fabric, make_rollout_fn(
-                venv, agent, lambda out, noise: sample_actions(out, actions_dim, is_continuous, noise,
-                                                                dist_type=dist_type),
-                cnn_keys=cnn_keys, mlp_keys=mlp_keys, action_space=act_space, gamma=gamma,
-                rollout_steps=rollout_steps, store_logprobs=trainer_cls.STORES_LOGPROBS),
-            player_gen, venv.generator, name=f"{cfg.algo.name}.rollout", max_recompiles=max_recompiles,
-            eager_reason=trainer_cls.ROLLOUT_EAGER_REASON)
-        actor = init_actor_state(venv, start_iter - 1)
-    else:
-        rb = ReplayBuffer(rollout_steps, num_envs, memmap=cfg.buffer.memmap,
-                          memmap_dir=os.path.join(log_dir, "memmap_buffer", "rank_0") if cfg.buffer.memmap else None,
-                          obs_keys=obs_keys)
-        obs, _ = envs.reset(seed=int(cfg.seed))
     last_losses = None
     # buffer.transfer_guard: an update past the first that waits on the host raises
     guard_on = bool(cfg.buffer.get("transfer_guard", False))
+    if population is None:
+        # the update runs eagerly: the learning rate and the annealed coefficients
+        # are Python values a graph would freeze (GAE and the update: ROADMAP.md,
+        # queue A item 3(a))
+        train_phase = fabric.compile(trainer.train_phase, name=f"{cfg.algo.name}.train_phase",
+                                     max_recompiles=max_recompiles,
+                                     eager_reason="the annealed learning rate and coefficients are Python values")
+        if use_anakin:
+            rollout_fn = compile_rollout(
+                fabric, make_rollout_fn(
+                    venv, agent, lambda out, noise: sample_actions(out, actions_dim, is_continuous, noise,
+                                                                    dist_type=dist_type),
+                    cnn_keys=cnn_keys, mlp_keys=mlp_keys, action_space=act_space, gamma=gamma,
+                    rollout_steps=rollout_steps, store_logprobs=trainer_cls.STORES_LOGPROBS),
+                player_gen, venv.generator, name=f"{cfg.algo.name}.rollout", max_recompiles=max_recompiles,
+                eager_reason=trainer_cls.ROLLOUT_EAGER_REASON)
+            actor = init_actor_state(venv, start_iter - 1)
+        else:
+            memmap_dir = os.path.join(log_dir, "memmap_buffer", "rank_0") if cfg.buffer.memmap else None
+            rb = ReplayBuffer(rollout_steps, num_envs, memmap=cfg.buffer.memmap, memmap_dir=memmap_dir,
+                              obs_keys=obs_keys)
+            obs, _ = envs.reset(seed=int(cfg.seed))
 
-    def player_act(o: Dict[str, torch.Tensor]):
-        out, _ = player(o)
-        return sample_actions(out, actions_dim, is_continuous, player_gen, dist_type=dist_type)
+        def player_act(o: Dict[str, torch.Tensor]):
+            out, _ = player(o)
+            return sample_actions(out, actions_dim, is_continuous, player_gen, dist_type=dist_type)
 
-    # the host path's player: one step per env step, synchronised by the copy
-    # of its actions to the env; it runs eagerly under the audit
-    player_step = fabric.compile(player_act, name=f"{cfg.algo.name}.player_step", device=player_device,
-                                 max_recompiles=max_recompiles,
-                                 eager_reason="the host loop copies every step's actions to the env")
+        # the host path's player: one step per env step, synchronised by the copy
+        # of its actions to the env; it runs eagerly under the audit
+        player_step = fabric.compile(player_act, name=f"{cfg.algo.name}.player_step", device=player_device,
+                                     max_recompiles=max_recompiles,
+                                     eager_reason="the host loop copies every step's actions to the env")
 
-    def player_values(o: Dict[str, np.ndarray]) -> np.ndarray:
-        with torch.inference_mode():
-            return player(prepare_obs(o, cnn_keys, mlp_keys, player_device))[1][..., 0].cpu().numpy()
+        def player_values(o: Dict[str, np.ndarray]) -> np.ndarray:
+            with torch.inference_mode():
+                return player(prepare_obs(o, cnn_keys, mlp_keys, player_device))[1][..., 0].cpu().numpy()
 
     profiler = ProfilerGate(cfg, log_dir)
     for update in range(start_iter, total_iters + 1):
         profiler.step(update)
-        if use_anakin:
+        if population is not None:
+            # every member's rollout and update and the PBT step: one population phase
+            with timer("Time/train_time"):
+                with steady_guard(guard_on and update > start_iter):
+                    member_losses, ep_stats = population.step()
+            policy_step += policy_steps_per_iter
+            if cfg.metric.log_level > 0:
+                for ep_ret, ep_len in zip(*episode_stats_from_device(ep_stats)):
+                    aggregator.update("Rewards/rew_avg", float(ep_ret))
+                    aggregator.update("Game/ep_len_avg", int(ep_len))
+                population.observe()
+        elif use_anakin:
             # the env steps inside the iteration: the rollout and the update are one train time
             with timer("Time/train_time"):
                 apply_schedules(actor["update"])
@@ -398,6 +431,8 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
         if cfg.metric.log_level > 0 and (
             policy_step - last_log >= cfg.metric.log_every or update == total_iters or cfg.dry_run
         ):
+            if population is not None:
+                last_losses = member_losses.mean(dim=0)  # the members' mean
             if last_losses is not None:
                 for name, value in zip(("Loss/policy_loss", "Loss/value_loss", "Loss/entropy_loss"), last_losses):
                     aggregator.update(name, float(value))
@@ -406,15 +441,19 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
         # ---------------- checkpoint ---------------------------------------------
         if ckpt_mgr.should_save(policy_step, last_checkpoint, final=update == total_iters):
             last_checkpoint = policy_step
+            if population is None:
+                learner = {"agent": agent.state_dict(), "opt_state": optimizer.state_dict(),
+                           **trainer.checkpoint_extras()}
+            else:
+                # the stacked (P, ...) parameters and optimizer state, and the PBT carry
+                learner = {**population.checkpoint_state(), **population.trainer.single.checkpoint_extras()}
             ckpt_mgr.save(policy_step, {
-                "agent": agent.state_dict(),
-                "opt_state": optimizer.state_dict(),
+                **learner,
                 "generators": {name: gen.get_state() for name, gen in generators.items()},
                 "update": update,
                 "policy_step": policy_step,
                 "last_log": last_log,
                 "last_checkpoint": last_checkpoint,
-                **trainer.checkpoint_extras(),
             })
             if ckpt_mgr.preempted:
                 print(f"Preemption: committed checkpoint at step {policy_step}, exiting", flush=True)
@@ -424,6 +463,10 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
     if envs is not None:
         envs.close()
     ckpt_mgr.finalize()
+    if population is not None:
+        population.write_summary(log_dir, policy_step)
+        # the test episode runs the fittest member
+        player = population.best_agent()
     if cfg.algo.run_test and not ckpt_mgr.preempted:
         test(player, cfg, log_dir, logger)
     if logger is not None:

@@ -136,9 +136,10 @@ def run(argv: Optional[List[str]] = None) -> None:
     PREEMPTION_GUARD.clear_latch()
     # the same for the hub and the flight recorder: an earlier run's logger
     # and step must not take this run's final flush, a postmortem of this
-    # run holds this run's events, and a crashed loop's health source goes
+    # run holds this run's events, and a crashed loop's run-scoped sources go
     telemetry.HUB.reset()
     telemetry.HUB.unregister("health")
+    telemetry.HUB.unregister("population")
     telemetry.RECORDER.clear()
     cfg = compose(argv)
     # arm (or clear) the fault plan before anything touches envs or
@@ -172,6 +173,7 @@ def run(argv: Optional[List[str]] = None) -> None:
         # the attached logger, then trace windows and the introspection
         # server stop; telemetry never masks the real exception
         telemetry.HUB.final_flush()
+        telemetry.HUB.unregister("population")
         telemetry.shutdown_run()
 
 

@@ -13,7 +13,8 @@ float64 host scalars; it is off on the CPU and for every update that runs
 eagerly.  Both RMSprops are
 :class:`RMSprop`, written out because optax's differ from
 ``torch.optim.RMSprop`` where a momentum buffer meets a changing learning
-rate.  :func:`set_learning_rate` / :func:`get_learning_rate` are the
+rate; their step, :func:`rmsprop_step_`, also steps a population's
+stacked members.  :func:`set_learning_rate` / :func:`get_learning_rate` are the
 annealing schedules' handle on the wrapped optimizer.
 """
 
@@ -25,7 +26,7 @@ from typing import Any, Dict, Iterable, List, Optional
 import torch
 
 __all__ = ["ClippedOptimizer", "RMSprop", "build_optimizer", "clip_by_global_norm_", "get_learning_rate",
-           "optimizer_state_tensors", "set_learning_rate"]
+           "optimizer_state_tensors", "rmsprop_state", "rmsprop_step_", "set_learning_rate"]
 
 
 def clip_by_global_norm_(grads: List[torch.Tensor], max_norm: float) -> torch.Tensor:
@@ -55,37 +56,50 @@ class RMSprop(torch.optim.Optimizer):
 
     def init_param_state(self, p: torch.Tensor, group: Dict[str, Any]) -> None:
         """The state ``p`` starts from (its first step makes it)."""
-        state = self.state[p]
-        state["square_avg"] = torch.ones_like(p) if group["tf_style"] else torch.zeros_like(p)
-        if group["centered"]:
-            state["grad_avg"] = torch.zeros_like(p)
-        if group["momentum"] > 0:
-            state["momentum_buffer"] = torch.zeros_like(p)
+        self.state[p].update(rmsprop_state(p, group["tf_style"], group["centered"], group["momentum"]))
 
     @torch.no_grad()
     def step(self, closure=None):
         for group in self.param_groups:
-            lr, alpha, eps, momentum = group["lr"], group["alpha"], group["eps"], group["momentum"]
             for p in group["params"]:
                 if p.grad is None:
                     continue
-                g, state = p.grad, self.state[p]
-                if not state:
+                if not self.state[p]:
                     self.init_param_state(p, group)
-                v = state["square_avg"].mul_(alpha).addcmul_(g, g, value=1 - alpha)
-                if group["centered"]:
-                    m = state["grad_avg"].mul_(alpha).add_(g, alpha=1 - alpha)
-                    v = v - m * m
-                denom = (v + eps).sqrt() if group["tf_style"] else v.sqrt().add_(eps)
-                update = g / denom
-                if momentum > 0:
-                    buf = state["momentum_buffer"].mul_(momentum)
-                    if group["tf_style"]:
-                        p.add_(buf.add_(update), alpha=-lr)
-                    else:
-                        p.sub_(buf.add_(update, alpha=lr))
-                else:
-                    p.add_(update, alpha=-lr)
+                rmsprop_step_(p, p.grad, self.state[p], group["lr"], group["alpha"], group["eps"],
+                              group["momentum"], group["centered"], group["tf_style"])
+
+
+def rmsprop_state(p: torch.Tensor, tf_style: bool, centered: bool, momentum: float) -> Dict[str, torch.Tensor]:
+    """The state an :class:`RMSprop` step of ``p`` starts from."""
+    state = {"square_avg": torch.ones_like(p) if tf_style else torch.zeros_like(p)}
+    if centered:
+        state["grad_avg"] = torch.zeros_like(p)
+    if momentum > 0:
+        state["momentum_buffer"] = torch.zeros_like(p)
+    return state
+
+
+@torch.no_grad()
+def rmsprop_step_(p: torch.Tensor, g: torch.Tensor, state: Dict[str, torch.Tensor], lr: Any, alpha: float,
+                  eps: float, momentum: float, centered: bool, tf_style: bool) -> None:
+    """One :class:`RMSprop` step of ``p`` in place, updating ``state``.
+    ``lr`` is a float or a tensor that broadcasts against ``p`` (a
+    population's per-member rates on its stacked parameters)."""
+    v = state["square_avg"].mul_(alpha).addcmul_(g, g, value=1 - alpha)
+    if centered:
+        m = state["grad_avg"].mul_(alpha).add_(g, alpha=1 - alpha)
+        v = v - m * m
+    denom = (v + eps).sqrt() if tf_style else v.sqrt().add_(eps)
+    update = g / denom
+    if momentum > 0:
+        buf = state["momentum_buffer"].mul_(momentum)
+        if tf_style:
+            p.sub_(lr * buf.add_(update))
+        else:
+            p.sub_(buf.add_(lr * update))
+    else:
+        p.sub_(lr * update)
 
 
 class ClippedOptimizer:

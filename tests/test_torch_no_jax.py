@@ -8,7 +8,9 @@ whose ``GraphFunction`` audits a probe on the CPU, and the runtime services:
 and the telemetry subsystem and hot reload: ``telemetry/{hub,recorder,spans,
 tracer,introspect}.py``, ``serve/reload.py``, and the deployment surface:
 ``utils/{model_manager,mlflow_manager,imports,checkpoint}.py``,
-``checkpoint/serialize.py``, ``serve/fleet/{router,replicas}.py``), a DreamerV3 player takes one CPU
+``checkpoint/serialize.py``, ``serve/fleet/{router,replicas}.py``, and population
+training and the supervisor: ``population/{core,members}.py``,
+``algos/ppo/population.py``, ``supervisor/{classify,supervise}.py``), a DreamerV3 player takes one CPU
 step, the JAX-written DreamerV3 fixture is read, served one step and
 registered, a tiny dry run through ``cli.run`` (introspection endpoint armed) trains
 one update, logs ``Phase/*`` and commits a snapshot, one Plan2Explore-DreamerV3 update steps, PPO, A2C and recurrent
@@ -18,7 +20,9 @@ SAC-AE each train through ``cli.run`` and commit a snapshot that
 ``cli.evaluation`` plays and, for SAC, a player serves, PPO trains one
 Anakin iteration on the device cartpole, the other device envs step, and
 SAC and DreamerV3 train from the device-resident replay (forced on, the
-guard armed) whose spill tier round-trips a checkpoint.
+guard armed) whose spill tier round-trips a checkpoint, a PPO population of
+two trains one phase through ``cli.run`` and writes its summary, and the
+supervisor resolves for a one-process run.
 
 A subprocess, because the test session has imported JAX already.
 """
@@ -56,7 +60,8 @@ SCRIPT = textwrap.dedent(
                  "telemetry.hub", "telemetry.recorder", "telemetry.spans", "telemetry.tracer",
                  "telemetry.introspect", "serve.reload", "utils.model_manager", "utils.mlflow_manager",
                  "utils.imports", "utils.checkpoint", "checkpoint.serialize", "serve.fleet.router",
-                 "serve.fleet.replicas"):
+                 "serve.fleet.replicas", "population", "population.core", "population.members",
+                 "algos.ppo.population", "supervisor", "supervisor.classify", "supervisor.supervise"):
         assert "sheeprl_tpu_torch." + name in names, name
 
     import torch
@@ -237,6 +242,16 @@ SCRIPT = textwrap.dedent(
     again = DeviceReplay(4, 2, "cpu", spill=HostSpill(8, 2, sequential=True)).load_state_dict(rb.state_dict())
     assert torch.equal(again.buffers["x"], rb.buffers["x"])
     rb.spill.close(); again.spill.close()
+
+    # a PPO population of two: one population phase through cli.run, its summary
+    from sheeprl_tpu_torch.supervisor import Supervisor, resolve_supervisor
+    with tempfile.TemporaryDirectory() as tmp:
+        run(["exp=ppo", "env=jax_cartpole", "population.size=2", "dry_run=True", "env.num_envs=2",
+             "algo.rollout_steps=8", "algo.per_rank_batch_size=8", "algo.update_epochs=1", "algo.dense_units=8",
+             "fabric.accelerator=cpu", "metric/logger=csv", f"log_dir={{tmp}}", "algo.run_test=False"])
+        (summary,) = glob.glob(f"{{tmp}}/**/population_summary.json", recursive=True)
+        assert len(__import__("json").load(open(summary))["fitness"]) == 2
+    assert isinstance(resolve_supervisor(compose(["exp=ppo"]), ["exp=ppo"]), Supervisor)
 
     leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
     assert not leaked, leaked

@@ -429,7 +429,8 @@ def test_ppo_snapshot_is_served_by_policy_service(tmp_path):
 @pytest.mark.parametrize("override,error,match", [
     # the Anakin path is ported: forcing it on a host env raises as in JAX
     ("algo.anakin=True", ValueError, "algo.anakin=True requires a device env"),
-    ("population.size=2", NotImplementedError, "queue A item 6"),
+    # so is the population, which rides the Anakin axis: on a host env it raises as in JAX
+    ("population.size=2", ValueError, "population.size>1 rides the Anakin axis"),
 ], ids=["algo.anakin=True", "population.size=2"])
 def test_on_policy_unported_paths_raise_naming_the_roadmap_item(tmp_path, override, error, match):
     with pytest.raises(error, match=match):
