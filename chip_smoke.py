@@ -349,6 +349,39 @@ supervisor:
               gru launches; then ``python -m sheeprl_tpu_torch.supervisor``
               with the same fault before any commit, so it recurs at the
               same step: the breaker opens, exit 2.
+60. envs in worker processes and action masks — DreamerV3-XL
+              (``fused_pallas``) through ``cli.run`` on 4 dummy envs with
+              ``env.sync_env=False`` (each env in a worker process, under
+              the step-deadline watchdog) and then ``True``, cuDNN
+              deterministic: the two runs' trained tensors and losses equal
+              bit for bit; updates/s, the vector step's median time, rssm
+              launches per update; one process on the card with a context
+              while the workers step (``nvidia-smi``).  Then XL with
+              ``algo.actor.action_masks=True`` on a masked multi-discrete
+              dummy env defined here (actions (19, 5, 7), the four MineDojo
+              masks as mlp keys, drawn per step): no excluded action in 256
+              player steps; the captured masked player step equals the
+              eager one bit for bit.
+61. the vector-env watchdog — DreamerV3-S (``use_pallas``) children of
+              ``--vecenv-child`` with their env in a worker: an
+              ``env.step`` hang planted once past ``learning_starts`` is
+              torn down, recreated and flagged (``repair_tail``), and the
+              run commits its last step; a hang at every step with
+              ``env.max_vecenv_restarts=1`` exits non-zero with a
+              ``postmortem.json`` of reason ``watchdog``; a SIGTERM to a
+              run's whole process group (the workers ignore it) ends in a
+              committed save and exit 0, no worker left.
+62. resume from a JAX snapshot — the committed JAX-written fixture
+              (``tests/fixtures/jax_dv3``, ``fused_pallas``) resumed by
+              ``cli.run`` on the card: counters on from step 40, the RSSM
+              kernel in every update; its first update from the converted
+              state, card vs CPU on one replay block and the same draws,
+              within ``RESUME_TOL_*``, and without the Adam state far
+              outside; then ``resume_from=auto`` continues the port's own
+              snapshot.
+Phases 61's children, 59's supervised runs and 49 run together after 60's
+timed runs (60's masked run and 62 while 49's child starts); phase 52's
+signal checks read 49's child afterwards.
 
 Each phase prints its seconds (``[seconds]``).  The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -367,8 +400,10 @@ host) for DreamerV3-XL, SAC and SAC-AE, timed alike, ``--graphs`` phases
 snapshot, a short SAC run and phase 49's preempted child), ``--deploy`` phases 54-56 (beside phase 4's
 snapshot and phase 51's untraced twin), ``--population`` phases 57-59, ``--health-ab ROOT`` phase 7's and 20's
 recipes with ``health.enabled`` on and off in turns for the port under
-``ROOT`` (``--preempt-child`` and ``--commit-hang-child`` are phase 49's
-child processes; ``--supervised-child`` is phase 59's).
+``ROOT``, ``--vecenv`` phases 60-62 (without 49 and 59) and ``--jax-resume``
+phase 62 (``--preempt-child`` and ``--commit-hang-child`` are phase 49's
+child processes; ``--supervised-child`` is phase 59's, ``--vecenv-child``
+phase 61's).
 """
 
 from __future__ import annotations
@@ -417,6 +452,7 @@ P2E_LAUNCHES_PER_UPDATE = 64 + 2 * 16  # the posterior scan + the exploration an
 XL_TRAIN = (
     "exp=dreamer_v3",  # algo=dreamer_v3 is the XL preset
     "env=dummy",
+    "env.sync_env=True",
     "env.id=discrete_dummy",
     "algo.cnn_keys.encoder=[rgb]",
     "algo.mlp_keys.encoder=[state]",
@@ -460,7 +496,7 @@ DECOUPLED_XL = (*XL_TRAIN, FUSED, "algo.world_model.decoupled_rssm=True", "algo.
 # step 56); replay ratio 0.04 gives int(51 * 0.04) = 2 updates at the first
 # window and none more by step 60
 FAMILY = (
-    "env=dummy", "env.id=discrete_dummy", "env.max_episode_steps=55", "algo.cnn_keys.encoder=[rgb]",
+    "env=dummy", "env.sync_env=True", "env.id=discrete_dummy", "env.max_episode_steps=55", "algo.cnn_keys.encoder=[rgb]",
     "algo.mlp_keys.encoder=[state]", "fabric.accelerator=gpu", "algo.player.device=accelerator", "metric/logger=csv",
     "checkpoint.save_last=True", "checkpoint.every=1000000000", "checkpoint.async_save=False", "buffer.memmap=False",
     "buffer.checkpoint=False", "buffer.size=4096", "env.num_envs=1", "algo.learning_starts=51",
@@ -475,7 +511,7 @@ FAMILY_RUNS = {
     "p2e_dv1_exploration": ("buffer.type=episode",),
 }
 # the on-policy algorithms at their recipes' widths on the dummy env
-ON_POLICY = ("env=dummy", "env.id=discrete_dummy", "fabric.accelerator=gpu", "algo.player.device=accelerator",
+ON_POLICY = ("env=dummy", "env.sync_env=True", "env.id=discrete_dummy", "fabric.accelerator=gpu", "algo.player.device=accelerator",
              "metric/logger=csv", "checkpoint.save_last=True", "checkpoint.every=1000000000",
              "checkpoint.async_save=False", "buffer.memmap=False", "env.max_episode_steps=32", "seed=5")
 ATARI = ("env.screen_size=84", "env.wrapper.image_size=[84,84,3]", "env.frame_stack=4", "env.num_envs=1")
@@ -504,7 +540,7 @@ CARD_PARITY_TOL_LOSS = 1e-4
 # the off-policy algorithms at their recipes' widths on the continuous dummy
 # env (phases 20-24); the replay buffer stays out of the snapshots (the SAC-AE
 # ring alone would write 2.4 GB)
-OFF_POLICY = ("env=dummy", "env.id=continuous_dummy", "fabric.accelerator=gpu", "algo.player.device=accelerator",
+OFF_POLICY = ("env=dummy", "env.sync_env=True", "env.id=continuous_dummy", "fabric.accelerator=gpu", "algo.player.device=accelerator",
               "metric/logger=csv", "checkpoint.save_last=True", "checkpoint.every=1000000000",
               "checkpoint.async_save=False", "buffer.memmap=False", "buffer.checkpoint=False", "env.num_envs=1",
               "env.max_episode_steps=32", "seed=5")
@@ -521,6 +557,7 @@ OFF_POLICY_PARITY = {"sac": (8, 256), "sac_ae": (4, 128)}
 XL_SERVE = (
     "exp=dreamer_v3",  # algo=dreamer_v3 is the XL preset
     "env=dummy",
+    "env.sync_env=True",
     "algo.cnn_keys.encoder=[rgb]",
     "algo.mlp_keys.encoder=[state]",
     "fabric.accelerator=gpu",
@@ -927,7 +964,7 @@ WINDOW_NAMES = (".train_phase", ".train_phase_device")  # the Dreamer loop's win
 
 
 def _train(torch, overrides, log_dir: Path, kernel, per_update_launches: int = LAUNCHES_PER_UPDATE,
-           trainer_cls=None, metric_names=LOSS_NAMES, events_only: bool = False) -> dict:
+           trainer_cls=None, metric_names=LOSS_NAMES, events_only: bool = False, snapshot: bool = True) -> dict:
     """One training run through ``cli.run`` with every launch count zeroed
     just before and read just after.  Every call of the loop's train window
     (``fabric.compile``'s route ``<algo>.train_phase[_device]``: a chunk of
@@ -943,7 +980,9 @@ def _train(torch, overrides, log_dir: Path, kernel, per_update_launches: int = L
     (``updates_per_s_events``); with ``events_only`` (a run whose windows run
     under ``steady_guard``, where the host may not wait on the device) those
     are its only times.  ``first_update_s`` is the first chunk's time, its
-    capture included, over its updates."""
+    capture included, over its updates.  Without ``snapshot`` the run saves
+    no final snapshot (an XL one writes ≈ 2.6 GB to the disk), and its
+    trainer is returned under ``"trainer"`` instead."""
     import csv
 
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer
@@ -991,6 +1030,13 @@ def _train(torch, overrides, log_dir: Path, kernel, per_update_launches: int = L
             intrinsic.append(float(self.last_intrinsic))
         return out
 
+    trainers = []
+    init = trainer_cls.__init__
+
+    def kept_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        trainers.append(self)
+
     gc.collect()  # modules held in reference cycles by an earlier run would count in this run's peak
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -998,12 +1044,16 @@ def _train(torch, overrides, log_dir: Path, kernel, per_update_launches: int = L
     GraphFunction.__call__ = timed_call
     if trainer_cls.graph_eager_reason is not None:  # eager: read per update (a graph replays no Python)
         trainer_cls.train_step = step_with_intrinsic
+    if not snapshot:
+        trainer_cls.__init__ = kept_init
+        overrides = [*overrides, "checkpoint.save_last=False"]
     t0 = time.perf_counter()
     try:
         run([*overrides, f"log_dir={log_dir}"])
     finally:
         GraphFunction.__call__ = call
         trainer_cls.train_step = train_step
+        trainer_cls.__init__ = init
     wall = time.perf_counter() - t0
     torch.cuda.synchronize()
     event_s = [a.elapsed_time(b) / 1e3 / U for a, b, U in events for _ in range(U)]
@@ -1012,7 +1062,7 @@ def _train(torch, overrides, log_dir: Path, kernel, per_update_launches: int = L
     counts = counts_now()
     peak = torch.cuda.max_memory_allocated()
     snapshots = sorted(log_dir.glob("**/checkpoint/step_*"))
-    if not snapshots:
+    if snapshot and not snapshots:
         raise AssertionError(f"the training run committed no snapshot under {log_dir}")
     with open(next(log_dir.glob("**/metrics.csv"))) as f:
         logged = {name: float(value) for _, name, value in list(csv.reader(f))[1:]}
@@ -1043,8 +1093,10 @@ def _train(torch, overrides, log_dir: Path, kernel, per_update_launches: int = L
            "median_update_s": steady, "peak_bytes": peak, "counts": counts, "per_update": per_update,
            "update_launches": launches, "chunks": chunks, "captured": all(graphed),
            "replayed_updates": sum(not b for b in built),
-           "snapshot": snapshots[-1], "wall_s": wall, "logged": {n: logged[n] for n in metric_names},
-           "intrinsic": intrinsic}
+           "snapshot": snapshots[-1] if snapshot else None, "wall_s": wall,
+           "logged": {n: logged[n] for n in metric_names}, "intrinsic": intrinsic}
+    if not snapshot:
+        out["trainer"] = trainers[-1]
     log(f"[train] {len(seconds)} updates in chunks {chunks} ({'CUDA graphs' if all(graphed) else 'eager'}; "
         f"{out['replayed_updates']} of them in chunks that reused an entry) in a {wall:.1f} s run: first chunk "
         f"{out['first_chunk_s']:.3f} s, then median {steady:.4f} s = "
@@ -1353,7 +1405,8 @@ def phase_family(torch, run_root: Path) -> dict:
         v1 = "v1" in exp
         out[exp] = _train(torch, [f"exp={exp}", *FAMILY, *extra], run_root / exp, None,
                           trainer_cls=DV1Trainer if v1 else DV2Trainer,
-                          metric_names=LOSS_NAMES[:8] if v1 else LOSS_NAMES)
+                          metric_names=LOSS_NAMES[:8] if v1 else LOSS_NAMES, snapshot=False)
+        out[exp].pop("trainer")
         if out[exp]["updates"] < 2:
             raise AssertionError(f"{exp} ran {out[exp]['updates']} updates, expected 2")
         if exp.startswith("p2e") and len(out[exp]["intrinsic"]) != out[exp]["updates"]:
@@ -2232,7 +2285,7 @@ REPLAY_OFF_POLICY = {
 REPLAY_SAC_BUDGET = 48 * 256
 REPLAY_SAC_RESUME = ("exp=sac", *(o for o in OFF_POLICY if o != "buffer.checkpoint=False"), "buffer.checkpoint=True",
                      "buffer.transfer_guard=True", "algo.learning_starts=100")
-REPLAY_DV3_SMALL = ("exp=dreamer_v3", "env=dummy", "env.id=discrete_dummy", "algo=dreamer_v3_XS", "env.num_envs=2",
+REPLAY_DV3_SMALL = ("exp=dreamer_v3", "env=dummy", "env.sync_env=True", "env.id=discrete_dummy", "algo=dreamer_v3_XS", "env.num_envs=2",
                     "fabric.accelerator=gpu", "metric/logger=csv", "checkpoint.save_last=True",
                     "checkpoint.every=1000000000", "checkpoint.async_save=False", "buffer.memmap=False",
                     "buffer.checkpoint=True", "buffer.size=400", "buffer.transfer_guard=True",
@@ -2355,7 +2408,8 @@ def phase_replay_dv3(torch, run_root: Path, host: dict) -> dict:
     budget = os.environ.get(REPLAY_BUDGET_ENV)
     os.environ[REPLAY_BUDGET_ENV] = str(REPLAY_XL_BUDGET)
     try:
-        run_ = _train(torch, REPLAY_DV3_XL, run_root / "replay_xl", "rssm", events_only=True)
+        run_ = _train(torch, REPLAY_DV3_XL, run_root / "replay_xl", "rssm", events_only=True, snapshot=False)
+        run_.pop("trainer")
     finally:
         DeviceReplay.__init__, DeviceReplay.add, dreamer_v3.steady_guard = init, add, guard
         _restore_env(REPLAY_BUDGET_ENV, budget)
@@ -3729,9 +3783,10 @@ def phase_precision_families(torch) -> dict:
     return out
 
 
-def phase_precision(torch, run_root: Path, fp32: dict) -> dict:
+def phase_precision(torch, run_root: Path, fp32: dict, families: bool = True) -> dict:
     """Phases 42-47.  ``fp32`` holds this run's 32-true readings of the same
-    paths (phases 7, 11 and 38-39), each printed beside its bf16 one."""
+    paths (phases 7, 11 and 38-39), each printed beside its bf16 one
+    (without ``families``, phase 47 is left to the caller)."""
     t0 = time.perf_counter()
     out = {"kernels": phase_precision_kernels(torch)}
     train = _train(torch, [*XL_TRAIN, *XL_TRAIN_STEPS, FUSED, HOST_RING, BF16_MIXED], run_root / "train_xl_bf16",
@@ -3748,7 +3803,8 @@ def phase_precision(torch, run_root: Path, fp32: dict) -> dict:
     from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import P2EDV3Trainer
 
     p2e = _train(torch, [*P2E_XL, BF16_MIXED], run_root / "p2e_explore_bf16", "rssm", P2E_LAUNCHES_PER_UPDATE,
-                 trainer_cls=P2EDV3Trainer)
+                 trainer_cls=P2EDV3Trainer, snapshot=False)
+    p2e.pop("trainer")
     if len(p2e["intrinsic"]) != p2e["updates"]:
         raise AssertionError(f"P2E bf16: intrinsic rewards {p2e['intrinsic']} for {p2e['updates']} updates")
     log(f"[precision-p2e] P2E-DV3-XL exploration under bf16-mixed: {p2e['updates_per_s']:.3f} updates/s, peak "
@@ -3757,7 +3813,8 @@ def phase_precision(torch, run_root: Path, fp32: dict) -> dict:
            if fp32.get("p2e") else "not run"))
     out["p2e"] = p2e
     out["serve"] = phase_precision_serve(torch, train["snapshot"])
-    out["families"] = phase_precision_families(torch)
+    if families:
+        out["families"] = phase_precision_families(torch)
     for key in ("dv3_xl", "dv3_s_gru"):
         if fp32.get(key):
             bf16 = out[key]["updates_per_s"]["graph"]
@@ -3997,17 +4054,20 @@ def _replayed(line: str) -> bool:
     return line.startswith("[child] window ") and json.loads(line[len("[child] window "):])["replayed"]
 
 
-def _preempt(tag: str, proc, timeout: float = 300.0, usr1_dir: Path = None) -> dict:
+def _preempt(tag: str, proc, timeout: float = 300.0, usr1_dir: Path = None, meanwhile=None) -> dict:
     """SIGTERM ``proc`` after its first replayed window; its exit code, its
     output and the wall time the signal was sent.  With ``usr1_dir``, a
     SIGUSR1 first, after that window: the next dispatch opens a trace window
     (phase 52), and the SIGTERM waits until the dispatch after it has run
     (its tick closed and wrote the trace) and a ``trace.json`` is under
-    ``usr1_dir``."""
+    ``usr1_dir``.  ``meanwhile()`` runs in this thread while the child
+    starts and reaches that window."""
     lines, seen = [], threading.Event()
     reader = _read_lines(proc, lines, seen, _replayed)
     usr1 = None
     try:
+        if meanwhile is not None:
+            meanwhile()
         if not seen.wait(timeout):
             raise AssertionError(f"[{tag}] no replayed window within {timeout} s:\n{''.join(lines)[-4000:]}")
         if usr1_dir is not None:
@@ -4058,7 +4118,7 @@ def _start_crash_child(log_dir: Path) -> tuple:
     return proc, log_dir, output
 
 
-def _preempted_xl(torch, log_dir: Path) -> tuple:
+def _preempted_xl(torch, log_dir: Path, meanwhile=None) -> tuple:
     """Phase 49's preempted DV3-XL child (``PREEMPT_XL``): a SIGUSR1 after its
     first replayed window (phase 52: one trace window of the live run), then
     the SIGTERM; exit 0, one committed snapshot that ``verify_checkpoint``
@@ -4070,7 +4130,7 @@ def _preempted_xl(torch, log_dir: Path) -> tuple:
 
     crash = _start_crash_child(log_dir.parent / "crash")
     try:
-        first = _preempt("preempt", _child(PREEMPT_XL, log_dir), usr1_dir=log_dir)
+        first = _preempt("preempt", _child(PREEMPT_XL, log_dir), usr1_dir=log_dir, meanwhile=meanwhile)
     except BaseException:
         crash[0].kill()
         crash[0].wait()
@@ -4092,7 +4152,7 @@ def _preempted_xl(torch, log_dir: Path) -> tuple:
     return first, saved_dir
 
 
-def phase_runtime_preempt(torch, run_root: Path) -> dict:
+def phase_runtime_preempt(torch, run_root: Path, meanwhile=None) -> dict:
     """Phase 49: ``cli.run`` of DV3-XL (fused RSSM kernel, captured, the
     card's ring cut to 4096 steps) in a subprocess, SIGTERM after its first
     replayed window: exit 0 and one committed snapshot that
@@ -4113,7 +4173,7 @@ def phase_runtime_preempt(torch, run_root: Path) -> dict:
     lines, seen = [], threading.Event()
     reader = _read_lines(proc, lines, seen, lambda line: line.startswith("[child] ready"))
     try:
-        return _runtime_preempt(torch, log_dir, proc, lines, seen)
+        return _runtime_preempt(torch, log_dir, proc, lines, seen, meanwhile)
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -4121,7 +4181,7 @@ def phase_runtime_preempt(torch, run_root: Path) -> dict:
         reader.join(10)
 
 
-def _runtime_preempt(torch, log_dir: Path, proc, lines: list, seen: threading.Event) -> dict:
+def _runtime_preempt(torch, log_dir: Path, proc, lines: list, seen: threading.Event, meanwhile=None) -> dict:
     """Phase 49 (:func:`phase_runtime_preempt`), the hung commit's process
     ``proc`` started, its output read into ``lines``."""
     from sheeprl_tpu_torch.checkpoint.manager import resolve_auto_resume
@@ -4136,7 +4196,7 @@ def _runtime_preempt(torch, log_dir: Path, proc, lines: list, seen: threading.Ev
     def committed(min_step=-1):
         return _committed(log_dir, min_step)
 
-    first, saved_dir = _preempted_xl(torch, log_dir)
+    first, saved_dir = _preempted_xl(torch, log_dir, meanwhile)
     saved = load_step_dir(saved_dir, map_location="cpu")
     first_windows = _windows(first["out"])
     to_commit = first["signal_to_commit_s"]
@@ -4338,13 +4398,15 @@ def _metric_rows(log_dir: Path, name: str) -> list:
         return [float(v) for _, n, v in list(csv.reader(f))[1:] if n == name]
 
 
-def phase_runtime(torch, run_root: Path, served_dir: Path) -> dict:
-    """Phases 48-50."""
+def phase_runtime(torch, run_root: Path, served_dir: Path, preempt: bool = True) -> dict:
+    """Phases 48-50 (without ``preempt``, 48 and 50: the whole run has 49
+    among the drills of :func:`phase_vecenv`)."""
     t0 = time.perf_counter()
     out = {"dv3_xl": phase_runtime_guard(torch, "runtime-dv3-xl", [*XL_TRAIN, FUSED], "rssm"),
-           "dv3_s_gru": phase_runtime_guard(torch, "runtime-dv3-s-gru", S_TRAIN, "gru"),
-           "preempt": phase_runtime_preempt(torch, run_root),
-           "faults": phase_runtime_faults(torch, run_root, served_dir)}
+           "dv3_s_gru": phase_runtime_guard(torch, "runtime-dv3-s-gru", S_TRAIN, "gru")}
+    if preempt:
+        out["preempt"] = phase_runtime_preempt(torch, run_root)
+    out["faults"] = phase_runtime_faults(torch, run_root, served_dir)
     out["seconds"] = time.perf_counter() - t0
     log(f"[runtime] phases 48-50 in {out['seconds']:.1f} s")
     return out
@@ -4385,7 +4447,7 @@ TELEMETRY_XL = (*XL_TRAIN, "algo.replay_ratio=0.0625", "algo.total_steps=97", FU
                 "telemetry.introspect.port=0")
 TRACE_AT = (1, 3)
 RSSM_KERNELS_PER_LAUNCH = 4  # csrc/rssm.cu: four launches on the caller's stream per call
-SPANS_AB_SAC_CALLS = 200  # SAC updates per timed turn of phase 51's span A/B
+SPANS_AB_SAC_CALLS = 100  # SAC updates per timed turn of phase 51's span A/B
 RELOAD_POLL_S = 0.5  # phase 53's serve.reload_poll_s
 RELOAD_SEED = 9  # the newer snapshot's weights
 
@@ -4413,14 +4475,17 @@ def _trace_kernels(path: Path) -> dict:
     return {"kernels": len(names), "sheeprl": sum("sheeprl::" in n for n in names), "bytes": path.stat().st_size}
 
 
-def _telemetry_run(torch, overrides, log_dir: Path, traced: bool) -> dict:
+def _telemetry_run(torch, overrides, log_dir: Path, traced: bool, snapshot: bool = True) -> dict:
     """One DV3-XL run of ``TELEMETRY_XL`` through ``cli.run`` under cuDNN's
     deterministic algorithms, every launch count zeroed just before and read
     just after.  ``traced``: trace windows at ``TRACE_AT`` (the launches
     credited between each window's start and stop are kept), and
     ``/healthz``, ``/metrics`` and ``/v1/phase`` scraped on another thread
-    once two update dispatches have completed."""
+    once two update dispatches have completed.  Without ``snapshot`` the run
+    saves none and its trainer's final state is returned (``"state"``, on
+    the host)."""
     from sheeprl_tpu_torch import telemetry
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer
     from sheeprl_tpu_torch.cli import run
     from sheeprl_tpu_torch.ops import gru, rssm
     from sheeprl_tpu_torch.telemetry.spans import SPANS
@@ -4449,6 +4514,15 @@ def _telemetry_run(torch, overrides, log_dir: Path, traced: bool) -> dict:
             time.sleep(0.05)
 
     extra = [f"telemetry.trace_at=[{','.join(map(str, TRACE_AT))}]", "telemetry.trace_updates=1"] if traced else []
+    trainers, init = [], DV3Trainer.__init__
+
+    def kept_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        trainers.append(self)
+
+    if not snapshot:
+        extra.append("checkpoint.save_last=False")
+        DV3Trainer.__init__ = kept_init
     gc.collect()
     torch.cuda.empty_cache()
     rssm.LAUNCHES["rssm"] = gru.LAUNCHES["gru"] = 0
@@ -4465,13 +4539,23 @@ def _telemetry_run(torch, overrides, log_dir: Path, traced: bool) -> dict:
         done.set()
         TRACER._start, TRACER._stop = start, stop
         torch.backends.cudnn.deterministic = deterministic
+        DV3Trainer.__init__ = init
     wall = time.perf_counter() - t0
     if traced:
         scraper.join(10)
     counts = {"rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]}
-    return {"wall_s": wall, "counts": counts, "windows": windows, "scraped": scraped,
-            "snapshot": sorted(log_dir.glob("**/checkpoint/step_*"))[-1],
-            "traces": sorted(log_dir.glob("**/trace/update_*/trace.json"))}
+    out = {"wall_s": wall, "counts": counts, "windows": windows, "scraped": scraped,
+           "metrics": next(log_dir.glob("**/metrics.csv")),
+           "traces": sorted(log_dir.glob("**/trace/update_*/trace.json"))}
+    if snapshot:
+        out["snapshot"] = sorted(log_dir.glob("**/checkpoint/step_*"))[-1]
+    else:  # an XL snapshot is ≈ 2.6 GB written; the state is compared in memory
+        trainer = trainers[-1]
+        from sheeprl_tpu_torch.checkpoint.manager import to_host
+
+        out["state"] = to_host({"agent": trainer.agent_state(), "opt_state": trainer.opt_state()})
+        del trainer, trainers[:]
+    return out
 
 
 def phase_telemetry_traced(torch, run_root: Path) -> dict:
@@ -4482,22 +4566,22 @@ def phase_telemetry_traced(torch, run_root: Path) -> dict:
 
     from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
 
-    traced = _telemetry_run(torch, TELEMETRY_XL, run_root / "traced", traced=True)
+    traced = _telemetry_run(torch, TELEMETRY_XL, run_root / "traced", traced=True, snapshot=False)
     # the untraced twin registers its sub-models when it ends (phase 54 reads them)
     untraced = _telemetry_run(torch, (*TELEMETRY_XL, *registry_overrides(run_root / "registry_run")),
                               run_root / "untraced", traced=False)
     untraced["registry_root"] = run_root / "registry_run"
-    a, b = (load_step_dir(r["snapshot"], map_location="cpu") for r in (traced, untraced))
+    a, b = traced.pop("state"), load_step_dir(untraced["snapshot"], map_location="cpu")
     pairs = [(x, y) for name in ("agent", "opt_state") for x, y in zip(_tensor_leaves(a[name]), _tensor_leaves(b[name]))]
     equal = sum(torch.equal(x, y) for x, y in pairs)
 
     def losses(r):
-        with open(r["snapshot"].parents[1] / "metrics.csv") as f:
+        with open(r["metrics"]) as f:
             return {(step, n): v for step, n, v in list(csv.reader(f))[1:] if n in LOSS_NAMES}
 
     la, lb = losses(traced), losses(untraced)
     same_losses = la == lb and len(la) >= len(LOSS_NAMES)
-    with open(traced["snapshot"].parents[1] / "metrics.csv") as f:
+    with open(traced["metrics"]) as f:
         names = {n for _, n, _ in list(csv.reader(f))[1:]}
     kernels = [_trace_kernels(p) for p in traced["traces"]]
     credited = [w.get("at_stop", 0) - w["at_start"] for w in traced["windows"]]
@@ -4847,13 +4931,15 @@ def phase_telemetry_reload(torch, run_root: Path, served_dir: Path) -> dict:
             "load_s": loads[0][1] - loads[0][0], "pause_ms": stats["reload_pause_ms"], "batches": stats["batches"]}
 
 
-def phase_telemetry(torch, run_root: Path, served_dir: Path, sac_run: dict, preempt: dict) -> dict:
-    """Phases 51-53."""
+def phase_telemetry(torch, run_root: Path, served_dir: Path, sac_run: dict, preempt: dict = None) -> dict:
+    """Phases 51-53 (without ``preempt``, phase 52's signal checks on phase
+    49's child are left to the caller)."""
     t0 = time.perf_counter()
     out = {"traced": phase_telemetry_traced(torch, run_root / "telemetry"),
-           "spans": phase_telemetry_spans(torch, sac_run),
-           "signals": phase_telemetry_signals(torch, preempt),
-           "reload": phase_telemetry_reload(torch, run_root / "telemetry", served_dir)}
+           "spans": phase_telemetry_spans(torch, sac_run)}
+    if preempt is not None:
+        out["signals"] = phase_telemetry_signals(torch, preempt)
+    out["reload"] = phase_telemetry_reload(torch, run_root / "telemetry", served_dir)
     out["seconds"] = time.perf_counter() - t0
     log(f"[telemetry] phases 51-53 in {out['seconds']:.1f} s")
     return out
@@ -5853,16 +5939,23 @@ def phase_supervisor(torch, run_root: Path, breaker=None) -> dict:
             "breaker": b_kinds, "seconds": time.perf_counter() - t0}
 
 
-def phase_population(torch, run_root: Path) -> dict:
-    """Phases 57-59 (phase 59's breaker drill runs beside phases 57-58)."""
+def phase_population(torch, run_root: Path, supervisor: bool = True) -> dict:
+    """Phases 57-59 (phase 59's breaker drill runs beside phases 57-58).
+    Without ``supervisor`` phase 59 is left to the caller (the whole run
+    has it beside phase 62), which gets the started breaker drill under
+    ``"breaker"`` and must end it."""
     t0 = time.perf_counter()
     breaker = start_breaker_drill(run_root / "supervisor")
+    handed_on = False
     try:
         out = {"train": phase_population_train(torch, run_root / "population"),
-               "parity": phase_population_parity(torch),
-               "supervisor": phase_supervisor(torch, run_root / "supervisor", breaker)}
+               "parity": phase_population_parity(torch)}
+        if supervisor:
+            out["supervisor"] = phase_supervisor(torch, run_root / "supervisor", breaker)
+        else:
+            out["breaker"], handed_on = breaker, True
     finally:
-        if breaker[0].poll() is None:
+        if not handed_on and breaker[0].poll() is None:
             breaker[0].kill()
             breaker[0].wait()
     out["seconds"] = time.perf_counter() - t0
@@ -5879,6 +5972,664 @@ def population_summary(p: dict) -> dict:
         "supervisor": {k: p["supervisor"][k] for k in ("rc", "episodes", "steps", "crash_to_update_s", "launches",
                                                         "breaker_rc")},
         "seconds": p["seconds"]}
+
+
+# -- phases 60-62: envs in worker processes, action masks, a JAX snapshot resumed --
+# phase 60: DV3-XL (fused RSSM kernel) on 4 dummy envs; at 4 envs a sequence of
+# 64 steps can be sampled at iteration 65 (policy step 260): int(260 / 32) = 8
+# updates in the first window, none more by step 264
+VECENV_XL = (*(o for o in XL_TRAIN if not o.startswith(("env.sync_env", "env.num_envs"))), "env.num_envs=4", FUSED,
+             "algo.replay_ratio=0.03125", "algo.total_steps=264", "algo.run_test=False")
+MASK_ACTIONS = (19, 5, 7)  # MineDojo's compound action, craft argument, inventory argument
+MASK_STEPS = 256  # player steps of the masked run: 64 iterations of 4 envs, no update
+MASKED_XL = (*(o for o in XL_TRAIN if not o.startswith(("env.id", "env.num_envs", "algo.cnn_keys", "algo.mlp_keys",
+                                                        "algo.learning_starts"))),
+             "env.id=masked_dummy", "env.num_envs=4", "algo.cnn_keys.encoder=[]",
+             "algo.mlp_keys.encoder=[state,mask_action_type,mask_craft_smelt,mask_equip_place,mask_destroy]",
+             "algo.actor.action_masks=True", "algo.learning_starts=0", FUSED, f"algo.total_steps={MASK_STEPS}",
+             "algo.replay_ratio=0.0078125", "algo.run_test=False")  # 2 updates, at the last iteration
+# phase 61: DreamerV3-S (GRU kernel) with its env in a worker process; the hang
+# lands once, past learning_starts (iteration 65)
+WATCHDOG_S_DEADLINE = 5
+WATCHDOG_S = (*(o for o in S_TRAIN if not o.startswith("env.sync_env")), "env.sync_env=False",
+              f"env.step_deadline_s={WATCHDOG_S_DEADLINE}", "metric.log_level=1")
+WATCHDOG_HANG_AT = 70
+WATCHDOG_TOTAL = 97  # S_TRAIN's algo.total_steps
+# phase 62: the committed JAX fixture's own recipe (tools/write_jax_fixture.py's
+# DV3_OVERRIDES) on the card; the resumed run trains from iteration 30
+# (learning_starts after a resume: its 20 iterations on, then a sequence of 8)
+FIXTURE_RESUME = (
+    "exp=dreamer_v3", "env=dummy", "env.sync_env=True", "env.id=discrete_dummy", "algo=dreamer_v3_XS",
+    "env.num_envs=2", "env.capture_video=False", "fabric.accelerator=gpu", "buffer.memmap=False",
+    "checkpoint.async_save=False", "algo.per_rank_batch_size=2", "algo.per_rank_sequence_length=8",
+    "algo.learning_starts=0", "algo.horizon=4", "algo.cnn_keys.encoder=[rgb]", "algo.mlp_keys.encoder=[state]",
+    "algo.world_model.encoder.cnn_channels_multiplier=2", "algo.dense_units=16", "algo.mlp_layers=1",
+    "algo.world_model.recurrent_model.recurrent_state_size=16", "algo.world_model.transition_model.hidden_size=16",
+    "algo.world_model.representation_model.hidden_size=16", "algo.world_model.discrete_size=5",
+    "algo.world_model.stochastic_size=4", FUSED, "env.max_episode_steps=20", "buffer.size=200", "algo.run_test=False",
+    "metric/logger=csv", "metric.log_level=1", "checkpoint.every=1000000000", "checkpoint.save_last=True",
+    "algo.player.device=accelerator",
+)
+FIXTURE_STEP = FIXTURE_DIR / "checkpoint" / "step_000000000040"
+FIXTURE_LAUNCHES_PER_UPDATE = 8 + 4 + 1  # the fixture's posterior steps + imagination steps (horizon + 1)
+# the first resumed update, card vs CPU from the same converted state: the ten
+# losses (computed before the step) to 1e-4 relative plus 1e-5 absolute (the
+# policy loss is ≈ 1e-6, all rounding); each module's parameter change to 0.1
+# of its L2 norm: Adam's normalised step turns one ulp of a gradient into
+# 5e-2 of a change (ROADMAP.md §C, tools/ulp_sensitivity.py)
+RESUME_TOL_LOSS = (1e-4, 1e-5)
+RESUME_TOL_CHANGE = 0.1
+
+
+def _maps_cuda(pid: int) -> bool:
+    """Whether the process has the CUDA driver library mapped (a CUDA context needs it)."""
+    try:
+        return "libcuda.so" in Path(f"/proc/{pid}/maps").read_text()
+    except OSError:
+        return False
+
+
+def _compute_apps() -> list:
+    """``nvidia-smi``'s processes with a context on the card (their pids as
+    the card's driver sees them)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout
+    return [line.strip() for line in out.splitlines() if line.strip()]
+
+
+def phase_vecenv_xl(torch, run_root: Path) -> dict:
+    """Phase 60 (first half): DV3-XL through ``cli.run`` on 4 dummy envs,
+    the envs in worker processes (``env.sync_env=False``, under the
+    step-deadline watchdog) and then on the loop thread, under cuDNN's
+    deterministic algorithms: the two runs' trained tensors and losses equal
+    bit for bit; updates/s, the vector env's step time (median; env steps/s
+    = 4 over it), its construction time and rssm launches per update of
+    each; while the workers step, none of them has the CUDA driver library
+    mapped (no torch in a worker: no context can exist there), the parent
+    has (``nvidia-smi``'s list is logged beside)."""
+    from sheeprl_tpu_torch.utils import env as env_mod
+
+    probe, steps, built = {}, {}, {}
+    vectorize = env_mod.vectorize
+
+    def timed_vectorize(cfg, thunks):
+        t0 = time.perf_counter()
+        envs = vectorize(cfg, thunks)
+        tag = "sync" if cfg.env.sync_env else "async"
+        built[tag], steps[tag] = time.perf_counter() - t0, []
+        step = envs.step
+
+        def timed_step(actions):
+            t = time.perf_counter()
+            out = step(actions)
+            steps[tag].append(time.perf_counter() - t)
+            if tag == "async" and len(steps[tag]) == 8:  # the loop is stepping: who holds a context now
+                probe["workers"] = [p.pid for p in envs.unwrapped.processes]
+                probe["apps"] = _compute_apps()
+                probe["cuda_mapped"] = {pid: _maps_cuda(pid) for pid in [os.getpid(), *probe["workers"]]}
+            return out
+
+        envs.step = timed_step
+        return envs
+
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    modules = [m for m in sys.modules.values() if getattr(m, "vectorize", None) is vectorize]
+    for m in modules:
+        m.vectorize = timed_vectorize
+    try:
+        for sync in (False, True):
+            tag = "sync" if sync else "async"
+            runs[tag] = _train(torch, [*VECENV_XL, f"env.sync_env={sync}"], run_root / tag, "rssm", snapshot=False)
+            step_s = statistics.median(steps[tag][1:])
+            runs[tag].update(env_step_ms=step_s * 1e3, env_steps_per_s=4 / step_s, build_s=built[tag],
+                             env_steps=4 * len(steps[tag]))
+    finally:
+        for m in modules:
+            m.vectorize = vectorize
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = ({"agent": runs[t]["trainer"].agent_state(), "opt_state": runs[t]["trainer"].opt_state()}
+            for t in ("async", "sync"))
+    pairs = [(x, y) for name in ("agent", "opt_state") for x, y in zip(_tensor_leaves(a[name]), _tensor_leaves(b[name]))]
+    equal, n_tensors = sum(torch.equal(x, y) for x, y in pairs), len(pairs)
+    del a, b, pairs
+    for r in runs.values():
+        del r["trainer"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    same_losses = runs["async"]["logged"] == runs["sync"]["logged"]
+    workers, apps, mapped = probe.get("workers", []), probe.get("apps", []), probe.get("cuda_mapped", {})
+    for tag, r in runs.items():
+        log(f"[vecenv] DV3-XL, 4 envs {'in worker processes' if tag == 'async' else 'on the loop thread'}: "
+            f"{r['updates_per_s']:.3f} updates/s ({r['updates']} updates, rssm launches per update "
+            f"{sorted(set(r['per_update']))}); a vector step {r['env_step_ms']:.3f} ms median = "
+            f"{r['env_steps_per_s']:.0f} env steps/s over {r['env_steps']} env steps; built in {r['build_s']:.2f} s; "
+            f"a {r['wall_s']:.1f} s run")
+    log(f"[vecenv] async vs sync, cuDNN deterministic: {equal} of {n_tensors} trained tensors and the losses "
+        f"{'equal' if same_losses else 'NOT equal'} bit for bit; while the workers {workers} stepped: the CUDA "
+        f"driver mapped {mapped} (this process {os.getpid()}), nvidia-smi's processes with a context {apps} "
+        f"(every child process of the run's other phases among them)")
+    if not (equal == n_tensors and n_tensors and same_losses and len(workers) == 4 and mapped.get(os.getpid())
+            and not any(mapped.get(pid) for pid in workers)):
+        raise AssertionError("[vecenv] the async run differs from the sync run, or a worker holds a CUDA context")
+    return {"runs": runs, "bit_for_bit": equal, "tensors": n_tensors, "workers": workers, "compute_apps": apps}
+
+
+def _masked_env_cls():
+    """A dummy env with MineDojo's action branches and mask observations
+    (drawn per step from its seed, at least one entry of each allowed); it
+    counts every action it receives that its last masks excluded."""
+    from sheeprl_tpu_torch.envs import spaces
+    from sheeprl_tpu_torch.envs.dummy import Env
+    from sheeprl_tpu_torch.envs.minedojo import FN_CRAFT, FN_DESTROY, FN_EQUIP, FN_PLACE, N_MOVEMENT_ACTIONS
+
+    sizes = {"mask_action_type": MASK_ACTIONS[0], "mask_craft_smelt": MASK_ACTIONS[1],
+             "mask_equip_place": MASK_ACTIONS[2], "mask_destroy": MASK_ACTIONS[2]}
+
+    class MaskedDummyEnv(Env):
+        checked = {"actions": 0, "excluded": 0, "with_argument": 0}
+
+        def __init__(self, episode_len: int = 32):
+            self.observation_space = spaces.Dict({"state": spaces.Box(-1, 1, (4,), np.float32),
+                                                  **{k: spaces.Box(0, 1, (n,), np.float32) for k, n in sizes.items()}})
+            self.action_space = spaces.MultiDiscrete(MASK_ACTIONS)
+            self._len, self._t, self._rng = episode_len, 0, np.random.default_rng(0)
+
+        def _obs(self):
+            masks = {}
+            for k, n in sizes.items():
+                m = (self._rng.random(n) < 0.4).astype(np.float32)
+                m[self._rng.integers(n)] = 1.0
+                masks[k] = m
+            if self._rng.random() < 0.5:  # often only functional actions, so the arguments are masked too
+                masks["mask_action_type"][:N_MOVEMENT_ACTIONS] = 0.0
+                masks["mask_action_type"][N_MOVEMENT_ACTIONS + self._rng.integers(7)] = 1.0
+            self._masks = masks
+            return {"state": self._rng.uniform(-1, 1, 4).astype(np.float32), **masks}
+
+        def reset(self, *, seed=None, options=None):
+            if seed is not None:
+                self._rng = np.random.default_rng(seed)
+            self._t = 0
+            return self._obs(), {}
+
+        def step(self, action):
+            a0, a1, a2 = (int(x) for x in np.asarray(action).reshape(-1))
+            m = self._masks
+            bad = m["mask_action_type"][a0] == 0
+            if a0 == N_MOVEMENT_ACTIONS + FN_CRAFT - 1:
+                bad |= m["mask_craft_smelt"][a1] == 0
+            if a0 in (N_MOVEMENT_ACTIONS + FN_EQUIP - 1, N_MOVEMENT_ACTIONS + FN_PLACE - 1):
+                bad |= m["mask_equip_place"][a2] == 0
+            if a0 == N_MOVEMENT_ACTIONS + FN_DESTROY - 1:
+                bad |= m["mask_destroy"][a2] == 0
+            type(self).checked["actions"] += 1
+            type(self).checked["excluded"] += int(bad)
+            type(self).checked["with_argument"] += int(a0 >= N_MOVEMENT_ACTIONS + FN_CRAFT - 1)
+            self._t += 1
+            return self._obs(), 0.0, False, self._t >= self._len, {}
+
+    return MaskedDummyEnv
+
+
+def phase_vecenv_masks(torch, run_root: Path) -> dict:
+    """Phase 60 (second half): DV3-XL with ``algo.actor.action_masks=True``
+    through ``cli.run`` on a masked multi-discrete dummy env
+    (:func:`_masked_env_cls`): over ``MASK_STEPS`` player steps no excluded
+    action reaches an env; then the player step of the same agent (weights
+    from the seed), captured as the loop captures it, equals the eager step
+    bit for bit (carry and action) on fresh masks, and samples nothing
+    excluded."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import latent_player_step
+    from sheeprl_tpu_torch.algos.ppo.utils import prepare_obs, spaces_to_dims
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.config.compose import compose
+    from sheeprl_tpu_torch.fabric import build_fabric
+    from sheeprl_tpu_torch.ops import gru, rssm
+    from sheeprl_tpu_torch.serve.loader import probe_spaces
+    from sheeprl_tpu_torch.utils import env as env_mod
+
+    env_cls = _masked_env_cls()
+    env_mod.DUMMY_ENVS["masked_dummy"] = env_cls
+    log_dir = run_root / "masked"
+    try:
+        rssm.LAUNCHES["rssm"] = gru.LAUNCHES["gru"] = 0
+        t0 = time.perf_counter()
+        run([*MASKED_XL, "checkpoint.save_last=False", f"log_dir={log_dir}"])
+        wall = time.perf_counter() - t0
+        counts = {"rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]}
+        checked = dict(env_cls.checked)
+        # the same agent at fresh weights from the config's seed
+        cfg = compose([*(o for o in MASKED_XL if not o.startswith("fabric.accelerator")), DEPLOY_DEVICE])
+        fabric = build_fabric(cfg)
+        obs_space, act_space = probe_spaces(cfg)
+        dims, cont = spaces_to_dims(act_space)
+        modules = build_agent(fabric, dims, cont, cfg, obs_space)
+    finally:
+        env_mod.DUMMY_ENVS.pop("masked_dummy", None)
+    wm, actor, dev = modules["world_model"], modules["actor"], fabric.device
+    mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
+    gens = {k: torch.Generator(dev).manual_seed(13) for k in ("graph", "eager")}
+
+    def stepper(gen):
+        def step(carry, obs, greedy: bool = False):
+            return latent_player_step(wm, actor, carry, obs, gen, greedy, True)
+        return step
+
+    graph = fabric.compile(stepper(gens["graph"]), name="dreamer_v3.player_step", static_argnames=("greedy",),
+                           device=dev, generators=(gens["graph"],))
+    eager = stepper(gens["eager"])
+    envs = [env_cls() for _ in range(4)]
+    raw = [e.reset(seed=100 + i)[0] for i, e in enumerate(envs)]
+    zero = lambda: (torch.zeros(4, wm.recurrent_size, device=dev), torch.zeros(4, wm.stoch_flat, device=dev),  # noqa: E731
+                    torch.zeros(4, sum(dims), device=dev))
+    carries = {"graph": zero(), "eager": zero()}
+    before = dict(env_cls.checked)
+    same = 0
+    steps = 12
+    with torch.inference_mode():
+        for t in range(steps):
+            obs = prepare_obs({k: np.stack([r[k] for r in raw]) for k in raw[0]}, (), mlp_keys, dev)
+            greedy = t % 3 == 2
+            carries["graph"], a_graph = graph(carries["graph"], obs, greedy=greedy)
+            carries["eager"], a_eager = eager(carries["eager"], obs, greedy=greedy)
+            same += int(torch.equal(a_graph, a_eager) and all(torch.equal(x, y) for x, y in
+                                                               zip(carries["graph"], carries["eager"])))
+            idx = [a_graph[:, sum(dims[:b]):sum(dims[:b + 1])].argmax(-1).cpu().numpy() for b in range(len(dims))]
+            raw = [e.step(np.array([idx[b][i] for b in range(len(dims))]))[0] for i, e in enumerate(envs)]
+    replayed = {k: env_cls.checked[k] - before[k] for k in before}
+    log(f"[masks] DV3-XL with algo.actor.action_masks through cli.run, {checked['actions']} player actions in a "
+        f"{wall:.1f} s run ({checked['with_argument']} with an argument branch): {checked['excluded']} excluded "
+        f"actions sampled; rssm launches {counts}; the captured masked player step ({'CUDA graph' if graph.graphs else 'eager'}) "
+        f"equals the eager one bit for bit in {same} of {steps} steps, {replayed['excluded']} excluded of "
+        f"{replayed['actions']}")
+    if (checked["actions"] < MASK_STEPS or checked["excluded"] or not checked["with_argument"] or not graph.graphs
+            or same != steps or replayed["excluded"] or counts["rssm"] <= 0 or counts["gru"]):
+        raise AssertionError("[masks] an excluded action was sampled, or the captured masked step differs")
+    return {"actions": checked["actions"], "excluded": checked["excluded"], "captured_equal": same, "steps": steps,
+            "counts": counts, "wall_s": wall}
+
+
+def vecenv_child(torch, argv) -> int:
+    """``--vecenv-child OVERRIDES``: ``cli.run`` with the train windows, the
+    replay's tail repairs, the vector env's worker pids and the kernel
+    launches logged on lines for phase 61's parent."""
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer
+    from sheeprl_tpu_torch.data.device_replay import DeviceReplay
+    from sheeprl_tpu_torch.ops import gru, rssm
+    from sheeprl_tpu_torch.utils.env import AsyncVectorEnv, StepDeadlineVectorEnv
+
+    recreate = StepDeadlineVectorEnv._teardown_and_recreate
+
+    def timed_recreate(self, reason):
+        t0 = time.perf_counter()
+        out = recreate(self, reason)
+        log("[child] recreated " + json.dumps({"seconds": time.perf_counter() - t0, "deadline_s": self._deadline}))
+        return out
+
+    StepDeadlineVectorEnv._teardown_and_recreate = timed_recreate
+    for cls in (EnvIndependentReplayBuffer, DeviceReplay):
+        def repair(self, env=0, _orig=cls.repair_tail):
+            log(f"[child] repair_tail {env}")
+            return _orig(self, env)
+        cls.repair_tail = repair
+    init = AsyncVectorEnv.__init__
+
+    def logged_init(self, *args, **kwargs):
+        init(self, *args, **kwargs)
+        log("[child] workers " + json.dumps([p.pid for p in self.processes]))
+
+    AsyncVectorEnv.__init__ = logged_init
+    try:
+        with _window_log(lambda w: log("[child] window " + json.dumps(w))):
+            run(list(argv))
+    finally:
+        log("[child] launches " + json.dumps({"rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]}))
+    return 0
+
+
+def _vecenv_child(overrides, log_dir: Path, plan: dict = None, new_session: bool = False):
+    env = {**os.environ, "SHEEPRL_FAULT_PLAN": json.dumps({"plan": plan})} if plan else None
+    return subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--vecenv-child", *overrides,
+                             f"log_dir={log_dir}"], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env=env, start_new_session=new_session)
+
+
+def _child_lines(out: str, tag: str) -> list:
+    return [json.loads(line[len(tag):]) for line in out.splitlines() if line.startswith(tag)]
+
+
+def start_watchdog_drills(run_root: Path) -> dict:
+    """Phase 61's three DreamerV3-S children (``use_pallas``: the GRU
+    kernel), started together: a hang planted once past ``learning_starts``;
+    a hang at every step with ``max_vecenv_restarts=1``; a run that a SIGTERM
+    to its whole process group ends while its worker steps."""
+    procs = {
+        "hang": _vecenv_child(WATCHDOG_S, run_root / "hang", [
+            {"site": "env.step", "kind": "hang", "at": WATCHDOG_HANG_AT, "seconds": 120, "max_fires": 1}]),
+        "giveup": _vecenv_child([*WATCHDOG_S, "env.step_deadline_s=3", "env.max_vecenv_restarts=1"],
+                                run_root / "giveup", [{"site": "env.step", "kind": "hang", "every": 1,
+                                                       "seconds": 120}]),
+        "sigterm": _vecenv_child([*(o for o in WATCHDOG_S if not o.startswith("algo.total_steps")),
+                                  "algo.total_steps=1000000", "checkpoint.every=1000000000"],
+                                 run_root / "sigterm", new_session=True),
+    }
+    out = {}
+    for name, proc in procs.items():
+        lines, seen = [], threading.Event()
+        marker = _replayed if name == "sigterm" else (lambda line: False)
+        out[name] = {"proc": proc, "lines": lines, "seen": seen, "reader": _read_lines(proc, lines, seen, marker),
+                     "log_dir": run_root / name}
+    sig = out["sigterm"]
+
+    def signal_when_replayed():
+        # the SIGTERM lands while the worker steps, after the first replayed window
+        if sig["seen"].wait(600) and sig["proc"].poll() is None:
+            sig["t_signal"] = time.time()
+            os.killpg(sig["proc"].pid, signal.SIGTERM)
+
+    threading.Thread(target=signal_when_replayed, daemon=True).start()
+    return out
+
+
+def phase_watchdog(torch, drills: dict) -> dict:
+    """Phase 61: the three drills of :func:`start_watchdog_drills`.  The
+    planted hang is torn down, the env recreated and the break flagged
+    (``repair_tail``), and the run commits its last step and exits 0; the
+    give-up exits non-zero with a ``postmortem.json`` of reason
+    ``watchdog``; the SIGTERM to the process group (the workers ignore it)
+    ends in a committed save and exit 0, and no worker outlives the run."""
+    from sheeprl_tpu_torch.checkpoint.protocol import checkpoint_step, list_checkpoints
+    from sheeprl_tpu_torch.utils.env import pid_alive
+
+    def finish(d, timeout=600):
+        try:
+            d["rc"] = d["proc"].wait(timeout=timeout)
+        finally:
+            if d["proc"].poll() is None:
+                d["proc"].kill()
+                d["proc"].wait()
+        d["reader"].join(10)
+        d["out"] = "".join(d["lines"])
+        return d
+
+    def steps(log_dir):
+        return sorted(checkpoint_step(d) for root in log_dir.glob("**/version_*/checkpoint")
+                      for d in list_checkpoints(root))
+
+    t0 = time.perf_counter()
+    res = {name: finish(d) for name, d in drills.items()}
+    hang, giveup, sigterm = res["hang"], res["giveup"], res["sigterm"]
+    hang_steps, sig_steps = steps(hang["log_dir"]), steps(sigterm["log_dir"])
+    repairs = [line for line in hang["out"].splitlines() if line.startswith("[child] repair_tail")]
+    gru_launches = {n: (_child_lines(d["out"], "[child] launches ") or [{}])[-1] for n, d in res.items()}
+    windows = _windows(hang["out"])
+    recreated = _child_lines(hang["out"], "[child] recreated ")
+    rec = ", ".join(f"{r['seconds']:.2f}" for r in recreated)
+    post = sorted(giveup["log_dir"].glob("**/postmortem.json"))
+    doc = json.loads(post[-1].read_text()) if post else {}
+    kinds = [e.get("kind") for e in doc.get("events", [])]
+    workers = [pid for d in res.values() for pids in _child_lines(d["out"], "[child] workers ") for pid in pids]
+    sig_workers = [pid for pids in _child_lines(sigterm["out"], "[child] workers ") for pid in pids]
+    orphans = [pid for pid in workers if pid_alive(pid)]
+    log(f"[watchdog] DV3-S, hang planted at worker step {WATCHDOG_HANG_AT}: exit {hang['rc']}, "
+        f"'vector env watchdog' warned {hang['out'].count('vector env watchdog')}x, the workers killed, recreated "
+        f"and reset in {rec} s after the {WATCHDOG_S_DEADLINE} s "
+        f"deadline, {len(repairs)} repair_tail "
+        f"({', '.join(repairs[:2])}), committed steps {hang_steps}, {len(windows)} windows, launches "
+        f"{gru_launches['hang']}")
+    log(f"[watchdog] a hang at every step, max_vecenv_restarts=1: exit {giveup['rc']}, postmortem "
+        f"{post[-1].name if post else None} reason {doc.get('reason')!r}, events {kinds[-4:]}")
+    log(f"[watchdog] SIGTERM to the process group while the worker {sig_workers} stepped: exit {sigterm['rc']}, "
+        f"committed {sig_steps}, 'Preemption: committed' {'Preemption: committed checkpoint' in sigterm['out']}; "
+        f"workers still alive after the three runs: {orphans} of {workers}")
+    ok = (hang["rc"] == 0 and "vector env watchdog" in hang["out"] and recreated and repairs and hang_steps
+          and hang_steps[-1] == WATCHDOG_TOTAL and gru_launches["hang"].get("gru", 0) > 0
+          and not gru_launches["hang"].get("rssm")
+          and giveup["rc"] != 0 and doc.get("reason") == "watchdog" and "watchdog.giveup" in kinds
+          and "t_signal" in sigterm and sigterm["rc"] == 0 and "Preemption: committed checkpoint" in sigterm["out"]
+          and sig_steps
+          and sig_workers and not orphans)
+    if not ok:
+        raise AssertionError("[watchdog] a drill misbehaved:\n" + "\n".join(
+            f"--- {n} (rc {d['rc']}):\n{d['out'][-3000:]}" for n, d in res.items()))
+    return {"hang_steps": hang_steps, "repairs": len(repairs), "recreate_s": [r["seconds"] for r in recreated],
+            "giveup_rc": giveup["rc"],
+            "postmortem_reason": doc.get("reason"), "sigterm_steps": sig_steps, "orphans": orphans,
+            "launches": {k: sum(v.get(k, 0) for v in gru_launches.values()) for k in ("rssm", "gru")},
+            "seconds": time.perf_counter() - t0}
+
+
+def _fixture_trainers(torch, device: str, with_opt_state: bool = True):
+    """A DreamerV3 trainer on ``device`` (``cpu`` or ``gpu``) from the
+    fixture's converted state, as the resumed loop builds it."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.agent import build_agent
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer, build_dv3_optimizers
+    from sheeprl_tpu_torch.algos.ppo.utils import spaces_to_dims
+    from sheeprl_tpu_torch.config.compose import compose
+    from sheeprl_tpu_torch.convert import load_resume_state
+    from sheeprl_tpu_torch.fabric import build_fabric
+    from sheeprl_tpu_torch.serve.loader import probe_spaces
+
+    cfg = compose([*(o for o in FIXTURE_RESUME if not o.startswith("fabric.accelerator")),
+                   f"fabric.accelerator={device}"])
+    fabric = build_fabric(cfg)
+    state = load_resume_state(FIXTURE_STEP, cfg)
+    obs_space, act_space = probe_spaces(cfg)
+    dims, cont = spaces_to_dims(act_space)
+    modules = build_agent(fabric, dims, cont, cfg, obs_space, state["agent"])
+    opts = build_dv3_optimizers(cfg, modules, state["opt_state"] if with_opt_state else None,
+                                capturable=fabric.device.type == "cuda")
+    return DV3Trainer(cfg, modules, opts, ("rgb",), ("state",), cont, state["agent"]), state
+
+
+def phase_jax_resume(torch, run_root: Path) -> dict:
+    """Phase 62: the committed JAX-written fixture (``fused_pallas``) resumed
+    by ``cli.run`` on the card: the counters go on from step 40, update 20,
+    and the RSSM kernel launches in every update; the first update from the
+    converted state, card against CPU on the same replay block and draws
+    (the categorical samples of the CPU run replayed): losses and parameter
+    changes within ``RESUME_TOL_*``, and without the Adam state the change
+    far outside; then ``checkpoint.resume_from=auto`` continues the port's
+    own snapshot."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import blocks_to_device, draw_noise
+    from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
+    from sheeprl_tpu_torch.ops import rssm
+    from sheeprl_tpu_torch.utils.distribution import OneHotCategorical
+
+    t0 = time.perf_counter()
+    log_dir = run_root / "jax_resume"
+    first = _train(torch, [*FIXTURE_RESUME, f"checkpoint.resume_from={FIXTURE_STEP}", "algo.total_steps=64",
+                           "root_dir=fixture", "run_name=resumed"], log_dir, "rssm", FIXTURE_LAUNCHES_PER_UPDATE)
+    saved = load_step_dir(first["snapshot"], map_location="cpu")
+    resumed_rows = sorted({int(s) for s, _ in _metric_rows_steps(first["snapshot"].parents[1])})
+
+    # the first resumed update, card vs CPU
+    L, B, H = 8, 2, 4  # FIXTURE_RESUME's sequence, batch and horizon
+    rng = np.random.default_rng(62)
+    block = {"rgb": rng.integers(0, 256, (1, L, B, 64, 64, 3), dtype=np.uint8),
+             "state": rng.standard_normal((1, L, B, 4)).astype(np.float32),
+             "actions": np.eye(4, dtype=np.float32)[rng.integers(0, 4, (1, L, B))],
+             "rewards": rng.standard_normal((1, L, B, 1)).astype(np.float32),
+             "terminated": (rng.random((1, L, B, 1)) < 0.1).astype(np.float32),
+             "is_first": (rng.random((1, L, B, 1)) < 0.1).astype(np.float32)}
+    samples, replay = [], {"on": False, "i": 0}
+    sample_from_noise = OneHotCategorical.sample_from_noise
+
+    def recorded(self, noise):
+        if replay["on"]:
+            replay["i"] += 1
+            return samples[replay["i"] - 1].to(noise.device)
+        out = sample_from_noise(self, noise)
+        samples.append(out)
+        return out
+
+    def update(device, with_opt_state=True):
+        trainer, state = _fixture_trainers(torch, device, with_opt_state)
+        start = {n: {k: v.detach().cpu().clone() for k, v in m.state_dict().items()}
+                 for n, m in trainer.modules().items()}
+        noise = draw_noise(trainer.world_model, trainer.actor, 1, L, B, H, torch.Generator("cpu").manual_seed(62),
+                           trainer.task_rollout)
+        noise = _to_device(noise, trainer.device)
+        replay["i"] = 0
+        OneHotCategorical.sample_from_noise = recorded
+        try:
+            metrics = trainer.train_phase(blocks_to_device(block, ("rgb",), ("state",), trainer.device), noise,
+                                          int(state["grad_steps"]))
+        finally:
+            OneHotCategorical.sample_from_noise = sample_from_noise
+        replay["on"] = True
+        after = {n: {k: v.detach().cpu() for k, v in m.state_dict().items()} for n, m in trainer.modules().items()}
+        return np.array([float(m) for m in metrics]), start, after
+
+    cpu_metrics, cpu_start, cpu_after = update("cpu")
+    n0 = rssm.LAUNCHES["rssm"]
+    card_metrics, _, card_after = update("gpu")
+    card_launches = rssm.LAUNCHES["rssm"] - n0
+    _, _, control_after = update("gpu", with_opt_state=False)
+
+    def change_gap(after):
+        gaps = {}
+        for name in ("world_model", "actor", "critic"):
+            ref = torch.cat([(cpu_after[name][k] - cpu_start[name][k]).flatten() for k in cpu_after[name]])
+            got = torch.cat([(after[name][k] - cpu_start[name][k]).flatten() for k in cpu_after[name]])
+            gaps[name] = float((got - ref).norm() / ref.norm())
+        return gaps
+
+    loss_gap = np.abs(card_metrics - cpu_metrics)
+    loss_rel = float(np.max(loss_gap / np.maximum(np.abs(cpu_metrics), 1e-12)))
+    loss_ok = bool(np.all(loss_gap <= RESUME_TOL_LOSS[0] * np.abs(cpu_metrics) + RESUME_TOL_LOSS[1]))
+    gaps, control = change_gap(card_after), change_gap(control_after)
+
+    # the port's own snapshot, continued by resume_from=auto
+    auto = _train(torch, [*FIXTURE_RESUME, "checkpoint.resume_from=auto", "algo.total_steps=84", "root_dir=fixture",
+                          "run_name=resumed"], log_dir, "rssm", FIXTURE_LAUNCHES_PER_UPDATE)
+    auto_saved = load_step_dir(auto["snapshot"], map_location="cpu")
+    log(f"[jax-resume] the JAX-written fixture resumed by cli.run on the card: rows logged from step "
+        f"{resumed_rows[:1]}, committed step {saved['policy_step']} update {saved['update']} grad steps "
+        f"{saved['grad_steps']} ({first['updates']} updates, rssm launches per update {sorted(set(first['per_update']))}, "
+        f"{first['updates_per_s']:.3f} updates/s); resume_from=auto continued it to step {auto_saved['policy_step']} "
+        f"update {auto_saved['update']} ({auto['updates']} updates)")
+    log(f"[jax-resume] first resumed update, card vs CPU from the same converted state ({len(samples)} samples "
+        f"replayed, {card_launches} rssm launches on the card): losses abs diff "
+        f"{', '.join(f'{x:.2e}' for x in loss_gap)} of {', '.join(f'{x:.4g}' for x in cpu_metrics)} (max rel "
+        f"{loss_rel:.3g}; tolerance {RESUME_TOL_LOSS[0]} rel + {RESUME_TOL_LOSS[1]} abs), parameter changes rel L2 "
+        f"{', '.join(f'{k} {v:.3g}' for k, v in gaps.items())} (tolerance {RESUME_TOL_CHANGE}); without the Adam "
+        f"state {', '.join(f'{k} {v:.3g}' for k, v in control.items())}")
+    checks = {"counters": (saved["policy_step"], saved["update"]) == (64, 32) and bool(resumed_rows)
+              and resumed_rows[0] > 40 and saved["grad_steps"] > 1,
+              "auto": (auto_saved["policy_step"], auto_saved["update"]) == (84, 42)
+              and auto_saved["grad_steps"] > saved["grad_steps"],
+              "launches": card_launches > 0, "losses": loss_ok,
+              "changes": max(gaps.values()) <= RESUME_TOL_CHANGE,
+              "control": min(control.values()) > 3 * RESUME_TOL_CHANGE}
+    if not all(checks.values()):
+        raise AssertionError(f"[jax-resume] failed checks: {[k for k, v in checks.items() if not v]}")
+    return {"first": first, "auto": auto, "loss_rel": loss_rel, "change_gap": gaps, "control_gap": control,
+            "counts": {k: first["counts"][k] + auto["counts"][k] for k in ("rssm", "gru")},
+            "card_update_launches": card_launches, "seconds": time.perf_counter() - t0}
+
+
+def _metric_rows_steps(log_dir: Path) -> list:
+    import csv
+
+    with open(next(log_dir.glob("**/metrics.csv"))) as f:
+        return [(step, name) for step, name, _ in list(csv.reader(f))[1:]]
+
+
+def phase_vecenv(torch, run_root: Path, breaker=None, supervisor: bool = True, preempt: bool = True,
+                 meanwhile_too=None) -> dict:
+    """Phases 60-62, with the whole run's other child-process drills: 60's
+    two XL runs alone (they are timed); then phase 61's children and phase
+    59's supervised runs (its breaker drill started with phase 57) in the
+    background while this thread runs phase 49 (``preempt``), and phase 60's
+    masked run and phase 62 while 49's child starts, then ``meanwhile_too()``
+    (the whole run's correctness checks that time nothing)."""
+    t0 = time.perf_counter()
+    out = {"xl": phase_vecenv_xl(torch, run_root / "vecenv")}
+    drills = start_watchdog_drills(run_root / "watchdog")
+    sup, sup_thread = {}, None
+    if supervisor:
+        sup_thread = threading.Thread(target=lambda: sup.update(_run_catching(
+            phase_supervisor, torch, run_root / "supervisor", breaker)))
+        sup_thread.start()
+
+    def meanwhile():
+        out["masks"] = phase_vecenv_masks(torch, run_root / "vecenv")
+        out["jax_resume"] = phase_jax_resume(torch, run_root)
+        if meanwhile_too is not None:
+            meanwhile_too()
+
+    try:
+        if preempt:
+            out["preempt"] = phase_runtime_preempt(torch, run_root / "runtime", meanwhile=meanwhile)
+        else:
+            meanwhile()
+        out["watchdog"] = phase_watchdog(torch, drills)
+    finally:
+        for d in drills.values():
+            if d["proc"].poll() is None:
+                d["proc"].kill()
+                d["proc"].wait()
+        if sup_thread is not None:
+            sup_thread.join()
+    if supervisor:
+        if "error" in sup:
+            raise sup["error"]
+        out["supervisor"] = sup["value"]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[vecenv] phases 60-62{' with 49 and 59' if supervisor and preempt else ''} in {out['seconds']:.1f} s")
+    return out
+
+
+def _run_catching(fn, *args) -> dict:
+    try:
+        return {"value": fn(*args)}
+    except BaseException as e:  # noqa: BLE001 - raised again in the main thread
+        return {"error": e}
+
+
+def vecenv_summary(v: dict) -> dict:
+    return {"updates_per_s": {t: r["updates_per_s"] for t, r in v["xl"]["runs"].items()},
+            "env_steps_per_s": {t: r["env_steps_per_s"] for t, r in v["xl"]["runs"].items()},
+            "env_step_ms": {t: r["env_step_ms"] for t, r in v["xl"]["runs"].items()},
+            "build_s": {t: r["build_s"] for t, r in v["xl"]["runs"].items()},
+            "bit_for_bit": [v["xl"]["bit_for_bit"], v["xl"]["tensors"]], "masked_actions": v["masks"]["actions"],
+            "excluded": v["masks"]["excluded"], "watchdog": {k: w for k, w in v["watchdog"].items()},
+            "jax_resume": {k: v["jax_resume"][k] for k in ("loss_rel", "change_gap", "control_gap")},
+            "seconds": v["seconds"]}
+
+
+def vecenv_only(torch) -> int:
+    """``--vecenv``: phases 60-61 alone (62 beside 61, as in the whole run)."""
+    return _mode_only(torch, lambda run_root: phase_vecenv(torch, run_root, supervisor=False, preempt=False))
+
+
+def jax_resume_only(torch) -> int:
+    """``--jax-resume``: phase 62 alone."""
+    return _mode_only(torch, lambda run_root: {"jax_resume": phase_jax_resume(torch, run_root)})
+
+
+def _mode_only(torch, fn) -> int:
+    run_root = ROOT / "build" / "chip_smoke_mode"
+    shutil.rmtree(run_root, ignore_errors=True)
+    log_phase_seconds()
+    try:
+        device = phase_device(torch)
+        phase_build()
+        worst = phase_kernels(torch)
+        out = fn(run_root)
+        log("[mode] " + json.dumps({k: v.get("seconds") for k, v in out.items() if isinstance(v, dict)},
+                                   default=float))
+        log(f"[mode] kernels held against their plain versions, worst {worst}")
+    except BaseException:
+        traceback.print_exc()
+        return 1
+    print(json.dumps({"ok": True, "device": device}), flush=True)
+    return 0
 
 
 def population_only(torch) -> int:
@@ -6315,10 +7066,20 @@ def main() -> int:
         return population_only(torch)
     if sys.argv[1:2] == ["--supervised-child"]:
         return supervised_child(torch, sys.argv[2:])
+    if sys.argv[1:2] == ["--vecenv-child"]:
+        return vecenv_child(torch, sys.argv[2:])
+    if sys.argv[1:2] == ["--vecenv"]:
+        return vecenv_only(torch)
+    if sys.argv[1:2] == ["--jax-resume"]:
+        return jax_resume_only(torch)
 
     run_root = ROOT / "build" / "chip_smoke"
     shutil.rmtree(run_root, ignore_errors=True)
     log_phase_seconds()
+    # the envs' worker server (phase 60) starts now, beside the earlier phases
+    from sheeprl_tpu_torch.utils.env import worker_context
+
+    worker_context()
     try:
         t_start = time.perf_counter()
         device = phase_device(torch)
@@ -6361,10 +7122,10 @@ def main() -> int:
             raise AssertionError(f"P2E exploration: launches {p2e['counts']}, intrinsic rewards {p2e['intrinsic']}")
         p2e_parity = phase_train_parity(torch, p2e["snapshot"], tag="p2e-parity")
         finetune = phase_p2e_finetune(torch, p2e["snapshot"], run_root / "p2e_finetune")
-        decoupled = _train(torch, DECOUPLED_XL, run_root / "decoupled", "rssm")
+        decoupled = _train(torch, DECOUPLED_XL, run_root / "decoupled", "rssm", snapshot=False)
+        decoupled.pop("trainer")
         family = phase_family(torch, run_root / "family")
         ppo = phase_ppo_train(torch, run_root / "ppo_atari")
-        ppo_parity = phase_ppo_parity(torch, ppo["snapshot"])
         ppo_served = phase_ppo_serve(torch, ppo["snapshot"])
         on_policy = phase_on_policy_family(torch, run_root / "on_policy")
         off_policy = phase_off_policy(torch, run_root / "off_policy")
@@ -6376,17 +7137,38 @@ def main() -> int:
         log("[graphs] " + json.dumps(graphs_summary(graphs), default=float))
         precision = phase_precision(torch, run_root / "precision", {"train": train, "p2e": p2e,
                                                                      "dv3_xl": graphs["dv3_xl"],
-                                                                     "dv3_s_gru": graphs["dv3_s_gru"]})
-        log("[precision] " + json.dumps(precision_summary(precision), default=float))
-        runtime = phase_runtime(torch, run_root / "runtime", fused_dir)
-        log("[runtime] " + json.dumps(runtime_summary(runtime), default=float))
-        telemetry = phase_telemetry(torch, run_root, fused_dir, off_policy["train"]["sac"]["kept"],
-                                    runtime["preempt"])
-        log("[telemetry] " + json.dumps(telemetry_summary(telemetry), default=float))
+                                                                     "dv3_s_gru": graphs["dv3_s_gru"]},
+                                    families=False)
+        runtime = phase_runtime(torch, run_root / "runtime", fused_dir, preempt=False)
+        telemetry = phase_telemetry(torch, run_root, fused_dir, off_policy["train"]["sac"]["kept"])
         deploy = phase_deploy(torch, run_root, train["snapshot"], telemetry["traced"]["untraced"], fused_dir)
         log("[deploy] " + json.dumps(deploy_summary(deploy), default=float))
-        population = phase_population(torch, run_root / "population")
+        population = phase_population(torch, run_root / "population", supervisor=False)
+        breaker = population.pop("breaker")
+        deferred = {}
+
+        def correctness_checks():
+            # phases 17 and 47 compare and time nothing, and change no
+            # setting a child process inherits: they run while phase 49's
+            # child starts (phase_vecenv)
+            deferred["ppo_parity"] = phase_ppo_parity(torch, ppo["snapshot"])
+            precision["families"] = phase_precision_families(torch)
+
+        try:
+            vecenv = phase_vecenv(torch, run_root, breaker=breaker, meanwhile_too=correctness_checks)
+        finally:
+            if breaker[0].poll() is None:
+                breaker[0].kill()
+                breaker[0].wait()
+        population["supervisor"] = vecenv.pop("supervisor")
+        ppo_parity = deferred["ppo_parity"]
+        log("[precision] " + json.dumps(precision_summary(precision), default=float))
+        runtime["preempt"] = vecenv.pop("preempt")
+        telemetry["signals"] = phase_telemetry_signals(torch, runtime["preempt"])
+        log("[runtime] " + json.dumps(runtime_summary(runtime), default=float))
+        log("[telemetry] " + json.dumps(telemetry_summary(telemetry), default=float))
         log("[population] " + json.dumps(population_summary(population), default=float))
+        log("[vecenv] " + json.dumps(vecenv_summary(vecenv), default=float))
 
         launches = {"rssm": train["counts"]["rssm"], "gru": train_gru["counts"]["gru"]}
         new_paths = {"p2e_explore": p2e, "p2e_finetune": finetune, "decoupled": decoupled}
@@ -6454,6 +7236,16 @@ def main() -> int:
                 if path != "seconds":
                     by_path[f"population_{path}"] = run_["counts"][name]
             by_path["supervised_s"] = population["supervisor"]["launches"][name]
+            # phases 60-62: DV3-XL with its envs in worker processes and on the
+            # loop thread, the masked XL player, the watchdog drills' DV3-S
+            # children, the JAX-written fixture resumed (and continued by auto)
+            for tag, run_ in vecenv["xl"]["runs"].items():
+                by_path[f"vecenv_{tag}_xl"] = run_["counts"][name]
+                by_path[f"vecenv_{tag}_xl_per_update"] = max(n[name] for n in run_["update_launches"])
+            by_path["masked_player_xl"] = vecenv["masks"]["counts"][name]
+            by_path["watchdog_s"] = vecenv["watchdog"]["launches"][name]
+            by_path["jax_resume"] = vecenv["jax_resume"]["counts"][name]
+            by_path["jax_resume_per_update"] = max(n[name] for n in vecenv["jax_resume"]["first"]["update_launches"])
         sources = {
             "rssm": ("sheeprl_tpu_torch/csrc/rssm.cu",
                      "sheeprl_tpu/ops/rssm_pallas.py:70 (_rssm_kernel), sheeprl_tpu/ops/rssm_pallas.py:260 "
@@ -6494,7 +7286,7 @@ def main() -> int:
             f"{statistics.median(precision['dv3_xl']['updates_per_s']['graph']):.3f}; DV3-XL guarded window "
             f"{statistics.median(runtime['dv3_xl']['updates_per_s']['guarded']):.3f} updates/s beside unguarded "
             f"{statistics.median(runtime['dv3_xl']['updates_per_s']['unguarded']):.3f}, preempted run committed "
-            f"{runtime['preempt']['signal_to_commit_s']:.2f} s after SIGTERM (phases 48-50 "
+            f"{runtime['preempt']['signal_to_commit_s']:.2f} s after SIGTERM (phases 48 and 50 "
             f"{runtime['seconds']:.1f} s); traced DV3-XL equal to untraced in {telemetry['traced']['bit_for_bit']} of "
             f"{telemetry['traced']['tensors']} tensors, trace windows hold {telemetry['traced']['credited']} rssm "
             f"launches; hot reload under {SERVE_SESSIONS} sessions answered {telemetry['reload']['answered']} requests, "
@@ -6509,13 +7301,18 @@ def main() -> int:
             f"{population['train'][f'ppo_p{POP_MEMBERS[1]}']['kernels_per_phase']} kernels per phase at P = "
             f"{POP_MEMBERS[0]} / {POP_MEMBERS[1]}, card vs CPU {population['parity']['param_l2']:.3g} rel L2; a "
             f"supervised DV3-S restarted {population['supervisor']['crash_to_update_s']:.1f} s after its crash to "
-            f"step {population['supervisor']['steps'][-1]} (phases 57-59 {population['seconds']:.1f} s); total "
-            f"{time.perf_counter() - t_start:.1f} s")
+            f"step {population['supervisor']['steps'][-1]} (phases 57-59 {population['seconds']:.1f} s); DV3-XL on "
+            f"4 envs in worker processes {vecenv['xl']['runs']['async']['updates_per_s']:.3f} updates/s beside "
+            f"{vecenv['xl']['runs']['sync']['updates_per_s']:.3f} on the loop thread, equal bit for bit; "
+            f"{vecenv['masks']['actions']} masked XL player actions, {vecenv['masks']['excluded']} excluded; a hung "
+            f"env torn down and the run committed step {vecenv['watchdog']['hang_steps'][-1]}; the JAX fixture's "
+            f"first resumed update card vs CPU {max(vecenv['jax_resume']['change_gap'].values()):.3g} rel L2 "
+            f"(phases 60-62 with 49 and 59 {vecenv['seconds']:.1f} s); total {time.perf_counter() - t_start:.1f} s")
     except BaseException:
         traceback.print_exc()
         return 1
-    finally:
-        shutil.rmtree(run_root, ignore_errors=True)
+    # the run's tree is left in build/ (the next run deletes it when it starts):
+    # deleting it here took ≈ 20 s after the last phase
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": device}), flush=True)
     return 0

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from sheeprl_tpu_torch.envs.minedojo import FN_CRAFT, FN_DESTROY, FN_EQUIP, FN_PLACE, N_MOVEMENT_ACTIONS
 from sheeprl_tpu_torch.models.models import (
     Conv,
     ConvTranspose,
@@ -615,6 +616,44 @@ class Actor(nn.Module):
         if greedy:
             return torch.cat([d.mode() for d in dists], dim=-1)
         return torch.cat([d.rsample_from_noise(n) for d, n in zip(dists, noise)], dim=-1)
+
+    def sample_masked(self, head_out: torch.Tensor, generator: torch.Generator, masks: Dict[str, torch.Tensor],
+                      greedy: bool = False) -> torch.Tensor:
+        """MineDojo-style masked sampling (JAX ``Actor.sample_masked``), with
+        the draws of :meth:`sample_noise`: see :meth:`sample_masked_from_noise`."""
+        noise = () if greedy else self.sample_noise(head_out.shape[:-1], generator)
+        return self.sample_masked_from_noise(head_out, masks, noise, greedy)
+
+    def sample_masked_from_noise(self, head_out: torch.Tensor, masks: Dict[str, torch.Tensor],
+                                 noise: Sequence[torch.Tensor], greedy: bool = False) -> torch.Tensor:
+        """Branch 0 (the compound action) is masked by ``mask_action_type``;
+        branch 1 (the craft argument) by ``mask_craft_smelt`` only where
+        branch 0 chose craft; branch 2 (the inventory argument) by
+        ``mask_equip_place`` or ``mask_destroy`` only where branch 0 chose
+        equip/place or destroy.  A mask is a float observation, nonzero where
+        allowed; it is applied after the unimix (a ``-1e9`` logit), so an
+        excluded action has probability zero.  Branch-free, so the step is
+        captured in the player's graph."""
+        dists = self.dists(head_out)  # the unimix is folded into each .logits
+
+        def draw(i: int, allowed: torch.Tensor) -> torch.Tensor:
+            d = OneHotCategorical(torch.where(allowed, dists[i].logits, torch.full_like(dists[i].logits, -1e9)))
+            return d.mode() if greedy else d.sample_from_noise(noise[i])
+
+        a0 = draw(0, masks["mask_action_type"] > 0)
+        compound = torch.argmax(a0, dim=-1, keepdim=True)
+        parts = [a0]
+        if len(dists) > 1:  # the craft/smelt argument
+            is_craft = compound == N_MOVEMENT_ACTIONS + FN_CRAFT - 1
+            parts.append(draw(1, (masks["mask_craft_smelt"] > 0) | ~is_craft))
+        if len(dists) > 2:  # the inventory-item argument
+            is_equip_place = (compound == N_MOVEMENT_ACTIONS + FN_EQUIP - 1) | (
+                compound == N_MOVEMENT_ACTIONS + FN_PLACE - 1)
+            is_destroy = compound == N_MOVEMENT_ACTIONS + FN_DESTROY - 1
+            allowed = torch.where(is_equip_place, masks["mask_equip_place"] > 0,
+                                  (masks["mask_destroy"] > 0) | ~is_destroy)
+            parts.append(draw(2, allowed))
+        return torch.cat(parts, dim=-1)
 
     def log_prob(self, head_out: torch.Tensor, actions: torch.Tensor) -> torch.Tensor:
         dists = self.dists(head_out)

@@ -59,6 +59,8 @@ import numpy as np
 import torch
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import Actor, Critic, build_agent
+from sheeprl_tpu_torch.convert import load_resume_state, restore_generators
+from sheeprl_tpu_torch.envs.minedojo import MASK_KEYS
 from sheeprl_tpu_torch.algos.dreamer_v3.loss import world_model_loss
 from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
     compute_lambda_values,
@@ -69,7 +71,6 @@ from sheeprl_tpu_torch.algos.dreamer_v3.utils import (
 )
 from sheeprl_tpu_torch.algos.p2e_utils import choose_actor
 from sheeprl_tpu_torch.algos.ppo.utils import actions_for_env, spaces_to_dims
-from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
 from sheeprl_tpu_torch.data.buffers import EnvIndependentReplayBuffer, EpisodeBuffer, SequentialReplayBuffer
 from sheeprl_tpu_torch.data.device_replay import (
     build_device_replay,
@@ -662,6 +663,7 @@ def evaluate_dreamer(fabric: Any, cfg: Any, state: Dict[str, Any], build_agent_f
     wm, actor = modules["world_model"], modules["actor"]
     cnn_keys, mlp_keys = tuple(cfg.algo.cnn_keys.encoder), tuple(cfg.algo.mlp_keys.encoder)
     gen = torch.Generator(fabric.device).manual_seed(int(cfg.seed))
+    action_masks = use_action_masks(cfg)
 
     def test_step(carry, raw_obs, greedy):
         if carry is None:
@@ -670,7 +672,8 @@ def evaluate_dreamer(fabric: Any, cfg: Any, state: Dict[str, Any], build_agent_f
                      torch.zeros(1, int(sum(actions_dim)), device=fabric.device))
         with torch.inference_mode():
             carry, action = latent_player_step(wm, actor, carry, prepare_obs(raw_obs, cnn_keys, mlp_keys,
-                                                                             fabric.device), gen, greedy)
+                                                                             fabric.device), gen, greedy,
+                                               action_masks=action_masks)
         return carry, one_hot_to_env(action.cpu().numpy(), actions_dim, is_continuous)
 
     reward = test(test_step, cfg, log_dir, logger)
@@ -680,16 +683,35 @@ def evaluate_dreamer(fabric: Any, cfg: Any, state: Dict[str, Any], build_agent_f
 
 
 def latent_player_step(world_model: Any, actor: Actor, carry, obs: Dict[str, torch.Tensor],
-                       generator: torch.Generator, greedy: bool = False):
+                       generator: torch.Generator, greedy: bool = False, action_masks: bool = False):
     """The latent player's step: encoder → one posterior step → actor.
-    ``carry`` is (h, z, previous action); returns the new carry and the action."""
+    ``carry`` is (h, z, previous action); returns the new carry and the action.
+    With ``action_masks`` (``algo.actor.action_masks``) the actor samples
+    through the MineDojo mask observations of ``obs``
+    (:meth:`Actor.sample_masked`)."""
     h, z, prev_a = carry
     embed = world_model.encode(obs)
     is_first = torch.zeros((h.shape[0], 1), device=h.device)
     h, z, _, _ = world_model.dynamic_noise(h, z, prev_a, embed, is_first,
                                            world_model.posterior_noise(h.shape[0], generator))
-    action = actor.sample(actor(torch.cat([z, h], dim=-1)), generator, greedy=greedy)
+    head = actor(torch.cat([z, h], dim=-1))
+    if action_masks:
+        action = actor.sample_masked(head, generator, {k: obs[k] for k in MASK_KEYS}, greedy=greedy)
+    else:
+        action = actor.sample(head, generator, greedy=greedy)
     return (h, z, action), action
+
+
+def use_action_masks(cfg: Any) -> bool:
+    """``algo.actor.action_masks``: the player samples through the MineDojo
+    mask observations, which must be among the encoder's mlp keys."""
+    if not bool((cfg.algo.get("actor") or {}).get("action_masks", False)):
+        return False
+    missing = [k for k in MASK_KEYS if k not in cfg.algo.mlp_keys.encoder]
+    if missing:
+        raise ValueError(f"algo.actor.action_masks=True needs the mask observations {missing} in "
+                         "algo.mlp_keys.encoder")
+    return True
 
 
 def one_hot_to_env(actions: np.ndarray, actions_dim: Sequence[int], is_continuous: bool) -> np.ndarray:
@@ -748,10 +770,8 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
     if cfg.checkpoint.get("resume_from"):
         # on the host: the modules, optimizers and Moments move their own
         # tensors to the device, the replay ring stays in host memory
-        state = load_step_dir(cfg.checkpoint.resume_from, map_location="cpu")
-    if "generators" in state:
-        for name, gen in (("train", train_gen), ("player", player_gen)):
-            gen.set_state(state["generators"][name].cpu())
+        state = load_resume_state(cfg.checkpoint.resume_from, cfg)
+    restore_generators(state, {"train": train_gen, "player": player_gen})
     modules = build_agent_fn(fabric, actions_dim, is_continuous, cfg, obs_space, state.get("agent"))
     if optimizer_builder is None:
         # a window captured on the card needs Adam's step count on the card
@@ -771,9 +791,11 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
     rec_size = trainer.world_model.recurrent_size
     stoch_flat = trainer.world_model.stoch_flat
 
+    action_masks = use_action_masks(cfg)
+
     def player_step_fn(carry, obs, greedy: bool = False):
         return latent_player_step(psync.modules["world_model"], psync.modules["actor"], carry, obs, player_gen,
-                                  greedy)
+                                  greedy, action_masks=action_masks)
 
     max_recompiles = cfg.algo.get("max_recompiles")
     # one graph per (batch, greedy) on a card player; a host player runs eagerly
@@ -837,7 +859,7 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
                                   eager_reason=trainer.graph_eager_reason)
     captured = train_window.graphs
     print(f"{cfg.algo.name} on {fabric.device}: player on {player_device}, replay in {where}, "
-          f"{num_envs} env(s) stepped synchronously, train window "
+          f"{envs.describe()}, train window "
           f"{'captured as CUDA graphs' if captured else 'eager'}, precision {fabric.precision.name}", flush=True)
     # present only when saved with buffer.checkpoint, or carried over by a
     # finetuning run's buffer.load_from_exploration

@@ -16,7 +16,6 @@ from typing import Any, Callable, Dict, Optional, Sequence
 import torch
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import Ensembles, place_modules
-from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
 from sheeprl_tpu_torch.config.compose import ConfigError
 from sheeprl_tpu_torch.utils.optim import ClippedOptimizer, build_group_optimizers
 
@@ -76,11 +75,11 @@ def ensemble_loss(ensembles, latents, actions, stoch_flat: int):
 
 def exploration_initial_state(cfg: Any, project: Callable[[Dict[str, Any], str], Dict[str, Any]]
                               ) -> Optional[Dict[str, Any]]:
-    """The exploration snapshot of ``checkpoint.exploration_ckpt_path``
-    projected by ``project`` (on the host, without its replay buffer unless
+    """The exploration snapshot of ``checkpoint.exploration_ckpt_path`` (the
+    port's, or one the JAX package wrote) projected by ``project`` (on the host, without its replay buffer unless
     ``buffer.load_from_exploration``), or None on a finetuning restart
     (``checkpoint.resume_from``); raises ``ConfigError`` when neither is given."""
-    from sheeprl_tpu_torch.checkpoint.serialize import refuse_jax_resume
+    from sheeprl_tpu_torch.convert import load_resume_state
     from sheeprl_tpu_torch.serve.loader import resolve_checkpoint
 
     path = cfg.checkpoint.get("exploration_ckpt_path")
@@ -92,8 +91,9 @@ def exploration_initial_state(cfg: Any, project: Callable[[Dict[str, Any], str],
             "(or checkpoint.resume_from for a finetuning restart)"
         )
     ckpt = resolve_checkpoint(path)
-    refuse_jax_resume(ckpt, "checkpoint.exploration_ckpt_path")
-    state = project(load_step_dir(ckpt, map_location="cpu"), actor_type_from_cfg(cfg))
+    # a JAX-written exploration snapshot is converted first (its optimizer
+    # states are not carried over, as the projection carries none)
+    state = project(load_resume_state(ckpt, cfg), actor_type_from_cfg(cfg))
     if not cfg.buffer.get("load_from_exploration", False):
         state.pop("rb", None)
     return state

@@ -31,7 +31,7 @@ from sheeprl_tpu_torch.algos.ppo.ppo import check_supported, pad_permutation
 from sheeprl_tpu_torch.algos.ppo.utils import actions_for_env, normalize_obs_keys, spaces_to_dims
 from sheeprl_tpu_torch.algos.ppo_recurrent.agent import Carry, build_agent, one_hot_actions
 from sheeprl_tpu_torch.algos.ppo_recurrent.utils import flat_obs, test
-from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
+from sheeprl_tpu_torch.convert import load_resume_state, restore_generators
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.data.device_replay import stage_rollout, stage_scalar, steady_guard
 from sheeprl_tpu_torch.envs.device import anakin_enabled, vector_env_from_cfg
@@ -147,7 +147,7 @@ def main(fabric: Any, cfg: Any) -> None:
         envs = vectorize(cfg, [make_env(cfg, cfg.seed + i, 0, run_name=log_dir, vector_env_idx=i)
                                for i in range(num_envs)])
         obs_space, act_space = envs.single_observation_space, envs.single_action_space
-        where = f"player on {player_device}, {num_envs} env(s) stepped synchronously"
+        where = f"player on {player_device}, {envs.describe()}"
     normalize_obs_keys(cfg, obs_space)
     actions_dim, is_continuous = spaces_to_dims(act_space)
     mlp_keys = tuple(cfg.algo.mlp_keys.encoder)
@@ -156,12 +156,10 @@ def main(fabric: Any, cfg: Any) -> None:
 
     state: Dict[str, Any] = {}
     if cfg.checkpoint.get("resume_from"):
-        state = load_step_dir(cfg.checkpoint.resume_from, map_location="cpu")
-    for name, gen in generators.items():
-        if name in state.get("generators", {}):
-            gen.set_state(state["generators"][name].cpu())
+        state = load_resume_state(cfg.checkpoint.resume_from, cfg)
+    restore_generators(state, generators)
     agent = build_agent(fabric, actions_dim, is_continuous, cfg, obs_space, state.get("agent"))
-    optimizer = build_optimizer(agent.parameters(), cfg.algo.optimizer, cfg.algo.max_grad_norm)
+    optimizer = build_optimizer(agent.named_parameters(), cfg.algo.optimizer, cfg.algo.max_grad_norm)
     if state.get("opt_state") is not None:
         optimizer.load_state_dict(state["opt_state"])
     rollout_steps = int(cfg.algo.rollout_steps)

@@ -55,8 +55,8 @@ from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import (
 from sheeprl_tpu_torch.algos.sac.agent import build_agent, ema_update, sample_action
 from sheeprl_tpu_torch.algos.sac.loss import actor_loss, alpha_loss, critic_loss
 from sheeprl_tpu_torch.algos.sac.utils import prepare_obs, test, to_env_actions, to_tanh_space
-from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
 from sheeprl_tpu_torch.checkpoint.rollback import rollback_state
+from sheeprl_tpu_torch.convert import load_resume_state, restore_generators
 from sheeprl_tpu_torch.data.buffers import ReplayBuffer
 from sheeprl_tpu_torch.data.device_replay import (
     build_device_replay,
@@ -125,9 +125,9 @@ class SACTrainer:
                          saved: Optional[Dict[str, Any]] = None) -> Dict[str, ClippedOptimizer]:
         """One Adam per group, each with its own config group's betas and eps."""
         a = cfg.algo
-        opts = {"actor": _optimizer(agent.actor.parameters(), a.actor),
-                "critic": _optimizer(agent.critic.parameters(), a.critic),
-                "alpha": _optimizer([agent.log_alpha], a.alpha)}
+        opts = {"actor": _optimizer(agent.actor.named_parameters(), a.actor),
+                "critic": _optimizer(agent.critic.named_parameters(), a.critic),
+                "alpha": _optimizer([("log_alpha", agent.log_alpha)], a.alpha)}
         for name, opt in opts.items():
             if saved and name in saved:
                 opt.load_state_dict(saved[name])
@@ -311,10 +311,8 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
 
     state: Dict[str, Any] = {}
     if cfg.checkpoint.get("resume_from"):
-        state = load_step_dir(cfg.checkpoint.resume_from, map_location="cpu")
-    if "generators" in state:
-        for name, gen in (("train", train_gen), ("player", player_gen)):
-            gen.set_state(state["generators"][name].cpu())
+        state = load_resume_state(cfg.checkpoint.resume_from, cfg)
+    restore_generators(state, {"train": train_gen, "player": player_gen})
     agent = build_agent_fn(fabric, act_dim, cfg, layout.agent_input, state.get("agent"))
     trainer = trainer_cls(cfg, agent, trainer_cls.build_optimizers(cfg, agent, state.get("opt_state")), act_dim)
     sentinel = HealthSentinel.from_config(cfg) if trainer_cls.HEALTH else None
@@ -359,7 +357,7 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
         where = "a host ring"
     guard_on = bool(cfg.buffer.get("transfer_guard", False)) and use_device_replay
     print(f"{cfg.algo.name} on {fabric.device}: player on {player_device}, replay in {where}, "
-          f"{num_envs} env(s) stepped synchronously", flush=True)
+          f"{envs.describe()}", flush=True)
     if state.get("rb") is not None:
         rb.load_state_dict(_rb_state_from_checkpoint(state["rb"]))
     batch_size = int(cfg.algo.per_rank_batch_size)

@@ -77,7 +77,7 @@ class SACAETrainer(SACTrainer):
         ``build_optimizer`` does not read it."""
         opts = SACTrainer.build_optimizers(cfg, agent, saved)
         for name in ("encoder", "decoder"):
-            opts[name] = _optimizer(getattr(agent, name).parameters(), cfg.algo[name])
+            opts[name] = _optimizer(getattr(agent, name).named_parameters(), cfg.algo[name])
             if saved and name in saved:
                 opts[name].load_state_dict(saved[name])
         return opts

@@ -40,7 +40,7 @@ from sheeprl_tpu_torch.checkpoint.protocol import durable_write, load_step_dir
 PathLike = Union[str, os.PathLike]
 
 __all__ = ["JAX_GLOBALS", "JaxUnpickler", "KeyArrayRef", "durable_write", "is_jax_checkpoint", "load_checkpoint",
-           "load_jax_pickle", "refuse_jax_resume", "save_checkpoint"]
+           "load_jax_pickle", "save_checkpoint"]
 
 
 @dataclass
@@ -61,6 +61,7 @@ def _record(name: str, fields: str) -> type:
 EmptyState = _record("EmptyState", "")
 ScaleByAdamState = _record("ScaleByAdamState", "count mu nu")
 ScaleByRmsState = _record("ScaleByRmsState", "nu")
+ScaleByRStdDevState = _record("ScaleByRStdDevState", "mu nu")
 TraceState = _record("TraceState", "trace")
 InjectHyperparamsState = _record("InjectHyperparamsState", "count hyperparams inner_state")
 InjectStatefulHyperparamsState = _record("InjectStatefulHyperparamsState",
@@ -93,6 +94,7 @@ JAX_GLOBALS: Dict[tuple, Any] = {
     ("optax._src.base", "EmptyState"): EmptyState,
     ("optax._src.transform", "ScaleByAdamState"): ScaleByAdamState,
     ("optax._src.transform", "ScaleByRmsState"): ScaleByRmsState,
+    ("optax._src.transform", "ScaleByRStdDevState"): ScaleByRStdDevState,
     ("optax._src.transform", "TraceState"): TraceState,
     ("optax.transforms._accumulation", "TraceState"): TraceState,
     ("optax._src.schedule", "InjectHyperparamsState"): InjectHyperparamsState,
@@ -131,21 +133,6 @@ def is_jax_checkpoint(path: PathLike) -> bool:
     if path.is_dir():
         return any(path.glob("shard_r*.pkl"))
     return path.is_file() and not zipfile.is_zipfile(path)
-
-
-def refuse_jax_resume(path: PathLike, setting: str) -> None:
-    """Raise ``ConfigError`` when ``setting`` names a snapshot the JAX package
-    wrote: training cannot continue from one yet.  Its optax states, its
-    Moments and its threefry keys have no port counterpart (ROADMAP.md, queue
-    A item 6(c)); serving, evaluation and registration read it."""
-    if is_jax_checkpoint(path):
-        from sheeprl_tpu_torch.config.compose import ConfigError
-
-        raise ConfigError(
-            f"{setting}={path} is a snapshot the JAX package wrote: training cannot resume from one yet (optax "
-            "Adam's count/mu/nu, the Moments and the threefry PRNG keys have no port counterpart; ROADMAP.md, "
-            "queue A item 6(c)). Serve, evaluate or register it instead."
-        )
 
 
 def save_checkpoint(path: PathLike, state: Dict[str, Any]) -> int:

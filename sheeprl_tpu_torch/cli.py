@@ -126,7 +126,6 @@ def run(argv: Optional[List[str]] = None) -> None:
     fabric's device."""
     from sheeprl_tpu_torch import telemetry
     from sheeprl_tpu_torch.checkpoint.preemption import PREEMPTION_GUARD
-    from sheeprl_tpu_torch.checkpoint.serialize import refuse_jax_resume
     from sheeprl_tpu_torch.fabric import build_fabric
     from sheeprl_tpu_torch.resilience.faults import install_from_config
 
@@ -147,7 +146,6 @@ def run(argv: Optional[List[str]] = None) -> None:
     install_from_config(cfg)
     cfg = resolve_resume_target(cfg)
     if cfg.checkpoint.get("resume_from"):
-        refuse_jax_resume(cfg.checkpoint.resume_from, "checkpoint.resume_from")
         cfg = resume_from_checkpoint(cfg)
     register_all_algorithms()
     import_extra_modules(cfg)
@@ -160,8 +158,10 @@ def run(argv: Optional[List[str]] = None) -> None:
     except BaseException as e:
         # every abnormal exit leaves evidence: the recorder's ring (faults,
         # stalls, restarts, span edges, the crash) as postmortem.json
+        # keeps the reason of a postmortem the failure already wrote (a
+        # watchdog's give-up), with the crash event added
         telemetry.RECORDER.record("crash", error=f"{type(e).__name__}: {e}")
-        telemetry.RECORDER.dump("exception")
+        telemetry.RECORDER.dump(telemetry.RECORDER.last_reason or "exception")
         raise
     finally:
         # a preempted loop has committed its final save by now, so the dump

@@ -40,7 +40,7 @@ state of the port's device env of the same name.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Callable, Dict, Iterator, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -217,9 +217,231 @@ def agent_from_jax(agent: Mapping[str, Any], cfg: Any) -> Dict[str, Any]:
 def state_from_jax(state: Mapping[str, Any], cfg: Any) -> Dict[str, Any]:
     """A JAX-written snapshot's state as the port reads it to serve,
     evaluate or register: the converted ``agent`` and the plain counters
-    (``policy_step``, ``update``, ...).  Optimizer states, PRNG keys and the
-    replay buffer have no port counterpart here (resuming from such a
-    snapshot is refused, ``cli.run``)."""
+    (``policy_step``, ``update``, ...).  A training run resumes through
+    :func:`resume_state_from_jax`, which adds the optimizer states, the
+    generators and the replay buffer."""
     out: Dict[str, Any] = {k: v for k, v in state.items() if isinstance(v, (int, float)) and not isinstance(v, bool)}
     out["agent"] = agent_from_jax(state["agent"], cfg)
     return out
+
+
+# -- resuming training ------------------------------------------------------------
+
+def _named(tree: Any) -> Dict[str, Any]:
+    """An optax state's fields (a namedtuple stand-in of
+    ``checkpoint/serialize.py``) by name; a plain dict as it is."""
+    return dict(tree._asdict()) if hasattr(tree, "_asdict") else dict(tree)
+
+
+def _optax_parts(opt_state: Any) -> Tuple[Any, list]:
+    """The injected learning rate and the states of the transforms under it,
+    in chain order, from the chain the JAX package builds
+    (``sheeprl_tpu/utils/optim.py``): an optional ``clip_by_global_norm``
+    (an ``EmptyState``), then ``inject_hyperparams`` of the base optimizer
+    over its own chain."""
+    lr, parts = None, []
+
+    def walk(node: Any) -> None:
+        nonlocal lr
+        name = type(node).__name__
+        if name in ("InjectStatefulHyperparamsState", "InjectHyperparamsState"):
+            lr = _named(node)["hyperparams"].get("learning_rate")
+            walk(node.inner_state)
+        elif name == "EmptyState" or node is None:
+            return
+        elif hasattr(node, "_asdict") or (isinstance(node, Mapping) and {"nu", "mom", "mg"} >= set(node)):
+            parts.append(node)
+        elif isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child)
+        else:
+            raise ValueError(f"unexpected optax state {name}")
+
+    walk(opt_state)
+    return lr, parts
+
+
+def optimizer_state_from_optax(opt_state: Any, optimizer: torch.optim.Optimizer, names: Sequence[str],
+                               convert: Callable[[Any], Dict[Any, torch.Tensor]]) -> Dict[str, Any]:
+    """``optimizer.state_dict()`` of the port optimizer over the parameters
+    ``names`` (in its order) from the optax state the JAX package saved for
+    the same parameters.
+
+    ``convert`` maps one moment tree (a tree shaped as the parameters) to
+    tensors by port name — the converter of the parameters themselves, so a
+    flax kernel's transpose applies to its ``mu`` and ``nu`` too; a bare
+    array (SAC's ``log_alpha``) comes back under the key None.  Adam's and
+    AdamW's ``count`` becomes torch's ``step`` (placed on the card by torch
+    when the optimizer is ``capturable``), ``mu`` / ``nu`` its ``exp_avg`` /
+    ``exp_avg_sq``; the RMSprops' ``nu`` its ``square_avg``, the centred
+    mean its ``grad_avg``, the momentum its ``momentum_buffer`` (optax's
+    ``rmsprop`` traces the steps after the learning rate's sign flip, the
+    port the positive steps; ``rmsprop_tf`` traces unscaled steps in both);
+    SGD's momentum trace its ``momentum_buffer``.  The learning rate is the
+    injected hyperparameter, not the config's."""
+    from sheeprl_tpu_torch.utils.optim import RMSprop
+
+    lr, parts = _optax_parts(opt_state)
+    per_param: Dict[str, Dict[str, torch.Tensor]] = {n: {} for n in names}
+
+    def put(key: str, tree: Any, scale: float = 1.0) -> None:
+        converted = convert(tree)
+        if set(converted) == {None}:
+            if len(names) != 1:
+                raise ValueError(f"a bare optax leaf for {len(names)} parameters")
+            converted = {names[0]: converted[None]}
+        if set(converted) != set(names):
+            raise ValueError(f"the optax state's {key} covers {sorted(set(converted) ^ set(names))} "
+                             "where the port optimizer's parameters differ")
+        for n, t in converted.items():
+            per_param[n][key] = t * scale if scale != 1.0 else t
+
+    group = optimizer.param_groups[0]
+    for part in parts:
+        kind = type(part).__name__
+        fields = _named(part)
+        if kind == "ScaleByAdamState":
+            for n in names:
+                per_param[n]["step"] = torch.tensor(float(np.asarray(fields["count"])), dtype=torch.float32)
+            put("exp_avg", fields["mu"])
+            put("exp_avg_sq", fields["nu"])
+        elif kind in ("ScaleByRmsState", "ScaleByRStdDevState"):
+            put("square_avg", fields["nu"])
+            if "mu" in fields:
+                put("grad_avg", fields["mu"])
+        elif kind == "TraceState":
+            # SGD traces the raw gradients; optax's rmsprop the signed steps
+            put("momentum_buffer", fields["trace"], -1.0 if isinstance(optimizer, RMSprop) else 1.0)
+        elif isinstance(part, Mapping):
+            # the JAX package's own RMSprops: {"nu", "mom", "mg"}
+            put("square_avg", fields["nu"])
+            if fields.get("mg") is not None:
+                put("grad_avg", fields["mg"])
+            if fields.get("mom") is not None:
+                tf_style = bool(group.get("tf_style", False))
+                put("momentum_buffer", fields["mom"], 1.0 if tf_style else float(np.asarray(lr)))
+        else:
+            raise ValueError(f"no port counterpart for the optax state {kind}")
+    template = optimizer.state_dict()
+    groups = [dict(g) for g in template["param_groups"]]
+    if lr is not None:
+        for g in groups:
+            g["lr"] = float(np.asarray(lr))
+    return {"state": {i: per_param[n] for i, n in enumerate(names) if per_param[n]}, "param_groups": groups}
+
+
+class OptaxState:
+    """An optimizer state of a JAX-written snapshot, waiting for the port
+    optimizer it loads into: :meth:`ClippedOptimizer.load_state_dict
+    <sheeprl_tpu_torch.utils.optim.ClippedOptimizer.load_state_dict>` calls
+    :meth:`state_dict_for` with the optimizer and its parameters' names."""
+
+    def __init__(self, opt_state: Any, convert: Callable[[Any], Dict[Any, torch.Tensor]]):
+        self.opt_state, self.convert = opt_state, convert
+
+    def state_dict_for(self, optimizer: torch.optim.Optimizer, names: Optional[Sequence[str]]) -> Dict[str, Any]:
+        if names is None:
+            raise ValueError("a JAX optimizer state loads only into an optimizer built over named parameters")
+        return optimizer_state_from_optax(self.opt_state, optimizer, names, self.convert)
+
+
+def _moments_converter(stacked: bool = False, policy: bool = False) -> Callable[[Any], Dict[Any, torch.Tensor]]:
+    def convert(tree: Any) -> Dict[Any, torch.Tensor]:
+        if not isinstance(tree, Mapping):
+            return {None: torch.tensor(np.asarray(tree, np.float32))}
+        return policy_state_from_jax(tree) if policy else module_state_from_flax(tree, stacked)
+
+    return convert
+
+
+def _seed_from_key(key: Any) -> int:
+    """A 64-bit seed from the words of a JAX PRNG key (raw ``uint32[2]`` or
+    a typed key's data)."""
+    data = np.asarray(getattr(key, "data", key), np.uint32).reshape(-1)
+    seed = 0
+    for w in data[-2:]:
+        seed = (seed << 32) | int(w)
+    return seed
+
+
+#: the counters a loop's resume reads, carried as they are
+COUNTERS = ("policy_step", "update", "last_log", "last_checkpoint", "grad_steps", "pending_gradient_steps")
+
+
+def resume_state_from_jax(state: Mapping[str, Any], cfg: Any) -> Dict[str, Any]:
+    """What a port loop loads to continue training from a snapshot the JAX
+    package wrote, in the layout of the port's own snapshots:
+
+    * ``agent``: :func:`agent_from_jax` — with the Moments, the target
+      networks and SAC's ``log_alpha``;
+    * ``opt_state``: each optimizer's optax state as an :class:`OptaxState`,
+      under the port's optimizer names (P2E-DV3's
+      ``critics_exploration.<name>``; one state for PPO, A2C and recurrent
+      PPO); it becomes that optimizer's ``state_dict`` when the loop builds
+      the optimizer over its named parameters;
+    * the counters of :data:`COUNTERS`, ``ratio`` and ``psync``;
+    * ``rb``, where the JAX run saved its replay buffer
+      (``buffer.checkpoint=True``);
+    * ``generator_seeds``: no ``torch.Generator`` reproduces threefry, so
+      the train and player generators are seeded from the words of ``key``
+      and ``player_key``.  These are new draws: the resumed run does not
+      draw what the JAX run would have drawn, but two resumes of one
+      snapshot draw alike.
+
+    A population snapshot (``population``) raises: its optimizer state is
+    stacked per member (ROADMAP.md, queue A item 6(c))."""
+    if "population" in state:
+        from sheeprl_tpu_torch.config.compose import ConfigError
+
+        raise ConfigError(
+            "a population snapshot the JAX package wrote cannot be resumed yet: its optimizer state is stacked per "
+            "member (ROADMAP.md, queue A item 6(c))"
+        )
+    name = str(cfg.algo.name)
+    out: Dict[str, Any] = {k: int(state[k]) for k in COUNTERS if state.get(k) is not None}
+    for k in ("ratio", "psync"):
+        if state.get(k) is not None:
+            out[k] = {kk: (v.item() if isinstance(v, np.ndarray) else v) for kk, v in dict(state[k]).items()}
+    out["agent"] = agent_from_jax(state["agent"], cfg)
+    opt = state.get("opt_state")
+    if opt is not None:
+        if name in POLICY_ALGOS:
+            out["opt_state"] = OptaxState(opt, _moments_converter(policy=True))
+        else:
+            stacked = {"ensembles"} | ({"critic"} if name in OFF_POLICY_ALGOS else set())
+            flat: Dict[str, Any] = {}
+            for k, v in dict(opt).items():
+                if isinstance(v, Mapping):  # P2E-DV3's critics_exploration: {name: state}
+                    flat.update({f"{k}.{kk}": vv for kk, vv in v.items()})
+                else:
+                    flat[k] = v
+            out["opt_state"] = {k: OptaxState(v, _moments_converter(stacked=k in stacked)) for k, v in flat.items()}
+    seeds = {gen: _seed_from_key(state[key]) for gen, key in (("train", "key"), ("player", "player_key"))
+             if state.get(key) is not None}
+    if seeds:
+        out["generator_seeds"] = seeds
+    if state.get("rb") is not None:
+        out["rb"] = state["rb"]
+    return out
+
+
+def load_resume_state(path: Any, cfg: Any) -> Dict[str, Any]:
+    """The state a loop resumes from at ``path`` (a committed step
+    directory): the port's own as it was saved, on the host; a JAX-written
+    one through :func:`resume_state_from_jax`."""
+    from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
+    from sheeprl_tpu_torch.checkpoint.serialize import is_jax_checkpoint
+
+    state = load_step_dir(path, map_location="cpu")
+    return resume_state_from_jax(state, cfg) if is_jax_checkpoint(path) else state
+
+
+def restore_generators(state: Mapping[str, Any], generators: Mapping[str, torch.Generator]) -> None:
+    """Set the loop's named generators from a resumed state: the states a
+    port snapshot saved, or the seeds :func:`resume_state_from_jax` took
+    from a JAX key."""
+    for name, gen in generators.items():
+        if name in state.get("generators", {}):
+            gen.set_state(state["generators"][name].cpu())
+        elif name in state.get("generator_seeds", {}):
+            gen.manual_seed(int(state["generator_seeds"][name]))

@@ -91,9 +91,11 @@ class RestartOnException(Wrapper):
             # swallows the raise upstream
             RECORDER.record("watchdog.giveup", reason="env crashed", restarts=len(self._restart_times))
             RECORDER.dump("watchdog")
-            raise RuntimeError(
+            err = RuntimeError(
                 f"Environment crashed {len(self._restart_times)} times within {self._window}s; giving up"
             )
+            err.env_restarts = len(self._restart_times)  # read where a worker's give-up reaches its parent
+            raise err
         self._restart_times.append(now)
         RESILIENCE_MONITOR.record_env_restart()
         try:

@@ -21,8 +21,19 @@ from sheeprl_tpu_torch.resilience.faults import (
     install_from_env,
     install_plan,
 )
-from sheeprl_tpu_torch.resilience.health import DivergenceError, HealthSentinel, HealthState
-from sheeprl_tpu_torch.resilience.retry import CircuitBreaker, Watchdog, retry
+
+#: imported at first use: ``health`` imports torch, which an env worker
+#: process (``utils/env.py``, through ``faults``) does without
+_LAZY = {"DivergenceError": "health", "HealthSentinel": "health", "HealthState": "health",
+         "CircuitBreaker": "retry", "Watchdog": "retry", "retry": "retry"}
+
+
+def __getattr__(name: str):
+    if name in _LAZY:
+        import importlib
+
+        return getattr(importlib.import_module(f"sheeprl_tpu_torch.resilience.{_LAZY[name]}"), name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 __all__ = [
     "ENV_VAR",

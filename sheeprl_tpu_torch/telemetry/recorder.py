@@ -37,6 +37,7 @@ class FlightRecorder:
         self._events: deque = deque(maxlen=int(capacity))
         self._run_dir: Optional[str] = None
         self._last_dump: Optional[str] = None
+        self._last_reason: Optional[str] = None
         self.enabled = True
 
     # -- configuration -------------------------------------------------------
@@ -60,6 +61,11 @@ class FlightRecorder:
     @property
     def last_dump(self) -> Optional[str]:
         return self._last_dump
+
+    @property
+    def last_reason(self) -> Optional[str]:
+        """The reason of the last postmortem written since :meth:`clear`."""
+        return self._last_reason
 
     # -- recording -----------------------------------------------------------
     def record(self, kind: str, **fields: Any) -> None:
@@ -89,6 +95,7 @@ class FlightRecorder:
         with self._lock:
             self._events.clear()
         self._last_dump = None
+        self._last_reason = None
 
     # -- postmortem ----------------------------------------------------------
     def document(self, reason: str) -> Dict[str, Any]:
@@ -154,7 +161,7 @@ class FlightRecorder:
                 f.flush()
                 os.fsync(f.fileno())
             os.replace(tmp, path)
-            self._last_dump = path
+            self._last_dump, self._last_reason = path, str(reason)
             return path
         except Exception:
             return None

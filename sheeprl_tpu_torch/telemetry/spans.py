@@ -40,8 +40,6 @@ import time
 from contextlib import contextmanager
 from typing import Any, Dict, Optional
 
-import torch
-
 from sheeprl_tpu_torch.telemetry.hub import HUB
 from sheeprl_tpu_torch.telemetry.recorder import RECORDER
 from sheeprl_tpu_torch.telemetry.tracer import TRACER
@@ -99,7 +97,10 @@ class SpanTracker:
 
     @staticmethod
     def _fence() -> None:
-        """Wait for the device's queued work; a CUDA error raises here."""
+        """Wait for the device's queued work; a CUDA error raises here.
+        (torch is imported here: an env worker imports this module without it.)"""
+        import torch
+
         if not torch.cuda.is_available() or not torch.cuda.is_initialized():
             return
         if torch.cuda.is_current_stream_capturing():

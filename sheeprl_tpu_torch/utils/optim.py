@@ -107,8 +107,11 @@ class ClippedOptimizer:
     ``torch.optim`` step."""
 
     def __init__(self, params: Iterable[torch.nn.Parameter], optimizer: torch.optim.Optimizer,
-                 max_grad_norm: Optional[float]):
+                 max_grad_norm: Optional[float], names: Optional[List[str]] = None):
         self.params = list(params)
+        #: the parameters' names, in order, where the builder knew them: what
+        #: a JAX-written optimizer state is matched against
+        self.names = list(names) if names is not None else None
         self.optimizer = optimizer
         self.max_grad_norm = float(max_grad_norm) if max_grad_norm else None
 
@@ -166,8 +169,15 @@ class ClippedOptimizer:
     def state_dict(self) -> Dict[str, Any]:
         return self.optimizer.state_dict()
 
-    def load_state_dict(self, state: Dict[str, Any]) -> None:
-        self.optimizer.load_state_dict(state)
+    def load_state_dict(self, state: Any) -> None:
+        """Load a ``state_dict`` of this optimizer, or the optimizer state of
+        a JAX-written snapshot (``convert.OptaxState``), matched by name."""
+        self.optimizer.load_state_dict(self._torch_state(state))
+
+    def _torch_state(self, state: Any) -> Dict[str, Any]:
+        if hasattr(state, "state_dict_for"):
+            return state.state_dict_for(self.optimizer, self.names)
+        return state
 
     def copy_state_(self, state: Dict[str, Any]) -> None:
         """Load ``state`` (a ``state_dict`` of this optimizer) by copying into
@@ -175,6 +185,7 @@ class ClippedOptimizer:
         stays valid; a parameter the saved state has no entry for gets zeros
         (Adam's state before its first step).  An optimizer with no state
         yet, or another optimizer missing an entry, loads a copy as usual."""
+        state = self._torch_state(state)
         fresh_is_zero = isinstance(self.optimizer, (torch.optim.Adam, torch.optim.AdamW))
         missing = any(i not in state["state"] for i, p in enumerate(self.params) if self.optimizer.state.get(p))
         if not self.optimizer.state or (missing and not fresh_is_zero):
@@ -208,8 +219,13 @@ def build_optimizer(
     """Build from an ``optim`` config group entry: {name, lr, eps, ...}.
     ``capturable`` (an update captured as a CUDA graph, parameters on the
     card) builds Adam and AdamW with their step on the card; the other
-    optimizers need nothing for a capture."""
+    optimizers need nothing for a capture.  ``params`` may be
+    ``named_parameters()``: the optimizer then knows its parameters' names."""
     params = list(params)
+    names = None
+    if params and isinstance(params[0], tuple):
+        names = [n for n, _ in params]
+        params = [p for _, p in params]
     name = optim_cfg.get("name", "adam")
     lr = float(optim_cfg.get("lr", 1e-3))
     capturable = capturable and bool(params) and all(p.device.type == "cuda" for p in params)
@@ -232,7 +248,7 @@ def build_optimizer(
     else:
         raise ValueError(f"Unknown optimizer '{name}'")
     clip = float(max_grad_norm) if max_grad_norm is not None and max_grad_norm > 0 else None
-    return ClippedOptimizer(params, opt, clip)
+    return ClippedOptimizer(params, opt, clip, names)
 
 
 def set_learning_rate(optimizer: ClippedOptimizer, lr: float) -> None:
@@ -251,7 +267,7 @@ def build_group_optimizers(modules: Dict[str, torch.nn.Module], groups: Dict[str
     """One optimizer per named module, from the config section that carries
     its ``optimizer`` and ``clip_gradients``; a saved state is loaded where
     ``saved`` has one for that name."""
-    opts = {name: build_optimizer(modules[name].parameters(), section.optimizer, section.get("clip_gradients"),
+    opts = {name: build_optimizer(modules[name].named_parameters(), section.optimizer, section.get("clip_gradients"),
                                   capturable=capturable)
             for name, section in groups.items()}
     for name, opt in opts.items():

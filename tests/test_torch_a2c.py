@@ -39,7 +39,7 @@ from tests.test_torch_ppo import (
 
 T, B = 7, 2
 PARAM_TOL = dict(rtol=0.0, atol=1e-6)
-BASE = ("exp=a2c", "env=dummy", "fabric.accelerator=cpu", "env.num_envs=2", f"algo.rollout_steps={T}",
+BASE = ("exp=a2c", "env=dummy", "env.sync_env=True", "fabric.accelerator=cpu", "env.num_envs=2", f"algo.rollout_steps={T}",
         "algo.dense_units=8", "algo.mlp_layers=1", "algo.encoder.mlp_features_dim=6", "algo.ent_coef=0.01",
         "algo.anneal_lr=True", "algo.total_steps=42")
 OPTIMIZERS = {

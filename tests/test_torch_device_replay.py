@@ -554,12 +554,12 @@ def test_off_policy_prep_matches_the_host_batches(layout):
     sample = {"actions": rng.standard_normal((U, B, 2)).astype(np.float32),
               **{k: rng.random((U, B, 1)).astype(np.float32) for k in ("rewards", "terminated")}}
     if layout == "vector":
-        lay = VectorLayout(compose(["exp=sac", "env=dummy", "algo.mlp_keys.encoder=[state]"]),
+        lay = VectorLayout(compose(["exp=sac", "env=dummy", "env.sync_env=True", "algo.mlp_keys.encoder=[state]"]),
                            spaces.Dict({"state": spaces.Box(-1, 1, (4,), np.float32)}))
         sample.update({k: rng.standard_normal((U, B, 4)).astype(np.float32) for k in ("obs", "next_obs")})
     else:
         stack = (4,) if layout.endswith("stack") else ()
-        lay = PixelLayout(compose(["exp=sac_ae", "env=dummy", "algo.cnn_keys.encoder=[rgb]",
+        lay = PixelLayout(compose(["exp=sac_ae", "env=dummy", "env.sync_env=True", "algo.cnn_keys.encoder=[rgb]",
                                    "algo.mlp_keys.encoder=[state]"]),
                           spaces.Dict({"rgb": spaces.Box(0, 255, (*stack, 8, 8, 3), np.uint8),
                                        "state": spaces.Box(-1, 1, (2, 2), np.float32)}))
@@ -577,16 +577,16 @@ def test_off_policy_prep_matches_the_host_batches(layout):
 def test_build_device_replay_arms_the_spill_beyond_the_budget(monkeypatch):
     from sheeprl_tpu_torch.config.compose import compose
 
-    cfg = compose(["exp=sac", "env=dummy", "buffer.memmap=False"])
+    cfg = compose(["exp=sac", "env=dummy", "env.sync_env=True", "buffer.memmap=False"])
     monkeypatch.setenv("SHEEPRL_REPLAY_BUDGET_BYTES", str(48 * 2 * 100))
     rb = pdr.build_device_replay(cfg, 1000, 2, "cpu", 48, sequential=False, memmap_dir=None)
     assert rb.capacity == 100 and rb.spill.capacity == 1000
     assert rb.describe() == "a device ring on cpu (100 steps/env, a host spill of 1000)"
     rb.spill.close()
-    cfg = compose(["exp=sac", "env=dummy", "buffer.memmap=False", "buffer.hbm_window=64"])
+    cfg = compose(["exp=sac", "env=dummy", "env.sync_env=True", "buffer.memmap=False", "buffer.hbm_window=64"])
     rb = pdr.build_device_replay(cfg, 1000, 2, "cpu", 48, sequential=True, memmap_dir=None)
     assert rb.capacity == 64 and isinstance(rb.spill.buffer, EnvIndependentReplayBuffer)
     rb.spill.close()
     monkeypatch.delenv("SHEEPRL_REPLAY_BUDGET_BYTES")
-    rb = pdr.build_device_replay(compose(["exp=sac", "env=dummy"]), 1000, 2, "cpu", 48, False, None)
+    rb = pdr.build_device_replay(compose(["exp=sac", "env=dummy", "env.sync_env=True"]), 1000, 2, "cpu", 48, False, None)
     assert rb.capacity == 1000 and rb.spill is None and rb.describe() == "a device ring on cpu (1000 steps/env)"

@@ -117,7 +117,7 @@ def test_episode_buffer_keeps_the_host_path(tmp_path, armed, capsys):
 def test_resolve_device_replay(mode, device, on):
     """``auto`` is the card whenever the run's device is CUDA; the decision
     needs no card."""
-    cfg = compose(["exp=sac", "env=dummy", f"buffer.device={mode}"])
+    cfg = compose(["exp=sac", "env=dummy", "env.sync_env=True", f"buffer.device={mode}"])
     assert pdr.resolve_device_replay(cfg, torch.device(device)) is on
 
 

@@ -33,7 +33,7 @@ from sheeprl_tpu_torch.cli import evaluation, run
 from tests.test_torch_train_step import B, H, L, family_parity, sgd_overrides
 
 TINY = (
-    "env=dummy",
+    "env=dummy", "env.sync_env=True",
     "fabric.accelerator=cpu",
     "algo.world_model.encoder.cnn_channels_multiplier=2",
     "algo.dense_units=16",

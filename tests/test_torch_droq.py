@@ -42,7 +42,7 @@ from tests.test_torch_sac import (
     setup,
 )
 
-DROQ = ["exp=droq", "env=dummy", "env.id=continuous_dummy", "fabric.accelerator=cpu", "algo.hidden_size=32",
+DROQ = ["exp=droq", "env=dummy", "env.sync_env=True", "env.id=continuous_dummy", "fabric.accelerator=cpu", "algo.hidden_size=32",
         "algo.critic.target_network_frequency=2", "algo.tau=0.5"]
 
 

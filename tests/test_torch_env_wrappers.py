@@ -151,7 +151,7 @@ def test_actions_reward_as_observation_and_clipping_match_jax(case):
 # the make_env pipelines of both packages on one config, seed and action sequence
 PIPELINES = {
     "pixel-dummy-gray-stack-aao-rao-clip": (
-        ["env=dummy", "env.id=pixel_grid_dummy", "env.screen_size=84", "env.grayscale=True", "env.frame_stack=4",
+        ["env=dummy", "env.sync_env=True", "env.id=pixel_grid_dummy", "env.screen_size=84", "env.grayscale=True", "env.frame_stack=4",
          "env.frame_stack_dilation=2", "env.actions_as_observation.num_stack=2",
          "env.actions_as_observation.noop=0", "env.reward_as_observation=True", "env.clip_rewards=True",
          "env.max_episode_steps=10"], 14),
@@ -197,7 +197,7 @@ def test_unported_runtime_settings_raise_naming_the_roadmap_item(tmp_path, overr
     ``RestartOnException``."""
     from sheeprl_tpu_torch.resilience.faults import clear_plan, install_from_config
 
-    cfg = compose(["exp=ppo", "env=dummy", "fabric.accelerator=cpu", "env.capture_video=False", override])
+    cfg = compose(["exp=ppo", "env=dummy", "env.sync_env=True", "fabric.accelerator=cpu", "env.capture_video=False", override])
     if override == "env.capture_video=True":
         with pytest.raises(NotImplementedError, match="queue A item 6"):
             make_env(cfg, 0, run_name=str(tmp_path))

@@ -199,7 +199,7 @@ def test_guarded_dreamer_window_is_the_unguarded_one_bit_for_bit(flag):
 
 
 # -- the loops -------------------------------------------------------------------------------
-SAC = ["exp=sac", "env=dummy", "env.id=continuous_dummy", "env.num_envs=2", "env.capture_video=False",
+SAC = ["exp=sac", "env=dummy", "env.sync_env=True", "env.id=continuous_dummy", "env.num_envs=2", "env.capture_video=False",
        "algo.learning_starts=8", "algo.replay_ratio=0.5", "algo.per_rank_batch_size=8", "algo.run_test=False",
        "algo.mlp_keys.encoder=[state]", "algo.hidden_size=16", "fabric.accelerator=cpu", "buffer.memmap=False",
        "buffer.size=512", "metric.log_level=1", "metric.log_every=1", "metric/logger=csv"]

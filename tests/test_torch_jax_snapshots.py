@@ -12,8 +12,8 @@ within ``test_torch_serve.py``'s 1e-4 of the JAX outputs recorded on the
 same inputs and posterior noise, the sampled latent and greedy actions
 equal; PPO's and SAC's greedy actions equal JAX's player's (SAC within
 1e-4).  Every global the JAX pickles name is on the port's list, an
-unlisted one is refused, resuming training from a JAX snapshot raises, and
-the committed fixture is still what the tool writes.
+unlisted one is refused, training resumes from the fixture (a population
+snapshot raises), and the committed fixture is still what the tool writes.
 """
 
 import json
@@ -43,10 +43,10 @@ import write_jax_fixture  # noqa: E402
 
 TOL = 1e-4
 JAX_RUNS = {
-    "ppo": ["exp=ppo", "env=dummy", "env.id=discrete_dummy", "algo.cnn_keys.encoder=[rgb]",
+    "ppo": ["exp=ppo", "env=dummy", "env.sync_env=True", "env.id=discrete_dummy", "algo.cnn_keys.encoder=[rgb]",
             "algo.mlp_keys.encoder=[state]", "algo.encoder.cnn_features_dim=8", "algo.dense_units=8",
             "algo.mlp_layers=1", "fabric.accelerator=cpu"],
-    "sac": ["exp=sac", "env=dummy", "env.id=continuous_dummy", "algo.mlp_keys.encoder=[state]",
+    "sac": ["exp=sac", "env=dummy", "env.sync_env=True", "env.id=continuous_dummy", "algo.mlp_keys.encoder=[state]",
             "algo.hidden_size=8", "fabric.accelerator=cpu"],
 }
 
@@ -247,15 +247,38 @@ def test_a_pickle_with_an_unlisted_global_is_refused(payload, capfd):
     assert "ran code" not in capfd.readouterr().out
 
 
-@pytest.mark.parametrize("setting", ["checkpoint.resume_from", "checkpoint.exploration_ckpt_path"])
+@pytest.mark.parametrize("setting", ["checkpoint.resume_from", "checkpoint.exploration_ckpt_path", "population"])
 def test_resuming_training_from_a_jax_snapshot_raises(jax_written, tmp_path, setting):
+    """Only a population snapshot still raises (ROADMAP item 6(c)'s
+    remainder); the fixture resumes a DreamerV3 run (its counters go on from
+    step 40, update 20) and seeds a P2E-DV3 finetuning run."""
+    from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
     from sheeprl_tpu_torch.cli import run
 
     paths, _ = jax_written
     snapshot = paths["dreamer_v3"] / "checkpoint" / "step_000000000040"
+    fixture = [o for o in write_jax_fixture.DV3_OVERRIDES if not o.startswith(("dry_run", "exp=", "checkpoint.every"))]
+    common = [*fixture, "env.sync_env=True", "algo.total_steps=44", "checkpoint.every=1000000",
+              f"log_dir={tmp_path}"]
+    if setting == "population":
+        state = pickle.loads((snapshot / "shard_r00000.pkl").read_bytes())  # JAX's own classes
+        state["population"] = {"fitness": np.zeros(2, np.float32)}
+        pop = tmp_path / "pop" / "checkpoint" / snapshot.name
+        shutil.copytree(snapshot, pop)
+        (pop / "shard_r00000.pkl").write_bytes(pickle.dumps(state))
+        with pytest.raises(ConfigError, match=r"population snapshot.*queue A item 6\(c\)"):
+            run(["exp=dreamer_v3", *common, f"checkpoint.resume_from={pop}"])
+        return
     exp = "exp=dreamer_v3" if setting == "checkpoint.resume_from" else "exp=p2e_dv3_finetuning"
-    with pytest.raises(ConfigError, match=r"JAX package wrote.*queue A item 6\(c\)"):
-        run([exp, "env=dummy", "fabric.accelerator=cpu", f"{setting}={snapshot}", f"log_dir={tmp_path}"])
+    # a finetuning run counts from 0: 4 iterations, none of them training
+    steps = [] if setting == "checkpoint.resume_from" else ["algo.total_steps=8"]
+    run([exp, *common, f"{setting}={snapshot}", *steps])
+    (last,) = sorted(pathlib.Path(tmp_path).glob("**/checkpoint/step_*"))[-1:]
+    saved = load_step_dir(last)
+    if setting == "checkpoint.resume_from":
+        assert (saved["policy_step"], saved["update"]) == (44, 22)
+    else:  # a finetuning run starts its counters afresh from the explored agent
+        assert saved["policy_step"] == 8 and set(saved["agent"]) >= {"world_model", "actor", "critic"}
 
 
 def test_the_fixture_is_what_the_tool_writes():

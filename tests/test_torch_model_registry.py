@@ -120,7 +120,7 @@ def test_register_model_from_checkpoint_matches_jax(tmp_path, exp, keys):
     the algorithm tables agree."""
     import importlib
 
-    overrides = [f"exp={exp}", "env=dummy", "model_manager.disabled=False"]
+    overrides = [f"exp={exp}", "env=dummy", "env.sync_env=True", "model_manager.disabled=False"]
     rng = np.random.default_rng(0)
     if exp == "ppo":
         agent = {"actor.head.weight": rng.standard_normal((2, 3)).astype(np.float32)}
@@ -155,7 +155,7 @@ def test_a_jax_registered_params_pkl_loads_as_its_numpy_tree(tmp_path):
 
 # -- the entry points ------------------------------------------------------------------
 PROBE = "ext_probe_module_for_entry_points"
-TINY_DV3 = ["exp=dreamer_v3", "env=dummy", "algo=dreamer_v3_XS", "fabric.accelerator=cpu", "algo.cnn_keys.encoder=[]",
+TINY_DV3 = ["exp=dreamer_v3", "env=dummy", "env.sync_env=True", "algo=dreamer_v3_XS", "fabric.accelerator=cpu", "algo.cnn_keys.encoder=[]",
             "algo.mlp_keys.encoder=[state]", "algo.dense_units=8", "algo.mlp_layers=1",
             "algo.world_model.recurrent_model.recurrent_state_size=8", "algo.world_model.transition_model.hidden_size=8",
             "algo.world_model.representation_model.hidden_size=8", "algo.world_model.stochastic_size=4",

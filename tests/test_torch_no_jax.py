@@ -22,11 +22,14 @@ Anakin iteration on the device cartpole, the other device envs step, and
 SAC and DreamerV3 train from the device-resident replay (forced on, the
 guard armed) whose spill tier round-trips a checkpoint, a PPO population of
 two trains one phase through ``cli.run`` and writes its summary, and the
-supervisor resolves for a one-process run.
+supervisor resolves for a one-process run, an env steps in worker processes
+(the fork server and the workers under the same blocker) and training
+resumes from the JAX-written fixture, its counters going on.
 
 A subprocess, because the test session has imported JAX already.
 """
 
+import os
 import pathlib
 import subprocess
 import sys
@@ -83,7 +86,7 @@ SCRIPT = textwrap.dedent(
     from sheeprl_tpu_torch.serve.loader import probe_spaces
     from sheeprl_tpu_torch.serve.players import build_dreamer_v3_player
 
-    cfg = compose(["exp=dreamer_v3", "env=dummy", "algo=dreamer_v3_XS", "fabric.accelerator=cpu",
+    cfg = compose(["exp=dreamer_v3", "env=dummy", "env.sync_env=True", "algo=dreamer_v3_XS", "fabric.accelerator=cpu",
                    "algo.cnn_keys.encoder=[rgb]", "algo.mlp_keys.encoder=[state]",
                    "algo.world_model.encoder.cnn_channels_multiplier=2", "algo.dense_units=8",
                    "algo.world_model.recurrent_model.recurrent_state_size=8",
@@ -118,7 +121,7 @@ SCRIPT = textwrap.dedent(
             "dreamer_v3_discrete_dummy_actor").keys() == jax_player.params["actor"].state_dict().keys()
     from sheeprl_tpu_torch.cli import run
     with tempfile.TemporaryDirectory() as tmp:
-        run(["exp=dreamer_v3", "env=dummy", "algo=dreamer_v3_XS", "dry_run=True", "env.num_envs=2",
+        run(["exp=dreamer_v3", "env=dummy", "env.sync_env=True", "algo=dreamer_v3_XS", "dry_run=True", "env.num_envs=2",
              "fabric.accelerator=cpu", "metric/logger=csv", "buffer.memmap=False", f"log_dir={{tmp}}",
              "algo.per_rank_batch_size=2", "algo.per_rank_sequence_length=8", "algo.horizon=4",
              "algo.cnn_keys.encoder=[rgb]", "algo.mlp_keys.encoder=[state]",
@@ -138,7 +141,7 @@ SCRIPT = textwrap.dedent(
     from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import P2EDV3Trainer, build_agent as p2e_agent
     from sheeprl_tpu_torch.algos.p2e_utils import p2e_optimizers
 
-    p2e_cfg = compose(["exp=p2e_dv3_exploration", "env=dummy", "fabric.accelerator=cpu",
+    p2e_cfg = compose(["exp=p2e_dv3_exploration", "env=dummy", "env.sync_env=True", "fabric.accelerator=cpu",
                        "algo.cnn_keys.encoder=[]", "algo.mlp_keys.encoder=[state]", "algo.dense_units=8",
                        "algo.mlp_layers=1", "algo.world_model.recurrent_model.recurrent_state_size=8",
                        "algo.world_model.transition_model.hidden_size=8",
@@ -166,7 +169,7 @@ SCRIPT = textwrap.dedent(
                        ("ppo_recurrent", ["env.id=multidiscrete_dummy", "env.mask_velocities=False",
                                           "algo.mlp_keys.encoder=[state]", "algo.rnn.lstm.hidden_size=4"])):
         with tempfile.TemporaryDirectory() as tmp:
-            run([f"exp={{exp}}", "env=dummy", *extra, "dry_run=True", "env.num_envs=2", "fabric.accelerator=cpu",
+            run([f"exp={{exp}}", "env=dummy", "env.sync_env=True", *extra, "dry_run=True", "env.num_envs=2", "fabric.accelerator=cpu",
                  "metric/logger=csv", "buffer.memmap=False", "algo.rollout_steps=4", "algo.per_rank_batch_size=4",
                  "algo.dense_units=4", "algo.mlp_layers=1", "env.max_episode_steps=6", f"log_dir={{tmp}}"])
             (snapshot,) = glob.glob(f"{{tmp}}/**/checkpoint/step_*", recursive=True)
@@ -202,7 +205,7 @@ SCRIPT = textwrap.dedent(
                                    "env.wrapper.image_size=[16,16,3]", "algo.encoder.features_dim=4",
                                    "algo.cnn_channels_multiplier=2"])):
         with tempfile.TemporaryDirectory() as tmp:
-            run([f"exp={{exp}}", "env=dummy", "env.id=continuous_dummy", *extra, "env.num_envs=2",
+            run([f"exp={{exp}}", "env=dummy", "env.sync_env=True", "env.id=continuous_dummy", *extra, "env.num_envs=2",
                  "fabric.accelerator=cpu", "metric/logger=csv", "buffer.memmap=False", "buffer.size=32",
                  "algo.total_steps=8", "algo.learning_starts=4", "algo.per_rank_batch_size=2", "algo.hidden_size=4",
                  "env.max_episode_steps=6", f"log_dir={{tmp}}"])
@@ -218,7 +221,7 @@ SCRIPT = textwrap.dedent(
     # the device-resident replay, forced on the CPU: SAC and DreamerV3 train from it, a spill round-trips
     from sheeprl_tpu_torch.data.device_replay import DeviceReplay, HostSpill
     with tempfile.TemporaryDirectory() as tmp:
-        run(["exp=sac", "env=dummy", "env.id=continuous_dummy", "algo.mlp_keys.encoder=[state]", "env.num_envs=2",
+        run(["exp=sac", "env=dummy", "env.sync_env=True", "env.id=continuous_dummy", "algo.mlp_keys.encoder=[state]", "env.num_envs=2",
              "fabric.accelerator=cpu", "metric/logger=csv", "buffer.memmap=False", "buffer.size=32",
              "algo.total_steps=12", "algo.learning_starts=4", "algo.per_rank_batch_size=2", "algo.hidden_size=4",
              "buffer.device=True", "buffer.transfer_guard=True", f"log_dir={{tmp}}"])
@@ -226,7 +229,7 @@ SCRIPT = textwrap.dedent(
         state = load_step_dir(snapshot)
         assert state["grad_steps"] == 12 and state["rb"]["device_replay"]["from_spill"] is False
     with tempfile.TemporaryDirectory() as tmp:
-        run(["exp=dreamer_v3", "env=dummy", "algo=dreamer_v3_XS", "dry_run=True", "env.num_envs=2",
+        run(["exp=dreamer_v3", "env=dummy", "env.sync_env=True", "algo=dreamer_v3_XS", "dry_run=True", "env.num_envs=2",
              "fabric.accelerator=cpu", "metric/logger=csv", "buffer.memmap=False", f"log_dir={{tmp}}",
              "algo.per_rank_batch_size=2", "algo.per_rank_sequence_length=8", "algo.horizon=4",
              "algo.cnn_keys.encoder=[]", "algo.mlp_keys.encoder=[state]", "algo.dense_units=8",
@@ -253,17 +256,66 @@ SCRIPT = textwrap.dedent(
         assert len(__import__("json").load(open(summary))["fitness"]) == 2
     assert isinstance(resolve_supervisor(compose(["exp=ppo"]), ["exp=ppo"]), Supervisor)
 
+    # an env stepped in worker processes: the fork server and its workers are
+    # interpreters of their own, which the blocker (sitecustomize) guards too
+    from sheeprl_tpu_torch.utils.env import AsyncVectorEnv, StepDeadlineVectorEnv, make_env, vectorize
+    cfg = compose(["exp=ppo", "env=dummy", "env.id=discrete_dummy", "env.num_envs=2", "env.sync_env=False",
+                   "env.capture_video=False"])
+    envs = vectorize(cfg, [make_env(cfg, i, 0, vector_env_idx=i) for i in range(2)])
+    assert isinstance(envs, StepDeadlineVectorEnv) and isinstance(envs.unwrapped, AsyncVectorEnv)
+    envs.reset(seed=0)
+    for _ in range(3):
+        obs, *_ = envs.step(np.zeros(2, np.int64))
+    assert obs["state"][:, 0].tolist() == [3.0, 3.0]
+    envs.close()
+
+    # training resumed from the JAX-written fixture: its counters go on
+    with tempfile.TemporaryDirectory() as tmp:
+        run(["exp=dreamer_v3", "env=dummy", "env.sync_env=True", "env.id=discrete_dummy", "algo=dreamer_v3_XS",
+             "env.num_envs=2", "fabric.accelerator=cpu", "buffer.memmap=False", "algo.per_rank_batch_size=2",
+             "algo.per_rank_sequence_length=8", "algo.learning_starts=0", "algo.horizon=4",
+             "algo.cnn_keys.encoder=[rgb]", "algo.mlp_keys.encoder=[state]",
+             "algo.world_model.encoder.cnn_channels_multiplier=2", "algo.dense_units=16", "algo.mlp_layers=1",
+             "algo.world_model.recurrent_model.recurrent_state_size=16",
+             "algo.world_model.transition_model.hidden_size=16",
+             "algo.world_model.representation_model.hidden_size=16", "algo.world_model.discrete_size=5",
+             "algo.world_model.stochastic_size=4", "algo.world_model.recurrent_model.fused_pallas=True",
+             "env.max_episode_steps=20", "buffer.size=200", "algo.run_test=False", "metric/logger=csv",
+             "algo.total_steps=44", f"log_dir={{tmp}}",
+             "checkpoint.resume_from={root}/tests/fixtures/jax_dv3/checkpoint/step_000000000040"])
+        (snapshot,) = glob.glob(f"{{tmp}}/**/checkpoint/step_*", recursive=True)
+        state = load_step_dir(snapshot)
+        assert (state["policy_step"], state["update"]) == (44, 22), (state["policy_step"], state["update"])
+
     leaked = sorted(m for m in sys.modules if any(m == b or m.startswith(b + ".") for b in BLOCKED))
     assert not leaked, leaked
     print("ok", len(names))
     """
 )
+#: the same blocker, for every interpreter the script starts (the vector env's
+#: fork server and workers) through ``PYTHONPATH``
+SITECUSTOMIZE = textwrap.dedent(
+    """
+    import importlib.abc, sys
+    BLOCKED = ("jax", "jaxlib", "flax", "optax", "sheeprl_tpu")
+
+    class Refuse(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"{name} is blocked: the port must not import it")
+            return None
+
+    sys.meta_path.insert(0, Refuse())
+    """
+)
 
 
-def test_port_imports_and_steps_without_jax():
+def test_port_imports_and_steps_without_jax(tmp_path):
+    (tmp_path / "sitecustomize.py").write_text(SITECUSTOMIZE)
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join([str(tmp_path), str(ROOT)])}
     proc = subprocess.run(
         [sys.executable, "-c", SCRIPT.format(root=str(ROOT))],
-        capture_output=True, text=True, timeout=300, cwd=ROOT,
+        capture_output=True, text=True, timeout=300, cwd=ROOT, env=env,
     )
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert proc.stdout.strip().splitlines()[-1].startswith("ok"), proc.stdout

@@ -43,7 +43,7 @@ from tests.test_torch_train_step import B, H, L, family_params, family_parity, s
 
 TINY = (
     "exp=p2e_dv3_exploration",
-    "env=dummy",
+    "env=dummy", "env.sync_env=True",
     "fabric.accelerator=cpu",
     "algo.world_model.encoder.cnn_channels_multiplier=2",
     "algo.dense_units=16",

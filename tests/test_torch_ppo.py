@@ -212,7 +212,7 @@ def test_epoch_permutation_pads_by_wrap_around(T, B, bs):
 
 # -- one whole train phase against JAX's -------------------------------------------
 T, B = 7, 2  # 14 rows in minibatches of 8: the second is padded by wrap-around
-BASE = ("env=dummy", "fabric.accelerator=cpu", "env.num_envs=2", f"algo.rollout_steps={T}",
+BASE = ("env=dummy", "env.sync_env=True", "fabric.accelerator=cpu", "env.num_envs=2", f"algo.rollout_steps={T}",
         "algo.per_rank_batch_size=8", "algo.update_epochs=2", "algo.dense_units=8", "algo.mlp_layers=1",
         "algo.encoder.mlp_features_dim=6", "algo.encoder.cnn_features_dim=16", "algo.ent_coef=0.01")
 TRAIN_CASES = {
@@ -309,7 +309,7 @@ def test_ppo_player_matches_jax_player(env_id):
     from sheeprl_tpu_torch.serve.loader import probe_spaces
     from sheeprl_tpu_torch.serve.players import build_ppo_player
 
-    overrides = ["exp=ppo", "env=dummy", f"env.id={env_id}", "fabric.accelerator=cpu", "algo.cnn_keys.encoder=[rgb]",
+    overrides = ["exp=ppo", "env=dummy", "env.sync_env=True", f"env.id={env_id}", "fabric.accelerator=cpu", "algo.cnn_keys.encoder=[rgb]",
                  "algo.mlp_keys.encoder=[state]", "algo.dense_units=8", "algo.mlp_layers=1",
                  "algo.encoder.cnn_features_dim=16", "algo.encoder.mlp_features_dim=6"]
     jcfg, pcfg = jax_compose(overrides), compose(overrides)
@@ -356,7 +356,7 @@ def test_rollout_bootstraps_truncated_episodes(tmp_path, monkeypatch):
         return train_phase(self, rollout, *args)
 
     monkeypatch.setattr(ppo.PPOTrainer, "train_phase", spy)
-    run(["exp=ppo", "env=dummy", "env.id=discrete_dummy", "fabric.accelerator=cpu", "metric.log_level=0",
+    run(["exp=ppo", "env=dummy", "env.sync_env=True", "env.id=discrete_dummy", "fabric.accelerator=cpu", "metric.log_level=0",
          "buffer.memmap=False", "env.num_envs=2", "env.max_episode_steps=3", "algo.rollout_steps=7",
          "algo.per_rank_batch_size=7", "algo.update_epochs=1", "algo.dense_units=8", "algo.mlp_layers=1",
          "algo.mlp_keys.encoder=[state]", "algo.run_test=False", "dry_run=True", f"log_dir={tmp_path}"])
@@ -364,7 +364,7 @@ def test_rollout_bootstraps_truncated_episodes(tmp_path, monkeypatch):
     truncated = torch.zeros(7, 2, dtype=torch.bool)
     truncated[2] = truncated[5] = True  # steps 3 and 6 of each env end at the limit of 3
     assert torch.equal(rollout["dones"].bool(), truncated)
-    cfg = compose(["exp=ppo", "env=dummy", "fabric.accelerator=cpu", "algo.dense_units=8", "algo.mlp_layers=1",
+    cfg = compose(["exp=ppo", "env=dummy", "env.sync_env=True", "fabric.accelerator=cpu", "algo.dense_units=8", "algo.mlp_layers=1",
                    "algo.mlp_keys.encoder=[state]"])
     agent = pt_agent.build_agent(build_fabric(cfg), (4,), False, cfg, DiscreteDummyEnv().observation_space,
                                  seen["agent"])

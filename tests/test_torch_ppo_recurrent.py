@@ -36,7 +36,7 @@ from tests.test_torch_ppo import assert_losses_match, assert_params_match, captu
 TOL = dict(rtol=1e-5, atol=1e-5)
 PARAM_TOL = dict(rtol=0.0, atol=2e-6)
 T, B = 5, 3
-BASE = ("exp=ppo_recurrent", "env=dummy", "env.mask_velocities=False", "fabric.accelerator=cpu",
+BASE = ("exp=ppo_recurrent", "env=dummy", "env.sync_env=True", "env.mask_velocities=False", "fabric.accelerator=cpu",
         f"env.num_envs={B}", f"algo.rollout_steps={T}", "algo.per_rank_batch_size=10", "algo.update_epochs=2",
         "algo.dense_units=8", "algo.rnn.lstm.hidden_size=6", "algo.mlp_keys.encoder=[state]",
         "algo.optimizer.eps=1e-4")
@@ -167,7 +167,7 @@ def test_rollout_carries_the_lstm_state_and_bootstraps_truncations(tmp_path, mon
         return train_phase(self, rollout, init_carry, last_values, *args)
 
     monkeypatch.setattr(ppo_recurrent.RecurrentPPOTrainer, "train_phase", spy)
-    overrides = ["exp=ppo_recurrent", "env=dummy", "env.id=discrete_dummy", "env.mask_velocities=False",
+    overrides = ["exp=ppo_recurrent", "env=dummy", "env.sync_env=True", "env.id=discrete_dummy", "env.mask_velocities=False",
                  "fabric.accelerator=cpu", "env.num_envs=2", "algo.dense_units=8", "algo.rnn.lstm.hidden_size=6",
                  "algo.mlp_keys.encoder=[state]"]
     run([*overrides, "metric.log_level=0", "buffer.memmap=False", "env.max_episode_steps=3",

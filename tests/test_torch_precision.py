@@ -351,7 +351,7 @@ def test_dv3_steps_carry_fp32_state_in_bf16(layout):
 
 # -- one update of each Dreamer ------------------------------------------------------------
 TINY = (
-    "env=dummy",
+    "env=dummy", "env.sync_env=True",
     "fabric.accelerator=cpu",
     "fabric.precision=bf16-mixed",
     "algo.world_model.encoder.cnn_channels_multiplier=2",
@@ -720,7 +720,7 @@ def test_ppo_and_sac_players_in_bf16_against_jax(algo):
     from sheeprl_tpu_torch.serve.players import PLAYER_BUILDERS
     from tests.test_torch_ppo import draw_params, jax_action_noise
 
-    base = ["env=dummy", "env.id=continuous_dummy", "fabric.accelerator=cpu", "algo.mlp_keys.encoder=[state]"]
+    base = ["env=dummy", "env.sync_env=True", "env.id=continuous_dummy", "fabric.accelerator=cpu", "algo.mlp_keys.encoder=[state]"]
     base += (["exp=ppo", "algo.cnn_keys.encoder=[]", "algo.dense_units=8", "algo.mlp_layers=1",
               "algo.encoder.mlp_features_dim=6"] if algo == "ppo" else ["exp=sac", "algo.hidden_size=16"])
     cfgs = {p: jax_compose([*base, f"fabric.precision={p}"]) for p in ("bf16-mixed", "32-true")}

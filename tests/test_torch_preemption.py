@@ -114,7 +114,7 @@ def test_manager_saves_at_once_and_synchronously_once_preempted(tmp_path):
 
 # -- the end-to-end drill ---------------------------------------------------------------
 COMMON = [
-    "exp=sac", "env=dummy", "env.id=continuous_dummy", "env.num_envs=2", "env.capture_video=False",
+    "exp=sac", "env=dummy", "env.sync_env=True", "env.id=continuous_dummy", "env.num_envs=2", "env.capture_video=False",
     "env.max_episode_steps=8", "fabric.accelerator=cpu", "algo.total_steps=100000",
     "algo.per_rank_batch_size=4", "algo.learning_starts=4", "algo.mlp_keys.encoder=[state]",
     "algo.actor.hidden_size=8", "algo.critic.hidden_size=8", "algo.run_test=False", "checkpoint.every=20",

@@ -409,7 +409,7 @@ def test_env_sites_fire_inside_restart_on_exception():
     from sheeprl_tpu_torch.envs.wrappers import FaultInjectionEnv
     from sheeprl_tpu_torch.utils.env import make_env
 
-    base = ["exp=sac", "env=dummy", "env.id=continuous_dummy", "fabric.accelerator=cpu"]
+    base = ["exp=sac", "env=dummy", "env.sync_env=True", "env.id=continuous_dummy", "fabric.accelerator=cpu"]
     _install({"site": "env.step", "kind": "raise", "at": 2}, {"site": "env.reset", "kind": "raise", "at": 1})
     env = make_env(compose(base), 0)()
     assert isinstance(env, FaultInjectionEnv)
@@ -476,7 +476,7 @@ def test_fabric_copy_to_site_fires_in_the_player_weight_copy():
     from sheeprl_tpu_torch.fabric import PlayerSync
 
     module = torch.nn.Linear(2, 2)
-    psync = PlayerSync(compose(["exp=sac", "env=dummy"]), torch.device("cpu"), lambda: {"actor": module})
+    psync = PlayerSync(compose(["exp=sac", "env=dummy", "env.sync_env=True"]), torch.device("cpu"), lambda: {"actor": module})
     _install({"site": "fabric.copy_to", "kind": "raise", "at": 2})
     psync.init()
     with pytest.raises(faults.InjectedFault):

@@ -48,7 +48,7 @@ PARAM_TOL = dict(rtol=0.0, atol=1e-5)
 LOSS_RTOL = 1e-5
 OBS_DIM, ACT_DIM = 4, 2
 FIXTURE = pathlib.Path(__file__).parent / "test_regression" / "reference_fixture.json"
-SAC = ["exp=sac", "env=dummy", "env.id=continuous_dummy", "fabric.accelerator=cpu", "algo.hidden_size=16",
+SAC = ["exp=sac", "env=dummy", "env.sync_env=True", "env.id=continuous_dummy", "fabric.accelerator=cpu", "algo.hidden_size=16",
        "algo.critic.target_network_frequency=2", "algo.tau=0.5"]
 
 

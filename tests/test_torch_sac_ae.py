@@ -40,7 +40,7 @@ PARAM_TOL = dict(rtol=0.0, atol=1e-5)
 CONV_TOL = dict(rtol=1e-4, atol=1e-4)
 LOSS_RTOL = 1e-5
 FIXTURE = pathlib.Path(__file__).parent / "test_regression" / "reference_fixture.json"
-SAC_AE = ["exp=sac_ae", "env=dummy", "env.id=continuous_dummy", "fabric.accelerator=cpu", "env.screen_size=32",
+SAC_AE = ["exp=sac_ae", "env=dummy", "env.sync_env=True", "env.id=continuous_dummy", "fabric.accelerator=cpu", "env.screen_size=32",
           "env.wrapper.image_size=[32,32,3]", "algo.cnn_keys.encoder=[rgb]", "algo.mlp_keys.encoder=[state]",
           "algo.hidden_size=16", "algo.encoder.features_dim=8", "algo.cnn_channels_multiplier=2",
           "algo.dense_units=8", "algo.per_rank_batch_size=4"]

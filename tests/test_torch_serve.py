@@ -36,7 +36,7 @@ from sheeprl_tpu_torch.serve.service import PolicyService
 
 TINY = (
     "exp=dreamer_v3",
-    "env=dummy",
+    "env=dummy", "env.sync_env=True",
     "algo=dreamer_v3_XS",
     "fabric.accelerator=cpu",
     "algo.cnn_keys.encoder=[rgb]",
@@ -217,7 +217,7 @@ def test_sac_player_matches_jax_player():
     from sheeprl_tpu_torch.envs import spaces
     from sheeprl_tpu_torch.serve.players import PLAYER_BUILDERS, build_sac_player
 
-    overrides = ["exp=sac", "env=dummy", "env.id=continuous_dummy", "fabric.accelerator=cpu", "algo.hidden_size=16"]
+    overrides = ["exp=sac", "env=dummy", "env.sync_env=True", "env.id=continuous_dummy", "fabric.accelerator=cpu", "algo.hidden_size=16"]
     jcfg, pcfg = jax_compose(overrides), compose(overrides)
     jfabric = jax_build_fabric(jcfg)
     obs_space, _ = jax_probe_spaces(jcfg)
@@ -251,4 +251,4 @@ def test_off_policy_training_refuses_to_fall_back_to_cpu(monkeypatch, tmp_path, 
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="needs a CUDA GPU"):
-        run([f"exp={exp}", "env=dummy", "env.id=continuous_dummy", "dry_run=True", f"log_dir={tmp_path}"])
+        run([f"exp={exp}", "env=dummy", "env.sync_env=True", "env.id=continuous_dummy", "dry_run=True", f"log_dir={tmp_path}"])

@@ -105,7 +105,7 @@ def test_an_env_crashed_past_its_budget_is_classified_as_jax_does(tmp_path, monk
     monkeypatch.setenv("SHEEPRL_FAULT_PLAN", json.dumps({"plan": [{"site": "env.step", "kind": "raise",
                                                                     "every": 1}]}))
     with pytest.raises(RuntimeError, match="Environment crashed"):
-        run(["exp=sac", "env=dummy", "env.id=continuous_dummy", "env.num_envs=1", "env.restart_on_exception=True",
+        run(["exp=sac", "env=dummy", "env.sync_env=True", "env.id=continuous_dummy", "env.num_envs=1", "env.restart_on_exception=True",
              "fabric.accelerator=cpu", "algo.mlp_keys.encoder=[state]", "algo.actor.hidden_size=8",
              "algo.critic.hidden_size=8", "algo.total_steps=64", "buffer.size=64", "buffer.memmap=False",
              "metric.log_level=0", f"log_dir={tmp_path}"])

@@ -17,7 +17,7 @@ from sheeprl_tpu_torch.serve.loader import load_policy
 
 TINY = [
     "exp=dreamer_v3",
-    "env=dummy",
+    "env=dummy", "env.sync_env=True",
     "env.id=discrete_dummy",
     "algo=dreamer_v3_XS",
     "env.num_envs=2",
@@ -334,7 +334,7 @@ def test_long_first_window_is_sampled_in_chunks(monkeypatch, tmp_path):
 
 
 # -- the on-policy algorithms through the same entry points -----------------------
-ON_POLICY_COMMON = ["env=dummy", "fabric.accelerator=cpu", "metric.log_level=1", "metric.log_every=1",
+ON_POLICY_COMMON = ["env=dummy", "env.sync_env=True", "fabric.accelerator=cpu", "metric.log_level=1", "metric.log_every=1",
                     "metric/logger=csv", "buffer.memmap=False", "checkpoint.every=1000000",
                     "checkpoint.async_save=False", "env.num_envs=2", "env.max_episode_steps=12",
                     "algo.rollout_steps=8", "algo.per_rank_batch_size=6", "algo.dense_units=8", "algo.mlp_layers=1"]
@@ -461,7 +461,7 @@ def test_on_policy_recipes_compose_with_the_dummy_env(exp, checks):
     extra = {"ppo": ["algo.mlp_keys.encoder=[state]"], "a2c": ["algo.mlp_keys.encoder=[state]"],
              "ppo_recurrent": ["env.mask_velocities=False"]}.get(exp, ["env.screen_size=84",
                                                                       "env.wrapper.image_size=[84,84,3]"])
-    cfg = compose([f"exp={exp}", "env=dummy", "fabric.accelerator=cpu", *extra])
+    cfg = compose([f"exp={exp}", "env=dummy", "env.sync_env=True", "fabric.accelerator=cpu", *extra])
     obs_space, act_space = probe_spaces(cfg)
     dims, cont = spaces_to_dims(act_space)
     agent = (build_recurrent if exp == "ppo_recurrent" else build_agent)(build_fabric(cfg), dims, cont, cfg, obs_space)
@@ -473,7 +473,7 @@ def test_on_policy_recipes_compose_with_the_dummy_env(exp, checks):
 
 
 # -- the off-policy algorithms through the same entry points ----------------------
-OFF_POLICY_COMMON = ["env=dummy", "env.id=continuous_dummy", "fabric.accelerator=cpu", "metric.log_level=1",
+OFF_POLICY_COMMON = ["env=dummy", "env.sync_env=True", "env.id=continuous_dummy", "fabric.accelerator=cpu", "metric.log_level=1",
                      "metric.log_every=1", "metric/logger=csv", "buffer.memmap=False", "buffer.size=64",
                      "checkpoint.every=1000000", "checkpoint.async_save=False", "env.num_envs=2",
                      "env.max_episode_steps=5", "algo.per_rank_batch_size=4", "algo.hidden_size=8",
@@ -553,7 +553,7 @@ def test_off_policy_recipes_compose_with_the_dummy_env(exp, checks):
     from sheeprl_tpu_torch.fabric import build_fabric
     from sheeprl_tpu_torch.serve.loader import probe_spaces
 
-    cfg = compose([f"exp={exp}", "env=dummy", "env.id=continuous_dummy", "fabric.accelerator=cpu"])
+    cfg = compose([f"exp={exp}", "env=dummy", "env.sync_env=True", "env.id=continuous_dummy", "fabric.accelerator=cpu"])
     obs_space, act_space = probe_spaces(cfg)
     fabric = build_fabric(cfg)
     if exp == "sac_ae":

@@ -18,7 +18,7 @@ from sheeprl_tpu_torch.utils import env as port_env
 
 @pytest.mark.parametrize("env_id", ["discrete_dummy", "multidiscrete_dummy", "continuous_dummy"])
 def test_vector_env_matches_gymnasium(env_id):
-    overrides = ["exp=dreamer_v3", "env=dummy", f"env.id={env_id}", "env.num_envs=3", "env.sync_env=True",
+    overrides = ["exp=dreamer_v3", "env=dummy", "env.sync_env=True", f"env.id={env_id}", "env.num_envs=3", "env.sync_env=True",
                  "env.max_episode_steps=5", "env.capture_video=False"]
     envs = []
     for mod, cfg in ((jax_env, jax_compose(overrides)), (port_env, compose(overrides))):

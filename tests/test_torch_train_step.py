@@ -54,7 +54,7 @@ from tests.test_torch_serve import _jax_params
 L, B, H = 8, 2, 4
 BASE = (
     "exp=dreamer_v3",
-    "env=dummy",
+    "env=dummy", "env.sync_env=True",
     "algo=dreamer_v3_XS",
     "fabric.accelerator=cpu",
     "algo.world_model.encoder.cnn_channels_multiplier=2",
