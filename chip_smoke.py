@@ -191,8 +191,11 @@ replayed graphs; ``_train`` times the window route per chunk.
               a replayed and an eager chunk in turns (graph, eager):
               updates/s, host ms and host calls per update, device
               operations and ms per update, 3 captures for chunk sizes 4, 2
-              and 1, peak memory.
-39. graphs dv3-s-gru — phase 38 for DreamerV3-S with the GRU kernel.
+              and 1, peak memory.  Its trainer, ring and captured window
+              stay alive for phases 63, 51's span turns and 43, which run
+              on them next: no other fp32 XL window is built or captured.
+39. graphs dv3-s-gru — phase 38 for DreamerV3-S with the GRU kernel (kept
+              for phase 44).
 40. graphs serve — the served DreamerV3-XL step: every ladder rung captured
               at warm-up, rungs 1 and 32 equal eager bit for bit for the
               same seeds, then 16 sessions x 8 steps over HTTP in turns
@@ -213,14 +216,15 @@ parameters and optimizer state, the kernels fed fp32 at their wrappers):
 43. precision dv3-xl — DreamerV3-XL (``fused_pallas``) under bf16-mixed:
               trained through ``cli.run`` as phase 7 (10 updates, 80 rssm
               launches in each, the snapshot kept for phase 46); phase 38's
-              window (replay equals eager bit for bit, one capture, 80
-              launches per update credited per replay, peak memory); a
-              bf16-mixed and a 32-true trainer from the same weights: the
+              window under bf16-mixed, run right after phase 38 beside its
+              kept 32-true window (replay equals eager bit for bit, one
+              capture, 80 launches per update credited per replay, peak
+              memory); the two trainers start from the same weights: the
               first update's ten losses from the same draws within the
               stated tier, one eager update of each by kind of device work
               (products, convolutions, the kernel, copies and casts, the
-              rest), chunks of 4 updates in turns (bf16, fp32, fp32, bf16)
-              captured.
+              rest; fp32's is phase 38's profile), their captured chunks of
+              4 updates in turns (bf16, fp32, fp32, bf16).
 44. precision dv3-s-gru — phase 43's window and turns for DreamerV3-S with the
               GRU kernel (``use_pallas``), 80 gru launches per update.
 45. precision p2e — Plan2Explore-DV3-XL exploration under bf16-mixed through
@@ -277,10 +281,12 @@ The telemetry subsystem and serving's hot reload a default run turns on:
               ``sheeprl::`` kernel events equal the rssm launches credited
               while its window was open; the same run untraced, both under
               cuDNN's deterministic algorithms: every trained tensor and the
-              ten losses bit for bit; then spans on and off in turns around
-              phase 38's captured XL chunk and SAC's eager update.
-52. signals — phase 49's preempted child takes a SIGUSR1 after its first
-              replayed window: one trace window of the live run; its SIGTERM
+              ten losses bit for bit; spans on and off in turns around
+              phase 38's captured XL chunk (run beside phase 38, while its
+              window is kept) and SAC's eager update.
+52. signals — phase 49's preempted child takes a SIGUSR1 as soon as its
+              first replayed window is seen (while this process runs the
+              phases beside it): one trace window of the live run; its SIGTERM
               commits, then ``postmortem.json`` says ``preemption``; a small
               DreamerV3 run with a planted ``checkpoint.write_shard`` raise, in
               a subprocess, dumps it with its ``crash`` event and lands the
@@ -379,9 +385,33 @@ supervisor:
               within ``RESUME_TOL_*``, and without the Adam state far
               outside; then ``resume_from=auto`` continues the port's own
               snapshot.
-Phases 61's children, 59's supervised runs and 49 run together after 60's
-timed runs (60's masked run and 62 while 49's child starts); phase 52's
-signal checks read 49's child afterwards.
+63. ``matmul_precision`` — on phase 38's XL trainer and captured window:
+              the window of one update captured again under ``high``
+              (TF32 in cuBLAS and cuDNN) beside phase 38's ``highest``
+              one; device ms per update by kind for each, the two
+              replayed in turns from one state (3 each), the ten losses of
+              the same update, the RSSM kernel's output bit for bit under
+              both settings, 80 rssm launches per update under each; under
+              ``high`` the products and the convolutions each take at most
+              ``MATMUL_TF32_SHARE`` of their fp32 device ms.
+64. resume a JAX population — the committed JAX-written PPO population
+              (``tests/fixtures/jax_ppo_population``, P = 4, Adam) resumed
+              by ``cli.run`` on the card for two population phases, its
+              counters, exploits and episodes going on; its first phase
+              from the converted state, card vs CPU on the same draws,
+              within ``POP_RESUME_TOL``, and without the optimizer state at
+              least ``POP_RESUME_CONTROL`` times that.
+65. videos — phase 61's SIGTERM drill on 2 envs with
+              ``env.capture_video=True``: env 0's videos alone, each
+              decoding to the frames env 0 recorded; no worker maps the
+              CUDA driver.  Beside phase 59, the committed snapshot of its
+              host ring marks each env's write-head step ``truncated``
+              (ROADMAP.md §C 4).
+Phases 63, 51's span turns and 43 run on phase 38's kept window, and 44
+on 39's, in the graphs group.  Phases 61's children, 59's supervised runs
+and 49 run together after 60's timed runs (60's masked run, 62, 64, 17 and
+47 while 49's child starts and takes its trace window); phase 52's signal
+checks read 49's child afterwards.
 
 Each phase prints its seconds (``[seconds]``).  The line before the last is
 ``{"kernels": [...]}``; the last line is ``{"ok": true, "device": {...}}``.
@@ -395,13 +425,15 @@ launch no kernel), ``--envs`` phases 25-30, ``--replay`` phases 31-36
 ``--replay-ab`` the host ring and the card's in turns (host, card, card,
 host) for DreamerV3-XL, SAC and SAC-AE, timed alike, ``--graphs`` phases
 37-41 (after phase 4's served snapshot and captured service run),
-``--precision`` phases 42-47 (beside 32-true runs of phases 7 and 11),
+``--precision`` phases 42-47 (beside 32-true runs of phases 7 and 11 and
+light 32-true windows of phases 38-39),
 ``--runtime`` phases 48-50, ``--telemetry`` phases 51-53 (beside phase 4's
-snapshot, a short SAC run and phase 49's preempted child), ``--deploy`` phases 54-56 (beside phase 4's
+snapshot, a short SAC run, a light phase 38 window and phase 49's preempted child), ``--deploy`` phases 54-56 (beside phase 4's
 snapshot and phase 51's untraced twin), ``--population`` phases 57-59, ``--health-ab ROOT`` phase 7's and 20's
 recipes with ``health.enabled`` on and off in turns for the port under
-``ROOT``, ``--vecenv`` phases 60-62 (without 49 and 59) and ``--jax-resume``
-phase 62 (``--preempt-child`` and ``--commit-hang-child`` are phase 49's
+``ROOT``, ``--vecenv`` phases 60-62, 64 and 65 (without 49 and 59),
+``--jax-resume`` phases 62 and 64, ``--matmul-precision`` phase 38's XL
+window and phase 63 (``--preempt-child`` and ``--commit-hang-child`` are phase 49's
 child processes; ``--supervised-child`` is phase 59's, ``--vecenv-child``
 phase 61's).
 """
@@ -481,7 +513,8 @@ S_TRAIN = (*XL_TRAIN, "algo=dreamer_v3_S", "algo.replay_ratio=0.03125", "algo.to
 FUSED = "algo.world_model.recurrent_model.fused_pallas=True"
 # phases 7 and 20-22 keep the host ring (``buffer.device=auto`` is the card's
 # ring): they are the baselines phases 32 and 34 are read beside;
-# ``--first-window`` keeps it too (it measures the host path's chunks)
+# ``--first-window`` keeps it too (it measures the host path's chunks), and
+# phase 59, whose committed ring the replay-tail check reads (§C 4)
 HOST_RING = "buffer.device=False"
 # replay ratio 1/32: the first window at step 65 takes int(65 / 32) = 2 updates
 P2E_XL = ("exp=p2e_dv3_exploration", *XL_TRAIN[1:], FUSED, "algo.replay_ratio=0.03125", "algo.total_steps=65")
@@ -2879,7 +2912,7 @@ def _fresh_window(torch, overrides, seed: int = 38):
     return cfg, trainer, rb
 
 
-def phase_graph_window(torch, tag: str, overrides, kernel: str, light: bool = False) -> dict:
+def phase_graph_window(torch, tag: str, overrides, kernel: str, light: bool = False, keep: bool = False) -> dict:
     """Phases 38-39: one chunk of GRAPH_CHUNK updates of the fused window on
     the card's ring (draw, gather, prep, the trainer's updates), from one
     state and one generator state, eager twice (the device's own
@@ -2887,7 +2920,12 @@ def phase_graph_window(torch, tag: str, overrides, kernel: str, light: bool = Fa
     eager then captured, the second replayed); then the two in turns.
     ``light`` (phases 43-44, whose turns against 32-true and device time by
     kind come from ``phase_precision_turns``): the same equalities, then two
-    replayed chunks timed, with no other chunk size, profile or eager turn."""
+    replayed chunks timed, with no other chunk size, profile or eager turn.
+    ``keep``: the built window stays alive under ``out["built"]`` (the
+    trainer back at its start, its ring, the window function, its captured
+    graph, and without ``light`` the profiles of one update by kind) for
+    the phases that run on it; the caller frees it with :func:`_release`.
+    Peak memory is counted above what was allocated when the phase began."""
     from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import prep_blocks
     from sheeprl_tpu_torch.data.device_replay import fused_sequence_train
     from sheeprl_tpu_torch.ops import gru, rssm
@@ -2897,6 +2935,7 @@ def phase_graph_window(torch, tag: str, overrides, kernel: str, light: bool = Fa
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     counter_of = {"rssm": rssm.LAUNCHES, "gru": gru.LAUNCHES}[kernel]
     cfg, trainer, rb = _fresh_window(torch, overrides)
     L, B = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
@@ -2979,28 +3018,33 @@ def phase_graph_window(torch, tag: str, overrides, kernel: str, light: bool = Fa
         f(GRAPH_CHUNK, counter0)
 
     graph_chunk()  # the capture, before the turns
+    built = {"cfg": cfg, "trainer": trainer, "rb": rb, "window": window, "graph": f, "gen": gen, "start": start,
+             "g_start": g_start, "counter0": counter0}
     if light:
         turns = _turns(torch, {"graph": graph_chunk}, order=("graph", "graph"))
         ups = {"graph": [GRAPH_CHUNK * GRAPH_TURN_CHUNKS / t for t in turns["graph"]["s"]]}
         captures = monitor.count(f.name)
         torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
+        peak = torch.cuda.max_memory_allocated() - base
         log(f"[{tag}] replayed updates/s {', '.join(f'{x:.3f}' for x in ups['graph'])}; {captures} capture; "
             f"{kernel} launches per update {expected // GRAPH_CHUNK} credited per replay; peak device memory "
             f"{peak / 2**30:.2f} GiB")
         if captures != 1:
             raise AssertionError(f"{tag}: {captures} captures for one chunk size")
-        del f, trainer, rb, start
-        gc.collect()
-        torch.cuda.empty_cache()
-        return {"updates_per_s": ups, "host_ms_per_update": None, "device_ms_per_update": None,
-                "captures": captures, "peak_bytes": peak, "launches_per_update": expected // GRAPH_CHUNK,
-                "loss_rel": float(rel_d.max()), "param_abs": worst, "capture_s": capture_s}
+        out = {"updates_per_s": ups, "host_ms_per_update": None, "device_ms_per_update": None,
+               "captures": captures, "peak_bytes": peak, "launches_per_update": expected // GRAPH_CHUNK,
+               "loss_rel": float(rel_d.max()), "param_abs": worst, "capture_s": capture_s}
+        return _kept(torch, out, built, keep)
     for n in (2, 1):  # every chunk size of a window is one capture
         f(n, counter0)
     # one update each way under the profiler (a chunk of 1: its graph is captured above)
-    eager_prof = _profiled(torch, lambda: window(1, counter0))
-    graph_prof = _profiled(torch, lambda: f(1, counter0))
+    before = counter_of[kernel]
+    eager_kinds = _by_kind(torch, lambda: window(1, counter0))
+    built["eager_launches"] = counter_of[kernel] - before
+    eager_prof = (sum(v["ms"] for v in eager_kinds.values()), sum(v["ops"] for v in eager_kinds.values()))
+    graph_kinds = _by_kind(torch, lambda: f(1, counter0))
+    built.update(eager_kinds=eager_kinds, kinds=graph_kinds)
+    graph_prof = (sum(v["ms"] for v in graph_kinds.values()), sum(v["ops"] for v in graph_kinds.values()))
     host_graph = _host_calls(f, lambda: f(GRAPH_CHUNK, counter0)) / GRAPH_CHUNK
     # one turn each (graph, eager): the eager turns were cut to one to make
     # room for phases 54-56
@@ -3010,7 +3054,7 @@ def phase_graph_window(torch, tag: str, overrides, kernel: str, light: bool = Fa
     host_ms = {k: [1e3 * t / per for t in v["host_s"]] for k, v in turns.items()}
     captures = monitor.count(f.name)
     torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated() - base
     out = {"updates_per_s": ups, "host_ms_per_update": host_ms, "captures": captures, "chunk_sizes": [4, 2, 1],
            "host_launches_per_update": {"eager": eager_prof[1], "graph": host_graph},
            "device_kernels_per_update": {"eager": eager_prof[1], "graph": graph_prof[1]},
@@ -3029,10 +3073,132 @@ def phase_graph_window(torch, tag: str, overrides, kernel: str, light: bool = Fa
         f"credited per replay; peak device memory {peak / 2**30:.2f} GiB")
     if captures != 3:
         raise AssertionError(f"{tag}: {captures} captures for 3 chunk sizes")
-    del f, trainer, rb, start
+    return _kept(torch, out, built, keep)
+
+
+def _kept(torch, out: dict, built: dict, keep: bool) -> dict:
+    """``out`` with the built window under ``"built"`` (its trainer back at
+    its start), or with the window freed."""
+    built["trainer"].restore(built["start"])
+    out["built"] = built
+    if not keep:
+        _release(torch, out)
+    return out
+
+
+def _release(torch, out: dict) -> None:
+    """Free the window :func:`phase_graph_window` kept under ``out["built"]``."""
+    out.pop("built", None)
     gc.collect()
     torch.cuda.empty_cache()
-    return out
+
+
+# phase 63: one-update windows replayed in turns (3 each), ABBAAB
+MATMUL_TURNS = ("highest", "high", "high", "highest", "highest", "high")
+MATMUL_KINDS = ("products", "convolutions", "kernel (sheeprl::)")  # the rest: copies, elementwise, reductions
+# under "high" the products and the convolutions each take at most this share
+# of their fp32 device ms (TF32 in cuBLAS and cuDNN; measured 0.32 and 0.23):
+# a setting that did not reach the libraries fails the phase
+MATMUL_TF32_SHARE = 0.6
+
+
+def phase_matmul_precision(torch, fp32: dict) -> dict:
+    """Phase 63, on phase 38's kept DreamerV3-XL window ``fp32`` (no other
+    XL build): ``matmul_precision`` "highest" (phase 38's window of one
+    update, captured with fp32 products, and its profile) against "high"
+    (the same window captured with TF32 allowed in cuBLAS and cuDNN through
+    ``fabric.apply_matmul_precision``, and profiled): device ms per update by
+    kind, where "high" must take at most MATMUL_TF32_SHARE of fp32's
+    products and convolutions; the two replayed in turns, 3 each, every turn
+    from one state and one generator state, so the first turn of each gives
+    the ten losses of the same update; the RSSM kernel on one XL input (the
+    posterior's 16 rows) under either setting, bit for bit (its 3xTF32
+    products are its own), and against its plain version; 80 rssm launches
+    per update credited to each window."""
+    from sheeprl_tpu_torch.fabric import apply_matmul_precision
+    from sheeprl_tpu_torch.ops import rssm
+    from sheeprl_tpu_torch.parallel.compile import GraphFunction
+    from sheeprl_tpu_torch.telemetry.monitors import CompileMonitor
+
+    t0 = time.perf_counter()
+    trainer, window, gen, counter0 = fp32["trainer"], fp32["window"], fp32["gen"], fp32["counter0"]
+    dev = trainer.device
+    g = torch.Generator(dev).manual_seed(63)
+    D, H = PRESETS["XL"]
+    w = _rssm_weights(torch, ZAS[0], D, H, g, dev)
+    x = torch.randn(16, ZAS[0], device=dev, generator=g)
+    h = torch.tanh(torch.randn(16, H, device=dev, generator=g))
+    kernel_out, graphs = {}, {"highest": fp32["graph"]}
+    try:
+        for name in ("highest", "high"):
+            apply_matmul_precision(name, dev)
+            kernel_out[name] = rssm.fused_rssm_recurrent(x, h, *w)
+        # still "high": the TF32 window is run eagerly and captured under it
+        graphs["high"] = GraphFunction(window, name="matmul-high.train_phase_device", static_argnums=(0,),
+                                       device=dev, generators=(gen,), monitor=CompileMonitor())
+        graphs["high"](1, counter0)
+    finally:
+        apply_matmul_precision("highest", dev)
+    plain_err = float((kernel_out["highest"] - rssm.rssm_recurrent_reference(x, h, *w)).abs().max())
+    bitwise = bool(torch.equal(kernel_out["highest"], kernel_out["high"]))
+    kinds = {"highest": fp32["kinds"], "high": _by_kind(torch, lambda: graphs["high"](1, counter0))}
+    losses, launches, seconds = {}, {}, {name: [] for name in graphs}
+    for name in MATMUL_TURNS:
+        trainer.restore(fp32["start"])
+        gen.set_state(fp32["g_start"])
+        before = rssm.LAUNCHES["rssm"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, metrics = graphs[name](1, counter0)
+        torch.cuda.synchronize()
+        seconds[name].append(time.perf_counter() - t)
+        if name not in losses:
+            launches[name] = rssm.LAUNCHES["rssm"] - before
+            losses[name] = np.array([float(m) for m in metrics])
+    ups = {k: [1.0 / t for t in v] for k, v in seconds.items()}
+    by_kind = {name: {**{k: kinds[name][k]["ms"] for k in MATMUL_KINDS},
+                      "the rest": sum(v["ms"] for k, v in kinds[name].items() if k not in MATMUL_KINDS)}
+               for name in graphs}
+    tf32_share = {k: by_kind["high"][k] / by_kind["highest"][k] for k in ("products", "convolutions")}
+    rel = np.abs(losses["high"] - losses["highest"]) / np.maximum(np.abs(losses["highest"]), 1e-6)
+    wm = [0, 1, 2, 3, 4, 5, 8, 9]
+    behaviour_ok = np.all(np.abs(losses["high"] - losses["highest"])[6:8]
+                          <= PRECISION_TOL_BEHAVIOUR_REL * np.abs(losses["highest"][6:8])
+                          + PRECISION_TOL_BEHAVIOUR_ABS)
+    for name in graphs:
+        log(f"[matmul-precision] {name}: one replayed update's device work "
+            + ", ".join(f"{k} {v:.1f} ms" for k, v in by_kind[name].items())
+            + f" ({sum(by_kind[name].values()):.1f} ms); rssm launches per update {launches[name]}; updates/s "
+            f"{', '.join(f'{u:.3f}' for u in ups[name])}")
+    log(f"[matmul-precision] the same update from one state and draws, high against highest: the ten losses rel "
+        f"diff {', '.join(f'{v:.2e}' for v in rel)}; the RSSM kernel under both settings bit for bit {bitwise} "
+        f"(against its plain version {plain_err:.2e}); high / highest device ms products "
+        f"{tf32_share['products']:.3f}, convolutions {tf32_share['convolutions']:.3f}; turns "
+        f"{', '.join(MATMUL_TURNS)}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not (bitwise and plain_err <= TOL and all(n == LAUNCHES_PER_UPDATE for n in launches.values())
+            and all(np.isfinite(v).all() for v in losses.values()) and np.all(rel[wm] <= PRECISION_TOL_WM_REL)
+            and behaviour_ok and all(v <= MATMUL_TF32_SHARE for v in tf32_share.values())):
+        raise AssertionError(f"[matmul-precision] failed: kernel bit for bit {bitwise}, plain err {plain_err:.3g}, "
+                             f"launches {launches}, losses rel {rel}, high / highest device ms {tf32_share} "
+                             f"(TF32 at most {MATMUL_TF32_SHARE})")
+    del graphs["high"]
+    trainer.restore(fp32["start"])
+    return {"updates_per_s": ups, "device_ms_per_update": by_kind, "loss_rel": rel.tolist(),
+            "losses": {k: v.tolist() for k, v in losses.items()}, "kernel_bitwise": bitwise,
+            "kernel_plain_err": plain_err, "launches_per_update": launches, "seconds": time.perf_counter() - t0}
+
+
+def matmul_precision_only(torch) -> int:
+    """``--matmul-precision``: phase 38's XL window and phase 63 on it."""
+    def run(run_root):
+        xl = phase_graph_window(torch, "graphs-dv3-xl", [*XL_TRAIN, FUSED], "rssm", keep=True)
+        try:
+            return {"tf32": phase_matmul_precision(torch, xl["built"])}
+        finally:
+            _release(torch, xl)
+
+    return _mode_only(torch, run)
 
 
 def phase_graph_serve(torch, run_dir: Path, graph_run: dict) -> dict:
@@ -3212,12 +3378,28 @@ def phase_graph_anakin(torch, loop: dict) -> dict:
     return out
 
 
-def phase_graphs(torch, run_root: Path, served: dict, fused_dir: Path, anakin: dict = None) -> dict:
-    """Phases 37-41."""
+WINDOW_RECIPES = (("dv3_xl", (*XL_TRAIN, FUSED), "rssm"), ("dv3_s_gru", S_TRAIN, "gru"))
+
+
+def phase_graphs(torch, run_root: Path, served: dict, fused_dir: Path, anakin: dict = None,
+                 sac_run: dict = None) -> dict:
+    """Phases 37-41, and on phase 38's XL window while it is kept phase 63
+    and, given ``sac_run``, phase 51's span turns; on phase 38's and 39's
+    windows phases 43-44 (``out["bf16"]``), so that no XL or S window is
+    built or captured twice."""
     t0 = time.perf_counter()
-    out = {"layer": phase_graph_layer(torch)}
-    out["dv3_xl"] = phase_graph_window(torch, "graphs-dv3-xl", [*XL_TRAIN, FUSED], "rssm")
-    out["dv3_s_gru"] = phase_graph_window(torch, "graphs-dv3-s-gru", S_TRAIN, "gru")
+    out = {"layer": phase_graph_layer(torch), "bf16": {}}
+    for key, recipe, kernel in WINDOW_RECIPES:
+        fp32 = phase_graph_window(torch, f"graphs-{key.replace('_', '-')}", recipe, kernel, keep=True)
+        try:
+            if key == "dv3_xl":
+                out["tf32"] = phase_matmul_precision(torch, fp32["built"])
+                if sac_run is not None:
+                    out["spans"] = phase_telemetry_spans(torch, sac_run, fp32["built"])
+            out["bf16"][key] = phase_precision_window(torch, key, recipe, kernel, fp32["built"])
+        finally:
+            _release(torch, fp32)
+        out[key] = fp32
     out["serve"] = phase_graph_serve(torch, fused_dir, served)
     out["anakin"] = phase_graph_anakin(torch, anakin)
     out["seconds"] = time.perf_counter() - t0
@@ -3254,6 +3436,8 @@ def graphs_summary(graphs: dict) -> dict:
     keep = ("updates_per_s", "host_ms_per_update", "host_launches_per_update", "device_kernels_per_update",
             "captures", "peak_bytes", "launches_per_update", "loss_rel", "param_abs")
     return {"layer": graphs["layer"], **{k: {x: graphs[k][x] for x in keep} for k in ("dv3_xl", "dv3_s_gru")},
+            "tf32": {k: graphs["tf32"][k] for k in (
+                "updates_per_s", "device_ms_per_update", "loss_rel", "kernel_bitwise", "launches_per_update")},
             "serve": graphs["serve"], "anakin": graphs["anakin"], "seconds": graphs["seconds"]}
 
 
@@ -3364,27 +3548,24 @@ def _first_update(torch, trainer, rb, seed: int):
     return losses
 
 
-def phase_precision_turns(torch, tag: str, overrides, kernel: str) -> dict:
-    """Phases 43-44, beside the bf16 window of :func:`phase_graph_window`: a
-    bf16-mixed and a 32-true trainer from the same weights and ring data; the
+def phase_precision_turns(torch, tag: str, kernel: str, runs: dict) -> dict:
+    """Phases 43-44 on two kept windows of :func:`phase_graph_window`:
+    ``runs["bf16"]``, the light bf16-mixed window, and ``runs["fp32"]``,
+    phase 38's (39's) 32-true one, from the same weights and ring data; the
     first update's ten losses of each from the same draws within the stated
-    tier; one eager update of each profiled by kind; then chunks of
-    GRAPH_CHUNK updates in turns (bf16, fp32, fp32, bf16), captured and
-    nothing else (the eager chunks are not timed)."""
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import prep_blocks
-    from sheeprl_tpu_torch.data.device_replay import fused_sequence_train
+    tier; one eager update of each profiled by kind (fp32's is phase 38's
+    profile); then their captured chunks of GRAPH_CHUNK updates replayed in
+    turns (bf16, fp32, fp32, bf16) and nothing else (the eager chunks are
+    not timed)."""
     from sheeprl_tpu_torch.ops import gru, rssm
-    from sheeprl_tpu_torch.parallel.compile import GraphFunction
-    from sheeprl_tpu_torch.telemetry.monitors import CompileMonitor
 
-    gc.collect()
-    torch.cuda.empty_cache()
     counter_of = {"rssm": rssm.LAUNCHES, "gru": gru.LAUNCHES}[kernel]
-    runs = {"bf16": _fresh_window(torch, [*overrides, BF16_MIXED]), "fp32": _fresh_window(torch, overrides)}
-    same = all(torch.equal(a, b) for a, b in zip(runs["bf16"][1].tensors(), runs["fp32"][1].tensors()))
+    for r in runs.values():
+        r["trainer"].restore(r["start"])
+    same = all(torch.equal(a, b) for a, b in zip(runs["bf16"]["trainer"].tensors(), runs["fp32"]["trainer"].tensors()))
     if not same:
         raise AssertionError(f"{tag}: the bf16 and fp32 trainers do not start from the same weights")
-    losses = {k: _first_update(torch, trainer, rb, 43) for k, (_, trainer, rb) in runs.items()}
+    losses = {k: _first_update(torch, r["trainer"], r["rb"], 43) for k, r in runs.items()}
     rel = np.abs(losses["bf16"] - losses["fp32"]) / np.maximum(np.abs(losses["fp32"]), 1e-6)
     wm = [0, 1, 2, 3, 4, 5, 8, 9]
     behaviour_ok = np.all(np.abs(losses["bf16"] - losses["fp32"])[6:8]
@@ -3395,27 +3576,18 @@ def phase_precision_turns(torch, tag: str, overrides, kernel: str) -> dict:
         raise AssertionError(f"{tag}: the bf16 update is off its fp32 twin beyond the tier (world model "
                              f"{PRECISION_TOL_WM_REL}, behaviour {PRECISION_TOL_BEHAVIOUR_REL} rel + "
                              f"{PRECISION_TOL_BEHAVIOUR_ABS})")
-    windows, graphs, kinds, launches = {}, {}, {}, {}
-    for name, (cfg, trainer, rb) in runs.items():
-        L, B = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
-        gen = torch.Generator(trainer.device).manual_seed(44)
-        counter0 = torch.full((), 1, dtype=torch.int64, device=trainer.device)
-
-        def window(n, counter, trainer=trainer, rb=rb, gen=gen, L=L, B=B):
-            return fused_sequence_train(trainer, rb, gen, B, L, n,
-                                        lambda b: prep_blocks(b, trainer.cnn_keys, trainer.mlp_keys), counter)
-
-        f = GraphFunction(window, name=f"{tag}.{name}.train_phase_device", static_argnums=(0,),
-                          device=trainer.device, generators=(gen,), monitor=CompileMonitor())
-        before = counter_of[kernel]
-        kinds[name] = _by_kind(torch, lambda w=window, c=counter0: w(1, c))
-        launches[name] = counter_of[kernel] - before
-        f(GRAPH_CHUNK, counter0)  # eager, then captured
-        windows[name] = (lambda w=window, c=counter0: w(GRAPH_CHUNK, c))
-        graphs[name] = (lambda f=f, c=counter0: f(GRAPH_CHUNK, c))
+    kinds, launches = {}, {}
+    for name, r in runs.items():
+        if "eager_kinds" in r:
+            kinds[name], launches[name] = r["eager_kinds"], r["eager_launches"]
+        else:
+            before = counter_of[kernel]
+            kinds[name] = _by_kind(torch, lambda r=r: r["window"](1, r["counter0"]))
+            launches[name] = counter_of[kernel] - before
     if launches["bf16"] != LAUNCHES_PER_UPDATE:
         raise AssertionError(f"{tag}: one bf16 update launched {launches['bf16']} {kernel} kernels, expected "
                              f"{LAUNCHES_PER_UPDATE}")
+    graphs = {name: (lambda r=r: r["graph"](GRAPH_CHUNK, r["counter0"])) for name, r in runs.items()}
     order = ("bf16", "fp32", "fp32", "bf16")
     graph_turns = _turns(torch, graphs, order=order)
     # eager chunks are not timed here: they are host-bound, and phases 38-39 time eager turns
@@ -3426,11 +3598,20 @@ def phase_precision_turns(torch, tag: str, overrides, kernel: str) -> dict:
             f"update {launches[name]}; busy {busy[name]:.1%} of a replayed update")
     log(f"[{tag}] updates/s in turns (bf16, fp32, fp32, bf16): captured {ups['graph']['bf16'][0]:.3f}, "
         f"{ups['graph']['fp32'][0]:.3f}, {ups['graph']['fp32'][1]:.3f}, {ups['graph']['bf16'][1]:.3f}")
-    del runs, windows, graphs
-    gc.collect()
-    torch.cuda.empty_cache()
     return {"loss_rel": rel.tolist(), "losses": {k: v.tolist() for k, v in losses.items()}, "kinds": kinds,
             "launches_per_update": launches, "updates_per_s": ups, "busy": busy}
+
+
+def phase_precision_window(torch, key: str, recipe, kernel: str, fp32: dict) -> dict:
+    """Phases 43-44: the bf16-mixed light window of ``recipe`` and its turns
+    beside phase 38's (39's) kept 32-true window ``fp32``."""
+    tag = f"precision-{key.replace('_', '-')}"
+    out = phase_graph_window(torch, tag, [*recipe, BF16_MIXED], kernel, light=True, keep=True)
+    try:
+        out["turns"] = phase_precision_turns(torch, tag, kernel, {"bf16": out["built"], "fp32": fp32})
+    finally:
+        _release(torch, out)
+    return out
 
 
 def phase_precision_serve(torch, snapshot: Path) -> dict:
@@ -3785,8 +3966,10 @@ def phase_precision_families(torch) -> dict:
 
 def phase_precision(torch, run_root: Path, fp32: dict, families: bool = True) -> dict:
     """Phases 42-47.  ``fp32`` holds this run's 32-true readings of the same
-    paths (phases 7, 11 and 38-39), each printed beside its bf16 one
-    (without ``families``, phase 47 is left to the caller)."""
+    paths (phases 7, 11 and 38-39), each printed beside its bf16 one, and
+    under ``"bf16"`` phases 43-44 where phase_graphs ran them (else they run
+    here, beside light 32-true windows); without ``families``, phase 47 is
+    left to the caller."""
     t0 = time.perf_counter()
     out = {"kernels": phase_precision_kernels(torch)}
     train = _train(torch, [*XL_TRAIN, *XL_TRAIN_STEPS, FUSED, HOST_RING, BF16_MIXED], run_root / "train_xl_bf16",
@@ -3796,10 +3979,16 @@ def phase_precision(torch, run_root: Path, fp32: dict, families: bool = True) ->
         f"32-true (phase 7): " + (f"{fp32['train']['updates_per_s']:.3f} updates/s, peak "
                                  f"{fp32['train']['peak_bytes'] / 2**30:.2f} GiB" if fp32.get("train") else "not run"))
     out["train"] = train
-    out["dv3_xl"] = phase_graph_window(torch, "precision-dv3-xl", [*XL_TRAIN, FUSED, BF16_MIXED], "rssm", light=True)
-    out["dv3_xl_turns"] = phase_precision_turns(torch, "precision-dv3-xl", [*XL_TRAIN, FUSED], "rssm")
-    out["dv3_s_gru"] = phase_graph_window(torch, "precision-dv3-s-gru", [*S_TRAIN, BF16_MIXED], "gru", light=True)
-    out["dv3_s_gru_turns"] = phase_precision_turns(torch, "precision-dv3-s-gru", S_TRAIN, "gru")
+    for key, recipe, kernel in WINDOW_RECIPES:
+        if fp32.get("bf16"):  # phases 43-44 ran beside phases 38-39 (phase_graphs)
+            out[key] = fp32["bf16"][key]
+        else:
+            base = phase_graph_window(torch, f"graphs-{key.replace('_', '-')}", recipe, kernel, light=True, keep=True)
+            try:
+                out[key] = phase_precision_window(torch, key, recipe, kernel, base["built"])
+            finally:
+                _release(torch, base)
+        out[f"{key}_turns"] = out[key].pop("turns")
     from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import P2EDV3Trainer
 
     p2e = _train(torch, [*P2E_XL, BF16_MIXED], run_root / "p2e_explore_bf16", "rssm", P2E_LAUNCHES_PER_UPDATE,
@@ -4057,28 +4246,38 @@ def _replayed(line: str) -> bool:
 def _preempt(tag: str, proc, timeout: float = 300.0, usr1_dir: Path = None, meanwhile=None) -> dict:
     """SIGTERM ``proc`` after its first replayed window; its exit code, its
     output and the wall time the signal was sent.  With ``usr1_dir``, a
-    SIGUSR1 first, after that window: the next dispatch opens a trace window
-    (phase 52), and the SIGTERM waits until the dispatch after it has run
-    (its tick closed and wrote the trace) and a ``trace.json`` is under
-    ``usr1_dir``.  ``meanwhile()`` runs in this thread while the child
-    starts and reaches that window."""
+    SIGUSR1 first, sent by a helper thread as soon as that window is seen:
+    the next dispatch opens a trace window (phase 52), and the SIGTERM waits
+    until the dispatch after it has run (its tick closed and wrote the
+    trace) and a ``trace.json`` is under ``usr1_dir``.  ``meanwhile()`` runs
+    in this thread while the child starts, reaches that window and takes
+    its trace."""
     lines, seen = [], threading.Event()
     reader = _read_lines(proc, lines, seen, _replayed)
-    usr1 = None
+    usr1 = None if usr1_dir is None else {}
+
+    def arm():
+        if seen.wait(timeout) and proc.poll() is None:
+            usr1["windows_before"] = len(_windows("".join(lines)))
+            proc.send_signal(signal.SIGUSR1)
+
+    armer = threading.Thread(target=arm, daemon=True)
+    if usr1_dir is not None:
+        armer.start()
     try:
         if meanwhile is not None:
             meanwhile()
         if not seen.wait(timeout):
             raise AssertionError(f"[{tag}] no replayed window within {timeout} s:\n{''.join(lines)[-4000:]}")
         if usr1_dir is not None:
-            n0 = len(_windows("".join(lines)))
-            proc.send_signal(signal.SIGUSR1)
+            armer.join()
             deadline = time.monotonic() + timeout
-            while not (len(_windows("".join(lines))) >= n0 + 2 and list(usr1_dir.glob("**/trace/*/trace.json"))):
+            while not ("windows_before" in usr1 and len(_windows("".join(lines))) >= usr1["windows_before"] + 2
+                       and list(usr1_dir.glob("**/trace/*/trace.json"))):
                 if time.monotonic() > deadline or proc.poll() is not None:
                     raise AssertionError(f"[{tag}] SIGUSR1 opened no trace window:\n{''.join(lines)[-4000:]}")
                 time.sleep(0.1)
-            usr1 = {"windows_before": n0, "windows_after": len(_windows("".join(lines)))}
+            usr1["windows_after"] = len(_windows("".join(lines)))
         t_signal = time.time()
         proc.send_signal(signal.SIGTERM)
         rc = proc.wait(timeout=300)
@@ -4623,34 +4822,18 @@ def _tensor_leaves(tree) -> list:
     return [tree] if hasattr(tree, "dtype") and hasattr(tree, "shape") else []
 
 
-def phase_telemetry_spans(torch, sac_run: dict) -> dict:
-    """Phase 51 (second half): a fenced span (``telemetry.spans.sync``)
-    around a replayed XL chunk inside ``steady_guard`` must not trip the
-    guard; then spans on and off in turns (on, off, off, on) around phase
-    38's captured XL chunk and around SAC's eager update (``sac_run``: a SAC
-    run's ``trainer`` and last ``batches``), each call inside
-    ``timer("Time/train_time")`` as the loops make it (the
+def phase_telemetry_spans(torch, sac_run: dict, xl: dict) -> dict:
+    """Phase 51 (second half), on phase 38's kept XL window ``xl``: a fenced
+    span (``telemetry.spans.sync``) around its replayed chunk inside
+    ``steady_guard`` must not trip the guard; then spans on and off in turns
+    (on, off, off, on) around that captured chunk and around SAC's eager
+    update (``sac_run``: a SAC run's ``trainer`` and last ``batches``), each
+    call inside ``timer("Time/train_time")`` as the loops make it (the
     ``update.dispatch`` span, no trace window: no fence)."""
-    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import prep_blocks
-    from sheeprl_tpu_torch.data.device_replay import fused_sequence_train
-    from sheeprl_tpu_torch.parallel.compile import GraphFunction
-    from sheeprl_tpu_torch.telemetry.monitors import CompileMonitor
     from sheeprl_tpu_torch.telemetry.spans import SPANS
     from sheeprl_tpu_torch.utils.timer import timer
 
-    gc.collect()
-    torch.cuda.empty_cache()
-    cfg, trainer, rb = _fresh_window(torch, [*XL_TRAIN, FUSED], seed=51)
-    L, B = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
-    dev = trainer.device
-    gen = torch.Generator(dev).manual_seed(51)
-    f = GraphFunction(lambda n, counter: fused_sequence_train(
-        trainer, rb, gen, B, L, n, lambda b: prep_blocks(b, trainer.cnn_keys, trainer.mlp_keys), counter),
-        name="telemetry.train_phase_device", static_argnums=(0,), device=dev, generators=(gen,),
-        monitor=CompileMonitor())
-    counter0 = torch.full((), 1, dtype=torch.int64, device=dev)
-    f(GRAPH_CHUNK, counter0)  # eager, then captured
-
+    f, counter0 = xl["graph"], xl["counter0"]
     sac_trainer, batches = sac_run["trainer"], sac_run["batches"]
     one = {k: v[:1] for k, v in batches.items()}
     sac_gen = torch.Generator(one["rewards"].device)
@@ -4676,11 +4859,11 @@ def phase_telemetry_spans(torch, sac_run: dict) -> dict:
         SPANS.sync = False
     log("[telemetry-spans] a fenced span around a replayed XL chunk inside steady_guard: no error")
 
-    xl = lambda: f(GRAPH_CHUNK, counter0)  # noqa: E731
+    chunk = lambda: f(GRAPH_CHUNK, counter0)  # noqa: E731
     sac = lambda: sac_trainer.train_phase(one, sac_gen.manual_seed(0), 0)  # noqa: E731
     order = ("spans", "no spans", "no spans", "spans")
     try:
-        xl_turns = _turns(torch, {"spans": spanned(xl, True), "no spans": spanned(xl, False)}, order=order)
+        xl_turns = _turns(torch, {"spans": spanned(chunk, True), "no spans": spanned(chunk, False)}, order=order)
         sac_turns = _turns(torch, {"spans": spanned(sac, True, SPANS_AB_SAC_CALLS),
                                    "no spans": spanned(sac, False, SPANS_AB_SAC_CALLS)}, order=order)
     finally:
@@ -4691,9 +4874,6 @@ def phase_telemetry_spans(torch, sac_run: dict) -> dict:
     for name, rates in out.items():
         log(f"[telemetry-spans] {name}: updates/s in turns spans {rates['spans'][0]:.3f}, no spans "
             f"{rates['no spans'][0]:.3f}, no spans {rates['no spans'][1]:.3f}, spans {rates['spans'][1]:.3f}")
-    del f, trainer, rb
-    gc.collect()
-    torch.cuda.empty_cache()
     return out
 
 
@@ -4931,12 +5111,12 @@ def phase_telemetry_reload(torch, run_root: Path, served_dir: Path) -> dict:
             "load_s": loads[0][1] - loads[0][0], "pause_ms": stats["reload_pause_ms"], "batches": stats["batches"]}
 
 
-def phase_telemetry(torch, run_root: Path, served_dir: Path, sac_run: dict, preempt: dict = None) -> dict:
-    """Phases 51-53 (without ``preempt``, phase 52's signal checks on phase
-    49's child are left to the caller)."""
+def phase_telemetry(torch, run_root: Path, served_dir: Path, spans: dict, preempt: dict = None) -> dict:
+    """Phases 51-53, beside the span turns ``spans`` phase_graphs ran on
+    phase 38's window (without ``preempt``, phase 52's signal checks on
+    phase 49's child are left to the caller)."""
     t0 = time.perf_counter()
-    out = {"traced": phase_telemetry_traced(torch, run_root / "telemetry"),
-           "spans": phase_telemetry_spans(torch, sac_run)}
+    out = {"traced": phase_telemetry_traced(torch, run_root / "telemetry"), "spans": spans}
     if preempt is not None:
         out["signals"] = phase_telemetry_signals(torch, preempt)
     out["reload"] = phase_telemetry_reload(torch, run_root / "telemetry", served_dir)
@@ -5413,6 +5593,8 @@ def phase_fleet(torch, run_root: Path, served_dir: Path, child: _ServeChild = No
             f"commit, {answered[0]} requests answered, {len(roll_errors)} failed {roll_errors[:3]}; replicas reloaded "
             f"{rolled['replicas_reloaded']}, halts {rolled['reload_halts']}, fleet step {rolled['fleet_step']}; "
             f"captures during it {recaptured}; replica steps {[a['checkpoint_step'] for a in after.values()]}")
+        for line in (line for line in list(child.lines) if "halted:" in line):
+            log(f"[fleet] the router said: {line.rstrip()}")
         fresh = PolicyService.from_checkpoint(root / staged.name, ["serve.watch_commits=False"])
         fresh.warm_up()
         rows = tuple(np.zeros(s, np.dtype(d)) for s, d in fresh.player.carry_spec)
@@ -5812,7 +5994,7 @@ def phase_population_parity(torch) -> dict:
 SUPERVISED_COMMIT, SUPERVISED_FAULT, SUPERVISED_TOTAL = 68, 72, 135
 SUPERVISED_S = (*(o for o in S_TRAIN if not o.startswith(("checkpoint.every", "buffer.checkpoint",
                                                           "algo.total_steps"))),
-                "buffer.checkpoint=True", "env.restart_on_exception=False", "metric.log_level=1",
+                "buffer.checkpoint=True", HOST_RING, "env.restart_on_exception=False", "metric.log_level=1",
                 f"algo.total_steps={SUPERVISED_TOTAL}", "supervisor.backoff_base_s=0.5",
                 "supervisor.poll_interval_s=1.0")
 SUPERVISED_KERNEL = "gru"  # the kernel every window of the supervised children launches
@@ -5849,6 +6031,26 @@ def supervised_child(torch, argv) -> int:
     finally:
         emit({"event": "exit", "rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]})
     return 0
+
+
+def replay_tail_check(exp_root: Path) -> dict:
+    """ROADMAP.md §C 4 on the card's run: the newest committed snapshot
+    under ``exp_root`` holds its host ring (``buffer.checkpoint=True``,
+    ``buffer.device=False``) with every env stream's write-head row marked
+    ``truncated`` (``utils/callback.py``), as JAX's ``CheckpointCallback``
+    saves it; ``terminated`` there is what the env returned."""
+    from sheeprl_tpu_torch.checkpoint.protocol import list_checkpoints, load_step_dir
+
+    newest = max((d for root in exp_root.glob("*/version_*/checkpoint") for d in list_checkpoints(root)),
+                 key=lambda d: d.name)
+    subs = load_step_dir(newest, map_location="cpu")["rb"]["buffers"]
+    tails = [float(sub["buffer"]["truncated"][(int(sub["pos"]) - 1) % int(sub["buffer_size"])].max())
+             for sub in subs]
+    log(f"[replay-tail] {newest.name} of the supervised DreamerV3-S run: {len(subs)} env stream(s), the write-head "
+        f"row's truncated {tails}")
+    if not subs or tails != [1.0] * len(subs):
+        raise AssertionError(f"[replay-tail] the committed ring's tail does not read as truncated: {tails}")
+    return {"snapshot": newest.name, "tail_truncated": tails}
 
 
 def start_breaker_drill(run_root: Path):
@@ -5909,6 +6111,7 @@ def phase_supervisor(torch, run_root: Path, breaker=None) -> dict:
                              f"{len(by_child)} children, committed steps {steps}, windows {windows}, launches "
                              f"{launches}")
     crash_to_update = windows[1][0]["t"] - exits[0]["t"]
+    tail = replay_tail_check(log_dir / "supervised")
     log(f"[supervisor] DreamerV3-S (use_pallas) supervised: episode 0 crashed at env step {SUPERVISED_FAULT} "
         f"(signature {episodes[0]['signature']}), classified {episodes[0]['classification']} "
         f"from its postmortem, restarted with resume_from=auto in {episodes[0]['next_delay_s']:.2f} s; the rerun "
@@ -5934,7 +6137,7 @@ def phase_supervisor(torch, run_root: Path, breaker=None) -> dict:
     log(f"[supervisor] the same fault before any commit, under python -m sheeprl_tpu_torch.supervisor: episodes "
         f"{b_kinds} with the signature {episodes_b[1]['signature']} twice, the breaker open "
         f"('{episodes_b[1]['reason'][:60]}...'), exit {proc.returncode}")
-    return {"rc": rc, "episodes": kinds, "steps": steps, "crash_to_update_s": crash_to_update,
+    return {"rc": rc, "episodes": kinds, "steps": steps, "crash_to_update_s": crash_to_update, "replay_tail": tail,
             "launches": launches, "gru_by_child": [e["gru"] for e in exits], "breaker_rc": proc.returncode,
             "breaker": b_kinds, "seconds": time.perf_counter() - t0}
 
@@ -5995,6 +6198,11 @@ WATCHDOG_S = (*(o for o in S_TRAIN if not o.startswith("env.sync_env")), "env.sy
               f"env.step_deadline_s={WATCHDOG_S_DEADLINE}", "metric.log_level=1")
 WATCHDOG_HANG_AT = 70
 WATCHDOG_TOTAL = 97  # S_TRAIN's algo.total_steps
+# phase 65: phase 61's SIGTERM drill on 2 envs (a worker each) with
+# env.capture_video on: env 0 records episodes 0 (the build's reset), 1, 8,
+# ... of 32 steps (XL_TRAIN's max_episode_steps) until the SIGTERM
+VIDEO_S = ("env.num_envs=2", "env.capture_video=True")
+VIDEO_EPISODE_STEPS = 32
 # phase 62: the committed JAX fixture's own recipe (tools/write_jax_fixture.py's
 # DV3_OVERRIDES) on the card; the resumed run trains from iteration 30
 # (learning_starts after a resume: its 20 iterations on, then a sequence of 8)
@@ -6277,14 +6485,18 @@ def vecenv_child(torch, argv) -> int:
             return _orig(self, env)
         cls.repair_tail = repair
     init = AsyncVectorEnv.__init__
+    workers: list = []
 
     def logged_init(self, *args, **kwargs):
         init(self, *args, **kwargs)
-        log("[child] workers " + json.dumps([p.pid for p in self.processes]))
+        workers[:] = [p.pid for p in self.processes]
+        log("[child] workers " + json.dumps(workers))
 
     AsyncVectorEnv.__init__ = logged_init
     try:
-        with _window_log(lambda w: log("[child] window " + json.dumps(w))):
+        # each window also names the workers that map the CUDA driver (none may)
+        with _window_log(lambda w: log("[child] window " + json.dumps(
+                {**w, "cuda_workers": [pid for pid in workers if _maps_cuda(pid)]}))):
             run(list(argv))
     finally:
         log("[child] launches " + json.dumps({"rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]}))
@@ -6306,15 +6518,16 @@ def start_watchdog_drills(run_root: Path) -> dict:
     """Phase 61's three DreamerV3-S children (``use_pallas``: the GRU
     kernel), started together: a hang planted once past ``learning_starts``;
     a hang at every step with ``max_vecenv_restarts=1``; a run that a SIGTERM
-    to its whole process group ends while its worker steps."""
+    to its whole process group ends while its workers step, its env 0
+    recording episode videos (phase 65)."""
     procs = {
         "hang": _vecenv_child(WATCHDOG_S, run_root / "hang", [
             {"site": "env.step", "kind": "hang", "at": WATCHDOG_HANG_AT, "seconds": 120, "max_fires": 1}]),
         "giveup": _vecenv_child([*WATCHDOG_S, "env.step_deadline_s=3", "env.max_vecenv_restarts=1"],
                                 run_root / "giveup", [{"site": "env.step", "kind": "hang", "every": 1,
                                                        "seconds": 120}]),
-        "sigterm": _vecenv_child([*(o for o in WATCHDOG_S if not o.startswith("algo.total_steps")),
-                                  "algo.total_steps=1000000", "checkpoint.every=1000000000"],
+        "sigterm": _vecenv_child([*(o for o in WATCHDOG_S if not o.startswith(("algo.total_steps", "env.num_envs"))),
+                                  "algo.total_steps=1000000", "checkpoint.every=1000000000", *VIDEO_S],
                                  run_root / "sigterm", new_session=True),
     }
     out = {}
@@ -6375,6 +6588,9 @@ def phase_watchdog(torch, drills: dict) -> dict:
     workers = [pid for d in res.values() for pids in _child_lines(d["out"], "[child] workers ") for pid in pids]
     sig_workers = [pid for pids in _child_lines(sigterm["out"], "[child] workers ") for pid in pids]
     orphans = [pid for pid in workers if pid_alive(pid)]
+    cuda_workers = sorted({pid for d in res.values() for w in _child_lines(d["out"], "[child] window ")
+                           for pid in w["cuda_workers"]})
+    video = phase_video(sigterm["log_dir"], sig_steps)
     log(f"[watchdog] DV3-S, hang planted at worker step {WATCHDOG_HANG_AT}: exit {hang['rc']}, "
         f"'vector env watchdog' warned {hang['out'].count('vector env watchdog')}x, the workers killed, recreated "
         f"and reset in {rec} s after the {WATCHDOG_S_DEADLINE} s "
@@ -6385,22 +6601,62 @@ def phase_watchdog(torch, drills: dict) -> dict:
         f"{post[-1].name if post else None} reason {doc.get('reason')!r}, events {kinds[-4:]}")
     log(f"[watchdog] SIGTERM to the process group while the worker {sig_workers} stepped: exit {sigterm['rc']}, "
         f"committed {sig_steps}, 'Preemption: committed' {'Preemption: committed checkpoint' in sigterm['out']}; "
-        f"workers still alive after the three runs: {orphans} of {workers}")
+        f"workers still alive after the three runs: {orphans} of {workers}; workers mapping the CUDA driver at "
+        f"any window: {cuda_workers}")
     ok = (hang["rc"] == 0 and "vector env watchdog" in hang["out"] and recreated and repairs and hang_steps
           and hang_steps[-1] == WATCHDOG_TOTAL and gru_launches["hang"].get("gru", 0) > 0
           and not gru_launches["hang"].get("rssm")
           and giveup["rc"] != 0 and doc.get("reason") == "watchdog" and "watchdog.giveup" in kinds
           and "t_signal" in sigterm and sigterm["rc"] == 0 and "Preemption: committed checkpoint" in sigterm["out"]
           and sig_steps
-          and sig_workers and not orphans)
+          and sig_workers and not orphans and not cuda_workers and video["ok"])
     if not ok:
         raise AssertionError("[watchdog] a drill misbehaved:\n" + "\n".join(
             f"--- {n} (rc {d['rc']}):\n{d['out'][-3000:]}" for n, d in res.items()))
     return {"hang_steps": hang_steps, "repairs": len(repairs), "recreate_s": [r["seconds"] for r in recreated],
             "giveup_rc": giveup["rc"],
             "postmortem_reason": doc.get("reason"), "sigterm_steps": sig_steps, "orphans": orphans,
+            "cuda_workers": cuda_workers, "video": video,
             "launches": {k: sum(v.get(k, 0) for v in gru_launches.values()) for k in ("rssm", "gru")},
             "seconds": time.perf_counter() - t0}
+
+
+def phase_video(log_dir: Path, committed: list) -> dict:
+    """Phase 65, on phase 61's SIGTERM drill (2 envs in worker processes,
+    ``env.capture_video=True``): the videos are env 0's alone, in
+    ``{run}/videos``, at gymnasium's capped cubic episodes; each decodes to
+    the frames env 0 recorded: one for episode 0 (the build's reset), the
+    reset and every step for the rest (:data:`VIDEO_EPISODE_STEPS` steps an
+    episode, env 0's steps being the committed policy step over 2 envs),
+    at the dummy env's 64 x 64."""
+    import cv2
+
+    from sheeprl_tpu_torch.envs.video import capped_cubic_video_schedule
+
+    files = sorted(log_dir.glob("**/*.mp4"))
+    dirs = sorted({str(f.parent.relative_to(log_dir)) for f in files})
+    steps = committed[-1] // 2 if committed else 0
+    want, got = {}, {}
+    for e in range(steps // VIDEO_EPISODE_STEPS + 2):
+        if capped_cubic_video_schedule(e):
+            first = (e - 1) * VIDEO_EPISODE_STEPS  # env 0's steps before episode e
+            want[f"rl-video-episode-{e}.mp4"] = 1 if e == 0 else min(VIDEO_EPISODE_STEPS, steps - first) + 1
+    want = {k: v for k, v in want.items() if v > 0}
+    for f in files:
+        cap, n, shape = cv2.VideoCapture(str(f)), 0, None
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            n, shape = n + 1, frame.shape
+        cap.release()
+        got[f.name] = (n, shape)
+    ok = (len(dirs) == 1 and dirs[0].endswith("videos") and {k: v[0] for k, v in got.items()} == want
+          and all(v[1] == (64, 64, 3) for v in got.values()))
+    log(f"[video] phase 61's SIGTERM drill with env.capture_video: {len(files)} videos in {dirs}, frames "
+        f"{ {k: v[0] for k, v in got.items()} } against env 0's recorded steps {want} (committed step "
+        f"{committed[-1] if committed else None}, {steps} steps of env 0)")
+    return {"ok": ok, "frames": {k: v[0] for k, v in got.items()}, "expected": want, "dirs": dirs}
 
 
 def _fixture_trainers(torch, device: str, with_opt_state: bool = True):
@@ -6533,6 +6789,126 @@ def phase_jax_resume(torch, run_root: Path) -> dict:
             "card_update_launches": card_launches, "seconds": time.perf_counter() - t0}
 
 
+# phase 64: the committed JAX-written PPO population (P = 4, Adam;
+# tools/write_jax_population_fixture.py) resumed on the card with the tool's
+# own recipe
+POP_FIXTURE_DIR = ROOT / "tests" / "fixtures" / "jax_ppo_population"
+
+def _pop_fixture_recipe(accelerator: str) -> tuple:
+    """The recipe ``tools/write_jax_population_fixture.py`` wrote the fixture
+    with, on ``accelerator``, and the env steps of one population phase."""
+    from tools.write_jax_population_fixture import NUM_ENVS, POPULATION_OVERRIDES, ROLLOUT, SIZE
+
+    recipe = (*(o for o in POPULATION_OVERRIDES if not o.startswith(("fabric.accelerator", "algo.total_steps"))),
+              f"fabric.accelerator={accelerator}")
+    return recipe, SIZE * NUM_ENVS * ROLLOUT
+
+
+# the first resumed phase, card vs CPU from the same converted state and draws:
+# the parameter changes within phase 62's 5e-2 relative L2 (Adam's normalised
+# step turns one ulp of a gradient into 5e-2 of a change, ROADMAP.md §C);
+# without the optimizer state the change must miss that by 5x at least
+POP_RESUME_TOL, POP_RESUME_CONTROL = 5e-2, 5
+
+
+def phase_population_resume(torch, run_root: Path) -> dict:
+    """Phase 64: the committed JAX population resumed by ``cli.run`` on the
+    card for two population phases: the counters, the exploits (one more at
+    ``exploit_every=2``) and every member's episodes go on from the
+    snapshot; then the first resumed phase from the converted state on the
+    card and on the CPU with the same draws (action noise, resets, minibatch
+    orders, explore factors): the parameter changes within
+    ``POP_RESUME_TOL``, and without the optimizer state far outside."""
+    from sheeprl_tpu_torch.algos.ppo.agent import action_noise
+    from sheeprl_tpu_torch.algos.ppo.population import PopulationRoute
+    from sheeprl_tpu_torch.algos.ppo.ppo import PPOTrainer
+    from sheeprl_tpu_torch.algos.ppo.utils import spaces_to_dims
+    from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.config.compose import compose
+    from sheeprl_tpu_torch.convert import load_resume_state
+    from sheeprl_tpu_torch.envs.device import env_from_cfg
+    from sheeprl_tpu_torch.fabric import build_fabric
+    from sheeprl_tpu_torch.ops import gru, rssm
+    from sheeprl_tpu_torch.population import perturbation_factors
+    from sheeprl_tpu_torch.population.members import member_permutations
+
+    t0 = time.perf_counter()
+    card_accel = "cpu" if CARD == "cpu" else "gpu"
+    recipe, phase_steps = _pop_fixture_recipe(card_accel)
+    (step,) = (POP_FIXTURE_DIR / "checkpoint").glob("step_*")
+    saved = load_step_dir(step)
+    carry = saved["population"]
+    total = int(saved["policy_step"]) + 2 * phase_steps
+    log_dir = run_root / "population_resume"
+    before = (rssm.LAUNCHES["rssm"], gru.LAUNCHES["gru"])
+    run([*recipe, f"checkpoint.resume_from={step}", f"algo.total_steps={total}", f"log_dir={log_dir}"])
+    counts = {"rssm": rssm.LAUNCHES["rssm"] - before[0], "gru": gru.LAUNCHES["gru"] - before[1]}
+    (last,) = sorted(log_dir.glob("**/checkpoint/step_*"))[-1:]
+    resumed = load_step_dir(last, map_location="cpu")
+    pop = resumed["population"]
+
+    def route(accelerator: str, with_opt_state: bool = True):
+        cfg = compose([*_pop_fixture_recipe(accelerator)[0], f"checkpoint.resume_from={step}"])
+        fabric = build_fabric(cfg)
+        state = load_resume_state(step, cfg)
+        if not with_opt_state:
+            state.pop("opt_state")
+        env = env_from_cfg(cfg)
+        dims, cont = spaces_to_dims(env.action_space)
+        gens = {k: torch.Generator(fabric.device).manual_seed(i) for i, k in enumerate(("train", "player", "env"))}
+        return PopulationRoute(fabric, cfg, PPOTrainer, env, env.observation_space, env.action_space, dims, cont,
+                               gens, state, int(state["update"]) + 1), dims, cont
+
+    cpu, dims, cont = route("cpu")
+    P, B, T = cpu.size, cpu.num_envs, cpu.trainer.T
+    single = cpu.trainer.single
+    gen = torch.Generator().manual_seed(64)
+    rows = torch.zeros(P * B, sum(dims))
+    draws = {"members": {
+        "noise": [action_noise(rows, dims, cont, "auto", gen) for _ in range(T)],
+        "reset": [cpu.venv.env.draw_reset(P * B, gen, torch.device("cpu")) for _ in range(T)],
+        "perms": torch.stack([member_permutations(gen, P, T * B, single.num_minibatches * single.batch_size)
+                              for _ in range(single.update_epochs)], dim=1)},
+        "factors": perturbation_factors(cpu.pbt, sorted(cpu.hp), gen)}
+    start = {k: v.detach().clone() for k, v in cpu.agent.state_dict().items()}
+    env0 = [t.clone() for t in cpu.pop["members"]["env"]]
+    cpu_losses, _ = cpu.step._fn(draws)
+    ref = {k: v.detach() for k, v in cpu.agent.state_dict().items()}
+
+    def card_phase(with_opt_state: bool) -> dict:
+        card, _, _ = route(card_accel, with_opt_state)
+        with torch.no_grad():
+            for dst, src in zip(card.pop["members"]["env"], env0):
+                dst.copy_(src)
+        losses, _ = card.step._fn(_to(draws, CARD))
+        params = {k: v.detach().cpu() for k, v in card.agent.state_dict().items()}
+        return change_diffs(torch, start, params, losses.cpu().numpy().reshape(-1), ref,
+                            cpu_losses.numpy().reshape(-1))
+
+    got, control = card_phase(True), card_phase(False)
+    log(f"[population-resume] the JAX-written PPO population (P = {P}) resumed by cli.run on the card: update "
+        f"{saved['update']} -> {resumed['update']}, policy step {saved['policy_step']} -> {resumed['policy_step']}, "
+        f"exploits {int(carry['exploits'])} -> {int(pop['exploits'])}, episodes per member "
+        f"{np.asarray(carry['ep_count']).tolist()} -> {pop['ep_count'].tolist()}, fitness "
+        f"{', '.join(f'{x:.2f}' for x in pop['fitness'].tolist())}; launches {counts}")
+    log(f"[population-resume] the first resumed phase card vs CPU (Adam, {P} x {B} envs x {T} steps): "
+        f"{show_diffs(got)}; without the optimizer state parameter changes rel L2 diff {control['param_l2']:.3g} "
+        f"(tolerance {POP_RESUME_TOL}, the control at least {POP_RESUME_CONTROL}x that); "
+        f"{time.perf_counter() - t0:.1f} s")
+    checks = {"counters": (resumed["policy_step"], resumed["update"]) == (total, saved["update"] + 2),
+              "exploits": int(pop["exploits"]) == int(carry["exploits"]) + 1,
+              "episodes": bool((pop["ep_count"].numpy() >= np.asarray(carry["ep_count"])).all()),
+              "fitness": bool(torch.isfinite(pop["fitness"]).all()), "launches": counts == {"rssm": 0, "gru": 0},
+              "changes": got["param_l2"] <= POP_RESUME_TOL,
+              "control": control["param_l2"] >= POP_RESUME_CONTROL * POP_RESUME_TOL}
+    if not all(checks.values()):
+        raise AssertionError(f"[population-resume] failed checks: {[k for k, v in checks.items() if not v]}")
+    return {"update": int(resumed["update"]), "exploits": int(pop["exploits"]), "param_l2": got["param_l2"],
+            "loss_rel": got["loss_rel"], "control_l2": control["param_l2"], "counts": counts,
+            "seconds": time.perf_counter() - t0}
+
+
 def _metric_rows_steps(log_dir: Path) -> list:
     import csv
 
@@ -6560,6 +6936,7 @@ def phase_vecenv(torch, run_root: Path, breaker=None, supervisor: bool = True, p
     def meanwhile():
         out["masks"] = phase_vecenv_masks(torch, run_root / "vecenv")
         out["jax_resume"] = phase_jax_resume(torch, run_root)
+        out["population_resume"] = phase_population_resume(torch, run_root)
         if meanwhile_too is not None:
             meanwhile_too()
 
@@ -6581,7 +6958,8 @@ def phase_vecenv(torch, run_root: Path, breaker=None, supervisor: bool = True, p
             raise sup["error"]
         out["supervisor"] = sup["value"]
     out["seconds"] = time.perf_counter() - t0
-    log(f"[vecenv] phases 60-62{' with 49 and 59' if supervisor and preempt else ''} in {out['seconds']:.1f} s")
+    log(f"[vecenv] phases 60-62 and 64{' with 49 and 59' if supervisor and preempt else ''} in "
+        f"{out['seconds']:.1f} s")
     return out
 
 
@@ -6600,17 +6978,19 @@ def vecenv_summary(v: dict) -> dict:
             "bit_for_bit": [v["xl"]["bit_for_bit"], v["xl"]["tensors"]], "masked_actions": v["masks"]["actions"],
             "excluded": v["masks"]["excluded"], "watchdog": {k: w for k, w in v["watchdog"].items()},
             "jax_resume": {k: v["jax_resume"][k] for k in ("loss_rel", "change_gap", "control_gap")},
+            "population_resume": {k: v["population_resume"][k] for k in ("param_l2", "control_l2", "exploits")},
             "seconds": v["seconds"]}
 
 
 def vecenv_only(torch) -> int:
-    """``--vecenv``: phases 60-61 alone (62 beside 61, as in the whole run)."""
+    """``--vecenv``: phases 60-61 alone (62 and 64 beside 61, 65 in it, as in the whole run)."""
     return _mode_only(torch, lambda run_root: phase_vecenv(torch, run_root, supervisor=False, preempt=False))
 
 
 def jax_resume_only(torch) -> int:
-    """``--jax-resume``: phase 62 alone."""
-    return _mode_only(torch, lambda run_root: {"jax_resume": phase_jax_resume(torch, run_root)})
+    """``--jax-resume``: phases 62 and 64 alone."""
+    return _mode_only(torch, lambda run_root: {"jax_resume": phase_jax_resume(torch, run_root),
+                                                "population_resume": phase_population_resume(torch, run_root)})
 
 
 def _mode_only(torch, fn) -> int:
@@ -6685,7 +7065,8 @@ def deploy_only(torch) -> int:
 def telemetry_only(torch) -> int:
     """``--telemetry``: phases 51-53 alone, beside what they read of earlier
     phases: phase 4's served snapshot, a short SAC run (phase 20's recipe,
-    40 updates) and phase 49's preempted DV3-XL child."""
+    40 updates), phase 38's XL window (light) and phase 49's preempted
+    DV3-XL child."""
     log_phase_seconds()
     run_root = ROOT / "build" / "chip_smoke_telemetry"
     shutil.rmtree(run_root, ignore_errors=True)
@@ -6699,8 +7080,13 @@ def telemetry_only(torch) -> int:
 
         sac = _train_off_policy(torch, (*SAC_STATE[:-1], "algo.total_steps=140", "algo.run_test=False"),
                                 run_root / "sac", SACTrainer)
+        xl = phase_graph_window(torch, "graphs-dv3-xl", [*XL_TRAIN, FUSED], "rssm", light=True, keep=True)
+        try:
+            spans = phase_telemetry_spans(torch, sac, xl["built"])
+        finally:
+            _release(torch, xl)
         first, saved_dir = _preempted_xl(torch, run_root / "preempt")
-        telemetry = phase_telemetry(torch, run_root, served_dir, sac, {"first": first, "saved_dir": saved_dir})
+        telemetry = phase_telemetry(torch, run_root, served_dir, spans, {"first": first, "saved_dir": saved_dir})
         log("[telemetry] " + json.dumps(telemetry_summary(telemetry), default=float))
         log(f"[telemetry] total {time.perf_counter() - t0:.1f} s")
     except BaseException:
@@ -6714,7 +7100,7 @@ def telemetry_only(torch) -> int:
 
 def precision_only(torch) -> int:
     """``--precision``: phases 42-47 alone, beside 32-true runs of phase 7's
-    and phase 11's recipes."""
+    and phase 11's recipes and light 32-true windows of phases 38-39."""
     from sheeprl_tpu_torch.algos.p2e_dv3.p2e_dv3_exploration import P2EDV3Trainer
 
     run_root = ROOT / "build" / "chip_smoke_precision"
@@ -7056,6 +7442,8 @@ def main() -> int:
         return replay_ab(torch)
     if sys.argv[1:2] == ["--graphs"]:
         return graphs_only(torch)
+    if sys.argv[1:2] == ["--matmul-precision"]:
+        return matmul_precision_only(torch)
     if sys.argv[1:2] == ["--precision"]:
         return precision_only(torch)
     if sys.argv[1:2] == ["--telemetry"]:
@@ -7133,14 +7521,16 @@ def main() -> int:
         log("[envs] " + json.dumps(envs_summary(envs), default=float))
         replay = phase_replay(torch, run_root / "replay", train, off_policy["train"])
         log("[replay] " + json.dumps(replay_summary(replay), default=float))
-        graphs = phase_graphs(torch, run_root / "graphs", served, fused_dir, envs["ppo"]["anakin"])
+        graphs = phase_graphs(torch, run_root / "graphs", served, fused_dir, envs["ppo"]["anakin"],
+                              off_policy["train"]["sac"]["kept"])
         log("[graphs] " + json.dumps(graphs_summary(graphs), default=float))
         precision = phase_precision(torch, run_root / "precision", {"train": train, "p2e": p2e,
                                                                      "dv3_xl": graphs["dv3_xl"],
-                                                                     "dv3_s_gru": graphs["dv3_s_gru"]},
+                                                                     "dv3_s_gru": graphs["dv3_s_gru"],
+                                                                     "bf16": graphs.pop("bf16")},
                                     families=False)
         runtime = phase_runtime(torch, run_root / "runtime", fused_dir, preempt=False)
-        telemetry = phase_telemetry(torch, run_root, fused_dir, off_policy["train"]["sac"]["kept"])
+        telemetry = phase_telemetry(torch, run_root, fused_dir, graphs["spans"])
         deploy = phase_deploy(torch, run_root, train["snapshot"], telemetry["traced"]["untraced"], fused_dir)
         log("[deploy] " + json.dumps(deploy_summary(deploy), default=float))
         population = phase_population(torch, run_root / "population", supervisor=False)
@@ -7246,6 +7636,12 @@ def main() -> int:
             by_path["watchdog_s"] = vecenv["watchdog"]["launches"][name]
             by_path["jax_resume"] = vecenv["jax_resume"]["counts"][name]
             by_path["jax_resume_per_update"] = max(n[name] for n in vecenv["jax_resume"]["first"]["update_launches"])
+            # phases 63-64: the TF32 XL window of phase 63 (credited per replay,
+            # outside the main-path counts beside phase 38's), the JAX-written
+            # PPO population resumed through cli.run (no RSSM or LN-GRU)
+            by_path["matmul_high_window_per_update"] = (graphs["tf32"]["launches_per_update"]["high"]
+                                                        if name == "rssm" else 0)
+            by_path["population_resume"] = vecenv["population_resume"]["counts"][name]
         sources = {
             "rssm": ("sheeprl_tpu_torch/csrc/rssm.cu",
                      "sheeprl_tpu/ops/rssm_pallas.py:70 (_rssm_kernel), sheeprl_tpu/ops/rssm_pallas.py:260 "
@@ -7306,8 +7702,14 @@ def main() -> int:
             f"{vecenv['xl']['runs']['sync']['updates_per_s']:.3f} on the loop thread, equal bit for bit; "
             f"{vecenv['masks']['actions']} masked XL player actions, {vecenv['masks']['excluded']} excluded; a hung "
             f"env torn down and the run committed step {vecenv['watchdog']['hang_steps'][-1]}; the JAX fixture's "
-            f"first resumed update card vs CPU {max(vecenv['jax_resume']['change_gap'].values()):.3g} rel L2 "
-            f"(phases 60-62 with 49 and 59 {vecenv['seconds']:.1f} s); total {time.perf_counter() - t_start:.1f} s")
+            f"first resumed update card vs CPU {max(vecenv['jax_resume']['change_gap'].values()):.3g} rel L2; "
+            f"DV3-XL with TF32 (matmul_precision=high) "
+            f"{statistics.median(graphs['tf32']['updates_per_s']['high']):.3f} updates/s beside fp32's "
+            f"{statistics.median(graphs['tf32']['updates_per_s']['highest']):.3f}; the JAX-written "
+            f"population's first resumed phase card vs CPU {vecenv['population_resume']['param_l2']:.3g} rel L2 "
+            f"(without Adam's state {vecenv['population_resume']['control_l2']:.3g}); env 0's videos "
+            f"{vecenv['watchdog']['video']['frames']} (phases 60-65 with 49 and 59 {vecenv['seconds']:.1f} s); "
+            f"total {time.perf_counter() - t_start:.1f} s")
     except BaseException:
         traceback.print_exc()
         return 1

@@ -4,7 +4,8 @@ The first argument may name another entry point, as the JAX package's
 ``__main__`` takes it: ``eval`` / ``--eval``, ``serve``,
 ``register-model`` / ``--register-model`` and ``agents`` / ``--agents``;
 ``supervise`` runs the rest under the self-healing supervisor
-(:mod:`sheeprl_tpu_torch.supervisor`).
+(:mod:`sheeprl_tpu_torch.supervisor`), and ``lint`` runs graftlint's
+registry rules over the port (:mod:`sheeprl_tpu_torch.analysis`).
 """
 
 import sys
@@ -22,6 +23,10 @@ if __name__ == "__main__":
         registration(argv[1:])
     elif cmd == "agents":
         available_agents()
+    elif cmd == "lint":
+        from sheeprl_tpu_torch.analysis.__main__ import main as lint
+
+        sys.exit(lint(argv[1:]))
     elif cmd == "supervise":
         from sheeprl_tpu_torch.supervisor import main
 

@@ -82,6 +82,7 @@ from sheeprl_tpu_torch.data.device_replay import (
 )
 from sheeprl_tpu_torch.fabric import PlayerSync
 from sheeprl_tpu_torch.resilience.health import DivergenceError, HealthSentinel
+from sheeprl_tpu_torch.utils.callback import replay_state
 from sheeprl_tpu_torch.utils.distribution import (
     Bernoulli,
     MSEDistribution,
@@ -1057,7 +1058,7 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
                 "grad_steps": grad_step_counter,
             }
             if cfg.buffer.checkpoint:
-                ckpt_state["rb"] = rb.state_dict()
+                ckpt_state["rb"] = replay_state(rb)
             ckpt_mgr.save(policy_step, ckpt_state)
             if ckpt_mgr.preempted:
                 print(f"Preemption: committed checkpoint at step {policy_step}, exiting", flush=True)

@@ -126,7 +126,7 @@ def run(argv: Optional[List[str]] = None) -> None:
     fabric's device."""
     from sheeprl_tpu_torch import telemetry
     from sheeprl_tpu_torch.checkpoint.preemption import PREEMPTION_GUARD
-    from sheeprl_tpu_torch.fabric import build_fabric
+    from sheeprl_tpu_torch.fabric import apply_matmul_precision, build_fabric
     from sheeprl_tpu_torch.resilience.faults import install_from_config
 
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -152,6 +152,7 @@ def run(argv: Optional[List[str]] = None) -> None:
     check_configs(cfg)
     entry = resolve_algorithm(cfg.algo.name, decoupled=cfg.fabric.get("decoupled"))
     fabric = build_fabric(cfg)
+    apply_matmul_precision(cfg.get("matmul_precision"), fabric.device)
     try:
         resolve_entrypoint(entry)(fabric, cfg)
         _maybe_register_models(cfg)

@@ -36,6 +36,11 @@ rules.
 
 :func:`env_state_from_jax` takes a batched state of a JAX env and gives the
 state of the port's device env of the same name.
+
+:func:`resume_state_from_jax` gives what a loop resumes from, the optax
+states among it; a PPO or A2C population snapshot (its agent and vmapped
+optax state stacked on a leading member axis) is converted member by member
+by :func:`population_state_from_jax`.
 """
 
 from __future__ import annotations
@@ -261,6 +266,55 @@ def _optax_parts(opt_state: Any) -> Tuple[Any, list]:
     return lr, parts
 
 
+def _moments_by_name(opt_state: Any, names: Sequence[str], convert: Callable[[Any], Dict[Any, torch.Tensor]],
+                     rmsprop: bool, tf_style: bool) -> Tuple[Any, Dict[str, Dict[str, torch.Tensor]]]:
+    """The injected learning rate and, per parameter name, the port's state
+    tensors (``step``, ``exp_avg``, ``square_avg``, ...) of one optax state
+    (see :func:`optimizer_state_from_optax`).  ``rmsprop``: the port's
+    optimizer is an RMSprop (optax's ``rmsprop`` traces signed steps);
+    ``tf_style``: its ``rmsprop_tf`` flavour (momentum of unscaled steps)."""
+    lr, parts = _optax_parts(opt_state)
+    per_param: Dict[str, Dict[str, torch.Tensor]] = {n: {} for n in names}
+
+    def put(key: str, tree: Any, scale: float = 1.0) -> None:
+        converted = convert(tree)
+        if set(converted) == {None}:
+            if len(names) != 1:
+                raise ValueError(f"a bare optax leaf for {len(names)} parameters")
+            converted = {names[0]: converted[None]}
+        if set(converted) != set(names):
+            raise ValueError(f"the optax state's {key} covers {sorted(set(converted) ^ set(names))} "
+                             "where the port optimizer's parameters differ")
+        for n, t in converted.items():
+            per_param[n][key] = t * scale if scale != 1.0 else t
+
+    for part in parts:
+        kind = type(part).__name__
+        fields = _named(part)
+        if kind == "ScaleByAdamState":
+            for n in names:
+                per_param[n]["step"] = torch.tensor(float(np.asarray(fields["count"])), dtype=torch.float32)
+            put("exp_avg", fields["mu"])
+            put("exp_avg_sq", fields["nu"])
+        elif kind in ("ScaleByRmsState", "ScaleByRStdDevState"):
+            put("square_avg", fields["nu"])
+            if "mu" in fields:
+                put("grad_avg", fields["mu"])
+        elif kind == "TraceState":
+            # SGD traces the raw gradients; optax's rmsprop the signed steps
+            put("momentum_buffer", fields["trace"], -1.0 if rmsprop else 1.0)
+        elif isinstance(part, Mapping):
+            # the JAX package's own RMSprops: {"nu", "mom", "mg"}
+            put("square_avg", fields["nu"])
+            if fields.get("mg") is not None:
+                put("grad_avg", fields["mg"])
+            if fields.get("mom") is not None:
+                put("momentum_buffer", fields["mom"], 1.0 if tf_style else float(np.asarray(lr)))
+        else:
+            raise ValueError(f"no port counterpart for the optax state {kind}")
+    return lr, per_param
+
+
 def optimizer_state_from_optax(opt_state: Any, optimizer: torch.optim.Optimizer, names: Sequence[str],
                                convert: Callable[[Any], Dict[Any, torch.Tensor]]) -> Dict[str, Any]:
     """``optimizer.state_dict()`` of the port optimizer over the parameters
@@ -281,53 +335,64 @@ def optimizer_state_from_optax(opt_state: Any, optimizer: torch.optim.Optimizer,
     injected hyperparameter, not the config's."""
     from sheeprl_tpu_torch.utils.optim import RMSprop
 
-    lr, parts = _optax_parts(opt_state)
-    per_param: Dict[str, Dict[str, torch.Tensor]] = {n: {} for n in names}
-
-    def put(key: str, tree: Any, scale: float = 1.0) -> None:
-        converted = convert(tree)
-        if set(converted) == {None}:
-            if len(names) != 1:
-                raise ValueError(f"a bare optax leaf for {len(names)} parameters")
-            converted = {names[0]: converted[None]}
-        if set(converted) != set(names):
-            raise ValueError(f"the optax state's {key} covers {sorted(set(converted) ^ set(names))} "
-                             "where the port optimizer's parameters differ")
-        for n, t in converted.items():
-            per_param[n][key] = t * scale if scale != 1.0 else t
-
     group = optimizer.param_groups[0]
-    for part in parts:
-        kind = type(part).__name__
-        fields = _named(part)
-        if kind == "ScaleByAdamState":
-            for n in names:
-                per_param[n]["step"] = torch.tensor(float(np.asarray(fields["count"])), dtype=torch.float32)
-            put("exp_avg", fields["mu"])
-            put("exp_avg_sq", fields["nu"])
-        elif kind in ("ScaleByRmsState", "ScaleByRStdDevState"):
-            put("square_avg", fields["nu"])
-            if "mu" in fields:
-                put("grad_avg", fields["mu"])
-        elif kind == "TraceState":
-            # SGD traces the raw gradients; optax's rmsprop the signed steps
-            put("momentum_buffer", fields["trace"], -1.0 if isinstance(optimizer, RMSprop) else 1.0)
-        elif isinstance(part, Mapping):
-            # the JAX package's own RMSprops: {"nu", "mom", "mg"}
-            put("square_avg", fields["nu"])
-            if fields.get("mg") is not None:
-                put("grad_avg", fields["mg"])
-            if fields.get("mom") is not None:
-                tf_style = bool(group.get("tf_style", False))
-                put("momentum_buffer", fields["mom"], 1.0 if tf_style else float(np.asarray(lr)))
-        else:
-            raise ValueError(f"no port counterpart for the optax state {kind}")
+    lr, per_param = _moments_by_name(opt_state, names, convert, isinstance(optimizer, RMSprop),
+                                     bool(group.get("tf_style", False)))
     template = optimizer.state_dict()
     groups = [dict(g) for g in template["param_groups"]]
     if lr is not None:
         for g in groups:
             g["lr"] = float(np.asarray(lr))
     return {"state": {i: per_param[n] for i, n in enumerate(names) if per_param[n]}, "param_groups": groups}
+
+
+def _member(tree: Any, m: int) -> Any:
+    """Member ``m`` of a tree whose array leaves are stacked on a leading
+    population axis (a vmapped optax state, a stacked parameter tree)."""
+    if isinstance(tree, Mapping):
+        return {k: _member(v, m) for k, v in tree.items()}
+    if hasattr(tree, "_fields"):
+        return type(tree)(*(_member(v, m) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_member(v, m) for v in tree)
+    if tree is None or np.ndim(tree) == 0:
+        return tree
+    return np.asarray(tree)[m]
+
+
+def population_state_from_jax(state: Mapping[str, Any], cfg: Any) -> Dict[str, Any]:
+    """A PPO or A2C population snapshot of the JAX package
+    (``population.size`` = P) in the layout of the port's
+    :class:`~sheeprl_tpu_torch.algos.ppo.population.PopulationRoute`:
+
+    * ``agent``: each member's parameters converted as one agent's
+      (:func:`policy_state_from_jax`), stacked ``(P, ...)``;
+    * ``opt_state``: the vmapped optax state as a
+      :class:`~sheeprl_tpu_torch.population.members.StackedOptimizer`
+      state: each member's moments mapped as :func:`optimizer_state_from_optax`
+      maps one agent's, stacked, and the ``(P,)`` Adam ``count`` (the
+      RMSprops and SGD keep no count: their steps do not read it);
+    * ``population``: ``fitness``, ``ep_count``, ``exploits`` and the
+      per-member hyperparameters ``hp``, as tensors."""
+    name = str(cfg.algo.optimizer.get("name", "adam"))
+    pop = state["population"]
+    size = int(np.shape(pop["fitness"])[0])
+    members = [policy_state_from_jax(_member(state["agent"], m)) for m in range(size)]
+    out: Dict[str, Any] = {"agent": {k: torch.stack([mm[k] for mm in members]) for k in members[0]}}
+    names = list(members[0])
+    if state.get("opt_state") is not None:
+        convert = _moments_converter(policy=True)
+        moments = [_moments_by_name(_member(state["opt_state"], m), names, convert, name.startswith("rmsprop"),
+                                    name == "rmsprop_tf")[1] for m in range(size)]
+        first = moments[0][names[0]]
+        count = (torch.stack([mm[names[0]]["step"] for mm in moments]) if "step" in first
+                 else torch.zeros(size, dtype=torch.float32))
+        out["opt_state"] = {"name": name, "count": count,
+                            "state": {n: {k: torch.stack([mm[n][k] for mm in moments]) for k in moments[0][n]
+                                          if k != "step"} for n in names}}
+    out["population"] = {k: torch.as_tensor(np.asarray(pop[k])) for k in ("fitness", "ep_count", "exploits")}
+    out["population"]["hp"] = {k: torch.as_tensor(np.asarray(v, np.float32)) for k, v in dict(pop["hp"]).items()}
+    return out
 
 
 class OptaxState:
@@ -388,26 +453,22 @@ def resume_state_from_jax(state: Mapping[str, Any], cfg: Any) -> Dict[str, Any]:
       draw what the JAX run would have drawn, but two resumes of one
       snapshot draw alike.
 
-    A population snapshot (``population``) raises: its optimizer state is
-    stacked per member (ROADMAP.md, queue A item 6(c))."""
-    if "population" in state:
-        from sheeprl_tpu_torch.config.compose import ConfigError
-
-        raise ConfigError(
-            "a population snapshot the JAX package wrote cannot be resumed yet: its optimizer state is stacked per "
-            "member (ROADMAP.md, queue A item 6(c))"
-        )
+    A population snapshot (``population``) gives the stacked agent, the
+    stacked optimizer state and the PBT carry of
+    :func:`population_state_from_jax`."""
     name = str(cfg.algo.name)
     out: Dict[str, Any] = {k: int(state[k]) for k in COUNTERS if state.get(k) is not None}
     for k in ("ratio", "psync"):
         if state.get(k) is not None:
             out[k] = {kk: (v.item() if isinstance(v, np.ndarray) else v) for kk, v in dict(state[k]).items()}
-    out["agent"] = agent_from_jax(state["agent"], cfg)
     opt = state.get("opt_state")
-    if opt is not None:
-        if name in POLICY_ALGOS:
+    if "population" in state:
+        out.update(population_state_from_jax(state, cfg))
+    else:
+        out["agent"] = agent_from_jax(state["agent"], cfg)
+        if opt is not None and name in POLICY_ALGOS:
             out["opt_state"] = OptaxState(opt, _moments_converter(policy=True))
-        else:
+        elif opt is not None:
             stacked = {"ensembles"} | ({"critic"} if name in OFF_POLICY_ALGOS else set())
             flat: Dict[str, Any] = {}
             for k, v in dict(opt).items():

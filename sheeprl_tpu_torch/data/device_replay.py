@@ -50,6 +50,7 @@ import torch
 
 from sheeprl_tpu_torch.resilience.faults import fault_rows
 from sheeprl_tpu_torch.telemetry.spans import span
+from sheeprl_tpu_torch.utils.callback import consistent_tail
 
 Arrays = Dict[str, np.ndarray]
 Cursor = Dict[str, torch.Tensor]
@@ -649,7 +650,7 @@ class DeviceReplay:
         if self.spill is not None and not self.spill.degraded:
             if self.spill.flush(self._spill_flush_timeout_s):
                 state = self.spill.state_dict()
-                _patch_spill_tail(state)
+                consistent_tail(state)
                 state["device_replay"] = {
                     "pos": np.array(self._pos_h),
                     "filled": np.array(self._filled_h),
@@ -762,34 +763,6 @@ class DeviceReplay:
             return {}
         idx = (host._pos + np.arange(host.buffer_size)) % host.buffer_size if host.full else np.arange(length)
         return {k: np.asarray(host[k])[idx, env] for k in host.keys()}
-
-
-def _patch_spill_tail(state: Dict[str, Any]) -> None:
-    """The checkpoint's tail patch on a spill-tier snapshot (a copy): each
-    ring's write-head row is forced ``truncated``/``dones`` = 1.
-    ``terminated`` is untouched, and layouts storing ``next_<k>`` rows need
-    no patch (every row is self-contained)."""
-
-    def patch_one(sub: Dict[str, Any]) -> None:
-        buf = sub.get("buffer") or {}
-        if not buf or any(k.startswith("next_") for k in buf):
-            return
-        filled = int(sub["buffer_size"]) if sub.get("full") else int(sub.get("pos", 0))
-        if filled == 0:
-            return
-        tail = (int(sub["pos"]) - 1) % int(sub["buffer_size"])
-        for key in ("truncated", "dones"):
-            if key in buf:
-                # a copy: the arrays may be live views of (or memmaps behind) the spill ring
-                arr = np.array(np.asarray(buf[key]), copy=True)
-                arr[tail] = 1.0
-                buf[key] = arr
-
-    if "buffers" in state:  # sequential spill: one sub-state per env
-        for sub in state["buffers"]:
-            patch_one(sub)
-    else:
-        patch_one(state)
 
 
 # --------------------------------------------------------------------------

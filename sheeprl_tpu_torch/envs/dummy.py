@@ -21,6 +21,7 @@ class Env:
 
     observation_space: spaces.Space
     action_space: spaces.Space
+    metadata: Dict[str, Any] = {}
 
     def reset(self, *, seed: Optional[int] = None, options: Optional[dict] = None):
         if seed is not None or not hasattr(self, "np_random"):
@@ -30,11 +31,17 @@ class Env:
     def step(self, action: Any):
         raise NotImplementedError
 
+    def render(self) -> Any:
+        raise NotImplementedError(f"{type(self).__name__} does not render")
+
     def close(self) -> None:
         pass
 
 
 class _DummyEnv(Env):
+    metadata = {"render_modes": ["rgb_array"]}
+    render_mode = "rgb_array"
+
     def __init__(
         self,
         image_size: Tuple[int, int, int] = (64, 64, 3),
@@ -71,6 +78,9 @@ class _DummyEnv(Env):
         done = self._step >= self._episode_len
         return self._obs(), 1.0, done, False, {}
 
+    def render(self) -> np.ndarray:
+        return self._obs()["rgb"]
+
 
 class DiscreteDummyEnv(_DummyEnv):
     def __init__(self, *args: Any, **kwargs: Any):
@@ -94,6 +104,9 @@ class PixelGridDummyEnv(Env):
     """A learnable pixel task: the agent (white patch) walks a ``grid x grid``
     world towards a fixed green goal; reward is the negative normalised
     Manhattan distance.  The position shows only in the pixels."""
+
+    metadata = {"render_modes": ["rgb_array"]}
+    render_mode = "rgb_array"
 
     def __init__(self, grid: int = 4, episode_len: int = 16, image_hw: int = 64):
         self._grid = grid
@@ -140,3 +153,6 @@ class PixelGridDummyEnv(Env):
         reward = -dist / (2 * (self._grid - 1))
         done = self._step_count >= self._episode_len
         return self._obs(), float(reward), False, done, {}
+
+    def render(self) -> np.ndarray:
+        return self._obs()["rgb"]

@@ -8,7 +8,7 @@ such an env is built: a machine without it runs every other env.
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, Dict, Optional
 
 import numpy as np
 
@@ -48,6 +48,10 @@ class GymnasiumEnv(Env):
     def step(self, action: Any):
         obs, reward, terminated, truncated, info = self._env.step(np.asarray(action))
         return obs, float(reward), bool(terminated), bool(truncated), dict(info)
+
+    @property
+    def metadata(self) -> Dict[str, Any]:
+        return self._env.metadata
 
     def render(self) -> Any:
         return self._env.render()

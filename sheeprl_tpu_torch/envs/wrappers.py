@@ -29,6 +29,13 @@ class Wrapper(Env):
     def step(self, action: Any):
         return self.env.step(action)
 
+    @property
+    def metadata(self) -> Dict[str, Any]:
+        return self.env.metadata
+
+    def render(self) -> Any:
+        return self.env.render()
+
     def close(self) -> None:
         self.env.close()
 

@@ -6,7 +6,9 @@ raises when no GPU is present; only ``cpu`` gives the CPU.
 ``fabric.precision`` is the :class:`Precision` policy of the JAX fabric:
 ``32-true`` is full fp32 (TF32 off for matrix products and for cuDNN's
 convolutions); ``bf16-mixed`` and ``bf16-true`` compute in bf16 with fp32
-accumulation.  :meth:`Fabric.compile` is the compile-once entry point
+accumulation.  ``matmul_precision`` (:func:`apply_matmul_precision`, acted
+on by ``cli.run`` as the JAX ``cli`` does) may then allow TF32 on the card.
+:meth:`Fabric.compile` is the compile-once entry point
 (``parallel/compile.py``: one captured CUDA graph per signature on the
 card).  :class:`PlayerSync` keeps the env player's own copy of the weights
 it acts with, refreshed after train windows.
@@ -170,6 +172,36 @@ def build_fabric(cfg: Any) -> Fabric:
         # accumulates bf16 dots in fp32
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     return Fabric(device=device, precision=precision)
+
+
+#: ``matmul_precision`` values (the names JAX's ``jax_default_matmul_precision``
+#: takes) → whether products and convolutions on the card may use TF32.  On a
+#: TPU ``default`` means bf16 passes; the port keeps fp32 for it, because every
+#: card-vs-CPU check and parity test is built on fp32 products.
+MATMUL_PRECISIONS = {"default": False, "highest": False, "float32": False, "high": True, "tensorfloat32": True}
+
+
+def apply_matmul_precision(value: Any, device: torch.device) -> None:
+    """Act on ``matmul_precision`` for a run on ``device``: ``high`` /
+    ``tensorfloat32`` let cuBLAS and cuDNN use TF32 (and set PyTorch's
+    float32 matmul precision to ``high``), the others keep fp32 products.
+    Only the CUDA backends change: on the CPU the value is checked and the
+    CPU's math is left alone.  The hand-written kernels ignore these flags
+    (their 3xTF32 products are their own)."""
+    name = str(value or "default")
+    if name not in MATMUL_PRECISIONS:
+        from sheeprl_tpu_torch.config.compose import ConfigError
+
+        raise ConfigError(
+            f"matmul_precision {value!r} is not one the port takes ({', '.join(MATMUL_PRECISIONS)}); for bf16 "
+            "products (the JAX package's 'bfloat16') set fabric.precision=bf16-mixed"
+        )
+    if device.type != "cuda":
+        return
+    tf32 = MATMUL_PRECISIONS[name]
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    torch.backends.cudnn.allow_tf32 = tf32
+    torch.set_float32_matmul_precision("high" if tf32 else "highest")
 
 
 class PlayerSync:

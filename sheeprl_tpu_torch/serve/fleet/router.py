@@ -584,9 +584,10 @@ class FleetRouter:
                     rep.draining = False
                 with self._counters_lock:
                     self._replicas_reloaded += 1
-        except Exception:
+        except Exception as e:
             with self._counters_lock:
                 self._reload_halts += 1
+            print(f"[fleet] rolling reload of step {step} halted: {type(e).__name__}: {e}", flush=True)
             raise
         return step
 

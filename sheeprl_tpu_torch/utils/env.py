@@ -68,13 +68,6 @@ UNPORTED_SUITES = {
 }
 
 
-def _unsupported(cfg: Any, run_name: Optional[str]) -> list:
-    out = []
-    if cfg.env.get("capture_video", False) and run_name is not None:
-        out.append("env.capture_video (ROADMAP.md, queue A item 6)")
-    return out
-
-
 def _wrapper_config(cfg: Any) -> Dict[str, Any]:
     """``cfg.env.wrapper`` (a dict, a bare suite name or the "???"
     placeholder) as a dict with a ``kind`` entry."""
@@ -200,23 +193,27 @@ def make_env(
     """Build a thunk creating one wrapped environment instance; a device env
     steps on the run's device (``fabric.accelerator``), or on the CPU inside
     a vector env's worker process.  The thunk pickles, so a worker process
-    can build its env."""
-    unsupported = _unsupported(cfg, run_name)
-    if unsupported:
-        raise NotImplementedError(f"sheeprl_tpu_torch.make_env does not implement {unsupported} yet")
-    return EnvThunk(cfg, seed, rank, vector_env_idx)
+    can build its env.  With ``env.capture_video`` env 0 of rank 0 of a run
+    (``run_name`` given) records episode videos under ``{run_name}/videos``
+    (``{run_name}/{prefix}_videos`` with a ``prefix``), as the JAX package's
+    ``make_env`` does (:class:`~sheeprl_tpu_torch.envs.video.RecordVideo`)."""
+    return EnvThunk(cfg, seed, rank, vector_env_idx, run_name, prefix)
 
 
 class EnvThunk:
     """``make_env``'s thunk: a top-level callable, so it pickles into an
-    :class:`AsyncVectorEnv` worker."""
+    :class:`AsyncVectorEnv` worker (a recorded env records there)."""
 
-    def __init__(self, cfg: Any, seed: Optional[int], rank: int, vector_env_idx: int):
+    def __init__(self, cfg: Any, seed: Optional[int], rank: int, vector_env_idx: int,
+                 run_name: Optional[str] = None, prefix: str = ""):
         self.cfg, self.seed, self.rank, self.vector_env_idx = cfg, seed, rank, vector_env_idx
+        self.run_name, self.prefix = run_name, prefix
 
     def build(self) -> Env:
         cfg, seed = self.cfg, self.seed
-        render_mode = cfg.env.get("render_mode", "rgb_array")
+        capture = (bool(cfg.env.get("capture_video", False)) and self.rank == 0 and self.vector_env_idx == 0
+                   and self.run_name is not None)
+        render_mode = "rgb_array" if capture else cfg.env.get("render_mode", "rgb_array")
         env = _make_base_env(cfg, seed, render_mode)
         if cfg.env.action_repeat > 1:
             env = ActionRepeat(env, cfg.env.action_repeat)
@@ -238,6 +235,10 @@ class EnvThunk:
             env = TransformReward(env, _tanh_reward)
         if cfg.env.max_episode_steps is not None and cfg.env.max_episode_steps > 0:
             env = TimeLimit(env, cfg.env.max_episode_steps)
+        if capture:
+            from sheeprl_tpu_torch.envs.video import RecordVideo
+
+            env = RecordVideo(env, os.path.join(self.run_name, f"{self.prefix}_videos" if self.prefix else "videos"))
         if seed is not None:
             env.reset(seed=seed + self.rank * cfg.env.num_envs + self.vector_env_idx)
             env.action_space.seed(seed + self.rank * cfg.env.num_envs + self.vector_env_idx)

@@ -191,16 +191,26 @@ def test_unported_suites_raise_naming_the_roadmap_item(group):
 
 @pytest.mark.parametrize("override", ["env.capture_video=True", "fault_injection=chaos_env"])
 def test_unported_runtime_settings_raise_naming_the_roadmap_item(tmp_path, override):
-    """``env.capture_video`` still raises, naming its item.  The env fault
-    sites are ported now: ``fault_injection=chaos_env``, installed as
-    ``cli.run`` installs it, wraps the env, and its 40th step crashes into
+    """Both settings are ported now (the name is kept from when they raised).
+    ``env.capture_video`` records env 0's episodes with cv2 under
+    ``{run_name}/videos`` (``tests/test_torch_video.py`` holds the layout to
+    JAX's); here env 0 of the dummy env records episodes 0 and 1 and env 1
+    records nothing.  ``fault_injection=chaos_env``, installed as ``cli.run``
+    installs it, wraps the env, and its 40th step crashes into
     ``RestartOnException``."""
     from sheeprl_tpu_torch.resilience.faults import clear_plan, install_from_config
 
     cfg = compose(["exp=ppo", "env=dummy", "env.sync_env=True", "fabric.accelerator=cpu", "env.capture_video=False", override])
     if override == "env.capture_video=True":
-        with pytest.raises(NotImplementedError, match="queue A item 6"):
-            make_env(cfg, 0, run_name=str(tmp_path))
+        envs = [make_env(cfg, 0, run_name=str(tmp_path), vector_env_idx=i)() for i in range(2)]
+        for env in envs:
+            env.reset()
+            for _ in range(3):
+                env.step(env.action_space.sample())
+            env.close()
+        assert sorted(p.name for p in tmp_path.rglob("*.mp4")) == ["rl-video-episode-0.mp4",
+                                                                   "rl-video-episode-1.mp4"]
+        assert {p.parent for p in tmp_path.rglob("*.mp4")} == {tmp_path / "videos"}
         return
     install_from_config(cfg)
     try:

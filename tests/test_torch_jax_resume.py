@@ -21,11 +21,21 @@ keys, and the loop's counters.  Then:
   state it does not; the rest of the families' loss sides are held by their
   own parity tests;
 * the host replay ring a JAX run saved loads into the port's;
-* a population snapshot raises, naming ROADMAP item 6(c).
+* a population snapshot (PPO with Adam, A2C with the centred RMSprop with
+  momentum, P = 2) resumes: the stacked optimizer takes JAX's next vmapped
+  step at each member's learning rate, to the same bound (a control without
+  the optimizer state misses it), and the PBT carry is JAX's; ``cli.run``
+  continues the committed fixture ``tests/fixtures/jax_ppo_population/``
+  (written by ``tools/write_jax_population_fixture.py``): counters,
+  exploits and episodes go on from it.
 """
 
+import contextlib
+import fcntl
 import glob
+import os
 import pathlib
+import pickle
 
 import jax
 import jax.numpy as jnp
@@ -41,7 +51,7 @@ from sheeprl_tpu.parallel.fabric import build_fabric as jax_build_fabric
 from sheeprl_tpu.serve.loader import probe_spaces as jax_probe_spaces
 from sheeprl_tpu.utils.optim import build_optimizer as jax_build_optimizer
 from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
-from sheeprl_tpu_torch.config.compose import ConfigError, compose
+from sheeprl_tpu_torch.config.compose import compose
 from sheeprl_tpu_torch.convert import (
     OptaxState,
     agent_from_jax,
@@ -92,9 +102,10 @@ def _recipe(family):
 
 
 # -- the JAX side -----------------------------------------------------------------
-def _jax_agent(jcfg):
+def _jax_agent(jcfg, seed=0):
     """The JAX ``build_agent`` of the config's algorithm, its parameters
-    numpy-drawn (kernels ~ N(0, 1/fan_in), LayerNorm scales near one)."""
+    numpy-drawn from ``seed`` (kernels ~ N(0, 1/fan_in), LayerNorm scales
+    near one)."""
     import importlib
 
     name = str(jcfg.algo.name)
@@ -119,7 +130,7 @@ def _jax_agent(jcfg):
         dims, cont = jax_spaces_to_dims(action_space)
         args = (fabric, dims, cont, jcfg, obs_space)
     shapes = jax.eval_shape(lambda: build(*args)[-1])
-    rng = np.random.default_rng(0)
+    rng = np.random.default_rng(seed)
 
     def draw(path, leaf):
         key = str(getattr(path[-1], "key", path[-1]))
@@ -186,10 +197,10 @@ def _opt_layout(opt):
     return out
 
 
-def _jax_snapshot(root, family, steps=3, population=False):
+def _jax_snapshot(root, family, steps=3):
     """The JAX package's own committed snapshot of ``family`` after
     ``steps`` optimizer steps on random gradients; returns its step
-    directory, the JAX config, the parameters, the chains and their states."""
+    directory, the parameters and the chains' states."""
     from sheeprl_tpu.checkpoint.protocol import step_dir_name, write_commit, write_shard
     from sheeprl_tpu.checkpoint.serialize import snapshot_tree, to_host_tree
 
@@ -211,24 +222,56 @@ def _jax_snapshot(root, family, steps=3, population=False):
              "last_checkpoint": update * per, "grad_steps": GRAD_STEPS,
              "ratio": {"ratio": float(jcfg.algo.get("replay_ratio", 1.0) or 1.0), "prev": float(update * per),
                        "pretrain_steps": 0}}
-    if population:
-        state["population"] = {"fitness": np.zeros(2, np.float32)}
     version = pathlib.Path(root) / family / "version_0"
     (version / "checkpoint").mkdir(parents=True)
     (version / "config.yaml").write_text(yaml.safe_dump(jcfg.as_dict()))
     step = version / "checkpoint" / step_dir_name(update * per)
     write_shard(step, 0, to_host_tree(snapshot_tree(state)))
     assert write_commit(step, update * per, 1, timeout_s=10.0)
-    return step, jcfg, params, groups, opt
+    return step, params, opt
+
+
+def _shared_dir(tmp_path_factory, name):
+    """A directory every xdist worker of this session shares (the workers'
+    base temps sit side by side under the session's)."""
+    base = tmp_path_factory.getbasetemp()
+    root = (base.parent if os.environ.get("PYTEST_XDIST_WORKER") else base) / name
+    root.mkdir(parents=True, exist_ok=True)
+    return root
+
+
+@contextlib.contextmanager
+def _locked(path):
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def _built_once(root, name, build):
+    """``build(root)`` run by the first worker that needs ``name``, its
+    result (its last element a step directory, the rest picklable host
+    trees) kept under ``root`` for the session: the JAX snapshots cost
+    seconds to minutes each, and every worker drawing one of their tests
+    would otherwise build its own."""
+    done = root / f"{name}.pkl"
+    with _locked(root / f"{name}.lock"):
+        if not done.exists():
+            done.write_bytes(pickle.dumps(jax.device_get(build(root))))
+    return pickle.loads(done.read_bytes())
 
 
 @pytest.fixture(scope="module")
 def snapshots(tmp_path_factory):
-    root, cache = tmp_path_factory.mktemp("jax_resume"), {}
+    root, cache = _shared_dir(tmp_path_factory, "jax_resume"), {}
 
     def get(family):
         if family not in cache:
-            cache[family] = _jax_snapshot(root, family)
+            step, params, opt = _built_once(root, family, lambda r: _jax_snapshot(r, family))
+            jcfg = jax_compose(_recipe(family))
+            cache[family] = (step, jcfg, params, _groups(jcfg, params), opt)
         return cache[family]
 
     return get
@@ -358,12 +401,12 @@ def test_cli_run_continues_the_jax_snapshot(family, snapshots, tmp_path):
 
     step = snapshots(family)[0]
     update, per = FAMILIES[family][1:]
-    total = (update + 2) * per
+    total = (update + 1) * per  # one more update: the fewest that show the counters going on
     run([*_recipe(family), f"checkpoint.resume_from={step}", f"algo.total_steps={total}", f"log_dir={tmp_path}",
          "checkpoint.every=1000000", "algo.run_test=False"])
     (last,) = sorted(glob.glob(f"{tmp_path}/**/checkpoint/step_*", recursive=True))[-1:]
     saved = load_step_dir(last)
-    assert saved["policy_step"] == total and saved["update"] == update + 2
+    assert saved["policy_step"] == total and saved["update"] == update + 1
     if "grad_steps" in saved:
         assert saved["grad_steps"] >= GRAD_STEPS
     (metrics,) = glob.glob(f"{tmp_path}/**/metrics.csv", recursive=True)
@@ -371,12 +414,145 @@ def test_cli_run_continues_the_jax_snapshot(family, snapshots, tmp_path):
     assert steps and min(steps) > update * per  # nothing logged before the snapshot's step
 
 
-def test_a_jax_population_snapshot_raises(tmp_path):
+# -- populations ----------------------------------------------------------------------
+POP_COMMON = ["env=jax_cartpole", "population.size=2", "population.exploit_every=2", "population.warmup=1",
+              "env.num_envs=2", "algo.rollout_steps=8", "algo.per_rank_batch_size=8", "algo.mlp_keys.encoder=[state]",
+              "algo.dense_units=8", "algo.mlp_layers=1", "algo.encoder.dense_units=8", "algo.encoder.mlp_layers=1",
+              "algo.encoder.mlp_features_dim=8", "algo.max_grad_norm=0.5", "fabric.accelerator=cpu",
+              "env.sync_env=True", "env.capture_video=False"]
+POPULATIONS = {
+    "ppo": ["exp=ppo", *POP_COMMON, "algo.update_epochs=1"],
+    "a2c-rmsprop-centered-momentum": ["exp=a2c", *POP_COMMON, "algo.optimizer.name=rmsprop",
+                                      "algo.optimizer.momentum=0.9", "algo.optimizer.centered=True"],
+}
+POP_SIZE = 2
+POP_FIXTURE = pathlib.Path(__file__).parent / "fixtures" / "jax_ppo_population"
+
+
+def _stacked(tree, convert=policy_state_from_jax):
+    """A stacked ``(P, ...)`` flax tree → the port's stacked state, member by member."""
+    members = [convert(jax.tree.map(lambda x: np.asarray(x)[m], tree)) for m in range(POP_SIZE)]
+    return {k: torch.stack([mm[k] for mm in members]) for k in members[0]}
+
+
+def _population_snapshot(root, family, steps=3):
+    """A population snapshot the JAX package's checkpoint code commits: two
+    members drawn apart, their vmapped optax state after ``steps`` steps on
+    random gradients at one learning rate each (the injected rate, as the
+    population phase sets it), and a PBT carry."""
+    from sheeprl_tpu.utils.optim import set_learning_rate
+
+    jcfg = jax_compose(POPULATIONS[family])
+    params = jax.tree.map(lambda *m: jnp.stack(m), *(_jax_agent(jcfg, seed=m) for m in range(POP_SIZE)))
+    chain = jax_build_optimizer(jcfg.algo.optimizer, jcfg.algo.max_grad_norm)
+    lr = float(jcfg.algo.optimizer.lr) * np.array([0.5, 2.0], np.float32)
+    opt = set_learning_rate(jax.vmap(chain.init)(params), lr)
+    for s in range(steps):
+        updates, opt = jax.vmap(chain.update)(_grads(params, 100 * s), opt, params)
+        params = optax.apply_updates(params, updates)
+    hp = {"lr": lr, "ent_coef": np.array([0.01, 0.02], np.float32)}
+    if family == "ppo":
+        hp["clip_coef"] = np.array([0.1, 0.3], np.float32)
+    population = {"fitness": np.array([1.5, -0.5], np.float32), "ep_count": np.array([3, 4], np.int32),
+                  "exploits": np.array(2, np.int32), "hp": hp}
+    state = {"agent": params, "opt_state": opt, "key": jax.random.PRNGKey(5), "player_key": jax.random.key(6),
+             "policy_step": 64, "update": 2, "last_log": 0, "last_checkpoint": 64, "population": population}
+    step = _write_jax_state(pathlib.Path(root) / family, jcfg, state, 64)
+    return params, opt, population, step
+
+
+@pytest.fixture(scope="module")
+def population_snapshots(tmp_path_factory):
+    root, cache = _shared_dir(tmp_path_factory, "jax_population"), {}
+
+    def get(family):
+        if family not in cache:
+            params, opt, population, step = _built_once(root, family, lambda r: _population_snapshot(r, family))
+            jcfg = jax_compose(POPULATIONS[family])
+            cache[family] = (step, jcfg, params, jax_build_optimizer(jcfg.algo.optimizer, jcfg.algo.max_grad_norm),
+                             opt, population)
+        return cache[family]
+
+    return get
+
+
+def _population_step(family, snap, with_opt_state=True):
+    """One more step of the stacked optimizer on both sides, on the same
+    random gradients: ``[(None, name, port change, JAX change)]``."""
+    from sheeprl_tpu_torch.algos.ppo.agent import build_agent
+    from sheeprl_tpu_torch.algos.ppo.utils import spaces_to_dims
+    from sheeprl_tpu_torch.population.members import StackedAgent, StackedOptimizer
+    from sheeprl_tpu_torch.serve.loader import probe_spaces
+
+    step, _, params, chain, opt, _ = snap
+    pcfg = compose([*POPULATIONS[family], f"checkpoint.resume_from={step}"])
+    state = load_resume_state(step, pcfg)
+    obs_space, act_space = probe_spaces(pcfg)
+    dims, cont = spaces_to_dims(act_space)
+    agent = StackedAgent(build_agent(build_fabric(pcfg), dims, cont, pcfg, obs_space), POP_SIZE, state["agent"])
+    optimizer = StackedOptimizer(agent.params, pcfg.algo.optimizer, pcfg.algo.max_grad_norm)
+    if with_opt_state:
+        optimizer.load_state_dict(state["opt_state"])
+    grads = _grads(params, 7)
+    updates, _ = jax.vmap(chain.update)(grads, opt, params)
+    p_grads, j_delta = _stacked(grads), _stacked(updates)
+    before = {n: p.detach().clone() for n, p in agent.params.items()}
+    optimizer.step([p_grads[n] for n in agent.params], state["population"]["hp"]["lr"])
+    return [(None, n, (p.detach() - before[n]).numpy(), j_delta[n].numpy()) for n, p in agent.params.items()]
+
+
+@pytest.mark.parametrize("family", list(POPULATIONS))
+def test_resumed_population_optimizers_take_jax_next_step(family, population_snapshots):
+    snap = population_snapshots(family)
+    ok, worst = _close(_population_step(family, snap))
+    assert ok, f"{family}: a member's change misses JAX's by {worst} beyond the tolerance"
+    ok_control, _ = _close(_population_step(family, snap, with_opt_state=False))
+    assert not ok_control, f"{family}: the step without the optimizer state agrees too"
+
+
+@pytest.mark.parametrize("family", list(POPULATIONS))
+def test_a_jax_population_carry_is_resumed(family, population_snapshots):
+    step, _, params, _, opt, population = population_snapshots(family)
+    state = load_resume_state(step, compose(POPULATIONS[family]))
+    assert (state["policy_step"], state["update"]) == (64, 2)
+    for k in ("fitness", "ep_count", "exploits"):
+        np.testing.assert_array_equal(state["population"][k].numpy(), population[k], err_msg=k)
+    assert state["population"]["hp"].keys() == population["hp"].keys()
+    for k, v in population["hp"].items():
+        np.testing.assert_array_equal(state["population"]["hp"][k].numpy(), v, err_msg=k)
+    for n, v in _stacked(params).items():
+        torch.testing.assert_close(state["agent"][n], v, rtol=0, atol=0, msg=n)
+    counts = [np.asarray(x) for x in jax.tree.leaves(opt) if np.shape(x) == (POP_SIZE,)
+              and np.asarray(x).dtype == np.int32]
+    want_count = counts[0] if family == "ppo" else np.zeros(POP_SIZE)  # Adam counts, the RMSprops do not
+    np.testing.assert_array_equal(state["opt_state"]["count"].numpy(), want_count)
+
+
+def test_a_jax_population_snapshot_resumes(tmp_path):
+    """``cli.run`` resumes the committed JAX population (P = 4, PPO) for two
+    more population phases: the counters, the exploits and every member's
+    episodes go on from the snapshot; the phase exploits once more
+    (``exploit_every=2``)."""
+    import sys
+
     from sheeprl_tpu_torch.cli import run
 
-    step = _jax_snapshot(tmp_path, "ppo", steps=1, population=True)[0]
-    with pytest.raises(ConfigError, match=r"population snapshot.*queue A item 6\(c\)"):
-        run([*_recipe("ppo"), f"checkpoint.resume_from={step}", f"log_dir={tmp_path / 'logs'}"])
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    from tools.write_jax_population_fixture import NUM_ENVS, POPULATION_OVERRIDES, ROLLOUT, SIZE
+
+    (step,) = POP_FIXTURE.glob("checkpoint/step_*")
+    saved = load_step_dir(step)
+    total = int(saved["policy_step"]) + 2 * SIZE * NUM_ENVS * ROLLOUT
+    run([*POPULATION_OVERRIDES, f"checkpoint.resume_from={step}", f"algo.total_steps={total}",
+         f"log_dir={tmp_path}", "metric/logger=csv"])
+    (last,) = sorted(glob.glob(f"{tmp_path}/**/checkpoint/step_*", recursive=True))[-1:]
+    resumed = load_step_dir(last)
+    assert resumed["policy_step"] == total and resumed["update"] == saved["update"] + 2
+    pop, before = resumed["population"], saved["population"]
+    assert int(pop["exploits"]) == int(before["exploits"]) + 1
+    assert bool((pop["ep_count"].numpy() >= before["ep_count"]).all()) and int(pop["ep_count"].sum()) > int(
+        before["ep_count"].sum())
+    assert pop["fitness"].shape == (SIZE,) and bool(torch.isfinite(pop["fitness"]).all())
 
 
 # -- DreamerV3: the first whole update ----------------------------------------------

@@ -12,8 +12,9 @@ within ``test_torch_serve.py``'s 1e-4 of the JAX outputs recorded on the
 same inputs and posterior noise, the sampled latent and greedy actions
 equal; PPO's and SAC's greedy actions equal JAX's player's (SAC within
 1e-4).  Every global the JAX pickles name is on the port's list, an
-unlisted one is refused, training resumes from the fixture (a population
-snapshot raises), and the committed fixture is still what the tool writes.
+unlisted one is refused, training resumes from the fixture and from the
+committed JAX population, and the committed fixture is still what the tool
+writes.
 """
 
 import json
@@ -34,7 +35,6 @@ from sheeprl_tpu.parallel.fabric import build_fabric as jax_build_fabric
 from sheeprl_tpu.serve.loader import load_policy as jax_load_policy
 from sheeprl_tpu.serve.loader import probe_spaces as jax_probe_spaces
 from sheeprl_tpu_torch.checkpoint.serialize import JAX_GLOBALS, load_jax_pickle
-from sheeprl_tpu_torch.config.compose import ConfigError
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FIXTURE = ROOT / "tests" / "fixtures" / "jax_dv3"
@@ -249,9 +249,12 @@ def test_a_pickle_with_an_unlisted_global_is_refused(payload, capfd):
 
 @pytest.mark.parametrize("setting", ["checkpoint.resume_from", "checkpoint.exploration_ckpt_path", "population"])
 def test_resuming_training_from_a_jax_snapshot_raises(jax_written, tmp_path, setting):
-    """Only a population snapshot still raises (ROADMAP item 6(c)'s
-    remainder); the fixture resumes a DreamerV3 run (its counters go on from
-    step 40, update 20) and seeds a P2E-DV3 finetuning run."""
+    """Every JAX-written snapshot resumes now (the name is kept from when a
+    population snapshot raised, ROADMAP item 6(c)): the fixture resumes a
+    DreamerV3 run (its counters go on from step 40, update 20) and seeds a
+    P2E-DV3 finetuning run; the committed JAX population
+    (``tests/fixtures/jax_ppo_population``, PPO at P = 4) trains one more
+    population phase, its PBT carry going on."""
     from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
     from sheeprl_tpu_torch.cli import run
 
@@ -261,13 +264,21 @@ def test_resuming_training_from_a_jax_snapshot_raises(jax_written, tmp_path, set
     common = [*fixture, "env.sync_env=True", "algo.total_steps=44", "checkpoint.every=1000000",
               f"log_dir={tmp_path}"]
     if setting == "population":
-        state = pickle.loads((snapshot / "shard_r00000.pkl").read_bytes())  # JAX's own classes
-        state["population"] = {"fitness": np.zeros(2, np.float32)}
-        pop = tmp_path / "pop" / "checkpoint" / snapshot.name
-        shutil.copytree(snapshot, pop)
-        (pop / "shard_r00000.pkl").write_bytes(pickle.dumps(state))
-        with pytest.raises(ConfigError, match=r"population snapshot.*queue A item 6\(c\)"):
-            run(["exp=dreamer_v3", *common, f"checkpoint.resume_from={pop}"])
+        import write_jax_population_fixture as pop_fixture
+
+        pop = tmp_path / "pop"
+        shutil.copytree(pop_fixture.FIXTURE, pop)
+        (step,) = (pop / "checkpoint").glob("step_*")
+        saved = load_step_dir(step)
+        total = int(saved["policy_step"]) + pop_fixture.SIZE * pop_fixture.NUM_ENVS * pop_fixture.ROLLOUT
+        run([*pop_fixture.POPULATION_OVERRIDES, f"checkpoint.resume_from={step}", f"algo.total_steps={total}",
+             f"log_dir={tmp_path / 'logs'}"])
+        (last,) = sorted((tmp_path / "logs").glob("**/checkpoint/step_*"))[-1:]
+        resumed = load_step_dir(last)
+        assert (resumed["policy_step"], resumed["update"]) == (total, saved["update"] + 1)
+        # the carry went on from the snapshot's, not from zero
+        assert bool((resumed["population"]["ep_count"].numpy() >= saved["population"]["ep_count"]).all())
+        assert int(resumed["population"]["exploits"]) >= int(saved["population"]["exploits"]) > 0
         return
     exp = "exp=dreamer_v3" if setting == "checkpoint.resume_from" else "exp=p2e_dv3_finetuning"
     # a finetuning run counts from 0: 4 iterations, none of them training

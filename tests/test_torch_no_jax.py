@@ -23,8 +23,9 @@ SAC and DreamerV3 train from the device-resident replay (forced on, the
 guard armed) whose spill tier round-trips a checkpoint, a PPO population of
 two trains one phase through ``cli.run`` and writes its summary, and the
 supervisor resolves for a one-process run, an env steps in worker processes
-(the fork server and the workers under the same blocker) and training
-resumes from the JAX-written fixture, its counters going on.
+(the fork server and the workers under the same blocker), env 0 recording
+its episodes there, graftlint's registry rules run clean over the port,
+and training resumes from the JAX-written fixture, its counters going on.
 
 A subprocess, because the test session has imported JAX already.
 """
@@ -103,7 +104,7 @@ SCRIPT = textwrap.dedent(
     carry, actions = player.step_batch(player.params, player.zero_carry(2), obs, 0, np.array([True, False]))
     assert actions.shape == (2, 4) and np.isfinite(carry[0]).all()
 
-    import glob, shutil, tempfile
+    import glob, pathlib, shutil, tempfile
     from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
     from sheeprl_tpu_torch.cli import registration
     from sheeprl_tpu_torch.serve.loader import load_policy
@@ -257,17 +258,27 @@ SCRIPT = textwrap.dedent(
     assert isinstance(resolve_supervisor(compose(["exp=ppo"]), ["exp=ppo"]), Supervisor)
 
     # an env stepped in worker processes: the fork server and its workers are
-    # interpreters of their own, which the blocker (sitecustomize) guards too
+    # interpreters of their own, which the blocker (sitecustomize) guards too;
+    # env 0 records its episodes there (env.capture_video) and writes them
+    # when the worker closes it
     from sheeprl_tpu_torch.utils.env import AsyncVectorEnv, StepDeadlineVectorEnv, make_env, vectorize
     cfg = compose(["exp=ppo", "env=dummy", "env.id=discrete_dummy", "env.num_envs=2", "env.sync_env=False",
-                   "env.capture_video=False"])
-    envs = vectorize(cfg, [make_env(cfg, i, 0, vector_env_idx=i) for i in range(2)])
-    assert isinstance(envs, StepDeadlineVectorEnv) and isinstance(envs.unwrapped, AsyncVectorEnv)
-    envs.reset(seed=0)
-    for _ in range(3):
-        obs, *_ = envs.step(np.zeros(2, np.int64))
-    assert obs["state"][:, 0].tolist() == [3.0, 3.0]
-    envs.close()
+                   "env.capture_video=True"])
+    with tempfile.TemporaryDirectory() as tmp:
+        envs = vectorize(cfg, [make_env(cfg, i, 0, run_name=tmp, vector_env_idx=i) for i in range(2)])
+        assert isinstance(envs, StepDeadlineVectorEnv) and isinstance(envs.unwrapped, AsyncVectorEnv)
+        envs.reset(seed=0)
+        for _ in range(3):
+            obs, *_ = envs.step(np.zeros(2, np.int64))
+        assert obs["state"][:, 0].tolist() == [3.0, 3.0]
+        envs.close()
+        videos = sorted(p.name for p in pathlib.Path(tmp).rglob("*.mp4"))
+        assert videos == ["rl-video-episode-0.mp4", "rl-video-episode-1.mp4"], videos
+
+    # graftlint's registry rules over the port: nothing unsuppressed
+    from sheeprl_tpu_torch.analysis import DEFAULT_BASELINE, Baseline, run_analysis
+    report = run_analysis(baseline=Baseline.load(DEFAULT_BASELINE))
+    assert not report.findings and not report.stale_baseline, report.render_text()
 
     # training resumed from the JAX-written fixture: its counters go on
     with tempfile.TemporaryDirectory() as tmp:
