@@ -454,6 +454,7 @@ import sys
 import threading
 import time
 import traceback
+import types
 from pathlib import Path
 
 import numpy as np
@@ -1990,6 +1991,218 @@ def phase_off_policy(torch, run_root: Path) -> dict:
     return {"train": train, "parity": parity, "serve": served}
 
 
+# -- the decoupled recipes (phases 68-69) --------------------------------------
+# PPO's recipe on the dummy env's state (4 envs x 128 steps, 10 epochs of 8
+# minibatches), 3 iterations; its decoupled twin the same
+PPO_COUPLED = ("exp=ppo", *ON_POLICY, "algo.run_test=False", "algo.total_steps=1536")
+PPO_DECOUPLED = ("exp=ppo_decoupled", *PPO_COUPLED[1:])
+DECOUPLED_TURNS = ("decoupled", "coupled")
+# the card-vs-CPU gate: 3 iterations of 32 steps x 4 envs, SGD, the same draws
+PPO_DECOUPLED_PARITY = ("exp=ppo_decoupled", *(o for o in ON_POLICY if o != "fabric.accelerator=gpu"),
+                        "algo.run_test=False", "algo.rollout_steps=32", "algo.total_steps=384",
+                        *(f"algo.optimizer.{k}={v}" for k, v in CARD_PARITY_SGD.items()))
+# SAC's recipe on the continuous dummy env: a prefill of 100 steps, 200 in all
+SAC_COUPLED = ("exp=sac", *OFF_POLICY, HOST_RING, "algo.learning_starts=100", "algo.total_steps=200")
+SAC_DECOUPLED = ("exp=sac_decoupled", *SAC_COUPLED[1:])
+
+
+def _decoupled_staleness(torch, module) -> dict:
+    """Spies on the decoupled PPO loop of ``module``: the player's weights at
+    each rollout and the trained weights after each update."""
+    import copy
+
+    seen = {"rollouts": [], "trained": [], "holder": {}}
+
+    def flat(m):
+        return torch.cat([p.detach().flatten() for p in m.parameters()]).clone()
+
+    def deepcopy(m):
+        seen["holder"]["player"] = copy.deepcopy(m)
+        seen["holder"]["agent"] = m
+        return seen["holder"]["player"]
+
+    rollout = module.host_rollout
+
+    def host_rollout(*args):
+        seen["rollouts"].append(flat(seen["holder"]["player"]))
+        return rollout(*args)
+
+    def trained():
+        seen["trained"].append(flat(seen["holder"]["agent"]))
+
+    return seen, {"copy": types.SimpleNamespace(deepcopy=deepcopy), "host_rollout": host_rollout}, trained
+
+
+def phase_ppo_decoupled(torch, run_root: Path) -> dict:
+    """Phase 68: ``exp=ppo_decoupled`` through ``cli.run`` at PPO's recipe
+    widths in turns with ``exp=ppo`` (:data:`DECOUPLED_TURNS`): env
+    steps/s and iterations/s; in the first decoupled run, the player's
+    weights at every rollout: rollout k+1 acted with the weights trained on
+    rollout k-1 (the first two with the initial ones), never aliasing them;
+    then 3 iterations on the card against the CPU with SGD and the same
+    draws (each step's action noise and each epoch's minibatch order made on
+    the CPU), :func:`change_diffs` within phase 17's tolerances."""
+    from sheeprl_tpu_torch.algos.ppo import ppo_decoupled
+    from sheeprl_tpu_torch.algos.ppo.ppo import PPOTrainer
+
+    t0 = time.perf_counter()
+    runs = {"decoupled": [], "coupled": []}
+    staleness = None
+    for i, name in enumerate(DECOUPLED_TURNS):
+        recipe = PPO_DECOUPLED if name == "decoupled" else PPO_COUPLED
+        patches, trained = {}, None
+        if i == 0:
+            seen, patches, trained = _decoupled_staleness(torch, ppo_decoupled)
+        saved = {k: getattr(ppo_decoupled, k) for k in patches}
+        train_phase = PPOTrainer.train_phase
+
+        def spied(self, *args, **kwargs):
+            out = train_phase(self, *args, **kwargs)
+            if trained is not None:
+                trained()
+            return out
+
+        for k, v in patches.items():
+            setattr(ppo_decoupled, k, v)
+        PPOTrainer.train_phase = spied
+        try:
+            run_ = _train_on_policy(torch, recipe, run_root / f"ppo_{name}_{i}", PPOTrainer)
+        finally:
+            PPOTrainer.train_phase = train_phase
+            for k, v in saved.items():
+                setattr(ppo_decoupled, k, v)
+        run_["env_steps_per_s"] = 4 * 128 * run_["iterations_per_s"]  # the recipe's env.num_envs x rollout_steps
+        runs[name].append(run_)
+        if i == 0:
+            rollouts, after = seen["rollouts"], seen["trained"]
+            init = rollouts[0]
+            stale = [torch.equal(rollouts[k], init if k < 2 else after[k - 2]) for k in range(len(rollouts))]
+            current = [torch.equal(rollouts[k], after[k - 1]) for k in range(2, len(rollouts))]
+            holder = seen["holder"]
+            aliased = bool({p.data_ptr() for p in holder["agent"].parameters()}
+                           & {p.data_ptr() for p in holder["player"].parameters()})
+            staleness = {"rollouts": len(rollouts), "updates": len(after), "stale": stale, "current": current,
+                         "aliased": aliased}
+            log(f"[ppo-decoupled] {len(rollouts)} rollouts and {len(after)} updates: rollout k+1 acted with the "
+                f"weights of update k-1 {sum(stale)} of {len(stale)}, with the current weights {sum(current)} of "
+                f"{len(current)}; player aliases the trained tensors {aliased}")
+            del seen
+    ups = {k: [r["iterations_per_s"] for r in v] for k, v in runs.items()}
+    steps = {k: [r["env_steps_per_s"] for r in v] for k, v in runs.items()}
+    log(f"[ppo-decoupled] turns {', '.join(DECOUPLED_TURNS)}: iterations/s decoupled "
+        f"{', '.join(f'{x:.3f}' for x in ups['decoupled'])}, coupled {', '.join(f'{x:.3f}' for x in ups['coupled'])}; "
+        f"env steps/s decoupled {', '.join(f'{x:.1f}' for x in steps['decoupled'])}, coupled "
+        f"{', '.join(f'{x:.1f}' for x in steps['coupled'])}")
+    parity = _ppo_decoupled_parity(torch, run_root)
+    out = {"iterations_per_s": ups, "env_steps_per_s": steps, "staleness": staleness, "parity": parity,
+           "counts": {k: sum(r["counts"][k] for v in runs.values() for r in v) for k in ("rssm", "gru")},
+           "seconds": time.perf_counter() - t0}
+    log(f"[ppo-decoupled] phase 68: {out['seconds']:.1f} s")
+    if not (all(staleness["stale"]) and not any(staleness["current"]) and not staleness["aliased"]
+            and staleness["rollouts"] == staleness["updates"] >= 3 and within_parity(parity)):
+        raise AssertionError(f"[ppo-decoupled] failed: staleness {staleness}, card vs CPU {parity}")
+    return out
+
+
+def _ppo_decoupled_parity(torch, run_root: Path) -> dict:
+    """Phase 68's gate: :data:`PPO_DECOUPLED_PARITY` through ``cli.run`` on
+    the CPU and on the card from the CPU run's initial weights, every action
+    draw and minibatch order made on the CPU and handed to both."""
+    from sheeprl_tpu_torch.algos.ppo import ppo_decoupled
+    from sheeprl_tpu_torch.algos.ppo.agent import action_noise
+    from sheeprl_tpu_torch.algos.ppo.ppo import PPOTrainer, epoch_permutation
+    from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
+    from sheeprl_tpu_torch.cli import run
+
+    weights = {}
+
+    def side(device: str) -> tuple:
+        sample, train_phase, build = ppo_decoupled.sample_actions, PPOTrainer.train_phase, ppo_decoupled.build_agent
+        draws, orders, state = torch.Generator().manual_seed(68), torch.Generator().manual_seed(69), {}
+
+        def build_agent(fabric, dims, cont, cfg, obs_space, saved=None):
+            # the card starts from the CPU's initial weights (the recipe's init draws on its device)
+            agent = build(fabric, dims, cont, cfg, obs_space, weights.get("start"))
+            weights.setdefault("start", {k: v.detach().cpu().clone() for k, v in agent.state_dict().items()})
+            return agent
+
+        def sample_actions(out, dims, cont, noise=None, greedy=False, dist_type="auto"):
+            cpu = action_noise(out.detach().cpu(), dims, cont, dist_type, draws)
+            return sample(out, dims, cont, [n.to(out.device) for n in cpu], greedy, dist_type)
+
+        def phase(self, rollout, last_obs, perms, clip, ent):
+            state.setdefault("start", {k: v.detach().cpu().clone() for k, v in self.agent.state_dict().items()})
+            perms = [epoch_permutation(orders, self.T, self.B, self.batch_size, self.num_minibatches).to(device)
+                     for _ in range(self.update_epochs)]
+            losses = train_phase(self, rollout, last_obs, perms, clip, ent)
+            state["losses"] = np.array([float(x) for x in losses])
+            return losses
+
+        ppo_decoupled.sample_actions, PPOTrainer.train_phase, ppo_decoupled.build_agent = sample_actions, phase, \
+            build_agent
+        log_dir = run_root / f"ppo_decoupled_parity_{device}"
+        t = time.perf_counter()
+        try:
+            run([*PPO_DECOUPLED_PARITY, f"fabric.accelerator={'cpu' if device == 'cpu' else 'gpu'}",
+                 f"log_dir={log_dir}"])
+        finally:
+            ppo_decoupled.sample_actions, PPOTrainer.train_phase, ppo_decoupled.build_agent = sample, train_phase, build
+        snapshot = sorted(log_dir.glob("**/checkpoint/step_*"))[-1]
+        params = {k: v.cpu() for k, v in load_step_dir(snapshot, map_location="cpu")["agent"].items()}
+        return state["start"], params, state["losses"], time.perf_counter() - t
+
+    cpu_start, cpu, cpu_losses, cpu_s = side("cpu")
+    card_start, card, card_losses, card_s = side(CARD)
+    same_start = all(torch.equal(card_start[k], cpu_start[k]) for k in cpu_start)
+    got = change_diffs(torch, cpu_start, card, card_losses, cpu, cpu_losses)
+    log(f"[ppo-decoupled] 3 decoupled iterations of 32 x 4 steps with SGD, card ({card_s:.1f} s) vs CPU "
+        f"({cpu_s:.1f} s) from the same initial weights {same_start} and draws: {show_diffs(got)}")
+    if not same_start:
+        raise AssertionError("[ppo-decoupled] the card and the CPU started from different weights")
+    return got
+
+
+def phase_sac_decoupled(torch, run_root: Path) -> dict:
+    """Phase 69: ``exp=sac_decoupled`` through ``cli.run`` in turns with
+    ``exp=sac`` (:data:`DECOUPLED_TURNS`) at SAC's recipe
+    widths: updates/s, and ``Player/param_staleness_max`` of each decoupled
+    run, at most ``algo.player.sync_every`` + 1 (the deferred refresh lands
+    one window late)."""
+    import csv
+
+    from sheeprl_tpu_torch.algos.sac.sac import SACTrainer
+    from sheeprl_tpu_torch.config.compose import compose
+
+    t0 = time.perf_counter()
+    sync_every = int(compose(list(SAC_DECOUPLED)).algo.player.sync_every)
+    runs = {"decoupled": [], "coupled": []}
+    stale = []
+    for i, name in enumerate(DECOUPLED_TURNS):
+        log_dir = run_root / f"sac_{name}_{i}"
+        run_ = _train_off_policy(torch, SAC_DECOUPLED if name == "decoupled" else SAC_COUPLED, log_dir, SACTrainer)
+        run_.pop("trainer"), run_.pop("batches")
+        runs[name].append(run_)
+        if name == "decoupled":
+            with open(next(log_dir.glob("**/metrics.csv"))) as f:
+                stale.append(max(float(v) for _, n, v in list(csv.reader(f))[1:]
+                                 if n == "Player/param_staleness_max"))
+    ups = {k: [r["updates_per_s"] for r in v] for k, v in runs.items()}
+    out = {"updates_per_s": ups, "staleness_max": stale, "sync_every": sync_every,
+           "counts": {k: sum(r["counts"][k] for v in runs.values() for r in v) for k in ("rssm", "gru")},
+           "seconds": time.perf_counter() - t0}
+    log(f"[sac-decoupled] turns {', '.join(DECOUPLED_TURNS)}: updates/s decoupled "
+        f"{', '.join(f'{x:.1f}' for x in ups['decoupled'])}, coupled {', '.join(f'{x:.1f}' for x in ups['coupled'])}; "
+        f"Player/param_staleness_max {stale} at sync_every {sync_every}; phase 69: {out['seconds']:.1f} s")
+    if not (stale and all(0 < s <= sync_every + 1 for s in stale)):
+        raise AssertionError(f"[sac-decoupled] staleness {stale} not within 1..{sync_every + 1}")
+    return out
+
+
+def phase_decoupled(torch, run_root: Path) -> dict:
+    """Phases 68-69."""
+    return {"ppo": phase_ppo_decoupled(torch, run_root), "sac": phase_sac_decoupled(torch, run_root)}
+
+
 # -- the env layer: device envs, Anakin rollouts, the host wrappers ------------
 # Phase 25 steps each device env on the card and on the CPU from one state
 # with one set of actions and reset draws, teacher-forced from the CPU state
@@ -2915,9 +3128,10 @@ def _fresh_window(torch, overrides, seed: int = 38):
 def phase_graph_window(torch, tag: str, overrides, kernel: str, light: bool = False, keep: bool = False) -> dict:
     """Phases 38-39: one chunk of GRAPH_CHUNK updates of the fused window on
     the card's ring (draw, gather, prep, the trainer's updates), from one
-    state and one generator state, eager twice (the device's own
-    non-determinism) and through ``fabric.compile`` twice (the first call
-    eager then captured, the second replayed); then the two in turns.
+    state and one generator state, eager, then through ``fabric.compile``
+    twice (the first call eager then captured: with the first, the two eager
+    runs show the device's own non-determinism; the second replayed); then
+    the two in turns.
     ``light`` (phases 43-44, whose turns against 32-true and device time by
     kind come from ``phase_precision_turns``): the same equalities, then two
     replayed chunks timed, with no other chunk size, profile or eager turn.
@@ -2973,15 +3187,15 @@ def phase_graph_window(torch, tag: str, overrides, kernel: str, light: bool = Fa
     torch.backends.cudnn.deterministic = True
     try:
         f_eq = compiled(CompileMonitor())
-        a, b = run(window), run(window)
+        a = run(window)
         t0 = time.perf_counter()
-        c = run(f_eq)
+        b = run(f_eq)  # the first call runs the window eagerly (the second eager run), then captures it
         capture_s = time.perf_counter() - t0
         d = run(f_eq)
     finally:
         torch.backends.cudnn.deterministic = deterministic
     del f_eq
-    same_idx = all(torch.equal(r["idx"], a["idx"]) and torch.equal(r["env"], a["env"]) for r in (b, c, d))
+    same_idx = all(torch.equal(r["idx"], a["idx"]) and torch.equal(r["env"], a["env"]) for r in (b, d))
 
     def rel(x, y):
         return np.abs(x - y) / np.maximum(np.abs(y), 1e-6)
@@ -3007,7 +3221,7 @@ def phase_graph_window(torch, tag: str, overrides, kernel: str, light: bool = Fa
             and worst <= param_tol and d["counter"] == 1 + GRAPH_CHUNK and a["launches"] == d["launches"] == expected):
         raise AssertionError(f"{tag}: the replayed window disagrees with eager execution (losses within "
                              f"{loss_tol:.3g}, parameters within {param_tol:.3g})")
-    del a, b, c, d
+    del a, b, d
     monitor = CompileMonitor()
     f = compiled(monitor)  # the loop's algorithms from here on
 
@@ -3018,7 +3232,8 @@ def phase_graph_window(torch, tag: str, overrides, kernel: str, light: bool = Fa
         f(GRAPH_CHUNK, counter0)
 
     graph_chunk()  # the capture, before the turns
-    built = {"cfg": cfg, "trainer": trainer, "rb": rb, "window": window, "graph": f, "gen": gen, "start": start,
+    built = {"cfg": cfg, "overrides": tuple(overrides), "trainer": trainer, "rb": rb, "window": window, "graph": f,
+             "gen": gen, "start": start,
              "g_start": g_start, "counter0": counter0}
     if light:
         turns = _turns(torch, {"graph": graph_chunk}, order=("graph", "graph"))
@@ -3189,6 +3404,240 @@ def phase_matmul_precision(torch, fp32: dict) -> dict:
             "kernel_plain_err": plain_err, "launches_per_update": launches, "seconds": time.perf_counter() - t0}
 
 
+# phases 66-67: the one-device scale layer on phase 38's and 39's kept windows
+# (DreamerV3's 1F1B world-model microbatches, the imagination's row chunks,
+# algo.remat).  66's two XL windows beside phase 38's monolithic one:
+PIPE_WINDOWS = {
+    "mb4": ("pipeline.microbatches=4",),  # gradient accumulation over 4 microbatches of 4 rows
+    "2stage_remat": ("pipeline=2stage", "pipeline.imagination_microbatches=4", "algo.remat=True"),
+}
+PIPE_TURNS = ("base", "mb4", "2stage_remat", "2stage_remat", "mb4", "base")
+# only the order of float sums separates them from the monolithic update; the
+# parameter changes are compared stepping with SGD (CARD_PARITY_SGD) for
+# phase 17's reason: the recipe's Adam moves a parameter by about lr x sign(g)
+# wherever |g| is near its eps, so a change in the last bits of a gradient
+# moves its step by a sizeable share of lr (the Adam changes are reported)
+PIPE_TOL_LOSS_REL = 1e-4
+PIPE_TOL_CHANGE_L2 = 1e-4
+PIPE_SGD = tuple(f"algo.{g}.optimizer.{k}={v}" for g in ("world_model", "actor", "critic")
+                 for k, v in CARD_PARITY_SGD.items())
+# rssm launches per update: the posterior scan's 64 steps for each of 4
+# microbatches (again in the backward under remat) and the imagination's 16
+# (discrete actions: imagined without a graph, so nothing re-computed)
+PIPE_LAUNCHES = {"mb4": 4 * 64 + 16, "2stage_remat": 2 * 4 * 64 + 16}
+# phase 67: DreamerV3-S with the GRU kernel under remat, one chunk of phase 39's window
+REMAT_S_LAUNCHES = 2 * 64 + 16
+
+
+def _sibling_window(torch, built: dict, extra, own_optimizers: bool = False) -> tuple:
+    """A DreamerV3 trainer for the kept window's recipe plus ``extra``, on
+    the same modules, optimizers and Moments (nothing new on the card), and
+    its window over the kept ring and generator; with ``own_optimizers``
+    the trainer steps with optimizers of its own, built from ``extra``."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import DV3Trainer, build_dv3_optimizers, prep_blocks
+    from sheeprl_tpu_torch.config.compose import compose
+    from sheeprl_tpu_torch.data.device_replay import fused_sequence_train
+
+    base, rb, gen = built["trainer"], built["rb"], built["gen"]
+    cfg = compose([*built["overrides"], *extra])
+    optimizers = build_dv3_optimizers(cfg, base.agent) if own_optimizers else base.optimizers
+    trainer = DV3Trainer(cfg, base.agent, optimizers, base.cnn_keys, base.mlp_keys, base.is_continuous)
+    trainer.moments = base.moments
+    L, B = int(cfg.algo.per_rank_sequence_length), int(cfg.algo.per_rank_batch_size)
+
+    def window(n, counter):
+        idx = rb.sequence_indices(gen, n * B, L)
+        counter, metrics = fused_sequence_train(trainer, rb, gen, B, L, n,
+                                                lambda b: prep_blocks(b, trainer.cnn_keys, trainer.mlp_keys),
+                                                counter, indices=idx)
+        return idx, counter, metrics
+
+    return trainer, window
+
+
+def _replay_equals_eager(torch, tag: str, built: dict, trainer, window, n: int, counter_of: dict,
+                         kernel: str) -> dict:
+    """``n`` updates of ``window`` from the kept start state and generator
+    state through a graph function, under cuDNN's deterministic algorithms:
+    its first call (eager, then captured), then a replay; every trained
+    tensor and the ten losses of the replay equal eager's bit for bit, and
+    the launches credited to the replay equal eager's."""
+    from sheeprl_tpu_torch.parallel.compile import GraphFunction
+    from sheeprl_tpu_torch.telemetry.monitors import CompileMonitor
+
+    gen, counter0 = built["gen"], built["counter0"]
+
+    def run(fn):
+        trainer.restore(built["start"])
+        gen.set_state(built["g_start"])
+        before = counter_of[kernel]
+        _, counter, metrics = fn(n, counter0)
+        torch.cuda.synchronize()
+        return {"metrics": np.array([float(m) for m in metrics]), "launches": counter_of[kernel] - before,
+                "counter": int(counter), "params": [t.detach().clone() for t in trainer.tensors()]}
+
+    t0 = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        f = GraphFunction(window, name=f"{tag}.train_phase_device", static_argnums=(0,), device=trainer.device,
+                          generators=(gen,), monitor=CompileMonitor())
+        a = run(f)  # the first call runs the window eagerly (then captures it) and returns the eager result
+        d = run(f)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del f
+    bit = sum(torch.equal(pa, pd) for pa, pd in zip(a["params"], d["params"]))
+    bit_losses = int((d["metrics"] == a["metrics"]).sum())
+    ok = (bit == len(a["params"]) and bit_losses == len(a["metrics"]) and d["counter"] == a["counter"]
+          and a["launches"] == d["launches"])
+    out = {"bit_for_bit_params": bit, "params": len(a["params"]), "bit_for_bit_losses": bit_losses,
+           "launches_per_update": d["launches"] / n, "ok": ok}
+    log(f"[{tag}] {n} update(s) from one state, cuDNN deterministic, replayed vs eager: parameters {bit} of "
+        f"{len(a['params'])} tensors bit for bit, losses {bit_losses} of 10 bit for bit; {kernel} launches "
+        f"{a['launches']} eager, {d['launches']} credited to the replay; {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def _peak_of(torch, fn) -> int:
+    """Peak device bytes one call of ``fn`` allocates above what was allocated before it."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+def phase_pipeline_windows(torch, fp32: dict) -> dict:
+    """Phase 66, on phase 38's kept DreamerV3-XL window ``fp32`` (fp32,
+    ``fused_pallas``; no other XL build, no second monolithic window): two
+    windows of one update on the same modules, optimizers, ring and draws,
+    :data:`PIPE_WINDOWS` — (a) 4 world-model microbatches at one stage,
+    (b) ``pipeline=2stage`` (2 stages, 4 microbatches) with 4 imagination row
+    chunks and ``algo.remat``.  For each: its replay against eager (bit for
+    bit, :func:`_replay_equals_eager`), one eager update's peak memory above
+    the phase's start, device ms per update by kind, rssm launches per
+    update, updates/s in turns with phase 38's captured update
+    (:data:`PIPE_TURNS`), and the ten losses and the parameter changes of
+    the same update from one state against phase 38's: within
+    :data:`PIPE_TOL_LOSS_REL` relative, and the parameter changes of the
+    update stepped with SGD (eagerly, :data:`PIPE_SGD`) within
+    :data:`PIPE_TOL_CHANGE_L2` relative L2 (the recipe's Adam reported)."""
+    from sheeprl_tpu_torch.ops import rssm
+    from sheeprl_tpu_torch.parallel.compile import GraphFunction
+    from sheeprl_tpu_torch.telemetry.monitors import CompileMonitor
+
+    t0 = time.perf_counter()
+    base, gen, counter0 = fp32["trainer"], fp32["gen"], fp32["counter0"]
+    windows = {"base": (base, fp32["window"])}
+    for key, extra in PIPE_WINDOWS.items():
+        windows[key] = _sibling_window(torch, fp32, extra)
+    equal = {key: _replay_equals_eager(torch, f"pipeline-{key}", fp32, *windows[key], 1, rssm.LAUNCHES, "rssm")
+             for key in PIPE_WINDOWS}
+    base.restore(fp32["start"])
+    start_params = [t.detach().clone() for t in base.tensors()]
+
+    def one(key):
+        def fn():
+            base.restore(fp32["start"])
+            gen.set_state(fp32["g_start"])
+            windows[key][1](1, counter0)
+        return fn
+
+    t1 = time.perf_counter()
+    peaks = {key: _peak_of(torch, one(key)) for key in windows}
+    t2 = time.perf_counter()
+    graphs = {"base": fp32["graph"]}
+    for key in PIPE_WINDOWS:
+        graphs[key] = GraphFunction(windows[key][1], name=f"pipeline-{key}.train_phase_device", static_argnums=(0,),
+                                    device=base.device, generators=(gen,), monitor=CompileMonitor())
+        graphs[key](1, counter0)  # eager, then captured
+    t3 = time.perf_counter()
+    kinds = {"base": fp32["kinds"], **{key: _by_kind(torch, lambda k=key: graphs[k](1, counter0))
+                                       for key in PIPE_WINDOWS}}
+    t4 = time.perf_counter()
+    losses, changes, launches, seconds = {}, {}, {}, {key: [] for key in graphs}
+    for key in PIPE_TURNS:
+        base.restore(fp32["start"])
+        gen.set_state(fp32["g_start"])
+        before = rssm.LAUNCHES["rssm"]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, _, metrics = graphs[key](1, counter0)
+        torch.cuda.synchronize()
+        seconds[key].append(time.perf_counter() - t)
+        if key not in losses:
+            launches[key] = rssm.LAUNCHES["rssm"] - before
+            losses[key] = np.array([float(m) for m in metrics])
+            changes[key] = torch.cat([(p.detach() - s).flatten() for p, s in zip(base.tensors(), start_params)])
+    t5 = time.perf_counter()
+    # the same update stepped with SGD, eagerly, for the gate on the parameter changes
+    sgd_changes = {}
+    for key in windows:
+        trainer, window = _sibling_window(torch, fp32, (*PIPE_WINDOWS.get(key, ()), *PIPE_SGD), own_optimizers=True)
+        base.restore(fp32["start"])
+        gen.set_state(fp32["g_start"])
+        window(1, counter0)
+        torch.cuda.synchronize()
+        sgd_changes[key] = torch.cat([(p.detach() - s_).flatten() for p, s_ in zip(trainer.tensors(), start_params)])
+    base.restore(fp32["start"])
+    ups = {k: [1.0 / t for t in v] for k, v in seconds.items()}
+    out = {"peak_bytes": peaks, "launches_per_update": launches, "updates_per_s": ups, "equal": equal,
+           "device_ms_per_update": {k: sum(v["ms"] for v in kinds[k].values()) for k in kinds},
+           "kinds": {k: {n: v["ms"] for n, v in kinds[k].items()} for k in kinds}, "loss_rel": {}, "change_l2": {},
+           "adam_change_l2": {}, "losses": {k: v.tolist() for k, v in losses.items()}}
+
+    def l2(a, b):
+        return float((a - b).norm() / b.norm())
+
+    for key in PIPE_WINDOWS:
+        rel = np.abs(losses[key] - losses["base"]) / np.maximum(np.abs(losses["base"]), 1e-6)
+        out["loss_rel"][key] = float(rel.max())
+        out["change_l2"][key] = l2(sgd_changes[key], sgd_changes["base"])
+        out["adam_change_l2"][key] = l2(changes[key], changes["base"])
+        log(f"[pipeline-{key}] {', '.join(PIPE_WINDOWS[key])}: peak device memory of one eager update "
+            f"{peaks[key] / 2**30:.2f} GiB (monolithic {peaks['base'] / 2**30:.2f}); one replayed update's device "
+            f"work {_show_kinds(kinds[key])}; rssm launches per update {launches[key]} (monolithic "
+            f"{launches['base']}); updates/s {', '.join(f'{u:.3f}' for u in ups[key])} (monolithic "
+            f"{', '.join(f'{u:.3f}' for u in ups['base'])}); the same update from one state: the ten losses rel diff "
+            f"{', '.join(f'{v:.2e}' for v in rel)}; the parameter changes stepping with SGD "
+            f"{out['change_l2'][key]:.3g} rel L2 (with the recipe's Adam {out['adam_change_l2'][key]:.3g}, reported)")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[pipeline] phase 66: turns {', '.join(PIPE_TURNS)}; {out['seconds']:.1f} s (replay against eager "
+        f"{t1 - t0:.1f}, peaks {t2 - t1:.1f}, captures {t3 - t2:.1f}, profiles {t4 - t3:.1f}, turns {t5 - t4:.1f}, "
+        f"SGD updates {time.perf_counter() - t5:.1f})")
+    bad = {k: v for k, v in launches.items() if k != "base" and v != PIPE_LAUNCHES[k]}
+    if (bad or not all(e["ok"] for e in equal.values()) or launches["base"] != LAUNCHES_PER_UPDATE
+            or any(not np.isfinite(v).all() for v in losses.values())
+            or any(v > PIPE_TOL_LOSS_REL for v in out["loss_rel"].values())
+            or any(v > PIPE_TOL_CHANGE_L2 for v in out["change_l2"].values())):
+        raise AssertionError(f"[pipeline] failed: launches {launches} (expected {PIPE_LAUNCHES}), replay equal "
+                             f"{ {k: e['ok'] for k, e in equal.items()} }, losses rel {out['loss_rel']}, changes rel "
+                             f"L2 {out['change_l2']}")
+    del graphs, windows
+    return out
+
+
+def phase_remat_s(torch, fp32: dict) -> dict:
+    """Phase 67, on phase 39's kept DreamerV3-S window (``use_pallas``, the
+    GRU kernel): one chunk of GRAPH_CHUNK updates under ``algo.remat``, its
+    replay against eager bit for bit; gru launches per update (the
+    posterior's 64 steps twice, the imagination's 16)."""
+    from sheeprl_tpu_torch.ops import gru
+
+    t0 = time.perf_counter()
+    trainer, window = _sibling_window(torch, fp32, ("algo.remat=True",))
+    out = _replay_equals_eager(torch, "remat-s", fp32, trainer, window, GRAPH_CHUNK, gru.LAUNCHES, "gru")
+    fp32["trainer"].restore(fp32["start"])
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[remat-s] phase 67: {out['seconds']:.1f} s")
+    if not (out["ok"] and out["launches_per_update"] == REMAT_S_LAUNCHES):
+        raise AssertionError(f"[remat-s] failed: {out} (expected {REMAT_S_LAUNCHES} gru launches per update)")
+    return out
+
+
 def matmul_precision_only(torch) -> int:
     """``--matmul-precision``: phase 38's XL window and phase 63 on it."""
     def run(run_root):
@@ -3197,6 +3646,26 @@ def matmul_precision_only(torch) -> int:
             return {"tf32": phase_matmul_precision(torch, xl["built"])}
         finally:
             _release(torch, xl)
+
+    return _mode_only(torch, run)
+
+
+def scale_only(torch) -> int:
+    """``--scale``: phase 38's XL window and phase 66 on it, phase 39's S
+    window and phase 67 on it, phases 68-69."""
+    def run(run_root):
+        out = {}
+        for key, recipe, kernel in WINDOW_RECIPES:
+            fp32 = phase_graph_window(torch, f"graphs-{key.replace('_', '-')}", recipe, kernel, keep=True)
+            try:
+                if key == "dv3_xl":
+                    out["pipeline"] = phase_pipeline_windows(torch, fp32["built"])
+                else:
+                    out["remat_s"] = phase_remat_s(torch, fp32["built"])
+            finally:
+                _release(torch, fp32)
+        out.update(phase_decoupled(torch, run_root))
+        return out
 
     return _mode_only(torch, run)
 
@@ -3394,8 +3863,11 @@ def phase_graphs(torch, run_root: Path, served: dict, fused_dir: Path, anakin: d
         try:
             if key == "dv3_xl":
                 out["tf32"] = phase_matmul_precision(torch, fp32["built"])
+                out["pipeline"] = phase_pipeline_windows(torch, fp32["built"])
                 if sac_run is not None:
                     out["spans"] = phase_telemetry_spans(torch, sac_run, fp32["built"])
+            else:
+                out["remat_s"] = phase_remat_s(torch, fp32["built"])
             out["bf16"][key] = phase_precision_window(torch, key, recipe, kernel, fp32["built"])
         finally:
             _release(torch, fp32)
@@ -3438,6 +3910,10 @@ def graphs_summary(graphs: dict) -> dict:
     return {"layer": graphs["layer"], **{k: {x: graphs[k][x] for x in keep} for k in ("dv3_xl", "dv3_s_gru")},
             "tf32": {k: graphs["tf32"][k] for k in (
                 "updates_per_s", "device_ms_per_update", "loss_rel", "kernel_bitwise", "launches_per_update")},
+            "pipeline": {k: graphs["pipeline"][k] for k in (
+                "peak_bytes", "launches_per_update", "updates_per_s", "device_ms_per_update", "loss_rel", "change_l2",
+                "seconds")},
+            "remat_s": graphs["remat_s"],
             "serve": graphs["serve"], "anakin": graphs["anakin"], "seconds": graphs["seconds"]}
 
 
@@ -4646,7 +5122,7 @@ TELEMETRY_XL = (*XL_TRAIN, "algo.replay_ratio=0.0625", "algo.total_steps=97", FU
                 "telemetry.introspect.port=0")
 TRACE_AT = (1, 3)
 RSSM_KERNELS_PER_LAUNCH = 4  # csrc/rssm.cu: four launches on the caller's stream per call
-SPANS_AB_SAC_CALLS = 100  # SAC updates per timed turn of phase 51's span A/B
+SPANS_AB_SAC_CALLS = 50  # SAC updates per timed turn of phase 51's span A/B
 RELOAD_POLL_S = 0.5  # phase 53's serve.reload_poll_s
 RELOAD_SEED = 9  # the newer snapshot's weights
 
@@ -7444,6 +7920,8 @@ def main() -> int:
         return graphs_only(torch)
     if sys.argv[1:2] == ["--matmul-precision"]:
         return matmul_precision_only(torch)
+    if sys.argv[1:2] == ["--scale"]:
+        return scale_only(torch)
     if sys.argv[1:2] == ["--precision"]:
         return precision_only(torch)
     if sys.argv[1:2] == ["--telemetry"]:
@@ -7517,6 +7995,7 @@ def main() -> int:
         ppo_served = phase_ppo_serve(torch, ppo["snapshot"])
         on_policy = phase_on_policy_family(torch, run_root / "on_policy")
         off_policy = phase_off_policy(torch, run_root / "off_policy")
+        decoupled_algos = phase_decoupled(torch, run_root / "decoupled")
         envs = phase_envs(torch, run_root / "envs")
         log("[envs] " + json.dumps(envs_summary(envs), default=float))
         replay = phase_replay(torch, run_root / "replay", train, off_policy["train"])
@@ -7642,6 +8121,16 @@ def main() -> int:
             by_path["matmul_high_window_per_update"] = (graphs["tf32"]["launches_per_update"]["high"]
                                                         if name == "rssm" else 0)
             by_path["population_resume"] = vecenv["population_resume"]["counts"][name]
+            # phases 66-69: phase 38's XL update with 4 world-model microbatches, and
+            # 2 stages with 4 imagination row chunks under remat (credited per replay,
+            # outside the main-path counts beside phase 38's); phase 39's S window under
+            # remat; the decoupled PPO and SAC runs (no RSSM or LN-GRU)
+            for key in PIPE_WINDOWS:
+                by_path[f"pipeline_{key}_window_per_update"] = (graphs["pipeline"]["launches_per_update"][key]
+                                                                if name == "rssm" else 0)
+            by_path["remat_s_window_per_update"] = graphs["remat_s"]["launches_per_update"] if name == "gru" else 0
+            by_path["ppo_decoupled"] = decoupled_algos["ppo"]["counts"][name]
+            by_path["sac_decoupled"] = decoupled_algos["sac"]["counts"][name]
         sources = {
             "rssm": ("sheeprl_tpu_torch/csrc/rssm.cu",
                      "sheeprl_tpu/ops/rssm_pallas.py:70 (_rssm_kernel), sheeprl_tpu/ops/rssm_pallas.py:260 "
@@ -7707,7 +8196,15 @@ def main() -> int:
             f"{statistics.median(graphs['tf32']['updates_per_s']['high']):.3f} updates/s beside fp32's "
             f"{statistics.median(graphs['tf32']['updates_per_s']['highest']):.3f}; the JAX-written "
             f"population's first resumed phase card vs CPU {vecenv['population_resume']['param_l2']:.3g} rel L2 "
-            f"(without Adam's state {vecenv['population_resume']['control_l2']:.3g}); env 0's videos "
+            f"(without Adam's state {vecenv['population_resume']['control_l2']:.3g}); DV3-XL with 4 world-model "
+            f"microbatches {statistics.median(graphs['pipeline']['updates_per_s']['mb4']):.3f} updates/s, 2 stages "
+            f"under remat {statistics.median(graphs['pipeline']['updates_per_s']['2stage_remat']):.3f}, beside "
+            f"{statistics.median(graphs['pipeline']['updates_per_s']['base']):.3f}; decoupled PPO "
+            f"{statistics.median(decoupled_algos['ppo']['env_steps_per_s']['decoupled']):.1f} env steps/s beside "
+            f"{statistics.median(decoupled_algos['ppo']['env_steps_per_s']['coupled']):.1f}, decoupled SAC "
+            f"{statistics.median(decoupled_algos['sac']['updates_per_s']['decoupled']):.1f} updates/s beside "
+            f"{statistics.median(decoupled_algos['sac']['updates_per_s']['coupled']):.1f} (staleness "
+            f"{decoupled_algos['sac']['staleness_max']}); env 0's videos "
             f"{vecenv['watchdog']['video']['frames']} (phases 60-65 with 49 and 59 {vecenv['seconds']:.1f} s); "
             f"total {time.perf_counter() - t_start:.1f} s")
     except BaseException:

@@ -18,6 +18,16 @@ One update (:meth:`DV3Trainer.train_step`) follows the JAX
   device-side form of JAX's ``do_ema`` (a ``torch.where`` blend), so one
   captured graph serves every counter.
 
+The one-device scale layer (``parallel/pipeline.py``): with
+``pipeline.microbatches`` M > 1 the world model's loss and gradient run over
+M row slices of the batch through its stage chain (encoder | RSSM | heads,
+fused to ``pipeline.stages`` of 1-3) in 1F1B order, the full-batch posterior
+noise sliced with them, and one clipped step takes the mean gradient;
+``pipeline.imagination_microbatches`` evaluates the imagination's reward,
+value and continue heads in row chunks; ``algo.remat`` re-computes each scan
+step in the backward (``torch.utils.checkpoint``) instead of keeping its
+activations, in every member of the family.
+
 The scans are Python loops over time.  Every random draw of an update comes
 in as a tensor (:func:`draw_noise`), so a test can hand the port the draws
 the JAX keys make; the loop has each update draw its own from the training
@@ -57,6 +67,7 @@ from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from sheeprl_tpu_torch.algos.dreamer_v3.agent import Actor, Critic, build_agent
 from sheeprl_tpu_torch.convert import load_resume_state, restore_generators
@@ -81,6 +92,16 @@ from sheeprl_tpu_torch.data.device_replay import (
     update_chunks,
 )
 from sheeprl_tpu_torch.fabric import PlayerSync
+from sheeprl_tpu_torch.parallel.pipeline import (
+    PIPELINE_AXIS,
+    PipelineSpec,
+    chunked_rows,
+    merge_microbatches,
+    pipeline_value_and_grad,
+    register_pipeline_metrics,
+    resolve_pipeline,
+    split_microbatches,
+)
 from sheeprl_tpu_torch.resilience.health import DivergenceError, HealthSentinel
 from sheeprl_tpu_torch.utils.callback import replay_state
 from sheeprl_tpu_torch.utils.distribution import (
@@ -117,6 +138,9 @@ METRIC_NAMES = (
 #: window is sampled and moved in chunks.
 WINDOW_BYTES_ENV = "SHEEPRL_MAX_HBM_WINDOW_BYTES"
 WINDOW_BYTES_DEFAULT = 2 << 30
+#: The world model's aux entries that are batch-shaped (merged back from
+#: the microbatches); the others are means over a microbatch
+BATCH_AUX = ("latents", "post_logits", "prior_logits")
 #: Updates in one captured window graph at most: a longer window replays a
 #: chunk's graph several times.  A graph holds every launch of its updates
 #: (≈ 18 k per DreamerV3-XL update), so capturing the first window's 1,024
@@ -124,21 +148,25 @@ WINDOW_BYTES_DEFAULT = 2 << 30
 GRAPH_WINDOW_UPDATES = 4
 
 
-def check_supported(cfg: Any) -> None:
-    """Raise for the settings the port does not implement yet, naming the ROADMAP
-    item that will."""
-    pipe = cfg.get("pipeline") or {}
-    deferred = {
-        "pipeline.stages > 1": int(pipe.get("stages", 1)) > 1,
-        "pipeline.microbatches > 1": int(pipe.get("microbatches", 1)) > 1,
-        "pipeline.imagination_microbatches > 1": int(pipe.get("imagination_microbatches", 1)) > 1,
-        "algo.remat=True": bool(cfg.algo.get("remat", False)),
-    }
-    for name, on in deferred.items():
-        if on:
-            raise NotImplementedError(
-                f"{name} is not ported yet: the scale layer comes later (ROADMAP.md, queue A item 5)"
-            )
+def check_supported(cfg: Any) -> PipelineSpec:
+    """Raise for the settings the port does not implement yet, naming the
+    ROADMAP item that will; return the run's validated ``pipeline`` group
+    (its algorithm checked as the JAX loop checks it)."""
+    mesh = (cfg.get("fabric") or {}).get("mesh_shape") or {}
+    if int(mesh.get(PIPELINE_AXIS, 1) or 1) > 1:
+        raise NotImplementedError(
+            "a 'pipeline' mesh axis (fabric.mesh_shape) places the stages on device groups, which is not ported "
+            "yet: the scale layer above one device comes later (ROADMAP.md, queue A item 5(b)); on one device "
+            "pipeline.stages and pipeline.microbatches run without it"
+        )
+    if int((cfg.get("fabric") or {}).get("devices", 1) or 1) > 1:
+        raise NotImplementedError(
+            "fabric.devices > 1 is not ported yet: the scale layer above one device comes later "
+            "(ROADMAP.md, queue A item 5(b))"
+        )
+    pipe = resolve_pipeline(cfg)
+    pipe.check_algo(cfg.algo.name)
+    return pipe
 
 
 @contextlib.contextmanager
@@ -258,6 +286,8 @@ class DreamerTrainer:
         self.horizon = int(algo.horizon)
         self.gamma = float(algo.gamma)
         self.lmbda = float(algo.lmbda)
+        #: ``algo.remat``: the scan steps are re-computed in the backward (:meth:`scan_step`)
+        self.remat = bool(algo.get("remat", False))
         self.last_wm_grad_norm: Optional[torch.Tensor] = None
         #: the mean intrinsic reward of the last update's exploration rollout
         #: (Plan2Explore; None without ensembles)
@@ -297,17 +327,37 @@ class DreamerTrainer:
             opt.copy_state_(snap["opt"][name])
 
     # -- update pieces -------------------------------------------------------
-    def encode_block(self, data: Dict[str, torch.Tensor]):
-        """Normalised observations, their embeddings (L, B, E), the shifted
-        actions (h_t consumes a_{t-1}) and ``is_first`` (L, B, 1) with every
-        sequence starting an episode."""
+    def encode(self, data: Dict[str, torch.Tensor]):
+        """Normalised observations and their embeddings (L, B, E)."""
         L, B = data["rewards"].shape
         obs = normalize_obs_block(data, self.cnn_keys, self.obs_keys)
         embed = self.world_model.encode({k: v.reshape(L * B, *v.shape[2:]) for k, v in obs.items()}).reshape(L, B, -1)
+        return obs, embed
+
+    @staticmethod
+    def rssm_inputs(data: Dict[str, torch.Tensor]):
+        """The shifted actions (h_t consumes a_{t-1}) and ``is_first``
+        (L, B, 1) with every sequence starting an episode."""
         actions = torch.cat([torch.zeros_like(data["actions"][:1]), data["actions"][:-1]], dim=0)
         is_first = data["is_first"].clone()
         is_first[0] = 1.0
-        return obs, embed, actions, is_first[..., None]
+        return actions, is_first[..., None]
+
+    def encode_block(self, data: Dict[str, torch.Tensor]):
+        """:meth:`encode` and :meth:`rssm_inputs`: observations, embeddings,
+        shifted actions and ``is_first``."""
+        obs, embed = self.encode(data)
+        return (obs, embed, *self.rssm_inputs(data))
+
+    def scan_step(self, fn, *args):
+        """One step of a sequential scan, ``fn(*args)``; under ``algo.remat``
+        (JAX's ``jax.checkpoint`` on the scan body) its activations are not
+        kept but computed again in the backward.  The noise is an input, so
+        the re-computation needs no RNG state (which a CUDA graph capture
+        could not read); it runs under the autocast state of the forward."""
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False, preserve_rng_state=False)
+        return fn(*args)
 
     def posterior_scan(self, embed, actions, is_first, post_noise):
         """One posterior step per time step: (hs, zs, posterior, prior) stacked over L."""
@@ -317,7 +367,8 @@ class DreamerTrainer:
         z = torch.zeros(B, wm.stoch_flat, device=self.device)
         hs, zs, posts, priors = [], [], [], []
         for t in range(embed.shape[0]):
-            h, z, post, prior = wm.dynamic_noise(h, z, actions[t], embed[t], is_first[t], post_noise[t])
+            h, z, post, prior = self.scan_step(wm.dynamic_noise, h, z, actions[t], embed[t], is_first[t],
+                                               post_noise[t])
             hs.append(h)
             zs.append(z)
             posts.append(post)
@@ -329,16 +380,21 @@ class DreamerTrainer:
         """``horizon + 1`` prior steps from ``start`` latents: the latents
         before each action (the trajectory) and the actions."""
         wm = self.world_model
+
+        def step(h, z, noise_z, *noise_a):
+            latent = torch.cat([z, h], dim=-1)
+            head = actor(latent.detach() if detach_actor_input else latent)
+            action = actor.sample_from_noise(head, noise_a)
+            h, z = wm.imagination_noise(h, z, action, noise_z)
+            return latent, action, h, z
+
         z = start[:, : wm.stoch_flat].contiguous()
         h = start[:, wm.stoch_flat :].contiguous()
         traj, actions = [], []
         for t in range(self.horizon + 1):
-            latent = torch.cat([z, h], dim=-1)
-            head = actor(latent.detach() if detach_actor_input else latent)
-            action = actor.sample_from_noise(head, [n[t] for n in action_noise])
+            latent, action, h, z = self.scan_step(step, h, z, imag_noise[t], *[n[t] for n in action_noise])
             traj.append(latent)
             actions.append(action)
-            h, z = wm.imagination_noise(h, z, action, imag_noise[t])
         return torch.stack(traj), torch.stack(actions)
 
     def metrics(self, wm_loss, aux, policy_loss, value_loss) -> Tuple[torch.Tensor, ...]:
@@ -414,16 +470,20 @@ class DV3Trainer(DreamerTrainer):
             continue_scale_factor=float(wm.continue_scale_factor),
         )
         self.moments = zero_moments((agent_state or {}).get("moments"), self.device)
+        #: the ``pipeline`` group: the world model's 1F1B microbatches and the imagination's row chunks
+        self.pipe = resolve_pipeline(cfg)
+        if self.pipe.enabled:
+            self.stage_fns, self.stage_names = self.wm_stages()
 
     def state_tree(self) -> Dict[str, Any]:
         return {**self.agent, "moments": self.moments}
 
     # -- update ----------------------------------------------------------------
-    def wm_forward(self, data: Dict[str, torch.Tensor], post_noise: torch.Tensor):
-        """Encoder + posterior scan + heads → (loss, aux with latents and logits)."""
+    def rssm(self, embed: torch.Tensor, actions: torch.Tensor, is_first: torch.Tensor, post_noise: torch.Tensor):
+        """The RSSM over the sequence: (latents (L, B, stoch+rec), posterior
+        logits, prior logits), sampled with the drawn posterior noise."""
         wm = self.world_model
-        L, B = data["rewards"].shape
-        obs, embed, actions, is_first = self.encode_block(data)
+        L, B = embed.shape[:2]
         if wm.decoupled_rssm:
             # every posterior from its embedding in one pass, sampled with the
             # per-step draws; only the recurrent step and the prior stay in the scan
@@ -434,14 +494,20 @@ class DV3Trainer(DreamerTrainer):
             h = torch.zeros(B, wm.recurrent_size, device=self.device)
             hs, priors = [], []
             for t in range(L):
-                h, prior = wm.recurrent_prior(h, prev_zs[t], actions[t], is_first[t])
+                h, prior = self.scan_step(wm.recurrent_prior, h, prev_zs[t], actions[t], is_first[t])
                 hs.append(h)
                 priors.append(prior)
             hs, prior_logits = torch.stack(hs), torch.stack(priors)
         else:
             hs, zs, post_logits, prior_logits = self.posterior_scan(embed, actions, is_first, post_noise)
-        latents = torch.cat([zs, hs], dim=-1)
+        return torch.cat([zs, hs], dim=-1), post_logits, prior_logits
 
+    def heads_losses(self, data: Dict[str, torch.Tensor], obs: Dict[str, torch.Tensor], latents: torch.Tensor,
+                     post_logits: torch.Tensor, prior_logits: torch.Tensor):
+        """Decoder, reward and continue heads on the latents → (loss, aux with
+        latents and logits)."""
+        wm = self.world_model
+        L, B = data["rewards"].shape
         flat = latents.reshape(L * B, -1)
         recon = wm.decode(flat)
         obs_log_probs = {}
@@ -458,14 +524,69 @@ class DV3Trainer(DreamerTrainer):
         aux.update(latents=latents, post_logits=post_logits, prior_logits=prior_logits)
         return loss, aux
 
+    def wm_forward(self, data: Dict[str, torch.Tensor], post_noise: torch.Tensor):
+        """Encoder + RSSM + heads → (loss, aux with latents and logits)."""
+        obs, embed = self.encode(data)
+        actions, is_first = self.rssm_inputs(data)
+        return self.heads_losses(data, obs, *self.rssm(embed, actions, is_first, post_noise))
+
+    def wm_stages(self) -> Tuple[Tuple[Any, ...], Tuple[str, ...]]:
+        """The world model's stage chain for :func:`pipeline_value_and_grad`
+        and the stages' names (JAX's ``make_wm_stages``): encoder | rssm |
+        heads at ``pipeline.stages`` 3, encoder+rssm | heads at 2, the world
+        model alone at 1.  A stage's constant is ``{"data": (L, b, *),
+        "noise": (L, b, *latent)}``; the heads stage normalises the
+        observations again from it, so no encoder output outlives its stage."""
+        def enc(_carry, const):
+            return self.encode(const["data"])[1]
+
+        def rssm(embed, const):
+            return self.rssm(embed, *self.rssm_inputs(const["data"]), const["noise"])
+
+        def heads(carry, const):
+            data = const["data"]
+            return self.heads_losses(data, normalize_obs_block(data, self.cnn_keys, self.obs_keys), *carry)
+
+        stages = self.pipe.stages
+        if stages >= 3:
+            if stages > 3:
+                raise ValueError(
+                    f"pipeline.stages={stages}: the dreamer_v3 stage map has "
+                    "3 units (encoder, rssm, heads) — use stages in {1, 2, 3}"
+                )
+            return (enc, rssm, heads), ("encoder", "rssm", "heads")
+        if stages == 2:
+            return (lambda _carry, const: rssm(enc(None, const), const), heads), ("encoder_rssm", "heads")
+        return (lambda _carry, const: heads(rssm(enc(None, const), const), const),), ("world_model",)
+
     def world_model_update(self, data: Dict[str, torch.Tensor], post_noise: torch.Tensor):
-        wm_loss, aux = self.wm_forward(data, post_noise)
-        self.last_wm_grad_norm = self.step_optimizer("world_model", wm_loss)
+        """The world model's loss and step; with the pipeline on, over
+        ``pipeline.microbatches`` row slices of the batch in 1F1B order, the
+        full-batch noise sliced with them, then one clipped step on the mean
+        gradient."""
+        if not self.pipe.enabled:
+            wm_loss, aux = self.wm_forward(data, post_noise)
+            self.last_wm_grad_norm = self.step_optimizer("world_model", wm_loss)
+            return wm_loss, aux
+        opt = self.optimizers["world_model"]
+        opt.zero_grad()
+        M = self.pipe.microbatches
+        consts = split_microbatches({"data": data, "noise": post_noise}, M, axis=1)
+        wm_loss, aux_m, _ = pipeline_value_and_grad(self.stage_fns, opt.params, consts, microbatches=M,
+                                                    stage_names=self.stage_names)
+        # the batch-shaped aux back to (L, B, *), the microbatch means to the batch mean
+        aux = {k: merge_microbatches(v, axis=1) if k in BATCH_AUX else v.mean(0) for k, v in aux_m.items()}
+        self.last_wm_grad_norm = opt.step()
         return wm_loss, aux
+
+    def head_chunks(self, fn, flat: torch.Tensor) -> torch.Tensor:
+        """A head over the imagination rows, in ``pipeline.imagination_microbatches`` row chunks."""
+        return chunked_rows(fn, flat, self.pipe.imagination_microbatches)
 
     def critic_mean(self, critic: Critic, flat: torch.Tensor) -> torch.Tensor:
         """The two-hot mean of ``critic`` on (H+1)·n rows, as (H+1, n)."""
-        return TwoHotEncodingDistribution(critic(flat).reshape(self.horizon + 1, -1, self.bins), dims=1).mean[..., 0]
+        logits = self.head_chunks(critic, flat).reshape(self.horizon + 1, -1, self.bins)
+        return TwoHotEncodingDistribution(logits, dims=1).mean[..., 0]
 
     def critic_regression(self, critic: Critic, target: Critic, traj: torch.Tensor, lambda_values: torch.Tensor,
                           discount: torch.Tensor, opt_name: str) -> torch.Tensor:
@@ -474,8 +595,9 @@ class DV3Trainer(DreamerTrainer):
         H = self.horizon
         flat_sg = traj[:-1].detach().reshape(H * traj.shape[1], -1)
         with torch.no_grad():
-            target_mean = TwoHotEncodingDistribution(target(flat_sg).reshape(H, -1, self.bins), dims=1).mean
-        qv = TwoHotEncodingDistribution(critic(flat_sg).reshape(H, -1, self.bins), dims=1)
+            target_mean = TwoHotEncodingDistribution(
+                self.head_chunks(target, flat_sg).reshape(H, -1, self.bins), dims=1).mean
+        qv = TwoHotEncodingDistribution(self.head_chunks(critic, flat_sg).reshape(H, -1, self.bins), dims=1)
         value_loss = torch.mean((-qv.log_prob(lambda_values.detach()[..., None]) - qv.log_prob(target_mean))
                                 * discount[:-1])
         self.step_optimizer(opt_name, value_loss)
@@ -497,7 +619,8 @@ class DV3Trainer(DreamerTrainer):
     def imagined_continues(self, flat: torch.Tensor, terminated: torch.Tensor) -> torch.Tensor:
         """The continue head's mode on the trajectory, the true continue first."""
         n = terminated.numel()
-        continues = Bernoulli(self.world_model.continue_logits(flat).reshape(self.horizon + 1, n)).mode()
+        logits = self.head_chunks(self.world_model.continue_logits, flat).reshape(self.horizon + 1, n)
+        continues = Bernoulli(logits).mode()
         return torch.cat([(1.0 - terminated).reshape(1, n), continues[1:]], dim=0)
 
     def behavior(self, actor: Actor, critic: Critic, target_critic: Critic, moments: Dict[str, torch.Tensor],
@@ -515,7 +638,8 @@ class DV3Trainer(DreamerTrainer):
             with torch.enable_grad() if self.is_continuous else torch.no_grad():
                 traj, actions_seq = self.imagine(actor, start, action_noise, imag_noise)
                 flat = traj.reshape((H + 1) * n, -1)
-                rewards = TwoHotEncodingDistribution(wm.reward_logits(flat).reshape(H + 1, n, -1), dims=1).mean[..., 0]
+                reward_logits = self.head_chunks(wm.reward_logits, flat).reshape(H + 1, n, -1)
+                rewards = TwoHotEncodingDistribution(reward_logits, dims=1).mean[..., 0]
                 values = self.critic_mean(critic, flat)
                 continues = self.imagined_continues(flat, terminated)
                 lambda_values = compute_lambda_values(rewards[1:], values[1:], continues[1:] * self.gamma, self.lmbda)
@@ -744,7 +868,9 @@ def dreamer_family_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent
     * ``initial_state``: a state to start from when not resuming (the
       projected exploration snapshot of a finetuning run); like a resumed
       one, it skips the random prefill."""
-    check_supported(cfg)
+    pipe = check_supported(cfg)
+    if pipe.enabled:
+        register_pipeline_metrics(pipe)
     fabric.warm_kernels(cfg)
     player_device = fabric.player_device(cfg)
     train_gen, player_gen = fabric.seed_everything(int(cfg.seed), player_device)

@@ -11,9 +11,9 @@ from sheeprl_tpu_torch.utils.logger import get_log_dir, get_logger
 from sheeprl_tpu_torch.utils.registry import register_evaluation
 
 
-@register_evaluation(algorithms="ppo")
+@register_evaluation(algorithms=["ppo", "ppo_decoupled"])
 def evaluate(fabric: Any, cfg: Any, state: Dict[str, Any]) -> float:
-    """One greedy test episode of a PPO (or A2C: the same agent) snapshot;
+    """One greedy test episode of a PPO (decoupled or not; or A2C: the same agent) snapshot;
     returns the cumulative reward."""
     log_dir = get_log_dir(cfg.root_dir, cfg.run_name, base=cfg.get("log_dir", "logs/runs"))
     logger = get_logger(cfg, log_dir)

@@ -37,9 +37,10 @@ population: :class:`~sheeprl_tpu_torch.algos.ppo.population.PopulationRoute`
 runs every member's rollout and update and the in-trace PBT step as one
 population phase, captured as one CUDA graph on the card; checkpoints hold
 the stacked parameters and optimizer state and the PBT carry, the run
-writes ``population_summary.json`` and tests its fittest member.  The JAX
-package's multi-process samplers are not ported: :func:`check_supported`
-raises for them.
+writes ``population_summary.json`` and tests its fittest member.  The
+decoupled PPO of ``exp=ppo_decoupled`` is
+:mod:`~sheeprl_tpu_torch.algos.ppo.ppo_decoupled`, on :func:`host_rollout`
+and :class:`PPOTrainer`.
 """
 
 from __future__ import annotations
@@ -99,16 +100,6 @@ def epoch_permutation(generator: torch.Generator, T: int, B: int, batch_size: in
     ``num_minibatches`` consecutive slices of ``batch_size``."""
     perm = torch.randperm(T * B, generator=generator, device=generator.device)
     return pad_permutation(perm, num_minibatches * batch_size)
-
-
-def check_supported(cfg: Any) -> None:
-    """Raise for the on-policy settings the port does not implement yet,
-    naming the ROADMAP item that will."""
-    if cfg.fabric.get("decoupled"):
-        raise NotImplementedError(
-            "fabric.decoupled is not ported yet: the decoupled topologies come with the scale layer "
-            "(ROADMAP.md, queue A item 5)"
-        )
 
 
 class OnPolicyTrainer:
@@ -229,11 +220,45 @@ def rollout_to_device(buffer: Dict[str, np.ndarray], cnn_keys: Sequence[str], ml
     return out
 
 
+def host_rollout(envs: Any, rb: ReplayBuffer, obs: Dict[str, np.ndarray], act: Any, values: Any,
+                 rollout_steps: int, obs_keys: Sequence[str], act_space: Any, gamma: float,
+                 aggregator: MetricAggregator) -> Dict[str, np.ndarray]:
+    """``rollout_steps`` steps of the host envs into ``rb``, from ``obs``;
+    returns the observations after the last step.  ``act(obs)`` gives the
+    player's actions and log-probs, ``values(obs)`` its values (numpy).  A
+    truncated episode's reward takes ``γ·V(final obs)``."""
+    for _ in range(rollout_steps):
+        actions_np, logprobs_np = act(obs)
+        next_obs, rewards, terminated, truncated, info = envs.step(actions_for_env(actions_np, act_space))
+        dones = np.logical_or(terminated, truncated)
+        rewards = np.asarray(rewards, np.float32)
+
+        # truncation bootstrap: r += γ·V(real final obs), on the full env batch
+        if np.any(truncated):
+            final_obs = final_obs_rows(info, np.nonzero(truncated)[0], obs_keys)
+            if final_obs is not None:
+                padded = {k: np.asarray(next_obs[k]).copy() for k in obs_keys}
+                for k in obs_keys:
+                    padded[k][truncated] = final_obs[k]
+                rewards[truncated] += gamma * values(padded)[truncated]
+
+        step_data = {k: np.asarray(obs[k])[None] for k in obs_keys}
+        step_data["actions"] = actions_np[None]
+        step_data["logprobs"] = logprobs_np[None]
+        step_data["rewards"] = rewards[None]
+        step_data["dones"] = dones[None].astype(np.float32)
+        rb.add({k: v[..., None] if v.ndim == 2 else v for k, v in step_data.items()})
+        obs = next_obs
+        for ep_ret, ep_len in episode_stats(info):
+            aggregator.update("Rewards/rew_avg", ep_ret)
+            aggregator.update("Game/ep_len_avg", ep_len)
+    return obs
+
+
 def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
     """The env / rollout / update loop of PPO and A2C on one device; the
     trainer class (``trainer_cls(cfg, agent, optimizer, obs_keys,
     actions_dim, is_continuous, T, B)``) is the update."""
-    check_supported(cfg)
     use_anakin = anakin_enabled(cfg)
     pop_size = population_size(cfg)
     if pop_size > 1 and not use_anakin:
@@ -350,6 +375,11 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
                                      max_recompiles=max_recompiles,
                                      eager_reason="the host loop copies every step's actions to the env")
 
+        def player_act_np(o: Dict[str, np.ndarray]) -> Tuple[np.ndarray, np.ndarray]:
+            with torch.inference_mode():
+                actions, logprobs, _ = player_step(prepare_obs(o, cnn_keys, mlp_keys, player_device))
+            return actions.cpu().numpy(), logprobs.cpu().numpy()
+
         def player_values(o: Dict[str, np.ndarray]) -> np.ndarray:
             with torch.inference_mode():
                 return player(prepare_obs(o, cnn_keys, mlp_keys, player_device))[1][..., 0].cpu().numpy()
@@ -383,34 +413,9 @@ def on_policy_loop(fabric: Any, cfg: Any, trainer_cls: Any) -> None:
                     aggregator.update("Game/ep_len_avg", int(ep_len))
         else:
             with timer("Time/env_interaction_time"):
-                for _ in range(rollout_steps):
-                    policy_step += num_envs
-                    with torch.inference_mode():
-                        actions, logprobs, _ = player_step(prepare_obs(obs, cnn_keys, mlp_keys, player_device))
-                    actions_np = actions.cpu().numpy()
-                    next_obs, rewards, terminated, truncated, info = envs.step(actions_for_env(actions_np, act_space))
-                    dones = np.logical_or(terminated, truncated)
-                    rewards = np.asarray(rewards, np.float32)
-
-                    # truncation bootstrap: r += γ·V(real final obs), on the full env batch
-                    if np.any(truncated):
-                        final_obs = final_obs_rows(info, np.nonzero(truncated)[0], obs_keys)
-                        if final_obs is not None:
-                            padded = {k: np.asarray(next_obs[k]).copy() for k in obs_keys}
-                            for k in obs_keys:
-                                padded[k][truncated] = final_obs[k]
-                            rewards[truncated] += gamma * player_values(padded)[truncated]
-
-                    step_data = {k: np.asarray(obs[k])[None] for k in obs_keys}
-                    step_data["actions"] = actions_np[None]
-                    step_data["logprobs"] = logprobs.cpu().numpy()[None]
-                    step_data["rewards"] = rewards[None]
-                    step_data["dones"] = dones[None].astype(np.float32)
-                    rb.add({k: v[..., None] if v.ndim == 2 else v for k, v in step_data.items()})
-                    obs = next_obs
-                    for ep_ret, ep_len in episode_stats(info):
-                        aggregator.update("Rewards/rew_avg", ep_ret)
-                        aggregator.update("Game/ep_len_avg", ep_len)
+                obs = host_rollout(envs, rb, obs, player_act_np, player_values, rollout_steps, obs_keys, act_space,
+                                   gamma, aggregator)
+                policy_step += num_envs * rollout_steps
 
             with timer("Time/train_time"):
                 rollout = rollout_to_device(rb.buffer, cnn_keys, mlp_keys, fabric.device)

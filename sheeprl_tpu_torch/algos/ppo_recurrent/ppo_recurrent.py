@@ -27,7 +27,7 @@ import torch
 
 from sheeprl_tpu_torch.algos.ppo.agent import evaluate_actions, sample_actions
 from sheeprl_tpu_torch.algos.ppo.loss import entropy_loss, policy_loss, value_loss
-from sheeprl_tpu_torch.algos.ppo.ppo import check_supported, pad_permutation
+from sheeprl_tpu_torch.algos.ppo.ppo import pad_permutation
 from sheeprl_tpu_torch.algos.ppo.utils import actions_for_env, normalize_obs_keys, spaces_to_dims
 from sheeprl_tpu_torch.algos.ppo_recurrent.agent import Carry, build_agent, one_hot_actions
 from sheeprl_tpu_torch.algos.ppo_recurrent.utils import flat_obs, test
@@ -126,7 +126,6 @@ class RecurrentPPOTrainer:
 
 @register_algorithm()
 def main(fabric: Any, cfg: Any) -> None:
-    check_supported(cfg)
     use_anakin = anakin_enabled(cfg)
     player_device = fabric.device if use_anakin else fabric.player_device(cfg)
     train_gen, player_gen = fabric.seed_everything(int(cfg.seed), player_device)

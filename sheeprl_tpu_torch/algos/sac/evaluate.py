@@ -9,7 +9,7 @@ from sheeprl_tpu_torch.algos.sac.sac import evaluate_agent
 from sheeprl_tpu_torch.utils.registry import register_evaluation
 
 
-@register_evaluation(algorithms="sac")
+@register_evaluation(algorithms=["sac", "sac_decoupled"])
 def evaluate(fabric: Any, cfg: Any, state: Dict[str, Any]) -> float:
-    """One greedy test episode of a SAC snapshot; returns the cumulative reward."""
+    """One greedy test episode of a SAC (or decoupled SAC) snapshot; returns the cumulative reward."""
     return evaluate_agent(fabric, cfg, state, build_agent)

@@ -36,8 +36,9 @@ committed snapshot in the loop, keeping its replay, at most
 buffer when ``buffer.checkpoint``, so a resumed run continues; a preempted
 run exits after its final committed save; the test episode runs last.
 
-Not ported: the decoupled topology, the scale layer's (ROADMAP.md, queue A
-item 5).
+Decoupled SAC (``exp=sac_decoupled``,
+:mod:`~sheeprl_tpu_torch.algos.sac.sac_decoupled`) is this loop under
+``algo.player.sync_every``.
 """
 
 from __future__ import annotations
@@ -81,16 +82,6 @@ from sheeprl_tpu_torch.utils.utils import Ratio, TrainWindow, save_configs
 
 Batch = Dict[str, torch.Tensor]
 UpdateNoise = Dict[str, Any]
-
-
-def check_supported(cfg: Any) -> None:
-    """Raise for the off-policy settings the port does not implement yet,
-    naming the ROADMAP item that will."""
-    if cfg.fabric.get("decoupled"):
-        raise NotImplementedError(
-            "fabric.decoupled is not ported yet: the decoupled topologies come with the scale layer "
-            "(ROADMAP.md, queue A item 5)"
-        )
 
 
 def _optimizer(params, group: Any) -> ClippedOptimizer:
@@ -290,7 +281,6 @@ def off_policy_loop(fabric: Any, cfg: Any, build_agent_fn: Any = build_agent, tr
     builds the agent, ``trainer_cls(cfg, agent, optimizers, act_dim)`` is its
     update, and ``layout_cls(cfg, obs_space)`` says how observations are
     stored, sampled and shown to the player."""
-    check_supported(cfg)
     player_device = fabric.player_device(cfg)
     train_gen, player_gen = fabric.seed_everything(int(cfg.seed), player_device)
 

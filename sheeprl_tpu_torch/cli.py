@@ -40,6 +40,7 @@ ALGORITHM_MODULES = (
     "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_exploration",
     "sheeprl_tpu_torch.algos.p2e_dv1.p2e_dv1_finetuning",
     "sheeprl_tpu_torch.algos.ppo.ppo",
+    "sheeprl_tpu_torch.algos.ppo.ppo_decoupled",
     "sheeprl_tpu_torch.algos.ppo.evaluate",
     "sheeprl_tpu_torch.algos.a2c.a2c",
     "sheeprl_tpu_torch.algos.a2c.evaluate",

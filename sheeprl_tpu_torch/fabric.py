@@ -162,7 +162,8 @@ def run_device(cfg: Any) -> torch.device:
 def build_fabric(cfg: Any) -> Fabric:
     fabric_cfg = cfg.get("fabric") or {}
     if int(fabric_cfg.get("devices", 1) or 1) != 1 or int(fabric_cfg.get("num_nodes", 1) or 1) != 1:
-        raise NotImplementedError("sheeprl_tpu_torch runs on one device (fabric.devices=1, num_nodes=1)")
+        raise NotImplementedError("sheeprl_tpu_torch runs on one device (fabric.devices=1, num_nodes=1): the scale "
+                                  "layer above one device comes later (ROADMAP.md, queue A item 5(b))")
     precision = Precision.from_string(str(fabric_cfg.get("precision", "32-true")))
     device = run_device(cfg)
     torch.backends.cuda.matmul.allow_tf32 = False

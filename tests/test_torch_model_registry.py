@@ -186,7 +186,9 @@ def test_available_agents_lists_every_ported_algorithm(capsys):
 
     cli.available_agents()
     out = capsys.readouterr().out
-    assert len(algorithm_registry) == 16
+    # the JAX package's 17, decoupled PPO (ppo_decoupled) and SAC (sac_decoupled) among them
+    assert len(algorithm_registry) == 17
+    assert {"ppo_decoupled", "sac_decoupled"} <= set(algorithm_registry)
     assert all(name in out for name in algorithm_registry)
 
 

@@ -10,7 +10,9 @@ tracer,introspect}.py``, ``serve/reload.py``, and the deployment surface:
 ``utils/{model_manager,mlflow_manager,imports,checkpoint}.py``,
 ``checkpoint/serialize.py``, ``serve/fleet/{router,replicas}.py``, and population
 training and the supervisor: ``population/{core,members}.py``,
-``algos/ppo/population.py``, ``supervisor/{classify,supervise}.py``), a DreamerV3 player takes one CPU
+``algos/ppo/population.py``, ``supervisor/{classify,supervise}.py``, and the
+one-device scale layer: ``parallel/{pipeline,topology}.py``,
+``algos/ppo/ppo_decoupled.py``, ``algos/sac/sac_decoupled.py``), a DreamerV3 player takes one CPU
 step, the JAX-written DreamerV3 fixture is read, served one step and
 registered, a tiny dry run through ``cli.run`` (introspection endpoint armed) trains
 one update, logs ``Phase/*`` and commits a snapshot, one Plan2Explore-DreamerV3 update steps, PPO, A2C and recurrent
@@ -65,7 +67,8 @@ SCRIPT = textwrap.dedent(
                  "telemetry.introspect", "serve.reload", "utils.model_manager", "utils.mlflow_manager",
                  "utils.imports", "utils.checkpoint", "checkpoint.serialize", "serve.fleet.router",
                  "serve.fleet.replicas", "population", "population.core", "population.members",
-                 "algos.ppo.population", "supervisor", "supervisor.classify", "supervisor.supervise"):
+                 "algos.ppo.population", "supervisor", "supervisor.classify", "supervisor.supervise",
+                 "parallel.pipeline", "parallel.topology", "algos.ppo.ppo_decoupled", "algos.sac.sac_decoupled"):
         assert "sheeprl_tpu_torch." + name in names, name
 
     import torch

@@ -143,9 +143,17 @@ def test_committed_snapshot_evaluates_through_the_cli(dry_run, monkeypatch, caps
     ],
 )
 def test_unported_settings_raise_naming_the_roadmap_item(tmp_path, override, item):
+    """Each of these settings raised until the one-device scale layer was
+    ported: it now passes the loop's check (``tests/test_torch_pipeline.py``
+    trains with it), and what is still unported with it, a 'pipeline' mesh
+    axis, raises naming its item before anything is committed."""
+    from sheeprl_tpu_torch.algos.dreamer_v3.dreamer_v3 import check_supported
+    from sheeprl_tpu_torch.config.compose import compose
+
     extra = ["pipeline.microbatches=2"] if override.startswith("pipeline.stages") else []
+    assert check_supported(compose([*TINY, override, *extra])).enabled == override.startswith("pipeline.stages")
     with pytest.raises(NotImplementedError, match=item):
-        run([*TINY, "dry_run=True", f"log_dir={tmp_path}", override, *extra])
+        run([*TINY, "dry_run=True", f"log_dir={tmp_path}", override, *extra, "fabric.mesh_shape={data: 1, pipeline: 2}"])
     assert latest_checkpoint(tmp_path) is None
 
 
@@ -532,9 +540,19 @@ def test_off_policy_run_commits_resumes_with_its_buffer_and_evaluates(exp, tmp_p
     ("sac_decoupled", None, "queue A item 5"),
 ])
 def test_off_policy_unported_paths_raise_naming_the_roadmap_item(tmp_path, exp, override, item):
+    """Both raised until decoupled SAC was ported: ``fabric.decoupled=True``
+    on ``exp=sac`` now runs the coupled SAC (the registry has no decoupled
+    ``sac``, as in JAX) and ``exp=sac_decoupled`` its pipelined loop; the
+    Sebulba split is still unported and raises naming its item before
+    anything is committed."""
+    extra = [override] if override else []
+    run([f"exp={exp}", *OFF_POLICY_COMMON, "dry_run=True", "algo.run_test=False", f"log_dir={tmp_path / 'run'}",
+         *extra])
+    assert len(_snapshots(tmp_path / "run")) == 1
     with pytest.raises(NotImplementedError, match=item):
-        run([f"exp={exp}", *OFF_POLICY_COMMON, "dry_run=True", f"log_dir={tmp_path}", *([override] if override else [])])
-    assert latest_checkpoint(tmp_path) is None
+        run(["exp=sac_decoupled", *OFF_POLICY_COMMON, "dry_run=True", f"log_dir={tmp_path / 'split'}",
+             "topology=sebulba", *extra])
+    assert latest_checkpoint(tmp_path / "split") is None
 
 
 @pytest.mark.parametrize("exp,checks", [

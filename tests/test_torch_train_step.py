@@ -208,7 +208,8 @@ def family_params(build_agent_fn, cfg, fabric, obs_space, action_space, seed=1):
     """A JAX family agent's parameter tree (built at its tiny size) with
     numpy-drawn values, as :func:`tests.test_torch_serve._jax_params` draws them."""
     actions_dim, is_cont = jax_spaces_to_dims(action_space)
-    tree = jax.device_get(build_agent_fn(fabric, actions_dim, is_cont, cfg, obs_space)[3])
+    # the shapes alone (no initialisation is compiled): every value is drawn below
+    tree = jax.eval_shape(lambda: build_agent_fn(fabric, actions_dim, is_cont, cfg, obs_space)[3])
     rng = np.random.default_rng(seed)
 
     def draw(path, leaf):
