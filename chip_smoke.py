@@ -2245,6 +2245,256 @@ PPO_ATARI_FORAGE = ("exp=ppo_atari", "env=jax_forage", *ENVS_COMMON, "env.screen
 SAC_PENDULUM = ("exp=sac", "env=jax_pendulum", *ENVS_COMMON, "buffer.checkpoint=False", "env.num_envs=1",
                 "algo.learning_starts=100", "algo.total_steps=300")
 
+# -- the Sebulba actor/learner split, both roles on the card (phases 70-72) -----
+# phase 68's recipe (PPO's widths on the dummy env's state, 4 envs x 128 steps,
+# 3 iterations) with 2 env workers; its fault drill 2 iterations with a crash
+SEBULBA_PPO = (*PPO_DECOUPLED, "topology=sebulba", "topology.env_workers=2")
+SEBULBA_PPO_DRILL = (*SEBULBA_PPO, "algo.total_steps=512")
+# phase 70's card-vs-CPU gate steps 2 of the recipe's 10 epochs: with its
+# unclipped SGD on the dummy state (values up to 31) 10 epochs amplify a
+# 1e-7 weight perturbation to 0.05-0.19 rel L2 on the CPU alone, 2 epochs to
+# 8.8e-06-8.9e-06 (tools/sebulba_sensitivity.py); the tolerance is phase 68's
+SEBULBA_PARITY_EPOCHS = 2
+SEBULBA_PPO_FAULT = {"site": "sebulba.env_worker", "kind": "raise", "at": 40, "max_fires": 1}
+# phase 26's Anakin recipe (1024 jax_cartpole envs x 128 steps), decoupled, the
+# fused actor under the transfer guard; 3 iterations
+SEBULBA_FUSED = ("exp=ppo_decoupled", *ANAKIN_PPO[1:], "topology=sebulba", "topology.actor_devices=1",
+                 "buffer.transfer_guard=True")
+# phase 69's recipe on the card's ring: one env, so one worker
+SEBULBA_SAC = (*SAC_DECOUPLED, "topology=sebulba", "topology.env_workers=1", "buffer.device=True")
+
+
+def _sebulba_run(torch, module, overrides, log_dir: Path, plan: dict = None, spy_learner: bool = False,
+                 spy_fused: bool = False) -> dict:
+    """One Sebulba run through ``cli.run`` with the launch counts zeroed just
+    before and read just after (none may launch): its stats, and with
+    ``spy_learner`` the first learner phase's segments (the queued tensors
+    themselves) and starting weights, with ``spy_fused`` the fused actor, its
+    carry, generator states and weights as its first window found them."""
+    import copy
+
+    from sheeprl_tpu_torch.cli import run
+    from sheeprl_tpu_torch.config.compose import compose
+    from sheeprl_tpu_torch.ops import gru, rssm
+    from sheeprl_tpu_torch.resilience.faults import ENV_VAR, FaultPlan
+    from sheeprl_tpu_torch.sebulba import actor as sactor
+    from sheeprl_tpu_torch.sebulba import ppo as sppo
+
+    seen = {}
+    saved = {"collect_run_stats": module.collect_run_stats}
+
+    def stats_spy(**kw):
+        seen["stats"] = saved["collect_run_stats"](**kw)
+        return seen["stats"]
+
+    module.collect_run_stats = stats_spy
+    if spy_learner:
+        saved["make_learner_phase"] = sppo.make_learner_phase
+
+        def make_learner_phase(trainer, obs_keys):
+            phase = saved["make_learner_phase"](trainer, obs_keys)
+
+            def first(segs, *args):
+                if "segs" not in seen:
+                    seen["segs"] = list(segs)
+                    seen["start"] = {k: v.detach().cpu().clone() for k, v in trainer.agent.state_dict().items()}
+                    seen["trainer"] = trainer
+                return phase(segs, *args)
+
+            return first
+
+        sppo.make_learner_phase = make_learner_phase
+    warmup = sactor.FusedActor.warmup
+    if spy_fused:
+        def warm(self):
+            warmup(self)
+            seen["fused"] = {"actor": self, "carry": copy.deepcopy(self._carry),
+                             "generators": [g.get_state() for g in self.generators],
+                             "weights": {k: v.clone() for k, v in self._live.items()}}
+
+        sactor.FusedActor.warmup = warm
+    if plan is not None:
+        os.environ[ENV_VAR] = FaultPlan.from_specs([plan]).to_json()
+    gc.collect()
+    torch.cuda.empty_cache()
+    rssm.LAUNCHES["rssm"] = gru.LAUNCHES["gru"] = 0
+    t0 = time.perf_counter()
+    try:
+        run([*overrides, f"log_dir={log_dir}"])
+    finally:
+        os.environ.pop(ENV_VAR, None)
+        module.collect_run_stats = saved["collect_run_stats"]
+        if spy_learner:
+            sppo.make_learner_phase = saved["make_learner_phase"]
+        sactor.FusedActor.warmup = warmup
+    counts = {"rssm": rssm.LAUNCHES["rssm"], "gru": gru.LAUNCHES["gru"]}
+    stats = seen["stats"]
+    stats.pop("phase_breakdown", None)
+    cfg = compose(list(overrides))
+    per_iter = int(cfg.env.num_envs) * int(cfg.algo.get("rollout_steps") or cfg.topology.segment_steps)
+    seen.update(stats=stats, counts=counts, wall_s=time.perf_counter() - t0, cfg=cfg,
+                iterations=int(cfg.algo.total_steps) // per_iter, env_steps=int(cfg.algo.total_steps) // per_iter
+                * per_iter)
+    log(f"[{log_dir.name}] {json.dumps(stats, default=str)}; launches {counts}; run {seen['wall_s']:.1f} s")
+    if any(counts.values()):
+        raise AssertionError(f"a Sebulba run launched kernels: {counts}")
+    return seen
+
+
+def _sebulba_gates(run_: dict, where: str) -> None:
+    """Phase 70's and 71's gates: one update per iteration and every env step
+    consumed, nothing torn, one program per actor graph, the staleness bounds."""
+    s, topo = run_["stats"], run_["cfg"].topology
+    bad = []
+    if s["updates"] != run_["iterations"] or s["env_steps"] != run_["env_steps"]:
+        bad.append(f"updates {s['updates']} / env steps {s['env_steps']}, wanted {run_['iterations']} / "
+                   f"{run_['env_steps']}")
+    if s["torn_rejected"]:
+        bad.append(f"{s['torn_rejected']} torn segments")
+    if not all(v == 1 for sizes in s["actor_cache_sizes"] for v in sizes.values()):
+        bad.append(f"actor programs {s['actor_cache_sizes']}")
+    if s["param_staleness_max"] > int(topo.max_staleness) + 1:
+        bad.append(f"param staleness {s['param_staleness_max']}")
+    if s["traj_staleness_max"] > int(topo.max_staleness) + int(topo.traj_queue_slots):
+        bad.append(f"trajectory staleness {s['traj_staleness_max']}")
+    if bad:
+        raise AssertionError(f"[{where}] " + "; ".join(bad))
+
+
+def _sebulba_learner_parity(torch, seen: dict) -> dict:
+    """Phase 70's gate: the learner phase on the run's first consumed segments
+    from its starting weights, on the card and on the CPU, stepped with SGD
+    for :data:`SEBULBA_PARITY_EPOCHS` epochs under the recipe's gradient clip
+    and coefficients, the minibatch orders made on the CPU and handed to
+    both."""
+    import copy
+
+    from sheeprl_tpu_torch.algos.ppo.ppo import epoch_permutation
+    from sheeprl_tpu_torch.sebulba.ppo import make_learner_phase
+    from sheeprl_tpu_torch.utils.optim import build_optimizer
+
+    src, cfg = seen["trainer"], seen["cfg"]
+    segs = [{k: v.detach().cpu().clone() for k, v in s.items()} for s in seen["segs"]]
+    orders = torch.Generator().manual_seed(70)
+    perms = [epoch_permutation(orders, src.T, src.B, src.batch_size, src.num_minibatches)
+             for _ in range(SEBULBA_PARITY_EPOCHS)]
+    results = {}
+    for device in ("cpu", CARD):
+        agent = copy.deepcopy(src.agent).to(device)
+        agent.load_state_dict(seen["start"])
+        trainer = copy.copy(src)
+        trainer.agent, trainer.update_epochs = agent, SEBULBA_PARITY_EPOCHS
+        trainer.optimizer = build_optimizer(agent.named_parameters(), dict(CARD_PARITY_SGD), cfg.algo.max_grad_norm)
+        losses = make_learner_phase(trainer, src.obs_keys)([{k: v.to(device) for k, v in s.items()} for s in segs],
+                                                           [p.to(device) for p in perms], float(cfg.algo.clip_coef),
+                                                           float(cfg.algo.ent_coef))
+        results[device] = ({k: v.detach().cpu() for k, v in agent.state_dict().items()},
+                           np.array([float(x) for x in losses]))
+    got = change_diffs(torch, seen["start"], results[CARD][0], results[CARD][1], results["cpu"][0],
+                       results["cpu"][1])
+    log(f"[sebulba-ppo] the learner phase on the first consumed segments with SGD, card vs CPU: {show_diffs(got)}")
+    return got
+
+
+def phase_sebulba_ppo(torch, run_root: Path, beside: dict = None) -> dict:
+    """Phase 70: ``exp=ppo_decoupled topology=sebulba`` through ``cli.run``,
+    host envs in 2 worker threads, both roles on the card: the counters, the
+    torn-segment count, one captured graph per rung, the staleness bounds;
+    then a run with a planted ``sebulba.env_worker`` crash (a worker
+    respawned, every env step, nothing torn); the learner phase card vs CPU
+    with SGD.  Env steps/s beside phase 68's."""
+    from sheeprl_tpu_torch.sebulba import ppo as sppo
+
+    t0 = time.perf_counter()
+    main = _sebulba_run(torch, sppo, SEBULBA_PPO, run_root / "sebulba_ppo", spy_learner=True)
+    _sebulba_gates(main, "sebulba-ppo")
+    parity = _sebulba_learner_parity(torch, main)
+    drill = _sebulba_run(torch, sppo, SEBULBA_PPO_DRILL, run_root / "sebulba_ppo_fault", plan=SEBULBA_PPO_FAULT)
+    ds = drill["stats"]
+    if not (ds["worker_restarts"] >= 1 and ds["env_steps"] == drill["env_steps"] and ds["torn_rejected"] == 0):
+        raise AssertionError(f"[sebulba-ppo] the crash drill: {ds}")
+    s = main["stats"]
+    out = {"stats": s, "drill": ds, "parity": parity, "counts": main["counts"],
+           "env_steps_per_s": s["env_steps_per_s"], "seconds": time.perf_counter() - t0}
+    beside = beside or {}
+    log(f"[sebulba-ppo] phase 70: {s['env_steps_per_s']:.1f} env steps/s (actor idle "
+        f"{s['actor_idle_frac']:.3f}, queue depth {s['queue_depth_frac']:.3f}) beside phase 68's decoupled "
+        f"{beside.get('decoupled', 'not measured in this run')} and coupled "
+        f"{beside.get('coupled', 'not measured in this run')}; drill restarts {ds['worker_restarts']}; "
+        f"{out['seconds']:.1f} s")
+    if not within_parity(parity):
+        raise AssertionError(f"[sebulba-ppo] card vs CPU {parity}")
+    return out
+
+
+def phase_sebulba_fused(torch, run_root: Path, beside: float = None) -> dict:
+    """Phase 71: the fused device-env actor at phase 26's 1024 envs x 128
+    steps under ``buffer.transfer_guard``: one captured rollout graph, the
+    staleness bounds, and the first queued segment equal bit for bit to an
+    eager rollout from the carry, generator states and weights its window
+    started from (compared after the run: a segment queued without a copy
+    would hold a later replay's numbers).  Env steps/s beside phase 26's."""
+    from sheeprl_tpu_torch.sebulba import ppo as sppo
+
+    t0 = time.perf_counter()
+    run_ = _sebulba_run(torch, sppo, SEBULBA_FUSED, run_root / "sebulba_fused", spy_learner=True, spy_fused=True)
+    _sebulba_gates(run_, "sebulba-fused")
+    fused = run_["fused"]
+    actor = fused["actor"]
+    with torch.no_grad():
+        for k, v in actor._live.items():
+            v.copy_(fused["weights"][k])
+    for g, s in zip(actor.generators, fused["generators"]):
+        g.set_state(s)
+    _, traj, last_obs, _ = actor.rollout.compiled._fn(fused["carry"], None, None)
+    eager = {**traj, **{f"last_{k}": v for k, v in last_obs.items()}}
+    first = run_["segs"][0]
+    equal = {k: bool(torch.equal(first[k], eager[k])) for k in eager}
+    s = run_["stats"]
+    out = {"stats": s, "first_segment_equal": equal, "counts": run_["counts"],
+           "env_steps_per_s": s["env_steps_per_s"], "seconds": time.perf_counter() - t0}
+    log(f"[sebulba-fused] phase 71: {s['env_steps_per_s']:.1f} env steps/s (actor idle {s['actor_idle_frac']:.3f}) "
+        f"beside phase 26's coupled Anakin PPO {beside if beside is not None else 'not measured in this run'}; the "
+        f"first queued segment equals the eager rollout in {sum(equal.values())} of {len(equal)} leaves; "
+        f"{out['seconds']:.1f} s")
+    if not all(equal.values()):
+        raise AssertionError(f"[sebulba-fused] first segment against the eager rollout: {equal}")
+    return out
+
+
+def phase_sebulba_sac(torch, run_root: Path, beside: float = None) -> dict:
+    """Phase 72: ``exp=sac_decoupled topology=sebulba buffer.device=True`` at
+    phase 69's recipe: updates, the exact env steps, nothing torn; gradient
+    updates/s beside phase 69's decoupled SAC."""
+    from sheeprl_tpu_torch.checkpoint.protocol import load_step_dir
+    from sheeprl_tpu_torch.sebulba import sac as ssac
+
+    t0 = time.perf_counter()
+    log_dir = run_root / "sebulba_sac"
+    run_ = _sebulba_run(torch, ssac, SEBULBA_SAC, log_dir)
+    s = run_["stats"]
+    grad_steps = int(load_step_dir(sorted(log_dir.glob("**/checkpoint/step_*"))[-1], map_location="cpu")["grad_steps"])
+    out = {"stats": s, "grad_steps": grad_steps, "updates_per_s": grad_steps / s["wall_s"], "counts": run_["counts"],
+           "seconds": time.perf_counter() - t0}
+    log(f"[sebulba-sac] phase 72: {s['updates']} windows, {grad_steps} gradient updates = "
+        f"{out['updates_per_s']:.1f} updates/s beside phase 69's decoupled SAC "
+        f"{beside if beside is not None else 'not measured in this run'}; {out['seconds']:.1f} s")
+    if not (s["updates"] > 0 and s["env_steps"] == run_["env_steps"] and s["torn_rejected"] == 0):
+        raise AssertionError(f"[sebulba-sac] {s}")
+    return out
+
+
+def phase_sebulba(torch, run_root: Path, decoupled: dict = None, anakin: float = None) -> dict:
+    """Phases 70-72; ``decoupled`` (phases 68-69) and ``anakin`` (phase 26's
+    env steps/s) give the numbers they are reported beside."""
+    ppo68 = {k: f"{statistics.median(v):.1f}" for k, v in decoupled["ppo"]["env_steps_per_s"].items()} \
+        if decoupled else None
+    sac69 = f"{statistics.median(decoupled['sac']['updates_per_s']['decoupled']):.1f}" if decoupled else None
+    return {"ppo": phase_sebulba_ppo(torch, run_root, ppo68),
+            "fused": phase_sebulba_fused(torch, run_root, f"{anakin:.1f}" if anakin is not None else None),
+            "sac": phase_sebulba_sac(torch, run_root, sac69)}
+
+
 
 def phase_env_parity(torch) -> dict:
     """Phase 25: each device env on the card against the CPU, teacher-forced."""
@@ -2472,10 +2722,11 @@ def phase_sac_pendulum(torch, run_root: Path) -> dict:
     return run_
 
 
-def phase_envs(torch, run_root: Path) -> dict:
-    """Phases 25-30."""
+def phase_envs(torch, run_root: Path, parity: bool = True) -> dict:
+    """Phases 25-30 (without ``parity``, 26-30: the whole run has 25, which
+    compares and times nothing, among the checks beside phase 49's child)."""
     t0 = time.perf_counter()
-    out = {"parity": phase_env_parity(torch), "ppo": phase_anakin_ppo(torch, run_root),
+    out = {"parity": phase_env_parity(torch) if parity else None, "ppo": phase_anakin_ppo(torch, run_root),
            "family": phase_anakin_family(torch, run_root), "dv3_forage": phase_dv3_forage(torch, run_root),
            "ppo_atari_forage": phase_ppo_atari_forage(torch, run_root),
            "sac_pendulum": phase_sac_pendulum(torch, run_root)}
@@ -4722,47 +4973,53 @@ def _replayed(line: str) -> bool:
 def _preempt(tag: str, proc, timeout: float = 300.0, usr1_dir: Path = None, meanwhile=None) -> dict:
     """SIGTERM ``proc`` after its first replayed window; its exit code, its
     output and the wall time the signal was sent.  With ``usr1_dir``, a
-    SIGUSR1 first, sent by a helper thread as soon as that window is seen:
-    the next dispatch opens a trace window (phase 52), and the SIGTERM waits
-    until the dispatch after it has run (its tick closed and wrote the
-    trace) and a ``trace.json`` is under ``usr1_dir``.  ``meanwhile()`` runs
-    in this thread while the child starts, reaches that window and takes
-    its trace."""
+    SIGUSR1 first, as soon as that window is seen: the next dispatch opens a
+    trace window (phase 52), and the SIGTERM waits until the dispatch after
+    it has run (its tick closed and wrote the trace) and a ``trace.json`` is
+    under ``usr1_dir``.  A helper thread sends both signals, so the child is
+    preempted and commits while ``meanwhile()`` runs in this thread."""
     lines, seen = [], threading.Event()
     reader = _read_lines(proc, lines, seen, _replayed)
     usr1 = None if usr1_dir is None else {}
+    sent = {}
 
-    def arm():
-        if seen.wait(timeout) and proc.poll() is None:
-            usr1["windows_before"] = len(_windows("".join(lines)))
-            proc.send_signal(signal.SIGUSR1)
+    def signal_child():
+        try:
+            if not seen.wait(timeout):
+                raise AssertionError(f"[{tag}] no replayed window within {timeout} s:\n{''.join(lines)[-4000:]}")
+            if usr1_dir is not None:
+                if proc.poll() is None:
+                    usr1["windows_before"] = len(_windows("".join(lines)))
+                    proc.send_signal(signal.SIGUSR1)
+                deadline = time.monotonic() + timeout
+                while not ("windows_before" in usr1 and len(_windows("".join(lines))) >= usr1["windows_before"] + 2
+                           and list(usr1_dir.glob("**/trace/*/trace.json"))):
+                    if time.monotonic() > deadline or proc.poll() is not None:
+                        raise AssertionError(f"[{tag}] SIGUSR1 opened no trace window:\n{''.join(lines)[-4000:]}")
+                    time.sleep(0.1)
+                usr1["windows_after"] = len(_windows("".join(lines)))
+            sent["t_signal"] = time.time()
+            proc.send_signal(signal.SIGTERM)
+        except BaseException as e:  # noqa: BLE001 - raised again in the calling thread
+            sent["error"] = e
 
-    armer = threading.Thread(target=arm, daemon=True)
-    if usr1_dir is not None:
-        armer.start()
+    signaller = threading.Thread(target=signal_child, daemon=True)
+    signaller.start()
     try:
         if meanwhile is not None:
             meanwhile()
-        if not seen.wait(timeout):
-            raise AssertionError(f"[{tag}] no replayed window within {timeout} s:\n{''.join(lines)[-4000:]}")
-        if usr1_dir is not None:
-            armer.join()
-            deadline = time.monotonic() + timeout
-            while not ("windows_before" in usr1 and len(_windows("".join(lines))) >= usr1["windows_before"] + 2
-                       and list(usr1_dir.glob("**/trace/*/trace.json"))):
-                if time.monotonic() > deadline or proc.poll() is not None:
-                    raise AssertionError(f"[{tag}] SIGUSR1 opened no trace window:\n{''.join(lines)[-4000:]}")
-                time.sleep(0.1)
-            usr1["windows_after"] = len(_windows("".join(lines)))
-        t_signal = time.time()
-        proc.send_signal(signal.SIGTERM)
+        signaller.join(2 * timeout)
+        if "error" in sent:
+            raise sent["error"]
+        if "t_signal" not in sent:
+            raise AssertionError(f"[{tag}] the child was not signalled within {2 * timeout} s")
         rc = proc.wait(timeout=300)
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
     reader.join(10)
-    return {"rc": rc, "out": "".join(lines), "t_signal": t_signal, "usr1": usr1}
+    return {"rc": rc, "out": "".join(lines), "t_signal": sent["t_signal"], "usr1": usr1}
 
 
 def _windows(out: str) -> list:
@@ -7922,6 +8179,8 @@ def main() -> int:
         return matmul_precision_only(torch)
     if sys.argv[1:2] == ["--scale"]:
         return scale_only(torch)
+    if sys.argv[1:2] == ["--sebulba"]:
+        return _mode_only(torch, lambda run_root: phase_sebulba(torch, run_root))
     if sys.argv[1:2] == ["--precision"]:
         return precision_only(torch)
     if sys.argv[1:2] == ["--telemetry"]:
@@ -7949,11 +8208,21 @@ def main() -> int:
     try:
         t_start = time.perf_counter()
         device = phase_device(torch)
-        phase_build()
+        # the kernels' nvcc builds run while the two served snapshots are built
+        # (which launch no kernel)
+        build = threading.Thread(target=lambda: built.update(_run_catching(phase_build)))
+        built = {}
+        build.start()
+        fused_dir, gru_dir = run_root / "fused_pallas", run_root / "use_pallas"
+        try:
+            _build_snapshot(torch, [*XL_SERVE, "algo.world_model.recurrent_model.fused_pallas=True"], fused_dir)
+            _build_snapshot(torch, [*XL_SERVE, "algo.world_model.recurrent_model.use_pallas=True"], gru_dir)
+        finally:
+            build.join()
+        if "error" in built:
+            raise built["error"]
         worst = phase_kernels(torch)
 
-        fused_dir = run_root / "fused_pallas"
-        _build_snapshot(torch, [*XL_SERVE, "algo.world_model.recurrent_model.fused_pallas=True"], fused_dir)
         served = _drive(torch, fused_dir, SERVE_SESSIONS, SERVE_STEPS)
         if served["counts"]["rssm"] < served["stats"]["batches"] or served["counts"]["gru"]:
             raise AssertionError(f"rssm launches {served['counts']} vs {served['stats']['batches']} batches")
@@ -7962,8 +8231,6 @@ def main() -> int:
         del served["service"]
         torch.cuda.empty_cache()
 
-        gru_dir = run_root / "use_pallas"
-        _build_snapshot(torch, [*XL_SERVE, "algo.world_model.recurrent_model.use_pallas=True"], gru_dir)
         gru_served = _drive(torch, gru_dir, 1, SERVE_STEPS)
         if gru_served["counts"]["gru"] < gru_served["stats"]["batches"] or gru_served["counts"]["rssm"]:
             raise AssertionError(f"gru launches {gru_served['counts']} vs {gru_served['stats']['batches']} batches")
@@ -7996,8 +8263,9 @@ def main() -> int:
         on_policy = phase_on_policy_family(torch, run_root / "on_policy")
         off_policy = phase_off_policy(torch, run_root / "off_policy")
         decoupled_algos = phase_decoupled(torch, run_root / "decoupled")
-        envs = phase_envs(torch, run_root / "envs")
-        log("[envs] " + json.dumps(envs_summary(envs), default=float))
+        envs = phase_envs(torch, run_root / "envs", parity=False)
+        sebulba = phase_sebulba(torch, run_root / "sebulba", decoupled_algos,
+                                envs["ppo"]["anakin"]["env_steps_per_s"])
         replay = phase_replay(torch, run_root / "replay", train, off_policy["train"])
         log("[replay] " + json.dumps(replay_summary(replay), default=float))
         graphs = phase_graphs(torch, run_root / "graphs", served, fused_dir, envs["ppo"]["anakin"],
@@ -8017,11 +8285,12 @@ def main() -> int:
         deferred = {}
 
         def correctness_checks():
-            # phases 17 and 47 compare and time nothing, and change no
+            # phases 17, 25 and 47 compare and time nothing, and change no
             # setting a child process inherits: they run while phase 49's
             # child starts (phase_vecenv)
             deferred["ppo_parity"] = phase_ppo_parity(torch, ppo["snapshot"])
             precision["families"] = phase_precision_families(torch)
+            envs["parity"] = phase_env_parity(torch)
 
         try:
             vecenv = phase_vecenv(torch, run_root, breaker=breaker, meanwhile_too=correctness_checks)
@@ -8031,6 +8300,7 @@ def main() -> int:
                 breaker[0].wait()
         population["supervisor"] = vecenv.pop("supervisor")
         ppo_parity = deferred["ppo_parity"]
+        log("[envs] " + json.dumps(envs_summary(envs), default=float))
         log("[precision] " + json.dumps(precision_summary(precision), default=float))
         runtime["preempt"] = vecenv.pop("preempt")
         telemetry["signals"] = phase_telemetry_signals(torch, runtime["preempt"])
@@ -8131,6 +8401,10 @@ def main() -> int:
             by_path["remat_s_window_per_update"] = graphs["remat_s"]["launches_per_update"] if name == "gru" else 0
             by_path["ppo_decoupled"] = decoupled_algos["ppo"]["counts"][name]
             by_path["sac_decoupled"] = decoupled_algos["sac"]["counts"][name]
+            # phases 70-72: the Sebulba split's PPO on host workers, its fused
+            # device-env actor and its SAC (no RSSM or LN-GRU)
+            for path, run_ in sebulba.items():
+                by_path[f"sebulba_{path}"] = run_["counts"][name]
         sources = {
             "rssm": ("sheeprl_tpu_torch/csrc/rssm.cu",
                      "sheeprl_tpu/ops/rssm_pallas.py:70 (_rssm_kernel), sheeprl_tpu/ops/rssm_pallas.py:260 "
@@ -8204,7 +8478,10 @@ def main() -> int:
             f"{statistics.median(decoupled_algos['ppo']['env_steps_per_s']['coupled']):.1f}, decoupled SAC "
             f"{statistics.median(decoupled_algos['sac']['updates_per_s']['decoupled']):.1f} updates/s beside "
             f"{statistics.median(decoupled_algos['sac']['updates_per_s']['coupled']):.1f} (staleness "
-            f"{decoupled_algos['sac']['staleness_max']}); env 0's videos "
+            f"{decoupled_algos['sac']['staleness_max']}); Sebulba PPO on 2 env workers "
+            f"{sebulba['ppo']['env_steps_per_s']:.1f} env steps/s, its fused actor at 1024 envs "
+            f"{sebulba['fused']['env_steps_per_s']:.1f}, Sebulba SAC {sebulba['sac']['updates_per_s']:.1f} updates/s "
+            f"(phases 70-72 {sum(r['seconds'] for r in sebulba.values()):.1f} s); env 0's videos "
             f"{vecenv['watchdog']['video']['frames']} (phases 60-65 with 49 and 59 {vecenv['seconds']:.1f} s); "
             f"total {time.perf_counter() - t_start:.1f} s")
     except BaseException:

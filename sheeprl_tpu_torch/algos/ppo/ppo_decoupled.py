@@ -19,8 +19,9 @@ Then the annealed learning rate and coefficients at the iteration, logging
 and the checkpoint (agent, optimizer, generators and counters; a resume
 restarts the clip and entropy annealing, as JAX's does).  With
 ``algo.player.dedicated=True`` on one process the run warns as the JAX
-package does and takes this loop; a wanted device split raises
-(:func:`~sheeprl_tpu_torch.parallel.topology.resolve_topology`).
+package does and takes this loop.  ``topology=sebulba`` (or
+``topology.actor_devices`` set) takes the actor/learner runtime instead
+(:func:`sheeprl_tpu_torch.sebulba.ppo.run_sebulba`).
 """
 
 from __future__ import annotations
@@ -70,7 +71,11 @@ def main(fabric: Any, cfg: Any) -> None:
             "already collects ONE global rollout that every trainer minibatches "
             "(reference: sheeprl/algos/ppo/ppo_decoupled.py:639-643)"
         )
-    resolve_topology(cfg, fabric)
+    if resolve_topology(cfg, fabric) == "sebulba":
+        from sheeprl_tpu_torch.sebulba.ppo import run_sebulba
+
+        run_sebulba(fabric, cfg)
+        return
     warn_dedicated_fallback(cfg)
     player_device = fabric.player_device(cfg)
     train_gen, player_gen = fabric.seed_everything(int(cfg.seed), player_device)

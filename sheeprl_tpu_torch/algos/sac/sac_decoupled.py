@@ -9,8 +9,9 @@ the actor only after every ``algo.player.sync_every``-th train window (10 in
 window: the player acts on weights up to ``sync_every`` windows old, and
 ``Player/param_staleness_windows`` / ``Player/param_staleness_max`` report
 how old.  ``algo.player.dedicated=True`` warns as the JAX package does and
-takes this loop; a wanted device split raises
-(:func:`~sheeprl_tpu_torch.parallel.topology.resolve_topology`).
+takes this loop.  ``topology=sebulba`` (or ``topology.actor_devices`` set)
+takes the actor/learner runtime instead
+(:func:`sheeprl_tpu_torch.sebulba.sac.run_sebulba`).
 """
 
 from __future__ import annotations
@@ -25,6 +26,10 @@ from sheeprl_tpu_torch.utils.registry import register_algorithm
 
 @register_algorithm(decoupled=True, name="sac_decoupled")
 def main(fabric: Any, cfg: Any) -> None:
-    resolve_topology(cfg, fabric)
+    if resolve_topology(cfg, fabric) == "sebulba":
+        from sheeprl_tpu_torch.sebulba.sac import run_sebulba
+
+        run_sebulba(fabric, cfg)
+        return
     warn_dedicated_fallback(cfg)
     off_policy_loop(fabric, cfg)

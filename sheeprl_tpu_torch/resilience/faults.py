@@ -104,8 +104,6 @@ ENV_VAR = "SHEEPRL_FAULT_PLAN"
 #: Sites of the JAX package whose module the port does not have yet, and the
 #: ROADMAP item that brings it.
 UNPORTED_SITES = {
-    "sebulba.env_worker": "sebulba/, ROADMAP.md, queue A item 5(b)",
-    "sebulba.traj_queue": "sebulba/, ROADMAP.md, queue A item 5(b)",
     "dcn.broadcast": "sebulba/transport.py, ROADMAP.md, queue A item 5(b)",
     "dcn.traj": "sebulba/transport.py, ROADMAP.md, queue A item 5(b)",
 }

@@ -213,7 +213,7 @@ def build_dreamer_v3_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_sp
     ).finalize()
 
 
-@register_player("ppo")
+@register_player("ppo", "ppo_decoupled")
 def build_ppo_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_space: Any, action_space: Any) -> PolicyPlayer:
     from sheeprl_tpu_torch.algos.ppo.agent import build_agent, sample_actions
     from sheeprl_tpu_torch.algos.ppo.utils import actions_for_env, obs_to_np, spaces_to_dims
@@ -263,7 +263,7 @@ def build_ppo_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_space: An
     ).finalize()
 
 
-@register_player("sac")
+@register_player("sac", "sac_decoupled")
 def build_sac_player(fabric: Any, cfg: Any, state: Dict[str, Any], obs_space: Any, action_space: Any) -> PolicyPlayer:
     """The SAC actor alone (the critics are not loaded): greedy rows take the
     squashed mean, sampled rows a tanh-Gaussian sample; actions are rescaled

@@ -2,8 +2,7 @@
 package on the CPU.
 
 * ``parallel/topology.py::resolve_topology``: every case and message of
-  JAX's on one process; where JAX takes the Sebulba split the port raises
-  naming the next ROADMAP item.
+  JAX's on one process, the Sebulba split included.
 * ``exp=ppo_decoupled``: three iterations through each package's
   ``cli.run`` from one parameter tree, the port handed the draws the JAX
   keys make (each rollout's player stream ``fold_in(key, 0)`` split per
@@ -76,12 +75,9 @@ def test_resolve_topology_against_jax(case):
         assert str(got.value) == str(e)
         return
     assert topology.topology_cfg(cfg) == jax_topology.topology_cfg(cfg)
-    if want == "sebulba":
-        # JAX runs its degenerate Sebulba on one device; the port defers it, naming the item
-        with pytest.raises(NotImplementedError, match=r"queue A item 5\(b\)"):
-            topology.resolve_topology(cfg, ONE_PROCESS)
-    else:
-        assert topology.resolve_topology(cfg, ONE_PROCESS) == want == "pipelined"
+    # JAX runs its degenerate Sebulba on one device, and so does the port
+    assert topology.resolve_topology(cfg, ONE_PROCESS) == want
+    assert want == ("sebulba" if case in ("sebulba", "auto-sized-split") else "pipelined")
 
 
 # -- decoupled PPO against JAX's loop -------------------------------------------------------

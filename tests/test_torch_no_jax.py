@@ -12,7 +12,8 @@ tracer,introspect}.py``, ``serve/reload.py``, and the deployment surface:
 training and the supervisor: ``population/{core,members}.py``,
 ``algos/ppo/population.py``, ``supervisor/{classify,supervise}.py``, and the
 one-device scale layer: ``parallel/{pipeline,topology}.py``,
-``algos/ppo/ppo_decoupled.py``, ``algos/sac/sac_decoupled.py``), a DreamerV3 player takes one CPU
+``algos/ppo/ppo_decoupled.py``, ``algos/sac/sac_decoupled.py``, and the
+Sebulba runtime: ``sebulba/{actor,queues,runner,ppo,sac}.py``), a DreamerV3 player takes one CPU
 step, the JAX-written DreamerV3 fixture is read, served one step and
 registered, a tiny dry run through ``cli.run`` (introspection endpoint armed) trains
 one update, logs ``Phase/*`` and commits a snapshot, one Plan2Explore-DreamerV3 update steps, PPO, A2C and recurrent
@@ -68,7 +69,8 @@ SCRIPT = textwrap.dedent(
                  "utils.imports", "utils.checkpoint", "checkpoint.serialize", "serve.fleet.router",
                  "serve.fleet.replicas", "population", "population.core", "population.members",
                  "algos.ppo.population", "supervisor", "supervisor.classify", "supervisor.supervise",
-                 "parallel.pipeline", "parallel.topology", "algos.ppo.ppo_decoupled", "algos.sac.sac_decoupled"):
+                 "parallel.pipeline", "parallel.topology", "algos.ppo.ppo_decoupled", "algos.sac.sac_decoupled",
+                 "sebulba", "sebulba.actor", "sebulba.queues", "sebulba.runner", "sebulba.ppo", "sebulba.sac"):
         assert "sheeprl_tpu_torch." + name in names, name
 
     import torch

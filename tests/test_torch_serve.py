@@ -227,7 +227,7 @@ def test_sac_player_matches_jax_player():
     p_obs, _ = probe_spaces(pcfg)
     pp = build_sac_player(build_fabric(pcfg), pcfg, {"agent": sac_state_from_jax(params)}, p_obs,
                           spaces.Box(low, high, (2,), np.float32))
-    assert "sac_decoupled" not in PLAYER_BUILDERS
+    assert PLAYER_BUILDERS["sac_decoupled"] is PLAYER_BUILDERS["sac"] is build_sac_player
     assert set(pp.params) == {"actor"} and not pp.stateful and pp.obs_spec == jp.obs_spec
 
     rng, n, seed = np.random.default_rng(6), 4, 21

@@ -542,17 +542,29 @@ def test_off_policy_run_commits_resumes_with_its_buffer_and_evaluates(exp, tmp_p
 def test_off_policy_unported_paths_raise_naming_the_roadmap_item(tmp_path, exp, override, item):
     """Both raised until decoupled SAC was ported: ``fabric.decoupled=True``
     on ``exp=sac`` now runs the coupled SAC (the registry has no decoupled
-    ``sac``, as in JAX) and ``exp=sac_decoupled`` its pipelined loop; the
-    Sebulba split is still unported and raises naming its item before
+    ``sac``, as in JAX) and ``exp=sac_decoupled`` its pipelined loop.  The
+    Sebulba split on one device runs too, both roles on the one device, and
+    commits; above one process it is still unported and raises naming its
+    item, and ``topology=pod`` on one process raises JAX's error before
     anything is committed."""
+    import types
+
+    from sheeprl_tpu_torch.config.compose import compose
+    from sheeprl_tpu_torch.parallel.topology import resolve_topology
+
     extra = [override] if override else []
     run([f"exp={exp}", *OFF_POLICY_COMMON, "dry_run=True", "algo.run_test=False", f"log_dir={tmp_path / 'run'}",
          *extra])
     assert len(_snapshots(tmp_path / "run")) == 1
+    split = ["exp=sac_decoupled", *OFF_POLICY_COMMON, "dry_run=True", "algo.run_test=False", "topology=sebulba",
+             *extra]
+    run([*split, f"log_dir={tmp_path / 'split'}"])
+    assert len(_snapshots(tmp_path / "split")) == 1
     with pytest.raises(NotImplementedError, match=item):
-        run(["exp=sac_decoupled", *OFF_POLICY_COMMON, "dry_run=True", f"log_dir={tmp_path / 'split'}",
-             "topology=sebulba", *extra])
-    assert latest_checkpoint(tmp_path / "split") is None
+        resolve_topology(compose(split), types.SimpleNamespace(num_processes=2))
+    with pytest.raises(ValueError, match="topology=pod needs a multi-process fabric"):
+        run([*split, "topology=pod", f"log_dir={tmp_path / 'pod'}"])
+    assert latest_checkpoint(tmp_path / "pod") is None
 
 
 @pytest.mark.parametrize("exp,checks", [
